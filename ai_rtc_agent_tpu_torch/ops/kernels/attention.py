@@ -4,16 +4,21 @@ Replaces ai_rtc_agent_tpu/ops/pallas/attention.py (``flash_attention``,
 Pallas body ``_attn_kernel``, dense oracle ``_xla_attention``).  The kernel
 source is ``csrc/flash_attention.cu``; its header says what bounds it on the
 card (tensor-core throughput at the UNet's self-attention shapes, launch and
-memory time for the 77-token cross-attention) and how the design answers it
-(scores never leave shared memory; WMMA bf16 fragments with f32 running
-max/denominator).  Built with nvcc into ``build/`` at first use, bound with
-ctypes.
+latency for the 77-token cross-attention and the small levels) and how the
+design answers it: TMA loads straight from [B, L, H, D] into a ring of K/V
+tiles fed by a producer warpgroup through mbarriers, wgmma with the scores,
+probabilities and output kept in registers, f32 running max and
+denominator.  Built with nvcc (sm_90a) into ``build/`` at first use, bound
+with ctypes.  The TMA descriptors are encoded in C inside the launch
+function, so the wrapper's Python work per call is what a plain launch
+needs.
 
 Unlike the TPU kernel, a ragged Lk is masked inside the kernel (no dense
-fallback) and a ragged Lq is masked on store (no padding copy).  The kernel
-computes in bf16 (f32 running max and denominator), so on the card it takes
-bf16 only: f32 inputs raise rather than lose precision silently; an f32
-configuration uses ``attn_impl="plain"``.
+fallback) and a ragged Lq or D arrives as TMA's zero fill and is not stored
+(no padding copy).  The kernel computes in bf16 (f32 running max and
+denominator), so on the card it takes bf16 only: f32 inputs raise rather
+than lose precision silently; an f32 configuration uses
+``attn_impl="plain"``.
 """
 
 from __future__ import annotations
@@ -45,8 +50,23 @@ def load():
         fn.restype = ctypes.c_int
         lib.flash_attention_error_string.argtypes = [ctypes.c_int]
         lib.flash_attention_error_string.restype = ctypes.c_char_p
+        for name in ("flash_attention_key_tile", "flash_attention_registers"):
+            getattr(lib, name).argtypes = [ctypes.c_int, ctypes.c_int]
+            getattr(lib, name).restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+def key_tile(d: int, lq: int) -> int:
+    """Key rows per tile of the kernel instantiation that serves head dim
+    ``d`` at ``lq`` query rows (from the built library; 0 if none takes it)."""
+    return load().flash_attention_key_tile(d, lq)
+
+
+def registers(d: int, lq: int) -> int:
+    """Registers per thread that instantiation is launched with on the
+    current device; negative if its register plan cannot run there."""
+    return load().flash_attention_registers(d, lq)
 
 
 def attention_plain(q, k, v):
@@ -61,9 +81,11 @@ def attention_plain(q, k, v):
 def flash_attention(q, k, v, mask=None):
     """q: [B, Lq, H, D], k/v: [B, Lk, H, D] -> [B, Lq, H, D] in q's dtype.
 
-    A CPU tensor takes :func:`attention_plain`; a CUDA tensor (bf16 only)
-    launches the kernel or raises.  ``mask`` is unsupported (diffusion attention is
-    unmasked) and raises, as on the TPU."""
+    A CPU tensor takes :func:`attention_plain`; a CUDA tensor (bf16, head
+    dim a multiple of 8 up to 160, 16-byte aligned) launches the kernel or
+    raises.  The kernel picks its instantiation from D and Lq (see
+    :func:`key_tile`; the .cu header lists them).  ``mask`` is unsupported
+    (diffusion attention is unmasked) and raises, as on the TPU."""
     global launches
     if mask is not None:
         raise NotImplementedError("flash_attention is non-causal/unmasked")

@@ -10,8 +10,10 @@ Phases (each prints its own lines; any failure exits non-zero):
                 build/ (nvcc for the CUDA attention, Triton for the fused
                 epilogue), in parallel.
   3. kernels  — each kernel against its plain PyTorch version on the card
-                at the main path's shapes, with the tolerance stated, and
-                kernel / plain / library / bound times.
+                at the main path's shapes and at the attention tiling's
+                edges, with the tolerance stated; kernel / plain / library /
+                bound times and TFLOP/s, and the attention wrapper's host
+                time per call.
   4. main     — the default serving path, StreamDiffusionPipeline(
                 "stabilityai/sd-turbo") at 512x512 in bf16 with random
                 weights from a seed: frames through __call__ and through
@@ -46,8 +48,28 @@ MAIN_ATTENTION = [
     (1, 256, 256, 20, 64, 5), (1, 256, 77, 20, 64, 5),
     (1, 64, 64, 20, 64, 1), (1, 64, 77, 20, 64, 1),
 ]
-# checked too, off the main path: ragged Lq, SD1.5's head dims 40 and 160
-EXTRA_ATTENTION = [(1, 1000, 77, 10, 64), (2, 1000, 1000, 8, 40), (1, 256, 77, 2, 160)]
+# checked too, off the main path: ragged Lq, the cfg-self batch of 4, SD1.5's
+# head dims 40, 80 and 160
+EXTRA_ATTENTION = [
+    (1, 1000, 77, 10, 64), (1, 65, 300, 2, 64), (2, 1000, 1000, 8, 40), (1, 256, 77, 2, 160),
+    (4, 1024, 1024, 5, 64), (4, 4096, 77, 8, 40), (4, 1024, 77, 8, 80),
+]
+# head dim -> query rows ragged against the 64-row tile and (D <= 64) the 192-row one
+EDGE_LQ = {64: (100, 2100), 40: (100, 2100), 80: (100,), 160: (100,)}
+# (D, Lq) of each kernel instantiation, for its key tile and registers
+INSTANTIATIONS = [(64, 4096), (64, 1024), (80, 1024), (160, 1024)]
+
+
+def edge_attention(key_tile) -> list:
+    """The kernel's tiling edges at each head dim: Lk of 1, 77 and the
+    instantiation's key tile (BK rows) less one, plus one and twice plus 13,
+    against query rows ragged against its query tile."""
+    cases = []
+    for d, lqs in EDGE_LQ.items():
+        for lq in lqs:
+            bk = key_tile(d, lq)
+            cases += [(1, lq, lk, 2, d) for lk in (1, 77, bk - 1, bk + 1, 2 * bk + 13)]
+    return cases
 
 
 def fail(msg: str):
@@ -75,6 +97,29 @@ def time_ms(torch, fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+HOST_CALLS = 1000
+
+
+def host_us_per_call(torch, fn):
+    """Host time per call of ``fn`` while the device sleeps, so that the
+    host's own work (checks, launch) is what the clock reads.  Returns
+    (us, held): ``held`` is False if the device woke before the host had
+    queued every call (a full launch queue or a synchronising call: SDPA
+    hits one or the other), and then the time is not the host's alone."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(1_000_000_000)
+    woke = torch.cuda.Event()
+    woke.record()
+    t = time.perf_counter()
+    for _ in range(HOST_CALLS):
+        fn()
+    us = (time.perf_counter() - t) * 1e6 / HOST_CALLS
+    held = not woke.query()
+    torch.cuda.synchronize()
+    return us, held
 
 
 def bound(flops: float, peak: float, nbytes: float):
@@ -155,6 +200,11 @@ def phase_build(torch):
         f"build: flash_attention (nvcc) {ta:.1f}s, fused_stream_epilogue (triton) "
         f"{te:.1f}s, wall {time.perf_counter() - t0:.1f}s"
     )
+    plans = [(d, lq, KA.key_tile(d, lq), KA.registers(d, lq)) for d, lq in INSTANTIATIONS]
+    say("flash_attention instantiations (D, Lq: key tile, launch registers per thread): " + ", ".join(
+        f"D={d} Lq={lq}: BK {bk}, {regs} regs" for d, lq, bk, regs in plans))
+    if any(regs <= 0 for *_, regs in plans):
+        fail("an attention instantiation's register plan cannot run on this card")
 
 
 def phase_attention(torch):
@@ -194,9 +244,9 @@ def phase_attention(torch):
         nbytes = 2.0 * (2 * q.numel() + k.numel() + v.numel())
         bms, by = bound(flops, PEAK_BF16_FLOPS, nbytes)
         say(
-            f"{label} | kernel {ms:.4f} ms, "
-            f"plain {plain:.4f} ms, sdpa {lib:.4f} ms, bound {bms:.4f} ms ({by}), "
-            f"x{per_step}/step"
+            f"{label} | kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), "
+            f"plain {plain:.4f} ms, sdpa {lib:.4f} ms ({flops / lib / 1e9:.1f} TFLOP/s), "
+            f"bound {bms:.4f} ms ({by}), x{per_step}/step"
         )
         totals["ms"] += per_step * ms
         totals["plain_ms"] += per_step * plain
@@ -204,7 +254,14 @@ def phase_attention(torch):
         totals["ops"] += per_step * flops / PEAK_BF16_FLOPS * 1e3
         totals["bytes"] += per_step * nbytes / PEAK_BYTES * 1e3
         totals["bound_ms"] += per_step * bms
-    for b, lq, lk, h, d in EXTRA_ATTENTION:
+    # the last main-path shape's inputs (64 x 77, H20): the wrapper's host cost per call
+    host_us, held = host_us_per_call(torch, lambda: KA.flash_attention(q, k, v))
+    say(
+        f"attention wrapper host time per call ({tuple(q.shape)} x {tuple(k.shape)}, {HOST_CALLS} "
+        f"calls queued behind a sleeping device, host clock): {host_us:.2f} us"
+        + ("" if held else " (the device woke first: not the host's time alone)")
+    )
+    for b, lq, lk, h, d in EXTRA_ATTENTION + edge_attention(KA.key_tile):
         say(f"{case(b, lq, lk, h, d)[-1]} ok")
     say(
         f"attention per step (32 launches): kernel {totals['ms']:.4f} ms, plain "

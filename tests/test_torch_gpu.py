@@ -30,9 +30,23 @@ def cuda():
     return torch.device("cuda")
 
 
+# Key rows per tile of the instantiation serving (D, Lq), as the .cu header
+# lists them; test_attention_key_tiles holds the built library to it.
+KEY_TILES = {(64, 100): 128, (40, 100): 128, (80, 100): 64, (160, 100): 64,
+             (64, 2100): 128, (40, 2100): 128}
+
+
+def _edges():
+    """Lk of 1, 77, BK-1, BK+1 and 2*BK+13 at each head dim, with Lq ragged
+    against the 64-row query tile (and the 192-row one where D <= 64)."""
+    return [(1, lq, lk, 2, d) for (d, lq), bk in KEY_TILES.items()
+            for lk in (1, 77, bk - 1, bk + 1, 2 * bk + 13)]
+
+
 @pytest.mark.parametrize("b,lq,lk,h,d", [
     (1, 4096, 4096, 5, 64), (1, 1024, 77, 10, 64), (2, 1000, 77, 8, 40), (1, 64, 64, 2, 160),
-])
+    (4, 1024, 1024, 5, 64), (4, 300, 77, 2, 64), (4, 1024, 77, 8, 80),
+] + _edges())
 def test_attention_kernel_matches_plain(cuda, b, lq, lk, h, d):
     gen = torch.Generator(device=cuda).manual_seed(0)
     q, k, v = (torch.randn((b, n, h, d), generator=gen, device=cuda).to(torch.bfloat16)
@@ -43,6 +57,11 @@ def test_attention_kernel_matches_plain(cuda, b, lq, lk, h, d):
     assert KA.launches == before + 1
     err = tolerance.attention_error(out, KA.attention_plain(q, k, v))
     assert err["ok"], err
+
+
+def test_attention_key_tiles(cuda):
+    assert {key: KA.key_tile(*key) for key in KEY_TILES} == KEY_TILES
+    assert KA.key_tile(12, 100) == 0
 
 
 def test_attention_kernel_refuses_what_it_cannot_run(cuda):

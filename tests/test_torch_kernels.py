@@ -34,6 +34,20 @@ ATTENTION_CASES = [
     (1, 40, 40, 2, 8, 16, 8),  # ragged Lq: the JAX kernel pads q
     (1, 10, 7, 2, 8, 8, 8),  # ragged Lk: the JAX kernel falls back to dense
     (2, 32, 77, 4, 40, 32, 77),  # SD1.5 head dim, 77-token context
+    # the Hopper kernel's tiling edges: Lk of 1, 77, BK-1, BK+1 and 2*BK+13
+    # for its key tiles of 128 (D <= 64) and 64 (D > 64) rows, Lq ragged
+    # against its 64-row query tile, the cfg-self batch of 4
+    (1, 100, 1, 2, 8, 64, 8),  # one key: block_k = Lk = 1
+    (1, 100, 77, 1, 16, 64, 77),
+    (1, 100, 127, 1, 8, 64, 127),
+    (1, 100, 129, 1, 8, 64, 43),  # three key blocks of 43
+    (1, 100, 269, 1, 8, 64, 256),  # ragged against block_k: dense fallback
+    (1, 100, 63, 2, 8, 64, 21),
+    (1, 100, 65, 2, 8, 64, 13),
+    (1, 100, 141, 1, 8, 64, 47),
+    (4, 70, 77, 1, 8, 32, 77),  # B=4, Lq ragged against block_q
+    (1, 40, 77, 1, 80, 16, 77),  # SD1.5's middle head dim
+    (1, 24, 65, 1, 160, 8, 13),  # SD1.5's widest head dim
 ]
 
 
