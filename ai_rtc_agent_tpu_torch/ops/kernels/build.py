@@ -27,6 +27,7 @@ NVCC_FLAGS = (
 )
 
 _lock = threading.Lock()
+_source_locks: dict[str, threading.Lock] = {}
 _loaded: dict[str, ctypes.CDLL] = {}
 
 
@@ -61,7 +62,10 @@ def build_library(source: str) -> Path:
 
 
 def load_library(source: str) -> ctypes.CDLL:
+    """Build (first use) and load one source; two sources build in parallel."""
     with _lock:
+        source_lock = _source_locks.setdefault(source, threading.Lock())
+    with source_lock:
         lib = _loaded.get(source)
         if lib is None:
             lib = ctypes.CDLL(str(build_library(source)))

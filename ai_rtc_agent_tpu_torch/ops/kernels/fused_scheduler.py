@@ -1,5 +1,5 @@
-"""The fused stream-step epilogue: a Triton kernel for Hopper and its plain
-version.
+"""The fused stream-step epilogue: the CUDA C++ kernel for Hopper and its
+plain version.
 
 Replaces ai_rtc_agent_tpu/ops/pallas/fused_scheduler.py
 (``fused_stream_epilogue``, Pallas body ``_kernel``).  Per batch row b, with
@@ -12,156 +12,177 @@ scalars alpha, sigma, c_skip, c_out, next_alpha, next_sigma and (g, delta):
     stock' = (eps_c + beta*stock)/(1+beta),  beta = sigma/max(alpha, 1e-6)
              (cfg self; otherwise the stock is returned unchanged)
 
-What bounds it on the card: it is a pure elementwise pass (about ten flops
-per element over up to four input and three output slabs), so memory
-traffic bounds it — and at the served size (one 64x64x4 latent in bf16,
-~160 KB) launch overhead dominates.  The design reads each input once and
-writes each output once in one launch, with masked block loads over a
-(B, cdiv(N, BLOCK)) grid; shared memory and tensor cores would add
-nothing.  Loads are in the tensor's type, math in f32, stores in x's type.
-Where the stock is unchanged (cfg none/initialize) the kernel neither
-reads nor writes it and the input stock tensor is returned as is.
+The kernel source is ``csrc/fused_stream_epilogue.cu``; its header says what
+bounds it on the card (the launch: ~96 KB on the main path) and how the
+design answers it (one launch, 16-byte vector loads, coefficients read by
+pointer from the device).  Built with nvcc (sm_90a) into ``build/`` at
+first use, bound with ctypes.
 
-``triton`` is imported inside :func:`load` (first launch), never at module
-import: the CPU test host has no triton.
+Beyond the JAX function's arguments, keywords let one launch carry the whole
+post-UNet chain of the port's step, with no glue around it:
+
+* ``turbo``: the turbo step, pred_x0 == the blend with c_skip=0, c_out=1
+  (``coeffs.c_skip``/``c_out`` are not read).
+* ``noise_shift``: entry b renoises with row b+shift of ``noise``; entries
+  past its last row get 0 (the JAX step's concatenation of
+  ``noise[shift:]`` and zeros).
+* ``advanced_out``: [R, ...] tensor that receives the advanced rows b < R
+  in place and is returned in place of ``advanced``.
+* ``stock_out``: receives the new stock in place (cfg self; it may be
+  ``stock`` itself).  With cfg none/initialize the stock does not change,
+  ``stock_out`` is not written and ``stock`` is returned.
+
+The wrapper does no host sync, so a launch can be captured in a CUDA graph.
 """
 
 from __future__ import annotations
 
-import os
+import ctypes
 
 import torch
 
 from . import build
 
-BLOCK = 1024
-CFG_TYPES = ("none", "self", "initialize")
+SOURCE = "fused_stream_epilogue.cu"
+CFG_TYPES = ("none", "initialize", "self")  # index = the kernel's cfg code
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}  # the kernel's dtype code
 
 launches = 0  # kernel launches since the last reset (plain int)
 
-tl = None  # triton.language, bound by load()
-_kernel = None
+_lib = None
 
 
 def load():
-    """Define (and let Triton compile at first launch) the kernel."""
-    global tl, _kernel
-    if _kernel is not None:
-        return _kernel
-    os.environ.setdefault("TRITON_CACHE_DIR", str(build.BUILD_DIR / "triton"))
-    import triton
-    import triton.language as language
-
-    tl = language
-
-    @triton.jit
-    def stream_epilogue_kernel(
-        x_ptr, eps_ptr, stock_ptr, noise_ptr,
-        den_ptr, adv_ptr, stock_out_ptr,
-        alpha_ptr, sigma_ptr, c_skip_ptr, c_out_ptr,
-        next_alpha_ptr, next_sigma_ptr, guidance_ptr, delta_ptr,
-        n,
-        RCFG: tl.constexpr, SELF: tl.constexpr, BLOCK: tl.constexpr,
-    ):
-        row = tl.program_id(0)
-        offs = tl.program_id(1) * BLOCK + tl.arange(0, BLOCK)
-        mask = offs < n
-        base = row.to(tl.int64) * n
-        alpha = tl.load(alpha_ptr + row)
-        sigma = tl.load(sigma_ptr + row)
-        x = tl.load(x_ptr + base + offs, mask=mask, other=0.0).to(tl.float32)
-        eps_c = tl.load(eps_ptr + base + offs, mask=mask, other=0.0).to(tl.float32)
-        if RCFG:
-            g = tl.load(guidance_ptr)
-            d = tl.load(delta_ptr)
-            stock = tl.load(stock_ptr + base + offs, mask=mask, other=0.0).to(tl.float32)
-            eps = g * eps_c - (g - 1.0) * d * stock
-        else:
-            stock = tl.zeros([BLOCK], dtype=tl.float32)
-            eps = eps_c
-        x0 = (x - sigma * eps) / alpha
-        den = tl.load(c_skip_ptr + row) * x + tl.load(c_out_ptr + row) * x0
-        noise = tl.load(noise_ptr + base + offs, mask=mask, other=0.0).to(tl.float32)
-        adv = tl.load(next_alpha_ptr + row) * den + tl.load(next_sigma_ptr + row) * noise
-        out_ty = den_ptr.dtype.element_ty
-        tl.store(den_ptr + base + offs, den.to(out_ty), mask=mask)
-        tl.store(adv_ptr + base + offs, adv.to(out_ty), mask=mask)
-        if SELF:
-            beta = sigma / tl.maximum(alpha, 1e-6)
-            new_stock = (eps_c + beta * stock) / (1.0 + beta)
-            tl.store(stock_out_ptr + base + offs, new_stock.to(out_ty), mask=mask)
-
-    _kernel = stream_epilogue_kernel
-    return _kernel
+    """Compile (first use) and bind the kernel library."""
+    global _lib
+    if _lib is None:
+        lib = build.load_library(SOURCE)
+        fn = lib.fused_stream_epilogue
+        fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 4 + [ctypes.c_longlong] + [
+            ctypes.c_int] * 3 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        lib.fused_stream_epilogue_empty.argtypes = [ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p]
+        lib.fused_stream_epilogue_empty.restype = ctypes.c_int
+        lib.fused_stream_epilogue_error_string.argtypes = [ctypes.c_int]
+        lib.fused_stream_epilogue_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
 
 
-def _scalars(coeffs, guidance, delta, device):
-    f32 = lambda a: torch.as_tensor(a, device=device).to(torch.float32).reshape(-1).contiguous()
-    return (
-        f32(coeffs.alpha), f32(coeffs.sigma), f32(coeffs.c_skip), f32(coeffs.c_out),
-        f32(coeffs.next_alpha), f32(coeffs.next_sigma), f32(guidance), f32(delta),
-    )
+def _check(err: int, what: str):
+    if err:
+        msg = load().fused_stream_epilogue_error_string(err).decode()
+        raise RuntimeError(f"{what} launch failed: {msg} ({err})")
 
 
-def epilogue_plain(x_t, eps_c, stock, noise, coeffs, guidance, delta, cfg_type="self"):
-    """The kernel's math as composed PyTorch ops (f32, cast to x's dtype)."""
+def launch_empty(rows: int, n: int, device=None):
+    """Launch an empty kernel on the epilogue's grid for ``rows`` rows of
+    ``n`` elements: the launch floor the kernel is timed against."""
+    stream = torch.cuda.current_stream(device).cuda_stream
+    _check(load().fused_stream_epilogue_empty(rows, n, stream), "empty kernel")
+
+
+def epilogue_plain(x_t, eps_c, stock, noise, coeffs, guidance, delta, cfg_type="self", *,
+                   turbo=False, noise_shift=0, advanced_out=None, stock_out=None):
+    """The kernel's math as composed PyTorch ops (f32, cast to x's dtype),
+    with the same keywords as :func:`fused_stream_epilogue`."""
     if cfg_type not in CFG_TYPES:
         raise ValueError(f"fused epilogue: unsupported cfg_type {cfg_type!r}")
-    alpha, sigma, c_skip, c_out, n_alpha, n_sigma, g, d = _scalars(
-        coeffs, guidance, delta, x_t.device
-    )
-    col = lambda a: a.reshape((-1,) + (1,) * (x_t.ndim - 1))
+    f32 = lambda a: torch.as_tensor(a, device=x_t.device).to(torch.float32)
+    col = lambda a: f32(a).reshape((-1,) + (1,) * (x_t.ndim - 1))
+    alpha, sigma = col(coeffs.alpha), col(coeffs.sigma)
+    g, d = f32(guidance), f32(delta)
     x = x_t.float()
     e = eps_c.float()
     s = stock.float()
-    eps = g * e - (g - 1.0) * d * s if cfg_type in ("self", "initialize") else e
-    x0 = (x - col(sigma) * eps) / col(alpha)
-    den = col(c_skip) * x + col(c_out) * x0
-    adv = col(n_alpha) * den + col(n_sigma) * noise.float()
+    eps = g * e - (g - 1.0) * d * s if cfg_type != "none" else e
+    x0 = (x - sigma * eps) / alpha
+    den = x0 if turbo else col(coeffs.c_skip) * x + col(coeffs.c_out) * x0
+    nz = torch.zeros_like(x)
+    k = max(0, min(noise.shape[0] - noise_shift, x.shape[0]))
+    nz[:k] = noise[noise_shift:noise_shift + k].float()
+    adv = (col(coeffs.next_alpha) * den + col(coeffs.next_sigma) * nz).to(x_t.dtype)
+    if advanced_out is not None:
+        adv = advanced_out.copy_(adv[: advanced_out.shape[0]])
+    new_stock = stock
     if cfg_type == "self":
-        beta = col(sigma / torch.clamp(alpha, min=1e-6))
+        beta = sigma / torch.clamp(alpha, min=1e-6)
         new_stock = ((e + beta * s) / (1.0 + beta)).to(x_t.dtype)
-    else:
-        new_stock = stock
-    return den.to(x_t.dtype), adv.to(x_t.dtype), new_stock
+        if stock_out is not None:
+            new_stock = stock_out.copy_(new_stock)
+    return den.to(x_t.dtype), adv, new_stock
 
 
-def fused_stream_epilogue(x_t, eps_c, stock, noise, coeffs, guidance, delta,
-                          cfg_type: str = "self"):
+def _f32_ptr(name, v, numel, device):
+    """The device pointer of an f32 coefficient tensor of ``numel`` entries."""
+    if not (isinstance(v, torch.Tensor) and v.dtype == torch.float32 and v.device == device
+            and v.numel() == numel and v.is_contiguous()):
+        raise TypeError(f"{name}: needs a contiguous f32 tensor of {numel} on {device}")
+    return v.data_ptr()
+
+
+def fused_stream_epilogue(x_t, eps_c, stock, noise, coeffs, guidance, delta, cfg_type="self", *,
+                          turbo=False, noise_shift=0, advanced_out=None, stock_out=None):
     """x_t/eps_c/stock/noise: [B, h, w, c] -> (denoised, advanced, stock').
 
-    ``coeffs``: ops.lcm.StepCoeffs with [B] vectors.  A CPU tensor takes
-    :func:`epilogue_plain`; a CUDA tensor launches the kernel or raises."""
+    ``coeffs``: ops.lcm.StepCoeffs with [B] vectors; keywords as the module
+    docstring says.  A CPU tensor takes :func:`epilogue_plain`; a CUDA tensor
+    launches the kernel or raises: every tensor must share x's shape (the
+    ring buffer: its row shape), device and dtype (bf16 or f32), the outputs
+    must be contiguous, and the coefficient vectors, guidance and delta must
+    be f32 tensors on that device."""
     global launches
-    if x_t.device.type == "cpu":
-        return epilogue_plain(x_t, eps_c, stock, noise, coeffs, guidance, delta, cfg_type)
-    if x_t.device.type != "cuda":
-        raise ValueError(f"fused_stream_epilogue: unsupported device {x_t.device}")
+    device = x_t.device
+    if device.type == "cpu":
+        return epilogue_plain(x_t, eps_c, stock, noise, coeffs, guidance, delta, cfg_type,
+                              turbo=turbo, noise_shift=noise_shift, advanced_out=advanced_out,
+                              stock_out=stock_out)
+    if device.type != "cuda":
+        raise ValueError(f"fused_stream_epilogue: unsupported device {device}")
     if cfg_type not in CFG_TYPES:
         raise ValueError(f"fused epilogue: unsupported cfg_type {cfg_type!r}")
-    for name, t in (("eps_c", eps_c), ("stock", stock), ("noise", noise)):
-        if t.shape != x_t.shape or t.device != x_t.device:
-            raise ValueError(f"{name} {tuple(t.shape)}@{t.device} vs x {tuple(x_t.shape)}@{x_t.device}")
-    B = x_t.shape[0]
-    n = x_t.numel() // B
-    scalars = _scalars(coeffs, guidance, delta, x_t.device)
-    if any(s.numel() != B for s in scalars[:6]):
-        raise ValueError(f"coefficient vectors must have {B} entries")
-    kernel = load()
+    dtype, shape = x_t.dtype, x_t.shape
+    if dtype not in DTYPES:
+        raise TypeError(f"fused_stream_epilogue takes bf16 or f32, got {dtype}")
+    is_self = cfg_type == "self"
+    if not is_self:
+        stock_out = None  # the stock does not change
+    for name, t in (("eps_c", eps_c), ("stock", stock), ("noise", noise),
+                    ("advanced_out", advanced_out), ("stock_out", stock_out)):
+        if t is None:
+            continue
+        if t.dtype != dtype or t.device != device:
+            raise TypeError(f"{name} {t.dtype}@{t.device} vs x {dtype}@{device}: mixed dtypes or devices")
+        if t.shape != shape and (t is not advanced_out or t.shape[1:] != shape[1:]):
+            raise ValueError(f"{name} {tuple(t.shape)} vs x {tuple(shape)}")
+    B = shape[0]
+    if x_t.numel() == 0:
+        raise ValueError(f"empty x {tuple(shape)}")
+    if advanced_out is not None and advanced_out.shape[0] > B:
+        raise ValueError(f"advanced_out has {advanced_out.shape[0]} rows, more than {B}")
+    if any(t is not None and not t.is_contiguous() for t in (advanced_out, stock_out)):
+        raise ValueError("advanced_out/stock_out must be contiguous")
+    if noise_shift < 0:
+        raise ValueError(f"noise_shift {noise_shift} < 0")
+    alpha, sigma, next_alpha, next_sigma = (
+        _f32_ptr(name, getattr(coeffs, name), B, device)
+        for name in ("alpha", "sigma", "next_alpha", "next_sigma"))
+    c_skip = 0 if turbo else _f32_ptr("c_skip", coeffs.c_skip, B, device)
+    c_out = 0 if turbo else _f32_ptr("c_out", coeffs.c_out, B, device)
+    g, d = _f32_ptr("guidance", guidance, 1, device), _f32_ptr("delta", delta, 1, device)
     x, e, s, nz = (t.contiguous() for t in (x_t, eps_c, stock, noise))
     den = torch.empty_like(x)
-    adv = torch.empty_like(x)
-    rcfg = cfg_type in ("self", "initialize")
-    is_self = cfg_type == "self"
-    new_stock = torch.empty_like(x) if is_self else stock
-    grid = (B, -(-n // BLOCK))
-    with torch.cuda.device(x.device):
-        kernel[grid](
-            x, e, s if rcfg else x, nz,
-            den, adv, new_stock if is_self else den,
-            *scalars, n,
-            RCFG=rcfg, SELF=is_self, BLOCK=BLOCK, num_warps=4,
+    adv = torch.empty_like(x) if advanced_out is None else advanced_out
+    new_stock = (torch.empty_like(x) if stock_out is None else stock_out) if is_self else stock
+    lib = load()
+    with torch.cuda.device(device):
+        err = lib.fused_stream_epilogue(
+            x.data_ptr(), e.data_ptr(), s.data_ptr(), nz.data_ptr(), den.data_ptr(),
+            adv.data_ptr(), new_stock.data_ptr() if is_self else 0,
+            alpha, sigma, c_skip, c_out, next_alpha, next_sigma, g, d,
+            DTYPES[dtype], CFG_TYPES.index(cfg_type), int(turbo), B, x.numel() // B,
+            B, noise_shift, adv.shape[0], torch.cuda.current_stream(device).cuda_stream,
         )
+    _check(err, "fused_stream_epilogue")
     launches += 1
     return den, adv, new_stock
-

@@ -6,8 +6,8 @@ ai_rtc_agent_tpu/stream/engine.py.
 * The latent ring buffer, stock noise, prompt embeddings and scheduler
   coefficient vectors live in ``state`` (a dict of device tensors).  Where
   the JAX step donated its state, this step updates the ring buffer and the
-  stock in place (``copy_`` into the same tensors), so their storage is
-  stable from frame to frame.
+  stock in place (the fused epilogue writes them; the composed ops
+  ``copy_`` into them), so their storage is stable from frame to frame.
 * Prompt updates and same-length t_index updates swap state entries.
 * uint8 pre/post-processing runs on the device: one uint8 [H,W,3] frame
   crosses each way per step (H2D from pinned memory, non-blocking; the D2H
@@ -26,7 +26,7 @@ txt2img, ControlNet, SDXL conditioning and DeepCache raise.
 from __future__ import annotations
 
 import threading
-from dataclasses import dataclass, replace
+from dataclasses import dataclass
 from typing import Callable
 
 import numpy as np
@@ -166,23 +166,14 @@ def make_step_fn(models: StreamModels, cfg: StreamConfig):
         stock = state["stock"].to(dt)
 
         if fused:
-            kc = coeffs
-            if cfg.scheduler == "turbo":
-                # the turbo step is pred_x0 == the LCM blend with c_skip=0, c_out=1
-                kc = replace(
-                    coeffs, c_skip=torch.zeros_like(coeffs.c_skip),
-                    c_out=torch.ones_like(coeffs.c_out),
-                )
-            # entry b renoises with slot b+fbs's noise; exit entries get 0
-            noise_next = (
-                torch.cat([noise[fbs:], torch.zeros_like(noise[:fbs])])
-                if B > fbs else torch.zeros_like(noise)
-            )
-            denoised, advanced, new_stock = fused_stream_epilogue(
-                x_t, eps_c, stock, noise_next.to(dt), kc,
-                state["guidance"], state["delta"], cfg_type=cfg.cfg_type,
-            )
-            new_buf = advanced[: B - fbs]
+            # the whole post-UNet chain in one launch: entry b renoises with
+            # slot b+fbs's noise (exit entries with 0), the advanced entries
+            # land in the ring buffer and the new stock in the stock, in place
+            denoised = fused_stream_epilogue(
+                x_t, eps_c, stock, noise.to(dt), coeffs, state["guidance"], state["delta"],
+                cfg_type=cfg.cfg_type, turbo=cfg.scheduler == "turbo", noise_shift=fbs,
+                advanced_out=state["x_buf"], stock_out=state["stock"],
+            )[0]
         else:
             new_stock = stock
             if cfg.cfg_type == "none":
@@ -196,19 +187,16 @@ def make_step_fn(models: StreamModels, cfg: StreamConfig):
             else:
                 denoised = L.lcm_denoise(x_t, eps, coeffs, cfg.prediction_type)
             if B > fbs:
-                new_buf = L.renoise_next(
+                state["x_buf"].copy_(L.renoise_next(
                     denoised[: B - fbs], noise[fbs:].to(dt),
                     _coeffs(state["coeffs"], slice(0, B - fbs)),
-                )
+                ))
+            if new_stock is not stock:
+                state["stock"].copy_(new_stock)
         out_latent = denoised[B - fbs:]
 
         img_out = models.vae_decode(params, out_latent)
-        out_u8 = I.postprocess_uint8(img_out.float())
-        if B > fbs:
-            state["x_buf"].copy_(new_buf)
-        if new_stock is not stock:
-            state["stock"].copy_(new_stock)
-        return state, out_u8
+        return state, I.postprocess_uint8(img_out.float())
 
     return step
 

@@ -6,14 +6,17 @@
 Phases (each prints its own lines; any failure exits non-zero):
   1. device   — needs torch.cuda; prints nvidia-smi's name and power limit;
                 sets and prints the TF32 switches (both off).
-  2. build    — compiles both kernels from this checkout's sources into
-                build/ (nvcc for the CUDA attention, Triton for the fused
-                epilogue), in parallel.
+  2. build    — compiles both CUDA kernels from this checkout's sources
+                into build/, one nvcc each, in parallel.
   3. kernels  — each kernel against its plain PyTorch version on the card
                 at the main path's shapes and at the attention tiling's
                 edges, with the tolerance stated; kernel / plain / library /
-                bound times and TFLOP/s, and the attention wrapper's host
-                time per call.
+                bound times and TFLOP/s, and each wrapper's host time per
+                call.  The epilogue is called as the engine calls it (turbo,
+                renoise shift, advanced rows and stock in place) for cfg
+                none at B=1, self and initialize at B=4, beside the launch
+                floor (an empty kernel from its library on its grid), and
+                once more through a CUDA graph replay.
   4. main     — the default serving path, StreamDiffusionPipeline(
                 "stabilityai/sd-turbo") at 512x512 in bf16 with random
                 weights from a seed: frames through __call__ and through
@@ -60,6 +63,13 @@ EDGE_LQ = {64: (100, 2100), 40: (100, 2100), 80: (100,), 160: (100,)}
 INSTANTIATIONS = [(64, 4096), (64, 1024), (80, 1024), (160, 1024)]
 
 
+def attention_query_tile(d: int, lq: int) -> int:
+    """Query rows per block of the attention instantiation serving (D, Lq),
+    as csrc/flash_attention.cu's header lists them: 192 for D <= 64 at
+    Lq >= 2048 (Wide64), 64 otherwise."""
+    return 192 if d <= 64 and lq >= 2048 else 64
+
+
 def edge_attention(key_tile) -> list:
     """The kernel's tiling edges at each head dim: Lk of 1, 77 and the
     instantiation's key tile (BK rows) less one, plus one and twice plus 13,
@@ -85,38 +95,46 @@ def time_ms(torch, fn, reps: int) -> float:
     """Mean device time of ``fn`` over ``reps`` launches (CUDA events,
     after a warm-up).  A sleep kernel holds the device while the host
     queues every launch, so the events time the device and not the host's
-    launch rate (which alone is ~0.1 ms for a small Triton launch)."""
+    launch rate (tens of microseconds a call, phase 3).  If the device woke
+    before the host had queued them all (a slow host, or a full launch
+    queue), the reading is the host's: it is taken again with half the
+    launches, down to 10."""
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(100_000_000)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    while True:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(100_000_000)
+        start.record()
+        for _ in range(reps):
+            fn()
+        held = not start.query()
+        end.record()
+        torch.cuda.synchronize()
+        if held or reps <= 10:
+            return start.elapsed_time(end) / reps
+        reps //= 2
 
 
 HOST_CALLS = 1000
 
 
-def host_us_per_call(torch, fn):
-    """Host time per call of ``fn`` while the device sleeps, so that the
-    host's own work (checks, launch) is what the clock reads.  Returns
-    (us, held): ``held`` is False if the device woke before the host had
-    queued every call (a full launch queue or a synchronising call: SDPA
-    hits one or the other), and then the time is not the host's alone."""
+def host_us_per_call(torch, fn, calls: int = HOST_CALLS):
+    """Host time per call of ``fn`` over ``calls`` calls while the device
+    sleeps, so that the host's own work (checks, launch) is what the clock
+    reads.  Returns (us, held): ``held`` is False if the device woke before
+    the host had queued every call (a full launch queue or a synchronising
+    call: SDPA hits one or the other), and then the time is not the host's
+    alone."""
     fn()
     torch.cuda.synchronize()
     torch.cuda._sleep(1_000_000_000)
     woke = torch.cuda.Event()
     woke.record()
     t = time.perf_counter()
-    for _ in range(HOST_CALLS):
+    for _ in range(calls):
         fn()
-    us = (time.perf_counter() - t) * 1e6 / HOST_CALLS
+    us = (time.perf_counter() - t) * 1e6 / calls
     held = not woke.query()
     torch.cuda.synchronize()
     return us, held
@@ -149,55 +167,71 @@ def phase_device(torch):
     return card
 
 
-def _epilogue_inputs(torch, cfg_type: str, gen):
-    """Main-path epilogue inputs: turbo coefficients / cfg none at B=1, or
-    LCM 4-stage coefficients / cfg self at B=4, on [B,64,64,4] bf16."""
+def epilogue_call(torch, cfg_type: str, gen, device="cuda"):
+    """The engine's epilogue call at its main-path shapes, as (args, kwargs):
+    the sd-turbo step (turbo, cfg none, B=1) or the 4-stage LCM stream batch
+    (cfg self/initialize, B=4), [B,64,64,4] bf16, renoise shift 1, the
+    advanced rows into a [B-1,...] ring buffer and the new stock into the
+    stock it reads; coefficients as the engine keeps them (f32 on the card)."""
     from ai_rtc_agent_tpu_torch.ops import lcm as L
     from ai_rtc_agent_tpu_torch.ops import schedule as S
 
-    sch = S.make_schedule()
-    if cfg_type == "none":
+    turbo = cfg_type == "none"
+    if turbo:
         bt = S.batched_sub_timesteps((0,), 1, spacing="trailing")
     else:
         bt = S.batched_sub_timesteps((18, 26, 35, 45), 50)
-    c = L.make_step_coeffs(sch, bt).to("cuda")
-    if cfg_type == "none":  # the turbo step: c_skip=0, c_out=1
-        c = L.StepCoeffs(c.timesteps, c.alpha, c.sigma, torch.zeros_like(c.c_skip),
-                         torch.ones_like(c.c_out), c.next_alpha, c.next_sigma)
+    c = L.make_step_coeffs(S.make_schedule(), bt).to(device)
     B = len(bt)
     x, e, s, n = (
-        torch.randn((B, 64, 64, 4), generator=gen, device="cuda").to(torch.bfloat16)
+        torch.randn((B, 64, 64, 4), generator=gen, device=device).to(torch.bfloat16)
         for _ in range(4)
     )
-    g = torch.tensor(1.2, device="cuda")
-    d = torch.tensor(0.9, device="cuda")
-    return (x, e, s, n, c, g, d)
+    g = torch.tensor(1.2, device=device)
+    d = torch.tensor(0.9, device=device)
+    x_buf = torch.empty((B - 1, 64, 64, 4), dtype=torch.bfloat16, device=device)
+    kwargs = dict(cfg_type=cfg_type, turbo=turbo, noise_shift=1, advanced_out=x_buf, stock_out=s)
+    return (x, e, s, n, c, g, d), kwargs
+
+
+def epilogue_work(args, kwargs):
+    """(flops, bytes) one epilogue call needs with these inputs: each input
+    read once and each output written once, counting only what the call
+    reads and keeps (x and eps; the stock unless cfg none; the noise rows
+    that some kept advanced row renoises with; den; the kept advanced rows;
+    the new stock for cfg self; the coefficient vectors)."""
+    x = args[0]
+    B = x.shape[0]
+    n = x.numel() // B
+    cfg_type, turbo = kwargs["cfg_type"], kwargs["turbo"]
+    rcfg, is_self = cfg_type != "none", cfg_type == "self"
+    adv = kwargs["advanced_out"]
+    adv_rows = B if adv is None else adv.shape[0]
+    noise_rows = max(0, min(adv_rows, args[3].shape[0] - kwargs["noise_shift"]))
+    rows = 2 * B + rcfg * B + noise_rows + B + adv_rows + is_self * B
+    coeff_bytes = 4 * B * (4 if turbo else 6) + 8 * rcfg
+    # per element: x0 3; R-CFG combine 3; blend 3 (not turbo); stock 3;
+    # renoise 3 with a noise row, 1 without
+    flops = n * (B * (3 + 3 * rcfg + 3 * (not turbo) + 3 * is_self)
+                 + 3 * noise_rows + (adv_rows - noise_rows))
+    return flops, rows * n * x.element_size() + coeff_bytes
 
 
 def phase_build(torch):
     from ai_rtc_agent_tpu_torch.ops.kernels import attention as KA
     from ai_rtc_agent_tpu_torch.ops.kernels import fused_scheduler as KF
 
-    def build_attention():
+    def timed(load):
         t = time.perf_counter()
-        KA.load()
-        return time.perf_counter() - t
-
-    def build_epilogue():
-        # Triton compiles at first launch: launch each main-path variant once
-        t = time.perf_counter()
-        gen = torch.Generator(device="cuda").manual_seed(0)
-        for cfg_type in ("none", "self"):
-            KF.fused_stream_epilogue(*_epilogue_inputs(torch, cfg_type, gen), cfg_type=cfg_type)
-        torch.cuda.synchronize()
+        load()
         return time.perf_counter() - t
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        fa, fe = pool.submit(build_attention), pool.submit(build_epilogue)
+    with ThreadPoolExecutor(2) as pool:  # one nvcc each, in parallel
+        fa, fe = pool.submit(timed, KA.load), pool.submit(timed, KF.load)
         ta, te = fa.result(), fe.result()
     say(
-        f"build: flash_attention (nvcc) {ta:.1f}s, fused_stream_epilogue (triton) "
+        f"build: flash_attention (nvcc) {ta:.1f}s, fused_stream_epilogue (nvcc) "
         f"{te:.1f}s, wall {time.perf_counter() - t0:.1f}s"
     )
     plans = [(d, lq, KA.key_tile(d, lq), KA.registers(d, lq)) for d, lq in INSTANTIATIONS]
@@ -211,10 +245,12 @@ def phase_attention(torch):
     import torch.nn.functional as F
 
     from ai_rtc_agent_tpu_torch.ops.kernels import attention as KA
+    from ai_rtc_agent_tpu_torch.ops.kernels import fused_scheduler as KF
     from ai_rtc_agent_tpu_torch.ops.kernels import tolerance
 
     gen = torch.Generator(device="cuda").manual_seed(1)
-    totals = dict.fromkeys(("ms", "plain_ms", "library_ms", "bound_ms", "ops", "bytes"), 0.0)
+    totals = dict.fromkeys(
+        ("ms", "plain_ms", "library_ms", "bound_ms", "ops", "bytes", "floor_ms"), 0.0)
     max_err = 0.0
 
     def case(b, lq, lk, h, d):
@@ -243,11 +279,17 @@ def phase_attention(torch):
         flops = 4.0 * b * h * lq * lk * d
         nbytes = 2.0 * (2 * q.numel() + k.numel() + v.numel())
         bms, by = bound(flops, PEAK_BF16_FLOPS, nbytes)
+        # launch floor: the empty kernel of the epilogue's library on as many
+        # blocks as this launch's grid (query tiles x heads x batch)
+        blocks = b * h * -(-lq // attention_query_tile(d, lq))
+        floor = time_ms(torch, lambda: KF.launch_empty(blocks, 1), reps)
         say(
             f"{label} | kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), "
             f"plain {plain:.4f} ms, sdpa {lib:.4f} ms ({flops / lib / 1e9:.1f} TFLOP/s), "
-            f"bound {bms:.4f} ms ({by}), x{per_step}/step"
+            f"bound {bms:.4f} ms ({by}), launch floor {floor:.5f} ms ({blocks} blocks), "
+            f"x{per_step}/step"
         )
+        totals["floor_ms"] += per_step * floor
         totals["ms"] += per_step * ms
         totals["plain_ms"] += per_step * plain
         totals["library_ms"] += per_step * lib
@@ -266,7 +308,7 @@ def phase_attention(torch):
     say(
         f"attention per step (32 launches): kernel {totals['ms']:.4f} ms, plain "
         f"{totals['plain_ms']:.4f} ms, sdpa {totals['library_ms']:.4f} ms, bound "
-        f"{totals['bound_ms']:.4f} ms"
+        f"{totals['bound_ms']:.4f} ms, launch floor {totals['floor_ms']:.4f} ms"
     )
     return {
         "max_abs_err": max_err,
@@ -278,39 +320,101 @@ def phase_attention(torch):
     }
 
 
+EPILOGUE_CASES = ("none", "self", "initialize")  # none: the main path (sd-turbo, B=1)
+
+
+def fresh_epilogue_call(args, kwargs):
+    """A copy of an epilogue call whose in-place outputs are new tensors
+    holding the same values (the stock stays aliased with stock_out)."""
+    stock = args[2].clone()
+    kw = dict(kwargs, advanced_out=kwargs["advanced_out"].clone(), stock_out=stock)
+    return (*args[:2], stock, *args[3:]), kw
+
+
+def plain_epilogue_call(KF, args, kwargs):
+    """The plain version of an epilogue call, from a copy of its state."""
+    a, kw = fresh_epilogue_call(args, kwargs)
+    return KF.epilogue_plain(*a, **kw)
+
+
+def _epilogue_errors(label, got, want) -> tuple:
+    """Max abs and rel error over the non-empty outputs; fails out of tolerance."""
+    from ai_rtc_agent_tpu_torch.ops.kernels import tolerance
+
+    max_abs = max_rel = 0.0
+    for name, a, b in zip(("denoised", "advanced", "stock"), got, want):
+        if a.shape != b.shape:
+            fail(f"{label} {name}: shape {tuple(a.shape)} vs {tuple(b.shape)}")
+        if not a.numel():
+            continue
+        e = tolerance.epilogue_error(a, b)
+        if not e["ok"]:
+            fail(f"{label} {name}: max_abs_err {e['max_abs']:.3e} over tolerance")
+        max_abs, max_rel = max(max_abs, e["max_abs"]), max(max_rel, e["max_rel"])
+    return max_abs, max_rel
+
+
+def epilogue_graph_replay(torch, KF, args, kwargs):
+    """The engine's epilogue call captured in a CUDA graph, replayed from the
+    call's starting state, against the plain version from that state."""
+    start = fresh_epilogue_call(args, kwargs)
+    a, kw = fresh_epilogue_call(*start)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the capture
+        KF.fused_stream_epilogue(*a, **kw)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = KF.fused_stream_epilogue(*a, **kw)
+    kw["advanced_out"].copy_(start[1]["advanced_out"])
+    kw["stock_out"].copy_(start[1]["stock_out"])
+    graph.replay()
+    torch.cuda.synchronize()
+    return got, plain_epilogue_call(KF, *start)
+
+
 def phase_epilogue(torch):
     from ai_rtc_agent_tpu_torch.ops.kernels import fused_scheduler as KF
-    from ai_rtc_agent_tpu_torch.ops.kernels import tolerance
 
     gen = torch.Generator(device="cuda").manual_seed(2)
     out = {}
-    max_err = max_rel = 0.0
-    for cfg_type in ("none", "self"):
-        args = _epilogue_inputs(torch, cfg_type, gen)
-        got = KF.fused_stream_epilogue(*args, cfg_type=cfg_type)
-        torch.cuda.synchronize()
-        want = KF.epilogue_plain(*args, cfg_type=cfg_type)
-        for name, a, b in zip(("denoised", "advanced", "stock"), got, want):
-            e = tolerance.epilogue_error(a, b)
-            if not e["ok"]:
-                fail(f"epilogue {cfg_type} {name}: max_abs_err {e['max_abs']:.3e} over tolerance")
-            max_err = max(max_err, e["max_abs"])
-            max_rel = max(max_rel, e["max_rel"])
+    max_err = 0.0
+    for cfg_type in EPILOGUE_CASES:
+        args, kwargs = epilogue_call(torch, cfg_type, gen)
         x = args[0]
-        ms = time_ms(torch, lambda: KF.fused_stream_epilogue(*args, cfg_type=cfg_type), 200)
-        plain = time_ms(torch, lambda: KF.epilogue_plain(*args, cfg_type=cfg_type), 50)
-        slabs = (4 + 3) if cfg_type == "self" else (3 + 2)
-        nbytes = slabs * x.numel() * x.element_size()
-        bms, by = bound(12.0 * x.numel(), PEAK_F32_FLOPS, nbytes)
+        B, n = x.shape[0], x.numel() // x.shape[0]
+        label = f"epilogue cfg={cfg_type} B={B} [B,64,64,4] bf16"
+        # as the engine calls it (in place) and out of place, from one state
+        a, kw = fresh_epilogue_call(args, kwargs)
+        got = KF.fused_stream_epilogue(*a, **kw)
+        torch.cuda.synchronize()
+        if got[1] is not kw["advanced_out"] or got[2] is not a[2]:
+            fail(f"{label}: the in-place outputs are not the tensors passed in")
+        errs = [_epilogue_errors(f"{label} in place", got, plain_epilogue_call(KF, args, kwargs))]
+        oop = dict(kwargs, advanced_out=None, stock_out=None)
+        got = KF.fused_stream_epilogue(*args, **oop)
+        errs.append(_epilogue_errors(f"{label} out of place", got, KF.epilogue_plain(*args, **oop)))
+        errs.append(_epilogue_errors(f"{label} graph replay",
+                                     *epilogue_graph_replay(torch, KF, args, kwargs)))
+        err, rel = max(e[0] for e in errs), max(e[1] for e in errs)
+        max_err = max(max_err, err)
+        ms = time_ms(torch, lambda: KF.fused_stream_epilogue(*args, **kwargs), 500)
+        floor = time_ms(torch, lambda: KF.launch_empty(B, n), 500)
+        plain = time_ms(torch, lambda: KF.epilogue_plain(*args, **kwargs), 50)
+        host_us, held = host_us_per_call(torch, lambda: KF.fused_stream_epilogue(*args, **kwargs))
+        flops, nbytes = epilogue_work(args, kwargs)
+        bms, by = bound(flops, PEAK_F32_FLOPS, nbytes)
         say(
-            f"epilogue cfg={cfg_type} B={x.shape[0]} [B,64,64,4] bf16: max_abs_err "
-            f"{max_err:.3e}, max rel {max_rel:.2e} (tol 1 bf16 ulp = 2^-7 rel) | "
-            f"kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-            f"bound {bms:.5f} ms ({by})"
+            f"{label} (turbo={kwargs['turbo']}, noise_shift 1, advanced rows and stock in place; "
+            f"in place, out of place and graph replay): max_abs_err {err:.3e}, max rel {rel:.2e} "
+            f"(tol 1 bf16 ulp = 2^-7 rel) | kernel {ms:.5f} ms, launch floor {floor:.5f} ms "
+            f"(empty kernel, same grid), plain {plain:.4f} ms, bound {bms:.6f} ms ({by}; "
+            f"{nbytes} B, {flops} flop) | wrapper host {host_us:.2f} us per call"
+            + ("" if held else " (the device woke first: not the host's time alone)")
         )
         out[cfg_type] = {"ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by}
-    main = out["none"]  # the sd-turbo path: turbo coefficients, cfg none, B=1
-    return {"max_abs_err": max_err, **main, "library_ms": None}
+    return {"max_abs_err": max_err, **out["none"], "library_ms": None}
 
 
 def _frames(np, n: int, seed: int = 0):
@@ -470,8 +574,8 @@ def main():
             "launches": attn_launches, **attn,
         },
         {
-            "name": "fused_stream_epilogue", "route": "triton",
-            "source": "ai_rtc_agent_tpu_torch/ops/kernels/fused_scheduler.py",
+            "name": "fused_stream_epilogue", "route": "cuda",
+            "source": "ai_rtc_agent_tpu_torch/csrc/fused_stream_epilogue.cu",
             "replaces": "ai_rtc_agent_tpu/ops/pallas/fused_scheduler.py:81",
             "launches": epi_launches, **epi,
         },

@@ -8,12 +8,14 @@ on its own, without the suite's conftest:
 
 Tolerances (bf16 on the card) are those of
 ``ai_rtc_agent_tpu_torch/ops/kernels/tolerance.py``, which ``chip_smoke.py``
-holds the kernels to as well.
+holds the kernels to as well; the epilogue's call copies and graph replay
+are chip_smoke's own helpers (it imports only the standard library).
 """
 
 import pytest
 import torch
 
+import chip_smoke
 from ai_rtc_agent_tpu_torch.ops import lcm as PL
 from ai_rtc_agent_tpu_torch.ops import schedule as PS
 from ai_rtc_agent_tpu_torch.ops.kernels import attention as KA
@@ -104,3 +106,97 @@ def test_epilogue_kernel_matches_plain(cuda, cfg_type, kind):
     for a, b in zip(got, want):
         err = tolerance.epilogue_error(a, b)
         assert err["ok"], err
+
+
+# (B, fbs) -> (t_index_list, num_inference_steps, spacing) of the stream batch
+CHAIN_BATCHES = {(1, 1): ([0], 1, "trailing"), (4, 1): ([18, 26, 35, 45], 50, "leading"),
+                 (4, 2): ([18, 35], 50, "leading")}
+# (cfg_type, turbo, B, fbs, latent, element offset of every tensor)
+CHAIN_CASES = [
+    ("none", True, 1, 1, (64, 64, 4), 0),  # the sd-turbo main path
+    ("self", False, 4, 1, (64, 64, 4), 0),
+    ("initialize", False, 4, 1, (64, 64, 4), 0),
+    ("self", False, 4, 2, (64, 64, 4), 0),  # fbs=2: two exit rows, shift 2
+    ("self", False, 4, 1, (5, 7, 4), 0),  # n=140: a ragged tail; bf16 rows 1, 3 off 16 bytes
+    ("none", True, 4, 2, (5, 7, 4), 0),
+    ("initialize", True, 1, 1, (3, 3, 3), 0),  # n=27: three 8-element chunks and a tail
+    ("self", False, 4, 1, (64, 64, 4), 1),  # every row base off 16 bytes
+]
+
+
+def _chain_call(device, dtype, cfg_type, turbo, b, fbs, latent, offset):
+    """(args, kwargs) of the engine's call, in place: the advanced rows into
+    a [B-fbs] ring buffer, the new stock into the stock it reads; every
+    tensor ``offset`` elements into its storage."""
+    t_index, steps, spacing = CHAIN_BATCHES[(b, fbs)]
+    bt = PS.batched_sub_timesteps(t_index, steps, fbs, spacing=spacing)
+    pc = PL.make_step_coeffs(PS.make_schedule(), bt, fbs).to(device)
+    gen = torch.Generator(device=device).manual_seed(0)
+
+    def tensor(rows):
+        shape = (rows, *latent)
+        n = rows * latent[0] * latent[1] * latent[2]
+        buf = torch.randn(n + offset, generator=gen, device=device).to(dtype)
+        return buf[offset:].view(shape)
+
+    args = (*(tensor(b) for _ in range(4)), pc, torch.tensor(1.2, device=device),
+            torch.tensor(0.9, device=device))
+    kwargs = dict(cfg_type=cfg_type, turbo=turbo, noise_shift=fbs,
+                  advanced_out=tensor(b - fbs), stock_out=args[2])
+    return args, kwargs
+
+
+def _assert_close(got, want):
+    for name, a, b in zip(("denoised", "advanced", "stock"), got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype, name
+        if a.numel():
+            err = tolerance.epilogue_error(a, b)
+            assert err["ok"], (name, err)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("cfg_type,turbo,b,fbs,latent,offset", CHAIN_CASES)
+def test_epilogue_chain_kernel_matches_plain(cuda, dtype, cfg_type, turbo, b, fbs, latent, offset):
+    """The engine's in-place call (aliased stock, advanced rows into the ring
+    buffer) and the out-of-place one, against the plain version."""
+    args, kwargs = _chain_call(cuda, dtype, cfg_type, turbo, b, fbs, latent, offset)
+    before = KF.launches
+    a, kw = chip_smoke.fresh_epilogue_call(args, kwargs)
+    got = KF.fused_stream_epilogue(*a, **kw)
+    torch.cuda.synchronize()
+    assert got[1] is kw["advanced_out"] and got[2] is a[2]
+    _assert_close(got, chip_smoke.plain_epilogue_call(KF, args, kwargs))
+    oop = dict(kwargs, advanced_out=None, stock_out=None)
+    got = KF.fused_stream_epilogue(*args, **oop)
+    torch.cuda.synchronize()
+    assert KF.launches == before + 2
+    _assert_close(got, KF.epilogue_plain(*args, **oop))
+
+
+def test_epilogue_kernel_refuses_mixed_dtypes_and_non_f32_coefficients(cuda):
+    args, kwargs = _chain_call(cuda, torch.bfloat16, "self", False, 4, 1, (8, 8, 4), 0)
+    x, e, s, n, pc, g, d = args
+    with pytest.raises(TypeError):  # eps in another dtype than x
+        KF.fused_stream_epilogue(x, e.float(), s, n, pc, g, d, **kwargs)
+    with pytest.raises(TypeError):  # a ring buffer in another dtype
+        KF.fused_stream_epilogue(*args, **dict(kwargs, advanced_out=kwargs["advanced_out"].float()))
+    for bad in (pc.alpha.double(), pc.alpha.to(torch.bfloat16), pc.alpha.cpu()):
+        with pytest.raises(TypeError):  # coefficient vectors: f32 on the card
+            KF.fused_stream_epilogue(x, e, s, n, PL.StepCoeffs(
+                pc.timesteps, bad, *[getattr(pc, f) for f in (
+                    "sigma", "c_skip", "c_out", "next_alpha", "next_sigma")]), g, d, **kwargs)
+    with pytest.raises(TypeError):  # guidance: an f32 device scalar, read by pointer
+        KF.fused_stream_epilogue(x, e, s, n, pc, 1.2, d, **kwargs)
+    with pytest.raises(TypeError):
+        KF.fused_stream_epilogue(x, e, s, n, pc, g.double(), d, **kwargs)
+    with pytest.raises(TypeError):  # f16 is neither of the kernel's types
+        h = x.half()
+        KF.fused_stream_epilogue(h, h, h, h, pc, g, d, cfg_type="none")
+
+
+@pytest.mark.parametrize("cfg_type,turbo,b,fbs", [("none", True, 1, 1), ("self", False, 4, 1)])
+def test_epilogue_launch_replays_in_a_cuda_graph(cuda, cfg_type, turbo, b, fbs):
+    """The wrapper does no host sync: its launch is captured in a CUDA graph
+    and the replay, from the call's starting state, matches the plain version."""
+    args, kwargs = _chain_call(cuda, torch.bfloat16, cfg_type, turbo, b, fbs, (64, 64, 4), 0)
+    _assert_close(*chip_smoke.epilogue_graph_replay(torch, KF, args, kwargs))

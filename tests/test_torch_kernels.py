@@ -137,6 +137,57 @@ def test_epilogue_plain_matches_jax_fused_kernel(rng, no_kernel_build, cfg_type,
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-4, atol=1e-5, err_msg=name)
 
 
+# (B, fbs) -> (t_index_list, num_inference_steps, spacing) of the stream batch
+CHAIN_BATCHES = {(1, 1): ([0], 1, "trailing"), (4, 1): ([18, 26, 35, 45], 50, "leading"),
+                 (4, 2): ([18, 35], 50, "leading")}
+
+
+@pytest.mark.parametrize("latent", [(8, 8, 4), (5, 7, 4)], ids=["8x8x4", "ragged5x7x4"])
+@pytest.mark.parametrize("turbo", [False, True], ids=["lcm", "turbo"])
+@pytest.mark.parametrize("b,fbs", list(CHAIN_BATCHES), ids=["B1fbs1", "B4fbs1", "B4fbs2"])
+@pytest.mark.parametrize("cfg_type", ["none", "self", "initialize"])
+def test_epilogue_chain_keywords_match_jax_fused_kernel(rng, no_kernel_build, cfg_type, b, fbs,
+                                                        turbo, latent):
+    """The keywords that carry the engine's whole post-UNet chain (turbo,
+    noise_shift, in-place advanced rows and stock) against the JAX kernel
+    fed as the JAX engine feeds it: the shifted noise by concatenation, the
+    turbo coefficients as explicit zeros and ones."""
+    t_index, steps, spacing = CHAIN_BATCHES[(b, fbs)]
+    bt = JS.batched_sub_timesteps(t_index, steps, fbs, spacing=spacing)
+    jc = JL.make_step_coeffs(JS.make_schedule(), bt, fbs)
+    pc = PL.make_step_coeffs(PS.make_schedule(), bt, fbs).to("cpu")
+    if turbo:  # the port's c_skip/c_out stay the LCM ones: turbo must not read them
+        jc = JL.StepCoeffs(jc.timesteps, jc.alpha, jc.sigma, np.zeros_like(jc.c_skip),
+                           np.ones_like(jc.c_out), jc.next_alpha, jc.next_sigma)
+    shape = (b, *latent)
+    x, eps, stock, noise = (rng.standard_normal(shape).astype(np.float32) for _ in range(4))
+    noise_next = (np.concatenate([noise[fbs:], np.zeros_like(noise[:fbs])])
+                  if b > fbs else np.zeros_like(noise))
+    g, d = 1.5, 0.9
+    want = JF.fused_stream_epilogue(x, eps, stock, noise_next, jc.as_jnp(), g, d, cfg_type,
+                                    interpret=True)
+    t = lambda a: torch.from_numpy(a.copy())
+    kw = dict(cfg_type=cfg_type, turbo=turbo, noise_shift=fbs)
+    before = KF.launches
+    got = KF.fused_stream_epilogue(t(x), t(eps), t(stock), t(noise), pc, torch.tensor(g),
+                                   torch.tensor(d), **kw)
+    for name, a, w in zip(("denoised", "advanced", "stock"), got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(w), rtol=1e-4, atol=1e-5, err_msg=name)
+    # in place, as the engine calls it: the advanced rows into the ring buffer
+    # (B - fbs rows), the new stock into the stock tensor it reads
+    x_buf = torch.full((b - fbs, *latent), float("nan"))
+    stock_io = t(stock)
+    den, adv, new_stock = KF.fused_stream_epilogue(
+        t(x), t(eps), stock_io, t(noise), pc, torch.tensor(g), torch.tensor(d), **kw,
+        advanced_out=x_buf, stock_out=stock_io,
+    )
+    assert KF.launches == before  # the plain version ran, no kernel
+    assert adv is x_buf and new_stock is stock_io
+    assert torch.equal(den, got[0])
+    assert torch.equal(x_buf, got[1][: b - fbs])
+    assert torch.equal(stock_io, got[2])
+
+
 def test_epilogue_plain_matches_composed_port_ops(rng):
     pc, _ = _coeffs("lcm")
     x, eps, stock, noise = (torch.from_numpy(rng.standard_normal((4, 8, 8, 4)).astype(np.float32))
@@ -159,7 +210,8 @@ def test_epilogue_rejects_full_cfg():
 
 
 def test_kernel_library_path_tracks_source():
-    p = KB.library_path(KA.SOURCE)
-    assert p.parent == KB.BUILD_DIR and p.name.startswith("libflash_attention-")
-    assert (KB.CSRC_DIR / KA.SOURCE).exists()
+    for source, stem in ((KA.SOURCE, "flash_attention"), (KF.SOURCE, "fused_stream_epilogue")):
+        p = KB.library_path(source)
+        assert p.parent == KB.BUILD_DIR and p.name.startswith(f"lib{stem}-")
+        assert (KB.CSRC_DIR / source).exists()
     assert KB.BUILD_DIR.name == "build" and KB.BUILD_DIR.parent == KB.PACKAGE_DIR.parent

@@ -23,6 +23,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from ai_rtc_agent_tpu.models import registry as JREG
 from ai_rtc_agent_tpu.stream import engine as JENG
@@ -134,6 +135,62 @@ def test_turbo_matches_jax_engine(port_params, jax_turbo, fused, attn_impl):
     """The sd-turbo step at tiny size: 1 step, trailing, cfg none, B=1."""
     eng = _replay(port_params, jax_turbo, TURBO, fused, attn_impl)
     assert eng.cfg.scheduler == "turbo" and eng.cfg.batch_size == 1
+
+
+class _OpLog(TorchDispatchMode):
+    """Names of the aten ops dispatched while ``section`` is set, by section."""
+
+    def __init__(self):
+        super().__init__()
+        self.section = None
+        self.ops = {}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if self.section is not None:
+            self.ops.setdefault(self.section, set()).add(func.overloadpacket.__name__)
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("overrides", [{}, TURBO], ids=["lcm_self", "turbo_none"])
+def test_fused_step_has_no_glue_around_the_epilogue(monkeypatch, port_params, overrides):
+    """With the fused epilogue on, the step launches nothing between the
+    UNet and the decode but the epilogue (views and no-op casts only: no
+    cat, fill or copy), and nothing after the decode writes the state."""
+    log = _OpLog()
+    bundle = PREG.load_model_bundle("tiny-test", device="cpu", attn_impl="plain", params=port_params)
+    m = bundle.stream_models
+
+    def unet(*a):
+        out = m.unet(*a)
+        log.section = "glue"
+        return out
+
+    def decode(*a):
+        log.section = None
+        out = m.vae_decode(*a)
+        log.section = "after decode"
+        return out
+
+    def epilogue(*a, **k):
+        section, log.section = log.section, None
+        out = epilogue_kernel(*a, **k)
+        log.section = section
+        return out
+
+    epilogue_kernel = PENG.fused_stream_epilogue
+    monkeypatch.setattr(PENG, "fused_stream_epilogue", epilogue)
+    cfg = PREG.default_stream_config("tiny-test", device="cpu", use_fused_epilogue=True, **overrides)
+    eng = PENG.StreamEngine(PENG.StreamModels(unet, m.vae_encode, decode), bundle.params, cfg,
+                            bundle.encode_prompt, device="cpu").prepare("a cat", seed=1)
+    x_buf, stock = eng.state["x_buf"].clone(), eng.state["stock"].clone()
+    with log:
+        eng(_frames(1)[0])
+    glue, after = log.ops.get("glue", set()), log.ops["after decode"]
+    assert glue <= {"slice", "to"}, glue
+    assert not after & {"copy_", "cat", "fill_", "zero_"}, after
+    if cfg.batch_size > cfg.frame_buffer_size:  # the epilogue wrote the ring and the stock
+        assert not torch.equal(eng.state["x_buf"], x_buf)
+        assert not torch.equal(eng.state["stock"], stock)
 
 
 def test_prompt_embedding_matches_jax(jax_bundle, port_params):
@@ -288,9 +345,13 @@ def _imports(path: Path):
 
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
-    files = sorted((REPO / "ai_rtc_agent_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    """Nor triton: both kernels are CUDA C++ built with nvcc."""
+    files = sorted((REPO / "ai_rtc_agent_tpu_torch").rglob("*.py")) + [
+        REPO / "chip_smoke.py", REPO / "scripts" / "torch_step_profile.py",
+        REPO / "scripts" / "epilogue_ab.py",
+    ]
     assert len(files) > 10
     for path in files:
         for name in _imports(path):
             root = name.split(".")[0]
-            assert root not in ("jax", "jaxlib", "ai_rtc_agent_tpu"), f"{path}: imports {name}"
+            assert root not in ("jax", "jaxlib", "ai_rtc_agent_tpu", "triton"), f"{path}: imports {name}"
