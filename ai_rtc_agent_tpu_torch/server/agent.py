@@ -1,0 +1,224 @@
+"""The serving agent's HTTP layer over the port's pipeline (counterpart of
+ai_rtc_agent_tpu/server/agent.py).
+
+  POST/DELETE /whip[/{session}]   publish a stream (OBS, browser)
+  POST/DELETE /whep[/{session}]   view the processed stream
+  POST /offer                     bidirectional browser session
+  POST /config                    runtime prompt / t_index / guidance update
+  GET  /                          health
+  GET  /metrics                   fps / latency gauges
+
+Each route maps a request onto a flow of ``server/sessions.py`` and its
+answer onto the JAX agent's status codes: 201 with ``Location`` for WHIP
+and WHEP, 400 for a wrong content type, undecodable body or bad JSON, 401
+for WHEP without a publisher, 200/404 for a DELETE of a known/unknown
+session.  CORS allows all origins.
+
+    python -m ai_rtc_agent_tpu_torch.server.agent --model-id stabilityai/sd-turbo
+    WEBRTC_PROVIDER=loopback python -m ai_rtc_agent_tpu_torch.server.agent \\
+        --model-id tiny-test --device cpu
+
+The pipeline runs on the card unless ``--device cpu`` is passed; without a
+card, startup raises.  This is the only module of the port that imports
+aiohttp.
+"""
+
+from __future__ import annotations
+
+import argparse
+import asyncio
+import logging
+import random
+import types
+from typing import List, Tuple
+
+from aiohttp import web
+
+from . import sessions
+
+logger = logging.getLogger(__name__)
+
+
+def patch_loop_datagram(local_ports: List[int]):
+    """Bind every unbound UDP endpoint of the running loop to one of
+    ``local_ports`` (an operator's firewall or serverless platform opens
+    only those); an explicit port and ``local_addr=None`` pass through."""
+    loop = asyncio.get_event_loop()
+    if getattr(loop, "_patch_done", False):
+        return
+
+    old_create = loop.create_datagram_endpoint
+
+    async def create_datagram_endpoint(
+        self, protocol_factory, local_addr: Tuple[str, int] = None, **kwargs
+    ):
+        if local_addr and local_addr[1]:
+            return await old_create(protocol_factory, local_addr=local_addr, **kwargs)
+        if local_addr is None:
+            return await old_create(protocol_factory, local_addr=None, **kwargs)
+        ports = [int(p) for p in local_ports]
+        random.shuffle(ports)
+        last_exc = None
+        for port in ports:
+            try:
+                ret = await old_create(protocol_factory, local_addr=(local_addr[0], port), **kwargs)
+                logger.debug("create_datagram_endpoint chose port %s", port)
+                return ret
+            except OSError as exc:
+                last_exc = exc
+        if last_exc is not None:
+            raise last_exc
+        raise ValueError("local_ports must not be empty")
+
+    loop.create_datagram_endpoint = types.MethodType(create_datagram_endpoint, loop)
+    loop._patch_done = True
+
+
+def _response(reply: sessions.Reply) -> web.Response:
+    kwargs = {} if reply.body is None else {"text": reply.body}
+    return web.Response(
+        status=reply.status, content_type=reply.content_type, headers=reply.headers, **kwargs
+    )
+
+
+async def offer(request):
+    try:
+        params = await request.json()
+    except (ValueError, LookupError) as e:  # bad JSON, or an unknown charset=
+        return web.Response(status=400, text=f"invalid offer request: {e}")
+    try:
+        return _response(await sessions.offer(request.app, params))
+    except ValueError as e:
+        return web.Response(status=400, text=f"invalid offer request: {e}")
+
+
+async def whep(request):
+    app = request.app
+    if request.method == "DELETE":
+        ok = await sessions.close(app, "whep", request.match_info.get("session"))
+        return web.Response(status=200 if ok else 404)
+    if request.content_type != "application/sdp":
+        return web.Response(status=400)
+    if not sessions.has_publisher(app):
+        return web.Response(status=401)
+    try:
+        body = await request.text()
+    except (ValueError, LookupError) as e:
+        return web.Response(status=400, text=f"invalid offer body: {e}")
+    try:
+        return _response(await sessions.subscribe(app, body))
+    except ValueError as e:
+        return web.Response(status=400, text=f"invalid offer: {e}")
+
+
+async def whip(request):
+    app = request.app
+    if request.method == "DELETE":
+        ok = await sessions.close(app, "whip", request.match_info.get("session"))
+        return web.Response(status=200 if ok else 404)
+    if request.content_type != "application/sdp":
+        return web.Response(status=400)
+    try:
+        return _response(await sessions.publish(app, await request.text()))
+    except (ValueError, LookupError) as e:
+        return web.Response(status=400, text=f"invalid offer: {e}")
+
+
+async def update_config(request):
+    try:
+        config = await request.json()
+    except (ValueError, LookupError):
+        return web.Response(status=400, text="invalid JSON body")
+    logger.info("received config: %s", config)
+    try:
+        await sessions.update_config(request.app, config)
+    except ValueError as e:
+        return web.Response(status=400, text=str(e))
+    return web.Response(content_type="application/json", text="OK")
+
+
+async def health(_):
+    return web.Response(content_type="application/json", text="OK")
+
+
+async def metrics(request):
+    return web.json_response(sessions.metrics(request.app))
+
+
+@web.middleware
+async def cors_middleware(request, handler):
+    """Allow-all CORS."""
+    if request.method == "OPTIONS":
+        resp = web.Response(status=200)
+    else:
+        resp = await handler(request)
+    resp.headers.setdefault("Access-Control-Allow-Origin", "*")
+    resp.headers.setdefault("Access-Control-Allow-Headers", "*")
+    resp.headers.setdefault("Access-Control-Allow-Methods", "GET,POST,DELETE,OPTIONS")
+    return resp
+
+
+async def on_startup(app):
+    if app["udp_ports"]:
+        patch_loop_datagram(app["udp_ports"])
+    sessions.startup(app)
+
+
+async def on_shutdown(app):
+    await sessions.shutdown(app)
+
+
+def build_app(
+    model_id: str = "stabilityai/sd-turbo",
+    pipeline=None,
+    provider=None,
+    fbs: int = 0,
+    device=None,
+    udp_ports=None,
+) -> web.Application:
+    """``pipeline``: injectable for tests; built at startup when None, on
+    ``device`` (the card unless ``"cpu"``)."""
+    app = web.Application(middlewares=[cors_middleware])
+    sessions.configure(app, model_id=model_id, pipeline=pipeline, provider=provider,
+                       fbs=fbs, device=device)
+    app["udp_ports"] = udp_ports
+    app.on_startup.append(on_startup)
+    app.on_shutdown.append(on_shutdown)
+    app.router.add_post("/whip", whip)
+    app.router.add_delete("/whip", whip)
+    app.router.add_delete("/whip/{session}", whip)
+    app.router.add_post("/whep", whep)
+    app.router.add_delete("/whep", whep)
+    app.router.add_delete("/whep/{session}", whep)
+    app.router.add_post("/offer", offer)
+    app.router.add_post("/config", update_config)
+    app.router.add_get("/", health)
+    app.router.add_get("/metrics", metrics)
+    return app
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description="Run the agent on the port's pipeline")
+    parser.add_argument("--model-id", default="stabilityai/sd-turbo",
+                        help="model id (sd15 / sd-turbo families, tiny-test)")
+    parser.add_argument("--port", default=8888, type=int, help="HTTP signaling port")
+    parser.add_argument("--udp-ports", default=None, help="comma-separated UDP media ports")
+    parser.add_argument("--fbs", default=0, type=int, metavar="N",
+                        help="frame_buffer_size: N consecutive frames per step; 0 = per frame")
+    parser.add_argument("--log-level", default="INFO",
+                        choices=["DEBUG", "INFO", "WARNING", "ERROR", "CRITICAL"])
+    parser.add_argument("--device", default=None,
+                        help="torch device of the pipeline (default: the card; 'cpu' only when asked)")
+    args = parser.parse_args(argv)
+    logging.basicConfig(level=args.log_level.upper())
+    app = build_app(
+        model_id=args.model_id,
+        fbs=args.fbs,
+        device=args.device,
+        udp_ports=args.udp_ports.split(",") if args.udp_ports else None,
+    )
+    web.run_app(app, host="0.0.0.0", port=args.port)
+
+
+if __name__ == "__main__":
+    main()

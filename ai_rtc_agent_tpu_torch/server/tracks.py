@@ -1,0 +1,115 @@
+"""The processed media track (counterpart of ai_rtc_agent_tpu/server/tracks.py).
+
+Wraps a source track; every ``recv()`` pulls a frame and returns the
+diffused frame.
+
+* WARMUP_FRAMES frames go through the pipeline and are dropped at connect;
+  DROP_FRAMES frames are skipped before each output (the OBS stutter
+  workaround).
+* Every pipeline call runs in a worker thread (``asyncio.to_thread``), so a
+  step never stalls the event loop; ``recv()`` calls are serialized per
+  track, which keeps the order.
+* PIPELINE_DEPTH frames stay in flight through ``submit``/``fetch``:
+  ``recv()`` submits the new frame and fetches the one submitted ``depth``
+  calls ago, so one frame's step overlaps the previous frame's readback.
+  A submit and its fetch may run on different worker threads.
+* With ``frame_buffer_size`` > 1 the pipeline's ``submit_batch`` steps fbs
+  consecutive frames at once, and the outputs drain one per ``recv()``.
+
+The overload plane (freshest-frame shedding) and frame tracing are later
+slices of the port.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import logging
+from collections import deque
+
+from ..utils import env
+from ..utils.dispatch import fire_handler
+
+logger = logging.getLogger(__name__)
+
+
+class VideoStreamTrack:
+    kind = "video"
+
+    def __init__(self, track, pipeline, pipeline_depth: int | None = None):
+        self.track = track
+        self.pipeline = pipeline
+        self.warmup_frame_idx = 0
+        self.warmup_frames = env.warmup_frames()
+        self.drop_frames = env.drop_frames()
+        self.pipeline_depth = (
+            env.pipeline_depth() if pipeline_depth is None else max(1, pipeline_depth)
+        )
+        if not hasattr(pipeline, "submit"):
+            self.pipeline_depth = 1
+        # in flight: at most `pipeline_depth` frames (or fbs batches)
+        self._pending: deque = deque(maxlen=self.pipeline_depth)
+        # outputs of one fetch_batch, drained one per recv() before the next
+        self._outbuf: deque = deque()
+        self._handlers: dict = {}
+
+    def on(self, event: str, f=None):
+        def register(fn):
+            self._handlers[event] = fn
+            return fn
+
+        return register(f) if f else register
+
+    def stop(self):
+        fire_handler(self._handlers.get("ended"))
+
+    @property
+    def _fbs(self) -> int:
+        return int(getattr(self.pipeline, "frame_buffer_size", 1) or 1)
+
+    async def recv(self):
+        fbs = self._fbs
+        if fbs > 1 and hasattr(self.pipeline, "submit_batch"):
+            return await self._recv_batched(fbs)
+
+        while self.warmup_frame_idx < self.warmup_frames:
+            logger.info("dropping warmup frames %d", self.warmup_frame_idx)
+            frame = await self.track.recv()
+            await asyncio.to_thread(self.pipeline, frame)
+            self.warmup_frame_idx += 1
+
+        for _ in range(self.drop_frames):
+            await self.track.recv()
+
+        if self.pipeline_depth == 1:
+            frame = await self.track.recv()
+            return await asyncio.to_thread(self.pipeline, frame)
+
+        # keep `depth` frames in flight, return the oldest
+        while len(self._pending) < self.pipeline_depth:
+            frame = await self.track.recv()
+            handle = await asyncio.to_thread(self.pipeline.submit, frame)
+            self._pending.append((frame, handle))
+        src, handle = self._pending.popleft()
+        return await asyncio.to_thread(self.pipeline.fetch, handle, src)
+
+    async def _recv_batched(self, fbs: int):
+        async def pull_batch():
+            return [await self.track.recv() for _ in range(fbs)]
+
+        while self.warmup_frame_idx < self.warmup_frames:
+            logger.info("dropping warmup frame batch @%d", self.warmup_frame_idx)
+            srcs = await pull_batch()
+            h = await asyncio.to_thread(self.pipeline.submit_batch, srcs)
+            await asyncio.to_thread(self.pipeline.fetch_batch, h, srcs)
+            self.warmup_frame_idx += fbs
+
+        # keep `pipeline_depth` batches in flight, as the single-frame path
+        while not self._outbuf:
+            for _ in range(self.drop_frames):
+                await self.track.recv()
+            srcs = await pull_batch()
+            self._pending.append((srcs, await asyncio.to_thread(self.pipeline.submit_batch, srcs)))
+            if len(self._pending) >= self.pipeline_depth:
+                srcs0, h0 = self._pending.popleft()
+                self._outbuf.extend(await asyncio.to_thread(self.pipeline.fetch_batch, h0, srcs0))
+        return self._outbuf.popleft()

@@ -3,12 +3,15 @@
 ``StreamDiffusionPipeline(model_id)`` owns the model bundle and the engine
 and exposes the serving surface: ``__call__`` (frame in, frame out),
 ``submit``/``fetch`` (frames in flight), ``update_prompt``,
-``update_t_index_list``, ``update_guidance`` and ``restart``.
+``update_t_index_list``, ``update_guidance`` and ``restart``, plus the
+surface the serving track drives: ``fetch(handle, src_frame)`` and
+``postprocess`` (the source's pts and time_base carried to the output
+frame), ``frame_buffer_size`` and ``submit_batch``/``fetch_batch``.
 
 It runs on the card unless ``device="cpu"`` is passed, and raises without
 one.  There is no build-time probe with a fallback: a kernel that fails to
-build or launch raises.  AOT adoption, the safety checker, tracing spans
-and pts-carrying VideoFrame output are later slices.
+build or launch raises.  AOT adoption, the safety checker and tracing spans
+are later slices.
 """
 
 from __future__ import annotations
@@ -18,7 +21,9 @@ from typing import Sequence
 import numpy as np
 
 from .. import resolve_device
+from ..media.frames import wrap_processed
 from ..models import registry
+from ..utils import env
 from .engine import StreamConfig, StreamEngine
 
 DEFAULT_PROMPT = "fireworks in the night sky"
@@ -34,7 +39,10 @@ class StreamDiffusionPipeline:
         prompt: str = DEFAULT_PROMPT,
         seed: int = 2,
         device=None,
+        params: dict | None = None,
     ):
+        """``params``: a ready param tree (e.g. ``bridge.params_from_jax`` of
+        a JAX pipeline's); otherwise random weights from a fixed seed."""
         self.device = resolve_device(device)
         self.model_id = model_id
         self.prompt = prompt
@@ -44,7 +52,7 @@ class StreamDiffusionPipeline:
         cfg = config or registry.default_stream_config(model_id, device=self.device)
         bundle = registry.load_model_bundle(
             model_id, device=self.device, seed=0,
-            attn_impl=cfg.attn_impl,
+            attn_impl=cfg.attn_impl, params=params,
         )
         bundle.params = registry.cast_params(bundle.params, cfg.dtype)
         self.bundle = bundle
@@ -99,15 +107,46 @@ class StreamDiffusionPipeline:
     def preprocess(self, frame) -> np.ndarray:
         return coerce_frame(frame, self.config.height, self.config.width)
 
-    def __call__(self, frame) -> np.ndarray:
-        return self.engine(self.preprocess(frame))
+    def postprocess(self, out_u8: np.ndarray, src_frame=None):
+        """Attach the source frame's timing metadata when it carries any."""
+        if src_frame is not None and hasattr(src_frame, "pts"):
+            return wrap_processed(out_u8, src_frame)
+        return out_u8
+
+    def _finish(self, out_u8: np.ndarray, src_frame):
+        """The output contract: :meth:`postprocess`, unless HW_ENCODE serving
+        wants bare ndarrays."""
+        return out_u8 if env.hw_encode() else self.postprocess(out_u8, src_frame)
+
+    def __call__(self, frame):
+        return self._finish(self.engine(self.preprocess(frame)), frame)
 
     def submit(self, frame):
         """Queue one frame without waiting; returns a handle for :meth:`fetch`."""
         return self.engine.submit(self.preprocess(frame))
 
-    def fetch(self, handle) -> np.ndarray:
-        return self.engine.fetch(handle)
+    def fetch(self, handle, src_frame=None):
+        """Resolve a :meth:`submit` handle; attaches ``src_frame``'s pts."""
+        return self._finish(self.engine.fetch(handle), src_frame)
+
+    # -- frame_buffer_size > 1: fbs consecutive frames in one step ----------------
+
+    @property
+    def frame_buffer_size(self) -> int:
+        return self.config.frame_buffer_size
+
+    def submit_batch(self, frames):
+        """frames: a list of fbs frames -> one in-flight handle."""
+        return self.engine.submit(np.stack([self.preprocess(f) for f in frames]))
+
+    def fetch_batch(self, handle, src_frames=None):
+        """Resolve a :meth:`submit_batch` handle -> a list of fbs frames, each
+        with its source's pts."""
+        out = self.engine.fetch(handle)  # [fbs, H, W, 3]
+        return [
+            self._finish(out[i], src_frames[i] if src_frames else None)
+            for i in range(out.shape[0])
+        ]
 
 
 def coerce_frame(frame, h: int, w: int) -> np.ndarray:

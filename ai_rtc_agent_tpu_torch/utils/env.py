@@ -1,0 +1,57 @@
+"""Typed environment-variable reads — the port's copy of the getters the
+serving seam uses (counterpart of ai_rtc_agent_tpu/utils/env.py).
+
+Variables read by the port's server:
+  WARMUP_FRAMES, DROP_FRAMES        track warm-up / OBS stutter workaround
+  PIPELINE_DEPTH                    frames in flight per track
+  HW_ENCODE (alias NVENC)           bare ndarray frames out (no pts wrap)
+  WEBRTC_PROVIDER                   aiortc | loopback (native-rtp: later slice)
+  WEBHOOK_URL, AUTH_TOKEN           stream lifecycle webhooks
+  ICE_SERVERS, TWILIO_ACCOUNT_SID, TWILIO_AUTH_TOKEN   TURN servers
+"""
+
+from __future__ import annotations
+
+import os
+
+
+def get_str(name: str, default: str | None = None) -> str | None:
+    v = os.getenv(name)
+    return v if v is not None and v != "" else default
+
+
+def get_int(name: str, default: int) -> int:
+    v = os.getenv(name)
+    if v is None or v == "":
+        return default
+    try:
+        return int(v)
+    except ValueError as e:
+        raise ValueError(f"env var {name}={v!r} is not an integer") from e
+
+
+def get_bool(name: str, default: bool = False) -> bool:
+    """Truthy iff set to a non-empty value that is not 0/false/no/off."""
+    v = os.getenv(name)
+    if v is None or v == "":
+        return default
+    return v.strip().lower() not in ("0", "false", "no", "off")
+
+
+def warmup_frames() -> int:
+    return get_int("WARMUP_FRAMES", 10)
+
+
+def drop_frames() -> int:
+    return get_int("DROP_FRAMES", 0)
+
+
+def hw_encode() -> bool:
+    return get_bool("HW_ENCODE", get_bool("NVENC", False))
+
+
+def pipeline_depth() -> int:
+    """Frames kept in flight on the device per track (PIPELINE_DEPTH); 1 is
+    synchronous, more overlaps one frame's step with the next frame's
+    readback at the cost of ``depth`` frames of latency."""
+    return max(1, get_int("PIPELINE_DEPTH", 2))

@@ -24,17 +24,32 @@ Phases (each prints its own lines; any failure exits non-zero):
                 launch counts (32 attention + 1 epilogue per step), the
                 output frames, and one step against the plain path and an
                 f32 reference from the same state.
-  5. a "kernels" JSON line, then the last line {"ok": true, "device": ...}.
+  5. serve    — the same pipeline served through the port's session layer
+                (server/sessions.py, loopback provider, no HTTP): one WHIP
+                publisher and one WHEP viewer, 24 frames with pts pushed and
+                24 pulled with PIPELINE_DEPTH frames in flight; checks the
+                frames, their pts order and the launch counts (32 attention
+                + 1 epilogue per step), holds each served frame within 1
+                uint8 level of the same frame through __call__ after a
+                restart(), applies a /config prompt mid-session (the frames
+                after it must change), closes both sessions (no peer
+                connection left) and prints the served ms/frame and fps and
+                FrameStats' fps and latency p50.
+  6. a "kernels" JSON line (launch counts of phases 4 and 5), then the last
+     line {"ok": true, "device": ...}.
 
 Imports nothing of JAX or of the JAX package.
 """
 
 from __future__ import annotations
 
+import asyncio
 import json
 import math
+import os
 import subprocess
 import sys
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import replace
@@ -555,7 +570,161 @@ def phase_main(torch, card: str):
         fail(f"UNet with the attention kernel strays from the f32 reference ({ek:.3e} vs {ep:.3e})")
     if fk > 2 * fp + 0.5:
         fail(f"kernel-path frame strays from the f32 reference ({fk:.3f} vs {fp:.3f} levels)")
-    return attn_launches, epi_launches
+    return pipe, attn_launches, epi_launches
+
+
+SERVE_PROMPT = "an oil painting of a lighthouse in a storm"
+
+
+async def open_loopback_session(state: dict):
+    """One WHIP publisher and one WHEP viewer through the session layer;
+    returns (publisher session id, its pc, viewer session id, viewer track)."""
+    from ai_rtc_agent_tpu_torch.server import sessions
+    from ai_rtc_agent_tpu_torch.server.signaling import make_loopback_offer
+
+    pub = await sessions.publish(state, make_loopback_offer())
+    view = await sessions.subscribe(state, make_loopback_offer(video=False, datachannel=False))
+    if (pub.status, view.status) != (201, 201):
+        fail(f"serve: publish {pub.status}, subscribe {view.status} (want 201, 201)")
+    pub_id = pub.headers["Location"].rsplit("/", 1)[1]
+    view_id = view.headers["Location"].rsplit("/", 1)[1]
+    live = state["state"]
+    return pub_id, live["whip_pcs"][pub_id], view_id, live["whep_pcs"][view_id].out_tracks[0]
+
+
+async def exchange(publisher_pc, viewer, frames, first_pts: int, n_view: int, timeout_s=120.0):
+    """Push ``frames`` (uint8 arrays) into the publisher's track as
+    VideoFrames with pts first_pts, first_pts+1, ... while pulling
+    ``n_view`` frames from the viewer; returns the frames pulled and the
+    host clock (perf_counter) at each."""
+    from fractions import Fraction
+
+    from ai_rtc_agent_tpu_torch.media.frames import VideoFrame
+
+    async def push():
+        for i, f in enumerate(frames):
+            vf = VideoFrame.from_ndarray(f)
+            vf.pts, vf.time_base = first_pts + i, Fraction(1, 30)
+            await publisher_pc.in_track.push(vf)
+
+    pusher = asyncio.ensure_future(push())
+    views, times = [], []
+    try:
+        for _ in range(n_view):
+            views.append(await asyncio.wait_for(viewer.recv(), timeout_s))
+            times.append(time.perf_counter())
+        return views, times
+    finally:
+        await pusher
+
+
+def phase_serve(torch, card: str, pipe):
+    import numpy as np
+
+    from ai_rtc_agent_tpu_torch.ops.kernels import attention as KA
+    from ai_rtc_agent_tpu_torch.ops.kernels import fused_scheduler as KF
+    from ai_rtc_agent_tpu_torch.server import sessions
+    from ai_rtc_agent_tpu_torch.server.signaling import LoopbackProvider
+    from ai_rtc_agent_tpu_torch.utils import env
+
+    os.environ["WARMUP_FRAMES"] = "0"
+    os.environ["DROP_FRAMES"] = "0"
+    depth = env.pipeline_depth()
+    n = 24
+    frames = _frames(np, n)
+    # the track returns a frame once the next `depth - 1` are in flight, so
+    # the last viewed frame needs that many more pushed behind it
+    pushed = frames + frames[-1:] * (depth - 1)
+
+    def step_ms(new_thread: bool) -> float:
+        """Host clock of one synchronised step, on a thread of its own (as a
+        session's worker thread runs it) or on this one."""
+        took = []
+
+        def step():
+            t = time.perf_counter()
+            pipe(frames[0])
+            torch.cuda.synchronize()
+            took.append((time.perf_counter() - t) * 1e3)
+
+        if new_thread:
+            worker = threading.Thread(target=step)
+            worker.start()
+            worker.join()
+        else:
+            step()
+        return took[0]
+
+    first, second, here = step_ms(True), step_ms(True), step_ms(False)
+    say(f"serve: one step on a new thread {first:.2f} ms, on a second new thread {second:.2f} ms, "
+        f"on the main thread {here:.2f} ms")
+
+    async def serve():
+        state = {}
+        sessions.configure(state, model_id=pipe.model_id, pipeline=pipe, provider=LoopbackProvider())
+        sessions.startup(state)
+        pub_id, pub_pc, view_id, viewer = await open_loopback_session(state)
+        pipe.restart()
+        torch.cuda.synchronize()
+        KA.launches = 0
+        KF.launches = 0
+        t = time.perf_counter()
+        served, times = await exchange(pub_pc, viewer, pushed, 0, n)
+        launches = KA.launches, KF.launches
+        times = [x - t for x in times]
+        stats = sessions.metrics(state)
+
+        pipe.restart()  # the same frames through __call__ from the same state
+        direct = [pipe(f) for f in frames]
+        await sessions.update_config(state, {"prompt": SERVE_PROMPT})
+        after, _ = await exchange(pub_pc, viewer, frames[:4], len(pushed), 4)
+        closed = (await sessions.close(state, "whep", view_id), await sessions.close(state, "whip", pub_id))
+        left = len(state["pcs"])
+        await sessions.shutdown(state)
+        return served, times, launches, stats, direct, after, closed, left
+
+    served, times, (attn, epi), stats, direct, after, closed, left = asyncio.run(serve())
+    served_s = times[-1]
+    steps = len(pushed)  # every pushed frame was submitted when the last view arrived
+    say(f"serve: launches over {steps} steps ({n} viewed, {depth} in flight): attention {attn}, "
+        f"epilogue {epi}")
+    if attn != 32 * steps or epi != steps:
+        fail(f"serve: expected {32 * steps} attention and {steps} epilogue launches")
+    geometry = (pipe.config.height, pipe.config.width, 3)
+    for i, vf in enumerate(served):
+        a = vf.to_ndarray()
+        if a.shape != geometry or a.dtype != np.uint8:
+            fail(f"serve: bad frame {i}: {a.shape} {a.dtype}")
+    pts = [vf.pts for vf in served]
+    if pts != list(range(n)):
+        fail(f"serve: pts out of order: {pts}")
+    diff = np.stack([np.abs(vf.to_ndarray().astype(np.int16) - d) for vf, d in zip(served, direct)])
+    say(f"serve: {n} served frames vs __call__ after restart(): max |diff| {diff.max()} levels, "
+        f"mean {diff.mean():.4f}")
+    if diff.max() > 1:
+        fail("serve: a served frame is more than 1 uint8 level from its direct counterpart")
+    # after the /config prompt: the frames still in flight (old prompt), then
+    # frames 0, 1, ... again under the new prompt
+    if [vf.pts for vf in after] != list(range(n, n + 4)):
+        fail(f"serve: pts after /config out of order: {[vf.pts for vf in after]}")
+    renewed = after[depth - 1:]
+    change = np.mean([np.abs(a.to_ndarray().astype(np.int16) - b.to_ndarray()).mean()
+                      for a, b in zip(renewed, served)])
+    say(f"serve: /config prompt {SERVE_PROMPT!r} mid-session: frames 0-{len(renewed) - 1} after "
+        f"it differ from before by a mean {change:.3f} levels")
+    if change == 0:
+        fail("serve: the prompt change did not reach the served frames")
+    if closed != (True, True) or left:
+        fail(f"serve: closing returned {closed}, {left} peer connection(s) left")
+    steady = (times[-1] - times[0]) / (n - 1)
+    say(
+        f"serve: {card} | {n} frames publish -> diffuse -> view, {depth} in flight: "
+        f"{served_s * 1e3 / n:.2f} ms/frame ({n / served_s:.2f} fps); first view after "
+        f"{times[0] * 1e3:.2f} ms, then {steady * 1e3:.2f} ms/frame ({1 / steady:.2f} fps) | "
+        f"FrameStats fps {stats['fps']:.2f}, latency p50 {stats['latency_p50_ms']:.2f} ms "
+        f"(submit return -> fetch return) | sessions closed, 0 peer connections left"
+    )
+    return attn, epi
 
 
 def main():
@@ -565,7 +734,10 @@ def main():
     phase_build(torch)
     attn = phase_attention(torch)
     epi = phase_epilogue(torch)
-    attn_launches, epi_launches = phase_main(torch, card)
+    pipe, attn_launches, epi_launches = phase_main(torch, card)
+    serve_attn, serve_epi = phase_serve(torch, card, pipe)
+    attn_launches += serve_attn
+    epi_launches += serve_epi
     kernels = [
         {
             "name": "flash_attention", "route": "cuda",

@@ -12,6 +12,9 @@ holds the kernels to as well; the epilogue's call copies and graph replay
 are chip_smoke's own helpers (it imports only the standard library).
 """
 
+import asyncio
+
+import numpy as np
 import pytest
 import torch
 
@@ -21,6 +24,9 @@ from ai_rtc_agent_tpu_torch.ops import schedule as PS
 from ai_rtc_agent_tpu_torch.ops.kernels import attention as KA
 from ai_rtc_agent_tpu_torch.ops.kernels import fused_scheduler as KF
 from ai_rtc_agent_tpu_torch.ops.kernels import tolerance
+from ai_rtc_agent_tpu_torch.server import sessions
+from ai_rtc_agent_tpu_torch.server.signaling import LoopbackProvider
+from ai_rtc_agent_tpu_torch.stream.pipeline import StreamDiffusionPipeline
 
 pytestmark = pytest.mark.gpu
 
@@ -200,3 +206,42 @@ def test_epilogue_launch_replays_in_a_cuda_graph(cuda, cfg_type, turbo, b, fbs):
     and the replay, from the call's starting state, matches the plain version."""
     args, kwargs = _chain_call(cuda, torch.bfloat16, cfg_type, turbo, b, fbs, (64, 64, 4), 0)
     _assert_close(*chip_smoke.epilogue_graph_replay(torch, KF, args, kwargs))
+
+
+def test_loopback_session_on_the_card(cuda, monkeypatch):
+    """One WHIP publisher and one WHEP viewer through server/sessions.py on
+    the card, sd-turbo 512x512 bf16 with random weights: the served frames
+    carry their pts in order, sit within 1 uint8 level of __call__ from the
+    same state, and each step launches what a direct call does (32
+    attention, 1 epilogue); closing both sessions leaves no connection."""
+    monkeypatch.setenv("WARMUP_FRAMES", "0")
+    monkeypatch.setenv("PIPELINE_DEPTH", "2")
+    pipe = StreamDiffusionPipeline("stabilityai/sd-turbo")
+    frames = chip_smoke._frames(np, 4)
+    before = KA.launches, KF.launches
+    direct = [pipe(f) for f in frames]
+    assert (KA.launches - before[0], KF.launches - before[1]) == (32 * 4, 4)
+
+    async def serve():
+        state = {}
+        sessions.configure(state, pipeline=pipe, provider=LoopbackProvider())
+        sessions.startup(state)
+        pub_id, pub_pc, view_id, viewer = await chip_smoke.open_loopback_session(state)
+        pipe.restart()
+        start = KA.launches, KF.launches
+        served, _ = await chip_smoke.exchange(pub_pc, viewer, frames + frames[-1:], 0, 4)
+        launches = KA.launches - start[0], KF.launches - start[1]
+        closed = [await sessions.close(state, "whep", view_id),
+                  await sessions.close(state, "whip", pub_id)]
+        left = len(state["pcs"])
+        await sessions.shutdown(state)
+        return served, launches, closed, left
+
+    served, launches, closed, left = asyncio.run(serve())
+    assert launches == (32 * 5, 5)  # 4 viewed, 1 more in flight
+    assert [vf.pts for vf in served] == [0, 1, 2, 3]
+    for vf, d in zip(served, direct):
+        got = vf.to_ndarray()
+        assert got.shape == (512, 512, 3) and got.dtype == np.uint8
+        assert np.abs(got.astype(np.int16) - d).max() <= 1
+    assert closed == [True, True] and left == 0

@@ -1,0 +1,808 @@
+"""The port's serving seam (ai_rtc_agent_tpu_torch/server/) against the JAX
+agent, on the CPU.
+
+* HTTP contract: one request script runs against the JAX ``build_app`` and
+  the port's, each with the same fake pipeline (inverted colours) and its
+  own loopback provider, and the transcripts must be equal: statuses,
+  content types, CORS headers, ``Location`` (session ids masked), answer
+  bodies (ids masked), the pipeline's control-plane state and the frames
+  the viewers receive.  ``SUPERVISOR=0`` puts the JAX agent on the
+  unsupervised tier the port serves.
+* The slice as a whole: the tiny-test turbo pipeline served through each
+  agent (JAX with its Pallas attention in interpret mode; the port on the
+  CPU with the JAX pipeline's weights and prepared state carried across by
+  ``bridge``), the same frames pushed into both, the viewed frames at most 1
+  uint8 level apart (the rounding-tie class of tests/test_torch_stream.py);
+  and the port's viewed frames bit-exact to its own ``__call__`` from the
+  same state.
+* The pipeline surface the track drives, the track itself, webhooks, TURN,
+  env getters and FrameStats against their JAX counterparts, exactly.
+* Guards: only ``server/agent.py`` imports aiohttp at module level, nothing
+  imports pydantic, ``native-rtp`` raises ``NotImplementedError``, and the
+  agent refuses to start without ``device="cpu"`` on a box with no card.
+"""
+
+import ast
+import asyncio
+import json
+import random
+import re
+import time
+from fractions import Fraction
+from pathlib import Path
+from types import SimpleNamespace
+
+import jax
+import numpy as np
+import pytest
+import torch
+from aiohttp.test_utils import TestClient, TestServer
+
+from ai_rtc_agent_tpu.media import frames as JF
+from ai_rtc_agent_tpu.models import registry as JREG
+from ai_rtc_agent_tpu.resilience import retry as JRETRY
+from ai_rtc_agent_tpu.server import agent as JA
+from ai_rtc_agent_tpu.server import events as JE
+from ai_rtc_agent_tpu.server import relay as JR
+from ai_rtc_agent_tpu.server import signaling as JS
+from ai_rtc_agent_tpu.server import tracks as JT
+from ai_rtc_agent_tpu.server import turn as JTURN
+from ai_rtc_agent_tpu.stream.pipeline import StreamDiffusionPipeline as JPipeline
+from ai_rtc_agent_tpu.utils import env as JENV
+from ai_rtc_agent_tpu.utils import profiling as JPROF
+from ai_rtc_agent_tpu_torch import bridge
+from ai_rtc_agent_tpu_torch.media import frames as PF
+from ai_rtc_agent_tpu_torch.models import registry as PREG
+from ai_rtc_agent_tpu_torch.server import agent as PA
+from ai_rtc_agent_tpu_torch.server import events as PE
+from ai_rtc_agent_tpu_torch.server import relay as PR
+from ai_rtc_agent_tpu_torch.server import sessions
+from ai_rtc_agent_tpu_torch.server import signaling as PS
+from ai_rtc_agent_tpu_torch.server import tracks as PT
+from ai_rtc_agent_tpu_torch.server import turn as PTURN
+from ai_rtc_agent_tpu_torch.stream.pipeline import StreamDiffusionPipeline as PPipeline
+from ai_rtc_agent_tpu_torch.utils import env as PENV
+from ai_rtc_agent_tpu_torch.utils import profiling as PPROF
+
+REPO = Path(__file__).resolve().parents[1]
+SIDES = {
+    "jax": SimpleNamespace(agent=JA, signaling=JS, relay=JR, frames=JF),
+    "port": SimpleNamespace(agent=PA, signaling=PS, relay=PR, frames=PF),
+}
+SDP = {"Content-Type": "application/sdp"}
+CORS = ("Access-Control-Allow-Origin", "Access-Control-Allow-Headers",
+        "Access-Control-Allow-Methods")
+UUID = re.compile(r"[0-9a-f]{8}-[0-9a-f]{4}-[0-9a-f]{4}-[0-9a-f]{4}-[0-9a-f]{12}")
+TURBO = dict(t_index_list=(0,), num_inference_steps=1, timestep_spacing="trailing",
+             scheduler="turbo", cfg_type="none")
+
+
+@pytest.fixture(autouse=True)
+def unsupervised(monkeypatch):
+    monkeypatch.setenv("SUPERVISOR", "0")
+    monkeypatch.setenv("WARMUP_FRAMES", "0")
+    monkeypatch.delenv("HW_ENCODE", raising=False)
+    monkeypatch.delenv("NVENC", raising=False)
+    monkeypatch.delenv("PIPELINE_DEPTH", raising=False)
+    monkeypatch.delenv("DROP_FRAMES", raising=False)
+
+
+class FakePipeline:
+    """Pipeline stand-in: invert colors; records control-plane calls."""
+
+    def __init__(self):
+        self.prompt = None
+        self.t_index_list = None
+        self.calls = 0
+
+    def __call__(self, frame):
+        self.calls += 1
+        arr = frame if isinstance(frame, np.ndarray) else frame.to_ndarray()
+        return 255 - arr
+
+    def update_prompt(self, p):
+        self.prompt = p
+
+    def update_t_index_list(self, t):
+        if len(t) != 4:
+            raise ValueError("length must stay 4")
+        self.t_index_list = list(t)
+
+
+async def _obs(r) -> dict:
+    """What the contract fixes of a response: status, content type, CORS,
+    Location and X-Stream-Id (ids masked), the body (ids masked)."""
+    body = await r.text()
+    loc = r.headers.get("Location")
+    return {
+        "status": r.status,
+        "type": r.content_type,
+        "cors": [r.headers.get(k) for k in CORS],
+        "location": None if loc is None else UUID.sub("<id>", loc),
+        "stream_id": UUID.sub("<id>", r.headers.get("X-Stream-Id", "")),
+        "body": UUID.sub("<id>", body),
+    }
+
+
+def _run_both(case, monkeypatch):
+    """Run ``case(ctx)`` against each agent; the transcripts must be equal."""
+
+    async def drive(m):
+        pipe = FakePipeline()
+        app = m.agent.build_app(pipeline=pipe, provider=m.signaling.LoopbackProvider())
+        client = TestClient(TestServer(app))
+        await client.start_server()
+        try:
+            return await case(SimpleNamespace(app=app, client=client, pipe=pipe, m=m,
+                                              monkeypatch=monkeypatch))
+        finally:
+            await client.close()
+
+    got = {side: asyncio.run(drive(m)) for side, m in SIDES.items()}
+    assert got["port"] == got["jax"]
+    return got["port"]
+
+
+async def _whip(c):
+    return await c.client.post("/whip", data=c.m.signaling.make_loopback_offer(), headers=SDP)
+
+
+async def _whep(c):
+    offer = c.m.signaling.make_loopback_offer(video=False, datachannel=False)
+    return await c.client.post("/whep", data=offer, headers=SDP)
+
+
+def _viewers(c):
+    return [pc.out_tracks[0] for pc in c.app["state"]["whep_pcs"].values()]
+
+
+async def case_health_and_cors(c):
+    out = [await _obs(await c.client.get("/"))]
+    for path in ("/config", "/whip", "/whep", "/offer"):
+        out.append(await _obs(await c.client.options(path)))
+    return out
+
+
+async def case_config(c):
+    post = c.client.post
+    out = [await _obs(await post("/config", json={"prompt": "hello", "t_index_list": [1, 2, 3, 4]}))]
+    for body in ({"t_index_list": [1]}, {"t_index_list": [18, None]},
+                 {"prompt": "late", "guidance_scale": 2.0}, {"prompt": "late", "delta": 0.5},
+                 {"prompt": "late", "encoder": {"bitrate": 1}}):
+        out.append(await _obs(await post("/config", json=body)))
+    for raw in ("[1,2]", "null", "{", "not json"):
+        out.append(await _obs(await post("/config", data=raw,
+                                         headers={"Content-Type": "application/json"})))
+    # refused before anything applies (the message names a different owner)
+    r = await post("/config", json={"prompt": "late", "adapter": "ghibli"})
+    out.append(r.status)
+    out.append((c.pipe.prompt, c.pipe.t_index_list))
+    return out
+
+
+async def case_whep_without_source(c):
+    out = [await _obs(await c.client.post("/whep", data="fake", headers=SDP))]
+    out.append(await _obs(await c.client.delete("/whep")))
+    out.append(await _obs(await c.client.post("/whip", data="x", headers={"Content-Type": "text/plain"})))
+    out.append(await _obs(await c.client.post("/whep", data="x", headers={"Content-Type": "text/plain"})))
+    for path in ("/whip", "/whep/nonexistent", "/whip/nonexistent"):
+        out.append(await _obs(await c.client.delete(path)))
+    return out
+
+
+async def case_whip_then_whep_end_to_end(c):
+    """WARMUP_FRAMES=2: the first two frames go through the pipeline and are
+    dropped; the viewer's first frame is the third, inverted."""
+    c.monkeypatch.setenv("WARMUP_FRAMES", "2")
+    out = [await _obs(await _whip(c))]
+    source = c.app["state"]["source_track"]
+    out.append(await _obs(await _whep(c)))
+    (viewer,) = _viewers(c)
+    out.append((source is not None, viewer is not source))
+    pub = next(iter(c.app["state"]["whip_pcs"].values()))
+    for i in range(4):
+        await pub.in_track.push(np.full((8, 8, 3), i * 10, dtype=np.uint8))
+    out.append((await viewer.recv()).tolist())
+    out.append(c.pipe.calls >= 3)
+    await pub.datachannel.deliver(json.dumps({"prompt": "via dc"}))
+    await pub.datachannel.deliver("not json")  # logged, not raised
+    out.append(c.pipe.prompt)
+    return out
+
+
+async def case_offer_with_webhooks(c):
+    events = []
+    h = c.app["stream_event_handler"]
+    h.handle_stream_started = lambda s, r, **kw: events.append(("started", r))
+    h.handle_stream_ended = lambda s, r, **kw: events.append(("ended", r))
+    offer = {"sdp": c.m.signaling.make_loopback_offer(), "type": "offer"}
+    r = await c.client.post("/offer", json={"room_id": "room1", "offer": offer})
+    out = [await _obs(r)]
+    (pc,) = c.app["pcs"]
+    out.append((pc.connectionState, len(pc.out_tracks)))
+    await pc.in_track.push(np.full((8, 8, 3), 40, dtype=np.uint8))
+    out.append((await pc.out_tracks[0].recv()).tolist())
+    await pc.datachannel.deliver(json.dumps({"prompt": "offer dc"}))
+    out.append(c.pipe.prompt)
+    await pc.close()
+    out.append((list(events), len(c.app["pcs"])))
+    for body in ({"offer": offer}, {"room_id": "r"}, {"room_id": "r", "offer": {"sdp": "x"}}):
+        out.append(await _obs(await c.client.post("/offer", json=body)))
+    out.append(await _obs(await c.client.post("/offer", data="{",
+                                              headers={"Content-Type": "application/json"})))
+    out.append(len(c.app["pcs"]))
+    return out
+
+
+async def case_session_scoped_delete(c):
+    out = [await _obs(await _whip(c))]
+    locs = []
+    for _ in range(2):
+        r = await _whep(c)
+        out.append(await _obs(r))
+        locs.append(r.headers["Location"])
+    by_session = dict(c.app["state"]["whep_pcs"])
+    sids = [loc.rsplit("/", 1)[1] for loc in locs]
+    out.append(await _obs(await c.client.delete(locs[0])))
+    out.append([by_session[s].connectionState for s in sids])
+    out.append(sids[1] in c.app["state"]["whep_pcs"])
+    out.append(await _obs(await c.client.delete("/whep/nonexistent")))
+    out.append(await _obs(await c.client.delete("/whep")))
+    out.append(by_session[sids[1]].connectionState)
+    out.append(await _obs(await c.client.delete("/whip")))
+    out.append((c.app["state"]["source_track"] is None, dict(c.app["state"]["whip_pcs"])))
+    return out
+
+
+async def case_two_viewers(c):
+    out = [await _obs(await _whip(c))]
+    for _ in range(2):
+        out.append(await _obs(await _whep(c)))
+    viewers = _viewers(c)
+    pub = next(iter(c.app["state"]["whip_pcs"].values()))
+    for i in range(3):
+        await pub.in_track.push(np.full((8, 8, 3), 30 + i * 40, dtype=np.uint8))
+    # in rounds: a viewer left unread past its 2-frame queue drops (latest wins)
+    out.append([[(await v.recv()).tolist() for v in viewers] for _ in range(3)])
+    return out
+
+
+async def case_slow_viewer_drops_not_blocks(c):
+    class Source:
+        def __init__(self):
+            self.q = asyncio.Queue()
+
+        async def recv(self):
+            return await self.q.get()
+
+    src = Source()
+    relay = c.m.relay.TrackRelay(src)
+    fast, slow = relay.subscribe(maxsize=2), relay.subscribe(maxsize=2)
+    for i in range(8):
+        await src.q.put(np.full((4, 4, 3), i, np.uint8))
+    out = [[int((await fast.recv())[0, 0, 0]) for _ in range(2)], int((await slow.recv())[0, 0, 0])]
+    slow.stop()
+    await src.q.put(np.full((4, 4, 3), 99, np.uint8))
+    out.append(int((await fast.recv())[0, 0, 0]))
+    relay.stop()
+    return out
+
+
+async def case_publisher_failover(c):
+    locs = []
+    out = []
+    for _ in range(2):
+        r = await _whip(c)
+        out.append(await _obs(r))
+        locs.append(r.headers["Location"])
+    sids = [loc.rsplit("/", 1)[1] for loc in locs]
+    st = c.app["state"]
+    out.append(st["source_relay"] is st["whip_relays"][sids[1]])
+    out.append(await _obs(await c.client.delete(locs[1])))
+    out.append((st["source_track"] is st["whip_tracks"][sids[0]],
+                st["source_relay"] is st["whip_relays"][sids[0]], sids[1] in st["whip_relays"]))
+    out.append(await _obs(await _whep(c)))
+    (viewer,) = _viewers(c)
+    await st["whip_pcs"][sids[0]].in_track.push(np.full((8, 8, 3), 77, np.uint8))
+    out.append((await viewer.recv()).tolist())
+    return out
+
+
+async def case_publisher_churn_sweeps_dead_sessions(c):
+    locs = [(await _whip(c)).headers["Location"] for _ in range(2)]
+    sids = [loc.rsplit("/", 1)[1] for loc in locs]
+    out = [await _obs(await c.client.delete(locs[0]))]
+    st = c.app["state"]
+    out.append((sids[0] in st["whip_tracks"], sids[0] in st["whip_relays"],
+                st["source_relay"] is st["whip_relays"][sids[1]]))
+    return out
+
+
+async def case_failed_offer_closes_its_pc(c):
+    async def boom(self):
+        raise RuntimeError("synthetic createAnswer failure")
+
+    c.monkeypatch.setattr(c.m.signaling.LoopbackPeerConnection, "createAnswer", boom)
+    offer = {"sdp": c.m.signaling.make_loopback_offer(), "type": "offer"}
+    out = [(await c.client.post("/offer", json={"room_id": "r1", "offer": offer})).status]
+    out.append(len(c.app["pcs"]))
+    out.append((await _whip(c)).status)  # a failed publish leaves nothing either
+    out.append((len(c.app["pcs"]), dict(c.app["state"]["whip_pcs"]), c.app["state"]["source_track"]))
+    return out
+
+
+async def case_metrics(c):
+    r = await c.client.get("/metrics")
+    body = await r.json()
+    port_keys = ("frames_total", "fps", "latency_p50_ms", "latency_p90_ms", "latency_max_ms")
+    return [r.status, r.content_type, {k: body[k] for k in port_keys}]
+
+
+CASES = [case_health_and_cors, case_config, case_whep_without_source,
+         case_whip_then_whep_end_to_end, case_offer_with_webhooks, case_session_scoped_delete,
+         case_two_viewers, case_slow_viewer_drops_not_blocks, case_publisher_failover,
+         case_publisher_churn_sweeps_dead_sessions, case_failed_offer_closes_its_pc, case_metrics]
+
+
+@pytest.mark.parametrize("case", CASES, ids=[f.__name__[5:] for f in CASES])
+def test_http_contract_matches_jax_agent(monkeypatch, case):
+    _run_both(case, monkeypatch)
+
+
+def test_port_metrics_are_the_jax_frame_stats():
+    async def go():
+        app = PA.build_app(pipeline=FakePipeline(), provider=PS.LoopbackProvider())
+        client = TestClient(TestServer(app))
+        await client.start_server()
+        try:
+            return await (await client.get("/metrics")).json()
+        finally:
+            await client.close()
+
+    assert set(asyncio.run(go())) == set(JPROF.FrameStats().snapshot())
+
+
+# -- the slice as a whole: the tiny-test turbo pipeline served by each agent ------
+
+@pytest.fixture(scope="module")
+def jax_pipe():
+    """Pallas flash attention (interpret mode); the composed epilogue, whose
+    Pallas kernel the port's kernel tests already hold."""
+    cfg = JREG.default_stream_config("tiny-test", attn_impl="pallas", use_fused_epilogue=False, **TURBO)
+    pipe = JPipeline("tiny-test", config=cfg)
+    pipe(np.zeros((64, 64, 3), np.uint8))  # compile before serving; turbo/none keeps no ring
+    pipe.state0 = jax.tree.map(np.asarray, pipe.engine.state)
+    return pipe
+
+
+@pytest.fixture(scope="module")
+def port_pipe(jax_pipe):
+    cfg = PREG.default_stream_config("tiny-test", device="cpu", **TURBO)
+    params = bridge.params_from_jax(jax.tree.map(np.asarray, jax_pipe.engine.params))
+    return PPipeline("tiny-test", config=cfg, device="cpu", params=params, prompt=jax_pipe.prompt)
+
+
+def _frames(n=6, seed=3):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, 256, (64, 64, 3), dtype=np.uint8) for _ in range(n)]
+
+
+async def _serve(m, pipeline, frames):
+    """WHIP + WHEP through ``m``'s agent; push ``frames`` (pts 0, 1, ...) and
+    one more behind them (the track keeps 2 in flight); -> frames viewed."""
+    app = m.agent.build_app(pipeline=pipeline, provider=m.signaling.LoopbackProvider())
+    client = TestClient(TestServer(app))
+    await client.start_server()
+    try:
+        c = SimpleNamespace(client=client, m=m)
+        assert (await _whip(c)).status == 201 and (await _whep(c)).status == 201
+        pub = next(iter(app["state"]["whip_pcs"].values()))
+        viewer = next(pc for pc in app["state"]["whep_pcs"].values()).out_tracks[0]
+        for i, f in enumerate(frames + frames[-1:]):
+            vf = m.frames.VideoFrame.from_ndarray(f)
+            vf.pts, vf.time_base = i, Fraction(1, 30)
+            await pub.in_track.push(vf)
+        return [await asyncio.wait_for(viewer.recv(), 60) for _ in frames]
+    finally:
+        await client.close()
+
+
+def test_served_frames_match_the_jax_agent(jax_pipe, port_pipe):
+    frames = _frames()
+    want = asyncio.run(_serve(SIDES["jax"], jax_pipe, frames))
+    port_pipe.engine.state = bridge.state_from_jax(jax_pipe.state0)
+    got = asyncio.run(_serve(SIDES["port"], port_pipe, frames))
+    assert [g.pts for g in got] == [w.pts for w in want] == list(range(len(frames)))
+    assert {g.time_base for g in got} == {w.time_base for w in want} == {Fraction(1, 30)}
+    for g, w in zip(got, want):
+        diff = np.abs(g.to_ndarray().astype(np.int16) - w.to_ndarray().astype(np.int16))
+        assert g.to_ndarray().shape == (64, 64, 3) and diff.max() <= 1, diff.max()
+
+
+def test_served_frames_are_the_direct_call_after_restart(port_pipe):
+    frames = _frames(seed=4)
+    port_pipe.restart()
+    served = asyncio.run(_serve(SIDES["port"], port_pipe, frames))
+    port_pipe.restart()
+    for vf, f in zip(served, frames):
+        np.testing.assert_array_equal(vf.to_ndarray(), port_pipe(f))
+
+
+# -- the pipeline surface the track drives ---------------------------------------
+
+def _vframes(mod, frames, pts0=10):
+    out = []
+    for i, f in enumerate(frames):
+        vf = mod.VideoFrame.from_ndarray(f)
+        vf.pts, vf.time_base, vf.wall_ts = pts0 + i, Fraction(1, 90000), 5.0 + i
+        out.append(vf)
+    return out
+
+
+def _assert_frames_close(got, want):
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert type(g).__name__ == type(w).__name__
+        if hasattr(w, "pts"):
+            assert (g.pts, g.time_base, g.wall_ts) == (w.pts, w.time_base, w.wall_ts)
+            g, w = g.to_ndarray(), w.to_ndarray()
+        assert g.shape == w.shape and g.dtype == w.dtype == np.uint8
+        assert np.abs(g.astype(np.int16) - w.astype(np.int16)).max() <= 1
+
+
+@pytest.mark.parametrize("with_src", [True, False])
+def test_fetch_with_source_frame_matches_jax(jax_pipe, port_pipe, with_src):
+    frames = _frames(3, seed=5)
+    port_pipe.engine.state = bridge.state_from_jax(jax_pipe.state0)
+    outs = {}
+    for name, pipe, mod in (("jax", jax_pipe, JF), ("port", port_pipe, PF)):
+        src = _vframes(mod, frames)
+        handles = [pipe.submit(f) for f in src]
+        outs[name] = [pipe.fetch(h, f if with_src else None) for h, f in zip(handles, src)]
+        # postprocess wraps only a source with pts
+        outs[name].append(pipe.postprocess(frames[0], src[0]))
+        outs[name].append(pipe.postprocess(frames[0], frames[1]))
+    _assert_frames_close(outs["port"], outs["jax"])
+
+
+@pytest.mark.parametrize("hw_encode", ["0", "1"])
+def test_call_keeps_pts_unless_hw_encode(monkeypatch, jax_pipe, port_pipe, hw_encode):
+    monkeypatch.setenv("HW_ENCODE", hw_encode)
+    frames = _frames(2, seed=6)
+    port_pipe.engine.state = bridge.state_from_jax(jax_pipe.state0)
+    got = [port_pipe(f) for f in _vframes(PF, frames)] + [port_pipe(frames[0])]
+    want = [jax_pipe(f) for f in _vframes(JF, frames)] + [jax_pipe(frames[0])]
+    _assert_frames_close(got, want)
+    assert isinstance(got[0], np.ndarray) == (hw_encode == "1")
+
+
+def test_fbs2_batches_match_jax():
+    """frame_buffer_size=2 (JAX on its default composed path): submit_batch /
+    fetch_batch of two frames at a time, pts carried per frame."""
+    cfg = JREG.default_stream_config("tiny-test", frame_buffer_size=2, **TURBO)
+    jpipe = JPipeline("tiny-test", config=cfg)
+    params = bridge.params_from_jax(jax.tree.map(np.asarray, jpipe.engine.params))
+    ppipe = PPipeline("tiny-test", config=PREG.default_stream_config(
+        "tiny-test", device="cpu", frame_buffer_size=2, **TURBO), device="cpu", params=params,
+        prompt=jpipe.prompt)
+    ppipe.engine.state = bridge.state_from_jax(jax.tree.map(np.asarray, jpipe.engine.state))
+    assert ppipe.frame_buffer_size == jpipe.frame_buffer_size == 2
+    frames = _frames(4, seed=7)
+    outs = {}
+    for name, pipe, mod in (("jax", jpipe, JF), ("port", ppipe, PF)):
+        src = _vframes(mod, frames)
+        h0, h1 = pipe.submit_batch(src[:2]), pipe.submit_batch(src[2:])
+        outs[name] = pipe.fetch_batch(h0, src[:2]) + pipe.fetch_batch(h1)
+    _assert_frames_close(outs["port"], outs["jax"])
+
+
+class FakeBatchPipeline(FakePipeline):
+    """Invert colors through submit/fetch and submit_batch/fetch_batch."""
+
+    def __init__(self, fbs):
+        super().__init__()
+        self.frame_buffer_size = fbs
+
+    def submit(self, frame):
+        return self(frame)
+
+    def fetch(self, handle, src=None):
+        return handle
+
+    def submit_batch(self, frames):
+        return [self(f) for f in frames]
+
+    def fetch_batch(self, handle, srcs=None):
+        return handle
+
+
+@pytest.mark.parametrize("depth,fbs,warmup,drop", [
+    (1, 1, 0, 0), (2, 1, 0, 0), (3, 1, 2, 1), (1, 2, 0, 0), (2, 2, 2, 0), (2, 2, 0, 1),
+])
+def test_track_matches_jax(monkeypatch, depth, fbs, warmup, drop):
+    """VideoStreamTrack: warm-up, dropped frames, frames in flight and the
+    fbs batched path deliver the same frames in the same order."""
+    monkeypatch.setenv("WARMUP_FRAMES", str(warmup))
+    monkeypatch.setenv("DROP_FRAMES", str(drop))
+
+    async def drive(tracks_mod, sig):
+        src = sig.LoopbackTrack()
+        pipe = FakeBatchPipeline(fbs)
+        track = tracks_mod.VideoStreamTrack(src, pipe, pipeline_depth=depth)
+        for i in range(16):  # the source queue's bound; the cases need at most 16
+            await src.push(np.full((4, 4, 3), i, np.uint8))
+        return [int((await track.recv())[0, 0, 0]) for _ in range(6)], pipe.calls
+
+    want = asyncio.run(drive(JT, JS))
+    assert asyncio.run(drive(PT, PS)) == want
+
+
+# -- webhooks, TURN, env, FrameStats, frames ------------------------------------
+
+class _Capture:
+    def __init__(self):
+        self.posts = []
+
+    def __call__(self):
+        return self
+
+    async def post(self, url, headers=None, json=None):
+        self.posts.append((url, headers, json))
+        return SimpleNamespace(status=200)
+
+
+@pytest.mark.parametrize("event", ["started", "ended"])
+def test_webhook_json_matches_jax_model_dump(monkeypatch, event):
+    monkeypatch.setattr(time, "time", lambda: 1_700_000_000.7)
+    monkeypatch.setenv("WEBHOOK_URL", "http://hook/x")
+    monkeypatch.setenv("AUTH_TOKEN", "tok")
+
+    async def post(mod):
+        cap = _Capture()
+        h = mod.StreamEventHandler(session_factory=cap)
+        await getattr(h, f"handle_stream_{event}")("stream-1", "room-9")
+        return cap.posts
+
+    got, want = asyncio.run(post(PE)), asyncio.run(post(JE))
+    assert got == want and len(got) == 1
+    assert got[0][2]["event"] == f"Stream{event.capitalize()}"
+
+
+def test_webhooks_off_without_url_and_token(monkeypatch):
+    monkeypatch.delenv("WEBHOOK_URL", raising=False)
+    monkeypatch.delenv("AUTH_TOKEN", raising=False)
+    assert PE.StreamEventHandler().handle_stream_started("s", "r") is None
+    monkeypatch.setenv("WEBHOOK_URL", "http://hook/x")
+    monkeypatch.setenv("AUTH_TOKEN", "tok")
+    with pytest.raises(ValueError):  # supervision's events are a later slice
+        PE.StreamEventHandler().send_request("StreamDegraded", "s", "r")
+
+
+TOKEN = {"ice_servers": [
+    {"url": "stun:global.stun.twilio.com:3478"},
+    {"url": "turn:global.turn.twilio.com:3478?transport=udp", "username": "u", "credential": "c"},
+    {"url": "turn:global.turn.twilio.com:443?transport=tcp", "urls": "turns:x", "username": "u2",
+     "credential": "c2"},
+]}
+
+
+@pytest.mark.parametrize("env,reply", [
+    ({"ICE_SERVERS": json.dumps([{"urls": ["turn:a"], "username": "x", "credential": "y"}])}, None),
+    ({"ICE_SERVERS": "{not json"}, None),
+    ({"ICE_SERVERS": json.dumps({"urls": "turn:a"})}, None),
+    ({"TWILIO_ACCOUNT_SID": "AC1", "TWILIO_AUTH_TOKEN": "s3"}, (200, TOKEN)),
+    ({"TWILIO_ACCOUNT_SID": "AC1", "TWILIO_AUTH_TOKEN": "s3"}, (403, {})),
+    ({}, (200, TOKEN)),
+])
+def test_ice_servers_match_jax(monkeypatch, env, reply):
+    for k in ("ICE_SERVERS", "TWILIO_ACCOUNT_SID", "TWILIO_AUTH_TOKEN"):
+        monkeypatch.delenv(k, raising=False)
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+
+    def servers(mod):
+        calls = []
+
+        def http_post(url, headers):
+            calls.append((url, headers))
+            return reply
+
+        return mod.get_ice_servers(http_post), calls
+
+    got, want = servers(PTURN), servers(JTURN)
+    assert got == want
+    if got[0]:
+        assert PTURN.get_link_headers(got[0]) == JTURN.get_link_headers(want[0])
+
+
+def test_twilio_backoff_schedule_matches_jax_transient_policy():
+    """Transport failures retry 3 times with the same full-jitter delays as
+    the JAX package's transient_policy (same seeded rng), then give up."""
+
+    def failing():
+        raise OSError("down")
+
+    delays = {}
+    for name in ("port", "jax"):
+        slept = []
+        with pytest.raises((PTURN.RetryError, JRETRY.RetryError)):
+            if name == "port":
+                PTURN.transient_retry(failing, (OSError,), sleep=slept.append, rng=random.Random(7))
+            else:
+                JRETRY.transient_policy(attempts=3).run(
+                    failing, retry_on=(OSError,), sleep=slept.append, rng=random.Random(7))
+        delays[name] = slept
+    assert delays["port"] == delays["jax"] and len(delays["port"]) == 2
+
+
+@pytest.mark.parametrize("name,value", [
+    ("WARMUP_FRAMES", None), ("WARMUP_FRAMES", "3"), ("DROP_FRAMES", "2"), ("PIPELINE_DEPTH", "0"),
+    ("PIPELINE_DEPTH", "4"), ("HW_ENCODE", "off"), ("HW_ENCODE", "yes"), ("NVENC", "1"),
+])
+def test_env_getters_match_jax(monkeypatch, name, value):
+    if value is None:
+        monkeypatch.delenv(name, raising=False)
+    else:
+        monkeypatch.setenv(name, value)
+    for fn in ("warmup_frames", "drop_frames", "pipeline_depth", "hw_encode"):
+        assert getattr(PENV, fn)() == getattr(JENV, fn)(), fn
+    assert PENV.get_str(name, "d") == JENV.get_str(name, "d")
+    assert PENV.get_bool(name, True) == JENV.get_bool(name, True)
+
+
+def test_env_rejects_a_non_integer(monkeypatch):
+    monkeypatch.setenv("WARMUP_FRAMES", "ten")
+    with pytest.raises(ValueError, match="not an integer"):
+        PENV.warmup_frames()
+
+
+def test_frame_stats_snapshot_matches_jax():
+    stats = [PPROF.FrameStats(window=8), JPROF.FrameStats(window=8)]
+    for s in stats:
+        for i in range(12):
+            s.record(0.01 * (i % 5 + 1), t=100.0 + 0.04 * i)
+            s.record_stage("broadcast_freshness", 0.002 * i)
+        s.count("broadcast_viewer_drops", 3)
+    assert stats[0].snapshot() == stats[1].snapshot()
+
+
+def test_wrap_processed_matches_jax():
+    arr = np.arange(48, dtype=np.uint8).reshape(4, 4, 3)
+    outs = [mod.wrap_processed(255 - arr, _vframes(mod, [arr], pts0=7)[0]) for mod in (PF, JF)]
+    meta = [(o.pts, o.time_base, o.wall_ts) for o in outs]
+    assert meta[0] == meta[1] == (7, Fraction(1, 90000), 5.0)
+    np.testing.assert_array_equal(outs[0].to_ndarray(), outs[1].to_ndarray())
+    with pytest.raises(ValueError):
+        PF.VideoFrame.from_ndarray(arr[..., :2])
+
+
+def test_udp_port_pinning_patch():
+    """Unbound datagram endpoints land on a pinned port; both busy raises;
+    an explicit port bypasses the pin list."""
+
+    async def go():
+        loop = asyncio.get_running_loop()
+        PA.patch_loop_datagram(["39561", "39562"])
+        made = [await loop.create_datagram_endpoint(asyncio.DatagramProtocol,
+                                                    local_addr=("127.0.0.1", 0)) for _ in range(2)]
+        ports = {tr.get_extra_info("sockname")[1] for tr, _ in made}
+        with pytest.raises(OSError):
+            await loop.create_datagram_endpoint(asyncio.DatagramProtocol, local_addr=("127.0.0.1", 0))
+        tr3, _ = await loop.create_datagram_endpoint(asyncio.DatagramProtocol,
+                                                     local_addr=("127.0.0.1", 39610))
+        explicit = tr3.get_extra_info("sockname")[1]
+        for tr, _ in made + [(tr3, None)]:
+            tr.close()
+        return ports, explicit
+
+    assert asyncio.run(go()) == ({39561, 39562}, 39610)
+
+
+# -- guards ------------------------------------------------------------------------
+
+def _module_level_imports(tree):
+    """Import roots of statements that run at import time (not in a def)."""
+    stack = list(tree.body)
+    while stack:
+        node = stack.pop()
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)):
+            if isinstance(node, ast.ClassDef):
+                stack.extend(node.body)
+            continue
+        if isinstance(node, ast.Import):
+            yield from (a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield (node.module or "").split(".")[0]
+        else:
+            stack.extend(ast.iter_child_nodes(node))
+
+
+def _port_files():
+    return sorted((REPO / "ai_rtc_agent_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+def test_only_the_http_layer_imports_aiohttp_at_module_level():
+    importers = [p.relative_to(REPO).as_posix() for p in _port_files()
+                 if "aiohttp" in _module_level_imports(ast.parse(p.read_text()))]
+    assert importers == ["ai_rtc_agent_tpu_torch/server/agent.py"]
+
+
+def test_nothing_imports_pydantic():
+    for path in _port_files():
+        for node in ast.walk(ast.parse(path.read_text())):
+            names = ([a.name for a in node.names] if isinstance(node, ast.Import)
+                     else [node.module or ""] if isinstance(node, ast.ImportFrom) else [])
+            assert not any(n.split(".")[0] == "pydantic" for n in names), path
+
+
+def _block_aiortc(monkeypatch):
+    import builtins
+
+    real_import = builtins.__import__
+
+    def no_aiortc(name, *a, **kw):
+        if name == "aiortc" or name.startswith("aiortc."):
+            raise ImportError("aiortc unavailable (test)")
+        return real_import(name, *a, **kw)
+
+    monkeypatch.setattr(builtins, "__import__", no_aiortc)
+
+
+@pytest.mark.parametrize("how", ["by name", "by env", "default without aiortc"])
+def test_native_rtp_is_a_later_slice(monkeypatch, how):
+    _block_aiortc(monkeypatch)
+    monkeypatch.delenv("WEBRTC_PROVIDER", raising=False)
+    if how == "by env":
+        monkeypatch.setenv("WEBRTC_PROVIDER", "native-rtp")
+    with pytest.raises(NotImplementedError, match="native-rtp"):
+        PS.get_provider("native-rtp" if how == "by name" else None)
+    with pytest.raises(NotImplementedError, match="native-rtp"):
+        PA.build_app(pipeline=FakePipeline())
+
+
+def test_provider_names(monkeypatch):
+    _block_aiortc(monkeypatch)
+    assert isinstance(PS.get_provider("loopback"), PS.LoopbackProvider)
+    with pytest.raises(ImportError):
+        PS.get_provider("aiortc")
+    with pytest.raises(ValueError, match="unknown WEBRTC_PROVIDER"):
+        PS.get_provider("loopbak")
+
+
+@pytest.mark.parametrize("device", ["cpu", None])
+def test_cli_serves_on_the_cpu_only_when_asked(monkeypatch, device):
+    """``--device cpu`` serves tiny-test end to end; without it the agent
+    raises at startup on a box with no card instead of serving on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setenv("WEBRTC_PROVIDER", "loopback")
+    built = {}
+    monkeypatch.setattr(PA.web, "run_app", lambda app, **kw: built.update(app=app, **kw))
+    PA.main(["--model-id", "tiny-test", "--port", "8899"] + (["--device", device] if device else []))
+    assert built["port"] == 8899
+
+    async def go():
+        server = TestServer(built["app"])
+        if device is None:
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                await server.start_server()
+            return None
+        client = TestClient(server)
+        await client.start_server()
+        try:
+            c = SimpleNamespace(client=client, m=SIDES["port"])
+            assert (await client.get("/")).status == 200
+            assert (await _whip(c)).status == 201 and (await _whep(c)).status == 201
+            app = built["app"]
+            pub = next(iter(app["state"]["whip_pcs"].values()))
+            viewer = _viewers(SimpleNamespace(app=app))[0]
+            for f in _frames(3):
+                await pub.in_track.push(f)
+            out = await asyncio.wait_for(viewer.recv(), 60)
+            r = await client.post("/config", json={"prompt": "a red boat"})
+            return out.shape, out.dtype, r.status, app["pipeline"].prompt, app["pipeline"].device.type
+        finally:
+            await client.close()
+
+    got = asyncio.run(go())
+    if device == "cpu":
+        assert got == ((64, 64, 3), np.uint8, 200, "a red boat", "cpu")
