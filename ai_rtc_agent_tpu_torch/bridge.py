@@ -9,6 +9,9 @@ JAX side), so this module needs no JAX.
 * ``state_from_jax``: ``jax.random`` and ``torch.Generator`` never draw the
   same noise, so a parity test hands the JAX engine's prepared state
   (noise, x_buf, stock, cond/uncond, coeffs, guidance, delta) to the port.
+* ``states_from_jax``: the same for a stacked ``[S, ...]`` state (a JAX
+  ``BatchScheduler.states`` or ``MultiPeerEngine.states``), written into
+  the port's stacked state slot for slot, in place.
 """
 
 from __future__ import annotations
@@ -38,3 +41,25 @@ def params_from_jax(tree, device="cpu") -> dict:
 
 def state_from_jax(state, device="cpu") -> dict:
     return tree_map(lambda a: _tensor(a, device), state)
+
+
+def states_from_jax(states, into: dict, slots=None) -> dict:
+    """Copy rows ``slots`` (default: all) of a stacked JAX state into the
+    same rows of the port's stacked state ``into`` (a scheduler's or a
+    multipeer engine's ``states``), in place, so the storage its kernels
+    write stays the same; every leaf must match in shape past the slot
+    axis.  Returns ``into``."""
+    def copy(src, dst):
+        for key, value in src.items():
+            if isinstance(value, dict):
+                copy(value, dst[key])
+                continue
+            a = _tensor(value, "cpu")
+            rows = range(a.shape[0]) if slots is None else slots
+            if a.shape[1:] != dst[key].shape[1:]:
+                raise ValueError(f"{key}: {tuple(a.shape)} vs {tuple(dst[key].shape)}")
+            for r in rows:
+                dst[key][r].copy_(a[r])
+
+    copy(states, into)
+    return into

@@ -48,6 +48,19 @@
 //   the advanced rows and the new stock.
 // Where the stock does not change (cfg none/initialize) it is not written;
 // with cfg none it is not read either.
+//
+// The session axis (a bucket step of k sessions, the JAX kernel under
+// jax.vmap over sessions): the R = k*seg rows come in segments of seg rows,
+// one per session.  Segment s is session slot idx[s] (s itself without an
+// idx vector) of the stacked [S, ...] state: its coefficients, guidance and
+// delta, stock and noise rows are read at that slot, entry r renoises with
+// the slot's noise row r + shift, and its advanced rows and new stock are
+// written into that slot's rows in place.  A bucket padded with duplicate
+// slots (the tail repeats the last real one) writes only its first k_real
+// segments, so no slot is written twice; a padding segment may read a row
+// its twin has already written, and its outputs are discarded.  Each element
+// is still read and then written by one thread.  One segment with no idx
+// vector is the kernel as the single-session step calls it.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -78,12 +91,15 @@ struct Args {
   const float* c_out;   // unread with TURBO
   const float* next_alpha;
   const float* next_sigma;
-  const float* guidance;  // one f32
-  const float* delta;     // one f32
+  const float* guidance;  // one f32 per slot
+  const float* delta;     // one f32 per slot
+  const int* idx;         // segment -> slot; null: segment s is slot s
   long long n;            // elements per row
-  int noise_rows;
-  int noise_shift;  // row b renoises with noise row b + noise_shift
-  int adv_rows;
+  int seg;                // rows per segment (session)
+  int k_real;             // segments that write adv and stock_out
+  int noise_rows;   // noise rows per slot
+  int noise_shift;  // entry r renoises with the slot's noise row r + noise_shift
+  int adv_rows;     // adv rows per slot (entries r < adv_rows are kept)
 };
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
@@ -135,17 +151,19 @@ struct Raw {
   float alpha, sigma, c_skip, c_out, next_alpha, next_sigma, g, delta;
 };
 
+// Coefficient vectors are [S, seg] (entry `at` = slot*seg + r); guidance
+// and delta are [S].
 template <int CFG, bool TURBO>
-__device__ __forceinline__ Raw load_coef(const Args& a, int row) {
+__device__ __forceinline__ Raw load_coef(const Args& a, long long at, int slot) {
   Raw r;
-  r.alpha = a.alpha[row];
-  r.sigma = a.sigma[row];
-  r.c_skip = TURBO ? 0.0f : a.c_skip[row];
-  r.c_out = TURBO ? 1.0f : a.c_out[row];
-  r.next_alpha = a.next_alpha[row];
-  r.next_sigma = a.next_sigma[row];
-  r.g = CFG != CFG_NONE ? *a.guidance : 1.0f;
-  r.delta = CFG != CFG_NONE ? *a.delta : 0.0f;
+  r.alpha = a.alpha[at];
+  r.sigma = a.sigma[at];
+  r.c_skip = TURBO ? 0.0f : a.c_skip[at];
+  r.c_out = TURBO ? 1.0f : a.c_out[at];
+  r.next_alpha = a.next_alpha[at];
+  r.next_sigma = a.next_sigma[at];
+  r.g = CFG != CFG_NONE ? a.guidance[slot] : 1.0f;
+  r.delta = CFG != CFG_NONE ? a.delta[slot] : 0.0f;
   return r;
 }
 
@@ -186,26 +204,38 @@ __device__ __forceinline__ void element(const Coef& c, float x, float eps_c, flo
   if (CFG == CFG_SELF) new_stock = (eps_c + c.beta * stock) * c.inv_1pbeta;
 }
 
-// One row's pointers at element i0.  noise is null past its last row; adv
-// is kept for rows b < adv_rows only.
+// One row's pointers at element i0: row = s*seg + r is entry r of segment
+// s, which is slot `slot` of the stacked state.  x, eps and den are [R, n];
+// stock and stock_out [S, seg, n], noise [S, noise_rows, n], adv
+// [S, adv_rows, n].  noise is null past the slot's last noise row; adv is
+// kept for entries r < adv_rows of the first k_real segments, and the new
+// stock for those segments only.
 template <typename T>
 struct Row {
   const T *x, *eps, *stock, *noise;
   T *den, *adv, *stock_out;
-  bool keep_adv;
+  long long coef;  // the entry's index in the [S, seg] coefficient vectors
+  int slot;
+  bool keep_adv, write;
 
   __device__ __forceinline__ Row(const Args& a, int row, long long i0) {
+    const int s = row / a.seg, r = row - s * a.seg;
+    slot = a.idx ? a.idx[s] : s;
+    write = s < a.k_real;
+    coef = (long long)slot * a.seg + r;
     const long long base = (long long)row * a.n + i0;
+    const long long stock_base = coef * a.n + i0;
     x = static_cast<const T*>(a.x) + base;
     eps = static_cast<const T*>(a.eps) + base;
-    stock = static_cast<const T*>(a.stock) + base;
     den = static_cast<T*>(a.den) + base;
-    adv = static_cast<T*>(a.adv) + base;
-    stock_out = static_cast<T*>(a.stock_out) + base;
-    const int noise_row = row + a.noise_shift;
-    keep_adv = row < a.adv_rows;
+    stock = static_cast<const T*>(a.stock) + stock_base;
+    stock_out = static_cast<T*>(a.stock_out) + stock_base;
+    adv = static_cast<T*>(a.adv) + ((long long)slot * a.adv_rows + r) * a.n + i0;
+    const int noise_row = r + a.noise_shift;
+    keep_adv = write && r < a.adv_rows;
     noise = keep_adv && noise_row < a.noise_rows
-                ? static_cast<const T*>(a.noise) + (long long)noise_row * a.n + i0
+                ? static_cast<const T*>(a.noise) +
+                      ((long long)slot * a.noise_rows + noise_row) * a.n + i0
                 : nullptr;
   }
 };
@@ -217,7 +247,7 @@ template <typename T, int CFG, bool TURBO>
 __device__ __noinline__ void scalar_path(const Args a, int row, long long i0) {
   constexpr bool READ_STOCK = CFG != CFG_NONE;
   const Row<T> r(a, row, i0);
-  const Coef c = derive<CFG>(load_coef<CFG, TURBO>(a, row));
+  const Coef c = derive<CFG>(load_coef<CFG, TURBO>(a, r.coef, r.slot));
   const int m = a.n - i0 < VEC ? (int)(a.n - i0) : VEC;
   for (int k = 0; k < m; ++k) {
     const float s = READ_STOCK ? to_f32(r.stock[k]) : 0.0f;
@@ -226,7 +256,7 @@ __device__ __noinline__ void scalar_path(const Args a, int row, long long i0) {
     element<CFG, TURBO>(c, to_f32(r.x[k]), to_f32(r.eps[k]), s, nz, d, v, t);
     r.den[k] = from_f32<T>(d);
     if (r.keep_adv) r.adv[k] = from_f32<T>(v);
-    if (CFG == CFG_SELF) r.stock_out[k] = from_f32<T>(t);
+    if (CFG == CFG_SELF && r.write) r.stock_out[k] = from_f32<T>(t);
   }
 }
 
@@ -241,7 +271,7 @@ __global__ void __launch_bounds__(THREADS) stream_epilogue_kernel(const Args a) 
   uintptr_t bits = reinterpret_cast<uintptr_t>(r.x) | reinterpret_cast<uintptr_t>(r.eps) |
                    reinterpret_cast<uintptr_t>(r.den);
   if (READ_STOCK) bits |= reinterpret_cast<uintptr_t>(r.stock);
-  if (SELF) bits |= reinterpret_cast<uintptr_t>(r.stock_out);
+  if (SELF && r.write) bits |= reinterpret_cast<uintptr_t>(r.stock_out);
   if (r.noise) bits |= reinterpret_cast<uintptr_t>(r.noise);
   if (r.keep_adv) bits |= reinterpret_cast<uintptr_t>(r.adv);
   if ((bits & 15) != 0 || i0 + VEC > a.n) {
@@ -249,7 +279,7 @@ __global__ void __launch_bounds__(THREADS) stream_epilogue_kernel(const Args a) 
     return;
   }
 
-  const Raw raw = load_coef<CFG, TURBO>(a, row);
+  const Raw raw = load_coef<CFG, TURBO>(a, r.coef, r.slot);
   float vx[VEC], ve[VEC], vs[VEC], vn[VEC], vd[VEC], va[VEC], vt[VEC];
   load8(r.x, vx);
   load8(r.eps, ve);
@@ -266,7 +296,7 @@ __global__ void __launch_bounds__(THREADS) stream_epilogue_kernel(const Args a) 
     element<CFG, TURBO>(c, vx[k], ve[k], READ_STOCK ? vs[k] : 0.0f, vn[k], vd[k], va[k], vt[k]);
   store8(r.den, vd);
   if (r.keep_adv) store8(r.adv, va);
-  if (SELF) store8(r.stock_out, vt);
+  if (SELF && r.write) store8(r.stock_out, vt);
 }
 
 __global__ void empty_kernel() {}
@@ -302,25 +332,32 @@ cudaError_t dispatch(const Args& a, int cfg, int turbo, int B, cudaStream_t stre
 
 }  // namespace
 
-// x, eps, stock, noise, den: [B, n] (noise: [noise_rows, n]); adv:
-// [adv_rows, n]; stock_out: [B, n] (cfg self; may be stock).  Coefficient
-// vectors: [B] f32 device pointers (c_skip/c_out unread with turbo);
-// guidance, delta: one f32 each.  dtype: 0 f32, 1 bf16.  cfg: 0 none,
-// 1 initialize, 2 self.  Returns the cudaError_t of the launch (0 = ok).
+// x, eps, den: [B, n], B = k*seg rows in k segments of seg rows.  Segment s
+// is slot idx[s] (s when idx is null) of the stacked state: stock and
+// stock_out [S, seg, n] (cfg self; stock_out may be stock), noise
+// [S, noise_rows, n], adv [S, adv_rows, n], coefficient vectors [S, seg]
+// f32 device pointers (c_skip/c_out unread with turbo), guidance and delta
+// [S] f32.  adv and stock_out are written for the first k_real segments
+// only.  One segment with idx null (seg = B, k_real = 1) is the single-
+// session call.  dtype: 0 f32, 1 bf16.  cfg: 0 none, 1 initialize, 2 self.
+// Returns the cudaError_t of the launch (0 = ok).
 extern "C" int fused_stream_epilogue(const void* x, const void* eps, const void* stock,
                                      const void* noise, void* den, void* adv, void* stock_out,
                                      const float* alpha, const float* sigma,
                                      const float* c_skip, const float* c_out,
                                      const float* next_alpha, const float* next_sigma,
-                                     const float* guidance, const float* delta, int dtype,
-                                     int cfg, int turbo, int B, long long n, int noise_rows,
-                                     int noise_shift, int adv_rows, void* stream_ptr) {
-  if (!valid_grid(B, n) || noise_rows < 0 || noise_shift < 0 || adv_rows < 0 || adv_rows > B ||
-      cfg < CFG_NONE || cfg > CFG_SELF)
+                                     const float* guidance, const float* delta, const int* idx,
+                                     int dtype, int cfg, int turbo, int B, long long n, int seg,
+                                     int k_real, int noise_rows, int noise_shift, int adv_rows,
+                                     void* stream_ptr) {
+  if (!valid_grid(B, n) || seg <= 0 || B % seg != 0 || k_real < 0 || k_real > B / seg ||
+      noise_rows < 0 || noise_shift < 0 || adv_rows < 0 || adv_rows > seg || cfg < CFG_NONE ||
+      cfg > CFG_SELF)
     return (int)cudaErrorInvalidValue;
-  const Args a{x,     eps,   stock,  noise, den,        adv,        stock_out,
-               alpha, sigma, c_skip, c_out, next_alpha, next_sigma, guidance,
-               delta, n,     noise_rows,    noise_shift, adv_rows};
+  const Args a{x,     eps,   stock,  noise,  den,        adv,        stock_out,
+               alpha, sigma, c_skip, c_out,  next_alpha, next_sigma, guidance,
+               delta, idx,   n,      seg,    k_real,     noise_rows, noise_shift,
+               adv_rows};
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (dtype == F32) return (int)dispatch<float>(a, cfg, turbo, B, stream);
   if (dtype == BF16) return (int)dispatch<bf16>(a, cfg, turbo, B, stream);

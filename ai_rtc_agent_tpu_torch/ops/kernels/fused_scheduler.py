@@ -31,6 +31,19 @@ post-UNet chain of the port's step, with no glue around it:
 * ``stock_out``: receives the new stock in place (cfg self; it may be
   ``stock`` itself).  With cfg none/initialize the stock does not change,
   ``stock_out`` is not written and ``stock`` is returned.
+* ``slots``: the session axis of a bucket step (the JAX kernel under
+  ``jax.vmap`` over sessions).  An int32 tensor [k] on x's device: the
+  R = k*seg rows of x and eps_c are k segments of seg rows, and segment s
+  is session slot ``slots[s]`` of the stacked [S, ...] state.  Then stock
+  and stock_out are [S, seg, ...], noise [S, noise_rows, ...] (the shift
+  applies within each slot's rows), advanced_out [S, adv_rows, ...] (it is
+  required), the coefficient vectors [S, seg], guidance and delta [S]; the
+  advanced rows and the new stock land in each slot's rows in place.
+* ``k_real``: with ``slots``, only the first k_real segments write
+  advanced_out and stock_out.  A padded bucket repeats its last real slot
+  at the tail; its padding segments compute and write only ``denoised``
+  (their rows are discarded), so no slot is written twice.  The first
+  k_real slots must be distinct.
 
 The wrapper does no host sync, so a launch can be captured in a CUDA graph.
 """
@@ -58,8 +71,8 @@ def load():
     if _lib is None:
         lib = build.load_library(SOURCE)
         fn = lib.fused_stream_epilogue
-        fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 4 + [ctypes.c_longlong] + [
-            ctypes.c_int] * 3 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 4 + [ctypes.c_longlong] + [
+            ctypes.c_int] * 5 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         lib.fused_stream_epilogue_empty.argtypes = [ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p]
         lib.fused_stream_epilogue_empty.restype = ctypes.c_int
@@ -83,32 +96,61 @@ def launch_empty(rows: int, n: int, device=None):
 
 
 def epilogue_plain(x_t, eps_c, stock, noise, coeffs, guidance, delta, cfg_type="self", *,
-                   turbo=False, noise_shift=0, advanced_out=None, stock_out=None):
+                   turbo=False, noise_shift=0, advanced_out=None, stock_out=None, slots=None,
+                   k_real=None):
     """The kernel's math as composed PyTorch ops (f32, cast to x's dtype),
     with the same keywords as :func:`fused_stream_epilogue`."""
     if cfg_type not in CFG_TYPES:
         raise ValueError(f"fused epilogue: unsupported cfg_type {cfg_type!r}")
     f32 = lambda a: torch.as_tensor(a, device=x_t.device).to(torch.float32)
     col = lambda a: f32(a).reshape((-1,) + (1,) * (x_t.ndim - 1))
-    alpha, sigma = col(coeffs.alpha), col(coeffs.sigma)
-    g, d = f32(guidance), f32(delta)
+    R = x_t.shape[0]
+    if slots is None:  # one segment: today's shapes, a scalar guidance and delta
+        k, seg, idx = 1, R, torch.zeros(1, dtype=torch.long, device=x_t.device)
+        rows = lambda a: a[None]
+        per_row = lambda a: f32(a).reshape(1)
+    else:
+        idx = slots.long()
+        k = idx.numel()
+        seg = R // k
+        rows = lambda a: a
+        per_row = lambda a: f32(a)
+    take = lambda a: rows(a).index_select(0, idx)  # [k, seg or rows, ...]
+    cvec = lambda a: col(take(f32(a)).reshape(-1))  # per row
+    alpha, sigma = cvec(coeffs.alpha), cvec(coeffs.sigma)
+    g = col(per_row(guidance).index_select(0, idx).repeat_interleave(seg))
+    d = col(per_row(delta).index_select(0, idx).repeat_interleave(seg))
     x = x_t.float()
     e = eps_c.float()
-    s = stock.float()
+    s = take(stock).reshape(x.shape).float()
     eps = g * e - (g - 1.0) * d * s if cfg_type != "none" else e
     x0 = (x - sigma * eps) / alpha
-    den = x0 if turbo else col(coeffs.c_skip) * x + col(coeffs.c_out) * x0
-    nz = torch.zeros_like(x)
-    k = max(0, min(noise.shape[0] - noise_shift, x.shape[0]))
-    nz[:k] = noise[noise_shift:noise_shift + k].float()
-    adv = (col(coeffs.next_alpha) * den + col(coeffs.next_sigma) * nz).to(x_t.dtype)
+    den = x0 if turbo else cvec(coeffs.c_skip) * x + cvec(coeffs.c_out) * x0
+    nz = torch.zeros_like(x).reshape(k, seg, *x.shape[1:])
+    src = take(noise)
+    m = max(0, min(src.shape[1] - noise_shift, seg))
+    nz[:, :m] = src[:, noise_shift:noise_shift + m].float()
+    adv = (cvec(coeffs.next_alpha) * den + cvec(coeffs.next_sigma) * nz.reshape(x.shape)).to(x_t.dtype)
+    k_real = k if k_real is None else k_real
+    write = idx[:k_real]
     if advanced_out is not None:
-        adv = advanced_out.copy_(adv[: advanced_out.shape[0]])
+        a_rows = advanced_out.shape[1] if slots is not None else advanced_out.shape[0]
+        new_rows = adv.reshape(k, seg, *x.shape[1:])[:k_real, :a_rows]
+        if slots is None:
+            adv = advanced_out.copy_(new_rows[0])
+        else:
+            adv = advanced_out.index_copy_(0, write, new_rows)
+    elif slots is not None:
+        raise ValueError("slots need advanced_out (the stacked ring the rows land in)")
     new_stock = stock
     if cfg_type == "self":
         beta = sigma / torch.clamp(alpha, min=1e-6)
         new_stock = ((e + beta * s) / (1.0 + beta)).to(x_t.dtype)
-        if stock_out is not None:
+        if slots is not None:
+            if stock_out is None:
+                raise ValueError("slots with cfg self need stock_out")
+            new_stock = stock_out.index_copy_(0, write, new_stock.reshape(k, seg, *x.shape[1:])[:k_real])
+        elif stock_out is not None:
             new_stock = stock_out.copy_(new_stock)
     return den.to(x_t.dtype), adv, new_stock
 
@@ -122,21 +164,22 @@ def _f32_ptr(name, v, numel, device):
 
 
 def fused_stream_epilogue(x_t, eps_c, stock, noise, coeffs, guidance, delta, cfg_type="self", *,
-                          turbo=False, noise_shift=0, advanced_out=None, stock_out=None):
+                          turbo=False, noise_shift=0, advanced_out=None, stock_out=None,
+                          slots=None, k_real=None):
     """x_t/eps_c/stock/noise: [B, h, w, c] -> (denoised, advanced, stock').
 
     ``coeffs``: ops.lcm.StepCoeffs with [B] vectors; keywords as the module
-    docstring says.  A CPU tensor takes :func:`epilogue_plain`; a CUDA tensor
-    launches the kernel or raises: every tensor must share x's shape (the
-    ring buffer: its row shape), device and dtype (bf16 or f32), the outputs
-    must be contiguous, and the coefficient vectors, guidance and delta must
-    be f32 tensors on that device."""
+    docstring says (with ``slots``, the stacked shapes it gives).  A CPU
+    tensor takes :func:`epilogue_plain`; a CUDA tensor launches the kernel
+    or raises: every tensor must share x's row shape, device and dtype
+    (bf16 or f32), the outputs must be contiguous, and the coefficient
+    vectors, guidance and delta must be f32 tensors on that device."""
     global launches
     device = x_t.device
     if device.type == "cpu":
         return epilogue_plain(x_t, eps_c, stock, noise, coeffs, guidance, delta, cfg_type,
                               turbo=turbo, noise_shift=noise_shift, advanced_out=advanced_out,
-                              stock_out=stock_out)
+                              stock_out=stock_out, slots=slots, k_real=k_real)
     if device.type != "cuda":
         raise ValueError(f"fused_stream_epilogue: unsupported device {device}")
     if cfg_type not in CFG_TYPES:
@@ -144,33 +187,62 @@ def fused_stream_epilogue(x_t, eps_c, stock, noise, coeffs, guidance, delta, cfg
     dtype, shape = x_t.dtype, x_t.shape
     if dtype not in DTYPES:
         raise TypeError(f"fused_stream_epilogue takes bf16 or f32, got {dtype}")
+    if x_t.numel() == 0:
+        raise ValueError(f"empty x {tuple(shape)}")
     is_self = cfg_type == "self"
     if not is_self:
         stock_out = None  # the stock does not change
+    R, row = shape[0], shape[1:]
+    if slots is None:
+        k, seg, n_slots = 1, R, 1  # one slot, and no slot axis on the tensors
+    else:
+        if not (isinstance(slots, torch.Tensor) and slots.dtype == torch.int32
+                and slots.device == device and slots.ndim == 1 and slots.is_contiguous()):
+            raise TypeError(f"slots: needs a contiguous int32 vector on {device}")
+        k = slots.numel()
+        if k == 0 or R % k:
+            raise ValueError(f"{R} rows do not split into {k} sessions")
+        seg, n_slots = R // k, stock.shape[0]
+        if advanced_out is None or (is_self and stock_out is None):
+            raise ValueError("slots need advanced_out (and stock_out with cfg self) in place")
+    k_real = k if k_real is None else int(k_real)
+    if not 0 <= k_real <= k:
+        raise ValueError(f"k_real {k_real} not in [0, {k}]")
     for name, t in (("eps_c", eps_c), ("stock", stock), ("noise", noise),
                     ("advanced_out", advanced_out), ("stock_out", stock_out)):
         if t is None:
             continue
         if t.dtype != dtype or t.device != device:
             raise TypeError(f"{name} {t.dtype}@{t.device} vs x {dtype}@{device}: mixed dtypes or devices")
-        if t.shape != shape and (t is not advanced_out or t.shape[1:] != shape[1:]):
-            raise ValueError(f"{name} {tuple(t.shape)} vs x {tuple(shape)}")
-    B = shape[0]
-    if x_t.numel() == 0:
-        raise ValueError(f"empty x {tuple(shape)}")
-    if advanced_out is not None and advanced_out.shape[0] > B:
-        raise ValueError(f"advanced_out has {advanced_out.shape[0]} rows, more than {B}")
+        if name == "eps_c" or (slots is None and name in ("stock", "noise", "stock_out")):
+            ok = t.shape == shape
+        elif slots is None:  # advanced_out: any number of leading rows
+            ok = t.shape[1:] == row
+        else:
+            ok = t.shape[0] == n_slots and t.shape[2:] == row and (
+                name == "noise" or name == "advanced_out" or t.shape[1] == seg)
+        if not ok:
+            raise ValueError(f"{name} {tuple(t.shape)} vs x {tuple(shape)}"
+                             + ("" if slots is None else f" in {k} sessions"))
+    if advanced_out is None:
+        adv_rows = R
+    else:
+        adv_rows = advanced_out.shape[0 if slots is None else 1]
+    if adv_rows > seg:
+        raise ValueError(f"advanced_out has {adv_rows} rows, more than {seg}")
     if any(t is not None and not t.is_contiguous() for t in (advanced_out, stock_out)):
         raise ValueError("advanced_out/stock_out must be contiguous")
     if noise_shift < 0:
         raise ValueError(f"noise_shift {noise_shift} < 0")
+    numel = n_slots * seg
     alpha, sigma, next_alpha, next_sigma = (
-        _f32_ptr(name, getattr(coeffs, name), B, device)
+        _f32_ptr(name, getattr(coeffs, name), numel, device)
         for name in ("alpha", "sigma", "next_alpha", "next_sigma"))
-    c_skip = 0 if turbo else _f32_ptr("c_skip", coeffs.c_skip, B, device)
-    c_out = 0 if turbo else _f32_ptr("c_out", coeffs.c_out, B, device)
-    g, d = _f32_ptr("guidance", guidance, 1, device), _f32_ptr("delta", delta, 1, device)
+    c_skip = 0 if turbo else _f32_ptr("c_skip", coeffs.c_skip, numel, device)
+    c_out = 0 if turbo else _f32_ptr("c_out", coeffs.c_out, numel, device)
+    g, d = _f32_ptr("guidance", guidance, n_slots, device), _f32_ptr("delta", delta, n_slots, device)
     x, e, s, nz = (t.contiguous() for t in (x_t, eps_c, stock, noise))
+    noise_rows = nz.shape[0] if slots is None else nz.shape[1]
     den = torch.empty_like(x)
     adv = torch.empty_like(x) if advanced_out is None else advanced_out
     new_stock = (torch.empty_like(x) if stock_out is None else stock_out) if is_self else stock
@@ -180,8 +252,10 @@ def fused_stream_epilogue(x_t, eps_c, stock, noise, coeffs, guidance, delta, cfg
             x.data_ptr(), e.data_ptr(), s.data_ptr(), nz.data_ptr(), den.data_ptr(),
             adv.data_ptr(), new_stock.data_ptr() if is_self else 0,
             alpha, sigma, c_skip, c_out, next_alpha, next_sigma, g, d,
-            DTYPES[dtype], CFG_TYPES.index(cfg_type), int(turbo), B, x.numel() // B,
-            B, noise_shift, adv.shape[0], torch.cuda.current_stream(device).cuda_stream,
+            0 if slots is None else slots.data_ptr(),
+            DTYPES[dtype], CFG_TYPES.index(cfg_type), int(turbo), R, x.numel() // R,
+            seg, k_real if slots is not None else 1, noise_rows, noise_shift, adv_rows,
+            torch.cuda.current_stream(device).cuda_stream,
         )
     _check(err, "fused_stream_epilogue")
     launches += 1

@@ -1,0 +1,283 @@
+"""Multi-peer batching: N concurrent streams stepped as one batch on one card
+(counterpart of ai_rtc_agent_tpu/parallel/multipeer.py).
+
+Each peer owns its stream state (prompt, ring buffer, stock, noise,
+t-indices, guidance); the states are stacked on a leading slot axis and one
+bucket step advances the active slots together:
+
+    states: every leaf [P, ...]          (stream.engine.stack_states)
+    frames: [k, H, W, 3] uint8           one per stepped slot
+    bucket step: the k slots' rows -> one k*B-row step -> their rows in place
+
+Bucket sizes are powers of two; a bucket with fewer active slots than its
+size repeats the last active slot at the tail, and only the real slots'
+rows are written (the epilogue's ``k_real``).  The same bucket step serves
+``MultiPeerEngine`` (fixed slots, ``--multipeer N``) and the continuous
+batch scheduler (stream/scheduler.py).  This is BASELINE.json configs[4]
+("Multi-peer WebRTC: N concurrent streams batched on one chip").
+"""
+
+from __future__ import annotations
+
+import logging
+import threading
+from typing import Callable
+
+import numpy as np
+import torch
+
+from .. import resolve_device
+from ..stream.engine import (
+    StreamConfig,
+    StreamEngine,
+    StreamModels,
+    install_row,
+    make_session_step_fn,
+    stack_states,
+    t_index_coeffs,
+)
+from ..utils import env
+
+logger = logging.getLogger(__name__)
+
+
+class CapacityError(RuntimeError):
+    """All slots are claimed (maps to HTTP 503 in the agent)."""
+
+
+def bucket_sizes(capacity: int, include_capacity: bool = True) -> list:
+    """Powers of two below ``capacity``, then ``capacity`` itself unless
+    ``include_capacity`` is False (--multipeer steps every slot at and above
+    its largest bucket)."""
+    sizes, b = [], 1
+    while b < capacity:
+        sizes.append(b)
+        b *= 2
+    if include_capacity:
+        sizes.append(capacity)
+    return sizes
+
+
+def bucket_for(sizes: list, n: int):
+    """The smallest bucket that holds ``n`` sessions, or None."""
+    return next((b for b in sizes if b >= n), None)
+
+
+def pad_bucket(slots: list, k: int) -> list:
+    """The bucket's k slots: the real ones, then the last one repeated."""
+    return (list(slots) + [slots[-1]] * k)[:k]
+
+
+class BucketStep:
+    """gather -> step -> write back over a stacked slot state, in one
+    session-batched step (``stream.engine.make_session_step_fn``).
+
+    ``step(params, states, frames_k, slots, k)``: ``frames_k`` [k,H,W,3]
+    uint8 on the device, already padded; ``slots`` the real sessions'
+    slots.  -> [k,H,W,3] uint8; rows past ``len(slots)`` are padding.  The
+    bucket's slot vector is made on the device once per distinct layout."""
+
+    def __init__(self, models: StreamModels, cfg: StreamConfig, device):
+        self._step = make_session_step_fn(models, cfg)
+        self.device = device
+        self._frame_shape = (cfg.height, cfg.width, 3)
+        self._idx: dict = {}
+
+    def index(self, pad: list) -> torch.Tensor:
+        key = tuple(pad)
+        idx = self._idx.get(key)
+        if idx is None:
+            if len(self._idx) > 512:
+                self._idx.clear()
+            idx = stage_rows(np.asarray(pad, np.int32), self.device)
+            self._idx[key] = idx
+        return idx
+
+    def __call__(self, params, states, frames_k, slots: list, k: int):
+        idx = self.index(pad_bucket(slots, k))
+        return self._step(params, states, frames_k, idx, len(slots))
+
+    def warm(self, params, states, k: int):
+        """Step a bucket of k blank frames that writes no slot (no real
+        session in it), so that neither the calling thread's first step nor
+        the bucket's first launch lands on a session."""
+        frames = torch.zeros((k, *self._frame_shape), dtype=torch.uint8, device=self.device)
+        self._step(params, states, frames, self.index([0] * k), 0)
+
+
+def stage_rows(frames: np.ndarray, device) -> torch.Tensor:
+    """Host uint8 frames -> the device: from pinned memory without blocking
+    on the card, as they are on the CPU."""
+    t = torch.from_numpy(np.ascontiguousarray(frames))
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
+class Readback:
+    """Rows of a step's output copied to the host: each into its own pinned
+    buffer, one CUDA event after them all (the CPU: the rows themselves).
+    Both planes over the bucket step read their rows through it."""
+
+    def __init__(self, out: torch.Tensor, n: int):
+        if out.device.type == "cuda":
+            self.host = [torch.empty(out.shape[1:], dtype=out.dtype, pin_memory=True)
+                         for _ in range(n)]
+            for i, h in enumerate(self.host):
+                h.copy_(out[i], non_blocking=True)
+            self.event = torch.cuda.Event()
+            self.event.record()
+        else:
+            self.host, self.event = [out[i] for i in range(n)], None
+
+    def row(self, i: int) -> np.ndarray:
+        if self.event is not None:
+            self.event.synchronize()
+        return self.host[i].numpy()
+
+
+class MultiPeerEngine:
+    """Fixed-capacity peer-slot engine.
+
+    Slots are pre-allocated; connect/disconnect claim and release them, and
+    connect installs a fresh state.  Below capacity the active slots step
+    through power-of-two buckets, so an 8-slot engine with one peer does
+    one peer's work (MULTIPEER_BUCKETS=0 steps every slot every time); at
+    and above the largest bucket every slot steps.  Runs on ``device`` (the
+    card unless the caller asks for another)."""
+
+    def __init__(self, models: StreamModels, params, cfg: StreamConfig, encode_prompt: Callable,
+                 max_peers: int, device=None):
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.max_peers = max_peers
+        self.models = models
+        self.params = params
+        self._template = StreamEngine(models, params, cfg, encode_prompt, device=self.device)
+        self._bucket = BucketStep(models, cfg, self.device)
+        self.states = None  # stacked [P, ...]
+        self.active = [False] * max_peers
+        # guards the template engine during heavy state builds (text encode
+        # + prepare), apart from any caller-level step lock
+        self._heavy_lock = threading.Lock()
+        self._bucket_sizes = bucket_sizes(max_peers, include_capacity=False)
+        self._use_buckets = env.get_bool("MULTIPEER_BUCKETS", True)
+
+    def _fresh_state(self, prompt: str, seed: int) -> dict:
+        with self._heavy_lock:
+            return self._template.prepare(prompt, seed=seed).state
+
+    def start(self, default_prompt: str = ""):
+        self.states = stack_states(
+            [self._fresh_state(default_prompt, seed=i) for i in range(self.max_peers)]
+        )
+        return self
+
+    # -- slot management --------------------------------------------------------
+
+    @property
+    def free_slots(self) -> int:
+        return self.active.count(False)
+
+    def reserve(self) -> int:
+        """Cheap slot claim (no model work)."""
+        try:
+            slot = self.active.index(False)
+        except ValueError:
+            raise CapacityError(f"all {self.max_peers} peer slots in use") from None
+        self.active[slot] = True
+        return slot
+
+    def build_state(self, prompt: str, seed: int) -> dict:
+        """The heavy half of connect: run it outside any lock that gates the
+        step."""
+        return self._fresh_state(prompt, seed=seed)
+
+    def install(self, slot: int, state: dict):
+        """Cheap slot-state write (the slot's rows, in place)."""
+        install_row(self.states, slot, state)
+        logger.info("peer connected -> slot %d", slot)
+
+    def connect(self, prompt: str, seed: int | None = None) -> int:
+        slot = self.reserve()
+        try:
+            self.install(slot, self.build_state(prompt, seed=slot if seed is None else seed))
+        except Exception:
+            self.active[slot] = False
+            raise
+        return slot
+
+    def disconnect(self, slot: int):
+        """Release a slot; connect() installs a fresh state before reuse."""
+        if not 0 <= slot < self.max_peers:
+            raise ValueError(f"slot {slot} out of range [0, {self.max_peers})")
+        self.active[slot] = False
+        logger.info("peer disconnected <- slot %d", slot)
+
+    def encode(self, prompt: str):
+        """Heavy half of a prompt update (the text encoder)."""
+        with self._heavy_lock:
+            return self._template._encode(prompt)
+
+    def apply_prompt(self, slot: int, cond, uncond):
+        self.states["cond"][slot].copy_(cond)
+        self.states["uncond"][slot].copy_(uncond)
+
+    def update_prompt(self, slot: int, prompt: str):
+        self.apply_prompt(slot, *self.encode(prompt))
+
+    def update_t_index(self, slot: int, t_index_list):
+        """Per-peer t_index update: a coefficient swap in this slot's rows
+        (the length is fixed)."""
+        coeffs = t_index_coeffs(self.cfg, self._template.schedule, t_index_list, self.device)
+        for name, v in coeffs.items():
+            self.states["coeffs"][name][slot].copy_(v)
+
+    # -- active-count buckets ---------------------------------------------------
+
+    def _bucket_for(self, n_active: int):
+        """Smallest bucket covering ``n_active``, or None for the step of
+        every slot."""
+        if not self._use_buckets or n_active == 0:
+            return None
+        return bucket_for(self._bucket_sizes, n_active)
+
+    def prewarm_buckets(self):
+        """Step every bucket size, and the step of every slot, once on the
+        calling thread (the thread that will step them), writing no slot's
+        state: each launch path and the thread's library handles are ready
+        before the first peer's frame."""
+        for k in self._bucket_sizes + [self.max_peers]:
+            self._bucket.warm(self.params, self.states, k)
+            logger.info("prewarmed multipeer bucket %d/%d", k, self.max_peers)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    # -- hot path ---------------------------------------------------------------
+
+    def step_all(self, frames: np.ndarray) -> np.ndarray:
+        """frames [P, H, W, 3] uint8 -> [P, H, W, 3] uint8 (all slots)."""
+        return self.fetch(self.submit(frames))
+
+    def submit(self, frames: np.ndarray):
+        """Dispatch one step of the active slots (all slots at and above the
+        largest bucket) without waiting for the device."""
+        if self.states is None:
+            raise RuntimeError("call start() first")
+        if frames.shape[0] != self.max_peers:
+            raise ValueError(f"expected {self.max_peers} frame slots, got {frames.shape[0]}")
+        active = [i for i, a in enumerate(self.active) if a]
+        k = self._bucket_for(len(active))
+        slots = active if k is not None else list(range(self.max_peers))
+        k = k or self.max_peers
+        out = self._bucket(self.params, self.states,
+                           stage_rows(frames[pad_bucket(slots, k)], self.device), slots, k)
+        return Readback(out, len(slots)), slots
+
+    def fetch(self, pending) -> np.ndarray:
+        """-> [P, H, W, 3] uint8; the rows of slots not stepped are zeros."""
+        readback, slots = pending
+        out = np.zeros((self.max_peers, self.cfg.height, self.cfg.width, 3), np.uint8)
+        for i, s in enumerate(slots):
+            out[s] = readback.row(i)
+        return out

@@ -12,11 +12,17 @@ Each route maps a request onto a flow of ``server/sessions.py`` and its
 answer onto the JAX agent's status codes: 201 with ``Location`` for WHIP
 and WHEP, 400 for a wrong content type, undecodable body or bad JSON, 401
 for WHEP without a publisher, 200/404 for a DELETE of a known/unknown
-session.  CORS allows all origins.
+session, 503 with ``Retry-After`` when every session slot is claimed.
+CORS allows all origins.
 
     python -m ai_rtc_agent_tpu_torch.server.agent --model-id stabilityai/sd-turbo
     WEBRTC_PROVIDER=loopback python -m ai_rtc_agent_tpu_torch.server.agent \\
         --model-id tiny-test --device cpu
+    ... --multipeer 2        # two peer slots stepped as one batch
+
+Each /offer and /whip connection claims a session of the batch scheduler
+(BATCHSCHED_MAX_SESSIONS slots, the default) or, with ``--multipeer N``, a
+peer slot; ``BATCHSCHED=0`` serves every connection through one pipeline.
 
 The pipeline runs on the card unless ``--device cpu`` is passed; without a
 card, startup raises.  This is the only module of the port that imports
@@ -175,12 +181,17 @@ def build_app(
     fbs: int = 0,
     device=None,
     udp_ports=None,
+    multipeer: int = 0,
+    multipeer_pipeline=None,
+    batch_scheduler=None,
 ) -> web.Application:
-    """``pipeline``: injectable for tests; built at startup when None, on
-    ``device`` (the card unless ``"cpu"``)."""
+    """``pipeline``, ``multipeer_pipeline``, ``batch_scheduler``: injectable
+    for tests; built at startup when None, on ``device`` (the card unless
+    ``"cpu"``), as ``sessions.startup`` says."""
     app = web.Application(middlewares=[cors_middleware])
     sessions.configure(app, model_id=model_id, pipeline=pipeline, provider=provider,
-                       fbs=fbs, device=device)
+                       fbs=fbs, device=device, multipeer=multipeer,
+                       multipeer_pipeline=multipeer_pipeline, batch_scheduler=batch_scheduler)
     app["udp_ports"] = udp_ports
     app.on_startup.append(on_startup)
     app.on_shutdown.append(on_shutdown)
@@ -205,6 +216,9 @@ def main(argv=None):
     parser.add_argument("--udp-ports", default=None, help="comma-separated UDP media ports")
     parser.add_argument("--fbs", default=0, type=int, metavar="N",
                         help="frame_buffer_size: N consecutive frames per step; 0 = per frame")
+    parser.add_argument("--multipeer", default=0, type=int, metavar="N",
+                        help="serve N peers, each with its own stream state, batched in one "
+                             "step (503 past N)")
     parser.add_argument("--log-level", default="INFO",
                         choices=["DEBUG", "INFO", "WARNING", "ERROR", "CRITICAL"])
     parser.add_argument("--device", default=None,
@@ -215,6 +229,7 @@ def main(argv=None):
         model_id=args.model_id,
         fbs=args.fbs,
         device=args.device,
+        multipeer=args.multipeer,
         udp_ports=args.udp_ports.split(",") if args.udp_ports else None,
     )
     web.run_app(app, host="0.0.0.0", port=args.port)

@@ -8,7 +8,8 @@ that ``chip_smoke.py`` drives a whole session on the card, where aiohttp is
 not installed, and ``server/agent.py`` maps HTTP requests onto it.
 
 The app-state mapping (an aiohttp ``Application`` or a plain dict) holds
-``model_id``, ``pipeline``, ``provider``, ``fbs`` and ``device`` from
+``model_id``, ``pipeline``, ``provider``, ``fbs``, ``device``,
+``multipeer``, ``multipeer_pipeline`` and ``batch_scheduler`` from
 :func:`configure`, and after :func:`startup` also ``pcs`` (every live peer
 connection), ``state`` (publishers, their tracks and relays, viewers),
 ``stats`` (FrameStats for /metrics) and ``stream_event_handler``.
@@ -16,12 +17,20 @@ connection), ``state`` (publishers, their tracks and relays, viewers),
 Each flow returns a :class:`Reply` (status, body, content type, headers)
 or raises ``ValueError`` for a client error (HTTP 400); any other
 exception is a server error.  Every failure closes and drops the peer
-connection it made.  All sessions share one pipeline, whose steps run in
-worker threads (server/tracks.py); this layer adds no torch work of its
-own on those threads (the pts wrap and fbs stacking are numpy).
+connection it made.
 
-Admission, supervision, the overload plane, journeys, the batch scheduler
-and broadcast fan-out are later slices of the port.
+Serving planes, as the JAX agent picks them: with ``--multipeer N`` each
+connection claims a slot of the batched peer engine; otherwise, on the
+default path, each connection claims a session of the continuous batch
+scheduler (stream/scheduler.py), which steps every waiting session in one
+step on the card; with ``BATCHSCHED=0``, an injected pipeline or
+``--fbs`` > 1 every connection shares the one pipeline.  A full slot pool
+answers 503 with ``Retry-After``; closing a connection releases its slot.
+Steps run in worker threads or the planes' own threads; this layer adds
+no torch work of its own (the pts wrap and fbs stacking are numpy).
+
+Admission, supervision, the overload plane, journeys and broadcast
+fan-out are later slices of the port.
 """
 
 from __future__ import annotations
@@ -35,7 +44,10 @@ from dataclasses import dataclass, field
 
 from .. import resolve_device
 from ..models import registry
+from ..parallel.multipeer import CapacityError
+from ..resilience.overload import ShedFrame
 from ..stream.pipeline import StreamDiffusionPipeline
+from ..utils import env
 from ..utils.profiling import FrameStats
 from . import turn, wire
 from .events import StreamEventHandler
@@ -77,7 +89,8 @@ class TimedPipeline:
     def __call__(self, frame):
         t0 = time.monotonic()
         out = self._pipeline(frame)
-        self._stats.record(time.monotonic() - t0)
+        if not isinstance(out, ShedFrame):  # a shed is no step: not a latency sample
+            self._stats.record(time.monotonic() - t0)
         return out
 
     def _submit(self, frame):
@@ -86,7 +99,8 @@ class TimedPipeline:
     def _fetch(self, handle, src_frame=None):
         inner, t_sub = handle
         out = self._pipeline.fetch(inner, src_frame)
-        self._stats.record(time.monotonic() - t_sub)
+        if not isinstance(out, ShedFrame):
+            self._stats.record(time.monotonic() - t_sub)
         return out
 
     def _submit_batch(self, frames):
@@ -150,14 +164,21 @@ def wire_datachannel(pipeline, channel, guard=None):
 # -- lifecycle -------------------------------------------------------------------
 
 def configure(app, model_id: str = "stabilityai/sd-turbo", pipeline=None, provider=None,
-              fbs: int = 0, device=None):
-    """Fill the app state's configuration; ``pipeline=None`` builds the
-    port's StreamDiffusionPipeline at :func:`startup`."""
+              fbs: int = 0, device=None, multipeer: int = 0, multipeer_pipeline=None,
+              batch_scheduler=None):
+    """Fill the app state's configuration.  ``pipeline=None`` builds the
+    port's StreamDiffusionPipeline at :func:`startup`, and the batch
+    scheduler over it; ``multipeer`` N > 0 builds the N-slot peer engine
+    instead.  ``pipeline``, ``multipeer_pipeline`` and ``batch_scheduler``
+    are injectable (tests)."""
     app["model_id"] = model_id
     app["pipeline"] = pipeline
     app["provider"] = provider or get_provider()
     app["fbs"] = fbs
     app["device"] = device
+    app["multipeer"] = multipeer
+    app["multipeer_pipeline"] = multipeer_pipeline
+    app["batch_scheduler"] = batch_scheduler
 
 
 def build_pipeline(model_id: str, fbs: int = 0, device=None) -> StreamDiffusionPipeline:
@@ -171,9 +192,30 @@ def build_pipeline(model_id: str, fbs: int = 0, device=None) -> StreamDiffusionP
 
 
 def startup(app):
-    if app["pipeline"] is None:
+    """Build the serving plane (see the module docstring).  A plane that
+    cannot be built raises: the agent never serves another one instead."""
+    if app["multipeer"] and app["multipeer_pipeline"] is None:
+        from .multipeer_serving import MultiPeerPipeline
+
+        if app["fbs"] > 1:
+            raise ValueError(
+                "--fbs is not supported with --multipeer (peers are already the batch dimension)"
+            )
+        app["multipeer_pipeline"] = MultiPeerPipeline(
+            app["model_id"], max_peers=app["multipeer"], device=resolve_device(app["device"])
+        )
+    elif app["pipeline"] is None and app["multipeer_pipeline"] is None:
         app["pipeline"] = build_pipeline(app["model_id"], app["fbs"], app["device"])
+        if app["batch_scheduler"] is None and env.batchsched_enabled():
+            if app["fbs"] > 1:
+                logger.info("--fbs %d: serving the shared pipeline (frame batches through "
+                            "the batch scheduler are a later slice of the port)", app["fbs"])
+            else:
+                from ..stream.scheduler import BatchScheduler
+
+                app["batch_scheduler"] = BatchScheduler.from_pipeline(app["pipeline"])
     app["pcs"] = set()
+    app["releasing"] = set()  # slot releases in flight
     app["stream_event_handler"] = StreamEventHandler()
     app["state"] = {
         "source_track": None,  # the newest live publisher's processed track
@@ -192,18 +234,62 @@ async def shutdown(app):
     pcs.clear()
     for relay in app["state"]["whip_relays"].values():
         relay.stop()
+    await asyncio.gather(*app["releasing"])
+    for plane in (app["multipeer_pipeline"], app["batch_scheduler"]):
+        if plane is not None:
+            plane.close()
 
 
 def metrics(app) -> dict:
-    return app["stats"].snapshot()
+    """FrameStats, and the batch scheduler's ``batchsched_*`` gauges."""
+    out = app["stats"].snapshot()
+    if app["batch_scheduler"] is not None:
+        out.update(app["batch_scheduler"].snapshot())
+    return out
 
 
 async def update_config(app, config):
-    """POST /config: applied to the shared pipeline, off the loop."""
+    """POST /config, off the loop: every multipeer slot, else every live
+    scheduler session and the scheduler's defaults for future ones, else
+    the shared pipeline."""
+    target = app["multipeer_pipeline"] or app["batch_scheduler"] or app["pipeline"]
     try:
-        await asyncio.to_thread(apply_runtime_config, app["pipeline"], config)
+        await asyncio.to_thread(apply_runtime_config, target, config)
     except (TypeError, KeyError) as e:  # structurally wrong JSON
         raise ValueError(str(e)) from e
+
+
+def _slots_full(app) -> Reply:
+    """503 with Retry-After, naming the slot pool that refused (the JAX
+    agent's text)."""
+    text = ("all peer slots in use" if app["multipeer_pipeline"] is not None
+            else "all batch-scheduler session slots in use")
+    return Reply(503, text, None, {wire.RETRY_AFTER: "2"})
+
+
+async def claim_pipeline(app, session_key: str):
+    """-> (pipeline, release) for a new connection: a multipeer slot, a
+    scheduler session or the shared pipeline; (None, None) when the slots
+    are full.  The claim (a text encode and a state build) runs off the
+    loop, and so does the release, which is safe to call twice."""
+    mp, sched = app["multipeer_pipeline"], app["batch_scheduler"]
+    if mp is None and sched is None:
+        return app["pipeline"], lambda: None
+    try:
+        if mp is not None:
+            claimed = await asyncio.to_thread(mp.claim)
+        else:
+            claimed = await asyncio.to_thread(sched.claim, session_key)
+    except CapacityError:
+        return None, None
+    releasing = app["releasing"]
+
+    def release():
+        task = asyncio.ensure_future(asyncio.to_thread(claimed.release))
+        releasing.add(task)
+        task.add_done_callback(releasing.discard)
+
+    return claimed, release
 
 
 # -- flows -------------------------------------------------------------------------
@@ -261,9 +347,11 @@ def has_publisher(app) -> bool:
 async def publish(app, sdp: str) -> Reply:
     """WHIP: a publisher's stream goes through the pipeline; its processed
     track becomes the source that viewers subscribe to (newest wins)."""
-    pcs, provider, state = app["pcs"], app["provider"], app["state"]
-    pipeline, stats = app["pipeline"], app["stats"]
+    pcs, provider, state, stats = app["pcs"], app["provider"], app["state"], app["stats"]
     session_id = str(uuid.uuid4())
+    pipeline, release_pipeline = await claim_pipeline(app, session_id)
+    if pipeline is None:
+        return _slots_full(app)
     pc = None
     try:
         offer_sdp = provider.session_description(sdp=sdp, type="offer")
@@ -305,6 +393,7 @@ async def publish(app, sdp: str) -> Reply:
                 pcs.discard(pc)
                 state["whip_pcs"].pop(session_id, None)
                 _refresh_source_track(state)
+                release_pipeline()
 
         await pc.setRemoteDescription(offer_sdp)
         # OBS: gather every ICE candidate before answering (it does not trickle)
@@ -312,6 +401,7 @@ async def publish(app, sdp: str) -> Reply:
         answer = await pc.createAnswer()
         await pc.setLocalDescription(answer)
     except Exception as e:
+        release_pipeline()
         await _discard_pc(pc, pcs)
         state["whip_pcs"].pop(session_id, None)
         state["whip_tracks"].pop(session_id, None)
@@ -379,10 +469,12 @@ async def offer(app, params: dict) -> Reply:
         offer_params = params["offer"]
     except LookupError as e:
         raise ValueError(str(e)) from e
-    pcs, provider = app["pcs"], app["provider"]
-    pipeline, stats = app["pipeline"], app["stats"]
+    pcs, provider, stats = app["pcs"], app["provider"], app["stats"]
     events: StreamEventHandler = app["stream_event_handler"]
     stream_id = str(uuid.uuid4())
+    pipeline, release_pipeline = await claim_pipeline(app, stream_id)
+    if pipeline is None:
+        return _slots_full(app)
     pc = None
     try:
         offer_sdp = provider.session_description(sdp=offer_params["sdp"], type=offer_params["type"])
@@ -413,6 +505,7 @@ async def offer(app, params: dict) -> Reply:
             if conn in ("failed", "closed"):
                 await pc.close()
                 pcs.discard(pc)
+                release_pipeline()
                 if conn == "closed":
                     events.handle_stream_ended(stream_id, room_id)
             elif conn == "connected":
@@ -422,6 +515,7 @@ async def offer(app, params: dict) -> Reply:
         answer = await pc.createAnswer()
         await pc.setLocalDescription(answer)
     except Exception as e:
+        release_pipeline()
         await _discard_pc(pc, pcs)
         raise _client_error(e, (KeyError,))
     return Reply(

@@ -16,8 +16,10 @@ diffused frame.
 * With ``frame_buffer_size`` > 1 the pipeline's ``submit_batch`` steps fbs
   consecutive frames at once, and the outputs drain one per ``recv()``.
 
-The overload plane (freshest-frame shedding) and frame tracing are later
-slices of the port.
+A frame that a bounded queue of the batch scheduler or ``--multipeer``
+shed comes back as a ``ShedFrame``; the track delivers its source pixels
+(passthrough).  The overload plane (freshest-frame shedding at ingest) and
+frame tracing are later slices of the port.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ import asyncio
 import logging
 from collections import deque
 
+from ..resilience.overload import ShedFrame
 from ..utils import env
 from ..utils.dispatch import fire_handler
 
@@ -82,7 +85,7 @@ class VideoStreamTrack:
 
         if self.pipeline_depth == 1:
             frame = await self.track.recv()
-            return await asyncio.to_thread(self.pipeline, frame)
+            return _pixels(await asyncio.to_thread(self.pipeline, frame))
 
         # keep `depth` frames in flight, return the oldest
         while len(self._pending) < self.pipeline_depth:
@@ -90,7 +93,7 @@ class VideoStreamTrack:
             handle = await asyncio.to_thread(self.pipeline.submit, frame)
             self._pending.append((frame, handle))
         src, handle = self._pending.popleft()
-        return await asyncio.to_thread(self.pipeline.fetch, handle, src)
+        return _pixels(await asyncio.to_thread(self.pipeline.fetch, handle, src))
 
     async def _recv_batched(self, fbs: int):
         async def pull_batch():
@@ -111,5 +114,11 @@ class VideoStreamTrack:
             self._pending.append((srcs, await asyncio.to_thread(self.pipeline.submit_batch, srcs)))
             if len(self._pending) >= self.pipeline_depth:
                 srcs0, h0 = self._pending.popleft()
-                self._outbuf.extend(await asyncio.to_thread(self.pipeline.fetch_batch, h0, srcs0))
+                outs = await asyncio.to_thread(self.pipeline.fetch_batch, h0, srcs0)
+                self._outbuf.extend(_pixels(o) for o in outs)
         return self._outbuf.popleft()
+
+
+def _pixels(out):
+    """A shed frame's source pixels; any other output as it is."""
+    return out.frame if isinstance(out, ShedFrame) else out

@@ -131,6 +131,18 @@ def coeff_state(cfg: StreamConfig, schedule: S.NoiseSchedule, t_index_list, devi
     return c.as_dict()
 
 
+def t_index_coeffs(cfg: StreamConfig, schedule: S.NoiseSchedule, t_index_list, device) -> dict:
+    """:func:`coeff_state` for a runtime t_index update, which keeps the
+    stage count (the stream batch size); another length raises ValueError."""
+    t_index_list = tuple(int(t) for t in t_index_list)
+    if len(t_index_list) != cfg.n_stages:
+        raise ValueError(
+            f"t_index_list length must stay {cfg.n_stages} (the stream batch size); "
+            "rebuild the engine to change depth"
+        )
+    return coeff_state(cfg, schedule, t_index_list, device)
+
+
 def _coeffs(d: dict, sl=slice(None)) -> L.StepCoeffs:
     return L.StepCoeffs(
         d["timesteps"][sl], d["alpha"][sl], d["sigma"][sl], d["c_skip"][sl],
@@ -199,6 +211,115 @@ def make_step_fn(models: StreamModels, cfg: StreamConfig):
         return state, I.postprocess_uint8(img_out.float())
 
     return step
+
+
+def make_session_step_fn(models: StreamModels, cfg: StreamConfig):
+    """The step of k sessions at once over a stacked state (counterpart of
+    ``jax.vmap(make_step_fn(...), in_axes=(None, 0, 0))`` inside the JAX
+    package's ``make_bucket_step``), written out as one batch of k*B rows:
+
+        step(params, states, frames_u8, slots, k_real) -> out_u8 [k,H,W,3]
+
+    ``states``: every leaf of the single-session state stacked on a leading
+    slot axis [S, ...] (:func:`stack_states`).  ``frames_u8``: [k,H,W,3]
+    uint8 on the device, one frame per session; ``slots``: int32 [k] on the
+    device, the slot of each session (a padded bucket repeats its last real
+    slot at the tail); ``k_real``: the real sessions, whose ring rows and
+    stock are advanced in place.  The k*B rows go through the preprocess,
+    TAESD, UNet, epilogue and decode sequence of :func:`make_step_fn` once:
+    32 attention launches and one epilogue launch whatever k is, each row
+    with its own session's prompt, coefficients, guidance and delta.
+
+    The fused epilogue reads the stock, noise, coefficients, guidance and
+    delta at the slots and writes the ring and stock rows in place; the
+    composed ops gather the same rows and scatter the first k_real back.
+    frame_buffer_size > 1 through the session axis is a later slice."""
+    _check_supported(cfg)
+    if cfg.frame_buffer_size != 1:
+        raise NotImplementedError(
+            "not ported yet (a later slice of the port): frame_buffer_size > 1 "
+            "through the session axis"
+        )
+    B = cfg.batch_size
+    dt = cfg.torch_dtype
+    fused = cfg.use_fused_epilogue and cfg.prediction_type == "epsilon"
+
+    @torch.inference_mode()
+    def step(params, states, frames_u8, slots, k_real):
+        k = frames_u8.shape[0]
+        c = states["coeffs"]
+        take = lambda a: a.index_select(0, slots)  # noqa: E731
+        rows = lambda a: a.reshape(k * a.shape[1], *a.shape[2:])  # noqa: E731  [k, n, ...] -> [k*n, ...]
+
+        img = I.preprocess_uint8(frames_u8, dtype=dt)
+        z0 = models.vae_encode(params, img)  # [k,h,w,c]
+        if cfg.do_add_noise:
+            a0 = take(c["alpha"][:, 0]).reshape(-1, 1, 1, 1).to(dt)
+            s0 = take(c["sigma"][:, 0]).reshape(-1, 1, 1, 1).to(dt)
+            x_new = a0 * z0 + s0 * take(states["noise"][:, 0]).to(dt)
+        else:
+            x_new = z0
+        x_t = rows(torch.cat([x_new[:, None], take(states["x_buf"]).to(dt)], dim=1)) \
+            if B > 1 else x_new
+        cond = take(states["cond"]).to(dt)  # [k,1,L,D]
+        cond = rows(cond.expand(k, B, *cond.shape[2:]))
+        eps_c = models.unet(params, x_t, take(c["timesteps"]).reshape(-1), cond)
+
+        if fused:
+            denoised = fused_stream_epilogue(
+                x_t, eps_c, states["stock"], states["noise"], _coeffs(c), states["guidance"],
+                states["delta"], cfg_type=cfg.cfg_type, turbo=cfg.scheduler == "turbo",
+                noise_shift=1, advanced_out=states["x_buf"], stock_out=states["stock"],
+                slots=slots, k_real=k_real,
+            )[0]
+        else:
+            co = _coeffs({name: take(v).reshape(-1) for name, v in c.items()})
+            stock = rows(take(states["stock"])).to(dt)
+            real = slots[:k_real].long()
+            if cfg.cfg_type == "none":
+                eps = eps_c
+            else:
+                col = lambda v: take(v).repeat_interleave(B).reshape(-1, 1, 1, 1)  # noqa: E731
+                eps = R.combine_residual(eps_c, stock, col(states["guidance"]),
+                                         col(states["delta"]))
+                if cfg.cfg_type == "self":
+                    new_stock = R.update_stock_noise(stock, eps_c, co.alpha, co.sigma)
+                    states["stock"].index_copy_(0, real, new_stock.view(k, B, *x_t.shape[1:])[:k_real])
+            if cfg.scheduler == "turbo":
+                denoised = L.turbo_denoise(x_t, eps, co, cfg.prediction_type)
+            else:
+                denoised = L.lcm_denoise(x_t, eps, co, cfg.prediction_type)
+            if B > 1:
+                head = lambda a: a.view(k, B, *a.shape[1:])[:, : B - 1]  # noqa: E731
+                sub = L.StepCoeffs(*(rows(head(v)).reshape(-1) for v in (
+                    co.timesteps, co.alpha, co.sigma, co.c_skip, co.c_out, co.next_alpha,
+                    co.next_sigma)))
+                advanced = L.renoise_next(rows(head(denoised)),
+                                          rows(take(states["noise"])[:, 1:]).to(dt), sub)
+                states["x_buf"].index_copy_(0, real, advanced.view(k, B - 1, *x_t.shape[1:])[:k_real])
+        out_latent = denoised.view(k, B, *x_t.shape[1:])[:, B - 1]
+
+        img_out = models.vae_decode(params, out_latent)
+        return I.postprocess_uint8(img_out.float())
+
+    return step
+
+
+def stack_states(states: list) -> dict:
+    """Stack single-session states leaf by leaf on a new leading slot axis."""
+    if isinstance(states[0], dict):
+        return {key: stack_states([st[key] for st in states]) for key in states[0]}
+    return torch.stack(states)
+
+
+def install_row(stacked: dict, slot: int, state: dict):
+    """Write one session's state into row ``slot`` of a stacked state, in
+    place (the storage the kernels write stays the same)."""
+    for key, value in state.items():
+        if isinstance(value, dict):
+            install_row(stacked[key], slot, value)
+        else:
+            stacked[key][slot].copy_(value)
 
 
 class SimilarityFilter:
@@ -400,14 +521,8 @@ class StreamEngine:
 
     def update_t_index_list(self, t_index_list):
         """Same-length update = coefficient swap; the length is fixed."""
-        t_index_list = tuple(int(t) for t in t_index_list)
-        if len(t_index_list) != len(self._t_index_list):
-            raise ValueError(
-                f"t_index_list length must stay {len(self._t_index_list)} "
-                "(the stream batch size); rebuild the engine to change depth"
-            )
-        coeffs = coeff_state(self.cfg, self.schedule, t_index_list, self.device)
-        self._t_index_list = t_index_list
+        coeffs = t_index_coeffs(self.cfg, self.schedule, t_index_list, self.device)
+        self._t_index_list = tuple(int(t) for t in t_index_list)
         with self._submit_lock:
             self.state["coeffs"] = coeffs
 

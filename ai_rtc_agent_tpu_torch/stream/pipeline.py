@@ -114,9 +114,8 @@ class StreamDiffusionPipeline:
         return out_u8
 
     def _finish(self, out_u8: np.ndarray, src_frame):
-        """The output contract: :meth:`postprocess`, unless HW_ENCODE serving
-        wants bare ndarrays."""
-        return out_u8 if env.hw_encode() else self.postprocess(out_u8, src_frame)
+        """The output contract (:func:`finish_output`)."""
+        return finish_output(out_u8, src_frame)
 
     def __call__(self, frame):
         return self._finish(self.engine(self.preprocess(frame)), frame)
@@ -147,6 +146,16 @@ class StreamDiffusionPipeline:
             self._finish(out[i], src_frames[i] if src_frames else None)
             for i in range(out.shape[0])
         ]
+
+
+def finish_output(out_u8: np.ndarray, src_frame=None):
+    """The output contract every serving plane shares (the pipeline, the
+    batch scheduler's sessions, --multipeer's peers): the source frame's
+    pts carried to the output, unless HW_ENCODE serving wants bare
+    ndarrays."""
+    if env.hw_encode() or src_frame is None or not hasattr(src_frame, "pts"):
+        return out_u8
+    return wrap_processed(out_u8, src_frame)
 
 
 def coerce_frame(frame, h: int, w: int) -> np.ndarray:

@@ -8,6 +8,12 @@ Variables read by the port's server:
   WEBRTC_PROVIDER                   aiortc | loopback (native-rtp: later slice)
   WEBHOOK_URL, AUTH_TOKEN           stream lifecycle webhooks
   ICE_SERVERS, TWILIO_ACCOUNT_SID, TWILIO_AUTH_TOKEN   TURN servers
+  BATCHSCHED                        the cross-session batch scheduler (default on)
+  BATCHSCHED_MAX_SESSIONS           its session slots (8)
+  BATCHSCHED_WINDOW_MS              its coalescing window (3 ms)
+  BATCHSCHED_QUEUE_BOUND            frames queued per session (2)
+  BATCHSCHED_PREWARM                step every bucket once at startup (on)
+  MULTIPEER_BUCKETS                 --multipeer steps only the active slots (on)
 """
 
 from __future__ import annotations
@@ -28,6 +34,16 @@ def get_int(name: str, default: int) -> int:
         return int(v)
     except ValueError as e:
         raise ValueError(f"env var {name}={v!r} is not an integer") from e
+
+
+def get_float(name: str, default: float) -> float:
+    v = os.getenv(name)
+    if v is None or v == "":
+        return default
+    try:
+        return float(v)
+    except ValueError as e:
+        raise ValueError(f"env var {name}={v!r} is not a number") from e
 
 
 def get_bool(name: str, default: bool = False) -> bool:
@@ -55,3 +71,10 @@ def pipeline_depth() -> int:
     synchronous, more overlaps one frame's step with the next frame's
     readback at the cost of ``depth`` frames of latency."""
     return max(1, get_int("PIPELINE_DEPTH", 2))
+
+
+def batchsched_enabled() -> bool:
+    """The continuous cross-session batch scheduler (stream/scheduler.py) is
+    the default single-device serving path; BATCHSCHED=0 serves every
+    session through the one shared pipeline."""
+    return get_bool("BATCHSCHED", True)

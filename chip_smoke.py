@@ -16,7 +16,13 @@ Phases (each prints its own lines; any failure exits non-zero):
                 renoise shift, advanced rows and stock in place) for cfg
                 none at B=1, self and initialize at B=4, beside the launch
                 floor (an empty kernel from its library on its grid), and
-                once more through a CUDA graph replay.
+                once more through a CUDA graph replay.  With the session
+                axis (the bucket step's call over 8 stacked slots): the
+                4-stage ring (cfg self) at 2, 3 (padded to 4 with a
+                duplicate slot) and 8 sessions, cfg initialize at 3 and
+                sd-turbo's cfg none at 8, slot-indexed in place, one graph
+                replay, each beside its floor and bound; attention at B=8
+                and B=32 on two main-path shapes.
   4. main     — the default serving path, StreamDiffusionPipeline(
                 "stabilityai/sd-turbo") at 512x512 in bf16 with random
                 weights from a seed: frames through __call__ and through
@@ -35,8 +41,30 @@ Phases (each prints its own lines; any failure exits non-zero):
                 after it must change), closes both sessions (no peer
                 connection left) and prints the served ms/frame and fps and
                 FrameStats' fps and latency p50.
-  6. a "kernels" JSON line (launch counts of phases 4 and 5), then the last
-     line {"ok": true, "device": ...}.
+  6. sessions — cross-session batching (stream/scheduler.py, parallel/
+                multipeer.py).  6a: BatchScheduler.from_pipeline over phase
+                4's pipeline, 8 slots; 1, 2, 3 (bucket of 4), 4 and 8
+                sessions with distinct prompts and seeds, one submitting
+                thread each, 2 frames in flight: 32 attention + 1 epilogue
+                launches per bucket step, each session's first frames held
+                to a dedicated engine fed its state row (phase 4's
+                criterion against the f32 reference); two timed runs of 36
+                frames per session at each k, each followed by the same
+                sessions through the shared pipeline in turns: ms between
+                bucket steps, aggregate and per-session fps over a steady
+                window (each session's outputs past its 4th, so the fill
+                and the first step are out), each session's first frame;
+                a prompt update on one session moves its frames only; a
+                release and claim again, the 9th claim raises
+                CapacityError.  6b: the 4-stage LCM cfg-self ring at
+                SD2.1-base geometry (random weights), 2 sessions x 8 frames
+                against dedicated engines (the renoise shift within each
+                session).  6c: MultiPeerPipeline with 2 peers (its
+                coordinator steps every bucket at startup): launches per
+                tick, each peer's frames against a dedicated engine that
+                replays its slot's ticks.
+  7. a "kernels" JSON line (launch counts of phases 4, 5 and 6), then the
+     last line {"ok": true, "device": ...}.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -72,6 +100,11 @@ EXTRA_ATTENTION = [
     (1, 1000, 77, 10, 64), (1, 65, 300, 2, 64), (2, 1000, 1000, 8, 40), (1, 256, 77, 2, 160),
     (4, 1024, 1024, 5, 64), (4, 4096, 77, 8, 40), (4, 1024, 77, 8, 80),
 ]
+# the bucket step's batches: k sessions x B rows (sd-turbo: 1 row, up to 8
+# sessions; the 4-stage LCM ring: 4 rows, 8 at 2 sessions, 32 at 8), at two
+# main-path shapes (self 4096^2 H5, cross 1024x77 H10)
+SESSION_ATTENTION = [(b, lq, lk, h, 64) for b in (8, 32)
+                     for lq, lk, h in ((4096, 4096, 5), (1024, 77, 10))]
 # head dim -> query rows ragged against the 64-row tile and (D <= 64) the 192-row one
 EDGE_LQ = {64: (100, 2100), 40: (100, 2100), 80: (100,), 160: (100,)}
 # (D, Lq) of each kernel instantiation, for its key tile and registers
@@ -214,21 +247,29 @@ def epilogue_work(args, kwargs):
     read once and each output written once, counting only what the call
     reads and keeps (x and eps; the stock unless cfg none; the noise rows
     that some kept advanced row renoises with; den; the kept advanced rows;
-    the new stock for cfg self; the coefficient vectors)."""
+    the new stock for cfg self; the coefficient vectors, guidance and delta
+    of the slots it reads).  With ``slots``, only the first k_real sessions
+    keep advanced rows and stock."""
     x = args[0]
-    B = x.shape[0]
-    n = x.numel() // B
+    R = x.shape[0]
+    n = x.numel() // R
     cfg_type, turbo = kwargs["cfg_type"], kwargs["turbo"]
     rcfg, is_self = cfg_type != "none", cfg_type == "self"
-    adv = kwargs["advanced_out"]
-    adv_rows = B if adv is None else adv.shape[0]
-    noise_rows = max(0, min(adv_rows, args[3].shape[0] - kwargs["noise_shift"]))
-    rows = 2 * B + rcfg * B + noise_rows + B + adv_rows + is_self * B
-    coeff_bytes = 4 * B * (4 if turbo else 6) + 8 * rcfg
+    adv, slots = kwargs["advanced_out"], kwargs.get("slots")
+    if slots is None:
+        k, k_real, axis = 1, 1, 0
+    else:
+        k, axis = slots.numel(), 1
+        k_real = kwargs.get("k_real") or k
+    seg = R // k
+    adv_rows = seg if adv is None else adv.shape[axis]
+    noise_rows = max(0, min(adv_rows, args[3].shape[axis] - kwargs["noise_shift"]))
+    kept, noisy = k_real * adv_rows, k_real * noise_rows
+    rows = 2 * R + rcfg * R + noisy + R + kept + is_self * k_real * seg
+    coeff_bytes = 4 * k * seg * (4 if turbo else 6) + 8 * rcfg * k
     # per element: x0 3; R-CFG combine 3; blend 3 (not turbo); stock 3;
     # renoise 3 with a noise row, 1 without
-    flops = n * (B * (3 + 3 * rcfg + 3 * (not turbo) + 3 * is_self)
-                 + 3 * noise_rows + (adv_rows - noise_rows))
+    flops = n * (R * (3 + 3 * rcfg + 3 * (not turbo) + 3 * is_self) + 3 * noisy + (kept - noisy))
     return flops, rows * n * x.element_size() + coeff_bytes
 
 
@@ -320,6 +361,15 @@ def phase_attention(torch):
     )
     for b, lq, lk, h, d in EXTRA_ATTENTION + edge_attention(KA.key_tile):
         say(f"{case(b, lq, lk, h, d)[-1]} ok")
+    for b, lq, lk, h, d in SESSION_ATTENTION:  # the bucket step's batches
+        q, k, v, err, label = case(b, lq, lk, h, d)
+        ms = time_ms(torch, lambda: KA.flash_attention(q, k, v), 10)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        lib = time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt), 10)
+        flops = 4.0 * b * h * lq * lk * d
+        bms, by = bound(flops, PEAK_BF16_FLOPS, 2.0 * (2 * q.numel() + k.numel() + v.numel()))
+        say(f"{label} | kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), sdpa {lib:.4f} ms, "
+            f"bound {bms:.4f} ms ({by})")
     say(
         f"attention per step (32 launches): kernel {totals['ms']:.4f} ms, plain "
         f"{totals['plain_ms']:.4f} ms, sdpa {totals['library_ms']:.4f} ms, bound "
@@ -336,6 +386,46 @@ def phase_attention(torch):
 
 
 EPILOGUE_CASES = ("none", "self", "initialize")  # none: the main path (sd-turbo, B=1)
+# The bucket step's epilogue over a stacked state of N_SLOTS sessions:
+# (cfg_type, real sessions, the bucket's slots).  The 4-stage LCM ring
+# (cfg self) at 2, 3 (padded to 4 with a duplicate) and 8 sessions, its
+# cfg initialize at 3, and sd-turbo (cfg none, turbo, 1 row) at 8.
+N_SLOTS = 8
+SESSION_EPILOGUE = [
+    ("self", 2, [5, 2]), ("self", 3, [6, 1, 3, 3]), ("self", 8, [7, 0, 5, 2, 4, 1, 6, 3]),
+    ("initialize", 3, [2, 0, 4, 4]), ("none", 8, [3, 6, 0, 7, 1, 5, 2, 4]),
+]
+
+
+def session_epilogue_call(torch, cfg_type: str, k_real: int, slots: list, gen, device="cuda"):
+    """The bucket step's epilogue call as (args, kwargs): k = len(slots)
+    sessions of B rows (4 stages, or sd-turbo's 1 with turbo) of
+    [64,64,4] bf16 over a stacked state of N_SLOTS slots, each slot with its
+    own coefficients (its t-indices moved by its slot number), guidance and
+    delta; renoise shift 1 within each session, the advanced rows into the
+    stacked ring and the new stock into the stacked stock it reads."""
+    from ai_rtc_agent_tpu_torch.ops import lcm as L
+    from ai_rtc_agent_tpu_torch.ops import schedule as S
+
+    turbo = cfg_type == "none"
+    tables = []
+    for i in range(N_SLOTS):
+        if turbo:
+            bt = S.batched_sub_timesteps((0,), 1, spacing="trailing")
+        else:
+            bt = S.batched_sub_timesteps((10 + i, 20 + i, 30 + i, 40 + i), 50)
+        tables.append(L.make_step_coeffs(S.make_schedule(), bt).to(device).as_dict())
+    c = L.StepCoeffs(*(torch.stack([t[f] for t in tables]) for f in tables[0]))
+    B = c.alpha.shape[1]
+    rand = lambda *shape: torch.randn(shape, generator=gen, device=device).to(torch.bfloat16)  # noqa: E731
+    x, e = rand(len(slots) * B, 64, 64, 4), rand(len(slots) * B, 64, 64, 4)
+    stock, noise = rand(N_SLOTS, B, 64, 64, 4), rand(N_SLOTS, B, 64, 64, 4)
+    ring = rand(N_SLOTS, B - 1, 64, 64, 4)
+    g = 1.1 + 0.1 * torch.arange(N_SLOTS, device=device, dtype=torch.float32)
+    d = 0.95 - 0.05 * torch.arange(N_SLOTS, device=device, dtype=torch.float32)
+    kwargs = dict(cfg_type=cfg_type, turbo=turbo, noise_shift=1, advanced_out=ring, stock_out=stock,
+                  slots=torch.tensor(slots, dtype=torch.int32, device=device), k_real=k_real)
+    return (x, e, stock, noise, c, g, d), kwargs
 
 
 def fresh_epilogue_call(args, kwargs):
@@ -352,11 +442,14 @@ def plain_epilogue_call(KF, args, kwargs):
     return KF.epilogue_plain(*a, **kw)
 
 
-def _epilogue_errors(label, got, want) -> tuple:
-    """Max abs and rel error over the non-empty outputs; fails out of tolerance."""
+def _epilogue_errors(label, got, want, den_rows=None) -> tuple:
+    """Max abs and rel error over the non-empty outputs (denoised: its first
+    ``den_rows`` rows, those of the real sessions); fails out of tolerance."""
     from ai_rtc_agent_tpu_torch.ops.kernels import tolerance
 
     max_abs = max_rel = 0.0
+    got = (got[0][:den_rows], *got[1:])
+    want = (want[0][:den_rows], *want[1:])
     for name, a, b in zip(("denoised", "advanced", "stock"), got, want):
         if a.shape != b.shape:
             fail(f"{label} {name}: shape {tuple(a.shape)} vs {tuple(b.shape)}")
@@ -429,18 +522,60 @@ def phase_epilogue(torch):
             + ("" if held else " (the device woke first: not the host's time alone)")
         )
         out[cfg_type] = {"ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by}
+    max_err = max(max_err, phase_session_epilogue(torch, KF))
     return {"max_abs_err": max_err, **out["none"], "library_ms": None}
 
 
-def _frames(np, n: int, seed: int = 0):
-    """Structured 512x512 frames (gradients + a moving disc + mild noise)."""
+def phase_session_epilogue(torch, KF) -> float:
+    """The epilogue with the session axis (SESSION_EPILOGUE), as the bucket
+    step calls it, against its plain version from the same state: the real
+    sessions' denoised rows and the whole stacked ring and stock (idle and
+    padded slots untouched); once through a CUDA graph replay; the kernel's
+    time beside its launch floor and bound."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    max_err = 0.0
+    for i, (cfg_type, k_real, slots) in enumerate(SESSION_EPILOGUE):
+        args, kwargs = session_epilogue_call(torch, cfg_type, k_real, slots, gen)
+        R = args[0].shape[0]
+        n, seg = args[0].numel() // R, R // len(slots)
+        label = (f"epilogue cfg={cfg_type} {k_real} sessions in a bucket of {len(slots)} "
+                 f"(slots {slots}) x {seg} rows [64,64,4] bf16, {N_SLOTS} stacked slots")
+        a, kw = fresh_epilogue_call(args, kwargs)
+        got = KF.fused_stream_epilogue(*a, **kw)
+        torch.cuda.synchronize()
+        if got[1] is not kw["advanced_out"] or got[2] is not a[2]:
+            fail(f"{label}: the in-place outputs are not the stacked tensors passed in")
+        errs = [_epilogue_errors(f"{label} in place", got, plain_epilogue_call(KF, args, kwargs),
+                                 k_real * seg)]
+        if i == 1:  # the padded bucket, once through a graph
+            errs.append(_epilogue_errors(f"{label} graph replay",
+                                         *epilogue_graph_replay(torch, KF, args, kwargs), k_real * seg))
+        err, rel = max(e[0] for e in errs), max(e[1] for e in errs)
+        max_err = max(max_err, err)
+        ms = time_ms(torch, lambda: KF.fused_stream_epilogue(*args, **kwargs), 500)
+        floor = time_ms(torch, lambda: KF.launch_empty(R, n), 500)
+        plain = time_ms(torch, lambda: KF.epilogue_plain(*args, **kwargs), 50)
+        flops, nbytes = epilogue_work(args, kwargs)
+        bms, by = bound(flops, PEAK_F32_FLOPS, nbytes)
+        say(
+            f"{label}{', and graph replay' if i == 1 else ''}: max_abs_err {err:.3e}, max rel "
+            f"{rel:.2e} (tol 1 bf16 ulp = 2^-7 rel) | kernel {ms:.5f} ms, launch floor {floor:.5f} ms "
+            f"(empty kernel, same grid), plain {plain:.4f} ms, bound {bms:.6f} ms ({by}; {nbytes} B, "
+            f"{flops} flop)"
+        )
+    return max_err
+
+
+def _frames(np, n: int, seed: int = 0, size: int = 512):
+    """Structured size x size frames (gradients + a moving disc + mild noise)."""
     rng = np.random.default_rng(seed)
-    yy, xx = np.mgrid[0:512, 0:512]
+    yy, xx = np.mgrid[0:size, 0:size]
+    c, r = size / 2, size * 80 / 512
     out = []
     for i in range(n):
-        cy, cx = 256 + 80 * math.sin(i / 3), 256 + 80 * math.cos(i / 3)
-        disc = (np.hypot(yy - cy, xx - cx) < 96) * 180.0
-        img = np.stack([xx / 511 * 255, yy / 511 * 255, disc + 40], axis=-1)
+        cy, cx = c + r * math.sin(i / 3), c + r * math.cos(i / 3)
+        disc = (np.hypot(yy - cy, xx - cx) < size * 96 / 512) * 180.0
+        img = np.stack([xx / (size - 1) * 255, yy / (size - 1) * 255, disc + 40], axis=-1)
         img = img + rng.normal(0, 4, img.shape)
         out.append(np.clip(img, 0, 255).astype(np.uint8))
     return out
@@ -570,7 +705,7 @@ def phase_main(torch, card: str):
         fail(f"UNet with the attention kernel strays from the f32 reference ({ek:.3e} vs {ep:.3e})")
     if fk > 2 * fp + 0.5:
         fail(f"kernel-path frame strays from the f32 reference ({fk:.3f} vs {fp:.3f} levels)")
-    return pipe, attn_launches, epi_launches
+    return pipe, ref_bundle, attn_launches, epi_launches
 
 
 SERVE_PROMPT = "an oil painting of a lighthouse in a storm"
@@ -727,6 +862,369 @@ def phase_serve(torch, card: str, pipe):
     return attn, epi
 
 
+# -- phase 6: sessions --------------------------------------------------------------
+
+SESSION_PROMPTS = [
+    "a watercolor fox in the snow", "a neon city at night", "an oil painting of a harbor",
+    "a pencil sketch of a cat", "a mosaic of a sunflower", "a stained glass owl",
+    "a comic book robot", "a charcoal drawing of a horse", "a pastel beach at dawn",
+]
+SCHED_OCCUPANCY = (1, 2, 3, 4, 8)  # 3 rides the bucket of 4, padded
+SCHED_FRAMES = 36  # frames per session in each timed run at each occupancy
+SCHED_FILL = 4  # of them, each session's first outputs: outside the steady window
+SCHED_ROUNDS = 2  # timed runs per occupancy, scheduler and shared pipeline in turn
+PARITY_FRAMES = 3  # each session's first frames, held to dedicated engines
+RING_FRAMES = 8  # 6b: frames per session through the 4-stage LCM ring
+RING_FILL = 2  # of them, each session's first outputs: outside the steady window
+PEER_FRAMES = 4  # 6c: frames per peer
+
+
+def _sync(torch, device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _launches():
+    from ai_rtc_agent_tpu_torch.ops.kernels import attention as KA
+    from ai_rtc_agent_tpu_torch.ops.kernels import fused_scheduler as KF
+
+    return KA.launches, KF.launches
+
+
+def _reset_launches():
+    from ai_rtc_agent_tpu_torch.ops.kernels import attention as KA
+    from ai_rtc_agent_tpu_torch.ops.kernels import fused_scheduler as KF
+
+    KA.launches = KF.launches = 0
+
+
+def session_row(states, slot, dtype=None) -> dict:
+    """A copy of one slot's row of a stacked state (``slot`` None: a copy of
+    a single-session state), latents and embeddings cast to ``dtype`` when
+    given."""
+    from ai_rtc_agent_tpu_torch.tree import tree_map
+
+    row = tree_map(lambda a: (a if slot is None else a[slot]).clone(), states)
+    if dtype is not None:
+        for key in ("x_buf", "noise", "stock", "cond", "uncond"):
+            row[key] = row[key].to(dtype)
+    return row
+
+
+class Dedicated:
+    """One session's references, fed its state row: a dedicated engine of the
+    served kernels and dtype, and the plain f32 engine (the f32 reference of
+    phase 4)."""
+
+    def __init__(self, torch, models, params, cfg, encode_prompt, ref_bundle, row, device):
+        from ai_rtc_agent_tpu_torch.stream.engine import StreamEngine
+
+        ref_cfg = replace(cfg, attn_impl="plain", use_fused_epilogue=False, dtype="float32")
+        self.eng = StreamEngine(models, params, cfg, encode_prompt, device=device)
+        self.ref = StreamEngine(ref_bundle.stream_models, ref_bundle.params, ref_cfg,
+                                ref_bundle.encode_prompt, device=device)
+        self.eng.state = session_row(row, None)
+        self.ref.state = session_row(row, None, torch.float32)
+        self.outs, self.refs = [], []
+
+    def __call__(self, frame):
+        self.outs.append(self.eng(frame))
+        self.refs.append(self.ref(frame))
+
+    def update_prompt(self, prompt):
+        self.eng.update_prompt(prompt)
+        self.ref.update_prompt(prompt)
+
+
+def hold_to_references(np, label, got, ded: Dedicated) -> str:
+    """Phase 4's criterion for one session's frames: no further from the f32
+    reference than the dedicated engine is, with 2x slack (+0.5 level)."""
+    got = np.stack([np.asarray(g, np.float32) for g in got])
+    want = np.stack([np.asarray(o, np.float32) for o in ded.outs])
+    ref = np.stack([np.asarray(r, np.float32) for r in ded.refs])
+    fs, fd = np.abs(got - ref).mean(), np.abs(want - ref).mean()
+    vs = np.abs(got - want)
+    if not np.isfinite(got).all() or got.shape != want.shape:
+        fail(f"{label}: bad frames {got.shape}")
+    if fs > 2 * fd + 0.5:
+        fail(f"{label}: frames stray from the f32 reference ({fs:.3f} vs the dedicated engine's "
+             f"{fd:.3f} levels)")
+    return f"vs f32 {fs:.3f} (dedicated {fd:.3f}), vs dedicated mean {vs.mean():.3f} max {vs.max():.0f}"
+
+
+class Drive:
+    """One run of :func:`drive_sessions`: each session's outputs, the times
+    (s from the common start) at which its fetches returned, its handles,
+    and the wall time of the whole run."""
+
+    def __init__(self, outs, stamps, handles, wall):
+        self.outs, self.stamps, self.handles, self.wall = outs, stamps, handles, wall
+
+    def first_ms(self) -> list:
+        """Each session's first frame: the start to its first output."""
+        return [1e3 * st[0] for st in self.stamps]
+
+    def steady_fps(self, fill: int) -> list:
+        """Each session's rate between its ``fill``-th and its last output:
+        the pipeline's fill and the first step are outside the window."""
+        return [(len(st) - fill) / (st[-1] - st[fill - 1]) for st in self.stamps]
+
+    def steady_step_ms(self, fill: int) -> tuple:
+        """(ms between bucket steps, steps) over the steps that carried the
+        sessions' frames past their first ``fill`` (each step stamps its
+        riders with one dispatch time)."""
+        t = sorted({h.t_dispatch for hs in self.handles for h in hs[fill:]})
+        return 1e3 * (t[-1] - t[0]) / (len(t) - 1), len(t)
+
+
+def drive_sessions(torch, sessions, frames, n: int, depth: int = 2, warm: bool = False) -> Drive:
+    """One thread per session, each submitting its ``n`` frames with ``depth``
+    in flight (as a track does) and fetching in order, all started together.
+    ``warm``: each thread steps one frame first, before the start."""
+    outs = [None] * len(sessions)
+    stamps = [[] for _ in sessions]
+    handles = [[] for _ in sessions]
+    errors = []
+    t0 = [0.0]
+
+    def start():
+        t0[0] = time.perf_counter()
+
+    gate = threading.Barrier(len(sessions) + 1, action=start)
+
+    def run(i, sess):
+        try:
+            if warm:
+                sess(frames[i][0])
+            gate.wait()
+            got, pending = [], []
+
+            def fetch():
+                got.append(sess.fetch(pending.pop(0)))
+                stamps[i].append(time.perf_counter() - t0[0])
+
+            for f in frames[i][:n]:
+                pending.append(sess.submit(f))
+                handles[i].append(pending[-1])
+                if len(pending) == depth:
+                    fetch()
+            while pending:
+                fetch()
+            outs[i] = got
+        except BaseException as e:  # noqa: BLE001 - reported on the main thread
+            errors.append(e)
+            gate.abort()
+
+    threads = [threading.Thread(target=run, args=(i, s)) for i, s in enumerate(sessions)]
+    for t in threads:
+        t.start()
+    try:
+        gate.wait()
+    except threading.BrokenBarrierError:
+        pass
+    for th in threads:
+        th.join()
+    wall = time.perf_counter() - t0[0]
+    if errors:
+        raise errors[0]
+    return Drive(outs, stamps, handles, wall)
+
+
+def phase_sessions(torch, card: str, pipe, ref_bundle, ring_model="stabilityai/stable-diffusion-2-1-base",
+                   occupancy=SCHED_OCCUPANCY, n=SCHED_FRAMES):
+    """6a: the batch scheduler over phase 4's pipeline (8 slots); 6b: the
+    4-stage LCM ring; 6c: --multipeer's pipeline with 2 peers.  -> the
+    attention and epilogue launches of the scheduler and peer steps."""
+    import numpy as np
+
+    from ai_rtc_agent_tpu_torch.parallel.multipeer import CapacityError
+    from ai_rtc_agent_tpu_torch.server.multipeer_serving import MultiPeerPipeline
+    from ai_rtc_agent_tpu_torch.stream.pipeline import StreamDiffusionPipeline
+    from ai_rtc_agent_tpu_torch.stream.scheduler import BatchScheduler
+
+    dev = pipe.device
+    b = pipe.bundle
+    total = [0, 0]
+
+    def count(before, steps, label):
+        a, e = (x - y for x, y in zip(_launches(), before))
+        say(f"{label}: launches over {steps} steps: attention {a}, epilogue {e}")
+        if a != 32 * steps or e != steps:
+            fail(f"{label}: expected {32 * steps} attention and {steps} epilogue launches")
+        total[0] += a
+        total[1] += e
+
+    # -- 6a: sd-turbo sessions ---------------------------------------------------------
+    t = time.perf_counter()
+    sched = BatchScheduler.from_pipeline(pipe, max_sessions=8)
+    _sync(torch, dev)
+    say(f"sessions 6a: BatchScheduler.from_pipeline, 8 slots, buckets {sched._bucket_sizes}, "
+        f"window {1e3 * sched.window_s:.1f} ms, every bucket stepped once on the dispatcher "
+        f"thread: {time.perf_counter() - t:.1f}s")
+    size = pipe.config.height
+    frames = [_frames(np, n, seed=20 + i, size=size) for i in range(8)]
+    try:
+        for k in occupancy:
+            sess = [sched.claim(f"s{i}", prompt=SESSION_PROMPTS[i], seed=100 + i) for i in range(k)]
+            rows = [session_row(sched.states, s.slot) for s in sess]
+            # SCHED_ROUNDS timed runs, each beside the same k sessions through
+            # the shared pipeline in turns (one engine, its submit lock, on
+            # warmed threads): the two are compared only within one round
+            runs, shared = [], []
+            for r in range(SCHED_ROUNDS):
+                _sync(torch, dev)
+                _reset_launches()
+                steps0 = sched.steps_total
+                before = _launches()
+                runs.append(drive_sessions(torch, sess, frames, n))
+                count(before, sched.steps_total - steps0, f"sessions 6a k={k} run {r + 1}")
+                shared.append(drive_sessions(torch, [pipe] * k, frames, n, warm=True))
+            outs = runs[0].outs
+            deds = []  # each session's references (the last k's, for the prompt update)
+            for i, s in enumerate(sess):  # each session's first frames, held to its references
+                deds.append(Dedicated(torch, b.stream_models, b.params, pipe.config,
+                                      b.encode_prompt, ref_bundle, rows[i], dev))
+                for f in frames[i][:PARITY_FRAMES]:
+                    deds[i](f)
+                say(f"sessions 6a k={k} session {i} (slot {s.slot}): " + hold_to_references(
+                    np, f"6a k={k} session {i}", outs[i][:PARITY_FRAMES], deds[i]))
+            for r, (run, sh) in enumerate(zip(runs, shared)):
+                fps, sh_fps = run.steady_fps(SCHED_FILL), sh.steady_fps(SCHED_FILL)
+                step_ms, nsteps = run.steady_step_ms(SCHED_FILL)
+                say(
+                    f"sessions 6a k={k} (bucket {sched._bucket_for(k)}) run {r + 1}: {card} | "
+                    f"steady window (outputs {SCHED_FILL + 1}-{n} of each session): "
+                    f"{step_ms:.2f} ms between bucket steps over {nsteps} steps, aggregate "
+                    f"{sum(fps):.2f} fps, per session {min(fps):.2f}-{max(fps):.2f} fps | whole "
+                    f"run {run.wall:.3f} s; first frame per session (ms) "
+                    f"{[round(x, 1) for x in run.first_ms()]} | shared pipeline in turns, steady: "
+                    f"aggregate {sum(sh_fps):.2f} fps, per session {min(sh_fps):.2f}-"
+                    f"{max(sh_fps):.2f} fps | aggregate ratio {sum(fps) / sum(sh_fps):.2f}"
+                )
+            if k != occupancy[-1]:
+                for s in sess:
+                    s.release()
+        # a prompt update on session 0: its frame moves, and every session
+        # (session 0 against its references with the new prompt, the others
+        # with theirs) stays within phase 4's criterion.  Other bucket
+        # layouts than the timed run's move a bf16 frame by about a level
+        # (other GEMM algorithms), so the others are held to their references,
+        # not to their earlier frames.
+        before_outs = [o[0] for o in outs]
+        sess[0].update_prompt(SESSION_PROMPTS[-1])
+        deds[0].update_prompt(SESSION_PROMPTS[-1])
+        after = drive_sessions(torch, sess, [f[:1] for f in frames], 1, depth=1).outs
+        moved = [np.abs(after[i][0].astype(np.int16) - before_outs[i]).mean()
+                 for i in range(len(sess))]
+        for i, ded in enumerate(deds):
+            ded.outs, ded.refs = [], []
+            ded(frames[i][0])
+            say(f"sessions 6a: after update_prompt on session 0, session {i} moved by a mean "
+                f"{moved[i]:.3f} levels; " + hold_to_references(np, f"6a prompt, session {i}",
+                                                                   after[i], ded))
+        if moved[0] <= 2 * max(moved[1:]) + 0.5:
+            fail("sessions 6a: a prompt update must move its own session's frames, and clearly "
+                 "more than the other sessions' move")
+        slot = sess[3].slot
+        sess[3].release()
+        again = sched.claim("again", prompt=SESSION_PROMPTS[3], seed=103)
+        try:
+            sched.claim("ninth")
+            fail("sessions 6a: a 9th claim on 8 slots did not raise CapacityError")
+        except CapacityError:
+            pass
+        say(f"sessions 6a: release and claim again -> slot {again.slot} (was {slot}); the 9th "
+            f"claim raises CapacityError")
+        if again.slot != slot:
+            fail("sessions 6a: the released slot was not the one claimed again")
+    finally:
+        sched.close()
+
+    # -- 6b: the 4-stage LCM cfg-self ring --------------------------------------------
+    t = time.perf_counter()
+    ring_pipe = StreamDiffusionPipeline(ring_model, seed=2, device=dev)
+    rcfg = ring_pipe.config
+    sched = BatchScheduler.from_pipeline(ring_pipe, max_sessions=2)
+    rb = ring_pipe.bundle
+    served_w = rb.params["unet"]["conv_in"]["kernel"]
+    if not torch.equal(ref_bundle.params["unet"]["conv_in"]["kernel"].to(served_w.dtype), served_w):
+        fail("sessions 6b: the f32 reference weights do not match the ring model's")
+    say(f"sessions 6b: {ring_model} {rcfg.height}x{rcfg.width} {rcfg.dtype} "
+        f"scheduler={rcfg.scheduler} cfg_type={rcfg.cfg_type} t_index_list={rcfg.t_index_list}, "
+        f"pipeline and scheduler built in {time.perf_counter() - t:.1f}s")
+    try:
+        sess = [sched.claim(f"r{i}", prompt=SESSION_PROMPTS[i], seed=200 + i) for i in range(2)]
+        rows = [session_row(sched.states, s.slot) for s in sess]
+        ring_frames = [_frames(np, RING_FRAMES, seed=40 + i, size=size) for i in range(2)]
+        _sync(torch, dev)
+        _reset_launches()
+        steps0, before = sched.steps_total, _launches()
+        run = drive_sessions(torch, sess, ring_frames, RING_FRAMES)
+        outs = run.outs
+        steps = sched.steps_total - steps0
+        count(before, steps, "sessions 6b")
+        for i, s in enumerate(sess):
+            ded = Dedicated(torch, rb.stream_models, rb.params, rcfg, rb.encode_prompt, ref_bundle,
+                            rows[i], dev)
+            for f in ring_frames[i]:
+                ded(f)
+            say(f"sessions 6b session {i} (slot {s.slot}), {RING_FRAMES} frames through the ring: "
+                + hold_to_references(np, f"6b session {i}", outs[i], ded))
+        step_ms, nsteps = run.steady_step_ms(RING_FILL)
+        say(f"sessions 6b: {card} | 2 sessions, {steps} bucket steps, whole run "
+            f"{run.wall * 1e3 / steps:.2f} ms per step; steady window (outputs {RING_FILL + 1}-"
+            f"{RING_FRAMES}): {step_ms:.2f} ms between bucket steps over {nsteps} steps, aggregate "
+            f"{sum(run.steady_fps(RING_FILL)):.2f} fps")
+    finally:
+        sched.close()
+    del ring_pipe
+
+    # -- 6c: --multipeer 2 ----------------------------------------------------------------
+    mp = MultiPeerPipeline(pipe.model_id, max_peers=2, device=dev)
+    ticks = []
+    submit = mp.engine.submit
+
+    def record(batch):
+        ticks.append(np.array(batch, copy=True))
+        return submit(batch)
+
+    mp.engine.submit = record
+    try:
+        peers = [mp.claim(SESSION_PROMPTS[i]) for i in range(2)]
+        rows = [session_row(mp.engine.states, p.slot) for p in peers]
+        peer_frames = [_frames(np, PEER_FRAMES, seed=60 + i, size=size) for i in range(2)]
+        _sync(torch, dev)
+        _reset_launches()
+        before = _launches()
+        run = drive_sessions(torch, peers, peer_frames, PEER_FRAMES)
+        outs = run.outs
+        count(before, len(ticks), "sessions 6c")
+        me = mp.engine
+        for i, p in enumerate(peers):
+            # the peer's slot steps every tick: its new frame, or its last one
+            # again (that output is dropped); replay every tick, keep the new
+            ded = Dedicated(torch, me.models, me.params, mp.config, me._template.encode_prompt,
+                            ref_bundle, rows[i], dev)
+            kept, nxt = [], 0
+            for batch in ticks:
+                ded(batch[p.slot])
+                if nxt < PEER_FRAMES and np.array_equal(batch[p.slot], peer_frames[i][nxt]):
+                    kept.append(len(ded.outs) - 1)
+                    nxt += 1
+            if nxt != PEER_FRAMES:
+                fail(f"sessions 6c: peer {i}'s frames were not all stepped")
+            ded.outs = [ded.outs[j] for j in kept]
+            ded.refs = [ded.refs[j] for j in kept]
+            say(f"sessions 6c peer {i} (slot {p.slot}): "
+                + hold_to_references(np, f"6c peer {i}", outs[i], ded))
+        say(f"sessions 6c: {card} | MultiPeerPipeline, 2 peers x {PEER_FRAMES} frames in "
+            f"{len(ticks)} ticks, whole run {run.wall * 1e3 / len(ticks):.2f} ms per tick (the "
+            f"coordinator prewarmed at startup)")
+    finally:
+        mp.close()
+    return tuple(total)
+
+
 def main():
     import torch
 
@@ -734,10 +1232,11 @@ def main():
     phase_build(torch)
     attn = phase_attention(torch)
     epi = phase_epilogue(torch)
-    pipe, attn_launches, epi_launches = phase_main(torch, card)
+    pipe, ref_bundle, attn_launches, epi_launches = phase_main(torch, card)
     serve_attn, serve_epi = phase_serve(torch, card, pipe)
-    attn_launches += serve_attn
-    epi_launches += serve_epi
+    sessions_attn, sessions_epi = phase_sessions(torch, card, pipe, ref_bundle)
+    attn_launches += serve_attn + sessions_attn
+    epi_launches += serve_epi + sessions_epi
     kernels = [
         {
             "name": "flash_attention", "route": "cuda",

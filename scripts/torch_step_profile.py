@@ -2,6 +2,7 @@
 """Where one stream step's time goes in the PyTorch/CUDA port.
 
     python3 scripts/torch_step_profile.py [--steps 20] [--model-id stabilityai/sd-turbo]
+                                          [--sessions K]
 
 Builds the port's StreamDiffusionPipeline on the card (random weights, the
 default serving config), warms up, times ``--steps`` synchronous steps
@@ -14,7 +15,11 @@ alone, busy ms per step (the union of kernel intervals), the trace span
 1 - busy/span; device ms per step by kernel class (the two hand-written
 kernels by name; GEMMs, convolutions, normalisation/elementwise and copies
 by kernel-name pattern) and the top kernels by name; beside the card's name
-and power limit from nvidia-smi.  Needs one NVIDIA card.
+and power limit from nvidia-smi.  ``--sessions K`` profiles the batch
+scheduler's bucket step of K sessions instead (parallel/multipeer.py
+``BucketStep`` over K stacked copies of the pipeline's state, K frames
+staged from pinned memory, each session's row read back), one bucket step
+per "step".  Needs one NVIDIA card.
 """
 
 from __future__ import annotations
@@ -51,6 +56,8 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--model-id", default="stabilityai/sd-turbo")
+    ap.add_argument("--sessions", type=int, default=0,
+                    help="profile the bucket step of K sessions (0: one pipeline step)")
     args = ap.parse_args()
 
     import numpy as np
@@ -70,16 +77,33 @@ def main():
     pipe = StreamDiffusionPipeline(args.model_id, seed=2)
     cfg = pipe.config
     rng = np.random.default_rng(0)
-    frames = [rng.integers(0, 256, (cfg.height, cfg.width, 3), dtype=np.uint8)
+    k = args.sessions
+    frames = [rng.integers(0, 256, (max(k, 1), cfg.height, cfg.width, 3), dtype=np.uint8)
               for _ in range(args.steps + 3)]
+    if k:
+        from ai_rtc_agent_tpu_torch.parallel.multipeer import BucketStep, Readback, stage_rows
+        from ai_rtc_agent_tpu_torch.stream.engine import stack_states
+
+        eng = pipe.engine
+        states = stack_states([eng.state] * k)
+        bucket = BucketStep(eng.models, cfg, pipe.device)
+
+        def step(batch):
+            out = bucket(eng.params, states, stage_rows(batch, pipe.device), list(range(k)), k)
+            readback = Readback(out, k)
+            for r in range(k):
+                readback.row(r)
+    else:
+        def step(batch):
+            pipe(batch[0])
     for f in frames[:3]:
-        pipe(f)
+        step(f)
     torch.cuda.synchronize()
 
     def run_steps() -> float:
         t0 = time.perf_counter()
         for f in frames[3:]:
-            pipe(f)
+            step(f)
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) * 1e3 / args.steps
 
@@ -123,7 +147,7 @@ def main():
         "metric": "torch_port_step_profile",
         "model_id": args.model_id,
         "config": f"{cfg.height}x{cfg.width} {cfg.dtype} {cfg.scheduler} cfg={cfg.cfg_type} "
-                  f"B={cfg.batch_size}",
+                  f"B={cfg.batch_size}" + (f", {k} sessions per bucket step" if k else ""),
         "card": card,
         "device": torch.cuda.get_device_name(0),
         "steps": args.steps,

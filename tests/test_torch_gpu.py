@@ -245,3 +245,79 @@ def test_loopback_session_on_the_card(cuda, monkeypatch):
         assert got.shape == (512, 512, 3) and got.dtype == np.uint8
         assert np.abs(got.astype(np.int16) - d).max() <= 1
     assert closed == [True, True] and left == 0
+
+
+@pytest.mark.parametrize("cfg_type,k_real,slots", chip_smoke.SESSION_EPILOGUE)
+def test_epilogue_session_axis_kernel_matches_plain(cuda, cfg_type, k_real, slots):
+    """The bucket step's call: k sessions over a stacked state, slot-indexed
+    in-place writes of the ring and stock (a padded bucket repeats a slot),
+    against the plain version from the same state: the real sessions'
+    denoised rows and the whole stacked ring and stock."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    args, kwargs = chip_smoke.session_epilogue_call(torch, cfg_type, k_real, slots, gen)
+    seg = args[0].shape[0] // len(slots)
+    before = KF.launches
+    a, kw = chip_smoke.fresh_epilogue_call(args, kwargs)
+    got = KF.fused_stream_epilogue(*a, **kw)
+    torch.cuda.synchronize()
+    assert KF.launches == before + 1
+    assert got[1] is kw["advanced_out"] and got[2] is a[2]
+    want = chip_smoke.plain_epilogue_call(KF, args, kwargs)
+    _assert_close((got[0][: k_real * seg], *got[1:]), (want[0][: k_real * seg], *want[1:]))
+    idle = [i for i in range(chip_smoke.N_SLOTS) if i not in slots[:k_real]]
+    assert torch.equal(kw["advanced_out"][idle], kwargs["advanced_out"][idle])
+
+
+def test_epilogue_session_axis_replays_in_a_cuda_graph(cuda):
+    cfg_type, k_real, slots = chip_smoke.SESSION_EPILOGUE[1]  # the padded bucket
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    args, kwargs = chip_smoke.session_epilogue_call(torch, cfg_type, k_real, slots, gen)
+    got, want = chip_smoke.epilogue_graph_replay(torch, KF, args, kwargs)
+    rows = k_real * (args[0].shape[0] // len(slots))
+    _assert_close((got[0][:rows], *got[1:]), (want[0][:rows], *want[1:]))
+
+
+def test_epilogue_session_axis_refuses_what_it_cannot_run(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    args, kwargs = chip_smoke.session_epilogue_call(torch, "self", 2, [5, 2], gen)
+    with pytest.raises(TypeError):  # slots: int32 on the card
+        KF.fused_stream_epilogue(*args, **dict(kwargs, slots=kwargs["slots"].long()))
+    with pytest.raises(ValueError):  # the stacked ring is required
+        KF.fused_stream_epilogue(*args, **dict(kwargs, advanced_out=None))
+    with pytest.raises(ValueError):  # k_real past the bucket
+        KF.fused_stream_epilogue(*args, **dict(kwargs, k_real=3))
+
+
+def test_scheduler_steps_match_dedicated_engines_on_the_card(cuda):
+    """tiny-test (f32, plain attention: the difference is the batch) through
+    the batch scheduler on the card: 3 sessions in the bucket of 4, one
+    epilogue launch per bucket step, every frame within 1 uint8 level of a
+    dedicated engine fed the same state row."""
+    from dataclasses import replace
+
+    from ai_rtc_agent_tpu_torch.models import registry
+    from ai_rtc_agent_tpu_torch.stream.engine import StreamEngine
+    from ai_rtc_agent_tpu_torch.stream.scheduler import BatchScheduler
+
+    cfg = replace(registry.default_stream_config("tiny-test"), dtype="float32", attn_impl="plain")
+    bundle = registry.load_model_bundle("tiny-test", attn_impl="plain")
+    sched = BatchScheduler(bundle.stream_models, bundle.params, cfg, bundle.encode_prompt,
+                           max_sessions=4, window_ms=10_000.0)
+    try:
+        sess = [sched.claim(f"s{i}", prompt=f"prompt {i}", seed=i) for i in range(3)]
+        engines = []
+        for s in sess:
+            eng = StreamEngine(bundle.stream_models, bundle.params, cfg, bundle.encode_prompt)
+            eng.state = chip_smoke.session_row(sched.states, s.slot)
+            engines.append(eng)
+        frames = [chip_smoke._frames(np, 4, seed=i, size=64) for i in range(3)]
+        before, steps0 = KF.launches, sched.steps_total
+        for j in range(4):
+            handles = [s.submit(f[j]) for s, f in zip(sess, frames)]
+            outs = [s.fetch(h) for s, h in zip(sess, handles)]
+            for out, eng, f in zip(outs, engines, frames):
+                assert np.abs(out.astype(np.int16) - eng(f[j])).max() <= 1
+        assert sched.steps_total - steps0 == 4
+        assert KF.launches - before == 4 + 4 * 3  # 4 bucket steps, 12 dedicated steps
+    finally:
+        sched.close()

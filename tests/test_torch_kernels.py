@@ -5,7 +5,8 @@ the plain versions against the JAX Pallas kernels run in interpret mode
 (as tests/test_pallas_kernels.py runs them), on the same numpy inputs.
 Tolerance: f32, rtol=2e-4 / atol=2e-5 for attention (two softmax orders:
 the Pallas kernel's blockwise online softmax vs a dense one), rtol=1e-4 /
-atol=1e-5 for the elementwise epilogue.
+atol=1e-5 for the elementwise epilogue, with and without the session axis
+(the JAX kernel under ``jax.vmap`` over sessions).
 
 The kernels themselves are held against these plain versions on the card
 by tests/test_torch_gpu.py and chip_smoke.py.
@@ -186,6 +187,119 @@ def test_epilogue_chain_keywords_match_jax_fused_kernel(rng, no_kernel_build, cf
     assert torch.equal(den, got[0])
     assert torch.equal(x_buf, got[1][: b - fbs])
     assert torch.equal(stock_io, got[2])
+
+
+# The session axis: S stacked slots, a bucket of sessions naming slots.
+# (slots, k_real): a ragged count of 3, a bucket of 4 padded with a
+# duplicate of its last real slot, and one of 2.
+SESSION_BUCKETS = {"k3": ([4, 0, 2], 3), "k4pad": ([1, 3, 0, 0], 3), "k2": ([2, 1], 2)}
+N_SLOTS = 5
+
+
+def _slot_coeffs(kind: str, n_slots: int):
+    """Per-slot coefficient tables (each slot its own t_index list):
+    (port StepCoeffs of [S, B] tensors, list of JAX StepCoeffs)."""
+    tables = []
+    for i in range(n_slots):
+        if kind == "lcm":
+            bt = JS.batched_sub_timesteps([18 + i, 26 + i, 35 + i, 45 + i], 50)
+        else:
+            bt = JS.batched_sub_timesteps([i], 8, spacing="trailing")
+        tables.append(JL.make_step_coeffs(JS.make_schedule(), bt))
+    stack = lambda f: torch.from_numpy(np.stack([getattr(t, f) for t in tables]))
+    pc = PL.StepCoeffs(*(stack(f) for f in ("timesteps", "alpha", "sigma", "c_skip", "c_out",
+                                             "next_alpha", "next_sigma")))
+    return pc, tables
+
+
+@pytest.mark.parametrize("bucket", list(SESSION_BUCKETS))
+@pytest.mark.parametrize("kind", ["lcm", "turbo"])
+@pytest.mark.parametrize("cfg_type", ["none", "self", "initialize"])
+def test_epilogue_session_axis_matches_jax_fused_kernel_under_vmap(rng, no_kernel_build, cfg_type,
+                                                                     kind, bucket):
+    """The segmented epilogue (one segment of B rows per session, per-slot
+    coefficients, guidance and delta, the renoise shift inside each slot,
+    the ring rows and stock written in place at the slots) against the JAX
+    kernel under ``jax.vmap`` over the bucket's sessions, each fed as the
+    JAX engine feeds it (the slot's shifted noise by concatenation, turbo
+    coefficients as zeros and ones).  Padding segments write nothing."""
+    import jax
+
+    slots, k_real = SESSION_BUCKETS[bucket]
+    k, turbo = len(slots), kind == "turbo"
+    pc, tables = _slot_coeffs(kind, N_SLOTS)
+    B = pc.alpha.shape[1]
+    lat = (6, 5, 4)
+    x, eps = (rng.standard_normal((k * B, *lat)).astype(np.float32) for _ in range(2))
+    stock, noise = (rng.standard_normal((N_SLOTS, B, *lat)).astype(np.float32) for _ in range(2))
+    x_buf = rng.standard_normal((N_SLOTS, B - 1, *lat)).astype(np.float32)
+    g = (1.1 + 0.2 * np.arange(N_SLOTS)).astype(np.float32)
+    d = (0.9 - 0.1 * np.arange(N_SLOTS)).astype(np.float32)
+
+    def jax_session(x, e, st, nz, g, d, *c):
+        cs, co = (jax.numpy.zeros_like(c[3]), jax.numpy.ones_like(c[4])) if turbo else c[3:5]
+        jc = JL.StepCoeffs(c[0], c[1], c[2], cs, co, c[5], c[6])
+        nz_next = jax.numpy.concatenate([nz[1:], jax.numpy.zeros_like(nz[:1])])
+        return JF.fused_stream_epilogue(x, e, st, nz_next, jc, g, d, cfg_type, interpret=True)
+
+    fields = ("timesteps", "alpha", "sigma", "c_skip", "c_out", "next_alpha", "next_sigma")
+    cols = [np.stack([getattr(tables[i], f) for i in slots]) for f in fields]
+    want = [np.asarray(a) for a in jax.vmap(jax_session)(
+        x.reshape(k, B, *lat), eps.reshape(k, B, *lat), stock[slots], noise[slots], g[slots],
+        d[slots], *cols)]
+
+    t = lambda a: torch.from_numpy(a.copy())
+    ring, stock_io = t(x_buf), t(stock)
+    before = KF.launches
+    den, adv, new_stock = KF.fused_stream_epilogue(
+        t(x), t(eps), stock_io, t(noise), pc, t(g), t(d), cfg_type=cfg_type, turbo=turbo,
+        noise_shift=1, advanced_out=ring, stock_out=stock_io,
+        slots=torch.tensor(slots, dtype=torch.int32), k_real=k_real)
+    assert KF.launches == before  # the plain version ran, no kernel
+    assert adv is ring
+    real = slots[:k_real]
+    tol = dict(rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(den.numpy()[: k_real * B], want[0][:k_real].reshape(-1, *lat), **tol)
+    np.testing.assert_allclose(ring.numpy()[real], want[1][:k_real, : B - 1], **tol)
+    idle = [i for i in range(N_SLOTS) if i not in real]
+    np.testing.assert_array_equal(ring.numpy()[idle], x_buf[idle])
+    if cfg_type == "self":
+        assert new_stock is stock_io
+        np.testing.assert_allclose(stock_io.numpy()[real], want[2][:k_real], **tol)
+        np.testing.assert_array_equal(stock_io.numpy()[idle], stock[idle])
+    else:  # the stock does not change
+        np.testing.assert_array_equal(stock_io.numpy(), stock)
+
+
+@pytest.mark.parametrize("cfg_type", ["none", "self", "initialize"])
+def test_epilogue_one_session_is_the_single_call(rng, no_kernel_build, cfg_type):
+    """One session at slot 0 of a one-slot stack gives what today's call
+    gives for today's arguments."""
+    pc, _ = _coeffs("lcm")
+    shape = (4, 8, 8, 4)
+    x, eps, stock, noise = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+                            for _ in range(4))
+    x_buf = torch.zeros((3, 8, 8, 4))
+    kw = dict(cfg_type=cfg_type, noise_shift=1)
+    one = KF.fused_stream_epilogue(x, eps, stock.clone(), noise, pc, torch.tensor(1.3),
+                                   torch.tensor(0.8), advanced_out=x_buf.clone(), **kw)
+    ring, stock_io = x_buf[None].clone(), stock[None].clone()
+    stacked = PL.StepCoeffs(*(v[None] for v in pc.as_dict().values()))
+    seg = KF.fused_stream_epilogue(x, eps, stock_io, noise[None], stacked, torch.tensor([1.3]),
+                                   torch.tensor([0.8]), advanced_out=ring, stock_out=stock_io,
+                                   slots=torch.zeros(1, dtype=torch.int32), **kw)
+    assert torch.equal(seg[0], one[0])
+    assert torch.equal(ring[0], one[1])
+    assert torch.equal(stock_io[0], one[2])
+
+
+def test_epilogue_session_axis_needs_the_ring_in_place():
+    pc, _ = _coeffs("lcm")
+    x = torch.zeros(4, 2, 2, 4)
+    stacked = PL.StepCoeffs(*(v[None] for v in pc.as_dict().values()))
+    with pytest.raises(ValueError, match="advanced_out"):
+        KF.fused_stream_epilogue(x, x, x[None], x[None], stacked, torch.ones(1), torch.ones(1),
+                                 cfg_type="none", slots=torch.zeros(1, dtype=torch.int32))
 
 
 def test_epilogue_plain_matches_composed_port_ops(rng):

@@ -771,8 +771,9 @@ def test_provider_names(monkeypatch):
 
 @pytest.mark.parametrize("device", ["cpu", None])
 def test_cli_serves_on_the_cpu_only_when_asked(monkeypatch, device):
-    """``--device cpu`` serves tiny-test end to end; without it the agent
-    raises at startup on a box with no card instead of serving on the CPU."""
+    """``--device cpu`` serves tiny-test end to end (through the batch
+    scheduler, the default path); without it the agent raises at startup on
+    a box with no card instead of serving on the CPU."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     monkeypatch.setenv("WEBRTC_PROVIDER", "loopback")
     built = {}
@@ -799,7 +800,10 @@ def test_cli_serves_on_the_cpu_only_when_asked(monkeypatch, device):
                 await pub.in_track.push(f)
             out = await asyncio.wait_for(viewer.recv(), 60)
             r = await client.post("/config", json={"prompt": "a red boat"})
-            return out.shape, out.dtype, r.status, app["pipeline"].prompt, app["pipeline"].device.type
+            # the default path: the session rode the batch scheduler, which
+            # /config updated (its live sessions and its default prompt)
+            sched = app["batch_scheduler"]
+            return out.shape, out.dtype, r.status, sched.prompt, sched.device.type
         finally:
             await client.close()
 
