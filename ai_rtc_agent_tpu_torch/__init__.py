@@ -9,6 +9,8 @@ layout so each module has an obvious counterpart:
   models/    UNet, TAESD, CLIP text tower, tokenizer, registry (random
              init at full architecture; no weight loading yet).
   stream/    the stream-batch engine and the pipeline façade.
+  aot/       engine keys (the JAX recipe) and the captured steps: one
+             CUDA graph per engine and per bucket size.
   bridge.py  carries a JAX param tree / prepared stream state across
              (numpy in, torch out) for the parity tests.
   csrc/      CUDA C++ kernel sources, compiled with nvcc at first use.
@@ -19,6 +21,8 @@ Entry points run on the card ("cuda") unless the caller passes
 """
 
 import torch
+
+__version__ = "0.1.0+torch"  # the version part of every engine key (aot/cache.py)
 
 
 def resolve_device(device=None) -> torch.device:

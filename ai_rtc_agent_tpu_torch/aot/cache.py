@@ -1,0 +1,192 @@
+"""Engine keys and captured steps — counterpart of ai_rtc_agent_tpu/aot/cache.py.
+
+The JAX package never runs a step op by op: every step path is one compiled
+executable with donated state, built before the first frame (its
+``prewarm_buckets``) and keyed by one recipe (``engine_key``,
+``stream_engine_key``, the scheduler's ``bucket_keys``).  The port's
+counterpart is one CUDA graph per engine and per bucket size, captured at
+prewarm on the thread that will step it and replayed per step:
+
+* :func:`engine_key` / :func:`stream_engine_key`: the JAX recipe, copied
+  (the port imports nothing of the JAX package), with the port's version.
+* :class:`CapturedStep`: a step function over static input buffers.  The
+  caller writes the step's inputs into ``inputs`` and calls :meth:`run`,
+  which replays the graph (its output is the same tensor every time) or,
+  without a graph, calls the function eagerly over the same buffers: the
+  CPU path, and the eager A/B on the card (``graphs=False``).
+* :class:`GraphCache`: an engine's captured steps by key, all captured into
+  one memory pool.
+
+Three conditions make a replay right, and the engines keep them:
+
+* The graph reads and writes fixed addresses, so every state write lands
+  in place (``copy_``/``fill_`` into the tensors the graph was captured
+  over), and inputs reach the graph only through the static buffers.
+* Graphs sharing a pool may reuse each other's freed intermediates, and a
+  replay overwrites its own output: every replay, and each read of its
+  output (the readback's device-to-host copy, queued right after it), runs
+  on the one stream of the stepping threads (the default stream).
+* The kernel wrappers' launch counters are plain ints that a replay does
+  not move: a capture records each counter's delta and :meth:`run` adds it
+  per replay (capture itself executes nothing, so it leaves them as they
+  were).  A capture runs before sessions are admitted, so no other thread
+  launches meanwhile.
+
+What does not carry over: the JAX cache serializes executables to disk
+(``jax.export``) and a later process adopts them.  A CUDA graph holds the
+device addresses of one process and cannot be written out, so the cache
+here lives in the process; the only on-disk part is ``build/``'s nvcc
+libraries, cached by source digest (``ops/kernels/build.py``).
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Callable
+
+import torch
+
+from .. import __version__
+from ..ops.kernels import attention as _attention
+from ..ops.kernels import fused_scheduler as _epilogue
+
+WARMUP_STEPS = 2  # eager runs on a side stream before a capture
+
+
+def engine_key(model_id: str, mode: str, **attrs) -> str:
+    """Human-readable engine key: model x mode x the sorted attributes x
+    the package version (the JAX recipe)."""
+    safe_model = model_id.replace("/", "--")
+    parts = [f"engines--{safe_model}", f"mode-{mode}"]
+    for k in sorted(attrs):
+        parts.append(f"{k}-{attrs[k]}")
+    parts.append(f"v-{__version__}")
+    return "--".join(parts)
+
+
+def stream_engine_key(model_id: str, cfg, **extra) -> str:
+    """The key of a (model, stream config) pair, as the JAX package's
+    ``stream_engine_key`` spells it: every flag that changes the step's
+    graph is in it.  A bucket adds ``sbucket``/``sessions``, --multipeer
+    ``peers``."""
+    return engine_key(
+        model_id,
+        cfg.mode,
+        batch=cfg.batch_size,
+        hw=f"{cfg.height}x{cfg.width}",
+        dtype=cfg.dtype,
+        cfgtype=cfg.cfg_type,
+        sched=cfg.scheduler,
+        cnet=f"{int(cfg.use_controlnet)}{cfg.annotator if cfg.use_controlnet else ''}",
+        fused=int(cfg.use_fused_epilogue),
+        **({"dcache": cfg.unet_cache_interval} if cfg.unet_cache_interval >= 2 else {}),
+        attn=cfg.attn_impl,
+        **extra,
+    )
+
+
+def _launches() -> tuple:
+    return _attention.launches, _epilogue.launches
+
+
+def _set_launches(counts: tuple):
+    _attention.launches, _epilogue.launches = counts
+
+
+class CapturedStep:
+    """``fn(inputs) -> out`` over the static buffers ``inputs`` (a dict of
+    tensors on one device), replayed from one CUDA graph after
+    :meth:`capture`, or called eagerly by :meth:`run` when ``graph`` is
+    False (a CPU device steps eagerly only)."""
+
+    def __init__(self, key: str, fn: Callable[[dict], torch.Tensor], inputs: dict, *,
+                 graph: bool, pool=None):
+        self.key = key
+        self.fn = fn
+        self.inputs = inputs
+        self.device = next(iter(inputs.values())).device
+        if graph and self.device.type != "cuda":
+            raise ValueError(f"{key}: a CUDA graph needs a CUDA device, got {self.device}")
+        self.graph = graph
+        self.pool = pool
+        self._cuda_graph = None
+        self.out = None  # the replay's output (the same tensor every replay)
+        self.launches = (0, 0)  # (attention, epilogue) launches per replay
+        self.capture_s = None
+
+    @property
+    def captured(self) -> bool:
+        return self._cuda_graph is not None
+
+    def capture(self):
+        """Run ``fn`` WARMUP_STEPS times on a side stream (the first launch of
+        each kernel sets its attributes, cuBLAS and cuDNN pick algorithms and
+        workspaces), then capture one call into the graph, on the calling
+        thread, with thread-local capture rules (other threads may stage
+        frames meanwhile).  The warm-up runs execute: a caller whose step
+        writes state restores it after.  A capture that fails raises."""
+        if not self.graph:
+            raise RuntimeError(f"{self.key}: this step runs eagerly (graph=False)")
+        t0 = time.perf_counter()
+        current = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            for _ in range(WARMUP_STEPS):
+                self.fn(self.inputs)
+        current.wait_stream(side)
+        cuda_graph = torch.cuda.CUDAGraph()
+        before = _launches()
+        with torch.cuda.graph(cuda_graph, pool=self.pool, capture_error_mode="thread_local"):
+            out = self.fn(self.inputs)
+        self.launches = tuple(a - b for a, b in zip(_launches(), before))
+        _set_launches(before)
+        torch.cuda.synchronize(self.device)
+        self._cuda_graph, self.out = cuda_graph, out
+        self.capture_s = time.perf_counter() - t0
+        return self
+
+    def run(self) -> torch.Tensor:
+        """One step over the current contents of ``inputs``."""
+        if not self.graph:
+            return self.fn(self.inputs)
+        if self._cuda_graph is None:
+            raise RuntimeError(f"{self.key}: not captured")
+        self._cuda_graph.replay()
+        attn, epi = self.launches
+        _attention.launches += attn
+        _epilogue.launches += epi
+        return self.out
+
+
+class GraphCache:
+    """One engine's, scheduler's or peer engine's steps by engine key.  With
+    ``graphs`` each is captured at its first :meth:`get` (at prewarm, on
+    the thread that will step it), and all of them into one memory pool:
+    they replay one at a time, in stream order."""
+
+    def __init__(self, graphs: bool, device):
+        if graphs and torch.device(device).type != "cuda":
+            raise ValueError(f"CUDA graphs need a CUDA device, got {device}: the CPU steps eagerly")
+        self.graphs = graphs
+        self.pool = torch.cuda.graph_pool_handle() if graphs else None
+        self._steps: dict = {}
+
+    def get(self, key: str, build: Callable[[], tuple]) -> CapturedStep:
+        """The step of ``key``; ``build() -> (fn, inputs)`` makes it at its
+        first use, which captures it with ``graphs``."""
+        step = self._steps.get(key)
+        if step is None:
+            fn, inputs = build()
+            step = CapturedStep(key, fn, inputs, graph=self.graphs, pool=self.pool)
+            if self.graphs:
+                step.capture()
+            self._steps[key] = step
+        return step
+
+    def status(self) -> dict:
+        """{key: captured} for every step built so far."""
+        return {key: step.captured for key, step in self._steps.items()}
+
+    def steps(self) -> dict:
+        return dict(self._steps)

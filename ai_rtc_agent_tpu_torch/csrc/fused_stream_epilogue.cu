@@ -61,6 +61,11 @@
 // its twin has already written, and its outputs are discarded.  Each element
 // is still read and then written by one thread.  One segment with no idx
 // vector is the kernel as the single-session step calls it.
+//
+// k_real comes by value or from device memory (k_real_dev, one int32).  A
+// CUDA graph replays its launches with the arguments they were captured
+// with, so a bucket step captured once serves every occupancy of its
+// bucket only if the count is data: each block reads it once, like idx.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -94,9 +99,10 @@ struct Args {
   const float* guidance;  // one f32 per slot
   const float* delta;     // one f32 per slot
   const int* idx;         // segment -> slot; null: segment s is slot s
+  const int* k_real_dev;  // the count of writing segments; null: k_real
   long long n;            // elements per row
   int seg;                // rows per segment (session)
-  int k_real;             // segments that write adv and stock_out
+  int k_real;             // segments that write adv and stock_out (no k_real_dev)
   int noise_rows;   // noise rows per slot
   int noise_shift;  // entry r renoises with the slot's noise row r + noise_shift
   int adv_rows;     // adv rows per slot (entries r < adv_rows are kept)
@@ -221,7 +227,7 @@ struct Row {
   __device__ __forceinline__ Row(const Args& a, int row, long long i0) {
     const int s = row / a.seg, r = row - s * a.seg;
     slot = a.idx ? a.idx[s] : s;
-    write = s < a.k_real;
+    write = s < (a.k_real_dev ? *a.k_real_dev : a.k_real);
     coef = (long long)slot * a.seg + r;
     const long long base = (long long)row * a.n + i0;
     const long long stock_base = coef * a.n + i0;
@@ -338,8 +344,9 @@ cudaError_t dispatch(const Args& a, int cfg, int turbo, int B, cudaStream_t stre
 // [S, noise_rows, n], adv [S, adv_rows, n], coefficient vectors [S, seg]
 // f32 device pointers (c_skip/c_out unread with turbo), guidance and delta
 // [S] f32.  adv and stock_out are written for the first k_real segments
-// only.  One segment with idx null (seg = B, k_real = 1) is the single-
-// session call.  dtype: 0 f32, 1 bf16.  cfg: 0 none, 1 initialize, 2 self.
+// only, where k_real is *k_real_dev when that pointer is not null.  One
+// segment with idx null (seg = B, k_real = 1) is the single-session call.
+// dtype: 0 f32, 1 bf16.  cfg: 0 none, 1 initialize, 2 self.
 // Returns the cudaError_t of the launch (0 = ok).
 extern "C" int fused_stream_epilogue(const void* x, const void* eps, const void* stock,
                                      const void* noise, void* den, void* adv, void* stock_out,
@@ -347,17 +354,17 @@ extern "C" int fused_stream_epilogue(const void* x, const void* eps, const void*
                                      const float* c_skip, const float* c_out,
                                      const float* next_alpha, const float* next_sigma,
                                      const float* guidance, const float* delta, const int* idx,
-                                     int dtype, int cfg, int turbo, int B, long long n, int seg,
-                                     int k_real, int noise_rows, int noise_shift, int adv_rows,
-                                     void* stream_ptr) {
+                                     const int* k_real_dev, int dtype, int cfg, int turbo, int B,
+                                     long long n, int seg, int k_real, int noise_rows,
+                                     int noise_shift, int adv_rows, void* stream_ptr) {
   if (!valid_grid(B, n) || seg <= 0 || B % seg != 0 || k_real < 0 || k_real > B / seg ||
       noise_rows < 0 || noise_shift < 0 || adv_rows < 0 || adv_rows > seg || cfg < CFG_NONE ||
       cfg > CFG_SELF)
     return (int)cudaErrorInvalidValue;
-  const Args a{x,     eps,   stock,  noise,  den,        adv,        stock_out,
-               alpha, sigma, c_skip, c_out,  next_alpha, next_sigma, guidance,
-               delta, idx,   n,      seg,    k_real,     noise_rows, noise_shift,
-               adv_rows};
+  const Args a{x,          eps,      stock, noise, den,        adv,
+               stock_out,  alpha,    sigma, c_skip, c_out,     next_alpha,
+               next_sigma, guidance, delta, idx,   k_real_dev, n,
+               seg,        k_real,   noise_rows,   noise_shift, adv_rows};
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (dtype == F32) return (int)dispatch<float>(a, cfg, turbo, B, stream);
   if (dtype == BF16) return (int)dispatch<bf16>(a, cfg, turbo, B, stream);

@@ -43,7 +43,10 @@ post-UNet chain of the port's step, with no glue around it:
   advanced_out and stock_out.  A padded bucket repeats its last real slot
   at the tail; its padding segments compute and write only ``denoised``
   (their rows are discarded), so no slot is written twice.  The first
-  k_real slots must be distinct.
+  k_real slots must be distinct.  An int, or an int32 tensor of one
+  element on x's device that the kernel reads: a CUDA graph replays a
+  launch with the arguments it was captured with, so a bucket step
+  captured once serves every occupancy only with the count as data.
 
 The wrapper does no host sync, so a launch can be captured in a CUDA graph.
 """
@@ -71,7 +74,7 @@ def load():
     if _lib is None:
         lib = build.load_library(SOURCE)
         fn = lib.fused_stream_epilogue
-        fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 4 + [ctypes.c_longlong] + [
+        fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 4 + [ctypes.c_longlong] + [
             ctypes.c_int] * 5 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         lib.fused_stream_epilogue_empty.argtypes = [ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p]
@@ -93,6 +96,21 @@ def launch_empty(rows: int, n: int, device=None):
     ``n`` elements: the launch floor the kernel is timed against."""
     stream = torch.cuda.current_stream(device).cuda_stream
     _check(load().fused_stream_epilogue_empty(rows, n, stream), "empty kernel")
+
+
+def write_segments(dst, rows, slots, k_real):
+    """``dst[slots[s]] = rows[s]`` for the first ``k_real`` segments s, in
+    place, with ``k_real`` an int or a one-element tensor read on the
+    device (no host sync, so it can be captured).  Every other row of
+    ``dst`` keeps its bits; a slot named twice among the first k_real takes
+    its first segment's rows.  ``dst``: [S, ...]; ``rows``: [k, ...]."""
+    S, k = dst.shape[0], slots.numel()
+    dev = dst.device
+    live = torch.arange(k, device=dev) < torch.as_tensor(k_real, device=dev).reshape(())
+    hit = (slots.long()[None, :] == torch.arange(S, device=dev)[:, None]) & live[None, :]  # [S, k]
+    first = hit.to(torch.int32).argmax(dim=1)  # the first segment that names each slot
+    keep = hit.any(dim=1).reshape((S,) + (1,) * (dst.ndim - 1))
+    return dst.copy_(torch.where(keep, rows.index_select(0, first).to(dst.dtype), dst))
 
 
 def epilogue_plain(x_t, eps_c, stock, noise, coeffs, guidance, delta, cfg_type="self", *,
@@ -132,14 +150,13 @@ def epilogue_plain(x_t, eps_c, stock, noise, coeffs, guidance, delta, cfg_type="
     nz[:, :m] = src[:, noise_shift:noise_shift + m].float()
     adv = (cvec(coeffs.next_alpha) * den + cvec(coeffs.next_sigma) * nz.reshape(x.shape)).to(x_t.dtype)
     k_real = k if k_real is None else k_real
-    write = idx[:k_real]
     if advanced_out is not None:
         a_rows = advanced_out.shape[1] if slots is not None else advanced_out.shape[0]
-        new_rows = adv.reshape(k, seg, *x.shape[1:])[:k_real, :a_rows]
+        new_rows = adv.reshape(k, seg, *x.shape[1:])[:, :a_rows]
         if slots is None:
             adv = advanced_out.copy_(new_rows[0])
         else:
-            adv = advanced_out.index_copy_(0, write, new_rows)
+            adv = write_segments(advanced_out, new_rows, idx, k_real)
     elif slots is not None:
         raise ValueError("slots need advanced_out (the stacked ring the rows land in)")
     new_stock = stock
@@ -149,7 +166,8 @@ def epilogue_plain(x_t, eps_c, stock, noise, coeffs, guidance, delta, cfg_type="
         if slots is not None:
             if stock_out is None:
                 raise ValueError("slots with cfg self need stock_out")
-            new_stock = stock_out.index_copy_(0, write, new_stock.reshape(k, seg, *x.shape[1:])[:k_real])
+            new_stock = write_segments(stock_out, new_stock.reshape(k, seg, *x.shape[1:]), idx,
+                                       k_real)
         elif stock_out is not None:
             new_stock = stock_out.copy_(new_stock)
     return den.to(x_t.dtype), adv, new_stock
@@ -205,6 +223,12 @@ def fused_stream_epilogue(x_t, eps_c, stock, noise, coeffs, guidance, delta, cfg
         seg, n_slots = R // k, stock.shape[0]
         if advanced_out is None or (is_self and stock_out is None):
             raise ValueError("slots need advanced_out (and stock_out with cfg self) in place")
+    k_real_dev = 0
+    if isinstance(k_real, torch.Tensor):
+        if not (slots is not None and k_real.dtype == torch.int32 and k_real.device == device
+                and k_real.numel() == 1):
+            raise TypeError(f"k_real: with slots, an int or one int32 on {device}")
+        k_real_dev, k_real = k_real.data_ptr(), k  # the kernel reads the count
     k_real = k if k_real is None else int(k_real)
     if not 0 <= k_real <= k:
         raise ValueError(f"k_real {k_real} not in [0, {k}]")
@@ -252,7 +276,7 @@ def fused_stream_epilogue(x_t, eps_c, stock, noise, coeffs, guidance, delta, cfg
             x.data_ptr(), e.data_ptr(), s.data_ptr(), nz.data_ptr(), den.data_ptr(),
             adv.data_ptr(), new_stock.data_ptr() if is_self else 0,
             alpha, sigma, c_skip, c_out, next_alpha, next_sigma, g, d,
-            0 if slots is None else slots.data_ptr(),
+            0 if slots is None else slots.data_ptr(), k_real_dev,
             DTYPES[dtype], CFG_TYPES.index(cfg_type), int(turbo), R, x.numel() // R,
             seg, k_real if slots is not None else 1, noise_rows, noise_shift, adv_rows,
             torch.cuda.current_stream(device).cuda_stream,

@@ -11,7 +11,11 @@ bucket step advances the active slots together:
 
 Bucket sizes are powers of two; a bucket with fewer active slots than its
 size repeats the last active slot at the tail, and only the real slots'
-rows are written (the epilogue's ``k_real``).  The same bucket step serves
+rows are written (the epilogue's ``k_real``, read from device memory).  On
+the card each bucket size is one CUDA graph over static frame, slot and
+count buffers (aot/cache.py), captured at prewarm on the stepping thread
+and replayed for every occupancy of its size: the counterpart of the JAX
+package's one executable per bucket.  The same bucket step serves
 ``MultiPeerEngine`` (fixed slots, ``--multipeer N``) and the continuous
 batch scheduler (stream/scheduler.py).  This is BASELINE.json configs[4]
 ("Multi-peer WebRTC: N concurrent streams batched on one chip").
@@ -27,6 +31,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..aot.cache import CapturedStep, GraphCache, stream_engine_key
 from ..stream.engine import (
     StreamConfig,
     StreamEngine,
@@ -34,6 +39,7 @@ from ..stream.engine import (
     install_row,
     make_session_step_fn,
     stack_states,
+    stage_into,
     t_index_coeffs,
 )
 from ..utils import env
@@ -70,16 +76,23 @@ def pad_bucket(slots: list, k: int) -> list:
 
 class BucketStep:
     """gather -> step -> write back over a stacked slot state, in one
-    session-batched step (``stream.engine.make_session_step_fn``).
+    session-batched step (``stream.engine.make_session_step_fn``), one
+    :class:`~..aot.cache.CapturedStep` per bucket size.
 
-    ``step(params, states, frames_k, slots, k)``: ``frames_k`` [k,H,W,3]
-    uint8 on the device, already padded; ``slots`` the real sessions'
-    slots.  -> [k,H,W,3] uint8; rows past ``len(slots)`` are padding.  The
-    bucket's slot vector is made on the device once per distinct layout."""
+    Each bucket size k has static buffers: frames [k,H,W,3] uint8, slots
+    [k] int32 and the count of real sessions (an int32 scalar, which the
+    epilogue reads).  ``graphs`` (default: on a CUDA device) captures the
+    bucket once, at its first use (``warm`` at prewarm) on the calling
+    thread, and replays it per step; otherwise it steps eagerly over the
+    same buffers.  ``key(k)`` names bucket k (the engine-key recipe)."""
 
-    def __init__(self, models: StreamModels, cfg: StreamConfig, device):
+    def __init__(self, models: StreamModels, cfg: StreamConfig, device, *, graphs=None,
+                 key: Callable[[int], str] | None = None):
         self._step = make_session_step_fn(models, cfg)
         self.device = device
+        self.graphs = device.type == "cuda" if graphs is None else bool(graphs)
+        self.graph_cache = GraphCache(self.graphs, device)
+        self.key = key or (lambda k: f"sbucket-{k}")
         self._frame_shape = (cfg.height, cfg.width, 3)
         self._idx: dict = {}
 
@@ -93,16 +106,56 @@ class BucketStep:
             self._idx[key] = idx
         return idx
 
-    def __call__(self, params, states, frames_k, slots: list, k: int):
-        idx = self.index(pad_bucket(slots, k))
-        return self._step(params, states, frames_k, idx, len(slots))
+    def step_for(self, params, states, k: int) -> CapturedStep:
+        """Bucket k's step over ``states``, built (and captured) at its first
+        use.  Its buffers start blank with no real session, so the capture's
+        warm-up steps write no slot."""
+
+        def build():
+            inputs = {
+                "frames": torch.zeros((k, *self._frame_shape), dtype=torch.uint8,
+                                      device=self.device),
+                "slots": torch.zeros(k, dtype=torch.int32, device=self.device),
+                "k_real": torch.zeros((), dtype=torch.int32, device=self.device),
+            }
+            return (lambda b: self._step(params, states, b["frames"], b["slots"], b["k_real"]),
+                    inputs)
+
+        return self.graph_cache.get(self.key(k), build)
+
+    def __call__(self, params, states, frames, slots: list, k: int):
+        """One step of bucket k for the real sessions ``slots``.  ``frames``:
+        a host uint8 array [m,H,W,3] (staged from pinned memory straight into
+        the static buffer) or device frames, one per session; with m < k the
+        last is repeated.  -> [k,H,W,3] uint8 (the replay's output on the
+        card); rows past ``len(slots)`` are padding."""
+        step = self.step_for(params, states, k)
+        buf = step.inputs["frames"]
+        m = len(frames)
+        if isinstance(frames, np.ndarray):
+            stage_into(buf[:m], frames)
+        else:
+            for row, f in zip(buf, frames):
+                row.copy_(f.reshape(row.shape))
+        if m < k:
+            buf[m:].copy_(buf[m - 1:m].expand(k - m, *buf.shape[1:]))
+        step.inputs["slots"].copy_(self.index(pad_bucket(slots, k)))
+        step.inputs["k_real"].fill_(len(slots))
+        return step.run()
 
     def warm(self, params, states, k: int):
-        """Step a bucket of k blank frames that writes no slot (no real
-        session in it), so that neither the calling thread's first step nor
-        the bucket's first launch lands on a session."""
-        frames = torch.zeros((k, *self._frame_shape), dtype=torch.uint8, device=self.device)
-        self._step(params, states, frames, self.index([0] * k), 0)
+        """Get bucket k ready before the first session's frame, writing no
+        slot: with graphs, its capture (warm-up steps included); without,
+        one eager step of blank frames with no real session in it."""
+        step = self.step_for(params, states, k)
+        if not step.graph:
+            step.inputs["k_real"].fill_(0)
+            step.run()
+
+    def status(self, keys) -> dict:
+        """{k: captured} for the bucket keys ``{k: key}``."""
+        done = self.graph_cache.status()
+        return {k: done.get(key, False) for k, key in keys.items()}
 
 
 def stage_rows(frames: np.ndarray, device) -> torch.Tensor:
@@ -117,7 +170,8 @@ def stage_rows(frames: np.ndarray, device) -> torch.Tensor:
 class Readback:
     """Rows of a step's output copied to the host: each into its own pinned
     buffer, one CUDA event after them all (the CPU: the rows themselves).
-    Both planes over the bucket step read their rows through it."""
+    Both planes over the bucket step read their rows through it, right
+    after the step on its stream: the next replay overwrites the output."""
 
     def __init__(self, out: torch.Tensor, n: int):
         if out.device.type == "cuda":
@@ -147,25 +201,27 @@ class MultiPeerEngine:
     card unless the caller asks for another)."""
 
     def __init__(self, models: StreamModels, params, cfg: StreamConfig, encode_prompt: Callable,
-                 max_peers: int, device=None):
+                 max_peers: int, device=None, model_id: str = ""):
         self.device = resolve_device(device)
         self.cfg = cfg
         self.max_peers = max_peers
         self.models = models
         self.params = params
-        self._template = StreamEngine(models, params, cfg, encode_prompt, device=self.device)
-        self._bucket = BucketStep(models, cfg, self.device)
+        self.model_id = model_id
+        self._template = StreamEngine(models, params, cfg, encode_prompt, device=self.device,
+                                      graphs=False)
         self.states = None  # stacked [P, ...]
         self.active = [False] * max_peers
         # guards the template engine during heavy state builds (text encode
         # + prepare), apart from any caller-level step lock
         self._heavy_lock = threading.Lock()
         self._bucket_sizes = bucket_sizes(max_peers, include_capacity=False)
+        self._bucket = BucketStep(models, cfg, self.device, key=self.bucket_keys().__getitem__)
         self._use_buckets = env.get_bool("MULTIPEER_BUCKETS", True)
 
     def _fresh_state(self, prompt: str, seed: int) -> dict:
         with self._heavy_lock:
-            return self._template.prepare(prompt, seed=seed).state
+            return self._template.build_state(prompt, seed=seed)
 
     def start(self, default_prompt: str = ""):
         self.states = stack_states(
@@ -242,12 +298,25 @@ class MultiPeerEngine:
             return None
         return bucket_for(self._bucket_sizes, n_active)
 
+    def bucket_keys(self) -> dict:
+        """{bucket size -> engine key} for every bucket this engine steps:
+        the JAX multipeer recipe (``peers``) for the step of every slot,
+        plus ``sbucket`` for the buckets below it."""
+        return {k: stream_engine_key(self.model_id, self.cfg, peers=self.max_peers,
+                                     **({} if k == self.max_peers else {"sbucket": k}))
+                for k in self._bucket_sizes + [self.max_peers]}
+
+    def graph_status(self) -> dict:
+        """{bucket size -> captured} (False throughout when stepping eagerly)."""
+        return self._bucket.status(self.bucket_keys())
+
     def prewarm_buckets(self):
-        """Step every bucket size, and the step of every slot, once on the
+        """Capture every bucket size, and the step of every slot, on the
         calling thread (the thread that will step them), writing no slot's
-        state: each launch path and the thread's library handles are ready
-        before the first peer's frame."""
-        for k in self._bucket_sizes + [self.max_peers]:
+        state (eagerly: step each once): no peer's first frame pays a
+        capture, a launch path's first use or a new thread's library
+        handles."""
+        for k in self.bucket_keys():
             self._bucket.warm(self.params, self.states, k)
             logger.info("prewarmed multipeer bucket %d/%d", k, self.max_peers)
         if self.device.type == "cuda":
@@ -270,8 +339,7 @@ class MultiPeerEngine:
         k = self._bucket_for(len(active))
         slots = active if k is not None else list(range(self.max_peers))
         k = k or self.max_peers
-        out = self._bucket(self.params, self.states,
-                           stage_rows(frames[pad_bucket(slots, k)], self.device), slots, k)
+        out = self._bucket(self.params, self.states, frames[pad_bucket(slots, k)], slots, k)
         return Readback(out, len(slots)), slots
 
     def fetch(self, pending) -> np.ndarray:

@@ -10,9 +10,10 @@ peer's prompt or t-indices.
   ``submit``/``fetch``, ``update_prompt``, ``update_t_index_list``), so the
   track layer is the same for single- and multi-peer serving.
 * The coordinator owns the engine: steps, prompt swaps and slot installs
-  happen under one lock.  It is the one thread that steps, and it steps
-  every bucket once at startup (``MultiPeerEngine.prewarm_buckets``), so
-  no peer's first tick pays a new thread's first step.
+  happen under one lock.  It is the one thread that steps, and at startup
+  it captures every bucket as a CUDA graph on the card (steps each once on
+  the CPU; ``MultiPeerEngine.prewarm_buckets``), so no peer's first tick
+  pays a capture or a new thread's first step.
 * Each tick takes at most one queued frame per slot; an active slot with no
   new frame steps its last frame again and its output is dropped.  Each
   peer's frames wait in a bounded ``DeadlineQueue`` (the scheduler's): a
@@ -94,7 +95,7 @@ class MultiPeerPipeline:
         bundle.params = registry.cast_params(bundle.params, cfg.dtype)
         self.engine = MultiPeerEngine(bundle.stream_models, bundle.params, cfg,
                                       bundle.encode_prompt, max_peers=max_peers,
-                                      device=self.device).start(prompt)
+                                      device=self.device, model_id=model_id).start(prompt)
         self.config = cfg
         self.height, self.width = cfg.height, cfg.width
         self.max_peers = max_peers

@@ -8,10 +8,18 @@ ai_rtc_agent_tpu/stream/engine.py.
   the JAX step donated its state, this step updates the ring buffer and the
   stock in place (the fused epilogue writes them; the composed ops
   ``copy_`` into them), so their storage is stable from frame to frame.
-* Prompt updates and same-length t_index updates swap state entries.
+* Every state write lands in place: prompt, t_index and guidance updates
+  and ``prepare()`` (again, at a restart) copy into the tensors the step
+  reads, so a captured step keeps reading the live state.
 * uint8 pre/post-processing runs on the device: one uint8 [H,W,3] frame
-  crosses each way per step (H2D from pinned memory, non-blocking; the D2H
-  copy is queued at submit and resolved in ``fetch``).
+  crosses each way per step (H2D from pinned memory into the step's static
+  frame buffer, non-blocking; the D2H copy is queued at submit and
+  resolved in ``fetch``).
+* On the card the step is one CUDA graph (aot/cache.py ``CapturedStep``),
+  the counterpart of the JAX engine's jitted step: captured before the
+  first frame (the pipeline captures at startup, a bare engine at its
+  first submit) and replayed per step.  ``graphs=False`` steps eagerly
+  over the same buffers, as the CPU always does.
 
 Batch law: B = len(t_index_list) * frame_buffer_size.  Each step takes
 fbs new frames at the noisiest sub-timestep, advances every buffered
@@ -33,11 +41,13 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..aot.cache import GraphCache, stream_engine_key
 from ..ops import image as I
 from ..ops import lcm as L
 from ..ops import rcfg as R
 from ..ops import schedule as S
-from ..ops.kernels.fused_scheduler import fused_stream_epilogue
+from ..ops.kernels.fused_scheduler import fused_stream_epilogue, write_segments
+from ..tree import tree_map
 
 
 @dataclass(frozen=True)
@@ -225,14 +235,16 @@ def make_session_step_fn(models: StreamModels, cfg: StreamConfig):
     uint8 on the device, one frame per session; ``slots``: int32 [k] on the
     device, the slot of each session (a padded bucket repeats its last real
     slot at the tail); ``k_real``: the real sessions, whose ring rows and
-    stock are advanced in place.  The k*B rows go through the preprocess,
+    stock are advanced in place, an int or an int32 scalar on the device
+    (what a captured step reads).  The k*B rows go through the preprocess,
     TAESD, UNet, epilogue and decode sequence of :func:`make_step_fn` once:
     32 attention launches and one epilogue launch whatever k is, each row
     with its own session's prompt, coefficients, guidance and delta.
 
     The fused epilogue reads the stock, noise, coefficients, guidance and
     delta at the slots and writes the ring and stock rows in place; the
-    composed ops gather the same rows and scatter the first k_real back.
+    composed ops gather the same rows and write the first k_real back
+    (``write_segments``: masked on the device, so they capture too).
     frame_buffer_size > 1 through the session axis is a later slice."""
     _check_supported(cfg)
     if cfg.frame_buffer_size != 1:
@@ -275,7 +287,6 @@ def make_session_step_fn(models: StreamModels, cfg: StreamConfig):
         else:
             co = _coeffs({name: take(v).reshape(-1) for name, v in c.items()})
             stock = rows(take(states["stock"])).to(dt)
-            real = slots[:k_real].long()
             if cfg.cfg_type == "none":
                 eps = eps_c
             else:
@@ -284,7 +295,8 @@ def make_session_step_fn(models: StreamModels, cfg: StreamConfig):
                                          col(states["delta"]))
                 if cfg.cfg_type == "self":
                     new_stock = R.update_stock_noise(stock, eps_c, co.alpha, co.sigma)
-                    states["stock"].index_copy_(0, real, new_stock.view(k, B, *x_t.shape[1:])[:k_real])
+                    write_segments(states["stock"], new_stock.view(k, B, *x_t.shape[1:]), slots,
+                                   k_real)
             if cfg.scheduler == "turbo":
                 denoised = L.turbo_denoise(x_t, eps, co, cfg.prediction_type)
             else:
@@ -296,7 +308,8 @@ def make_session_step_fn(models: StreamModels, cfg: StreamConfig):
                     co.next_sigma)))
                 advanced = L.renoise_next(rows(head(denoised)),
                                           rows(take(states["noise"])[:, 1:]).to(dt), sub)
-                states["x_buf"].index_copy_(0, real, advanced.view(k, B - 1, *x_t.shape[1:])[:k_real])
+                write_segments(states["x_buf"], advanced.view(k, B - 1, *x_t.shape[1:]), slots,
+                               k_real)
         out_latent = denoised.view(k, B, *x_t.shape[1:])[:, B - 1]
 
         img_out = models.vae_decode(params, out_latent)
@@ -314,12 +327,28 @@ def stack_states(states: list) -> dict:
 
 def install_row(stacked: dict, slot: int, state: dict):
     """Write one session's state into row ``slot`` of a stacked state, in
-    place (the storage the kernels write stays the same)."""
-    for key, value in state.items():
+    place (the storage the kernels and a captured step use stays the same)."""
+    install_state(tree_map(lambda a: a[slot], stacked), state)
+
+
+@torch.inference_mode()
+def install_state(state: dict, new: dict):
+    """Write ``new`` into ``state`` leaf by leaf, in place (inference mode:
+    the prompt embeddings come from the text tower as inference tensors)."""
+    for key, value in new.items():
         if isinstance(value, dict):
-            install_row(stacked[key], slot, value)
+            install_state(state[key], value)
         else:
-            stacked[key][slot].copy_(value)
+            state[key].copy_(value)
+
+
+def stage_into(buf: torch.Tensor, frames: np.ndarray) -> torch.Tensor:
+    """Host uint8 frames -> the device buffer ``buf`` (a step's static
+    frame buffer), from pinned memory without blocking on the card."""
+    t = torch.from_numpy(np.ascontiguousarray(frames)).reshape(buf.shape)
+    if buf.device.type == "cuda":
+        t = t.pin_memory()
+    return buf.copy_(t, non_blocking=True)
 
 
 class SimilarityFilter:
@@ -356,7 +385,9 @@ class SimilarityFilter:
 
 
 class _Readback:
-    """A D2H copy queued at submit; ``result()`` waits for it."""
+    """A D2H copy queued at submit, right after the step on the same stream
+    (a replay overwrites its output: the copy must come before the next);
+    ``result()`` waits for it."""
 
     def __init__(self, out):
         if out.device.type == "cuda":
@@ -379,7 +410,10 @@ class StreamEngine:
 
     Runs on ``device`` ("cuda" unless the caller asks for another; raises
     without a card).  Frames stage host->device from pinned memory without
-    blocking, and several steps can be in flight (``submit``/``fetch``)."""
+    blocking, and several steps can be in flight (``submit``/``fetch``).
+    ``graphs`` (default: on a CUDA device) steps by replaying one captured
+    CUDA graph, keyed by ``stream_engine_key(model_id, cfg)``; False steps
+    eagerly over the same static buffers."""
 
     def __init__(
         self,
@@ -389,6 +423,8 @@ class StreamEngine:
         encode_prompt: Callable[[str], tuple],
         schedule: S.NoiseSchedule | None = None,
         device=None,
+        graphs: bool | None = None,
+        model_id: str = "",
     ):
         self.device = resolve_device(device)
         self.models = models
@@ -398,6 +434,11 @@ class StreamEngine:
         self.schedule = schedule or S.make_schedule()
         self._t_index_list = tuple(cfg.t_index_list)
         self._step = make_step_fn(models, cfg)
+        self.graphs = self.device.type == "cuda" if graphs is None else bool(graphs)
+        self.key = stream_engine_key(model_id, cfg)
+        self.graph_cache = GraphCache(self.graphs, self.device)
+        self._static_step = None
+        self._graph_state = None  # the state the graph was captured over
         self.state = None
         self._last_out = None
         self._last_submitted = None
@@ -409,16 +450,17 @@ class StreamEngine:
 
     # -- state construction -------------------------------------------------
 
-    def prepare(
+    def build_state(
         self,
         prompt: str,
         num_inference_steps: int | None = None,
         guidance_scale: float = 1.2,
         delta: float = 1.0,
         seed: int = 2,
-    ):
-        """Build the initial state; the noise comes from a torch.Generator
-        seeded with ``seed`` on the engine's device."""
+    ) -> dict:
+        """A fresh initial state (a new dict; the engine's own is not
+        touched); the noise comes from a torch.Generator seeded with
+        ``seed`` on the engine's device."""
         cfg = self.cfg
         if num_inference_steps is not None and num_inference_steps != cfg.num_inference_steps:
             raise ValueError("num_inference_steps is fixed per engine; rebuild the engine")
@@ -446,7 +488,17 @@ class StreamEngine:
                 state["stock"] = self.models.unet(
                     self.params, noise, state["coeffs"]["timesteps"], unc
                 ).to(dt)
-        self.state = state
+        return state
+
+    def prepare(self, prompt: str, num_inference_steps: int | None = None,
+                guidance_scale: float = 1.2, delta: float = 1.0, seed: int = 2):
+        """(Re)build the state from ``prompt`` and ``seed``: the first call
+        sets it, a later one (a restart) writes it in place."""
+        state = self.build_state(prompt, num_inference_steps, guidance_scale, delta, seed)
+        if self.state is None:
+            self.state = state
+        else:
+            install_state(self.state, state)
         return self
 
     def _scalar(self, v):
@@ -459,6 +511,36 @@ class StreamEngine:
             torch.as_tensor(cond, device=self.device).to(dt),
             torch.as_tensor(uncond, device=self.device).to(dt),
         )
+
+    # -- the captured step ----------------------------------------------------
+
+    def capture(self):
+        """Build the step over its static buffers and, with ``graphs``,
+        capture it now, on the calling thread (the counterpart of the JAX
+        engine's compile before the first frame).  The capture's warm-up
+        steps write the ring and the stock; they are put back after."""
+        with self._submit_lock:
+            return self._static_step_locked()
+
+    def _static_step_locked(self):
+        if self.state is None:
+            raise RuntimeError("call prepare() first")
+        if self._static_step is None:
+            cfg = self.cfg
+            saved = tree_map(lambda a: a.clone(), self.state) if self.graphs else None
+            frame = torch.zeros((cfg.frame_buffer_size, cfg.height, cfg.width, 3),
+                                dtype=torch.uint8, device=self.device)
+            self._static_step = self.graph_cache.get(self.key, lambda: (
+                lambda inputs: self._step(self.params, self.state, inputs["frame"])[1],
+                {"frame": frame}))
+            if saved is not None:
+                install_state(self.state, saved)
+                self._graph_state = self.state
+        if self.graphs and self.state is not self._graph_state:
+            raise RuntimeError(
+                "the engine's state was replaced after its step was captured: write it in "
+                "place (prepare(), install_state)")
+        return self._static_step
 
     # -- hot path -----------------------------------------------------------
 
@@ -475,15 +557,11 @@ class StreamEngine:
     def last_submit_was_skip(self, value: bool):
         self._submit_skip_flag.value = value
 
-    def _stage(self, frame_u8: np.ndarray) -> torch.Tensor:
-        t = torch.from_numpy(np.ascontiguousarray(frame_u8))
-        if self.device.type == "cuda":
-            return t.pin_memory().to(self.device, non_blocking=True)
-        return t.to(self.device)
-
     def submit(self, frame_u8: np.ndarray):
         """Queue one step without waiting; returns a handle for :meth:`fetch`.
-        Steps from concurrent callers serialize on a lock (host work only)."""
+        Steps from concurrent callers serialize on a lock (host work only):
+        the frame goes into the static frame buffer, then the step runs (a
+        replay on the card) and its D2H copy is queued."""
         if self.state is None:
             raise RuntimeError("call prepare() first")
         self.last_submit_was_skip = False
@@ -496,8 +574,9 @@ class StreamEngine:
                 if self._last_submitted is not None:
                     return self._last_submitted
                 return None, squeeze
-            self.state, out = self._step(self.params, self.state, self._stage(frame_u8))
-            self._last_submitted = (_Readback(out), squeeze)
+            step = self._static_step_locked()
+            stage_into(step.inputs["frame"], frame_u8)
+            self._last_submitted = (_Readback(step.run()), squeeze)
             return self._last_submitted
 
     def fetch(self, pending) -> np.ndarray:
@@ -511,24 +590,25 @@ class StreamEngine:
         self._last_out = out
         return out
 
-    # -- control plane -------------------------------------------------------
+    # -- control plane (in place: a captured step reads these tensors) -------
 
     def update_prompt(self, prompt: str):
         cond, uncond = self._encode(prompt)
         with self._submit_lock:
-            self.state["cond"] = cond
-            self.state["uncond"] = uncond
+            install_state(self.state, {"cond": cond, "uncond": uncond})
 
     def update_t_index_list(self, t_index_list):
         """Same-length update = coefficient swap; the length is fixed."""
         coeffs = t_index_coeffs(self.cfg, self.schedule, t_index_list, self.device)
         self._t_index_list = tuple(int(t) for t in t_index_list)
         with self._submit_lock:
-            self.state["coeffs"] = coeffs
+            install_state(self.state, {"coeffs": coeffs})
 
     def update_guidance(self, guidance_scale=None, delta=None):
+        new = {}
+        if guidance_scale is not None:
+            new["guidance"] = self._scalar(guidance_scale)
+        if delta is not None:
+            new["delta"] = self._scalar(delta)
         with self._submit_lock:
-            if guidance_scale is not None:
-                self.state["guidance"] = self._scalar(guidance_scale)
-            if delta is not None:
-                self.state["delta"] = self._scalar(delta)
+            install_state(self.state, new)

@@ -9,9 +9,13 @@ surface the serving track drives: ``fetch(handle, src_frame)`` and
 frame), ``frame_buffer_size`` and ``submit_batch``/``fetch_batch``.
 
 It runs on the card unless ``device="cpu"`` is passed, and raises without
-one.  There is no build-time probe with a fallback: a kernel that fails to
-build or launch raises.  AOT adoption, the safety checker and tracing spans
-are later slices.
+one.  On the card the engine's step is captured as one CUDA graph when the
+façade is built (the counterpart of the JAX pipeline adopting its AOT
+engine at build) and replayed per frame; ``restart`` and the ``update_*``
+methods write the state in place, which the graph reads.  There is no
+build-time probe with a fallback: a kernel that fails to build or launch,
+or a capture that fails, raises.  The safety checker and tracing spans are
+later slices.
 """
 
 from __future__ import annotations
@@ -40,9 +44,12 @@ class StreamDiffusionPipeline:
         seed: int = 2,
         device=None,
         params: dict | None = None,
+        graphs: bool | None = None,
     ):
         """``params``: a ready param tree (e.g. ``bridge.params_from_jax`` of
-        a JAX pipeline's); otherwise random weights from a fixed seed."""
+        a JAX pipeline's); otherwise random weights from a fixed seed.
+        ``graphs`` (default: on a CUDA device) captures the step now and
+        replays it per frame; False steps eagerly (the A/B on the card)."""
         self.device = resolve_device(device)
         self.model_id = model_id
         self.prompt = prompt
@@ -64,10 +71,13 @@ class StreamDiffusionPipeline:
             cfg=cfg,
             encode_prompt=bundle.encode_prompt,
             device=self.device,
+            graphs=graphs,
+            model_id=model_id,
         )
         self.engine.prepare(
             prompt=prompt, guidance_scale=self.guidance_scale, delta=self.delta, seed=seed
         )
+        self.engine.capture()
 
     def restart(self):
         """Re-prepare the engine in place (fresh stream state, same params),

@@ -24,10 +24,13 @@
 Every step runs on the dispatcher thread (the JAX scheduler dispatches
 inline on a submitter's thread when the batch is complete, which here
 would put steps on whichever worker thread submitted).  The batches and
-their order are the JAX scheduler's; one thread means the per-thread
-library handles are made once, and ``prewarm_buckets`` steps every bucket
-once on that thread at startup (BATCHSCHED_PREWARM), the counterpart of
-the JAX scheduler's bucket pre-compile.
+their order are the JAX scheduler's.  On the card each bucket size is one
+CUDA graph (``BucketStep``), keyed by the JAX recipe (:meth:`bucket_keys`)
+and captured by ``prewarm_buckets`` on the dispatcher thread before it
+serves (BATCHSCHED_PREWARM; with it off, a bucket's first use captures
+it there): the counterpart of the JAX scheduler's per-bucket executables.
+A dispatch copies the waiting frames, the padded slot layout and the count
+into the bucket's static buffers and replays it.
 
 Outputs are a dedicated engine's for the same state row and frames
 (tests/test_torch_scheduler.py on the CPU, chip_smoke.py phase 6 on the
@@ -47,6 +50,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..aot.cache import stream_engine_key
 from ..parallel.multipeer import (
     BucketStep,
     CapacityError,
@@ -232,7 +236,9 @@ class BatchScheduler:
                  queue_bound: int | None = None, fetch_timeout: float = 120.0,
                  default_prompt: str = "", guidance_scale: float | None = None,
                  delta: float | None = None, schedule=None, prewarm: bool | None = None,
-                 device=None):
+                 device=None, graphs: bool | None = None):
+        """``graphs`` (default: on a CUDA device): each bucket size steps by
+        replaying its captured CUDA graph; False steps eagerly."""
         self.device = resolve_device(device)
         self.cfg = cfg
         self.model_id = model_id
@@ -255,14 +261,14 @@ class BatchScheduler:
         self.t_index_list = list(cfg.t_index_list)
         self.params = params
         self._template = StreamEngine(models, params, cfg, encode_prompt, schedule=schedule,
-                                      device=self.device)
-        self._bucket = BucketStep(models, cfg, self.device)  # raises for fbs > 1
+                                      device=self.device, graphs=False)
         S = self.max_sessions
         self._bucket_sizes = bucket_sizes(S)
+        self._bucket = BucketStep(models, cfg, self.device, graphs=graphs,  # raises for fbs > 1
+                                  key=self.bucket_keys().__getitem__)
         # one template state, stacked: a claim installs its own before any frame
-        self._template.prepare(self.prompt, guidance_scale=self.guidance_scale,
-                               delta=self.delta, seed=0)
-        self.states = stack_states([self._template.state] * S)
+        self.states = stack_states([self._template.build_state(
+            self.prompt, guidance_scale=self.guidance_scale, delta=self.delta, seed=0)] * S)
         self.active = [False] * S
         self._sessions: dict = {}  # slot -> ScheduledSession
         self._queues = [DeadlineQueue(self.queue_bound, on_evict=self._evict) for _ in range(S)]
@@ -290,9 +296,10 @@ class BatchScheduler:
     @classmethod
     def from_pipeline(cls, pipeline, **kw) -> "BatchScheduler":
         """A scheduler serving what ``pipeline`` (a StreamDiffusionPipeline)
-        serves: its weights, config, prompt encoder, schedule, device and
-        live prompt, guidance and delta as the defaults."""
+        serves: its weights, config, prompt encoder, schedule, device, graphs
+        setting and live prompt, guidance and delta as the defaults."""
         eng = pipeline.engine
+        kw.setdefault("graphs", eng.graphs)
         return cls(eng.models, eng.params, pipeline.config, eng.encode_prompt,
                    model_id=pipeline.model_id, default_prompt=pipeline.prompt,
                    guidance_scale=pipeline.guidance_scale, delta=pipeline.delta,
@@ -352,8 +359,8 @@ class BatchScheduler:
 
     def _build_state(self, prompt, guidance, delta, seed, t_index_list) -> dict:
         with self._heavy_lock:
-            state = self._template.prepare(prompt, guidance_scale=guidance, delta=delta,
-                                           seed=seed).state
+            state = self._template.build_state(prompt, guidance_scale=guidance, delta=delta,
+                                               seed=seed)
             if tuple(t_index_list) != tuple(self.cfg.t_index_list):
                 state["coeffs"] = coeff_state(self.cfg, self._template.schedule,
                                               tuple(t_index_list), self.device)
@@ -424,10 +431,21 @@ class BatchScheduler:
     def _bucket_for(self, n: int) -> int:
         return bucket_for(self._bucket_sizes, n) or self._bucket_sizes[-1]
 
+    def bucket_keys(self, model_id: str | None = None) -> dict:
+        """{bucket size -> engine key}: the JAX scheduler's recipe (the stream
+        key plus ``sbucket``/``sessions``; the port has one UNet variant)."""
+        model_id = model_id or self.model_id
+        return {k: stream_engine_key(model_id, self.cfg, sbucket=k, sessions=self.max_sessions)
+                for k in self._bucket_sizes}
+
+    def graph_status(self) -> dict:
+        """{bucket size -> captured} (False throughout when stepping eagerly)."""
+        return self._bucket.status(self.bucket_keys())
+
     def prewarm_buckets(self):
-        """Step every bucket size once on the calling thread, writing no
-        session's state (``BucketStep.warm``).  The scheduler calls it on its
-        dispatcher thread at startup."""
+        """Capture every bucket size on the calling thread, writing no
+        session's state (``BucketStep.warm``; eagerly: step each once).  The
+        scheduler calls it on its dispatcher thread at startup."""
         for k in self._bucket_sizes:
             with self._step_lock:
                 self._bucket.warm(self.params, self.states, k)
@@ -490,13 +508,12 @@ class BatchScheduler:
         slots = [s for s, _ in entries]
         n = len(slots)
         k = self._bucket_for(n)
-        frames = [p.frame_dev for _, p in entries]
-        frames_k = frames[0] if k == 1 else torch.cat(frames + frames[-1:] * (k - n))
         t_disp = time.monotonic()
         for _, p in entries:
             p.t_dispatch, p.occupancy = t_disp, n
         try:
-            out = self._bucket(self.params, self.states, frames_k, slots, k)
+            out = self._bucket(self.params, self.states, [p.frame_dev for _, p in entries],
+                               slots, k)
             batch = _DispatchedBatch(Readback(out, n), t_disp, slots)
         except Exception as e:
             logger.exception("batchsched step failed (bucket %d, %d sessions)", k, n)
@@ -585,6 +602,7 @@ class BatchScheduler:
             "batchsched_dp": 1,
             "batchsched_fbs": 1,
             "batchsched_occupancy_hist": {str(k): v for k, v in sorted(self._occ_hist.items())},
+            "batchsched_graphs": {str(k): v for k, v in self.graph_status().items()},
         }
         if occ:
             out["batchsched_occupancy_p50"] = self._percentile(occ, 0.5)

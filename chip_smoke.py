@@ -22,14 +22,23 @@ Phases (each prints its own lines; any failure exits non-zero):
                 duplicate slot) and 8 sessions, cfg initialize at 3 and
                 sd-turbo's cfg none at 8, slot-indexed in place, one graph
                 replay, each beside its floor and bound; attention at B=8
-                and B=32 on two main-path shapes.
+                and B=32 on two main-path shapes.  Attention captured in a
+                CUDA graph and replayed on new inputs at every main-path
+                shape and at B=8 and 32.
   4. main     — the default serving path, StreamDiffusionPipeline(
                 "stabilityai/sd-turbo") at 512x512 in bf16 with random
-                weights from a seed: frames through __call__ and through
-                submit/fetch with 2 in flight, one update_prompt; checks the
-                launch counts (32 attention + 1 epilogue per step), the
+                weights from a seed, its step captured as one CUDA graph at
+                build (32 attention + 1 epilogue launches per replay):
+                frames through __call__ and through submit/fetch with 2 in
+                flight, one update_prompt; checks the launch counts, the
                 output frames, and one step against the plain path and an
-                f32 reference from the same state.
+                f32 reference from the same state.  Then the replays
+                against an eager engine from the same state (the level
+                difference, and phase 4's criterion against the f32
+                reference), a device trace of one replay (32 attention and
+                1 epilogue kernels), graph vs eager ms/frame interleaved
+                over 8 rounds (__call__ and 2 in flight), and one step on a
+                fresh thread each way.
   5. serve    — the same pipeline served through the port's session layer
                 (server/sessions.py, loopback provider, no HTTP): one WHIP
                 publisher and one WHEP viewer, 24 frames with pts pushed and
@@ -43,14 +52,18 @@ Phases (each prints its own lines; any failure exits non-zero):
                 FrameStats' fps and latency p50.
   6. sessions — cross-session batching (stream/scheduler.py, parallel/
                 multipeer.py).  6a: BatchScheduler.from_pipeline over phase
-                4's pipeline, 8 slots; 1, 2, 3 (bucket of 4), 4 and 8
-                sessions with distinct prompts and seeds, one submitting
-                thread each, 2 frames in flight: 32 attention + 1 epilogue
-                launches per bucket step, each session's first frames held
-                to a dedicated engine fed its state row (phase 4's
-                criterion against the f32 reference); two timed runs of 36
-                frames per session at each k, each followed by the same
-                sessions through the shared pipeline in turns: ms between
+                4's pipeline, 8 slots, every bucket captured at startup (the
+                capture time per bucket and the pool's memory printed), and
+                an eager scheduler beside it; 1, 2, 3 (bucket of 4), 4 and 8
+                sessions with distinct prompts and seeds on both, one
+                submitting thread each, 2 frames in flight: 32 attention + 1
+                epilogue launches per bucket step, each session's first
+                frames held to a dedicated engine fed its state row (phase
+                4's criterion against the f32 reference) and to the eager
+                scheduler's; two rounds of timed runs of 36 frames per
+                session at each k, graph and eager in turns (ABBA), each
+                round followed by the same sessions through the shared
+                pipeline in turns (the eager peak memory at k=8): ms between
                 bucket steps, aggregate and per-session fps over a steady
                 window (each session's outputs past its 4th, so the fill
                 and the first step are out), each session's first frame;
@@ -59,10 +72,10 @@ Phases (each prints its own lines; any failure exits non-zero):
                 CapacityError.  6b: the 4-stage LCM cfg-self ring at
                 SD2.1-base geometry (random weights), 2 sessions x 8 frames
                 against dedicated engines (the renoise shift within each
-                session).  6c: MultiPeerPipeline with 2 peers (its
-                coordinator steps every bucket at startup): launches per
-                tick, each peer's frames against a dedicated engine that
-                replays its slot's ticks.
+                session), through graphs.  6c: MultiPeerPipeline with 2
+                peers (its coordinator captures every bucket at startup):
+                launches per tick, each peer's frames against a dedicated
+                engine that replays its slot's ticks.
   7. a "kernels" JSON line (launch counts of phases 4, 5 and 6), then the
      last line {"ok": true, "device": ...}.
 
@@ -309,12 +322,13 @@ def phase_attention(torch):
         ("ms", "plain_ms", "library_ms", "bound_ms", "ops", "bytes", "floor_ms"), 0.0)
     max_err = 0.0
 
-    def case(b, lq, lk, h, d):
+    def case(b, lq, lk, h, d, replay=False):
         q, k, v = (torch.randn((b, n, h, d), generator=gen, device="cuda").to(torch.bfloat16)
                    for n in (lq, lk, lk))
         out = KA.flash_attention(q, k, v)
         torch.cuda.synchronize()
-        e = tolerance.attention_error(out, KA.attention_plain(q, k, v))
+        want = KA.attention_plain(q, k, v)
+        e = tolerance.attention_error(out, want)
         label = (
             f"attention B={b} Lq={lq} Lk={lk} H={h} D={d} bf16: max_abs_err {e['max_abs']:.3e} "
             f"(tol {e['tol_abs']:.3e} = 2^-6 max|ref|), rel L2 {e['rel_l2']:.3e} "
@@ -322,10 +336,16 @@ def phase_attention(torch):
         )
         if not e["ok"]:
             fail(f"{label}: over tolerance")
+        if replay:  # the launch captured in a CUDA graph, replayed on new inputs
+            r = attention_graph_replay(torch, KA, q, k, v, gen)
+            label += (f"; graph replay max_abs_err {r['max_abs']:.3e}, rel L2 "
+                      f"{r['rel_l2']:.3e}")
+            if not r["ok"]:
+                fail(f"{label}: the graph replay is over tolerance")
         return q, k, v, e["max_abs"], label
 
     for b, lq, lk, h, d, per_step in MAIN_ATTENTION:
-        q, k, v, err, label = case(b, lq, lk, h, d)
+        q, k, v, err, label = case(b, lq, lk, h, d, replay=True)
         max_err = max(max_err, err)
         reps = 20 if lq * lk >= 1 << 20 else 100
         ms = time_ms(torch, lambda: KA.flash_attention(q, k, v), reps)
@@ -362,7 +382,7 @@ def phase_attention(torch):
     for b, lq, lk, h, d in EXTRA_ATTENTION + edge_attention(KA.key_tile):
         say(f"{case(b, lq, lk, h, d)[-1]} ok")
     for b, lq, lk, h, d in SESSION_ATTENTION:  # the bucket step's batches
-        q, k, v, err, label = case(b, lq, lk, h, d)
+        q, k, v, err, label = case(b, lq, lk, h, d, replay=True)
         ms = time_ms(torch, lambda: KA.flash_attention(q, k, v), 10)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         lib = time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt), 10)
@@ -383,6 +403,27 @@ def phase_attention(torch):
         "bound_by": "operations" if totals["ops"] >= totals["bytes"] else "bytes",
         "library_ms": totals["library_ms"],
     }
+
+
+def attention_graph_replay(torch, KA, q, k, v, gen) -> dict:
+    """The attention launch captured in a CUDA graph over q, k and v (after
+    a warm-up launch: the first launch per device sets the kernel's
+    attributes, which a capture must not do), then q, k and v refilled in
+    place with new values and the graph replayed: the replay against the
+    plain version on the new values (the TMA descriptors hold the captured
+    addresses, so only in-place inputs reach a replay)."""
+    from ai_rtc_agent_tpu_torch.ops.kernels import tolerance
+
+    KA.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        out = KA.flash_attention(q, k, v)
+    for t in (q, k, v):
+        t.copy_(torch.randn(t.shape, generator=gen, device=t.device))
+    graph.replay()
+    torch.cuda.synchronize()
+    return tolerance.attention_error(out, KA.attention_plain(q, k, v))
 
 
 EPILOGUE_CASES = ("none", "self", "initialize")  # none: the main path (sd-turbo, B=1)
@@ -555,13 +596,15 @@ def phase_session_epilogue(torch, KF) -> float:
         ms = time_ms(torch, lambda: KF.fused_stream_epilogue(*args, **kwargs), 500)
         floor = time_ms(torch, lambda: KF.launch_empty(R, n), 500)
         plain = time_ms(torch, lambda: KF.epilogue_plain(*args, **kwargs), 50)
+        host_us, held = host_us_per_call(torch, lambda: KF.fused_stream_epilogue(*args, **kwargs))
         flops, nbytes = epilogue_work(args, kwargs)
         bms, by = bound(flops, PEAK_F32_FLOPS, nbytes)
         say(
             f"{label}{', and graph replay' if i == 1 else ''}: max_abs_err {err:.3e}, max rel "
             f"{rel:.2e} (tol 1 bf16 ulp = 2^-7 rel) | kernel {ms:.5f} ms, launch floor {floor:.5f} ms "
             f"(empty kernel, same grid), plain {plain:.4f} ms, bound {bms:.6f} ms ({by}; {nbytes} B, "
-            f"{flops} flop)"
+            f"{flops} flop) | wrapper host {host_us:.2f} us per call"
+            + ("" if held else " (the device woke first: not the host's time alone)")
         )
     return max_err
 
@@ -584,6 +627,7 @@ def _frames(np, n: int, seed: int = 0, size: int = 512):
 def phase_main(torch, card: str):
     import numpy as np
 
+    from ai_rtc_agent_tpu_torch.aot.cache import WARMUP_STEPS
     from ai_rtc_agent_tpu_torch.models import registry
     from ai_rtc_agent_tpu_torch.ops.kernels import attention as KA
     from ai_rtc_agent_tpu_torch.ops.kernels import fused_scheduler as KF
@@ -595,12 +639,18 @@ def phase_main(torch, card: str):
     pipe = StreamDiffusionPipeline("stabilityai/sd-turbo", seed=2)
     cfg = pipe.config
     torch.cuda.synchronize()
+    step = pipe.engine.graph_cache.steps()[pipe.engine.key]
     say(
-        f"main: pipeline built in {time.perf_counter() - t0:.1f}s | {cfg.height}x{cfg.width} "
+        f"main: pipeline built in {time.perf_counter() - t0:.1f}s (the step captured as one CUDA "
+        f"graph in {step.capture_s:.3f}s, its {WARMUP_STEPS} eager warm-up steps on a side "
+        f"stream included) | {cfg.height}x{cfg.width} "
         f"{cfg.dtype} scheduler={cfg.scheduler} cfg_type={cfg.cfg_type} "
         f"t_index_list={cfg.t_index_list} fused_epilogue={cfg.use_fused_epilogue} "
-        f"attn={cfg.attn_impl}"
+        f"attn={cfg.attn_impl} | key {pipe.engine.key}"
     )
+    if not step.captured or step.launches != (32, 1):
+        fail(f"main: the captured step records {step.launches} (attention, epilogue) launches "
+             "per replay, want (32, 1)")
     frames = _frames(np, 24)
     for f in frames[:3]:  # warm-up
         pipe(f)
@@ -706,6 +756,117 @@ def phase_main(torch, card: str):
     if fk > 2 * fp + 0.5:
         fail(f"kernel-path frame strays from the f32 reference ({fk:.3f} vs {fp:.3f} levels)")
     return pipe, ref_bundle, attn_launches, epi_launches
+
+
+GRAPH_ROUNDS = 8  # phase 4's interleaved rounds, graph and eager in turns
+GRAPH_FRAMES = 8  # frames per side per round, through __call__ and with 2 in flight
+GRAPH_PARITY_FRAMES = 6
+
+
+def kernel_trace(torch, fn) -> dict:
+    """Kernel names and counts on the device over one call of ``fn`` (a
+    device-only torch.profiler trace): {"attention", "epilogue", "kernels"}."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [ev.name for ev in prof.events()
+             if ev.device_type == torch.autograd.DeviceType.CUDA and "emcpy" not in ev.name
+             and "emset" not in ev.name]
+    return {"attention": sum("flash_attention_kernel" in n for n in names),
+            "epilogue": sum("stream_epilogue_kernel" in n for n in names),
+            "kernels": len(names)}
+
+
+def _median(xs):
+    xs = sorted(xs)
+    return xs[len(xs) // 2] if len(xs) % 2 else 0.5 * (xs[len(xs) // 2 - 1] + xs[len(xs) // 2])
+
+
+def phase_graph_ab(torch, card: str, pipe, ref_bundle):
+    """Phase 4, the captured step: its replays against an eager engine from
+    the same state (the level difference, held to phase 4's criterion
+    against the f32 reference), the kernels one replay launches from a
+    device trace, graph vs eager ms/frame interleaved over GRAPH_ROUNDS
+    rounds, and one step on a fresh thread each way."""
+    import numpy as np
+
+    from ai_rtc_agent_tpu_torch.stream.engine import install_state
+
+    eng = pipe.engine
+    b = pipe.bundle
+    frames = _frames(np, GRAPH_FRAMES + GRAPH_PARITY_FRAMES, seed=7)
+    start = session_row(eng.state, None)
+    ded = Dedicated(torch, b.stream_models, b.params, pipe.config, b.encode_prompt, ref_bundle,
+                    start, pipe.device)
+    graph_outs = []
+    for f in frames[:GRAPH_PARITY_FRAMES]:
+        graph_outs.append(eng(f))
+        ded(f)
+    say(f"main: {GRAPH_PARITY_FRAMES} frames by graph replay vs the eager step from the same "
+        f"state: " + hold_to_references(np, "main graph replay", graph_outs, ded))
+    install_state(eng.state, start)
+
+    trace = kernel_trace(torch, lambda: eng(frames[0]))
+    say(f"main: device trace of one replay: {trace['kernels']} kernels, attention "
+        f"{trace['attention']}, epilogue {trace['epilogue']}")
+    if (trace["attention"], trace["epilogue"]) != (32, 1):
+        fail("main: the trace of one replay must show 32 attention and 1 epilogue kernels")
+
+    eager = ded.eng  # the served kernels, stepping eagerly
+    sides = {"graph": eng, "eager": eager}
+    call_ms = {name: [] for name in sides}
+    flight_ms = {name: [] for name in sides}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3 / GRAPH_FRAMES
+
+    def two_in_flight(e):
+        pending = []
+        for f in frames[GRAPH_PARITY_FRAMES:]:
+            pending.append(e.submit(f))
+            if len(pending) == 2:
+                e.fetch(pending.pop(0))
+        while pending:
+            e.fetch(pending.pop(0))
+
+    for r in range(GRAPH_ROUNDS):
+        for name in (("graph", "eager") if r % 2 == 0 else ("eager", "graph")):
+            e = sides[name]
+            call_ms[name].append(timed(lambda: [e(f) for f in frames[GRAPH_PARITY_FRAMES:]]))
+            flight_ms[name].append(timed(lambda: two_in_flight(e)))
+    for name in sides:
+        say(f"main: {card} | {name} ms/frame over {GRAPH_ROUNDS} interleaved rounds of "
+            f"{GRAPH_FRAMES} frames: __call__ median {_median(call_ms[name]):.2f} "
+            f"({[round(x, 2) for x in call_ms[name]]}), 2 in flight median "
+            f"{_median(flight_ms[name]):.2f} ({[round(x, 2) for x in flight_ms[name]]})")
+    wins = sum(g < e for g, e in zip(call_ms["graph"], call_ms["eager"]))
+    say(f"main: graph faster than eager through __call__ in {wins} of {GRAPH_ROUNDS} rounds")
+
+    def fresh_thread_ms(e) -> float:
+        took = []
+
+        def step():
+            t = time.perf_counter()
+            e(frames[0])
+            torch.cuda.synchronize()
+            took.append((time.perf_counter() - t) * 1e3)
+
+        worker = threading.Thread(target=step)
+        worker.start()
+        worker.join()
+        return took[0]
+
+    fresh = {name: [fresh_thread_ms(e) for _ in range(2)] for name, e in sides.items()}
+    say("main: one step on a fresh thread (ms; two fresh threads each): "
+        + ", ".join(f"{name} {[round(x, 2) for x in v]}" for name, v in fresh.items()))
+    install_state(eng.state, start)
 
 
 SERVE_PROMPT = "an oil painting of a lighthouse in a storm"
@@ -898,6 +1059,15 @@ def _reset_launches():
     KA.launches = KF.launches = 0
 
 
+def _memory(torch, cuda: bool) -> tuple:
+    """(allocated, reserved, peak allocated) bytes on the card; zeros on the CPU."""
+    if not cuda:
+        return 0, 0, 0
+    torch.cuda.synchronize()
+    return (torch.cuda.memory_allocated(), torch.cuda.memory_reserved(),
+            torch.cuda.max_memory_allocated())
+
+
 def session_row(states, slot, dtype=None) -> dict:
     """A copy of one slot's row of a stacked state (``slot`` None: a copy of
     a single-session state), latents and embeddings cast to ``dtype`` when
@@ -913,16 +1083,16 @@ def session_row(states, slot, dtype=None) -> dict:
 
 class Dedicated:
     """One session's references, fed its state row: a dedicated engine of the
-    served kernels and dtype, and the plain f32 engine (the f32 reference of
-    phase 4)."""
+    served kernels and dtype, stepping eagerly, and the plain f32 engine
+    (the f32 reference of phase 4)."""
 
     def __init__(self, torch, models, params, cfg, encode_prompt, ref_bundle, row, device):
         from ai_rtc_agent_tpu_torch.stream.engine import StreamEngine
 
         ref_cfg = replace(cfg, attn_impl="plain", use_fused_epilogue=False, dtype="float32")
-        self.eng = StreamEngine(models, params, cfg, encode_prompt, device=device)
+        self.eng = StreamEngine(models, params, cfg, encode_prompt, device=device, graphs=False)
         self.ref = StreamEngine(ref_bundle.stream_models, ref_bundle.params, ref_cfg,
-                                ref_bundle.encode_prompt, device=device)
+                                ref_bundle.encode_prompt, device=device, graphs=False)
         self.eng.state = session_row(row, None)
         self.ref.state = session_row(row, None, torch.float32)
         self.outs, self.refs = [], []
@@ -1055,55 +1225,98 @@ def phase_sessions(torch, card: str, pipe, ref_bundle, ring_model="stabilityai/s
         total[1] += e
 
     # -- 6a: sd-turbo sessions ---------------------------------------------------------
+    # the graph scheduler (every bucket captured at startup, in one pool)
+    # and an eager one over the same pipeline, run in turns at each k
+    cuda = dev.type == "cuda"
+    mem0 = _memory(torch, cuda)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
     t = time.perf_counter()
     sched = BatchScheduler.from_pipeline(pipe, max_sessions=8)
     _sync(torch, dev)
+    built = time.perf_counter() - t
+    mem1 = _memory(torch, cuda)
+    steps = sched._bucket.graph_cache.steps()
+    captures = {k: round(steps[key].capture_s, 3) for k, key in sched.bucket_keys().items()
+                if key in steps and steps[key].captured}
     say(f"sessions 6a: BatchScheduler.from_pipeline, 8 slots, buckets {sched._bucket_sizes}, "
-        f"window {1e3 * sched.window_s:.1f} ms, every bucket stepped once on the dispatcher "
-        f"thread: {time.perf_counter() - t:.1f}s")
+        f"window {1e3 * sched.window_s:.1f} ms, every bucket prewarmed on the dispatcher thread "
+        f"in {built:.1f}s; captured {sched.graph_status()}, capture s per bucket {captures}; "
+        f"{card} | the graphs of buckets {sched._bucket_sizes} in one pool: allocated "
+        f"+{(mem1[0] - mem0[0]) / 2**20:.0f} MiB, reserved +{(mem1[1] - mem0[1]) / 2**20:.0f} MiB, "
+        f"peak allocated while capturing +{(mem1[2] - mem0[0]) / 2**20:.0f} MiB | keys "
+        f"{sched.bucket_keys()[1]} (k=1) ...")
+    eager = BatchScheduler.from_pipeline(pipe, max_sessions=8, graphs=False)
+    sides = {"graph": sched, "eager": eager}
     size = pipe.config.height
     frames = [_frames(np, n, seed=20 + i, size=size) for i in range(8)]
     try:
         for k in occupancy:
-            sess = [sched.claim(f"s{i}", prompt=SESSION_PROMPTS[i], seed=100 + i) for i in range(k)]
+            claims = {name: [sc.claim(f"{name}{i}", prompt=SESSION_PROMPTS[i], seed=100 + i)
+                             for i in range(k)] for name, sc in sides.items()}
+            sess = claims["graph"]
             rows = [session_row(sched.states, s.slot) for s in sess]
-            # SCHED_ROUNDS timed runs, each beside the same k sessions through
-            # the shared pipeline in turns (one engine, its submit lock, on
-            # warmed threads): the two are compared only within one round
-            runs, shared = [], []
+            # SCHED_ROUNDS rounds: the graph and the eager scheduler in turns
+            # (ABBA), then the same k sessions through the shared pipeline in
+            # turns (one engine, its submit lock, on warmed threads); they are
+            # compared only within one round
+            runs = {name: [] for name in sides}
+            shared = []
             for r in range(SCHED_ROUNDS):
-                _sync(torch, dev)
-                _reset_launches()
-                steps0 = sched.steps_total
-                before = _launches()
-                runs.append(drive_sessions(torch, sess, frames, n))
-                count(before, sched.steps_total - steps0, f"sessions 6a k={k} run {r + 1}")
+                for name in (("graph", "eager") if r % 2 == 0 else ("eager", "graph")):
+                    sc = sides[name]
+                    _sync(torch, dev)
+                    _reset_launches()
+                    steps0 = sc.steps_total
+                    before = _launches()
+                    if cuda and name == "eager" and k == occupancy[-1] and r == 0:
+                        torch.cuda.reset_peak_memory_stats(dev)
+                    runs[name].append(drive_sessions(torch, claims[name], frames, n))
+                    if cuda and name == "eager" and k == occupancy[-1] and r == 0:
+                        peak = torch.cuda.max_memory_allocated(dev) - torch.cuda.memory_allocated(dev)
+                        say(f"sessions 6a: {card} | eager at k={k}: peak allocated "
+                            f"+{peak / 2**20:.0f} MiB over what is held between steps")
+                    count(before, sc.steps_total - steps0, f"sessions 6a k={k} {name} run {r + 1}")
                 shared.append(drive_sessions(torch, [pipe] * k, frames, n, warm=True))
-            outs = runs[0].outs
+            outs = runs["graph"][0].outs
             deds = []  # each session's references (the last k's, for the prompt update)
             for i, s in enumerate(sess):  # each session's first frames, held to its references
                 deds.append(Dedicated(torch, b.stream_models, b.params, pipe.config,
                                       b.encode_prompt, ref_bundle, rows[i], dev))
                 for f in frames[i][:PARITY_FRAMES]:
                     deds[i](f)
+                # the two schedulers batch differently (a session whose frame
+                # misses a step rides the next), and another batch size runs
+                # other GEMM algorithms: bucket replay vs eager at equal
+                # batches is tests/test_torch_gpu.py's (bit-equal)
+                vs_eager = np.abs(np.stack(outs[i]).astype(np.int16)
+                                  - np.stack(runs["eager"][0].outs[i]))
                 say(f"sessions 6a k={k} session {i} (slot {s.slot}): " + hold_to_references(
-                    np, f"6a k={k} session {i}", outs[i][:PARITY_FRAMES], deds[i]))
-            for r, (run, sh) in enumerate(zip(runs, shared)):
-                fps, sh_fps = run.steady_fps(SCHED_FILL), sh.steady_fps(SCHED_FILL)
-                step_ms, nsteps = run.steady_step_ms(SCHED_FILL)
+                    np, f"6a k={k} session {i}", outs[i][:PARITY_FRAMES], deds[i])
+                    + f"; vs the eager scheduler's run over {n} frames: mean {vs_eager.mean():.3f} "
+                    f"max {vs_eager.max()}")
+            for r in range(SCHED_ROUNDS):
+                sh_fps = shared[r].steady_fps(SCHED_FILL)
+                line = []
+                for name in sides:
+                    run = runs[name][r]
+                    fps = run.steady_fps(SCHED_FILL)
+                    step_ms, nsteps = run.steady_step_ms(SCHED_FILL)
+                    line.append(
+                        f"{name}: {step_ms:.2f} ms between bucket steps over {nsteps} steps, "
+                        f"aggregate {sum(fps):.2f} fps, per session {min(fps):.2f}-{max(fps):.2f} "
+                        f"fps, whole run {run.wall:.3f} s, first frame per session (ms) "
+                        f"{[round(x, 1) for x in run.first_ms()]}")
                 say(
-                    f"sessions 6a k={k} (bucket {sched._bucket_for(k)}) run {r + 1}: {card} | "
-                    f"steady window (outputs {SCHED_FILL + 1}-{n} of each session): "
-                    f"{step_ms:.2f} ms between bucket steps over {nsteps} steps, aggregate "
-                    f"{sum(fps):.2f} fps, per session {min(fps):.2f}-{max(fps):.2f} fps | whole "
-                    f"run {run.wall:.3f} s; first frame per session (ms) "
-                    f"{[round(x, 1) for x in run.first_ms()]} | shared pipeline in turns, steady: "
-                    f"aggregate {sum(sh_fps):.2f} fps, per session {min(sh_fps):.2f}-"
-                    f"{max(sh_fps):.2f} fps | aggregate ratio {sum(fps) / sum(sh_fps):.2f}"
+                    f"sessions 6a k={k} (bucket {sched._bucket_for(k)}) round {r + 1}: {card} | "
+                    f"steady window (outputs {SCHED_FILL + 1}-{n} of each session) | "
+                    + " | ".join(line) + f" | shared pipeline (graph) in turns, steady: aggregate "
+                    f"{sum(sh_fps):.2f} fps, per session {min(sh_fps):.2f}-{max(sh_fps):.2f} fps"
                 )
             if k != occupancy[-1]:
-                for s in sess:
-                    s.release()
+                for ss in claims.values():
+                    for s in ss:
+                        s.release()
         # a prompt update on session 0: its frame moves, and every session
         # (session 0 against its references with the new prompt, the others
         # with theirs) stays within phase 4's criterion.  Other bucket
@@ -1139,6 +1352,7 @@ def phase_sessions(torch, card: str, pipe, ref_bundle, ring_model="stabilityai/s
             fail("sessions 6a: the released slot was not the one claimed again")
     finally:
         sched.close()
+        eager.close()
 
     # -- 6b: the 4-stage LCM cfg-self ring --------------------------------------------
     t = time.perf_counter()
@@ -1151,7 +1365,8 @@ def phase_sessions(torch, card: str, pipe, ref_bundle, ring_model="stabilityai/s
         fail("sessions 6b: the f32 reference weights do not match the ring model's")
     say(f"sessions 6b: {ring_model} {rcfg.height}x{rcfg.width} {rcfg.dtype} "
         f"scheduler={rcfg.scheduler} cfg_type={rcfg.cfg_type} t_index_list={rcfg.t_index_list}, "
-        f"pipeline and scheduler built in {time.perf_counter() - t:.1f}s")
+        f"pipeline and scheduler built in {time.perf_counter() - t:.1f}s, buckets captured "
+        f"{sched.graph_status()}")
     try:
         sess = [sched.claim(f"r{i}", prompt=SESSION_PROMPTS[i], seed=200 + i) for i in range(2)]
         rows = [session_row(sched.states, s.slot) for s in sess]
@@ -1219,7 +1434,7 @@ def phase_sessions(torch, card: str, pipe, ref_bundle, ring_model="stabilityai/s
                 + hold_to_references(np, f"6c peer {i}", outs[i], ded))
         say(f"sessions 6c: {card} | MultiPeerPipeline, 2 peers x {PEER_FRAMES} frames in "
             f"{len(ticks)} ticks, whole run {run.wall * 1e3 / len(ticks):.2f} ms per tick (the "
-            f"coordinator prewarmed at startup)")
+            f"coordinator captured buckets {mp.engine.graph_status()} at startup)")
     finally:
         mp.close()
     return tuple(total)
@@ -1233,6 +1448,7 @@ def main():
     attn = phase_attention(torch)
     epi = phase_epilogue(torch)
     pipe, ref_bundle, attn_launches, epi_launches = phase_main(torch, card)
+    phase_graph_ab(torch, card, pipe, ref_bundle)
     serve_attn, serve_epi = phase_serve(torch, card, pipe)
     sessions_attn, sessions_epi = phase_sessions(torch, card, pipe, ref_bundle)
     attn_launches += serve_attn + sessions_attn

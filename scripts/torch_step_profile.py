@@ -2,7 +2,7 @@
 """Where one stream step's time goes in the PyTorch/CUDA port.
 
     python3 scripts/torch_step_profile.py [--steps 20] [--model-id stabilityai/sd-turbo]
-                                          [--sessions K]
+                                          [--sessions K] [--graphs]
 
 Builds the port's StreamDiffusionPipeline on the card (random weights, the
 default serving config), warms up, times ``--steps`` synchronous steps
@@ -19,7 +19,10 @@ and power limit from nvidia-smi.  ``--sessions K`` profiles the batch
 scheduler's bucket step of K sessions instead (parallel/multipeer.py
 ``BucketStep`` over K stacked copies of the pipeline's state, K frames
 staged from pinned memory, each session's row read back), one bucket step
-per "step".  Needs one NVIDIA card.
+per "step".  The step runs eagerly unless ``--graphs``: then it is the
+captured CUDA graph the serving path replays (the pipeline's, or the
+bucket's), and the same trace gives the device busy time, idle share and
+kernels per replay.  Needs one NVIDIA card.
 """
 
 from __future__ import annotations
@@ -58,6 +61,8 @@ def main():
     ap.add_argument("--model-id", default="stabilityai/sd-turbo")
     ap.add_argument("--sessions", type=int, default=0,
                     help="profile the bucket step of K sessions (0: one pipeline step)")
+    ap.add_argument("--graphs", action="store_true",
+                    help="replay the captured CUDA graph (default: the eager step)")
     args = ap.parse_args()
 
     import numpy as np
@@ -74,22 +79,22 @@ def main():
 
     from ai_rtc_agent_tpu_torch.stream.pipeline import StreamDiffusionPipeline
 
-    pipe = StreamDiffusionPipeline(args.model_id, seed=2)
+    pipe = StreamDiffusionPipeline(args.model_id, seed=2, graphs=args.graphs)
     cfg = pipe.config
     rng = np.random.default_rng(0)
     k = args.sessions
     frames = [rng.integers(0, 256, (max(k, 1), cfg.height, cfg.width, 3), dtype=np.uint8)
               for _ in range(args.steps + 3)]
     if k:
-        from ai_rtc_agent_tpu_torch.parallel.multipeer import BucketStep, Readback, stage_rows
+        from ai_rtc_agent_tpu_torch.parallel.multipeer import BucketStep, Readback
         from ai_rtc_agent_tpu_torch.stream.engine import stack_states
 
         eng = pipe.engine
         states = stack_states([eng.state] * k)
-        bucket = BucketStep(eng.models, cfg, pipe.device)
+        bucket = BucketStep(eng.models, cfg, pipe.device, graphs=args.graphs)
 
         def step(batch):
-            out = bucket(eng.params, states, stage_rows(batch, pipe.device), list(range(k)), k)
+            out = bucket(eng.params, states, batch, list(range(k)), k)
             readback = Readback(out, k)
             for r in range(k):
                 readback.row(r)
@@ -131,6 +136,7 @@ def main():
     by_class: dict[str, float] = {}
     by_name: dict[str, float] = {}
     launches = 0
+    port_kernels = {"flash_attention_kernel": 0, "stream_epilogue_kernel": 0}
     for ev in prof.key_averages():
         # device events only: a host-side event that launched a kernel may
         # report the same device time again, which would double the sum
@@ -142,12 +148,16 @@ def main():
         by_class[label] = by_class.get(label, 0.0) + ms
         by_name[ev.key[:90]] = by_name.get(ev.key[:90], 0.0) + ms
         launches += ev.count
+        for name in port_kernels:
+            if name in ev.key:
+                port_kernels[name] += ev.count
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:15]
     print(json.dumps({
         "metric": "torch_port_step_profile",
         "model_id": args.model_id,
         "config": f"{cfg.height}x{cfg.width} {cfg.dtype} {cfg.scheduler} cfg={cfg.cfg_type} "
-                  f"B={cfg.batch_size}" + (f", {k} sessions per bucket step" if k else ""),
+                  f"B={cfg.batch_size}" + (f", {k} sessions per bucket step" if k else "")
+                  + (", CUDA graph replay" if args.graphs else ", eager"),
         "card": card,
         "device": torch.cuda.get_device_name(0),
         "steps": args.steps,
@@ -157,6 +167,7 @@ def main():
         "device_busy_ms_per_step": busy_us / 1e3 / args.steps,
         "device_idle_share": 1.0 - busy_us / span_us,
         "device_launches_per_step": launches / args.steps,
+        "port_kernels_per_step": {n: c / args.steps for n, c in port_kernels.items()},
         "device_ms_per_step_by_class": dict(sorted(by_class.items(), key=lambda kv: -kv[1])),
         "top_kernels_ms_per_step": dict(top),
     }), flush=True)

@@ -290,9 +290,10 @@ def test_epilogue_session_axis_refuses_what_it_cannot_run(cuda):
 
 def test_scheduler_steps_match_dedicated_engines_on_the_card(cuda):
     """tiny-test (f32, plain attention: the difference is the batch) through
-    the batch scheduler on the card: 3 sessions in the bucket of 4, one
-    epilogue launch per bucket step, every frame within 1 uint8 level of a
-    dedicated engine fed the same state row."""
+    the batch scheduler on the card (its buckets replayed from CUDA graphs):
+    3 sessions in the bucket of 4, one epilogue launch per bucket step,
+    every frame within 1 uint8 level of a dedicated engine, stepping
+    eagerly, fed the same state row."""
     from dataclasses import replace
 
     from ai_rtc_agent_tpu_torch.models import registry
@@ -307,7 +308,8 @@ def test_scheduler_steps_match_dedicated_engines_on_the_card(cuda):
         sess = [sched.claim(f"s{i}", prompt=f"prompt {i}", seed=i) for i in range(3)]
         engines = []
         for s in sess:
-            eng = StreamEngine(bundle.stream_models, bundle.params, cfg, bundle.encode_prompt)
+            eng = StreamEngine(bundle.stream_models, bundle.params, cfg, bundle.encode_prompt,
+                               graphs=False)
             eng.state = chip_smoke.session_row(sched.states, s.slot)
             engines.append(eng)
         frames = [chip_smoke._frames(np, 4, seed=i, size=64) for i in range(3)]
@@ -321,3 +323,200 @@ def test_scheduler_steps_match_dedicated_engines_on_the_card(cuda):
         assert KF.launches - before == 4 + 4 * 3  # 4 bucket steps, 12 dedicated steps
     finally:
         sched.close()
+
+
+# -- the captured step: one CUDA graph per engine and per bucket size -------------------
+
+def _tiny_ring(device, graphs):
+    """tiny-test's 4-stage LCM cfg-self ring in f32 with plain attention (the
+    ring and stock move every step), as an engine (graph or eager)."""
+    from dataclasses import replace
+
+    from ai_rtc_agent_tpu_torch.models import registry
+    from ai_rtc_agent_tpu_torch.stream.engine import StreamEngine
+
+    cfg = replace(registry.default_stream_config("tiny-test"), dtype="float32", attn_impl="plain")
+    bundle = registry.load_model_bundle("tiny-test", attn_impl="plain")
+    return StreamEngine(bundle.stream_models, bundle.params, cfg, bundle.encode_prompt,
+                        device=device, graphs=graphs)
+
+
+@pytest.fixture(scope="module")
+def turbo_pipe():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the kernel has no CPU mode")
+    return StreamDiffusionPipeline("stabilityai/sd-turbo")
+
+
+def _eager_twin(engine):
+    """An eager engine over the same weights, from a copy of ``engine``'s state."""
+    from ai_rtc_agent_tpu_torch.stream.engine import StreamEngine
+
+    twin = StreamEngine(engine.models, engine.params, engine.cfg, engine.encode_prompt,
+                        device=engine.device, graphs=False)
+    twin.state = chip_smoke.session_row(engine.state, None)
+    return twin
+
+
+def test_engine_replay_equals_eager(cuda, turbo_pipe):
+    """sd-turbo 512x512 bf16: the pipeline's captured step replays the eager
+    step bit for bit from one state, 32 attention and 1 epilogue launches a
+    replay, with 2 steps in flight over its one static output."""
+    eng = turbo_pipe.engine
+    step = eng.graph_cache.steps()[eng.key]
+    assert step.captured and step.launches == (32, 1)
+    eager = _eager_twin(eng)
+    frames = chip_smoke._frames(np, 4, seed=3)
+    before = KA.launches, KF.launches
+    pending = [eng.submit(f) for f in frames[:2]]  # two in flight, different frames
+    got = [eng.fetch(h) for h in pending] + [eng(f) for f in frames[2:]]
+    assert (KA.launches - before[0], KF.launches - before[1]) == (32 * 4, 4)
+    for g, f in zip(got, frames):
+        np.testing.assert_array_equal(g, eager(f))
+
+
+@pytest.mark.parametrize("k,n", [(1, 1), (2, 2), (4, 3), (4, 4), (8, 8)],
+                         ids=["k1", "k2", "k3of4", "k4", "k8"])
+def test_bucket_replay_equals_eager(cuda, turbo_pipe, k, n):
+    """The bucket step of n sessions in the bucket of k (sd-turbo 512x512 bf16,
+    8 stacked slots with their own prompts and noise), replayed from its
+    graph and stepped eagerly from copies of one state: the same frames
+    and the same state after 2 steps."""
+    from ai_rtc_agent_tpu_torch.parallel.multipeer import BucketStep
+    from ai_rtc_agent_tpu_torch.stream.engine import stack_states
+    from ai_rtc_agent_tpu_torch.tree import tree_map
+
+    eng = turbo_pipe.engine
+    states = stack_states([eng.build_state(f"prompt {i}", seed=i) for i in range(8)])
+    twin = tree_map(lambda a: a.clone(), states)
+    graph = BucketStep(eng.models, eng.cfg, cuda, graphs=True)
+    eager = BucketStep(eng.models, eng.cfg, cuda, graphs=False)
+    slots = [5, 2, 7, 0, 3, 6, 1, 4][:n]
+    for j in range(2):
+        frames = np.stack(chip_smoke._frames(np, n, seed=10 + j))
+        got = graph(eng.params, states, frames, slots, k).cpu().numpy()
+        want = eager(eng.params, twin, frames, slots, k).cpu().numpy()
+        np.testing.assert_array_equal(got[:n], want[:n])
+    for key in ("x_buf", "stock"):
+        assert torch.equal(states[key], twin[key])
+
+
+@pytest.mark.parametrize("b,lq,lk,h,d", [case[:5] for case in chip_smoke.MAIN_ATTENTION]
+                         + chip_smoke.SESSION_ATTENTION)
+def test_attention_replays_in_a_cuda_graph(cuda, b, lq, lk, h, d):
+    """Attention captured at every main-path shape and at the bucket's
+    batches (B=8, 32), replayed on new inputs written in place."""
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    q, k, v = (torch.randn((b, n, h, d), generator=gen, device=cuda).to(torch.bfloat16)
+               for n in (lq, lk, lk))
+    err = chip_smoke.attention_graph_replay(torch, KA, q, k, v, gen)
+    assert err["ok"], err
+
+
+def test_control_plane_updates_show_in_the_next_replay(cuda):
+    """A prompt, a t-index and a guidance update between replays (the tiny
+    ring, f32): each lands in place, so the next replayed frame is the eager
+    engine's with the same update, and differs from a frame without it."""
+    graph = _tiny_ring(cuda, True).prepare("a cat", seed=1)
+    eager, still = _eager_twin(graph), _eager_twin(graph)
+    frames = chip_smoke._frames(np, 8, seed=5, size=64)
+    updates = {2: lambda e: e.update_prompt("a dog in space"),
+               4: lambda e: e.update_t_index_list([10, 20, 30, 40]),
+               6: lambda e: e.update_guidance(1.8, 0.6)}
+    for i, f in enumerate(frames):
+        if i in updates:
+            updates[i](graph)
+            updates[i](eager)
+        got, want, without = graph(f), eager(f), still(f)
+        np.testing.assert_array_equal(got, want)
+        if i in updates:
+            assert not np.array_equal(got, without), f"update before frame {i} did not show"
+            still.state = chip_smoke.session_row(eager.state, None)
+
+
+def test_replay_from_a_fresh_thread(cuda, turbo_pipe):
+    """A thread that never touched CUDA replays the captured step: the same
+    frame as the main thread's replay from the same state."""
+    import threading
+
+    eng = turbo_pipe.engine
+    frame = chip_smoke._frames(np, 1, seed=6)[0]
+    here = eng(frame)
+    got = []
+    worker = threading.Thread(target=lambda: got.append(eng(frame)))
+    worker.start()
+    worker.join(timeout=60)
+    assert not worker.is_alive() and len(got) == 1
+    np.testing.assert_array_equal(got[0], here)
+
+
+def test_capture_while_another_thread_stages_frames(cuda):
+    """A bucket captured while another thread keeps staging frames from
+    pinned memory (thread-local capture rules): the capture succeeds and
+    its replay equals the eager step."""
+    import threading
+
+    from ai_rtc_agent_tpu_torch.parallel.multipeer import BucketStep, stage_rows
+    from ai_rtc_agent_tpu_torch.stream.engine import stack_states
+    from ai_rtc_agent_tpu_torch.tree import tree_map
+
+    eng = _tiny_ring(cuda, False)
+    states = stack_states([eng.build_state(f"p{i}", seed=i) for i in range(4)])
+    twin = tree_map(lambda a: a.clone(), states)
+    stop, staged = threading.Event(), []
+
+    def stage():
+        frame = np.zeros((1, 64, 64, 3), np.uint8)
+        while not stop.is_set():  # as a submitter stages: pinned, non-blocking
+            staged.append(stage_rows(frame, cuda).shape[0])
+
+    worker = threading.Thread(target=stage)
+    worker.start()
+    try:
+        graph = BucketStep(eng.models, eng.cfg, cuda, graphs=True)
+        graph.warm(eng.params, states, 4)  # the capture, on this thread
+    finally:
+        stop.set()
+        worker.join(timeout=60)
+    assert staged and not worker.is_alive()
+    eager = BucketStep(eng.models, eng.cfg, cuda, graphs=False)
+    frames = np.stack(chip_smoke._frames(np, 3, seed=7, size=64))
+    got = graph(eng.params, states, frames, [2, 0, 1], 4).cpu().numpy()
+    want = eager(eng.params, twin, frames, [2, 0, 1], 4).cpu().numpy()
+    np.testing.assert_array_equal(got[:3], want[:3])
+
+
+def test_padded_bucket_leaves_the_padded_slot_untouched(cuda):
+    """The bucket of 4 captured once (its capture steps write no slot), then
+    replayed with a slot vector naming 4 distinct slots and a count of 3
+    real sessions in device memory: the 4th slot's ring and stock keep
+    their bits while the real slots' move; then a padded layout."""
+    from ai_rtc_agent_tpu_torch.parallel.multipeer import BucketStep
+    from ai_rtc_agent_tpu_torch.stream.engine import stack_states
+    from ai_rtc_agent_tpu_torch.tree import tree_map
+
+    eng = _tiny_ring(cuda, False)
+    states = stack_states([eng.build_state(f"p{i}", seed=i) for i in range(5)])
+    start = tree_map(lambda a: a.clone(), states)
+    bucket = BucketStep(eng.models, eng.cfg, cuda, graphs=True)
+    step = bucket.step_for(eng.params, states, 4)
+    assert step.captured
+    for key in ("x_buf", "stock"):  # the capture's warm-up steps wrote nothing
+        assert torch.equal(states[key], start[key])
+    step.inputs["frames"].copy_(torch.from_numpy(np.stack(
+        chip_smoke._frames(np, 4, seed=8, size=64))).to(cuda))
+    step.inputs["slots"].copy_(torch.tensor([1, 3, 0, 2], dtype=torch.int32))
+    step.inputs["k_real"].fill_(3)
+    step.run()
+    torch.cuda.synchronize()
+    for key in ("x_buf", "stock"):
+        assert torch.equal(states[key][2], start[key][2]), key
+        assert torch.equal(states[key][4], start[key][4]), key
+        for real in (1, 3, 0):
+            assert not torch.equal(states[key][real], start[key][real]), (key, real)
+    before = tree_map(lambda a: a.clone(), states)
+    bucket(eng.params, states, np.stack(chip_smoke._frames(np, 3, seed=9, size=64)), [4, 2, 3], 4)
+    torch.cuda.synchronize()
+    for key in ("x_buf", "stock"):
+        assert torch.equal(states[key][0], before[key][0]) and torch.equal(
+            states[key][1], before[key][1]), key

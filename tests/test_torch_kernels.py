@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import few_torch_threads  # noqa: F401  (autouse)
 from ai_rtc_agent_tpu.ops import lcm as JL
 from ai_rtc_agent_tpu.ops import schedule as JS
 from ai_rtc_agent_tpu.ops.pallas import attention as JA
@@ -191,8 +192,12 @@ def test_epilogue_chain_keywords_match_jax_fused_kernel(rng, no_kernel_build, cf
 
 # The session axis: S stacked slots, a bucket of sessions naming slots.
 # (slots, k_real): a ragged count of 3, a bucket of 4 padded with a
-# duplicate of its last real slot, and one of 2.
-SESSION_BUCKETS = {"k3": ([4, 0, 2], 3), "k4pad": ([1, 3, 0, 0], 3), "k2": ([2, 1], 2)}
+# duplicate of its last real slot, one of 2, and a bucket of 4 whose slot
+# vector names a 4th distinct slot with 3 real sessions (a captured bucket
+# step's buffers after a 4-session step: that slot's rows must keep their
+# bits).
+SESSION_BUCKETS = {"k3": ([4, 0, 2], 3), "k4pad": ([1, 3, 0, 0], 3), "k2": ([2, 1], 2),
+                   "k4stale": ([1, 3, 0, 2], 3)}
 N_SLOTS = 5
 
 
@@ -212,17 +217,20 @@ def _slot_coeffs(kind: str, n_slots: int):
     return pc, tables
 
 
+@pytest.mark.parametrize("k_real_as", ["int", "device"])
 @pytest.mark.parametrize("bucket", list(SESSION_BUCKETS))
 @pytest.mark.parametrize("kind", ["lcm", "turbo"])
 @pytest.mark.parametrize("cfg_type", ["none", "self", "initialize"])
 def test_epilogue_session_axis_matches_jax_fused_kernel_under_vmap(rng, no_kernel_build, cfg_type,
-                                                                     kind, bucket):
+                                                                     kind, bucket, k_real_as):
     """The segmented epilogue (one segment of B rows per session, per-slot
     coefficients, guidance and delta, the renoise shift inside each slot,
     the ring rows and stock written in place at the slots) against the JAX
     kernel under ``jax.vmap`` over the bucket's sessions, each fed as the
     JAX engine feeds it (the slot's shifted noise by concatenation, turbo
-    coefficients as zeros and ones).  Padding segments write nothing."""
+    coefficients as zeros and ones).  Padding segments write nothing; the
+    count of real sessions comes as an int or as an int32 tensor (what a
+    captured bucket step reads)."""
     import jax
 
     slots, k_real = SESSION_BUCKETS[bucket]
@@ -254,7 +262,8 @@ def test_epilogue_session_axis_matches_jax_fused_kernel_under_vmap(rng, no_kerne
     den, adv, new_stock = KF.fused_stream_epilogue(
         t(x), t(eps), stock_io, t(noise), pc, t(g), t(d), cfg_type=cfg_type, turbo=turbo,
         noise_shift=1, advanced_out=ring, stock_out=stock_io,
-        slots=torch.tensor(slots, dtype=torch.int32), k_real=k_real)
+        slots=torch.tensor(slots, dtype=torch.int32),
+        k_real=k_real if k_real_as == "int" else torch.tensor(k_real, dtype=torch.int32))
     assert KF.launches == before  # the plain version ran, no kernel
     assert adv is ring
     real = slots[:k_real]

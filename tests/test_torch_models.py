@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import few_torch_threads  # noqa: F401  (autouse)
 from ai_rtc_agent_tpu.models import clip as JC
 from ai_rtc_agent_tpu.models import layers as JLY
 from ai_rtc_agent_tpu.models import taesd as JT

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import few_torch_threads  # noqa: F401  (autouse)
 from ai_rtc_agent_tpu.models import tokenizer as JTK
 from ai_rtc_agent_tpu.ops import image as JI
 from ai_rtc_agent_tpu.ops import lcm as JL

@@ -42,6 +42,7 @@ import torch
 from aiohttp.test_utils import TestClient, TestServer
 from torch.utils._python_dispatch import TorchDispatchMode
 
+from _torch_threads import few_torch_threads  # noqa: F401  (autouse)
 from ai_rtc_agent_tpu.media import frames as JF
 from ai_rtc_agent_tpu.models import registry as JREG
 from ai_rtc_agent_tpu.parallel.multipeer import CapacityError as JCapacityError
