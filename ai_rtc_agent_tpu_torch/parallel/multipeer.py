@@ -7,6 +7,7 @@ bucket step advances the active slots together:
 
     states: every leaf [P, ...]          (stream.engine.stack_states)
     frames: [k, H, W, 3] uint8           one per stepped slot
+            [k, fbs, H, W, 3]            fbs consecutive frames per slot
     bucket step: the k slots' rows -> one k*B-row step -> their rows in place
 
 Bucket sizes are powers of two; a bucket with fewer active slots than its
@@ -79,9 +80,9 @@ class BucketStep:
     session-batched step (``stream.engine.make_session_step_fn``), one
     :class:`~..aot.cache.CapturedStep` per bucket size.
 
-    Each bucket size k has static buffers: frames [k,H,W,3] uint8, slots
-    [k] int32 and the count of real sessions (an int32 scalar, which the
-    epilogue reads).  ``graphs`` (default: on a CUDA device) captures the
+    Each bucket size k has static buffers: frames [k,H,W,3] uint8 ([k,fbs,
+    H,W,3] with frame_buffer_size fbs > 1), slots [k] int32 and the count
+    of real sessions (an int32 scalar, which the epilogue reads).  ``graphs`` (default: on a CUDA device) captures the
     bucket once, at its first use (``warm`` at prewarm) on the calling
     thread, and replays it per step; otherwise it steps eagerly over the
     same buffers.  ``key(k)`` names bucket k (the engine-key recipe)."""
@@ -93,7 +94,8 @@ class BucketStep:
         self.graphs = device.type == "cuda" if graphs is None else bool(graphs)
         self.graph_cache = GraphCache(self.graphs, device)
         self.key = key or (lambda k: f"sbucket-{k}")
-        self._frame_shape = (cfg.height, cfg.width, 3)
+        fbs = cfg.frame_buffer_size
+        self._frame_shape = ((fbs,) if fbs > 1 else ()) + (cfg.height, cfg.width, 3)
         self._idx: dict = {}
 
     def index(self, pad: list) -> torch.Tensor:
@@ -125,10 +127,11 @@ class BucketStep:
 
     def __call__(self, params, states, frames, slots: list, k: int):
         """One step of bucket k for the real sessions ``slots``.  ``frames``:
-        a host uint8 array [m,H,W,3] (staged from pinned memory straight into
-        the static buffer) or device frames, one per session; with m < k the
-        last is repeated.  -> [k,H,W,3] uint8 (the replay's output on the
-        card); rows past ``len(slots)`` are padding."""
+        a host uint8 array [m,H,W,3] ([m,fbs,H,W,3]; staged from pinned
+        memory straight into the static buffer) or device frames, one row
+        per session; with m < k the last is repeated.  -> [k,H,W,3] uint8
+        ([k,fbs,H,W,3]; the replay's output on the card); rows past
+        ``len(slots)`` are padding."""
         step = self.step_for(params, states, k)
         buf = step.inputs["frames"]
         m = len(frames)
@@ -183,6 +186,10 @@ class Readback:
             self.event.record()
         else:
             self.host, self.event = [out[i] for i in range(n)], None
+
+    def done(self) -> bool:
+        """The copies have landed (polled: never blocks)."""
+        return self.event is None or self.event.query()
 
     def row(self, i: int) -> np.ndarray:
         if self.event is not None:

@@ -5,15 +5,19 @@ ai_rtc_agent_tpu/server/agent.py).
   POST/DELETE /whep[/{session}]   view the processed stream
   POST /offer                     bidirectional browser session
   POST /config                    runtime prompt / t_index / guidance update
-  GET  /                          health
-  GET  /metrics                   fps / latency gauges
+  GET  /                          liveness ("OK")
+  GET  /health                    supervisor rollup, ladders, engine guard
+  GET  /capacity                  sessions still admitted, Retry-After hint
+  POST /drain                     {"action": "freeze" | "unfreeze"}
+  GET  /metrics                   fps / latency / overload / scheduler / guard gauges
 
 Each route maps a request onto a flow of ``server/sessions.py`` and its
 answer onto the JAX agent's status codes: 201 with ``Location`` for WHIP
 and WHEP, 400 for a wrong content type, undecodable body or bad JSON, 401
 for WHEP without a publisher, 200/404 for a DELETE of a known/unknown
-session, 503 with ``Retry-After`` when every session slot is claimed.
-CORS allows all origins.
+session, 503 with ``Retry-After`` when every session slot is claimed, the
+admission gate refuses (pressure, a freeze, a drain) or the engine guard
+holds the plane quarantined.  CORS allows all origins.
 
     python -m ai_rtc_agent_tpu_torch.server.agent --model-id stabilityai/sd-turbo
     WEBRTC_PROVIDER=loopback python -m ai_rtc_agent_tpu_torch.server.agent \\
@@ -147,6 +151,24 @@ async def health(_):
     return web.Response(content_type="application/json", text="OK")
 
 
+async def health_detail(request):
+    return web.json_response(sessions.health(request.app))
+
+
+async def capacity(request):
+    return web.json_response(sessions.capacity(request.app))
+
+
+async def drain(request):
+    if request.app["overload"] is None:
+        return _response(sessions.drain(request.app, None))
+    try:
+        body = await request.json()
+    except (ValueError, LookupError):
+        return web.Response(status=400, text="invalid JSON body")
+    return _response(sessions.drain(request.app, body))
+
+
 async def metrics(request):
     return web.json_response(sessions.metrics(request.app))
 
@@ -167,7 +189,7 @@ async def cors_middleware(request, handler):
 async def on_startup(app):
     if app["udp_ports"]:
         patch_loop_datagram(app["udp_ports"])
-    sessions.startup(app)
+    await sessions.startup(app)
 
 
 async def on_shutdown(app):
@@ -204,6 +226,9 @@ def build_app(
     app.router.add_post("/offer", offer)
     app.router.add_post("/config", update_config)
     app.router.add_get("/", health)
+    app.router.add_get("/health", health_detail)
+    app.router.add_get("/capacity", capacity)
+    app.router.add_post("/drain", drain)
     app.router.add_get("/metrics", metrics)
     return app
 

@@ -1,12 +1,14 @@
 """Stream lifecycle webhooks (counterpart of ai_rtc_agent_tpu/server/events.py).
 
-The started and ended events, posted as JSON with a bearer token to
-``WEBHOOK_URL`` (``AUTH_TOKEN``), fire-and-forget on the event loop so a
-slow endpoint never stalls the media path.  The events are plain
-dataclasses whose ``asdict`` equals the JAX package's pydantic dump;
-``aiohttp`` is imported only when a webhook is posted.  The degraded,
-recovered, migrated, engine and evacuating events come with supervision
-and migration.
+The started and ended events, the supervisor's degraded and recovered
+events and the engine guard's degraded, recovered and evacuating events,
+posted as JSON with a bearer token to ``WEBHOOK_URL`` (``AUTH_TOKEN``),
+fire-and-forget on the event loop so a slow endpoint never stalls the media
+path.  The events are plain dataclasses whose ``asdict`` equals the JAX
+package's pydantic dump (keyword arguments that are not fields are
+dropped, as pydantic drops them); ``aiohttp`` is imported only when a
+webhook is posted.  The migration event comes with migration, and the
+flight recorder's snapshot id is None until the port has a recorder.
 """
 
 from __future__ import annotations
@@ -43,7 +45,57 @@ class StreamEndedEvent(WebhookEvent):
     event: str = "StreamEnded"
 
 
-EVENTS = {"StreamStarted": StreamStartedEvent, "StreamEnded": StreamEndedEvent}
+@dataclasses.dataclass
+class StreamDegradedEvent(WebhookEvent):
+    """The supervisor moved the session out of HEALTHY (``state``: the new
+    state, ``reason``: the trigger); the stream keeps flowing in passthrough."""
+
+    event: str = "StreamDegraded"
+    state: str = "DEGRADED"
+    reason: str = ""
+    flight_snapshot_id: str | None = None
+    recent_events: list = dataclasses.field(default_factory=list)
+
+
+@dataclasses.dataclass
+class StreamRecoveredEvent(WebhookEvent):
+    event: str = "StreamRecovered"
+    state: str = "HEALTHY"
+    reason: str = ""
+
+
+@dataclasses.dataclass
+class EngineDegradedEvent(WebhookEvent):
+    """The engine guard tripped: every session serves passthrough while the
+    rebuild runs (``state``: QUARANTINED or REBUILDING)."""
+
+    event: str = "EngineDegraded"
+    state: str = "QUARANTINED"
+    reason: str = ""
+
+
+@dataclasses.dataclass
+class EngineRecoveredEvent(WebhookEvent):
+    """The guard re-armed; ``rebuild_ms`` is the winning attempt's wall time."""
+
+    event: str = "EngineRecovered"
+    state: str = "ARMED"
+    rebuild_ms: float = 0.0
+    attempt: int = 0
+
+
+@dataclasses.dataclass
+class AgentEvacuatingEvent(WebhookEvent):
+    """The rebuild spent its attempts: the agent evacuates, then parks FAILED."""
+
+    event: str = "AgentEvacuating"
+    state: str = "EVACUATING"
+    reason: str = ""
+
+
+EVENTS = {cls.event: cls for cls in (
+    StreamStartedEvent, StreamEndedEvent, StreamDegradedEvent, StreamRecoveredEvent,
+    EngineDegradedEvent, EngineRecoveredEvent, AgentEvacuatingEvent)}
 
 
 class StreamEventHandler:
@@ -76,14 +128,16 @@ class StreamEventHandler:
         except Exception as e:  # a webhook failure must never reach the session
             logger.error("webhook %s failed: %s", event.event, e)
 
-    def send_request(self, event_name: str, stream_id: str, room_id: str):
+    def send_request(self, event_name: str, stream_id: str, room_id: str, **extra):
         """Fire-and-forget; returns the task (or None when unconfigured)."""
         if self.webhook_url is None or self.token is None:
             return None
         cls = EVENTS.get(event_name)
         if cls is None:
             raise ValueError(f"unknown event: {event_name}")
-        ev = cls(stream_id=stream_id, room_id=room_id, timestamp=int(time.time()))
+        fields = {f.name for f in dataclasses.fields(cls)}
+        ev = cls(stream_id=stream_id, room_id=room_id, timestamp=int(time.time()),
+                 **{k: v for k, v in extra.items() if k in fields})
         try:
             task = asyncio.get_running_loop().create_task(self._post(ev))
         except RuntimeError:
@@ -99,3 +153,24 @@ class StreamEventHandler:
 
     def handle_stream_ended(self, stream_id: str, room_id: str):
         return self.send_request("StreamEnded", stream_id, room_id)
+
+    def handle_engine_state(self, event_name: str, state: str, reason: str = "", **extra):
+        """An engine-guard transition (EngineDegraded / EngineRecovered /
+        AgentEvacuating).  The fault domain is the agent, not one stream:
+        ``stream_id`` is the reserved ``"engine-guard"``."""
+        return self.send_request(event_name, "engine-guard", "", state=state, reason=reason,
+                                 **extra)
+
+    def handle_session_state(self, stream_id: str, room_id: str, state: str, reason: str,
+                             flight_snapshot_id: str | None = None,
+                             recent_events: list | None = None):
+        """A supervisor transition: StreamRecovered on a return to HEALTHY,
+        StreamDegraded (with the new state) otherwise."""
+        name = "StreamRecovered" if state == "HEALTHY" else "StreamDegraded"
+        extra = {"state": state, "reason": reason}
+        if name == "StreamDegraded":
+            if flight_snapshot_id is not None:
+                extra["flight_snapshot_id"] = flight_snapshot_id
+            if recent_events:
+                extra["recent_events"] = recent_events
+        return self.send_request(name, stream_id, room_id, **extra)

@@ -23,14 +23,28 @@ Serving planes, as the JAX agent picks them: with ``--multipeer N`` each
 connection claims a slot of the batched peer engine; otherwise, on the
 default path, each connection claims a session of the continuous batch
 scheduler (stream/scheduler.py), which steps every waiting session in one
-step on the card; with ``BATCHSCHED=0``, an injected pipeline or
-``--fbs`` > 1 every connection shares the one pipeline.  A full slot pool
-answers 503 with ``Retry-After``; closing a connection releases its slot.
-Steps run in worker threads or the planes' own threads; this layer adds
-no torch work of its own (the pts wrap and fbs stacking are numpy).
+step on the card (``--fbs`` N > 1: N consecutive frames of each session
+in that step); with ``BATCHSCHED=0`` or an injected pipeline every
+connection shares the one pipeline.  A full slot pool answers 503 with
+``Retry-After``; closing a connection releases its slot.  Steps run in
+worker threads or the planes' own threads; this layer adds no torch work
+of its own (the pts wrap and fbs stacking are numpy).
 
-Admission, supervision, the overload plane, journeys and broadcast
-fan-out are later slices of the port.
+The fault domain, on by the JAX agent's defaults:
+* ``SUPERVISOR``: every video session rides a ``ResilientPipeline`` under
+  its ``SessionSupervisor`` (a late or failed step degrades the stream to
+  passthrough, the engine restarts in the background; StreamDegraded /
+  StreamRecovered webhooks; ``health`` lists each session).
+* ``OVERLOAD_CONTROL``: an ``OverloadControlPlane`` gates /offer and /whip
+  (503 with Retry-After under pressure, a counted reservation per offer),
+  walks each session down the shedding ladder, sheds stale frames at
+  ingest, and reads the batch scheduler's amortised step latency.
+* ``ENGINE_GUARD``: an ``EngineGuard`` over the batch scheduler (step
+  deadline, quarantine, rebuild from the snapshot bank, evacuation;
+  Engine* and AgentEvacuating webhooks).
+``health``, ``capacity`` and ``drain`` are the bodies of /health,
+/capacity and /drain.  Journeys, the flight recorder, the SLO and device
+telemetry planes, migration and broadcast fan-out are later slices.
 """
 
 from __future__ import annotations
@@ -45,7 +59,9 @@ from dataclasses import dataclass, field
 from .. import resolve_device
 from ..models import registry
 from ..parallel.multipeer import CapacityError
-from ..resilience.overload import ShedFrame
+from ..resilience.engine_guard import EngineGuard
+from ..resilience.overload import OverloadControlPlane, QueueProbe, ShedFrame
+from ..resilience.supervisor import ResilientPipeline, SessionSupervisor, worst_state
 from ..stream.pipeline import StreamDiffusionPipeline
 from ..utils import env
 from ..utils.profiling import FrameStats
@@ -82,6 +98,13 @@ class TimedPipeline:
             self.submit_batch = self._submit_batch
             self.fetch_batch = self._fetch_batch
 
+    def __getattr__(self, name):
+        # the rest of the surface (restart, the control plane,
+        # owns_step_signal); the hot path is bound above
+        if name == "_pipeline":
+            raise AttributeError(name)
+        return getattr(self._pipeline, name)
+
     @property
     def frame_buffer_size(self) -> int:
         return int(getattr(self._pipeline, "frame_buffer_size", 1) or 1)
@@ -110,8 +133,9 @@ class TimedPipeline:
         inner, t_sub = handle
         outs = self._pipeline.fetch_batch(inner, src_frames)
         dt = time.monotonic() - t_sub
-        for _ in outs:
-            self._stats.record(dt)
+        for o in outs:
+            if not isinstance(o, ShedFrame):
+                self._stats.record(dt)
         return outs
 
 
@@ -191,9 +215,10 @@ def build_pipeline(model_id: str, fbs: int = 0, device=None) -> StreamDiffusionP
     return StreamDiffusionPipeline(model_id, config=cfg, device=dev)
 
 
-def startup(app):
-    """Build the serving plane (see the module docstring).  A plane that
-    cannot be built raises: the agent never serves another one instead."""
+async def startup(app):
+    """Build the serving plane (see the module docstring) and the fault
+    domain over it, on the running loop.  A plane that cannot be built
+    raises: the agent never serves another one instead."""
     if app["multipeer"] and app["multipeer_pipeline"] is None:
         from .multipeer_serving import MultiPeerPipeline
 
@@ -207,13 +232,9 @@ def startup(app):
     elif app["pipeline"] is None and app["multipeer_pipeline"] is None:
         app["pipeline"] = build_pipeline(app["model_id"], app["fbs"], app["device"])
         if app["batch_scheduler"] is None and env.batchsched_enabled():
-            if app["fbs"] > 1:
-                logger.info("--fbs %d: serving the shared pipeline (frame batches through "
-                            "the batch scheduler are a later slice of the port)", app["fbs"])
-            else:
-                from ..stream.scheduler import BatchScheduler
+            from ..stream.scheduler import BatchScheduler
 
-                app["batch_scheduler"] = BatchScheduler.from_pipeline(app["pipeline"])
+            app["batch_scheduler"] = BatchScheduler.from_pipeline(app["pipeline"])
     app["pcs"] = set()
     app["releasing"] = set()  # slot releases in flight
     app["stream_event_handler"] = StreamEventHandler()
@@ -226,26 +247,161 @@ def startup(app):
         "whep_pcs": {},
     }
     app["stats"] = FrameStats()
+    app["supervisors"] = {}
+    app["overload"] = None
+    if env.get_bool("OVERLOAD_CONTROL", True):
+        app["overload"] = OverloadControlPlane(app["stats"])
+        await app["overload"].start()
+    sched = app["batch_scheduler"]
+    if sched is not None and app["overload"] is not None:
+        # the admission EWMA reads the step's cost per session (dt / occupancy)
+        admission = app["overload"].admission
+        sched.on_step = lambda dt_s, occ: admission.note_step_latency(dt_s)
+    app["engine_guard"] = None
+    if sched is not None and hasattr(sched, "attach_guard") and env.get_bool("ENGINE_GUARD", True):
+        loop = asyncio.get_running_loop()
+        handler = app["stream_event_handler"]
+
+        def engine_transition(event_name, info):
+            extra = {k: v for k, v in info.items() if k not in ("state", "reason")}
+
+            def fire():
+                handler.handle_engine_state(event_name, info.get("state", ""),
+                                            reason=str(info.get("reason", "")), **extra)
+
+            try:  # guard trips and rebuilds happen off the loop
+                loop.call_soon_threadsafe(fire)
+            except RuntimeError:
+                pass  # the loop closed (teardown)
+
+        app["engine_guard"] = EngineGuard(sched, on_transition=engine_transition,
+                                          on_exhausted=lambda: evacuate_agent(app))
+
+
+def evacuate_agent(app):
+    """Self-evacuation when the guard's rebuild is exhausted: POST
+    ``{"agent", "reason"}`` to ``EVACUATE_URL`` (the fleet router's
+    /fleet/evacuate) with the bearer token, from the guard's thread,
+    stdlib HTTP (the loop may be wedged too).  No URL: nothing to do (a
+    standalone agent)."""
+    url = env.get_str("EVACUATE_URL")
+    if not url:
+        return
+    import urllib.request
+
+    guard = app.get("engine_guard")
+    payload = json.dumps({
+        "agent": env.get_str("WORKER_ID") or "",
+        "reason": (guard.last_trip_reason or "") if guard else "",
+    }).encode("utf-8")
+    headers = {"Content-Type": "application/json"}
+    token = env.get_str("AUTH_TOKEN")
+    if token:
+        headers["Authorization"] = f"Bearer {token}"
+    req = urllib.request.Request(url, data=payload, headers=headers)
+    try:
+        with urllib.request.urlopen(req, timeout=10.0) as resp:
+            logger.warning("self-evacuation accepted by router (%d)", resp.status)
+    except Exception:
+        logger.exception("self-evacuation POST failed (%s)", url)
 
 
 async def shutdown(app):
+    ov = app["overload"]
+    if ov is not None:
+        ov.stop()
+    for sup in app["supervisors"].values():
+        sup.stop()
+    app["supervisors"].clear()
     pcs = app["pcs"]
     await asyncio.gather(*[pc.close() for pc in pcs])
     pcs.clear()
     for relay in app["state"]["whip_relays"].values():
         relay.stop()
     await asyncio.gather(*app["releasing"])
+    if app["engine_guard"] is not None:
+        app["engine_guard"].close()
     for plane in (app["multipeer_pipeline"], app["batch_scheduler"]):
         if plane is not None:
             plane.close()
 
 
 def metrics(app) -> dict:
-    """FrameStats, and the batch scheduler's ``batchsched_*`` gauges."""
+    """FrameStats, the overload plane, the batch scheduler's
+    ``batchsched_*`` gauges and the engine guard's counters."""
     out = app["stats"].snapshot()
+    ov = app["overload"]
+    if ov is not None:
+        if app["multipeer_pipeline"] is not None:
+            out["overload_peer_frames_shed"] = app["multipeer_pipeline"].frames_shed
+        out.update(ov.snapshot())
     if app["batch_scheduler"] is not None:
         out.update(app["batch_scheduler"].snapshot())
+    if app["engine_guard"] is not None:
+        out.update(app["engine_guard"].snapshot())
     return out
+
+
+def health(app) -> dict:
+    """/health: the worst live session state and each session's supervisor
+    snapshot, with its ladder rungs and scheduler view; the overload and
+    engine planes."""
+    sessions = {k: sup.snapshot() for k, sup in app["supervisors"].items()}
+    ov = app["overload"]
+    if ov is not None:
+        for k, ladder in ov.ladders.items():
+            if k in sessions:
+                sessions[k]["overload_rung"] = ladder.rung
+                sessions[k]["effective_rung"] = ladder.effective_rung
+    sched = app["batch_scheduler"]
+    if sched is not None:
+        for k, snap in sched.session_snapshots().items():
+            if k in sessions:
+                sessions[k]["batchsched"] = snap
+    body = {"status": worst_state(s["state"] for s in sessions.values()), "sessions": sessions}
+    if ov is not None:
+        body["overload"] = {"pressure": round(ov.admission.pressure(), 4),
+                            "frozen": ov.admission.frozen, "draining": ov.draining}
+    guard = app["engine_guard"]
+    if guard is not None:
+        body["engine"] = guard.health()
+    return body
+
+
+def capacity(app) -> dict:
+    """/capacity: the sessions this agent still admits (-1: no structural
+    bound), whether admission refuses now, and the Retry-After hint."""
+    mp, sched = app["multipeer_pipeline"], app["batch_scheduler"]
+    free = mp.free_slots if mp is not None else sched.free_slots if sched is not None else None
+    ov = app["overload"]
+    if ov is None:
+        body = {"capacity": free if free is not None else -1, "saturated": free == 0,
+                "retry_after_s": 0.0}
+    else:
+        body = ov.capacity(free_slots=free)
+    guard = app["engine_guard"]
+    if guard is not None and guard.quarantined:
+        body["saturated"] = True
+        body["retry_after_s"] = guard.retry_after_s()
+    if guard is not None:
+        body["engine"] = guard.health()
+    return body
+
+
+def drain(app, body) -> Reply:
+    """/drain: ``{"action": "freeze"}`` holds the admission freeze (new
+    sessions 503, live ones untouched), ``unfreeze`` releases it; 409
+    without the overload plane."""
+    ov = app["overload"]
+    if ov is None:
+        return Reply(409, "overload control disabled — no admission-freeze rung to drain with")
+    action = body.get("action") if isinstance(body, dict) else None
+    if action not in ("freeze", "unfreeze"):
+        return Reply(400, "action must be freeze|unfreeze")
+    changed = ov.begin_drain() if action == "freeze" else ov.end_drain()
+    return Reply(200, json.dumps({"draining": ov.draining, "changed": changed,
+                                  "live_sessions": len(app["supervisors"])}),
+                 "application/json")
 
 
 async def update_config(app, config):
@@ -259,19 +415,101 @@ async def update_config(app, config):
         raise ValueError(str(e)) from e
 
 
+# -- admission and supervision ---------------------------------------------------------
+
+def overloaded(app, text: str = "overloaded", retry_after: float | None = None) -> Reply:
+    """503 with a Retry-After scaled to the live pressure (or the value the
+    refusing gate computed)."""
+    if retry_after is None:
+        ov = app["overload"]
+        retry_after = ov.admission.retry_after_s() if ov is not None else 2.0
+    return Reply(503, text, None, {wire.RETRY_AFTER: str(max(1, int(round(retry_after))))})
+
+
+def admission_gate(app, session_key: str) -> Reply | None:
+    """Refuse a new session before it claims anything: the guard is
+    quarantined, or the overload plane says the agent cannot hold one more.
+    Admitting reserves the session's place until its supervision registers
+    (or :func:`release_admission` cancels it).  None: admitted."""
+    guard = app["engine_guard"]
+    if guard is not None and guard.quarantined:
+        return overloaded(app, "engine quarantined", guard.retry_after_s())
+    ov = app["overload"]
+    if ov is None:
+        return None
+    ok, retry_after = ov.admission_gate(key=session_key)
+    return None if ok else overloaded(app, retry_after=retry_after)
+
+
+def release_admission(app, session_key: str):
+    if app["overload"] is not None:
+        app["overload"].release_admission(session_key)
+
+
 def _slots_full(app) -> Reply:
-    """503 with Retry-After, naming the slot pool that refused (the JAX
-    agent's text)."""
-    text = ("all peer slots in use" if app["multipeer_pipeline"] is not None
-            else "all batch-scheduler session slots in use")
-    return Reply(503, text, None, {wire.RETRY_AFTER: "2"})
+    """503 naming the slot pool that refused (the JAX agent's text)."""
+    return overloaded(app, "all peer slots in use" if app["multipeer_pipeline"] is not None
+                      else "all batch-scheduler session slots in use")
+
+
+def supervise(app, pc, pipeline, session_key: str, room_id: str = ""):
+    """``pipeline`` under a SessionSupervisor (on the running loop: its
+    output-age watchdog starts there) and the session's overload ladder;
+    the pipeline as it is with ``SUPERVISOR=0``."""
+    if not env.get_bool("SUPERVISOR", True):
+        return pipeline
+    stats: FrameStats = app["stats"]
+    handler: StreamEventHandler = app["stream_event_handler"]
+    loop = asyncio.get_running_loop()
+
+    def resync():
+        # a keyframe after recovery: our encoder's IDR and the publisher's
+        force = getattr(pc, "_force_sink_keyframe", None)
+        if force is not None:
+            force()
+        proto = getattr(pc, "_recv_protocol", None)
+        if proto is not None:
+            proto._send_pli()
+
+    def on_transition(old, new, reason):
+        stats.count(f"supervisor_{new.lower()}")
+        try:  # may fire on a worker thread: webhooks belong on the loop
+            loop.call_soon_threadsafe(
+                lambda: handler.handle_session_state(session_key, room_id, new, reason))
+        except RuntimeError:
+            pass  # the loop closed (teardown)
+
+    sup = SessionSupervisor(session_key, resync=resync, on_transition=on_transition)
+    sup.context["room_id"] = room_id
+    wrapped = ResilientPipeline(pipeline, sup)
+    if app["overload"] is not None:
+        wrapped.throttle = app["overload"].register_session(session_key, sup)
+    app["supervisors"][session_key] = sup
+    sup.start_watchdog()
+    return wrapped
+
+
+def register_ingest_queue(app, session_key: str, track):
+    """The session's source queue at /metrics (the loopback track has one)."""
+    src_q = getattr(track, "_q", None)
+    if app["overload"] is not None and src_q is not None:
+        app["overload"].register_queue(f"ingest:{session_key}", QueueProbe(src_q))
+
+
+def end_supervision(app, session_key: str):
+    sup = app["supervisors"].pop(session_key, None)
+    if sup is not None:
+        sup.stop()
+    if app["overload"] is not None:
+        app["overload"].unregister_session(session_key)
 
 
 async def claim_pipeline(app, session_key: str):
     """-> (pipeline, release) for a new connection: a multipeer slot, a
     scheduler session or the shared pipeline; (None, None) when the slots
     are full.  The claim (a text encode and a state build) runs off the
-    loop, and so does the release, which is safe to call twice."""
+    loop, and so does the release, which is safe to call twice.  A
+    scheduler session's window queue joins the overload plane's registry."""
     mp, sched = app["multipeer_pipeline"], app["batch_scheduler"]
     if mp is None and sched is None:
         return app["pipeline"], lambda: None
@@ -282,6 +520,8 @@ async def claim_pipeline(app, session_key: str):
             claimed = await asyncio.to_thread(sched.claim, session_key)
     except CapacityError:
         return None, None
+    if sched is not None and app["overload"] is not None:
+        app["overload"].register_queue(f"batchwin:{session_key}", claimed.window_queue)
     releasing = app["releasing"]
 
     def release():
@@ -349,8 +589,12 @@ async def publish(app, sdp: str) -> Reply:
     track becomes the source that viewers subscribe to (newest wins)."""
     pcs, provider, state, stats = app["pcs"], app["provider"], app["state"], app["stats"]
     session_id = str(uuid.uuid4())
+    rejected = admission_gate(app, session_id)
+    if rejected is not None:
+        return rejected
     pipeline, release_pipeline = await claim_pipeline(app, session_id)
     if pipeline is None:
+        release_admission(app, session_id)
         return _slots_full(app)
     pc = None
     try:
@@ -378,7 +622,9 @@ async def publish(app, sdp: str) -> Reply:
         def on_track(track):
             logger.info("Track received: %s", track.kind)
             if track.kind == "video":
-                vt = VideoStreamTrack(track, TimedPipeline(pipeline, stats))
+                supervised = supervise(app, pc, TimedPipeline(pipeline, stats), session_id)
+                register_ingest_queue(app, session_id, track)
+                vt = VideoStreamTrack(track, supervised, overload=app["overload"])
                 relay = TrackRelay(vt, stats=FrameStats())
                 state["whip_tracks"][session_id] = vt
                 state["whip_relays"][session_id] = relay
@@ -394,6 +640,7 @@ async def publish(app, sdp: str) -> Reply:
                 state["whip_pcs"].pop(session_id, None)
                 _refresh_source_track(state)
                 release_pipeline()
+                end_supervision(app, session_id)
 
         await pc.setRemoteDescription(offer_sdp)
         # OBS: gather every ICE candidate before answering (it does not trickle)
@@ -406,6 +653,9 @@ async def publish(app, sdp: str) -> Reply:
         state["whip_pcs"].pop(session_id, None)
         state["whip_tracks"].pop(session_id, None)
         _refresh_source_track(state)
+        # on_track may have registered supervision already (it fires inside
+        # setRemoteDescription); its end releases the admission reservation
+        end_supervision(app, session_id)
         raise _client_error(e, (LookupError,))
     return _sdp_answer(answer.sdp, f"/whip/{session_id}")
 
@@ -472,8 +722,12 @@ async def offer(app, params: dict) -> Reply:
     pcs, provider, stats = app["pcs"], app["provider"], app["stats"]
     events: StreamEventHandler = app["stream_event_handler"]
     stream_id = str(uuid.uuid4())
+    rejected = admission_gate(app, stream_id)
+    if rejected is not None:
+        return rejected
     pipeline, release_pipeline = await claim_pipeline(app, stream_id)
     if pipeline is None:
+        release_admission(app, stream_id)
         return _slots_full(app)
     pc = None
     try:
@@ -494,7 +748,9 @@ async def offer(app, params: dict) -> Reply:
         def on_track(track):
             logger.info("Track received: %s", track.kind)
             if track.kind == "video":
-                video["track"] = VideoStreamTrack(track, TimedPipeline(pipeline, stats))
+                supervised = supervise(app, pc, TimedPipeline(pipeline, stats), stream_id, room_id)
+                register_ingest_queue(app, stream_id, track)
+                video["track"] = VideoStreamTrack(track, supervised, overload=app["overload"])
                 sender = pc.addTrack(video["track"])
                 provider.force_codec(pc, sender, "video/H264")
 
@@ -506,6 +762,7 @@ async def offer(app, params: dict) -> Reply:
                 await pc.close()
                 pcs.discard(pc)
                 release_pipeline()
+                end_supervision(app, stream_id)
                 if conn == "closed":
                     events.handle_stream_ended(stream_id, room_id)
             elif conn == "connected":
@@ -517,6 +774,7 @@ async def offer(app, params: dict) -> Reply:
     except Exception as e:
         release_pipeline()
         await _discard_pc(pc, pcs)
+        end_supervision(app, stream_id)
         raise _client_error(e, (KeyError,))
     return Reply(
         200,

@@ -75,6 +75,14 @@ class LoopbackTrack(_Events):
             raise ConnectionError("track ended")
         return await self._q.get()
 
+    def recv_nowait(self):
+        """The next frame without waiting, or None: the overload plane's
+        ingest hop (server/tracks.py) skips ahead to a fresher frame with it."""
+        try:
+            return self._q.get_nowait()
+        except asyncio.QueueEmpty:
+            return None
+
     def stop(self):
         self._ended.set()
         fire_handler(self._handlers.get("ended"))

@@ -18,8 +18,12 @@ diffused frame.
 
 A frame that a bounded queue of the batch scheduler or ``--multipeer``
 shed comes back as a ``ShedFrame``; the track delivers its source pixels
-(passthrough).  The overload plane (freshest-frame shedding at ingest) and
-frame tracing are later slices of the port.
+(passthrough).  With the overload plane attached, the track is the ingest
+hop: a pulled frame older than half of ``OVERLOAD_FRAME_DEADLINE_MS`` is
+shed while a fresher one waits behind it (freshest frame wins, counted),
+and each admitted frame's age lands in /metrics' freshness reservoir.
+Sources that can skip ahead expose ``recv_nowait()`` (the loopback track
+does); others never shed here.  Frame tracing is a later slice.
 """
 
 from __future__ import annotations
@@ -38,9 +42,10 @@ logger = logging.getLogger(__name__)
 class VideoStreamTrack:
     kind = "video"
 
-    def __init__(self, track, pipeline, pipeline_depth: int | None = None):
+    def __init__(self, track, pipeline, pipeline_depth: int | None = None, overload=None):
         self.track = track
         self.pipeline = pipeline
+        self.overload = overload  # OverloadControlPlane | None
         self.warmup_frame_idx = 0
         self.warmup_frames = env.warmup_frames()
         self.drop_frames = env.drop_frames()
@@ -69,6 +74,30 @@ class VideoStreamTrack:
     def _fbs(self) -> int:
         return int(getattr(self.pipeline, "frame_buffer_size", 1) or 1)
 
+    async def _pull_fresh(self):
+        """One source frame, freshest wins: while the frame at hand is older
+        than half the deadline and the source has a fresher one, shed it and
+        take the next.  A stale frame with nothing behind it is delivered
+        (a late frame beats a frozen stream)."""
+        frame = await self.track.recv()
+        ov = self.overload
+        if ov is None:
+            return frame
+        recv_nowait = getattr(self.track, "recv_nowait", None)
+        if ov.frame_deadline_s and recv_nowait is not None:
+            shed = 0
+            while ov.frame_age(frame) > ov.frame_deadline_s / 2.0:
+                nxt = recv_nowait()
+                if nxt is None:
+                    break
+                frame = nxt
+                shed += 1
+            if shed:
+                ov.note_shed_ingest(shed)
+        if getattr(frame, "wall_ts", None) is not None:  # unstamped frames have no age
+            ov.note_delivered(ov.frame_age(frame))
+        return frame
+
     async def recv(self):
         fbs = self._fbs
         if fbs > 1 and hasattr(self.pipeline, "submit_batch"):
@@ -84,12 +113,12 @@ class VideoStreamTrack:
             await self.track.recv()
 
         if self.pipeline_depth == 1:
-            frame = await self.track.recv()
+            frame = await self._pull_fresh()
             return _pixels(await asyncio.to_thread(self.pipeline, frame))
 
         # keep `depth` frames in flight, return the oldest
         while len(self._pending) < self.pipeline_depth:
-            frame = await self.track.recv()
+            frame = await self._pull_fresh()
             handle = await asyncio.to_thread(self.pipeline.submit, frame)
             self._pending.append((frame, handle))
         src, handle = self._pending.popleft()
@@ -97,7 +126,7 @@ class VideoStreamTrack:
 
     async def _recv_batched(self, fbs: int):
         async def pull_batch():
-            return [await self.track.recv() for _ in range(fbs)]
+            return [await self._pull_fresh() for _ in range(fbs)]
 
         while self.warmup_frame_idx < self.warmup_frames:
             logger.info("dropping warmup frame batch @%d", self.warmup_frame_idx)

@@ -10,9 +10,9 @@ from __future__ import annotations
 import base64
 import json
 import logging
-import random
 import time
 
+from ..resilience.retry import RetryError, transient_policy
 from ..utils import env
 
 logger = logging.getLogger(__name__)
@@ -24,30 +24,12 @@ class _TransientHttp(Exception):
     """5xx / transport trouble — worth another try under backoff."""
 
 
-class RetryError(Exception):
-    """All attempts exhausted; ``last`` carries the final exception."""
-
-    def __init__(self, message: str, last: BaseException):
-        super().__init__(message)
-        self.last = last
-
-
-def transient_retry(fn, retry_on: tuple, attempts: int = 3, base_delay_s: float = 0.5,
-                    max_delay_s: float = 30.0, sleep=time.sleep, rng=random):
-    """Call ``fn()`` until it returns or ``attempts`` calls have raised one of
-    ``retry_on``; then raise :class:`RetryError`.  Full-jitter exponential
-    backoff: the n-th delay is drawn from U[0, base * 2**n], capped, so a fleet
-    retrying one shared service does not retry in step (the JAX package's
-    ``transient_policy``)."""
-    delay = base_delay_s
-    for i in range(attempts):
-        try:
-            return fn()
-        except retry_on as e:
-            if i + 1 == attempts:
-                raise RetryError(f"failed after {attempts} attempt(s)", e) from e
-        sleep(delay * rng.random())
-        delay = min(max_delay_s, 2.0 * delay)
+def transient_retry(fn, retry_on: tuple, sleep=time.sleep, rng=None):
+    """Call ``fn()`` under the shared transient policy (three full-jitter
+    backed-off attempts, ``resilience/retry.py``); raises
+    :class:`RetryError` when they are spent."""
+    return transient_policy().run(fn, retry_on=retry_on, sleep=sleep, rng=rng,
+                                  label="twilio token")
 
 
 def get_twilio_token(http_post=None):

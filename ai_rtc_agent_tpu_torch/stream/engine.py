@@ -47,6 +47,7 @@ from ..ops import lcm as L
 from ..ops import rcfg as R
 from ..ops import schedule as S
 from ..ops.kernels.fused_scheduler import fused_stream_epilogue, write_segments
+from ..resilience import faults as _faults
 from ..tree import tree_map
 
 
@@ -228,31 +229,31 @@ def make_session_step_fn(models: StreamModels, cfg: StreamConfig):
     ``jax.vmap(make_step_fn(...), in_axes=(None, 0, 0))`` inside the JAX
     package's ``make_bucket_step``), written out as one batch of k*B rows:
 
-        step(params, states, frames_u8, slots, k_real) -> out_u8 [k,H,W,3]
+        step(params, states, frames_u8, slots, k_real) -> out_u8
 
     ``states``: every leaf of the single-session state stacked on a leading
-    slot axis [S, ...] (:func:`stack_states`).  ``frames_u8``: [k,H,W,3]
-    uint8 on the device, one frame per session; ``slots``: int32 [k] on the
-    device, the slot of each session (a padded bucket repeats its last real
-    slot at the tail); ``k_real``: the real sessions, whose ring rows and
-    stock are advanced in place, an int or an int32 scalar on the device
-    (what a captured step reads).  The k*B rows go through the preprocess,
-    TAESD, UNet, epilogue and decode sequence of :func:`make_step_fn` once:
-    32 attention launches and one epilogue launch whatever k is, each row
-    with its own session's prompt, coefficients, guidance and delta.
+    slot axis [S, ...] (:func:`stack_states`).  ``frames_u8``: uint8 on the
+    device, one frame per session [k,H,W,3], or with frame_buffer_size
+    fbs > 1 fbs consecutive frames per session [k,fbs,H,W,3]; ``out_u8``
+    has the same shape.  ``slots``: int32 [k] on the device, the slot of
+    each session (a padded bucket repeats its last real slot at the tail);
+    ``k_real``: the real sessions, whose ring rows and stock are advanced
+    in place, an int or an int32 scalar on the device (what a captured step
+    reads).  The k*B rows (B = n_stages * fbs per session) go through the
+    preprocess, TAESD, UNet, epilogue and decode sequence of
+    :func:`make_step_fn` once: 32 attention launches and one epilogue
+    launch whatever k is, each row with its own session's prompt,
+    coefficients, guidance and delta.  A session's fbs new frames take its
+    first fbs rows; the renoise moves rows by fbs within each session's
+    segment (``noise_shift=fbs``), as the single engine does.
 
     The fused epilogue reads the stock, noise, coefficients, guidance and
     delta at the slots and writes the ring and stock rows in place; the
     composed ops gather the same rows and write the first k_real back
-    (``write_segments``: masked on the device, so they capture too).
-    frame_buffer_size > 1 through the session axis is a later slice."""
+    (``write_segments``: masked on the device, so they capture too)."""
     _check_supported(cfg)
-    if cfg.frame_buffer_size != 1:
-        raise NotImplementedError(
-            "not ported yet (a later slice of the port): frame_buffer_size > 1 "
-            "through the session axis"
-        )
     B = cfg.batch_size
+    fbs = cfg.frame_buffer_size
     dt = cfg.torch_dtype
     fused = cfg.use_fused_epilogue and cfg.prediction_type == "epsilon"
 
@@ -263,16 +264,17 @@ def make_session_step_fn(models: StreamModels, cfg: StreamConfig):
         take = lambda a: a.index_select(0, slots)  # noqa: E731
         rows = lambda a: a.reshape(k * a.shape[1], *a.shape[2:])  # noqa: E731  [k, n, ...] -> [k*n, ...]
 
-        img = I.preprocess_uint8(frames_u8, dtype=dt)
-        z0 = models.vae_encode(params, img)  # [k,h,w,c]
+        img = I.preprocess_uint8(frames_u8.reshape(k * fbs, *frames_u8.shape[-3:]), dtype=dt)
+        z0 = models.vae_encode(params, img)  # [k*fbs,h,w,c]
+        z0 = z0.view(k, fbs, *z0.shape[1:])
         if cfg.do_add_noise:
-            a0 = take(c["alpha"][:, 0]).reshape(-1, 1, 1, 1).to(dt)
-            s0 = take(c["sigma"][:, 0]).reshape(-1, 1, 1, 1).to(dt)
-            x_new = a0 * z0 + s0 * take(states["noise"][:, 0]).to(dt)
+            a0 = take(c["alpha"][:, :fbs]).reshape(k, fbs, 1, 1, 1).to(dt)
+            s0 = take(c["sigma"][:, :fbs]).reshape(k, fbs, 1, 1, 1).to(dt)
+            x_new = a0 * z0 + s0 * take(states["noise"][:, :fbs]).to(dt)
         else:
             x_new = z0
-        x_t = rows(torch.cat([x_new[:, None], take(states["x_buf"]).to(dt)], dim=1)) \
-            if B > 1 else x_new
+        x_t = rows(torch.cat([x_new, take(states["x_buf"]).to(dt)], dim=1)) \
+            if B > fbs else rows(x_new)
         cond = take(states["cond"]).to(dt)  # [k,1,L,D]
         cond = rows(cond.expand(k, B, *cond.shape[2:]))
         eps_c = models.unet(params, x_t, take(c["timesteps"]).reshape(-1), cond)
@@ -281,7 +283,7 @@ def make_session_step_fn(models: StreamModels, cfg: StreamConfig):
             denoised = fused_stream_epilogue(
                 x_t, eps_c, states["stock"], states["noise"], _coeffs(c), states["guidance"],
                 states["delta"], cfg_type=cfg.cfg_type, turbo=cfg.scheduler == "turbo",
-                noise_shift=1, advanced_out=states["x_buf"], stock_out=states["stock"],
+                noise_shift=fbs, advanced_out=states["x_buf"], stock_out=states["stock"],
                 slots=slots, k_real=k_real,
             )[0]
         else:
@@ -301,19 +303,20 @@ def make_session_step_fn(models: StreamModels, cfg: StreamConfig):
                 denoised = L.turbo_denoise(x_t, eps, co, cfg.prediction_type)
             else:
                 denoised = L.lcm_denoise(x_t, eps, co, cfg.prediction_type)
-            if B > 1:
-                head = lambda a: a.view(k, B, *a.shape[1:])[:, : B - 1]  # noqa: E731
+            if B > fbs:
+                head = lambda a: a.view(k, B, *a.shape[1:])[:, : B - fbs]  # noqa: E731
                 sub = L.StepCoeffs(*(rows(head(v)).reshape(-1) for v in (
                     co.timesteps, co.alpha, co.sigma, co.c_skip, co.c_out, co.next_alpha,
                     co.next_sigma)))
                 advanced = L.renoise_next(rows(head(denoised)),
-                                          rows(take(states["noise"])[:, 1:]).to(dt), sub)
-                write_segments(states["x_buf"], advanced.view(k, B - 1, *x_t.shape[1:]), slots,
-                               k_real)
-        out_latent = denoised.view(k, B, *x_t.shape[1:])[:, B - 1]
+                                          rows(take(states["noise"])[:, fbs:]).to(dt), sub)
+                write_segments(states["x_buf"], advanced.view(k, B - fbs, *x_t.shape[1:]),
+                               slots, k_real)
+        last = denoised.view(k, B, *x_t.shape[1:])[:, B - fbs:]  # each session's exit rows
+        out_latent = last[:, 0] if fbs == 1 else rows(last)  # a view at fbs == 1
 
-        img_out = models.vae_decode(params, out_latent)
-        return I.postprocess_uint8(img_out.float())
+        img_out = I.postprocess_uint8(models.vae_decode(params, out_latent).float())
+        return img_out.view(frames_u8.shape)
 
     return step
 
@@ -384,6 +387,21 @@ class SimilarityFilter:
         return False
 
 
+class StaleStepError(RuntimeError):
+    """A step held past a restart (or a rebuild) is dropped, not replayed."""
+
+
+class _Poisoned:
+    """The ``nan`` fault's output: a float array of NaNs in place of the
+    step's frame (what a poisoned latent decodes to)."""
+
+    def __init__(self, out: np.ndarray):
+        self.out = out
+
+    def result(self) -> np.ndarray:
+        return self.out
+
+
 class _Readback:
     """A D2H copy queued at submit, right after the step on the same stream
     (a replay overwrites its output: the copy must come before the next);
@@ -447,6 +465,13 @@ class StreamEngine:
             cfg.similar_image_threshold, cfg.similar_image_max_skip, seed=0
         )
         self._submit_lock = threading.Lock()
+        # bumped (under the submit lock) by a restart: a step submitted
+        # before it, held by a fault or a stall, must not replay into the
+        # state the restart installed
+        self.epoch = 0
+        # compute-path fault injection (resilience/faults.py): None unless
+        # a plan targets the engine
+        self._fault_scope = _faults.scope("engine")
 
     # -- state construction -------------------------------------------------
 
@@ -566,7 +591,16 @@ class StreamEngine:
             raise RuntimeError("call prepare() first")
         self.last_submit_was_skip = False
         squeeze = frame_u8.ndim == 3
+        epoch = self.epoch
+        if self._fault_scope is not None:
+            # before the lock: an injected stall holds this thread only
+            if self._fault_scope.step() == "nan":
+                h, w = self.cfg.height, self.cfg.width
+                shape = (h, w, 3) if squeeze else (frame_u8.shape[0], h, w, 3)
+                return _Poisoned(np.full(shape, np.nan, np.float32)), squeeze
         with self._submit_lock:
+            if self.epoch != epoch:
+                raise StaleStepError("the engine restarted while this step was held")
             if self.cfg.similar_image_filter and self._sim_filter.should_skip(
                 frame_u8, have_output=self._last_out is not None
             ):

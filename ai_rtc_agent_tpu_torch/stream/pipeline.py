@@ -81,11 +81,15 @@ class StreamDiffusionPipeline:
 
     def restart(self):
         """Re-prepare the engine in place (fresh stream state, same params),
-        restoring the live prompt, guidance and delta."""
+        restoring the live prompt, guidance and delta.  A step submitted
+        before the restart and held past it (a stall, an injected fault, a
+        step the supervisor abandoned) is dropped, not replayed: the
+        restart bumps the engine's epoch under its submit lock."""
         lock = self.engine._submit_lock
         if not lock.acquire(timeout=10.0):
             raise RuntimeError("engine restart blocked: submit lock still held")
         try:
+            self.engine.epoch += 1
             self.engine.prepare(
                 prompt=self.prompt, guidance_scale=self.guidance_scale,
                 delta=self.delta, seed=self._seed,

@@ -32,10 +32,32 @@ it there): the counterpart of the JAX scheduler's per-bucket executables.
 A dispatch copies the waiting frames, the padded slot layout and the count
 into the bucket's static buffers and replays it.
 
+With frame_buffer_size fbs > 1 each session's window coalesces fbs
+consecutive frames into one row of its slot ([k, fbs, H, W, 3]); each
+frame's handle resolves to its own slice of the session's row (the JAX
+scheduler's second batch axis).  The similarity filter stays fbs == 1 only.
+
+The engine fault domain (resilience/engine_guard.py) attaches through
+:meth:`attach_guard`: every bucket step then runs on the guard's runner
+under its deadline and ends at its completion event, polled (a stalled
+device trips the guard as a wedged launch does; nothing waits in an
+unbounded synchronize).  A snapshot bank clones each live slot's rows after
+a step (ENGINE_SNAPSHOT_EVERY_S); a trip quarantines the plane (frames
+shed to passthrough, claims refused) and :meth:`rebuild_engine` builds new
+static buffers and a new graph pool, restores every banked row bit for bit
+and captures every bucket again.  The plane carries an epoch, bumped by a
+rebuild: a step held past it (a fault, a stall) is dropped before it
+replays, and the old plane stays alive until an event recorded after its
+abandoned work has completed.  A session's claim or restart needs no
+epoch of its own: it installs under the step lock, which a dispatch holds
+until its step completes or trips the guard, and while the guard is not
+armed claims are refused and restarts are the rebuild's.  The amortised step latency (dt / occupancy) feeds the
+admission EWMA through :attr:`on_step`.
+
 Outputs are a dedicated engine's for the same state row and frames
 (tests/test_torch_scheduler.py on the CPU, chip_smoke.py phase 6 on the
-card).  frame_buffer_size > 1 through the scheduler, snapshot/restore,
-the dp-sharded session axis, adapters, DeepCache and w8 are later slices.
+card).  Snapshot/restore in its serialised form, the dp-sharded session
+axis, adapters, DeepCache and w8 are later slices.
 """
 
 from __future__ import annotations
@@ -59,10 +81,13 @@ from ..parallel.multipeer import (
     bucket_sizes,
     stage_rows,
 )
+from ..resilience import faults as _faults
 from ..resilience.overload import DeadlineQueue, ShedFrame, shed_to_passthrough
+from ..tree import tree_map
 from ..utils import env
 from .engine import (
     SimilarityFilter,
+    StaleStepError,
     StreamEngine,
     coeff_state,
     install_row,
@@ -81,12 +106,15 @@ logger = logging.getLogger(__name__)
 
 __all__ = ["BatchScheduler", "ScheduledSession", "CapacityError"]
 
+POLL_S = 2e-4  # the completion poll of a guarded step
+
 
 class _PendingFrame:
     """One enqueued frame: its waiter future, the staged device copy and
     the stamps the gauges read."""
 
-    __slots__ = ("frame", "frame_dev", "future", "t_enq", "t_dispatch", "occupancy", "skipped")
+    __slots__ = ("frame", "frame_dev", "future", "t_enq", "t_dispatch", "occupancy", "skipped",
+                 "sub")
 
     def __init__(self, frame):
         self.frame = frame  # host pixels (shed passthrough, similarity)
@@ -96,6 +124,7 @@ class _PendingFrame:
         self.t_dispatch: float | None = None
         self.occupancy = 0
         self.skipped = False
+        self.sub = 0  # with fbs > 1: this frame's place in its session's row
 
 
 class _DispatchedBatch:
@@ -103,21 +132,28 @@ class _DispatchedBatch:
     once every rider's session is released (a closed connection fetches
     nothing), so that it stops counting as in flight."""
 
-    __slots__ = ("readback", "t_dispatch", "riders", "resolved")
+    __slots__ = ("readback", "t_dispatch", "riders", "resolved", "occupancy", "feed")
 
-    def __init__(self, readback: Readback, t_dispatch: float, riders: list):
+    def __init__(self, readback: Readback, t_dispatch: float, riders: list, feed: bool):
         self.readback = readback
         self.t_dispatch = t_dispatch
         self.riders = set(riders)  # the slots that rode it, until released
         self.resolved = False
+        self.occupancy = len(riders)
+        # False on a bucket's first use (its capture rode the step): no
+        # capacity sample for the admission EWMA
+        self.feed = feed
 
 
 class ScheduledSession:
     """One claimed slot: the pipeline surface the track drives (``__call__``,
-    ``submit``/``fetch``, ``update_prompt``, ``update_t_index_list``,
-    ``update_guidance``, ``restart``) over the shared scheduler."""
+    ``submit``/``fetch``, ``submit_batch``/``fetch_batch``,
+    ``update_prompt``, ``update_t_index_list``, ``update_guidance``,
+    ``restart``) over the shared scheduler."""
 
-    frame_buffer_size = 1
+    # the scheduler feeds the admission EWMA the amortised step latency
+    # itself; the supervisor's wrapper must not feed the raw one too
+    owns_step_signal = True
 
     def __init__(self, owner: "BatchScheduler", slot: int, session_key: str, prompt: str,
                  seed: int):
@@ -139,7 +175,24 @@ class ScheduledSession:
         )
         self._last_pending: _PendingFrame | None = None
         self._had_output = False
+        self.frames_submitted = 0
         self.frames_skipped_similar = 0
+
+    @property
+    def frame_buffer_size(self) -> int:
+        """fbs consecutive frames ride one step as one row of this slot (the
+        track batches them through submit_batch)."""
+        return self._owner.fbs
+
+    def submit_batch(self, frames):
+        """fbs consecutive frames -> their handles (one group of the slot)."""
+        return [self.submit(f) for f in frames]
+
+    def fetch_batch(self, handles, src_frames=None):
+        """The outputs of a :meth:`submit_batch`, each its own slice of the
+        session's row."""
+        return [self.fetch(h, src_frames[i] if src_frames else None)
+                for i, h in enumerate(handles)]
 
     @property
     def window_queue(self) -> DeadlineQueue:
@@ -150,6 +203,7 @@ class ScheduledSession:
         A similarity skip never enters the window: its handle resolves with
         the previous submit's output."""
         arr = coerce_frame(frame, self._owner.height, self._owner.width)
+        self.frames_submitted += 1
         last = self._last_pending
         if self._sim is not None and self._sim.should_skip(
             arr, have_output=self._had_output and last is not None
@@ -178,13 +232,16 @@ class ScheduledSession:
     def fetch(self, handle: _PendingFrame, src_frame=None):
         """Resolve a handle to this session's output frame (its own row of
         the step it rode).  A shed frame comes back as the ``ShedFrame``."""
+        t0 = time.monotonic()
         try:
             out = handle.future.result(timeout=self._owner.fetch_timeout)
         except CancelledError:  # released with this frame queued
             return ShedFrame(handle.frame)
         if isinstance(out, ShedFrame):
             return out
-        out = self._owner._resolve_row(*out)
+        out = self._owner._resolve_row(*out, t0=t0)
+        if self._owner.fbs > 1:
+            out = out[handle.sub]
         self._had_output = True
         return finish_output(out, src_frame)
 
@@ -212,7 +269,12 @@ class ScheduledSession:
 
     def restart(self):
         """A fresh stream state for this slot with the live prompt,
-        guidance, delta and t-indices."""
+        guidance, delta and t-indices (the supervisor's recovery hook).
+        While the engine guard holds the plane quarantined this is its
+        rebuild's job (the banked row is restored bit for bit): report
+        success, so that the session goes on serving passthrough."""
+        if self._owner.quarantined:
+            return
         state = self._owner._build_state(self.prompt, self.guidance_scale, self.delta,
                                          self._seed, self.t_index_list)
         self._owner._install(self.slot, state)
@@ -221,6 +283,17 @@ class ScheduledSession:
         if not self._released:
             self._released = True
             self._owner.release(self.slot)
+
+    def snapshot(self) -> dict:
+        """/health's per-session scheduler view (the JAX keys)."""
+        q = self.window_queue
+        return {
+            "slot": self.slot,
+            "frames_submitted": self.frames_submitted,
+            "frames_skipped_similar": self.frames_skipped_similar,
+            "window_depth": q.depth,
+            "window_shed": q.shed_overflow + q.shed_stale,
+        }
 
 
 class BatchScheduler:
@@ -240,6 +313,11 @@ class BatchScheduler:
         """``graphs`` (default: on a CUDA device): each bucket size steps by
         replaying its captured CUDA graph; False steps eagerly."""
         self.device = resolve_device(device)
+        self.fbs = int(cfg.frame_buffer_size)
+        if self.fbs > 1 and cfg.similar_image_filter:
+            raise ValueError(
+                "the scheduler's consecutive-frame batching (fbs>1) is incompatible with the "
+                "similarity filter: a skipped frame would desync the fbs group boundaries")
         self.cfg = cfg
         self.model_id = model_id
         self.height, self.width = cfg.height, cfg.width
@@ -249,10 +327,12 @@ class BatchScheduler:
             raise ValueError("max_sessions must be >= 1")
         self.window_s = (env.get_float("BATCHSCHED_WINDOW_MS", 3.0)
                          if window_ms is None else float(window_ms)) / 1e3
-        self.queue_bound = (env.get_int("BATCHSCHED_QUEUE_BOUND", 2)
+        self.queue_bound = (env.get_int("BATCHSCHED_QUEUE_BOUND", 2 * self.fbs)
                             if queue_bound is None else int(queue_bound))
-        if self.queue_bound < 1:
-            raise ValueError(f"queue_bound ({self.queue_bound}) must hold a frame")
+        if self.queue_bound < self.fbs:
+            raise ValueError(
+                f"queue_bound ({self.queue_bound}) must hold at least one fbs group "
+                f"({self.fbs}) or no frame could ever dispatch")
         self.fetch_timeout = fetch_timeout
         # defaults for new sessions; the global update_* methods move them
         self.prompt = default_prompt or DEFAULT_PROMPT
@@ -260,12 +340,14 @@ class BatchScheduler:
         self.delta = DEFAULT_DELTA if delta is None else delta
         self.t_index_list = list(cfg.t_index_list)
         self.params = params
+        # the admission feed: callable(dt_s, occupancy), dt amortised per session
+        self.on_step = None
         self._template = StreamEngine(models, params, cfg, encode_prompt, schedule=schedule,
                                       device=self.device, graphs=False)
         S = self.max_sessions
         self._bucket_sizes = bucket_sizes(S)
-        self._bucket = BucketStep(models, cfg, self.device, graphs=graphs,  # raises for fbs > 1
-                                  key=self.bucket_keys().__getitem__)
+        self._bucket = self._new_bucket(graphs)
+        self._warmed: set = set()  # bucket sizes stepped or captured (a cold step captures)
         # one template state, stacked: a claim installs its own before any frame
         self.states = stack_states([self._template.build_state(
             self.prompt, guidance_scale=self.guidance_scale, delta=self.delta, seed=0)] * S)
@@ -283,6 +365,21 @@ class BatchScheduler:
         self._waits: deque = deque(maxlen=512)
         self._occ_hist: dict = {}
         self.steps_total = 0
+        # -- the engine fault domain (resilience/engine_guard.py) ---------------------
+        self._guard = None
+        self._fault_scope = _faults.scope("engine")
+        # the plane's epoch: a step records it at dispatch and replays only
+        # if it still holds, under the epoch lock (a rebuild bumps it)
+        self._epoch = 0
+        self._epoch_lock = threading.Lock()
+        self._retired: list = []  # (event, old plane): alive until the event completes
+        # snapshot bank: each live slot's rows cloned after a step, on a
+        # cadence (<= 0 banks nothing; the rebuild then starts from each
+        # session's control plane)
+        self._snap_every_s = env.get_float("ENGINE_SNAPSHOT_EVERY_S", 5.0)
+        self._snap_rows: dict = {}  # slot -> cloned state rows
+        self._last_snap_t = 0.0
+        self._quarantine_snaps: dict = {}  # session key -> banked rows, at the trip
         self._prewarm = env.get_bool("BATCHSCHED_PREWARM", True) if prewarm is None else prewarm
         self._started = threading.Event()
         self._start_error: BaseException | None = None
@@ -292,6 +389,11 @@ class BatchScheduler:
         if self._start_error is not None:
             self._thread.join(timeout=10)
             raise self._start_error
+
+    def _new_bucket(self, graphs) -> BucketStep:
+        """A bucket step with its own static buffers and graph pool."""
+        return BucketStep(self._template.models, self.cfg, self.device, graphs=graphs,
+                          key=self.bucket_keys().__getitem__)
 
     @classmethod
     def from_pipeline(cls, pipeline, **kw) -> "BatchScheduler":
@@ -314,8 +416,11 @@ class BatchScheduler:
     def claim(self, session_key: str | None = None, prompt: str | None = None,
               seed: int | None = None) -> ScheduledSession:
         """Claim a slot for a new connection; raises CapacityError when full
-        (the agent answers 503 with Retry-After).  The state build runs
-        outside the locks, so live sessions keep stepping."""
+        or while the engine guard holds the plane quarantined (the agent
+        answers 503 with Retry-After).  The state build runs outside the
+        locks, so live sessions keep stepping."""
+        if self.quarantined:
+            raise CapacityError("engine quarantined — rebuild in progress")
         with self._lock:
             slot = self._pick_slot_locked()
             self.active[slot] = True
@@ -445,13 +550,147 @@ class BatchScheduler:
     def prewarm_buckets(self):
         """Capture every bucket size on the calling thread, writing no
         session's state (``BucketStep.warm``; eagerly: step each once).  The
-        scheduler calls it on its dispatcher thread at startup."""
+        scheduler calls it on its dispatcher thread at startup (a graph
+        replays from any thread: the guard's runner steps them)."""
         for k in self._bucket_sizes:
             with self._step_lock:
                 self._bucket.warm(self.params, self.states, k)
+                self._warmed.add(k)
             logger.info("prewarmed batchsched bucket %d/%d", k, self.max_sessions)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    # -- the engine fault domain (resilience/engine_guard.py) ------------------------
+
+    def attach_guard(self, guard):
+        """Route every bucket step through ``guard``: its deadline bounds the
+        step up to its completion; while it is quarantined the scheduler
+        sheds (passthrough) instead of dispatching and refuses claims."""
+        self._guard = guard
+
+    @property
+    def quarantined(self) -> bool:
+        g = self._guard
+        return g is not None and g.quarantined
+
+    def _maybe_bank_rows_locked(self):
+        """Refresh the snapshot bank on the ENGINE_SNAPSHOT_EVERY_S cadence,
+        after a step (the caller holds the step lock).  ``states[..][slot]``
+        is a view the next replay overwrites, so the live rows are copied
+        out (one gather per leaf, on the stepping stream after the step):
+        the only copy a rebuild can restore from."""
+        if self._guard is None or self._snap_every_s <= 0:
+            return
+        now = time.monotonic()
+        if now - self._last_snap_t < self._snap_every_s:
+            return
+        self._last_snap_t = now
+        slots = [slot for slot in list(self._sessions) if self.active[slot]]
+        if not slots:
+            self._snap_rows = {}
+            return
+        # one gather per leaf (a fresh buffer), then each slot's rows as views of it
+        bank = tree_map(lambda a: a.index_select(0, self._bucket.index(slots)), self.states)
+        self._snap_rows = {slot: tree_map(lambda a, i=i: a[i], bank) for i, slot in enumerate(slots)}
+
+    def capture_quarantine_snapshots(self) -> dict:
+        """{session key: banked rows} of the live sessions, frozen at
+        quarantine entry (the guard calls this once, before any rebuild
+        attempt).  A session claimed after the last bank refresh has none
+        and is rebuilt from its control plane."""
+        with self._lock:
+            rows = dict(self._snap_rows)
+            sessions = {slot: sess for slot, sess in self._sessions.items() if self.active[slot]}
+        snaps = {}
+        for slot, sess in sessions.items():
+            if slot in rows:
+                snaps[sess.session_key] = rows[slot]
+            else:
+                logger.warning("quarantine capture: slot %d has no banked row (claimed after "
+                               "the last bank refresh): control-plane rebuild only", slot)
+        self._quarantine_snaps = snaps
+        return snaps
+
+    def rebuild_engine(self, snapshots: dict | None = None) -> int:
+        """Quarantine recovery: a new plane (new stacked state buffers, a new
+        bucket step with its own graph pool and static buffers) with every
+        live slot restored from its banked rows bit for bit, or from its
+        session's control plane without one; every bucket is captured
+        again.  The attempt runs on the guard's runner (the thread that
+        steps) under the cold deadline: behind a stalled device it times
+        out instead of hanging.  -> the number of slots restored from the
+        bank.  Raises on failure (the guard backs off and retries)."""
+        snapshots = self._quarantine_snaps if snapshots is None else snapshots
+        # no lock here (a step or an attempt stuck behind a stalled device may
+        # hold one): a held step checks the epoch under the epoch lock, and
+        # the plane is swapped under it
+        self._epoch += 1
+        epoch = self._epoch
+        guard = self._guard
+        if guard is None:
+            exact = self._rebuild_plane(snapshots, epoch)
+        else:
+            exact = guard.run_bounded(lambda: self._rebuild_plane(snapshots, epoch),
+                                      guard.cold_deadline_s, "engine rebuild")
+        self._quarantine_snaps = {}
+        logger.warning("batchsched engine rebuilt: %d/%d live slot(s) restored bit-exact from "
+                       "the snapshot bank", exact, self.active.count(True))
+        return exact
+
+    def _rebuild_plane(self, snapshots: dict, epoch: int) -> int:
+        self._use_device()
+        with self._step_lock:
+            per, exact, placeholder = [], 0, None
+            for slot in range(self.max_sessions):
+                sess = self._sessions.get(slot) if self.active[slot] else None
+                if sess is None:
+                    if placeholder is None:
+                        placeholder = self._build_state(self.prompt, self.guidance_scale,
+                                                        self.delta, slot, self.t_index_list)
+                    per.append(placeholder)
+                elif sess.session_key in snapshots:
+                    per.append(snapshots[sess.session_key])
+                    exact += 1
+                else:
+                    per.append(self._build_state(sess.prompt, sess.guidance_scale, sess.delta,
+                                                 sess._seed, sess.t_index_list))
+            states = stack_states(per)  # new buffers: the banked rows copied in
+            bucket = self._new_bucket(self._bucket.graphs)
+            with self._epoch_lock:
+                if self._epoch != epoch:
+                    raise StaleStepError("a later rebuild attempt owns the plane")
+                self._retire_plane()
+                self.states, self._bucket = states, bucket
+                self._warmed = set()
+            with self._lock:  # batches of the old plane are nobody's to wait for
+                self._batches = deque(maxlen=self._batches.maxlen)
+            self._snap_rows, self._last_snap_t = {}, 0.0
+        if self._prewarm:
+            for k in self._bucket_sizes:
+                with self._step_lock:
+                    if self._epoch != epoch:
+                        raise StaleStepError("a later rebuild attempt owns the plane")
+                    bucket.warm(self.params, states, k)
+                    self._warmed.add(k)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        return exact
+
+    def _retire_plane(self):
+        """Keep the old plane (its graphs, pool, static and state buffers)
+        alive until an event recorded now has completed: a replay already
+        queued on the stream must not find its memory reused."""
+        self._retired = [r for r in self._retired if not r[0].query()]
+        if self.device.type == "cuda":
+            ev = torch.cuda.Event()
+            ev.record()
+            self._retired.append((ev, self._bucket, self.states))
+
+    def _use_device(self):
+        """The stepping thread's current device (a runner thread starts on
+        device 0)."""
+        if self.device.type == "cuda" and torch.cuda.current_device() != (self.device.index or 0):
+            torch.cuda.set_device(self.device)
 
     @staticmethod
     def _evict(pending: _PendingFrame, reason: str):
@@ -459,12 +698,28 @@ class BatchScheduler:
         shed_to_passthrough(pending.future, pending.frame)
 
     def _enqueue(self, slot: int, pending: _PendingFrame):
+        if self.quarantined:
+            # no plane to step on: passthrough now, not a shed at the deadline
+            self._evict(pending, "engine-quarantined")
+            return
         self._queues[slot].push(pending, stamp=pending.t_enq)
         with self._has_work:
             self._has_work.notify()
 
     def _waiting_slots(self) -> list:
-        return [s for s in range(self.max_sessions) if self.active[s] and self._queues[s].depth]
+        """Slots with a full group waiting: one frame, or fbs consecutive ones."""
+        return [s for s in range(self.max_sessions)
+                if self.active[s] and self._queues[s].depth >= self.fbs]
+
+    def _pop_group(self, slot: int):
+        """The slot's fbs oldest frames (one with fbs == 1), or None."""
+        group = []
+        for _ in range(self.fbs):
+            got = self._queues[slot].pop()
+            if got is None:
+                break
+            group.append(got[0])
+        return group or None
 
     def _in_flight(self, now: float) -> int:
         return sum(1 for b in self._batches if not b.resolved and now - b.t_dispatch < 60.0)
@@ -476,6 +731,15 @@ class BatchScheduler:
         [(slot, pending)], or None at stop."""
         while not self._stop:
             waiting = self._waiting_slots()
+            if self.quarantined:
+                # no plane: shed what queued (passthrough at once) and idle
+                # until the guard's rebuild re-arms
+                for s in waiting:
+                    while (group := self._pop_group(s)) is not None:
+                        for p in group:
+                            self._evict(p, "engine-quarantined")
+                self._has_work.wait(timeout=0.1)
+                continue
             if not waiting:
                 self._has_work.wait(timeout=0.5)
                 continue
@@ -495,34 +759,76 @@ class BatchScheduler:
             return None
         entries = []
         for s in self._waiting_slots():
-            got = self._queues[s].pop()
-            if got is not None:
-                entries.append((s, got[0]))
+            group = self._pop_group(s)
+            if group is not None:
+                entries.append((s, group))
         return entries
 
     def _dispatch(self, entries):
-        """One bucket step for ``entries`` and every rider's readback row.
-        The caller holds the step lock, taken before the entries were
-        popped: a control-plane write that comes after the pop lands after
-        this step, as it does in the JAX scheduler."""
+        """One bucket step for ``entries`` ([(slot, its group of pending
+        frames)]) and every rider's readback row.  The caller holds the step
+        lock, taken before the entries were popped: a control-plane write
+        that comes after the pop lands after this step, as it does in the
+        JAX scheduler."""
         slots = [s for s, _ in entries]
         n = len(slots)
         k = self._bucket_for(n)
         t_disp = time.monotonic()
-        for _, p in entries:
-            p.t_dispatch, p.occupancy = t_disp, n
+        frames = []
+        for _, group in entries:
+            for p in group:
+                p.t_dispatch, p.occupancy = t_disp, n
+            bufs = [p.frame_dev for p in group]
+            # a short group (a release raced the pop) repeats its last frame
+            bufs = (bufs + [bufs[-1]] * self.fbs)[: self.fbs]
+            frames.append(bufs[0] if self.fbs == 1 else torch.cat(bufs))
+        feed = k in self._warmed
+        epoch = self._epoch
+
+        def device_step() -> Readback:
+            # on the guard's runner thread when one is attached; the fault
+            # scope fires on the thread the step runs on, before the replay
+            self._use_device()
+            if self._fault_scope is not None:
+                self._fault_scope.step()
+            with self._epoch_lock:
+                if self._epoch != epoch:
+                    raise StaleStepError("the plane was rebuilt while this step was held")
+                out = self._bucket(self.params, self.states, frames, slots, k)
+                return Readback(out, n)
+
+        def until_complete() -> Readback:
+            # the guarded step ends at its completion event, polled: a
+            # stalled device blows the deadline instead of blocking a thread
+            readback = device_step()
+            while not readback.done() and self._epoch == epoch:
+                time.sleep(POLL_S)
+            return readback
+
         try:
-            out = self._bucket(self.params, self.states, [p.frame_dev for _, p in entries],
-                               slots, k)
-            batch = _DispatchedBatch(Readback(out, n), t_disp, slots)
+            if self._guard is None:
+                readback = device_step()
+            else:
+                readback = self._guard.dispatch(until_complete, cold=not feed)
+            self._warmed.add(k)
+            batch = _DispatchedBatch(readback, t_disp, slots, feed)
         except Exception as e:
-            logger.exception("batchsched step failed (bucket %d, %d sessions)", k, n)
-            for _, p in entries:
-                try:
-                    p.future.set_exception(e)
-                except InvalidStateError:
-                    pass
+            if not self.quarantined:
+                logger.exception("batchsched step failed (bucket %d, %d sessions)", k, n)
+            for _, group in entries:
+                for p in group:
+                    try:
+                        p.future.set_exception(e)
+                    except InvalidStateError:
+                        pass
+            if not self.quarantined:
+                # the guard owns the recovery of a trip (its rebuild restores
+                # the bank); any other failure may have left rows half
+                # written: every live session starts again from its control
+                # plane, as the JAX scheduler recovers its donated state
+                self._recover_states_locked(e)
             return
+        self._maybe_bank_rows_locked()
         with self._has_work:
             # a rider released while this step ran fetches nothing (no claim
             # completes meanwhile: it needs the step lock, held here)
@@ -537,21 +843,58 @@ class BatchScheduler:
             hist = dict(self._occ_hist)  # copy on write: snapshot() reads it unlocked
             hist[n] = hist.get(n, 0) + 1
             self._occ_hist = hist
-            self._waits.extend(t_disp - p.t_enq for _, p in entries)
-        for i, (_, p) in enumerate(entries):
-            try:
-                p.future.set_result((batch, i))
-            except InvalidStateError:
-                pass  # cancelled by a release
+            self._waits.extend(t_disp - p.t_enq for _, group in entries for p in group)
+        for i, (_, group) in enumerate(entries):
+            for fi, p in enumerate(group):
+                p.sub = fi
+                try:
+                    p.future.set_result((batch, i))
+                except InvalidStateError:
+                    pass  # cancelled by a release
 
-    def _resolve_row(self, batch: _DispatchedBatch, row: int) -> np.ndarray:
+    def _recover_states_locked(self, cause):
+        """After a failed step that was not the guard's: reinstall every live
+        session's state from its control plane (the caller holds the step
+        lock).  Best effort: if the model itself is broken, the next step
+        says so."""
         try:
-            return batch.readback.row(row)
-        finally:  # a failed readback frees its in-flight place as well
-            if not batch.resolved:
-                with self._has_work:
-                    batch.resolved = True
-                    self._has_work.notify()
+            for slot, sess in list(self._sessions.items()):
+                if self.active[slot]:
+                    install_row(self.states, slot, self._build_state(
+                        sess.prompt, sess.guidance_scale, sess.delta, sess._seed,
+                        sess.t_index_list))
+            logger.warning("batchsched: rebuilt the live session rows after a failed step (%r)",
+                           cause)
+        except Exception:
+            logger.exception("batchsched state recovery failed")
+
+    def _resolve_row(self, batch: _DispatchedBatch, row: int,
+                     t0: float | None = None) -> np.ndarray:
+        """A rider's row of ``batch`` on the host.  The first resolve of a
+        step frees its in-flight place and feeds :attr:`on_step` the step's
+        cost per session (dispatch -> resolve, or the blocking wait when
+        shorter: the wait overstates nothing when the fetch came late)."""
+        try:
+            out = batch.readback.row(row)
+        except Exception:  # a failed readback frees its in-flight place as well
+            self._first_resolve(batch)
+            raise
+        if self._first_resolve(batch) and batch.feed and self.on_step is not None:
+            t1 = time.monotonic()
+            dt = t1 - batch.t_dispatch if t0 is None else min(t1 - batch.t_dispatch, t1 - t0)
+            try:
+                self.on_step(dt / max(1, batch.occupancy), batch.occupancy)
+            except Exception:
+                logger.exception("batchsched on_step hook failed")
+        return out
+
+    def _first_resolve(self, batch: _DispatchedBatch) -> bool:
+        if batch.resolved:
+            return False
+        with self._has_work:
+            first, batch.resolved = not batch.resolved, True
+            self._has_work.notify()
+        return first
 
     def _run(self):
         try:
@@ -600,7 +943,7 @@ class BatchScheduler:
             "batchsched_steps_total": self.steps_total,
             "batchsched_window_ms": round(1e3 * self.window_s, 3),
             "batchsched_dp": 1,
-            "batchsched_fbs": 1,
+            "batchsched_fbs": self.fbs,
             "batchsched_occupancy_hist": {str(k): v for k, v in sorted(self._occ_hist.items())},
             "batchsched_graphs": {str(k): v for k, v in self.graph_status().items()},
         }
@@ -611,3 +954,7 @@ class BatchScheduler:
             out["batchsched_window_wait_ms_p50"] = round(1e3 * self._percentile(waits, 0.5), 3)
             out["batchsched_window_wait_ms_p99"] = round(1e3 * self._percentile(waits, 0.99), 3)
         return out
+
+    def session_snapshots(self) -> dict:
+        """{session key: its scheduler view} for /health."""
+        return {sess.session_key: sess.snapshot() for sess in list(self._sessions.values())}

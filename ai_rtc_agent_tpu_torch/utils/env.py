@@ -14,6 +14,25 @@ Variables read by the port's server:
   BATCHSCHED_QUEUE_BOUND            frames queued per session (2)
   BATCHSCHED_PREWARM                step every bucket once at startup (on)
   MULTIPEER_BUCKETS                 --multipeer steps only the active slots (on)
+  SUPERVISOR                        per-session supervision (on)
+  SUPERVISOR_STALL_AFTER_S          output-age watchdog (5 s)
+  RESILIENCE_STEP_TIMEOUT_S         a supervised step's budget (5 s)
+  RESILIENCE_FIRST_STEP_TIMEOUT_S   the first steps' budget (300 s)
+  OVERLOAD_CONTROL                  admission, shedding ladder, ingest shed (on)
+  OVERLOAD_STEP_BUDGET_MS, OVERLOAD_LOOP_LAG_BUDGET_MS   pressure budgets (1000, 200)
+  OVERLOAD_MAX_SESSIONS             session cap (0: none)
+  OVERLOAD_RETRY_AFTER_S            Retry-After base (2 s)
+  OVERLOAD_FRAME_DEADLINE_MS        ingest freshness deadline (500 ms)
+  OVERLOAD_TICK_S, OVERLOAD_UP_TICKS, OVERLOAD_DOWN_TICKS, OVERLOAD_PROBE_S,
+  OVERLOAD_LAG_INTERVAL_MS          the ladder's cadence and hysteresis
+  ENGINE_GUARD                      the engine guard over the batch scheduler (on)
+  ENGINE_STEP_DEADLINE_S            a bucket step's deadline, to its completion (30 s)
+  ENGINE_COLD_DEADLINE_S            a capturing step's and a rebuild's (600 s)
+  ENGINE_REBUILD_MAX_ATTEMPTS       rebuild attempts before evacuating (3)
+  ENGINE_REBUILD_BACKOFF_S          the first attempt's backoff, doubling (1 s)
+  ENGINE_SNAPSHOT_EVERY_S           snapshot bank cadence (5 s; <= 0 off)
+  EVACUATE_URL, WORKER_ID           self-evacuation on an exhausted rebuild
+  FAULT_PLAN                        fault injection plan (JSON, or @file)
 """
 
 from __future__ import annotations

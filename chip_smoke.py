@@ -21,7 +21,8 @@ Phases (each prints its own lines; any failure exits non-zero):
                 4-stage ring (cfg self) at 2, 3 (padded to 4 with a
                 duplicate slot) and 8 sessions, cfg initialize at 3 and
                 sd-turbo's cfg none at 8, slot-indexed in place, one graph
-                replay, each beside its floor and bound; attention at B=8
+                replay, each beside its floor and bound; the same with a
+                frame shift of 2 (--fbs 2) for the ring and sd-turbo; attention at B=8
                 and B=32 on two main-path shapes.  Attention captured in a
                 CUDA graph and replayed on new inputs at every main-path
                 shape and at B=8 and 32.
@@ -76,8 +77,34 @@ Phases (each prints its own lines; any failure exits non-zero):
                 peers (its coordinator captures every bucket at startup):
                 launches per tick, each peer's frames against a dedicated
                 engine that replays its slot's ticks.
-  7. a "kernels" JSON line (launch counts of phases 4, 5 and 6), then the
-     last line {"ok": true, "device": ...}.
+  7. faults   — the fault domain (server/sessions.py's wiring, resilience/).
+                7a: --fbs 2 through a graph scheduler, 2 sessions x 8 frames
+                two per bucket step (32 + 1 launches a step), each held to
+                a dedicated engine at fbs 2 and the f32 reference; a prompt
+                on one session moves only its frames; two WHIP publishers
+                at --fbs 2 claim their own scheduler sessions.  7b: a
+                slow_step under a session's supervisor on the pipeline
+                path: the delayed frame is its source bit for bit, HEALTHY
+                -> DEGRADED -> RECOVERING -> HEALTHY, the step held past
+                restart() replays nothing, the frames after it meet phase
+                4's criterion.  7c: the engine guard over a 2-slot graph
+                scheduler wired as the agent wires it: (i) a wedge trips
+                it (riders passthrough, /whip 503 with Retry-After, claims
+                refused), the rebuild recaptures every bucket and restores
+                the snapshot bank bit for bit, the released step replays
+                nothing, frames resume within phase 4's criterion; (ii) a
+                sleep kernel holds the default stream past a 1 s deadline:
+                the guard trips on the completion deadline and re-arms
+                after the stall; (iii) device_lost with a rebuild that
+                keeps failing: EVACUATING -> FAILED, passthrough goes on;
+                trip -> ARMED printed.  7d: a slow bucket step raises the
+                admission EWMA and /whip answers 503 (the /health and
+                /capacity bodies printed); ms between bucket steps at k =
+                1, 4, 8 with the guard and supervision on and off (on,
+                off, off, on), the snapshot bank's refresh at k=8, served
+                fps with SUPERVISOR on and off in turns.
+  8. a "kernels" JSON line (launch counts of phases 4 to 7), then the last
+     line {"ok": true, "device": ...}.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -436,15 +463,22 @@ SESSION_EPILOGUE = [
     ("self", 2, [5, 2]), ("self", 3, [6, 1, 3, 3]), ("self", 8, [7, 0, 5, 2, 4, 1, 6, 3]),
     ("initialize", 3, [2, 0, 4, 4]), ("none", 8, [3, 6, 0, 7, 1, 5, 2, 4]),
 ]
+# the same call at frame_buffer_size 2 (--fbs 2 through the scheduler): two
+# new frames per session, the renoise shift 2 within each session's rows
+SESSION_EPILOGUE_FBS2 = [
+    ("self", 2, [5, 2]), ("self", 3, [6, 1, 3, 3]), ("none", 2, [3, 6]), ("none", 3, [7, 0, 4, 4]),
+]
 
 
-def session_epilogue_call(torch, cfg_type: str, k_real: int, slots: list, gen, device="cuda"):
+def session_epilogue_call(torch, cfg_type: str, k_real: int, slots: list, gen, device="cuda",
+                          fbs: int = 1):
     """The bucket step's epilogue call as (args, kwargs): k = len(slots)
-    sessions of B rows (4 stages, or sd-turbo's 1 with turbo) of
-    [64,64,4] bf16 over a stacked state of N_SLOTS slots, each slot with its
-    own coefficients (its t-indices moved by its slot number), guidance and
-    delta; renoise shift 1 within each session, the advanced rows into the
-    stacked ring and the new stock into the stacked stock it reads."""
+    sessions of B rows (4 stages, or sd-turbo's 1 with turbo, times fbs
+    frames) of [64,64,4] bf16 over a stacked state of N_SLOTS slots, each
+    slot with its own coefficients (its t-indices moved by its slot
+    number), guidance and delta; renoise shift fbs within each session, the
+    advanced rows into the stacked ring and the new stock into the stacked
+    stock it reads."""
     from ai_rtc_agent_tpu_torch.ops import lcm as L
     from ai_rtc_agent_tpu_torch.ops import schedule as S
 
@@ -452,20 +486,21 @@ def session_epilogue_call(torch, cfg_type: str, k_real: int, slots: list, gen, d
     tables = []
     for i in range(N_SLOTS):
         if turbo:
-            bt = S.batched_sub_timesteps((0,), 1, spacing="trailing")
+            bt = S.batched_sub_timesteps((0,), 1, fbs, spacing="trailing")
         else:
-            bt = S.batched_sub_timesteps((10 + i, 20 + i, 30 + i, 40 + i), 50)
-        tables.append(L.make_step_coeffs(S.make_schedule(), bt).to(device).as_dict())
+            bt = S.batched_sub_timesteps((10 + i, 20 + i, 30 + i, 40 + i), 50, fbs)
+        tables.append(L.make_step_coeffs(S.make_schedule(), bt, fbs).to(device).as_dict())
     c = L.StepCoeffs(*(torch.stack([t[f] for t in tables]) for f in tables[0]))
     B = c.alpha.shape[1]
     rand = lambda *shape: torch.randn(shape, generator=gen, device=device).to(torch.bfloat16)  # noqa: E731
     x, e = rand(len(slots) * B, 64, 64, 4), rand(len(slots) * B, 64, 64, 4)
     stock, noise = rand(N_SLOTS, B, 64, 64, 4), rand(N_SLOTS, B, 64, 64, 4)
-    ring = rand(N_SLOTS, B - 1, 64, 64, 4)
+    ring = rand(N_SLOTS, B - fbs, 64, 64, 4)
     g = 1.1 + 0.1 * torch.arange(N_SLOTS, device=device, dtype=torch.float32)
     d = 0.95 - 0.05 * torch.arange(N_SLOTS, device=device, dtype=torch.float32)
-    kwargs = dict(cfg_type=cfg_type, turbo=turbo, noise_shift=1, advanced_out=ring, stock_out=stock,
-                  slots=torch.tensor(slots, dtype=torch.int32, device=device), k_real=k_real)
+    kwargs = dict(cfg_type=cfg_type, turbo=turbo, noise_shift=fbs, advanced_out=ring,
+                  stock_out=stock, slots=torch.tensor(slots, dtype=torch.int32, device=device),
+                  k_real=k_real)
     return (x, e, stock, noise, c, g, d), kwargs
 
 
@@ -575,12 +610,14 @@ def phase_session_epilogue(torch, KF) -> float:
     time beside its launch floor and bound."""
     gen = torch.Generator(device="cuda").manual_seed(3)
     max_err = 0.0
-    for i, (cfg_type, k_real, slots) in enumerate(SESSION_EPILOGUE):
-        args, kwargs = session_epilogue_call(torch, cfg_type, k_real, slots, gen)
+    cases = [c + (1,) for c in SESSION_EPILOGUE] + [c + (2,) for c in SESSION_EPILOGUE_FBS2]
+    for i, (cfg_type, k_real, slots, fbs) in enumerate(cases):
+        args, kwargs = session_epilogue_call(torch, cfg_type, k_real, slots, gen, fbs=fbs)
         R = args[0].shape[0]
         n, seg = args[0].numel() // R, R // len(slots)
         label = (f"epilogue cfg={cfg_type} {k_real} sessions in a bucket of {len(slots)} "
-                 f"(slots {slots}) x {seg} rows [64,64,4] bf16, {N_SLOTS} stacked slots")
+                 f"(slots {slots}) x {seg} rows [64,64,4] bf16, {N_SLOTS} stacked slots, "
+                 f"frame shift {fbs}")
         a, kw = fresh_epilogue_call(args, kwargs)
         got = KF.fused_stream_epilogue(*a, **kw)
         torch.cuda.synchronize()
@@ -588,7 +625,7 @@ def phase_session_epilogue(torch, KF) -> float:
             fail(f"{label}: the in-place outputs are not the stacked tensors passed in")
         errs = [_epilogue_errors(f"{label} in place", got, plain_epilogue_call(KF, args, kwargs),
                                  k_real * seg)]
-        if i == 1:  # the padded bucket, once through a graph
+        if i == 1 or (fbs == 2 and i == len(SESSION_EPILOGUE) + 1):  # padded buckets, through a graph
             errs.append(_epilogue_errors(f"{label} graph replay",
                                          *epilogue_graph_replay(torch, KF, args, kwargs), k_real * seg))
         err, rel = max(e[0] for e in errs), max(e[1] for e in errs)
@@ -600,7 +637,7 @@ def phase_session_epilogue(torch, KF) -> float:
         flops, nbytes = epilogue_work(args, kwargs)
         bms, by = bound(flops, PEAK_F32_FLOPS, nbytes)
         say(
-            f"{label}{', and graph replay' if i == 1 else ''}: max_abs_err {err:.3e}, max rel "
+            f"{label}{', and graph replay' if len(errs) > 1 else ''}: max_abs_err {err:.3e}, max rel "
             f"{rel:.2e} (tol 1 bf16 ulp = 2^-7 rel) | kernel {ms:.5f} ms, launch floor {floor:.5f} ms "
             f"(empty kernel, same grid), plain {plain:.4f} ms, bound {bms:.6f} ms ({by}; {nbytes} B, "
             f"{flops} flop) | wrapper host {host_us:.2f} us per call"
@@ -958,7 +995,7 @@ def phase_serve(torch, card: str, pipe):
     async def serve():
         state = {}
         sessions.configure(state, model_id=pipe.model_id, pipeline=pipe, provider=LoopbackProvider())
-        sessions.startup(state)
+        await sessions.startup(state)
         pub_id, pub_pc, view_id, viewer = await open_loopback_session(state)
         pipe.restart()
         torch.cuda.synchronize()
@@ -1440,6 +1477,565 @@ def phase_sessions(torch, card: str, pipe, ref_bundle, ring_model="stabilityai/s
     return tuple(total)
 
 
+# -- phase 7: the fault domain ------------------------------------------------------------
+
+FBS_FRAMES = 8  # 7a: frames per session at --fbs 2
+SLOW_STEP_S = 1.5  # 7b: the injected slow step, against a 0.5 s step budget
+STALL_S = 3.0  # 7c (ii): how long a sleep kernel holds the device, against a 1 s deadline
+OVERLOAD_STEP_S = 3.0  # 7d: a slow step of one session, against a 1 s budget (EWMA alpha 0.4)
+COST_OCCUPANCY = (1, 4, 8)  # 7d: ms between bucket steps, the plane on and off
+COST_FRAMES = 24
+SERVE_TURNS = ("on", "off", "off", "on")  # 7d: served fps, SUPERVISOR on and off (ABBA)
+
+
+class _Env:
+    """Set environment variables for a block and put them back after."""
+
+    def __init__(self, **values):
+        self.values, self.saved = values, {}
+
+    def __enter__(self):
+        for k, v in self.values.items():
+            self.saved[k] = os.environ.get(k)
+            os.environ[k] = str(v)
+
+    def __exit__(self, *exc):
+        for k, v in self.saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _wait_for(pred, timeout_s: float, what: str) -> float:
+    """Poll ``pred`` until it holds; -> the seconds it took (fails past the
+    timeout: nothing in phase 7 may hang)."""
+    t = time.perf_counter()
+    while not pred():
+        if time.perf_counter() - t > timeout_s:
+            fail(f"faults: no {what} within {timeout_s:.0f} s")
+        time.sleep(0.002)
+    return time.perf_counter() - t
+
+
+def _inject(faults, kind: str, **kw):
+    """A fault plan of one ``kind`` engine fault on the next step; -> its scope."""
+    faults.activate(faults.FaultPlan(
+        specs=(faults.FaultSpec(target="engine", kind=kind, start=0, stop=1, **kw),), seed=7))
+    return faults.scope("engine")
+
+
+def capture_seconds(sched) -> dict:
+    """{bucket size: seconds its capture took} for a scheduler's buckets."""
+    steps = sched._bucket.graph_cache.steps()
+    return {k: round(steps[key].capture_s, 3) for k, key in sched.bucket_keys().items()
+            if key in steps and steps[key].captured}
+
+
+def _rows_equal(torch, a: dict, b: dict) -> bool:
+    return all(_rows_equal(torch, a[k], b[k]) if isinstance(a[k], dict) else torch.equal(a[k], b[k])
+               for k in a)
+
+
+def drive_groups(sessions, frames, n: int) -> list:
+    """One thread per session, each stepping its ``n`` frames two at a time
+    through ``submit_batch``/``fetch_batch`` (a --fbs 2 track); -> outputs."""
+    outs, errors = [[] for _ in sessions], []
+
+    def run(i, sess):
+        try:
+            for j in range(0, n, 2):
+                outs[i] += sess.fetch_batch(sess.submit_batch(frames[i][j:j + 2]))
+        except BaseException as e:  # noqa: BLE001 - reported on the main thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(i, s)) for i, s in enumerate(sessions)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    return outs
+
+
+def phase_faults(torch, card: str, pipe, ref_bundle):
+    """7a --fbs 2 through the scheduler; 7b supervision on the pipeline path;
+    7c the engine guard over the scheduler (a wedge, a real device stall, an
+    exhausted rebuild); 7d overload, and the cost of the plane.  -> the
+    attention and epilogue launches of the steps it drove."""
+    import numpy as np
+
+    from ai_rtc_agent_tpu_torch.stream.scheduler import BatchScheduler
+
+    total = [0, 0]
+
+    def count(before, steps, label):
+        a, e = (x - y for x, y in zip(_launches(), before))
+        say(f"{label}: launches over {steps} steps: attention {a}, epilogue {e}")
+        if a != 32 * steps or e != steps:
+            fail(f"{label}: expected {32 * steps} attention and {steps} epilogue launches")
+        total[0] += a
+        total[1] += e
+
+    with _Env(WARMUP_FRAMES=0, DROP_FRAMES=0):
+        fault_fbs(torch, card, pipe, ref_bundle, count, BatchScheduler)
+        fault_supervision(torch, card, pipe, ref_bundle, count)
+        with _Env(ENGINE_STEP_DEADLINE_S=1.0, ENGINE_COLD_DEADLINE_S=60.0,
+                  ENGINE_REBUILD_BACKOFF_S=0.25, ENGINE_SNAPSHOT_EVERY_S=1e-6):
+            asyncio.run(fault_guard(torch, card, pipe, ref_bundle, count, BatchScheduler))
+        fault_cost(torch, card, pipe, count, BatchScheduler)
+    return tuple(total)
+
+
+def fault_fbs(torch, card, pipe, ref_bundle, count, BatchScheduler):
+    """7a: sd-turbo at --fbs 2 through graphs, 2 sessions x FBS_FRAMES frames,
+    each held to its own references; a prompt on one session moves only its
+    frames; then two WHIP publishers at --fbs 2 through the session layer."""
+    import numpy as np
+
+    from ai_rtc_agent_tpu_torch.server import sessions as SL
+    from ai_rtc_agent_tpu_torch.server.signaling import LoopbackProvider, make_loopback_offer
+
+    eng, dev = pipe.engine, pipe.device
+    size = pipe.config.height
+    cfg2 = replace(pipe.config, frame_buffer_size=2)
+    t = time.perf_counter()
+    # a window longer than a step, so that the two sessions' groups coalesce
+    sched = BatchScheduler(eng.models, eng.params, cfg2, eng.encode_prompt, model_id=pipe.model_id,
+                           max_sessions=2, default_prompt=pipe.prompt, schedule=eng.schedule,
+                           window_ms=50.0, device=dev)
+    say(f"faults 7a: BatchScheduler at fbs 2 (frames [k,2,{size},{size},3]), buckets "
+        f"{sched.graph_status()} captured in {time.perf_counter() - t:.1f}s, queue bound "
+        f"{sched.queue_bound} | key {sched.bucket_keys()[2]}")
+    try:
+        sess = [sched.claim(f"f{i}", prompt=SESSION_PROMPTS[i], seed=300 + i) for i in range(2)]
+        rows = [session_row(sched.states, s.slot) for s in sess]
+        frames = [_frames(np, FBS_FRAMES, seed=80 + i, size=size) for i in range(2)]
+        _sync(torch, dev)
+        steps0, before = sched.steps_total, _launches()
+        t = time.perf_counter()
+        outs = drive_groups(sess, frames, FBS_FRAMES)
+        wall = time.perf_counter() - t
+        steps = sched.steps_total - steps0
+        count(before, steps, "faults 7a fbs 2")
+        hist = sched.snapshot()["batchsched_occupancy_hist"]
+        if "2" not in hist:
+            fail(f"faults 7a: the two sessions never shared a bucket step ({hist})")
+        for i, s in enumerate(sess):
+            ded = Dedicated(torch, eng.models, eng.params, cfg2, eng.encode_prompt, ref_bundle,
+                            rows[i], dev)
+            for j in range(0, FBS_FRAMES, 2):
+                ded(np.stack(frames[i][j:j + 2]))
+            ded.outs = [o for group in ded.outs for o in group]
+            ded.refs = [o for group in ded.refs for o in group]
+            say(f"faults 7a session {i} (slot {s.slot}), {FBS_FRAMES} frames two per step: "
+                + hold_to_references(np, f"7a session {i}", outs[i], ded))
+        say(f"faults 7a: {card} | 2 sessions x {FBS_FRAMES} frames in {steps} bucket steps "
+            f"(occupancy {hist}), {wall * 1e3 / steps:.2f} ms per step, "
+            f"{2 * FBS_FRAMES / wall:.2f} fps in all")
+        # the prompt of session 0: its frames move, session 1's stay
+        first = [f[:2] for f in frames]
+        before_outs = drive_groups(sess, first, 2)
+        sess[0].update_prompt(SESSION_PROMPTS[-1])
+        after = drive_groups(sess, first, 2)
+        moved = [np.mean([np.abs(a.astype(np.int16) - b).mean() for a, b in zip(after[i],
+                                                                              before_outs[i])])
+                 for i in range(2)]
+        ded = Dedicated(torch, eng.models, eng.params, cfg2, eng.encode_prompt, ref_bundle,
+                        session_row(sched.states, sess[0].slot), dev)
+        ded(np.stack(first[0]))
+        ded.outs, ded.refs = list(ded.outs[0]), list(ded.refs[0])
+        say(f"faults 7a: update_prompt on session 0 moved its frames by a mean {moved[0]:.3f} "
+            f"levels, session 1's by {moved[1]:.3f}; session 0 after it: "
+            + hold_to_references(np, "7a prompt", after[0], ded))
+        if moved[0] <= 2 * moved[1] + 0.5:
+            fail("faults 7a: a prompt update must move its own session's frames, not the other's")
+        for s in sess:
+            s.release()
+
+        async def two_publishers():
+            state = {}
+            SL.configure(state, model_id=pipe.model_id, pipeline=pipe, provider=LoopbackProvider(),
+                         fbs=2, batch_scheduler=sched)
+            await SL.startup(state)
+            try:
+                sids = []
+                for _ in range(2):
+                    r = await SL.publish(state, make_loopback_offer())
+                    if r.status != 201:
+                        fail(f"faults 7a: WHIP at --fbs 2 answered {r.status} {r.body}")
+                    sids.append(r.headers["Location"].rsplit("/", 1)[1])
+                live = state["state"]
+                slots = sorted(s.slot for s in sched._sessions.values())
+                keys = sorted(s.session_key for s in sched._sessions.values())
+                if keys != sorted(sids) or len(set(slots)) != 2:
+                    fail(f"faults 7a: two publishers did not claim two scheduler sessions "
+                         f"({keys} vs {sids})")
+                for j, sid in enumerate(sids):
+                    for f in _frames(np, 4, seed=120 + j, size=size):
+                        await live["whip_pcs"][sid].in_track.push(f)
+                got = [[await asyncio.wait_for(live["whip_tracks"][sid].recv(), 60)
+                        for _ in range(2)] for sid in sids]
+                for g in got:
+                    for a in g:
+                        a = np.asarray(a)
+                        if a.shape != (size, size, 3) or a.dtype != np.uint8:
+                            fail(f"faults 7a: bad served frame {a.shape} {a.dtype}")
+                for sid in sids:
+                    await SL.close(state, "whip", sid)
+                return slots, sum(len(g) for g in got)
+            finally:
+                await SL.shutdown(state)
+
+        slots, viewed = asyncio.run(two_publishers())
+        say(f"faults 7a: two WHIP publishers at --fbs 2 through the session layer claimed "
+            f"scheduler slots {slots}; {viewed} processed frames read back")
+    finally:
+        sched.close()
+
+
+def fault_supervision(torch, card, pipe, ref_bundle, count):
+    """7b: a slow step on the pipeline path under its supervisor: the delayed
+    frame comes back as its source bit for bit, HEALTHY -> DEGRADED ->
+    RECOVERING -> HEALTHY, the step released after restart() replays
+    nothing, and the frames after recovery meet phase 4's criterion."""
+    import numpy as np
+
+    from ai_rtc_agent_tpu_torch.resilience import faults
+    from ai_rtc_agent_tpu_torch.resilience.supervisor import ResilientPipeline, SessionSupervisor
+
+    eng, dev = pipe.engine, pipe.device
+    frames = _frames(np, 10, seed=90, size=pipe.config.height)
+    pipe.restart()
+    sup = SessionSupervisor("7b", restart_backoff_s=0.05)
+    rp = ResilientPipeline(pipe, sup, step_timeout_s=0.5, first_step_timeout_s=0.5, warm_steps=0)
+    try:
+        before = _launches()
+        for f in frames[:3]:
+            rp(f)
+        count(before, 3, "faults 7b healthy steps")
+        eng._fault_scope = _inject(faults, "slow_step", delay_s=SLOW_STEP_S)
+        held_runner = rp._runner
+        t = time.perf_counter()
+        out = rp(frames[3])
+        degraded_ms = (time.perf_counter() - t) * 1e3
+        if not np.array_equal(np.asarray(out), frames[3]):
+            fail("faults 7b: the delayed frame did not come back as its source")
+        restart_s = _wait_for(lambda: sup.state == "RECOVERING", 30.0, "restart (RECOVERING)")
+        restarted = session_row(eng.state, None)
+        before = _launches()
+        held_runner._thread.join(SLOW_STEP_S + 10.0)  # the held step wakes now
+        if held_runner._thread.is_alive():
+            fail("faults 7b: the held step did not return")
+        late = tuple(x - y for x, y in zip(_launches(), before))
+        if late != (0, 0) or not _rows_equal(torch, session_row(eng.state, None), restarted):
+            fail(f"faults 7b: the step held past restart() replayed ({late} launches) or moved "
+                 "the state")
+        eng._fault_scope = None
+        faults.deactivate()
+        ded = Dedicated(torch, eng.models, eng.params, pipe.config, eng.encode_prompt, ref_bundle,
+                        restarted, dev)
+        before = _launches()
+        after = [rp(f) for f in frames[4:10]]
+        count(before, 6, "faults 7b after recovery")
+        for f in frames[4:10]:
+            ded(f)
+        path = [t["to"] for t in sup.snapshot()["transitions"]]
+        snap = sup.snapshot()
+        say(f"faults 7b: {card} | slow_step {SLOW_STEP_S}s against a 0.5 s budget: passthrough "
+            f"of the source frame after {degraded_ms:.1f} ms, restart() done {restart_s:.3f} s "
+            f"later; the held step woke after it: 0 launches, ring and stock as restarted, bit "
+            f"for bit | states HEALTHY -> {' -> '.join(path)} | processed "
+            f"{snap['processed_frames']}, passthrough {snap['passthrough_frames']} | after "
+            f"recovery: " + hold_to_references(np, "7b after recovery", after, ded))
+        if path != ["DEGRADED", "RECOVERING", "HEALTHY"]:
+            fail(f"faults 7b: supervisor states {path}")
+    finally:
+        eng._fault_scope = None
+        faults.deactivate()
+        rp.close()
+
+
+async def fault_guard(torch, card, pipe, ref_bundle, count, BatchScheduler):
+    """7c (i) a wedge, (ii) a device stall, then 7d's overload, then 7c (iii)
+    an exhausted rebuild: the engine guard over a 2-slot scheduler (graphs)
+    wired as the agent wires it (server/sessions.py startup)."""
+    import numpy as np
+
+    from ai_rtc_agent_tpu_torch.parallel.multipeer import CapacityError
+    from ai_rtc_agent_tpu_torch.resilience import faults
+    from ai_rtc_agent_tpu_torch.resilience.supervisor import ResilientPipeline
+    from ai_rtc_agent_tpu_torch.server import sessions as SL
+    from ai_rtc_agent_tpu_torch.server.signaling import LoopbackProvider, make_loopback_offer
+    from ai_rtc_agent_tpu_torch.tree import tree_map
+
+    eng, dev = pipe.engine, pipe.device
+    sched = BatchScheduler.from_pipeline(pipe, max_sessions=2)
+    state = {}
+    SL.configure(state, model_id=pipe.model_id, pipeline=pipe, provider=LoopbackProvider(),
+                 batch_scheduler=sched)
+    await SL.startup(state)
+    guard = state["engine_guard"]
+    events = []
+    handler = state["stream_event_handler"]
+    fire = handler.handle_engine_state
+
+    def record(event, st, reason="", **extra):
+        events.append((event, st, time.perf_counter()))
+        return fire(event, st, reason=reason, **extra)
+
+    handler.handle_engine_state = record
+    sess = [sched.claim(f"g{i}", prompt=SESSION_PROMPTS[i], seed=400 + i) for i in range(2)]
+    rps = [ResilientPipeline(s) for s in sess]
+    size = pipe.config.height
+    frames = [_frames(np, 16, seed=130 + i, size=size) for i in range(2)]
+
+    async def tick(i):
+        return await asyncio.gather(*(asyncio.to_thread(lambda rp=rp, f=f[i]: rp.fetch(
+            rp.submit(f))) for rp, f in zip(rps, frames)))
+
+    async def ticks(idx, label):
+        steps0, before = sched.steps_total, _launches()
+        outs = [await tick(i) for i in idx]
+        count(before, sched.steps_total - steps0, label)
+        return outs
+
+    def passthrough(outs, i, label):
+        if not all(np.array_equal(np.asarray(o), f[i]) for o, f in zip(outs, frames)):
+            fail(f"faults {label}: a rider's frame was not its source (passthrough)")
+
+    async def rearmed(n: int, what: str) -> float:
+        """Wait for the n-th EngineRecovered webhook; -> ms from the trip's
+        EngineDegraded to it."""
+        await asyncio.to_thread(_wait_for, lambda: [e for e, _, _ in events].count(
+            "EngineRecovered") == n, 60.0, f"rebuild ({what})")
+        t0 = next(t for e, _, t in reversed(events) if e == "EngineDegraded")
+        t1 = next(t for e, _, t in reversed(events) if e == "EngineRecovered")
+        if guard.state != "ARMED":
+            fail(f"faults 7c: the guard is {guard.state} after the rebuild ({what})")
+        return (t1 - t0) * 1e3
+
+    try:
+        await ticks(range(3), "faults 7c healthy steps")
+        bank = {slot: tree_map(torch.clone, row) for slot, row in sched._snap_rows.items()}
+        # (i) a wedge holds the step until released
+        held_runner = guard._runner
+        sched._fault_scope = _inject(faults, "wedge")
+        t = time.perf_counter()
+        outs = await tick(3)
+        tripped_ms = (time.perf_counter() - t) * 1e3
+        passthrough(outs, 3, "7c wedge")
+        r = await SL.publish(state, make_loopback_offer())
+        if (r.status, r.body) != (503, "engine quarantined") or "Retry-After" not in r.headers:
+            fail(f"faults 7c: a claim during the quarantine answered {r.status} {r.body!r}")
+        try:
+            sched.claim("late")
+            fail("faults 7c: the scheduler took a claim while quarantined")
+        except CapacityError:
+            pass
+        wedge_ms = await rearmed(1, "wedge")
+        captures = capture_seconds(sched)
+        restored = all(_rows_equal(torch, session_row(sched.states, s.slot), bank[s.slot])
+                       for s in sess)
+        if not restored or set(bank) != {s.slot for s in sess}:
+            fail("faults 7c: the rebuilt rows are not the banked rows bit for bit")
+        rebuilt = [session_row(sched.states, s.slot) for s in sess]
+        before = _launches()
+        faults.release_wedge()  # the held step wakes after the rebuild
+        held_runner._thread.join(10.0)
+        late = tuple(x - y for x, y in zip(_launches(), before))
+        if held_runner._thread.is_alive() or late != (0, 0) or not all(
+                _rows_equal(torch, session_row(sched.states, s.slot), row)
+                for s, row in zip(sess, rebuilt)):
+            fail(f"faults 7c: the wedged step released after the rebuild replayed ({late}) or "
+                 "wrote the plane")
+        sched._fault_scope = None
+        faults.deactivate()
+        deds = [Dedicated(torch, eng.models, eng.params, pipe.config, eng.encode_prompt,
+                          ref_bundle, bank[s.slot], dev) for s in sess]
+        outs = await ticks(range(4, 8), "faults 7c after the wedge")
+        for j, ded in enumerate(deds):
+            for i in range(4, 8):
+                ded(frames[j][i])
+        held = [hold_to_references(np, f"7c session {j} after the rebuild", [o[j] for o in outs],
+                                   ded) for j, ded in enumerate(deds)]
+        say(f"faults 7c (i) wedge: {card} | the guard tripped in {tripped_ms:.1f} ms (deadline "
+            f"{guard.deadline_s:g} s), both riders passthrough, /whip 503 'engine quarantined' "
+            f"Retry-After {r.headers['Retry-After']}, claim refused | rebuild recaptured "
+            f"buckets (s) {captures}, restored rows = bank bit for bit, the released step "
+            f"replayed nothing | trip -> ARMED {wedge_ms:.1f} ms | after: " + "; ".join(held))
+
+        # (ii) a device stall: a sleep kernel holds the default stream (the
+        # card only: a CPU rehearsal of this phase has no stream to hold)
+        recovered = 2 if dev.type == "cuda" else 1
+        if dev.type == "cuda":
+            await fault_stall(torch, card, sched, tick, ticks, rearmed, passthrough, size)
+
+        # 7d: a slow bucket step raises the admission EWMA; /whip answers 503
+        adm = state["overload"].admission
+        ewma0 = adm.step_ewma.value
+        guard.deadline_s = 30.0
+        sched._fault_scope = _inject(faults, "slow_step", delay_s=OVERLOAD_STEP_S)
+        steps0, before = sched.steps_total, _launches()
+        await asyncio.to_thread(lambda: rps[0].fetch(rps[0].submit(frames[0][11])))
+        count(before, sched.steps_total - steps0, "faults 7d slow step")
+        sched._fault_scope = None
+        faults.deactivate()
+        r = await SL.publish(state, make_loopback_offer())
+        if (r.status, r.body) != (503, "overloaded") or "Retry-After" not in r.headers:
+            fail(f"faults 7d: /whip under pressure answered {r.status} {r.body!r}")
+        say(f"faults 7d: a {OVERLOAD_STEP_S:g} s bucket step of 1 session: admission step EWMA "
+            f"{ewma0 * 1e3:.1f} -> {adm.step_ewma.value * 1e3:.1f} ms per session (budget "
+            f"{adm.step_budget_s * 1e3:.0f}), pressure {adm.pressure():.3f}; /whip {r.status} "
+            f"{r.body!r} Retry-After {r.headers['Retry-After']}")
+        say(f"faults 7d /health: {json.dumps(SL.health(state), sort_keys=True)}")
+        say(f"faults 7d /capacity: {json.dumps(SL.capacity(state), sort_keys=True)}")
+
+        # (iii) device lost, and a rebuild that keeps failing
+        def refuse(*a, **k):
+            raise RuntimeError("device still gone (injected)")
+
+        sched.rebuild_engine = refuse
+        guard.deadline_s = 1.0
+        sched._fault_scope = _inject(faults, "device_lost")
+        outs = await tick(12)
+        passthrough(outs, 12, "7c device lost")
+        await asyncio.to_thread(_wait_for, lambda: guard.state == "FAILED" and "AgentEvacuating"
+                                in [e for e, _, _ in events], 30.0, "evacuation (FAILED)")
+        for i in (13, 14):
+            passthrough(await tick(i), i, "7c after FAILED")
+        names = [e for e, _, _ in events]
+        say(f"faults 7c (iii) device_lost, rebuild refused 3 times: guard {guard.health()} | "
+            f"webhooks {names} | passthrough goes on")
+        if names != ["EngineDegraded", "EngineRecovered"] * recovered + ["EngineDegraded",
+                                                                          "AgentEvacuating"]:
+            fail(f"faults 7c: engine webhooks {names}")
+    finally:
+        faults.deactivate()
+        for rp in rps:
+            rp.close()
+        await SL.shutdown(state)
+
+
+async def fault_stall(torch, card, sched, tick, ticks, rearmed, passthrough, size):
+    """7c (ii): a sleep kernel holds the default stream past the guard's
+    1 s deadline: the bucket step behind it trips the guard on its
+    completion deadline (nothing blocks), and the rebuild behind the stall
+    re-arms the plane once the sleep ends."""
+    import numpy as np
+
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    torch.cuda._sleep(50_000_000)
+    e1.record()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(STALL_S * 1e3 * 50_000_000 / e0.elapsed_time(e1)))
+    t = time.perf_counter()
+    outs = await tick(8)
+    tripped_ms = (time.perf_counter() - t) * 1e3
+    passthrough(outs, 8, "7c stall")
+    if tripped_ms > 1e3 * STALL_S:
+        fail(f"faults 7c: the stalled step returned after {tripped_ms:.0f} ms, past the stall: "
+             "the completion deadline did not trip")
+    armed_ms = await rearmed(2, "stall")
+    outs = await ticks(range(9, 11), "faults 7c after the stall")
+    if any(np.asarray(o).shape != (size, size, 3) for row in outs for o in row):
+        fail("faults 7c: bad frames after the stall")
+    say(f"faults 7c (ii) device stall: {card} | a sleep kernel held the default stream "
+        f"{STALL_S:g} s; the guard tripped on the completion deadline after {tripped_ms:.1f} ms "
+        f"(both riders passthrough, nothing blocked); the rebuild behind the stall: trip -> "
+        f"ARMED {armed_ms:.1f} ms, buckets (s) "
+        f"{capture_seconds(sched)}; steps resumed")
+
+
+def fault_cost(torch, card, pipe, count, BatchScheduler):
+    """7d: ms between bucket steps at k = 1, 4, 8 with the guard and
+    supervision on and off (ABBA), the snapshot bank's device cost per
+    refresh at k = 8, and served fps with SUPERVISOR on and off in turns."""
+    import numpy as np
+
+    from ai_rtc_agent_tpu_torch.resilience.engine_guard import EngineGuard
+    from ai_rtc_agent_tpu_torch.resilience.supervisor import ResilientPipeline
+    from ai_rtc_agent_tpu_torch.server import sessions as SL
+    from ai_rtc_agent_tpu_torch.server.signaling import LoopbackProvider
+
+    sched = BatchScheduler.from_pipeline(pipe, max_sessions=8)
+    guard = EngineGuard(sched, deadline_s=30.0, cold_deadline_s=600.0)
+    frames = [_frames(np, COST_FRAMES, seed=150 + i, size=pipe.config.height) for i in range(8)]
+    try:
+        for k in COST_OCCUPANCY:
+            sess = [sched.claim(f"c{i}", prompt=SESSION_PROMPTS[i], seed=500 + i) for i in range(k)]
+            wrapped = [ResilientPipeline(s) for s in sess]
+            res = {"on": [], "off": []}
+            for name in ("on", "off", "off", "on"):
+                sched.attach_guard(guard if name == "on" else None)
+                steps0, before = sched.steps_total, _launches()
+                run = drive_sessions(torch, wrapped if name == "on" else sess, frames, COST_FRAMES)
+                count(before, sched.steps_total - steps0, f"faults 7d k={k} plane {name}")
+                # a supervised session's handle is ("live", the scheduler's handle, frame)
+                run.handles = [[h[1] if isinstance(h, tuple) else h for h in hs]
+                               for hs in run.handles]
+                ms, n = run.steady_step_ms(SCHED_FILL)
+                res[name].append(f"{ms:.2f} ms ({n} steps, {sum(run.steady_fps(SCHED_FILL)):.2f} fps)")
+            if k == 8 and pipe.device.type == "cuda":
+                sched.attach_guard(guard)
+                e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                with sched._step_lock:
+                    sched._last_snap_t = 0.0
+                    e0.record()
+                    sched._maybe_bank_rows_locked()
+                    e1.record()
+                torch.cuda.synchronize()
+                nbytes = sum(a.numel() * a.element_size() for row in sched._snap_rows.values()
+                             for a in _leaves(row))
+                say(f"faults 7d: {card} | snapshot bank refresh at k=8: {e0.elapsed_time(e1):.4f} "
+                    f"ms on the device, {nbytes / 2**20:.3f} MiB cloned")
+            say(f"faults 7d k={k}: {card} | ms between bucket steps (steady, outputs "
+                f"{SCHED_FILL + 1}-{COST_FRAMES}), guard + supervision on: {res['on']}; off: "
+                f"{res['off']} (order on, off, off, on)")
+            for w in wrapped:
+                w.close()
+            for s in sess:
+                s.release()
+    finally:
+        guard.close()
+        sched.close()
+
+    depth = 2
+    pushed_n = 24
+
+    async def served(on: bool):
+        with _Env(SUPERVISOR=int(on)):
+            state = {}
+            SL.configure(state, model_id=pipe.model_id, pipeline=pipe, provider=LoopbackProvider())
+            await SL.startup(state)
+            try:
+                pub_id, pub_pc, view_id, viewer = await open_loopback_session(state)
+                fr = _frames(np, pushed_n, seed=170, size=pipe.config.height)
+                before = _launches()
+                t = time.perf_counter()
+                got, times = await exchange(pub_pc, viewer, fr + fr[-1:] * (depth - 1), 0, pushed_n)
+                count(before, pushed_n + depth - 1, f"faults 7d served, SUPERVISOR {int(on)}")
+                times = [x - t for x in times]
+                return (pushed_n - 1) / (times[-1] - times[0]), times[0] * 1e3
+            finally:
+                await SL.shutdown(state)
+
+    runs = [(turn, asyncio.run(served(turn == "on"))) for turn in SERVE_TURNS]
+    say(f"faults 7d: {card} | served (phase 5's loopback session, {pushed_n} frames), steady fps "
+        f"and first view ms, in turns: "
+        + ", ".join(f"SUPERVISOR {turn} {fps:.2f} fps / {first:.2f} ms" for turn, (fps, first) in runs))
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
 def main():
     import torch
 
@@ -1451,8 +2047,9 @@ def main():
     phase_graph_ab(torch, card, pipe, ref_bundle)
     serve_attn, serve_epi = phase_serve(torch, card, pipe)
     sessions_attn, sessions_epi = phase_sessions(torch, card, pipe, ref_bundle)
-    attn_launches += serve_attn + sessions_attn
-    epi_launches += serve_epi + sessions_epi
+    faults_attn, faults_epi = phase_faults(torch, card, pipe, ref_bundle)
+    attn_launches += serve_attn + sessions_attn + faults_attn
+    epi_launches += serve_epi + sessions_epi + faults_epi
     kernels = [
         {
             "name": "flash_attention", "route": "cuda",

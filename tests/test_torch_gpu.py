@@ -13,6 +13,7 @@ are chip_smoke's own helpers (it imports only the standard library).
 """
 
 import asyncio
+import time
 
 import numpy as np
 import pytest
@@ -225,7 +226,7 @@ def test_loopback_session_on_the_card(cuda, monkeypatch):
     async def serve():
         state = {}
         sessions.configure(state, pipeline=pipe, provider=LoopbackProvider())
-        sessions.startup(state)
+        await sessions.startup(state)
         pub_id, pub_pc, view_id, viewer = await chip_smoke.open_loopback_session(state)
         pipe.restart()
         start = KA.launches, KF.launches
@@ -520,3 +521,187 @@ def test_padded_bucket_leaves_the_padded_slot_untouched(cuda):
     for key in ("x_buf", "stock"):
         assert torch.equal(states[key][0], before[key][0]) and torch.equal(
             states[key][1], before[key][1]), key
+
+
+# -- the fault domain on the card: the engine guard over the captured bucket steps -------
+
+def _tiny_guarded(max_sessions, sessions, deadline_s=30.0, fbs=1):
+    """tiny-test's 4-stage ring (f32, plain attention) through a graph
+    scheduler under an engine guard that rebuilds only when asked, with
+    ``sessions`` claimed and the bank refreshed after every step."""
+    import os
+    from dataclasses import replace
+
+    from ai_rtc_agent_tpu_torch.models import registry
+    from ai_rtc_agent_tpu_torch.resilience.engine_guard import EngineGuard
+    from ai_rtc_agent_tpu_torch.stream.scheduler import BatchScheduler
+
+    cfg = replace(registry.default_stream_config("tiny-test", frame_buffer_size=fbs),
+                  dtype="float32", attn_impl="plain")
+    bundle = registry.load_model_bundle("tiny-test", attn_impl="plain")
+    os.environ["ENGINE_SNAPSHOT_EVERY_S"] = "0.000001"
+    try:
+        sched = BatchScheduler(bundle.stream_models, bundle.params, cfg, bundle.encode_prompt,
+                               max_sessions=max_sessions, window_ms=50.0)
+    finally:
+        del os.environ["ENGINE_SNAPSHOT_EVERY_S"]
+    guard = EngineGuard(sched, deadline_s=deadline_s, cold_deadline_s=60.0, auto_rebuild=False,
+                        sleep=lambda s: None)
+    sess = [sched.claim(f"s{i}", prompt=f"prompt {i}", seed=i) for i in range(sessions)]
+    return sched, guard, sess
+
+
+def _step_all(sess, frames):
+    handles = [s.submit(f) for s, f in zip(sess, frames)]
+    return [s.fetch(h) for s, h in zip(sess, handles)]
+
+
+def _row(sched, slot):
+    return chip_smoke.session_row(sched.states, slot)
+
+
+def _rows_equal(a, b):
+    return chip_smoke._rows_equal(torch, a, b)
+
+
+def test_guard_trips_on_the_completion_deadline(cuda):
+    """A sleep kernel holds the default stream for 3 s: the bucket step
+    queued behind it trips the guard on its 0.5 s completion deadline (the
+    riders get the quarantine error within a second, nothing waits for the
+    device), and a rebuild started behind the stall re-arms the plane."""
+    from ai_rtc_agent_tpu_torch.resilience.engine_guard import EngineQuarantinedError
+
+    sched, guard, sess = _tiny_guarded(2, 2, deadline_s=0.5)
+    try:
+        frames = [chip_smoke._frames(np, 2, seed=i, size=64) for i in range(2)]
+        _step_all(sess, [f[0] for f in frames])
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        torch.cuda._sleep(20_000_000)
+        e1.record()
+        torch.cuda.synchronize()
+        torch.cuda._sleep(int(3000 * 20_000_000 / e0.elapsed_time(e1)))
+        t = time.perf_counter()
+        with pytest.raises(EngineQuarantinedError):
+            _step_all(sess, [f[1] for f in frames])
+        assert time.perf_counter() - t < 1.5
+        assert guard.state == "QUARANTINED" and "deadline" in guard.last_trip_reason
+        assert guard.run_rebuild() and guard.state == "ARMED"
+        out = _step_all(sess, [f[1] for f in frames])
+        assert all(o.shape == (64, 64, 3) for o in out)
+    finally:
+        guard.close()
+        sched.close()
+
+
+def test_late_replay_after_a_rebuild_writes_nothing(cuda):
+    """A wedged step (fault plan) trips the guard; after the rebuild has
+    restored the plane, the wedge is released: the held step replays
+    nothing, and the rebuilt rows keep their bits."""
+    from ai_rtc_agent_tpu_torch.resilience import faults
+    from ai_rtc_agent_tpu_torch.resilience.engine_guard import EngineQuarantinedError
+
+    sched, guard, sess = _tiny_guarded(2, 2, deadline_s=0.5)
+    try:
+        frames = [chip_smoke._frames(np, 2, seed=i, size=64) for i in range(2)]
+        _step_all(sess, [f[0] for f in frames])
+        faults.activate(faults.FaultPlan(specs=(faults.FaultSpec(
+            target="engine", kind="wedge", start=0, stop=1),)))
+        sched._fault_scope = faults.scope("engine")
+        held = guard._runner
+        with pytest.raises(EngineQuarantinedError):
+            _step_all(sess, [f[1] for f in frames])
+        assert guard.run_rebuild()
+        rebuilt = [_row(sched, s.slot) for s in sess]
+        before = KF.launches
+        faults.release_wedge()
+        held._thread.join(10)
+        torch.cuda.synchronize()
+        assert not held._thread.is_alive() and KF.launches == before
+        assert all(_rows_equal(_row(sched, s.slot), r) for s, r in zip(sess, rebuilt))
+    finally:
+        faults.deactivate()
+        guard.close()
+        sched.close()
+
+
+@pytest.mark.parametrize("k", [1, 2, 4, 8])
+def test_bank_restore_is_bit_exact(cuda, k):
+    """k sessions step (the bucket of k), the bank clones their rows; a lost
+    device trips the guard; the rebuild (new buffers, a new graph pool,
+    every bucket captured again) restores each row bit for bit, and the
+    next steps equal those of a scheduler that never tripped."""
+    from ai_rtc_agent_tpu_torch.resilience import faults
+
+    sched, guard, sess = _tiny_guarded(8, k)
+    twin, twin_guard, twin_sess = _tiny_guarded(8, k)
+    try:
+        frames = [chip_smoke._frames(np, 3, seed=10 + i, size=64) for i in range(k)]
+        for j in range(2):
+            assert all(np.array_equal(a, b) for a, b in zip(
+                _step_all(sess, [f[j] for f in frames]),
+                _step_all(twin_sess, [f[j] for f in frames])))
+        bank = {slot: chip_smoke.session_row(row, None) for slot, row in sched._snap_rows.items()}
+        assert set(bank) == {s.slot for s in sess}
+        old_pool = sched._bucket.graph_cache.pool
+        faults.activate(faults.FaultPlan(specs=(faults.FaultSpec(
+            target="engine", kind="device_lost", start=0, stop=1),)))
+        sched._fault_scope = faults.scope("engine")
+        with pytest.raises(faults.DeviceLostError):
+            _step_all(sess, [f[2] for f in frames])
+        faults.deactivate()
+        assert guard.run_rebuild() and guard.state == "ARMED"
+        assert sched._bucket.graph_cache.pool != old_pool
+        assert all(sched.graph_status().values())  # every bucket captured again
+        assert all(_rows_equal(_row(sched, s.slot), bank[s.slot]) for s in sess)
+        assert all(np.array_equal(a, b) for a, b in zip(
+            _step_all(sess, [f[2] for f in frames]), _step_all(twin_sess, [f[2] for f in frames])))
+    finally:
+        faults.deactivate()
+        for g, s in ((guard, sched), (twin_guard, twin)):
+            g.close()
+            s.close()
+
+
+@pytest.mark.parametrize("cfg_type,k_real,slots", chip_smoke.SESSION_EPILOGUE_FBS2)
+def test_epilogue_session_axis_with_a_frame_shift_of_2(cuda, cfg_type, k_real, slots):
+    """--fbs 2 through the bucket step: 2 new frames per session, the renoise
+    moving rows by 2 within each session's rows; against the plain version
+    from the same state (real sessions' denoised rows, the whole stacked
+    ring and stock)."""
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    args, kwargs = chip_smoke.session_epilogue_call(torch, cfg_type, k_real, slots, gen, fbs=2)
+    assert kwargs["noise_shift"] == 2
+    seg = args[0].shape[0] // len(slots)
+    a, kw = chip_smoke.fresh_epilogue_call(args, kwargs)
+    got = KF.fused_stream_epilogue(*a, **kw)
+    torch.cuda.synchronize()
+    want = chip_smoke.plain_epilogue_call(KF, args, kwargs)
+    _assert_close((got[0][: k_real * seg], *got[1:]), (want[0][: k_real * seg], *want[1:]))
+
+
+def test_fbs2_sessions_through_the_scheduler_on_the_card(cuda):
+    """frame_buffer_size 2 through the graph scheduler: two sessions' groups
+    in one bucket step, each frame equal to a dedicated engine's (tiny-test,
+    f32, plain attention: the difference is the batch), within 1 level."""
+    from ai_rtc_agent_tpu_torch.stream.engine import StreamEngine
+
+    sched, guard, sess = _tiny_guarded(2, 2, fbs=2)
+    try:
+        engines = []
+        for s in sess:
+            eng = StreamEngine(sched._template.models, sched.params, sched.cfg,
+                               sched._template.encode_prompt, graphs=False)
+            eng.state = _row(sched, s.slot)
+            engines.append(eng)
+        frames = [chip_smoke._frames(np, 4, seed=20 + i, size=64) for i in range(2)]
+        for j in range(0, 4, 2):
+            handles = [s.submit_batch(f[j:j + 2]) for s, f in zip(sess, frames)]
+            outs = [s.fetch_batch(h) for s, h in zip(sess, handles)]
+            for out, eng, f in zip(outs, engines, frames):
+                want = eng(np.stack(f[j:j + 2]))
+                for o, w in zip(out, want):
+                    assert np.abs(o.astype(np.int16) - w).max() <= 1
+    finally:
+        guard.close()
+        sched.close()

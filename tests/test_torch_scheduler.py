@@ -154,13 +154,75 @@ async def _two_offer_sessions(m, bridge_hook):
 
 
 def test_two_offer_sessions_match_the_jax_agent(monkeypatch):
+    _two_sessions_match_the_jax_agent(monkeypatch, _two_offer_sessions)
+
+
+def test_two_offer_sessions_match_the_jax_agent_under_the_jax_defaults(monkeypatch):
+    """The same with supervision, overload control and the engine guard on
+    (each agent's default): every session rides a ResilientPipeline and
+    every bucket step the guard's runner, to its completion."""
+    for name in ("SUPERVISOR", "OVERLOAD_CONTROL", "ENGINE_GUARD"):
+        monkeypatch.setenv(name, "1")
+    _two_sessions_match_the_jax_agent(monkeypatch, _two_offer_sessions)
+
+
+async def _two_whip_sessions(m, bridge_hook):
+    """Two /whip publishers on ``m``'s agent at ``--fbs 2``; session j gets
+    its own frames, its processed track is read directly (two frames per
+    step, 2 steps in flight); a datachannel prompt on session 0 after
+    N_BEFORE frames.  -> the frames each session's track gave."""
+    app = m.agent.build_app(model_id="tiny-test", provider=m.signaling.LoopbackProvider(), fbs=2,
+                            **m.kw)
+    client = TestClient(TestServer(app))
+    await client.start_server()
+    try:
+        sids = []
+        for _ in range(2):
+            r = await client.post("/whip", data=m.signaling.make_loopback_offer(),
+                                  headers={"Content-Type": "application/sdp"})
+            assert r.status == 201, await r.text()
+            sids.append(r.headers["Location"].rsplit("/", 1)[1])
+        state = app["state"]
+        pcs = [state["whip_pcs"][sid] for sid in sids]
+        tracks = [state["whip_tracks"][sid] for sid in sids]
+        bridge_hook(app)
+        n_push = N_BEFORE + N_AFTER + 2  # one group of 2 behind the last viewed
+        for j, pc in enumerate(pcs):
+            for i, f in enumerate(_frames(n_push, seed=40 + j)):
+                vf = m.frames.VideoFrame.from_ndarray(f)
+                vf.pts, vf.time_base = i, Fraction(1, 30)
+                await pc.in_track.push(vf)
+
+        async def view(track, n):
+            return [(await asyncio.wait_for(track.recv(), 120)).to_ndarray() for _ in range(n)]
+
+        seen = await asyncio.gather(*(view(t, N_BEFORE) for t in tracks))
+        await _drain(app)
+        await pcs[0].datachannel.deliver(json.dumps({"prompt": DC_PROMPT}))
+        more = await asyncio.gather(*(view(t, N_AFTER) for t in tracks))
+        return [a + b for a, b in zip(seen, more)]
+    finally:
+        await client.close()
+
+
+def test_two_whip_sessions_at_fbs2_match_the_jax_agent(monkeypatch):
+    """``--fbs 2``: each /whip publisher claims its own scheduler session,
+    whose two consecutive frames ride one bucket step as one row of its
+    slot; a datachannel prompt on one session moves only its own frames.
+    Both within 1 level of the JAX agent.  A port that serves ``--fbs`` > 1
+    through one shared pipeline (two sessions in one ring, one prompt for
+    both) fails this."""
+    _two_sessions_match_the_jax_agent(monkeypatch, _two_whip_sessions)
+
+
+def _two_sessions_match_the_jax_agent(monkeypatch, drive):
     got = {}
 
     def keep_jax(app):
         got["params"] = jax.tree.map(np.asarray, app["pipeline"].engine.params)
         got["states"] = jax.tree.map(np.asarray, app["batch_scheduler"].states)
 
-    want = asyncio.run(_two_offer_sessions(SIDES["jax"], keep_jax))
+    want = asyncio.run(drive(SIDES["jax"], keep_jax))
     params = bridge.params_from_jax(got["params"])
     monkeypatch.setattr(PREG, "init_params", lambda fam, seed=0, device="cpu": params)
 
@@ -172,7 +234,8 @@ def test_two_offer_sessions_match_the_jax_agent(monkeypatch):
         else:
             bridge.states_from_jax(got["states"], sched.states)
 
-    port = asyncio.run(_two_offer_sessions(SIDES["port"], carry))
+    port = asyncio.run(drive(SIDES["port"], carry))
+    assert [len(v) for v in port] == [len(v) for v in want] == [N_BEFORE + N_AFTER] * 2
     for j in range(2):
         for i, (a, b) in enumerate(zip(port[j], want[j])):
             assert a.shape == b.shape == (64, 64, 3), (j, i)
@@ -378,6 +441,83 @@ def test_scheduler_matches_the_jax_batch_scheduler(monkeypatch):
         ps.close()
 
 
+def test_scheduler_at_fbs2_matches_the_jax_batch_scheduler():
+    """frame_buffer_size 2 through both schedulers, two sessions in the
+    bucket of 2 (each session's two consecutive frames one row of its
+    slot), the JAX states carried across, a prompt update on one session:
+    every frame within 1 level; a group's frames resolve to their own
+    slices, in order."""
+    jb = JREG.load_model_bundle("tiny-test")
+    cfg = JREG.default_stream_config("tiny-test", frame_buffer_size=2)
+    js = JBatchScheduler(jb.stream_models, jb.params, cfg, jb.encode_prompt, max_sessions=2,
+                         window_ms=10_000.0, prewarm=False, dp=1)
+    pb = PREG.load_model_bundle("tiny-test", device="cpu",
+                                params=bridge.params_from_jax(jax.tree.map(np.asarray, jb.params)))
+    ps = BatchScheduler(pb.stream_models, pb.params, PREG.default_stream_config(
+        "tiny-test", device="cpu", frame_buffer_size=2), pb.encode_prompt, max_sessions=2,
+        window_ms=10_000.0, device="cpu")
+    try:
+        assert (ps.fbs, ps.queue_bound) == (js.fbs, js.queue_bound) == (2, 4)
+        jsess = [js.claim(f"j{i}", prompt=p, seed=i) for i, p in enumerate(("a cat", "a dog"))]
+        psess = [ps.claim(f"p{i}", prompt=p, seed=i) for i, p in enumerate(("a cat", "a dog"))]
+        assert [s.frame_buffer_size for s in psess] == [2, 2]
+        bridge.states_from_jax(jax.tree.map(np.asarray, js.states), ps.states)
+        streams = [_frames(8, seed=60 + i) for i in range(2)]
+        for j in range(0, 8, 2):
+            if j == 4:
+                jsess[1].update_prompt("a watercolor fox")
+                psess[1].update_prompt("a watercolor fox")
+            got = {}
+            for name, sess in (("jax", jsess), ("port", psess)):
+                handles = [s.submit_batch(f[j:j + 2]) for s, f in zip(sess, streams)]
+                got[name] = [s.fetch_batch(h) for s, h in zip(sess, handles)]
+            for a, b in zip(got["port"], got["jax"]):
+                assert len(a) == len(b) == 2
+                for x, y in zip(a, b):
+                    _close(x, y)
+        snap = ps.snapshot()
+        assert (snap["batchsched_fbs"], snap["batchsched_occupancy_hist"]) == (2, {"2": 4})
+        assert js.snapshot()["batchsched_occupancy_hist"] == {"2": 4}
+    finally:
+        js.close()
+        ps.close()
+
+
+@pytest.mark.parametrize("fused", [True, False], ids=["fused", "composed"])
+def test_session_step_at_fbs2_matches_dedicated_engines(port_bundle, fused):
+    """The bucket step at frame_buffer_size 2 (the 4-stage ring: 8 rows a
+    session, the renoise moving rows by 2 within each segment), a padded
+    bucket [1, 0, 0] with 2 real sessions: each session's two frames equal
+    its dedicated engine's over 3 steps."""
+    b = port_bundle
+    cfg = PREG.default_stream_config("tiny-test", device="cpu", use_fused_epilogue=fused,
+                                     frame_buffer_size=2)
+    engines = [_dedicated(b, cfg, p, i) for i, p in enumerate(("a cat", "a dog"))]
+    states = PENG.stack_states([e.state for e in engines])
+    step = PENG.make_session_step_fn(b.stream_models, cfg)
+    slots = [1, 0, 0]
+    for j in range(3):
+        fr = [np.stack(_frames(2, seed=70 + 2 * j + s)) for s in range(2)]
+        out = step(b.params, states, torch.from_numpy(np.stack([fr[s] for s in slots])),
+                   torch.tensor(slots, dtype=torch.int32), 2)
+        assert out.shape == (3, 2, 64, 64, 3)
+        for row, s in enumerate(slots[:2]):
+            _close(out[row].numpy(), engines[s](fr[s]))
+
+
+def test_fbs2_scheduler_refuses_the_similarity_filter_and_a_short_queue(port_bundle):
+    b = port_bundle
+    cfg = PREG.default_stream_config("tiny-test", device="cpu", frame_buffer_size=2)
+    with pytest.raises(ValueError, match="fbs group"):
+        BatchScheduler(b.stream_models, b.params, cfg, b.encode_prompt, queue_bound=1,
+                       device="cpu", prewarm=False)
+    cfg = PREG.default_stream_config("tiny-test", device="cpu", frame_buffer_size=2,
+                                     similar_image_filter=True)
+    with pytest.raises(ValueError, match="similarity filter"):
+        BatchScheduler(b.stream_models, b.params, cfg, b.encode_prompt, device="cpu",
+                       prewarm=False)
+
+
 # -- capacity, windows and the control plane --------------------------------------------
 
 def test_capacity_and_window_shed(port_bundle):
@@ -576,7 +716,19 @@ def test_agent_sessions_claim_503_release_and_config_match_jax():
     gauges; POST /config goes to the scheduler; closing a connection and
     DELETE /whip/{id} give the slots back; a datachannel prompt reaches
     only its own session."""
+    _claim_503_release_and_config()
 
+
+def test_agent_sessions_claim_503_release_and_config_under_the_jax_defaults(monkeypatch):
+    """The same with supervision and overload control on (each agent's
+    default): the sessions ride supervisors, the admission gate reserves
+    each offer, and /health lists each session's scheduler view."""
+    for name in ("SUPERVISOR", "OVERLOAD_CONTROL", "ENGINE_GUARD"):
+        monkeypatch.setenv(name, "1")
+    _claim_503_release_and_config(health=True)
+
+
+def _claim_503_release_and_config(health=False):
     async def case(client, app, fake, m):
         out = []
         r = await client.post("/offer", json=_offer_body(m, "r1"))
@@ -594,6 +746,11 @@ def test_agent_sessions_claim_503_release_and_config_match_jax():
         offer_pc = next(pc for pc in app["pcs"] if pc.out_tracks)
         await offer_pc.datachannel.deliver(json.dumps({"prompt": "only mine"}))
         out.append(sorted(str(s.prompt) for s in fake.claimed))
+        if health:
+            body = await (await client.get("/health")).json()
+            views = sorted((s["state"], s["batchsched"]["slot"]) for s in body["sessions"].values())
+            assert views == [("HEALTHY", 0), ("HEALTHY", 1)], views
+            out.append(views)
         await offer_pc.close()
         out.append(await _released(fake, 1))
         out.append((await client.delete(whip)).status)
@@ -608,8 +765,9 @@ def test_agent_sessions_claim_503_release_and_config_match_jax():
 
 
 def test_agent_batchsched_off_fbs_and_no_fallback(monkeypatch):
-    """BATCHSCHED=0 and --fbs 2 serve the shared pipeline; a scheduler that
-    cannot be built fails the startup (no fallback to the shared path)."""
+    """BATCHSCHED=0 serves the shared pipeline; --fbs 2 serves the batch
+    scheduler at fbs 2 (the JAX agent's path); a scheduler that cannot be
+    built fails the startup (no fallback to the shared path)."""
 
     async def boot(**kw):
         app = PA.build_app(model_id="tiny-test", provider=PS.LoopbackProvider(), device="cpu", **kw)
@@ -623,7 +781,7 @@ def test_agent_batchsched_off_fbs_and_no_fallback(monkeypatch):
     assert app["batch_scheduler"] is None and app["pipeline"] is not None
     monkeypatch.delenv("BATCHSCHED")
     app = asyncio.run(boot(fbs=2))
-    assert app["batch_scheduler"] is None and app["pipeline"].frame_buffer_size == 2
+    assert app["pipeline"].frame_buffer_size == app["batch_scheduler"].fbs == 2
 
     def broken(*a, **k):
         raise RuntimeError("scheduler refused")
