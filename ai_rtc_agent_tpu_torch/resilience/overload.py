@@ -1,6 +1,6 @@
 """Overload control plane: admission, bounded deadline queues, shedding
-(the port's copy of ai_rtc_agent_tpu/resilience/overload.py, without the
-network-adaptation ladder, which comes with the media plane).
+(the port's copy of ai_rtc_agent_tpu/resilience/overload.py; its network
+half, the netadapt ladder of each session, is resilience/netadapt.py).
 
 The stream-batch pipeline's unit of work is a *perishable frame*: a frame
 delivered late is worth less than no frame at all, because every queued
@@ -438,6 +438,11 @@ class OverloadLadder:
         self._next_probe = 0.0
         self.frames_skipped = 0
         self._closed = False
+        # frame-skip floor imposed by the session's NETWORK ladder
+        # (resilience/netadapt.py): the effective rung is the max of
+        # compute and network pressure.  Clamped below passthrough — a bad
+        # network degrades quality, never engine output, on its own.
+        self.net_floor = 0
 
     # -- cadence (control-plane tick task) -----------------------------------
 
@@ -496,11 +501,18 @@ class OverloadLadder:
         if self._on_rung is not None:
             self._on_rung(old, new)
 
+    # -- network-ladder join (resilience/netadapt.py) -------------------------
+
+    def set_net_floor(self, floor: int):
+        """Impose a frame-skip floor from network pressure.  Clamped to the
+        skip rungs: passthrough/frozen stay compute-ladder decisions (shed
+        before you batch; degrade quality before you degrade freshness)."""
+        self.net_floor = max(0, min(int(floor), RUNG_PASSTHROUGH - 1))
+
     @property
     def effective_rung(self) -> int:
-        """The rung the hot path runs (the JAX ladder's max of this rung and
-        the network ladder's floor; the port has no network ladder yet)."""
-        return self.rung
+        """The rung the hot path actually runs: max(compute, network)."""
+        return max(self.rung, self.net_floor)
 
     # -- hot path (pipeline wrapper) ------------------------------------------
 
@@ -603,6 +615,22 @@ class OverloadControlPlane:
         # hold owned by the drain surface — admission refuses, live
         # sessions finish untouched, /capacity says saturated+draining
         self._draining = False
+        # network-adaptation ladders (resilience/netadapt.py) ride the same
+        # tick cadence; NETADAPT=0 removes the subsystem per process
+        self.netadapt_enabled = env.get_bool("NETADAPT", True)
+        self._na_up = env.get_int("NETADAPT_UP_TICKS", 2)
+        self._na_down = env.get_int("NETADAPT_DOWN_TICKS", 12)
+        self._na_loss_up = env.get_float("NETADAPT_LOSS_UP", 0.08)
+        self._na_loss_down = env.get_float("NETADAPT_LOSS_DOWN", 0.02)
+        self._na_base_bitrate = env.get_int_aliased(
+            "ENC_DEFAULT_BITRATE", "NVENC_DEFAULT_BITRATE", 3_000_000
+        )
+        self._na_min_bitrate = env.get_int("NETADAPT_MIN_BITRATE", 250_000)
+        self._na_factor = env.get_float("NETADAPT_BITRATE_FACTOR", 0.6)
+        self._na_coalesce_s = env.get_float("NETADAPT_PLI_COALESCE_MS", 700.0) / 1e3
+        self._na_rr_timeout_s = env.get_float("NETADAPT_RR_TIMEOUT_S", 6.0)
+        self._na_fb_burst = env.get_int("NETADAPT_FEEDBACK_BURST", 8)
+        self.netadapt: dict = {}
 
     # -- session / queue registry --------------------------------------------
 
@@ -621,11 +649,54 @@ class OverloadControlPlane:
         self.ladders[key] = ladder
         return ladder
 
+    def register_netadapt(self, key: str):
+        """The session's network rung (resilience/netadapt.py), joined to
+        its compute ladder when one is registered; None when NETADAPT=0.
+        Rung moves land in the same stats counter and event hook as compute
+        rung moves."""
+        if not self.netadapt_enabled:
+            return None
+        from .netadapt import NetworkAdaptLadder
+
+        na = NetworkAdaptLadder(
+            key,
+            up_after=self._na_up,
+            down_after=self._na_down,
+            loss_up=self._na_loss_up,
+            loss_down=self._na_loss_down,
+            base_bitrate=self._na_base_bitrate,
+            min_bitrate=self._na_min_bitrate,
+            bitrate_factor=self._na_factor,
+            pli_coalesce_s=self._na_coalesce_s,
+            rr_timeout_s=self._na_rr_timeout_s,
+            feedback_burst=self._na_fb_burst,
+            compute_ladder=self.ladders.get(key),
+            clock=self._clock,
+            on_rung=lambda old, new, key=key: self._na_moved(key, old, new),
+        )
+        self.netadapt[key] = na
+        return na
+
+    def _na_moved(self, key: str, old: int, new: int):
+        from .netadapt import NET_RUNG_LABELS
+
+        if self.stats is not None:
+            self.stats.count("netadapt_ladder_moves")
+        cb = self.on_event
+        if cb is not None:
+            try:
+                cb(key, "netadapt_rung", old=NET_RUNG_LABELS[old], new=NET_RUNG_LABELS[new])
+            except Exception:
+                logger.exception("netadapt on_event handler failed")
+
     def unregister_session(self, key: str):
         self._pending.pop(key, None)
         ladder = self.ladders.pop(key, None)
         if ladder is not None:
             ladder.close()
+        na = self.netadapt.pop(key, None)
+        if na is not None:
+            na.close()
         # session-scoped queue registrations ("<kind>:<session>") go too
         for name in [n for n in self.queues if n.endswith(f":{key}")]:
             self.queues.pop(name, None)
@@ -765,6 +836,8 @@ class OverloadControlPlane:
         pressure = self.admission.pressure() >= 1.0
         for ladder in list(self.ladders.values()):
             ladder.tick(pressure)
+        for na in list(self.netadapt.values()):
+            na.tick()
         cb = self.on_tick
         if cb is not None:
             try:
@@ -806,6 +879,12 @@ class OverloadControlPlane:
             ),
             "overload_frames_skipped": sum(
                 lad.frames_skipped for lad in self.ladders.values()
+            ),
+            "netadapt_rung_max": max(
+                (na.rung for na in self.netadapt.values()), default=0
+            ),
+            "netadapt_loss_ewma_max": round(
+                max((na.loss_ewma.value for na in self.netadapt.values()), default=0.0), 4
             ),
         }
         if fresh:

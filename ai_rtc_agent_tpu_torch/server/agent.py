@@ -20,9 +20,16 @@ admission gate refuses (pressure, a freeze, a drain) or the engine guard
 holds the plane quarantined.  CORS allows all origins.
 
     python -m ai_rtc_agent_tpu_torch.server.agent --model-id stabilityai/sd-turbo
+    WEBRTC_PROVIDER=native-rtp python -m ai_rtc_agent_tpu_torch.server.agent \\
+        --model-id tiny-test --device cpu --udp-ports 40000,40001
     WEBRTC_PROVIDER=loopback python -m ai_rtc_agent_tpu_torch.server.agent \\
         --model-id tiny-test --device cpu
     ... --multipeer 2        # two peer slots stepped as one batch
+
+The WebRTC provider is ``WEBRTC_PROVIDER`` (aiortc | native-rtp |
+loopback); unset, aiortc, else the native tier (server/rtc_native.py: real
+SDP, RTP/RTCP over UDP, ICE-lite + DTLS-SRTP) when its C++ runtime builds
+and ``cryptography`` imports, else loopback.
 
 Each /offer and /whip connection claims a session of the batch scheduler
 (BATCHSCHED_MAX_SESSIONS slots, the default) or, with ``--multipeer N``, a

@@ -43,8 +43,16 @@ The fault domain, on by the JAX agent's defaults:
   deadline, quarantine, rebuild from the snapshot bank, evacuation;
   Engine* and AgentEvacuating webhooks).
 ``health``, ``capacity`` and ``drain`` are the bodies of /health,
-/capacity and /drain.  Journeys, the flight recorder, the SLO and device
-telemetry planes, migration and broadcast fan-out are later slices.
+/capacity and /drain.
+
+With the native provider (server/rtc_native.py) the provider shares the
+agent's FrameStats (decode/encode/glass stages at /metrics), each
+session's RTCP feedback walks its network ladder (``NETADAPT``,
+resilience/netadapt.py, joined to the overload ladder), ``/metrics``
+carries each session's host-plane stage histograms
+(``host_plane_sessions``) and ``/config {"encoder": ...}`` reconfigures
+every live session's encoder.  Journeys, the flight recorder, the SLO and
+device telemetry planes, migration and broadcast fan-out are later slices.
 """
 
 from __future__ import annotations
@@ -141,11 +149,21 @@ class TimedPipeline:
 
 # -- runtime config (POST /config and the config datachannel) ------------------
 
-def apply_runtime_config(pipeline, config: dict):
+def encoder_surface(provider):
+    """The provider's runtime encoder-config surface
+    (``validate_encoder_config``/``apply_encoder_config``: the native
+    tier), or None when it has none (loopback, aiortc)."""
+    if provider is not None and hasattr(provider, "apply_encoder_config"):
+        return provider
+    return None
+
+
+def apply_runtime_config(pipeline, config: dict, encoders=None):
     """Apply a runtime config object to ``pipeline``: ``prompt``,
-    ``t_index_list``, ``guidance_scale``/``delta``.  Every capability and
-    value check runs before anything changes, so a ``ValueError`` means
-    nothing was applied."""
+    ``t_index_list``, ``guidance_scale``/``delta``, and ``encoder`` through
+    ``encoders`` (:func:`encoder_surface`).  Every capability and value
+    check runs before anything changes, so a ``ValueError`` means nothing
+    was applied."""
     if not isinstance(config, dict):
         raise ValueError("config must be a JSON object")
     guidance_scale = config.get("guidance_scale")
@@ -156,8 +174,11 @@ def apply_runtime_config(pipeline, config: dict):
             raise ValueError("guidance_scale/delta not supported by this pipeline")
         guidance_scale = None if guidance_scale is None else float(guidance_scale)
         delta = None if delta is None else float(delta)
-    if config.get("encoder") is not None:
-        raise ValueError("encoder reconfigure not supported by this provider")
+    encoder = config.get("encoder")
+    if encoder is not None:
+        if encoders is None:
+            raise ValueError("encoder reconfigure not supported by this provider")
+        encoder = encoders.validate_encoder_config(encoder)
     if "adapter" in config:
         raise ValueError("adapter hot-swap not supported by this pipeline")
     t_index_list = config.get("t_index_list")
@@ -168,9 +189,11 @@ def apply_runtime_config(pipeline, config: dict):
         pipeline.update_prompt(prompt)
     if guidance_scale is not None or delta is not None:
         update_guidance(guidance_scale=guidance_scale, delta=delta)
+    if encoder is not None:
+        encoders.apply_encoder_config(encoder)
 
 
-def wire_datachannel(pipeline, channel, guard=None):
+def wire_datachannel(pipeline, channel, guard=None, encoders=None):
     """Config messages on ``channel`` reach ``pipeline`` (off the loop: a
     prompt update runs the text encoder); a bad message is logged."""
 
@@ -180,7 +203,7 @@ def wire_datachannel(pipeline, channel, guard=None):
             return
         logger.info("received config: %s", message)
         try:
-            await asyncio.to_thread(apply_runtime_config, pipeline, json.loads(message))
+            await asyncio.to_thread(apply_runtime_config, pipeline, json.loads(message), encoders)
         except (ValueError, KeyError, TypeError) as e:
             logger.error("bad config message: %s", e)
 
@@ -247,6 +270,10 @@ async def startup(app):
         "whep_pcs": {},
     }
     app["stats"] = FrameStats()
+    if hasattr(app["provider"], "attach_stats"):
+        # the media plane's decode/encode/glass stages land beside the
+        # submit -> fetch latency at /metrics
+        app["provider"].attach_stats(app["stats"])
     app["supervisors"] = {}
     app["overload"] = None
     if env.get_bool("OVERLOAD_CONTROL", True):
@@ -327,9 +354,13 @@ async def shutdown(app):
 
 
 def metrics(app) -> dict:
-    """FrameStats, the overload plane, the batch scheduler's
+    """FrameStats, the native provider's per-session host-plane stages
+    (``host_plane_sessions``), the overload plane, the batch scheduler's
     ``batchsched_*`` gauges and the engine guard's counters."""
     out = app["stats"].snapshot()
+    snapshot = getattr(app["provider"], "host_plane_snapshot", None)
+    if snapshot is not None:
+        out["host_plane_sessions"] = snapshot()
     ov = app["overload"]
     if ov is not None:
         if app["multipeer_pipeline"] is not None:
@@ -353,6 +384,9 @@ def health(app) -> dict:
             if k in sessions:
                 sessions[k]["overload_rung"] = ladder.rung
                 sessions[k]["effective_rung"] = ladder.effective_rung
+        for k, na in ov.netadapt.items():
+            if k in sessions:
+                sessions[k]["netadapt"] = na.snapshot()
     sched = app["batch_scheduler"]
     if sched is not None:
         for k, snap in sched.session_snapshots().items():
@@ -410,7 +444,8 @@ async def update_config(app, config):
     the shared pipeline."""
     target = app["multipeer_pipeline"] or app["batch_scheduler"] or app["pipeline"]
     try:
-        await asyncio.to_thread(apply_runtime_config, target, config)
+        await asyncio.to_thread(apply_runtime_config, target, config,
+                                encoder_surface(app["provider"]))
     except (TypeError, KeyError) as e:  # structurally wrong JSON
         raise ValueError(str(e)) from e
 
@@ -482,8 +517,16 @@ def supervise(app, pc, pipeline, session_key: str, room_id: str = ""):
     sup = SessionSupervisor(session_key, resync=resync, on_transition=on_transition)
     sup.context["room_id"] = room_id
     wrapped = ResilientPipeline(pipeline, sup)
-    if app["overload"] is not None:
-        wrapped.throttle = app["overload"].register_session(session_key, sup)
+    ov = app["overload"]
+    if ov is not None:
+        wrapped.throttle = ov.register_session(session_key, sup)
+        # the network ladder, registered after the compute ladder so that
+        # its frame-skip floor joins it; providers without RTCP (loopback,
+        # aiortc) never feed it
+        na = ov.register_netadapt(session_key)
+        attach = getattr(pc, "attach_netadapt", None)
+        if na is not None and attach is not None:
+            attach(na)
     app["supervisors"][session_key] = sup
     sup.start_watchdog()
     return wrapped
@@ -609,7 +652,7 @@ async def publish(app, sdp: str) -> Reply:
 
         @pc.on("datachannel")
         def on_datachannel(channel):
-            wire_datachannel(pipeline, channel)
+            wire_datachannel(pipeline, channel, encoders=encoder_surface(provider))
 
         @pc.on("iceconnectionstatechange")
         async def on_iceconnectionstatechange():
@@ -742,7 +785,8 @@ async def offer(app, params: dict) -> Reply:
 
         @pc.on("datachannel")
         def on_datachannel(channel):
-            wire_datachannel(pipeline, channel, guard=lambda: "track" in video)
+            wire_datachannel(pipeline, channel, guard=lambda: "track" in video,
+                             encoders=encoder_surface(provider))
 
         @pc.on("track")
         def on_track(track):

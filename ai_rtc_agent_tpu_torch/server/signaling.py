@@ -3,35 +3,34 @@
 The session layer drives a small peer-connection surface: construction,
 ``addTransceiver`` + ``setCodecPreferences``, ``on(...)`` event handlers,
 ``setRemoteDescription``/``createAnswer``/``setLocalDescription``,
-``addTrack`` and the private ``__gather()`` that OBS needs.  Two providers
-implement it:
+``addTrack`` and the private ``__gather()`` that OBS needs.  Three
+providers implement it:
 
 * ``AiortcProvider`` — the aiortc stack, imported when the provider is made.
+* ``NativeRtpProvider`` (server/rtc_native.py) — the agent's own WebRTC
+  tier: real SDP, RTP/RTCP over UDP through the C++ runtime of native/,
+  ICE-lite + DTLS-SRTP and SCTP datachannels.
 * ``LoopbackProvider`` — in-process: the "SDP" is a JSON envelope, media
   flows through asyncio queues and datachannel messages are delivered
   directly.  It carries the CPU tests and ``chip_smoke.py``'s serve phase.
 
-``get_provider()`` takes ``WEBRTC_PROVIDER`` (aiortc | loopback) and
-defaults to aiortc.  The native RTP tier (``native-rtp``, the JAX
-package's default without aiortc) is a later slice of the port: asked for,
-or needed because aiortc is missing, it raises ``NotImplementedError``
-rather than falling back to loopback.
+``get_provider()`` takes ``WEBRTC_PROVIDER`` (aiortc | native-rtp |
+loopback) and, unset, picks as the JAX package does: aiortc; without it the
+native tier when its C++ runtime loads and ``cryptography`` imports; else
+loopback, with a warning.
 """
 
 from __future__ import annotations
 
 import asyncio
 import json
+import logging
 import uuid
 
 from ..utils import env as env_util
 from ..utils.dispatch import fire_handler
 
-NATIVE_RTP_LATER = (
-    "the native-rtp WebRTC provider is not ported yet: it is a later slice of "
-    "the port (server/rtc_native.py, server/sdp.py and media/ with a binding "
-    "to native/); install aiortc or set WEBRTC_PROVIDER=loopback"
-)
+logger = logging.getLogger(__name__)
 
 
 class SessionDescription:
@@ -251,17 +250,48 @@ class AiortcProvider:
 
 def get_provider(name: str | None = None):
     name = name or env_util.get_str("WEBRTC_PROVIDER")
+
+    def native():
+        from .rtc_native import NativeRtpProvider
+
+        return NativeRtpProvider()
+
     if name == "loopback":
         return LoopbackProvider()
     if name == "native-rtp":
-        raise NotImplementedError(NATIVE_RTP_LATER)
+        return native()
     if name and name != "aiortc":
-        # the tiers differ in what they can serve: a typo must not pick another
-        raise ValueError(f"unknown WEBRTC_PROVIDER {name!r} (expected aiortc | loopback)")
+        # three tiers with different security properties: a typo must not
+        # pick another
+        raise ValueError(
+            f"unknown WEBRTC_PROVIDER {name!r} (expected aiortc | native-rtp | loopback)"
+        )
     try:
         return AiortcProvider()
-    except ImportError as e:
+    except ImportError:
         if name == "aiortc":
             raise
-        # the JAX package's default without aiortc is the native tier
-        raise NotImplementedError(f"aiortc is not installed, and {NATIVE_RTP_LATER}") from e
+        # without aiortc the native tier serves browsers, but only when its
+        # C++ runtime loads and its crypto backend imports: otherwise every
+        # browser session would die at setup, so a working loopback it is
+        from ..media import native as native_rt
+
+        def secure_importable() -> bool:
+            try:
+                from .secure import SecureMediaSession  # noqa: F401
+
+                return True
+            except ImportError:
+                return False
+
+        if native_rt.load() is None or not secure_importable():
+            logger.warning(
+                "aiortc not installed and the native tier's runtime deps "
+                "are unavailable — using the loopback provider"
+            )
+            return LoopbackProvider()
+        logger.warning(
+            "aiortc not installed — using the native-rtp provider "
+            "(in-repo secure WebRTC tier)"
+        )
+        return native()

@@ -4,8 +4,23 @@ serving seam uses (counterpart of ai_rtc_agent_tpu/utils/env.py).
 Variables read by the port's server:
   WARMUP_FRAMES, DROP_FRAMES        track warm-up / OBS stutter workaround
   PIPELINE_DEPTH                    frames in flight per track
-  HW_ENCODE (alias NVENC)           bare ndarray frames out (no pts wrap)
-  WEBRTC_PROVIDER                   aiortc | loopback (native-rtp: later slice)
+  HW_ENCODE (alias NVENC)           bare ndarray frames out (no pts wrap);
+                                    the native tier's H.264 encoder (else NullCodec)
+  HW_DECODE (alias NVDEC)           the native tier's H.264 decoder (else NullCodec)
+  ENC_PRESET, ENC_TUNING_INFO, ENC_DEFAULT/MIN/MAX_BITRATE (aliases NVENC_*)
+                                    H.264 encoder tuning (media/codec.py)
+  WEBRTC_PROVIDER                   aiortc | native-rtp | loopback
+  ADVERTISE_HOST                    the address real-SDP answers carry (127.0.0.1)
+  HOST_PLANE_BATCH, HOST_PLANE_RX_BATCH, HOST_PLANE_SENDMMSG,
+  HOST_PLANE_POOL_SLOTS, HOST_PLANE_RX_POOL_SLOTS, HOST_PLANE_RX_MTU,
+  HOST_PLANE_RX_DRAIN_MAX, HOST_PLANE_RING_POP_POOL
+                                    the media plane's batched TX/RX (media/)
+  RTCP_REPORT_INTERVAL_S            RTCP report cadence (media/rtcp.py)
+  OVERLOAD_TX_DEADLINE_MS, OVERLOAD_RX_QUEUE_BOUND
+                                    the media plane's encode deadline, client RX bound
+  NETADAPT, NETADAPT_*              the network-adaptation ladder
+                                    (resilience/netadapt.py, via overload.py)
+  BROADCAST_GOP_CACHE_AUS, BROADCAST_GOP_CACHE_BYTES   the GOP cache's bounds (media/gop.py)
   WEBHOOK_URL, AUTH_TOKEN           stream lifecycle webhooks
   ICE_SERVERS, TWILIO_ACCOUNT_SID, TWILIO_AUTH_TOKEN   TURN servers
   BATCHSCHED                        the cross-session batch scheduler (default on)
@@ -73,6 +88,22 @@ def get_bool(name: str, default: bool = False) -> bool:
     return v.strip().lower() not in ("0", "false", "no", "off")
 
 
+def get_str_aliased(name: str, alias: str, default: str | None = None):
+    """get_str with a legacy alias read only when ``name`` is unset, so a
+    stale alias never shadows a valid primary value (ENC_* takes NVENC_*)."""
+    v = os.getenv(name)
+    if v not in (None, ""):
+        return v
+    return get_str(alias, default)
+
+
+def get_int_aliased(name: str, alias: str, default: int) -> int:
+    """get_int with a lazy legacy alias (see get_str_aliased)."""
+    if os.getenv(name) not in (None, ""):
+        return get_int(name, default)
+    return get_int(alias, default)
+
+
 def warmup_frames() -> int:
     return get_int("WARMUP_FRAMES", 10)
 
@@ -83,6 +114,10 @@ def drop_frames() -> int:
 
 def hw_encode() -> bool:
     return get_bool("HW_ENCODE", get_bool("NVENC", False))
+
+
+def hw_decode() -> bool:
+    return get_bool("HW_DECODE", get_bool("NVDEC", False))
 
 
 def pipeline_depth() -> int:

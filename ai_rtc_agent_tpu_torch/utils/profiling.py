@@ -11,7 +11,7 @@ import time
 
 class FrameStats:
     """Sliding-window fps + latency percentiles (thread-safe, O(1) record),
-    per-stage durations and monotonic counters."""
+    per-stage durations, monotonic counters and last-value gauges."""
 
     def __init__(self, window: int = 240):
         self._lat = collections.deque(maxlen=window)
@@ -20,6 +20,7 @@ class FrameStats:
         self._window = window
         self._lock = threading.Lock()
         self._counts: dict = {}
+        self._gauges: dict = {}
         self.frames_total = 0
 
     def record(self, latency_s: float, t: float | None = None):
@@ -40,12 +41,39 @@ class FrameStats:
         with self._lock:
             self._counts[name] = self._counts.get(name, 0) + n
 
+    def gauge(self, name: str, value):
+        """Last-value gauge (receiver-report loss and jitter); lands in the
+        snapshot under its own name."""
+        with self._lock:
+            self._gauges[name] = value
+
+    def stage_snapshot_us(self, stages=None) -> dict:
+        """Microsecond stage percentiles (p50/p90/p99 and the sample count)
+        of the host media plane's stages (packetize/protect/send/recv),
+        which the ms-scaled snapshot floors to noise; ``stages=None`` takes
+        every recorded stage.  Counters ride along as ``<name>_total``."""
+        with self._lock:
+            items = {k: sorted(q) for k, q in self._stages.items()
+                     if q and (stages is None or k in stages)}
+            counts = dict(self._counts)
+        out: dict = {}
+        for name, q in items.items():
+            n = len(q)
+            out[f"{name}_p50_us"] = round(1e6 * q[n // 2], 2)
+            out[f"{name}_p90_us"] = round(1e6 * q[min(n - 1, int(n * 0.9))], 2)
+            out[f"{name}_p99_us"] = round(1e6 * q[min(n - 1, int(n * 0.99))], 2)
+            out[f"{name}_count"] = n
+        for name, c in counts.items():
+            out[f"{name}_total"] = c
+        return out
+
     def snapshot(self) -> dict:
         with self._lock:
             lat = sorted(self._lat)
             times = list(self._times)
             stages = {k: sorted(q) for k, q in self._stages.items()}
             counts = dict(self._counts)
+            gauges = dict(self._gauges)
         out = {
             "frames_total": self.frames_total,
             "fps": 0.0,
@@ -65,4 +93,5 @@ class FrameStats:
                 out[f"{name}_p90_ms"] = 1e3 * q[min(len(q) - 1, int(len(q) * 0.9))]
         for name, n in counts.items():
             out[f"{name}_total"] = n
+        out.update(gauges)
         return out

@@ -103,10 +103,41 @@ Phases (each prints its own lines; any failure exits non-zero):
                 1, 4, 8 with the guard and supervision on and off (on,
                 off, off, on), the snapshot bank's refresh at k=8, served
                 fps with SUPERVISOR on and off in turns.
-  8. a "kernels" JSON line (launch counts of phases 4 to 7), then the last
+  8. native   — the native WebRTC tier (server/rtc_native.py, media/) over
+                real loopback UDP into the default serving path: the C++
+                runtime of native/ built with g++ into build/ (its path, build
+                seconds and whether H.264 is available: without libavcodec
+                the tier carries raw frames as NullCodec, which is lossless),
+                WEBRTC_PROVIDER=native-rtp, a 2-slot BatchScheduler over phase
+                4's pipeline (every bucket captured) with supervision,
+                overload control and the engine guard wired by
+                server/sessions.py as the agent wires them.  Three runs of
+                the port's NativeRtpClient in this process (paced packets,
+                an 8 MiB receive buffer; the agent's sockets as the JAX tier
+                leaves them): one session over a JSON-envelope /offer at 30
+                fps, one over /whip + /whep at 60 fps, two /offer sessions
+                at 30 fps each; then a probe of one /offer session whose
+                client runs in a process of its own (its packets spread over
+                half of each frame interval).  Each returned frame, matched
+                by pts, equals bit for bit a direct call of its scheduler
+                session through the bucket step of the occupancy that
+                served it; pts in order; 32 + 1 launches a bucket step; each
+                run returns frames (the probe may lose them all: it measures
+                the agent's default receive buffer).  Prints frames pushed
+                and returned, RTP lost each way (the agent's and the
+                client's reception stats), ring drops, NACKs and PLI
+                requests, first view, steady served fps beside phase 5's
+                loopback fps and the pace the client achieved, ms between
+                bucket steps, decode/encode/glass p50 and the host plane's
+                µs per frame (packetize and send from /metrics
+                host_plane_sessions, recv summed over the agent's receive
+                callbacks).
+  9. a "kernels" JSON line (launch counts of phases 4 to 8), then the last
      line {"ok": true, "device": ...}.
 
-Imports nothing of JAX or of the JAX package.
+Imports nothing of JAX or of the JAX package.  `python3 chip_smoke.py
+--native-client SPEC` is phase 8's client process (no CUDA), started by
+the phase itself.
 """
 
 from __future__ import annotations
@@ -120,6 +151,7 @@ import sys
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 from dataclasses import replace
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
@@ -1057,7 +1089,7 @@ def phase_serve(torch, card: str, pipe):
         f"FrameStats fps {stats['fps']:.2f}, latency p50 {stats['latency_p50_ms']:.2f} ms "
         f"(submit return -> fetch return) | sessions closed, 0 peer connections left"
     )
-    return attn, epi
+    return attn, epi, 1 / steady
 
 
 # -- phase 6: sessions --------------------------------------------------------------
@@ -2028,6 +2060,511 @@ def fault_cost(torch, card, pipe, count, BatchScheduler):
         + ", ".join(f"SUPERVISOR {turn} {fps:.2f} fps / {first:.2f} ms" for turn, (fps, first) in runs))
 
 
+# -- phase 8: native RTP ---------------------------------------------------------------
+
+NATIVE_RUNS = (  # label, signaling, sessions, client fps, frames pushed per session
+    ("1 session at 30 fps, /offer", "offer", 1, 30, 48),
+    ("1 session at 60 fps, /whip + /whep", "whip", 1, 60, 72),
+    ("2 sessions at 30 fps each, /offer", "offer", 2, 30, 48),
+)
+NATIVE_FILL = 4  # each session's first returned frames: outside the steady window
+NATIVE_RCVBUF = 8 << 20  # the clients' receive buffers (a browser sizes its own)
+NATIVE_BURST = 16  # the clients' pacer: packets per burst
+NATIVE_TAIL_S = 0.5  # after the last push: the wait for a frame still on its way
+NATIVE_DISTINCT = 16  # distinct frames per session, cycled (made before the loop runs)
+# a probe beside the runs: the client in a process of its own, its packets
+# spread over half of each frame interval; the agent's loop then drains its
+# socket only when it is free, as it would for a remote peer
+NATIVE_PROBE = ("1 session at 30 fps, /offer, the client in a process of its own", 30, 48)
+NATIVE_PROBE_SPREAD = 0.5
+
+
+class StepTap:
+    """The scheduler's claims, tapped: each claimed session by its key, and
+    for each frame served to the track (by session key and pts) the
+    occupancy and dispatch time of the bucket step it rode."""
+
+    def __init__(self, sched):
+        from ai_rtc_agent_tpu_torch.resilience.overload import ShedFrame
+
+        self.sched, self.sessions, self.rode = sched, {}, {}
+        claim = sched.claim
+
+        def tapped(session_key=None, *args, **kw):
+            sess = claim(session_key, *args, **kw)
+            fetch = sess.fetch
+
+            def fetch_tap(handle, src_frame=None):
+                out = fetch(handle, src_frame)
+                if src_frame is not None and not isinstance(out, ShedFrame):
+                    self.rode[(session_key, src_frame.pts)] = (handle.occupancy, handle.t_dispatch)
+                return out
+
+            sess.fetch = fetch_tap
+            self.sessions[session_key] = sess
+            return sess
+
+        sched.claim = tapped
+
+
+class NativeLeg:
+    """One session of a native run: its publishing client, the client that
+    views its processed stream (the same one for /offer), the agent's peer
+    connections and the frames pushed, by pts."""
+
+    def __init__(self, key, pub, view, pcs, frames, fps):
+        self.key, self.pub, self.view, self.pcs = key, pub, view, pcs
+        self.step = 90_000 // fps
+        self.frames = frames
+        self.got: list = []  # (pts, frame, time.monotonic()) as the viewer decoded them
+        self.pushed: list = []  # time.monotonic() as each push began
+        self.pli_requests = 0
+        self.recv_s, self.recv_calls = 0.0, 0  # the agent's receive callbacks
+        self.downlink: dict | None = None  # the viewer's reception stats at the end
+
+
+class ClientProcess:
+    """The client side of a leg in a process of its own (``python3
+    chip_smoke.py --native-client SPEC``): its process and the file it
+    writes what came back to."""
+
+    def __init__(self, proc, out):
+        self.proc, self.out = proc, out
+
+    def close(self):
+        if self.proc.returncode is None:
+            self.proc.kill()
+
+
+async def open_native_leg(np, state, how: str, s: int, fps: int, frames, use_h264: bool) -> NativeLeg:
+    """Session ``s`` over the native tier: a JSON-envelope /offer, or /whip
+    with a second client viewing through /whep; the clients on loopback UDP."""
+    from ai_rtc_agent_tpu_torch.media.rtp_client import NativeRtpClient
+    from ai_rtc_agent_tpu_torch.server import sessions
+
+    size = frames[0].shape[0]
+
+    async def client():
+        return await NativeRtpClient(size, size, fps=fps, use_h264=use_h264,
+                                     rcvbuf=NATIVE_RCVBUF).open()
+
+    pub = await client()
+    live = state["state"]
+    if how == "offer":
+        r = await sessions.offer(state, {"room_id": f"native-{s}",
+                                         "offer": {"sdp": pub.offer_envelope(), "type": "offer"}})
+        if r.status != 200:
+            fail(f"native: /offer answered {r.status} {r.body}")
+        key, view = r.headers["X-Stream-Id"], pub
+        port = json.loads(json.loads(r.body)["sdp"])["server_port"]
+        pcs = [pc for pc in state["pcs"] if pc.server_port == port]
+    else:
+        r = await sessions.publish(state, pub.offer_envelope())
+        view = await client()
+        envelope = {"native_rtp": True, "video": False, "width": size, "height": size,
+                    "client_addr": ["127.0.0.1", view.port]}
+        rv = await sessions.subscribe(state, json.dumps(envelope))
+        if (r.status, rv.status) != (201, 201):
+            fail(f"native: /whip {r.status}, /whep {rv.status} (want 201, 201)")
+        key = r.headers["Location"].rsplit("/", 1)[1]
+        port = json.loads(r.body)["server_port"]
+        pcs = [live["whip_pcs"][key], live["whep_pcs"][rv.headers["Location"].rsplit("/", 1)[1]]]
+    await pub.connect(port)
+    return _leg(key, pub, view, pcs, frames, fps, s)
+
+
+def _leg(key, pub, view, pcs, frames, fps, s) -> NativeLeg:
+    """A leg whose agent side came up, with its PLI requests counted and the
+    host time of its receive callbacks summed (the plane's recv histogram
+    keeps a window of samples, not a total)."""
+    if len(pcs) not in (1, 2) or pcs[0].in_track is None:
+        fail(f"native: session {s} came up without its peer connection or inbound track")
+    leg = NativeLeg(key, pub, view, pcs, frames, fps)
+    proto = pcs[0]._recv_protocol
+    send_pli, received = proto._send_pli, proto.datagram_received
+
+    def counted_pli():
+        leg.pli_requests += 1
+        send_pli()
+
+    def timed_receive(data, addr):
+        t = time.perf_counter()
+        received(data, addr)
+        leg.recv_s += time.perf_counter() - t
+        leg.recv_calls += 1
+
+    proto._send_pli, proto.datagram_received = counted_pli, timed_receive
+    return leg
+
+
+async def open_process_leg(state, s: int, fps: int, frames, seed: int) -> NativeLeg:
+    """Session ``s`` over a JSON-envelope /offer, its client in a process of
+    its own (the same frames, made there from the same seed); the client
+    starts pushing once it has the agent's port."""
+    from ai_rtc_agent_tpu_torch.server import sessions
+
+    size = frames[0].shape[0]
+    here = Path(__file__).resolve().parent
+    out = here / "build" / f"native_client_{s}.npz"
+    out.parent.mkdir(exist_ok=True)
+    spec = {"size": size, "fps": fps, "n": len(frames), "seed": seed, "out": str(out)}
+    proc = await asyncio.create_subprocess_exec(
+        sys.executable, str(here / "chip_smoke.py"), "--native-client", json.dumps(spec),
+        stdin=asyncio.subprocess.PIPE, stdout=asyncio.subprocess.PIPE)
+    client = ClientProcess(proc, out)
+    try:
+        port = json.loads(await asyncio.wait_for(proc.stdout.readline(), 120))["port"]
+    except (ValueError, KeyError, asyncio.TimeoutError):
+        client.close()
+        fail("native: the client process did not report its port")
+    envelope = {"native_rtp": True, "video": True, "width": size, "height": size,
+                "client_addr": ["127.0.0.1", port]}
+    r = await sessions.offer(state, {"room_id": f"native-process-{s}",
+                                     "offer": {"sdp": json.dumps(envelope), "type": "offer"}})
+    if r.status != 200:
+        client.close()
+        fail(f"native: /offer answered {r.status} {r.body}")
+    server_port = json.loads(json.loads(r.body)["sdp"])["server_port"]
+    leg = _leg(r.headers["X-Stream-Id"], client, client,
+               [pc for pc in state["pcs"] if pc.server_port == server_port], frames, fps, s)
+    proc.stdin.write(json.dumps({"server_port": server_port}).encode() + b"\n")
+    await proc.stdin.drain()
+    return leg
+
+
+async def finish_process_leg(np, leg, timeout_s: float = 120.0):
+    """Wait for the client process and read back what it received."""
+    proc = leg.pub.proc
+    try:
+        rc = await asyncio.wait_for(proc.wait(), timeout_s)
+    except asyncio.TimeoutError:
+        leg.pub.close()
+        fail("native: the client process did not finish")
+    if rc != 0:
+        fail(f"native: the client process exited with {rc}")
+    with np.load(leg.pub.out) as got:
+        leg.got = [(int(p), a, float(t)) for p, a, t in zip(got["pts"], got["frames"], got["times"])]
+        leg.pushed = [float(t) for t in got["pushed"]]
+        leg.downlink = json.loads(str(got["downlink"]))
+        return float(got["t0"])
+
+
+def native_client(spec: dict):
+    """``python3 chip_smoke.py --native-client SPEC``: the client side of one
+    /offer leg in this process (no CUDA): print the receive port, read the
+    agent's port from stdin, push the leg's frames at ``fps`` with the
+    frame's packets spread over NATIVE_PROBE_SPREAD of its interval, and
+    write what came back, its reception stats and the clock at the first
+    push to ``spec["out"]``."""
+    import numpy as np
+
+    from ai_rtc_agent_tpu_torch.media.rtp_client import NativeRtpClient
+
+    async def run():
+        size, fps, n = spec["size"], spec["fps"], spec["n"]
+        base = _frames(np, NATIVE_DISTINCT, seed=spec["seed"], size=size)
+        c = await NativeRtpClient(size, size, fps=fps, use_h264=False,
+                                  rcvbuf=NATIVE_RCVBUF).open()
+        try:
+            print(json.dumps({"port": c.port}), flush=True)
+            line = await asyncio.get_running_loop().run_in_executor(None, sys.stdin.readline)
+            await c.connect(json.loads(line)["server_port"])
+            leg = NativeLeg(None, c, c, [], [base[i % NATIVE_DISTINCT] for i in range(n)], fps)
+            bursts = math.ceil(3 * size * size / (1200 - 14) / NATIVE_BURST)
+            t0 = await drive_native([leg], fps, n, gap_s=NATIVE_PROBE_SPREAD / fps / bursts)
+        finally:
+            c.close()
+        frames = [a for _, a, _ in leg.got]
+        np.savez(spec["out"], pts=np.array([p for p, _, _ in leg.got], np.int64),
+                 frames=np.stack(frames) if frames else np.zeros((0, size, size, 3), np.uint8),
+                 times=np.array([t for _, _, t in leg.got]), t0=t0, pushed=np.array(leg.pushed),
+                 downlink=json.dumps(c.rx_stats.report_block()))
+
+    asyncio.run(run())
+
+
+async def drive_native(legs, fps: int, n: int, gap_s: float = 0.0) -> float:
+    """Push each leg's ``n`` frames at ``fps`` (paced packets, bursts
+    ``gap_s`` apart) while draining every viewer; wait out the frames still
+    on their way.  -> time.monotonic() at the first push."""
+    stop = asyncio.Event()
+
+    async def drain():
+        while not stop.is_set():
+            for leg in legs:
+                leg.view.drain(lambda arr, pts, leg=leg: leg.got.append(
+                    (pts, arr, time.monotonic())))
+            await asyncio.sleep(0.001)
+
+    async def push(leg):
+        t_next = time.monotonic()
+        for i in range(n):
+            leg.pushed.append(time.monotonic())
+            await leg.pub.send_paced(leg.frames[i], i, NATIVE_BURST, gap_s)
+            t_next += 1.0 / fps
+            await asyncio.sleep(max(0.0, t_next - time.monotonic()))
+
+    drainer = asyncio.ensure_future(drain())
+    t0 = time.monotonic()
+    await asyncio.gather(*[push(leg) for leg in legs])
+    seen = -1
+    while seen != sum(len(leg.got) for leg in legs):  # until nothing more arrives
+        seen = sum(len(leg.got) for leg in legs)
+        await asyncio.sleep(NATIVE_TAIL_S)
+    stop.set()
+    await drainer
+    return t0
+
+
+def direct_outputs(np, tap, legs) -> dict:
+    """Each served frame again through its own scheduler session, at the
+    occupancy of the bucket step that served it (the other leg's frame
+    riding beside it at 2, both submitted at a barrier under a long
+    coalescing window): {(key, pts): direct frame}."""
+    out = {}
+    gate = threading.Barrier(2)
+
+    def step(sess, arr, paired=False):
+        if paired:
+            gate.wait(timeout=10)
+        h = sess.submit(arr)
+        return np.asarray(sess.fetch(h)), h.occupancy
+
+    by_key = {leg.key: leg for leg in legs}
+    for leg in legs:
+        sess = tap.sessions[leg.key]
+        for pts, _, _ in leg.got:
+            occ, _ = tap.rode[(leg.key, pts)]
+            arr = leg.frames[pts // leg.step]
+            if occ == 1:
+                got, occ_now = step(sess, arr)
+                if occ_now != 1:
+                    fail(f"native: a direct call rode occupancy {occ_now}, not 1")
+            else:
+                other = next(k for k in by_key if k != leg.key)
+                window, tap.sched.window_s = tap.sched.window_s, 0.5
+                try:
+                    with ThreadPoolExecutor(2) as ex:
+                        for _ in range(4):
+                            a = ex.submit(step, sess, arr, True)
+                            b = ex.submit(step, tap.sessions[other], by_key[other].frames[0], True)
+                            (got, occ_now), (_, occ_b) = a.result(), b.result()
+                            if occ_now == occ_b == occ:
+                                break
+                        else:
+                            fail(f"native: no direct step of occupancy {occ} in 4 tries")
+                finally:
+                    tap.sched.window_s = window
+            out[(leg.key, pts)] = got
+    return out
+
+
+def plane_stages(provider, legs) -> dict:
+    """Host-plane µs per frame of one leg: packetize and send from /metrics'
+    host_plane_sessions (one sample a frame), recv summed over the agent's
+    receive callbacks (each drains a burst of datagrams)."""
+    snap = provider.host_plane_snapshot()
+    leg = legs[0]
+    merged = {}
+    for pc in leg.pcs:
+        merged.update(snap.get(pc.pc_id, {}))
+    frames = max(1, len(leg.got))
+    return {
+        "recv_us_per_frame": round(1e6 * leg.recv_s / len(leg.frames), 2),
+        "recv_callbacks_per_frame": round(leg.recv_calls / len(leg.frames), 2),
+        "recv_p50_us_per_callback": merged.get("recv_p50_us"),
+        "packetize_p50_us": merged.get("packetize_p50_us"),
+        "send_p50_us": merged.get("send_p50_us"),
+        "rx_datagrams": merged.get("rx_datagrams_total"),
+        "tx_packets_per_frame": round(merged.get("tx_packets_total", 0) / frames, 1),
+    }
+
+
+async def close_native(state, how: str, legs):
+    from ai_rtc_agent_tpu_torch.server import sessions
+
+    if how == "offer":
+        for leg in legs:
+            await leg.pcs[0].close()
+    else:
+        live = state["state"]
+        for leg in legs:
+            view_id = next(k for k, pc in live["whep_pcs"].items() if pc is leg.pcs[1])
+            if not (await sessions.close(state, "whep", view_id)
+                    and await sessions.close(state, "whip", leg.key)):
+                fail("native: closing a WHIP/WHEP session found nothing to close")
+    await asyncio.sleep(0)
+    await asyncio.gather(*state["releasing"])
+    for leg in legs:
+        leg.pub.close()
+        if leg.view is not leg.pub:
+            leg.view.close()
+
+
+def phase_native(torch, card: str, pipe, loopback_fps: float):
+    """Phase 8: the native tier on the card (see the module docstring)."""
+    import numpy as np
+
+    from ai_rtc_agent_tpu_torch.media import native
+    from ai_rtc_agent_tpu_torch.server import sessions
+    from ai_rtc_agent_tpu_torch.server.signaling import get_provider
+    from ai_rtc_agent_tpu_torch.stream.scheduler import BatchScheduler
+
+    t_phase = t = time.perf_counter()
+    lib = native.load()
+    took = time.perf_counter() - t
+    if lib is None:
+        fail(f"native: the C++ runtime did not build or load: {native.load_error()}")
+    h264 = native.h264_available()
+    built = (f"built in {native.build_seconds:.2f} s" if native.build_seconds is not None
+             else "reused from build/")
+    say(f"native: C++ runtime {native.library_path()} ({built}; loaded in {took:.2f} s); "
+        f"H.264 (libavcodec) {'available' if h264 else 'absent: NullCodec'}")
+    rmem = {}
+    for name in ("rmem_default", "rmem_max"):
+        try:
+            with open(f"/proc/sys/net/core/{name}") as f:
+                rmem[name] = int(f.read())
+        except OSError:
+            rmem[name] = None
+    say(f"native: net.core {rmem}; the agent's sockets keep the default receive buffer")
+    size = pipe.config.width
+    # made off the event loop: a loop blocked for seconds reads as lag to the
+    # overload plane's watchdog, and admission would refuse the next session
+    bases = [_frames(np, NATIVE_DISTINCT, seed=80 + s, size=size) for s in range(2)]
+    with _Env(WEBRTC_PROVIDER="native-rtp", WARMUP_FRAMES=0, DROP_FRAMES=0,
+              OVERLOAD_RX_QUEUE_BOUND=16384):
+        provider = get_provider()
+        if type(provider).__name__ != "NativeRtpProvider":
+            fail(f"native: WEBRTC_PROVIDER=native-rtp gave {type(provider).__name__}")
+        if h264:
+            # lossy: the frames could not be held bit for bit
+            say("native: H.264 is available; this phase serves NullCodec, which is lossless")
+        provider.use_h264 = False
+        t = time.perf_counter()
+        sched = BatchScheduler.from_pipeline(pipe, max_sessions=2)
+        say(f"native: BatchScheduler.from_pipeline, 2 slots, buckets {sched._bucket_sizes} "
+            f"captured in {time.perf_counter() - t:.2f} s")
+        tap = StepTap(sched)
+        attn_total = epi_total = 0
+
+        async def run_all():
+            nonlocal attn_total, epi_total
+            state = {}
+            sessions.configure(state, model_id=pipe.model_id, pipeline=pipe, provider=provider,
+                               batch_scheduler=sched)
+            await sessions.startup(state)
+            results = []
+            for label, how, k, fps, n in NATIVE_RUNS:
+                legs = [await open_native_leg(np, state, how, s, fps,
+                                              [bases[s][i % NATIVE_DISTINCT] for i in range(n)],
+                                              False)
+                        for s in range(k)]
+                _sync(torch, pipe.device)
+                _reset_launches()
+                t0 = await drive_native(legs, fps, n)
+                attn, epi = _launches()
+                attn_total += attn
+                epi_total += epi
+                metrics = sessions.metrics(state)
+                stages = plane_stages(provider, legs)
+                uplink = [leg.pcs[0]._rtcp_state.recv.report_block() for leg in legs]
+                downlink = [leg.view.rx_stats.report_block() for leg in legs]
+                ring_drops = [leg.pcs[0].in_track.dropped for leg in legs]
+                direct = await asyncio.to_thread(direct_outputs, np, tap, legs)
+                results.append((label, how, k, fps, n, legs, t0, attn, epi, metrics, stages,
+                                uplink, downlink, ring_drops, direct))
+                await close_native(state, how, legs)
+                if state["pcs"] or sched.free_slots != 2:
+                    fail(f"native: {label}: {len(state['pcs'])} peer connection(s) and "
+                         f"{2 - sched.free_slots} slot(s) left after closing")
+            label, fps, n = NATIVE_PROBE
+            leg = await open_process_leg(state, 0, fps, [bases[0][i % NATIVE_DISTINCT]
+                                                         for i in range(n)], seed=80)
+            _reset_launches()
+            t0 = await finish_process_leg(np, leg)
+            attn, epi = _launches()
+            attn_total += attn
+            epi_total += epi
+            metrics, stages = sessions.metrics(state), plane_stages(provider, [leg])
+            uplink, ring_drops = [leg.pcs[0]._rtcp_state.recv.report_block()], [leg.pcs[0].in_track.dropped]
+            direct = await asyncio.to_thread(direct_outputs, np, tap, [leg])
+            probe = (label, "offer", 1, fps, n, [leg], t0, attn, epi, metrics, stages, uplink,
+                     [leg.downlink], ring_drops, direct)
+            await close_native(state, "offer", [leg])
+            await sessions.shutdown(state)
+            return results, probe
+
+        results, probe = asyncio.run(run_all())
+    for (label, how, k, fps, n, legs, t0, attn, epi, metrics, stages, uplink, downlink,
+         ring_drops, direct) in results + [probe]:
+        report_native_run(np, card, label, k, fps, n, legs, t0, attn, epi, metrics, stages,
+                          uplink, downlink, ring_drops, direct, tap, loopback_fps,
+                          probe=label == NATIVE_PROBE[0])
+    say(f"native: phase 8 took {time.perf_counter() - t_phase:.1f} s")
+    return attn_total, epi_total
+
+
+def report_native_run(np, card, label, k, fps, n, legs, t0, attn, epi, metrics, stages, uplink,
+                      downlink, ring_drops, direct, tap, loopback_fps, probe=False):
+    """Check one run (frames returned in pts order, each its direct call bit
+    for bit, 32 + 1 launches a bucket step) and print its numbers.  The probe
+    may lose every frame on the agent's default receive buffer: that is
+    what it measures; the frames it does get back are held as the runs' are."""
+    name = f"native {label}"
+    if attn != 32 * epi or (epi == 0 and not probe):
+        fail(f"{name}: {attn} attention and {epi} epilogue launches (want 32 per bucket step)")
+    firsts, fps_each, steps, pushed = [], [], set(), []
+    for leg in legs:
+        pts = [p for p, _, _ in leg.got]
+        if not pts:
+            if probe:
+                continue
+            fail(f"{name}: session {leg.key[:8]} got no frame back")
+        if pts != sorted(set(pts)):
+            fail(f"{name}: session {leg.key[:8]}'s frames came back out of pts order: {pts}")
+        bad = [p for p, arr, _ in leg.got
+               if arr.shape != legs[0].frames[0].shape or not np.array_equal(arr, direct[(leg.key, p)])]
+        if bad:
+            p = bad[0]
+            arr = next(a for q, a, _ in leg.got if q == p)
+            diff = np.abs(arr.astype(np.int16) - direct[(leg.key, p)]).max()
+            fail(f"{name}: {len(bad)} returned frame(s) differ from their direct call "
+                 f"(pts {p}: max {diff} levels)")
+        pushed.append((len(leg.pushed) - 1) / (leg.pushed[-1] - leg.pushed[0]))
+        times = [tm - t0 for _, _, tm in leg.got]
+        if not times:
+            continue
+        firsts.append(1e3 * times[0])
+        if len(times) > NATIVE_FILL:
+            fps_each.append((len(times) - NATIVE_FILL) / (times[-1] - times[NATIVE_FILL - 1]))
+        steps.update(t for (key, p), (_, t) in tap.rode.items()
+                     if key == leg.key and p // leg.step >= NATIVE_FILL)
+    steps = sorted(steps)
+    step_ms = 1e3 * (steps[-1] - steps[0]) / (len(steps) - 1) if len(steps) > 1 else float("nan")
+    returned = [len(leg.got) for leg in legs]
+    st = metrics
+
+    def lost(blocks):
+        return [f"{b['cumulative_lost']} of {b['highest_seq'] + 1}" if b else "none received"
+                for b in blocks]
+
+    say(f"{name}: launches over {epi} bucket steps: attention {attn}, epilogue {epi}")
+    say(f"{name}: {card} | frames pushed {n} x {k}, returned {returned} (pts in order, each equal "
+        f"bit for bit to its direct call through the same captured bucket step) | RTP lost: "
+        f"uplink (the agent's reception stats) {lost(uplink)}, downlink (the client's) "
+        f"{lost(downlink)} | the agent's ring dropped {ring_drops} | NACKs {st.get('rtcp_nacks_total', 0)}, PLI "
+        f"requests {[leg.pli_requests for leg in legs]}")
+    say(f"{name}: {card} | first view {[round(x, 2) for x in firsts]} ms | served "
+        f"{[round(x, 2) for x in fps_each]} fps (steady, past each session's {NATIVE_FILL}th "
+        f"frame; aggregate {sum(fps_each):.2f}; phase 5's loopback session {loopback_fps:.2f}) | "
+        f"pushed at {[round(x, 2) for x in pushed]} fps (the client's pace as achieved) | "
+        f"{step_ms:.2f} ms between bucket steps over {len(steps)} | decode "
+        f"{st.get('decode_p50_ms', float('nan')):.3f} / encode {st.get('encode_p50_ms', float('nan')):.3f}"
+        f" / glass {st.get('glass_p50_ms', float('nan')):.2f} ms p50 | host plane (first session) "
+        f"{json.dumps(stages)}")
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -2037,6 +2574,9 @@ def _leaves(tree):
 
 
 def main():
+    if sys.argv[1:2] == ["--native-client"]:  # phase 8's probe: the client side
+        native_client(json.loads(sys.argv[2]))
+        return
     import torch
 
     card = phase_device(torch)
@@ -2045,11 +2585,12 @@ def main():
     epi = phase_epilogue(torch)
     pipe, ref_bundle, attn_launches, epi_launches = phase_main(torch, card)
     phase_graph_ab(torch, card, pipe, ref_bundle)
-    serve_attn, serve_epi = phase_serve(torch, card, pipe)
+    serve_attn, serve_epi, serve_fps = phase_serve(torch, card, pipe)
     sessions_attn, sessions_epi = phase_sessions(torch, card, pipe, ref_bundle)
     faults_attn, faults_epi = phase_faults(torch, card, pipe, ref_bundle)
-    attn_launches += serve_attn + sessions_attn + faults_attn
-    epi_launches += serve_epi + sessions_epi + faults_epi
+    native_attn, native_epi = phase_native(torch, card, pipe, serve_fps)
+    attn_launches += serve_attn + sessions_attn + faults_attn + native_attn
+    epi_launches += serve_epi + sessions_epi + faults_epi + native_epi
     kernels = [
         {
             "name": "flash_attention", "route": "cuda",

@@ -328,6 +328,51 @@ def test_scheduler_steps_match_dedicated_engines_on_the_card(cuda):
 
 # -- the captured step: one CUDA graph per engine and per bucket size -------------------
 
+def test_native_rtp_session_through_the_scheduler_on_the_card(cuda, monkeypatch):
+    """One /offer session over the native tier (WEBRTC_PROVIDER=native-rtp,
+    the C++ runtime of native/, NullCodec) on loopback UDP into a 2-slot
+    graph scheduler over sd-turbo 512x512 bf16: the returned frames come
+    back in pts order, each equal bit for bit to a direct call of its
+    scheduler session through the bucket step of the same occupancy, 32 + 1
+    launches a bucket step; closing leaves no connection and frees the slot."""
+    from ai_rtc_agent_tpu_torch.media import native
+    from ai_rtc_agent_tpu_torch.server.signaling import get_provider
+    from ai_rtc_agent_tpu_torch.stream.scheduler import BatchScheduler
+
+    assert native.load() is not None, native.load_error()
+    for name, value in (("WEBRTC_PROVIDER", "native-rtp"), ("WARMUP_FRAMES", "0"),
+                        ("OVERLOAD_RX_QUEUE_BOUND", "16384")):
+        monkeypatch.setenv(name, value)
+    pipe = StreamDiffusionPipeline("stabilityai/sd-turbo")
+    provider = get_provider()
+    provider.use_h264 = False  # lossless, so that frames compare bit for bit
+    sched = BatchScheduler.from_pipeline(pipe, max_sessions=2)
+    tap = chip_smoke.StepTap(sched)
+    frames = chip_smoke._frames(np, 12, seed=5)
+
+    async def serve():
+        state = {}
+        sessions.configure(state, pipeline=pipe, provider=provider, batch_scheduler=sched)
+        await sessions.startup(state)
+        leg = await chip_smoke.open_native_leg(np, state, "offer", 0, 30, frames, False)
+        start = KA.launches, KF.launches
+        await chip_smoke.drive_native([leg], 30, len(frames))
+        launches = KA.launches - start[0], KF.launches - start[1]
+        direct = await asyncio.to_thread(chip_smoke.direct_outputs, np, tap, [leg])
+        await chip_smoke.close_native(state, "offer", [leg])
+        left = len(state["pcs"]), sched.free_slots
+        await sessions.shutdown(state)
+        return leg, launches, direct, left
+
+    leg, (attn, epi), direct, left = asyncio.run(serve())
+    pts = [p for p, _, _ in leg.got]
+    assert pts and pts == sorted(set(pts))
+    assert epi >= len(pts) and attn == 32 * epi
+    for p, arr, _ in leg.got:
+        assert arr.shape == (512, 512, 3) and np.array_equal(arr, direct[(leg.key, p)]), p
+    assert left == (0, 2)
+
+
 def _tiny_ring(device, graphs):
     """tiny-test's 4-stage LCM cfg-self ring in f32 with plain attention (the
     ring and stock move every step), as an engine (graph or eager)."""

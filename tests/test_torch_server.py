@@ -18,8 +18,10 @@ agent, on the CPU.
 * The pipeline surface the track drives, the track itself, webhooks, TURN,
   env getters and FrameStats against their JAX counterparts, exactly.
 * Guards: only ``server/agent.py`` imports aiohttp at module level, nothing
-  imports pydantic, ``native-rtp`` raises ``NotImplementedError``, and the
-  agent refuses to start without ``device="cpu"`` on a box with no card.
+  imports pydantic, the provider choice (``WEBRTC_PROVIDER``, and the
+  default without aiortc, the native runtime or ``cryptography``) and its
+  warning are the JAX ``get_provider``'s, and the agent refuses to start
+  without ``device="cpu"`` on a box with no card.
 """
 
 import ast
@@ -473,7 +475,7 @@ def test_operator_endpoints_without_the_overload_plane(monkeypatch):
 # the JAX agent's planes the port has not ported yet (ROADMAP §A): their keys
 # are left out of a comparison of bodies
 UNPORTED_KEYS = ("aot_cache_", "broadcast", "boot_id", "device_live_buffers", "devtel",
-                 "flight_", "netadapt", "slo", "trace_enabled")
+                 "flight_", "slo", "trace_enabled")
 
 
 def ported(body: dict) -> dict:
@@ -804,16 +806,24 @@ def test_twilio_backoff_schedule_matches_jax_transient_policy():
 @pytest.mark.parametrize("name,value", [
     ("WARMUP_FRAMES", None), ("WARMUP_FRAMES", "3"), ("DROP_FRAMES", "2"), ("PIPELINE_DEPTH", "0"),
     ("PIPELINE_DEPTH", "4"), ("HW_ENCODE", "off"), ("HW_ENCODE", "yes"), ("NVENC", "1"),
+    ("HW_DECODE", "1"), ("HW_DECODE", "off"), ("NVDEC", "yes"), ("ENC_PRESET", "fast"),
+    ("NVENC_PRESET", "slow"), ("ENC_DEFAULT_BITRATE", "800000"),
+    ("NVENC_DEFAULT_BITRATE", "900000"), ("ADVERTISE_HOST", "10.0.0.2"),
 ])
 def test_env_getters_match_jax(monkeypatch, name, value):
     if value is None:
         monkeypatch.delenv(name, raising=False)
     else:
         monkeypatch.setenv(name, value)
-    for fn in ("warmup_frames", "drop_frames", "pipeline_depth", "hw_encode"):
+    for fn in ("warmup_frames", "drop_frames", "pipeline_depth", "hw_encode", "hw_decode"):
         assert getattr(PENV, fn)() == getattr(JENV, fn)(), fn
     assert PENV.get_str(name, "d") == JENV.get_str(name, "d")
     assert PENV.get_bool(name, True) == JENV.get_bool(name, True)
+    for args in (("ENC_PRESET", "NVENC_PRESET", "ultrafast"),
+                 ("ENC_TUNING_INFO", "NVENC_TUNING_INFO", "zerolatency")):
+        assert PENV.get_str_aliased(*args) == JENV.get_str_aliased(*args)
+    args = ("ENC_DEFAULT_BITRATE", "NVENC_DEFAULT_BITRATE", 3_000_000)
+    assert PENV.get_int_aliased(*args) == JENV.get_int_aliased(*args)
 
 
 def test_env_rejects_a_non_integer(monkeypatch):
@@ -914,16 +924,57 @@ def _block_aiortc(monkeypatch):
     monkeypatch.setattr(builtins, "__import__", no_aiortc)
 
 
-@pytest.mark.parametrize("how", ["by name", "by env", "default without aiortc"])
-def test_native_rtp_is_a_later_slice(monkeypatch, how):
+PROVIDER_CHOICES = {
+    "by name": "NativeRtpProvider",
+    "by env": "NativeRtpProvider",
+    "default without aiortc": "NativeRtpProvider",
+    "default without the native runtime": "LoopbackProvider",
+    "default without cryptography": "LoopbackProvider",
+}
+
+
+@pytest.mark.parametrize("how", list(PROVIDER_CHOICES))
+def test_provider_choice_matches_jax(monkeypatch, caplog, how):
+    """The port picks the provider the JAX ``get_provider`` picks, with the
+    same warning: native-rtp by name or env; without aiortc the native tier
+    when its C++ runtime loads and ``cryptography`` imports, else loopback."""
+    import builtins
+    import sys
+
+    from ai_rtc_agent_tpu.media import native as JN
+    from ai_rtc_agent_tpu_torch.media import native as PN
+
     _block_aiortc(monkeypatch)
     monkeypatch.delenv("WEBRTC_PROVIDER", raising=False)
     if how == "by env":
         monkeypatch.setenv("WEBRTC_PROVIDER", "native-rtp")
-    with pytest.raises(NotImplementedError, match="native-rtp"):
-        PS.get_provider("native-rtp" if how == "by name" else None)
-    with pytest.raises(NotImplementedError, match="native-rtp"):
-        PA.build_app(pipeline=FakePipeline())
+    if how == "default without the native runtime":
+        monkeypatch.setattr(JN, "load", lambda: None)
+        monkeypatch.setattr(PN, "load", lambda: None)
+    if how == "default without cryptography":
+        blocked = builtins.__import__
+
+        def no_crypto(name, *a, **kw):
+            if name == "cryptography" or name.startswith("cryptography."):
+                raise ImportError("cryptography unavailable (test)")
+            return blocked(name, *a, **kw)
+
+        monkeypatch.setattr(builtins, "__import__", no_crypto)
+        for name in [m for m in sys.modules if ".server.secure." in m
+                     and m.rsplit(".", 1)[1] in ("endpoint", "dtls", "srtp")]:
+            monkeypatch.delitem(sys.modules, name)
+    choices = []
+    for side in (JS, PS):
+        caplog.clear()
+        with caplog.at_level("WARNING", logger=side.__name__):
+            provider = side.get_provider("native-rtp" if how == "by name" else None)
+        choices.append((type(provider).__name__,
+                        [r.getMessage() for r in caplog.records if r.name == side.__name__]))
+    assert choices[0] == choices[1]
+    assert choices[1][0] == PROVIDER_CHOICES[how]
+    assert bool(choices[1][1]) == how.startswith("default")  # the warning names the tier
+    if how != "by name":
+        assert type(PA.build_app(pipeline=FakePipeline())["provider"]).__name__ == choices[1][0]
 
 
 def test_provider_names(monkeypatch):
