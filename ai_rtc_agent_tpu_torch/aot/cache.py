@@ -29,24 +29,37 @@ Three conditions make a replay right, and the engines keep them:
 * The kernel wrappers' launch counters are plain ints that a replay does
   not move: a capture records each counter's delta and :meth:`run` adds it
   per replay (capture itself executes nothing, so it leaves them as they
-  were).  A capture runs before sessions are admitted, so no other thread
-  launches meanwhile.
+  were).  A capture runs before sessions are admitted, or lazily on the
+  one thread that steps its plane, so no other thread launches meanwhile.
+* No garbage collection runs on the capturing thread while it captures: a
+  graph freed there (a closed scheduler's: it and its engine guard refer to
+  each other) would be destroyed mid-capture, which invalidates the
+  capture.
 
 What does not carry over: the JAX cache serializes executables to disk
 (``jax.export``) and a later process adopts them.  A CUDA graph holds the
 device addresses of one process and cannot be written out, so the cache
 here lives in the process; the only on-disk part is ``build/``'s nvcc
 libraries, cached by source digest (``ops/kernels/build.py``).
+
+Device telemetry (obs/devtel.py) reads the cache under the JAX AOT cache's
+names: every :meth:`GraphCache.get` is a hit or a miss, a miss is a build
+(the capture on the card, the builder on the CPU) with its seconds, which
+the build watchdog records, and after each build the inventory of every
+live cache (:func:`inventory`) refreshes the entries and bytes gauges.
 """
 
 from __future__ import annotations
 
+import gc
 import time
+import weakref
 from typing import Callable
 
 import torch
 
 from .. import __version__
+from ..obs import devtel
 from ..ops.kernels import attention as _attention
 from ..ops.kernels import fused_scheduler as _epilogue
 
@@ -137,8 +150,17 @@ class CapturedStep:
         current.wait_stream(side)
         cuda_graph = torch.cuda.CUDAGraph()
         before = _launches()
-        with torch.cuda.graph(cuda_graph, pool=self.pool, capture_error_mode="thread_local"):
-            out = self.fn(self.inputs)
+        # no garbage collection on this thread while it captures: an old
+        # graph in a cycle (a closed scheduler's) freed here would be
+        # destroyed mid-capture, which invalidates the capture
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(cuda_graph, pool=self.pool, capture_error_mode="thread_local"):
+                out = self.fn(self.inputs)
+        finally:
+            if collecting:
+                gc.enable()
         self.launches = tuple(a - b for a, b in zip(_launches(), before))
         _set_launches(before)
         torch.cuda.synchronize(self.device)
@@ -159,6 +181,31 @@ class CapturedStep:
         return self.out
 
 
+_LIVE = weakref.WeakSet()  # every GraphCache alive in the process
+
+
+def inventory() -> tuple:
+    """(steps held, bytes of their graph pools on the card) over every live
+    :class:`GraphCache`: the ``aot_cache_entries``/``aot_cache_bytes``
+    gauges.  Reads the allocator's snapshot, so it runs after a build, never
+    per step."""
+    caches = list(_LIVE)
+    entries = sum(len(c._steps) for c in caches)
+    pools = {tuple(c.pool) for c in caches if c.pool is not None}
+    nbytes = 0
+    if pools:
+        nbytes = sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                     if tuple(seg.get("segment_pool_id", ())) in pools)
+    return entries, nbytes
+
+
+def live_buffers() -> int:
+    """The static buffers (inputs, and a captured step's output) of every
+    step the live caches hold: the CPU's ``device_live_buffers``."""
+    return sum(len(step.inputs) + (step.out is not None)
+               for c in list(_LIVE) for step in list(c._steps.values()))
+
+
 class GraphCache:
     """One engine's, scheduler's or peer engine's steps by engine key.  With
     ``graphs`` each is captured at its first :meth:`get` (at prewarm, on
@@ -171,17 +218,24 @@ class GraphCache:
         self.graphs = graphs
         self.pool = torch.cuda.graph_pool_handle() if graphs else None
         self._steps: dict = {}
+        _LIVE.add(self)
 
     def get(self, key: str, build: Callable[[], tuple]) -> CapturedStep:
         """The step of ``key``; ``build() -> (fn, inputs)`` makes it at its
         first use, which captures it with ``graphs``."""
         step = self._steps.get(key)
-        if step is None:
-            fn, inputs = build()
-            step = CapturedStep(key, fn, inputs, graph=self.graphs, pool=self.pool)
-            if self.graphs:
-                step.capture()
-            self._steps[key] = step
+        if step is not None:
+            devtel.note_aot("hit")
+            return step
+        devtel.note_aot("miss")
+        t0 = time.perf_counter()
+        fn, inputs = build()
+        step = CapturedStep(key, fn, inputs, graph=self.graphs, pool=self.pool)
+        if self.graphs:
+            step.capture()
+        self._steps[key] = step
+        devtel.note_aot("build", seconds=time.perf_counter() - t0, context=key,
+                        inventory=inventory)
         return step
 
     def status(self) -> dict:

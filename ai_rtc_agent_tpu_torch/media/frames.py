@@ -8,7 +8,7 @@ tests and the loopback tier can make frames without it.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from fractions import Fraction
 
 import numpy as np
@@ -21,6 +21,9 @@ class VideoFrame:
     time_base: Fraction | None = None
     # wall-clock of decode completion, carried to the output for freshness
     wall_ts: float | None = None
+    # the frame's lifecycle trace (obs/trace.py FrameTrace), None unless a
+    # plane minted one; it rides the frame so every hop can stamp it
+    trace: object = field(default=None, repr=False, compare=False)
 
     @classmethod
     def from_ndarray(cls, arr: np.ndarray, format: str = "rgb24") -> "VideoFrame":
@@ -39,9 +42,11 @@ class VideoFrame:
 
 def wrap_processed(out_u8: np.ndarray, src_frame) -> VideoFrame:
     """Wrap a processed frame with the source frame's timing metadata
-    (pts, time_base, wall_ts)."""
+    (pts, time_base, wall_ts) and its trace: the encode and send hops stamp
+    the source frame's timeline through the processed output."""
     vf = VideoFrame.from_ndarray(out_u8)
     vf.pts = src_frame.pts
     vf.time_base = src_frame.time_base
     vf.wall_ts = getattr(src_frame, "wall_ts", None)
+    vf.trace = getattr(src_frame, "trace", None)
     return vf

@@ -26,6 +26,7 @@ import threading
 import time
 from pathlib import Path
 
+from ..obs import devtel
 from ..ops.kernels.build import BUILD_DIR
 
 logger = logging.getLogger(__name__)
@@ -68,6 +69,7 @@ def build() -> Path:
         raise RuntimeError(f"g++ failed on native/ (rc={proc.returncode}):\n{proc.stderr}")
     os.replace(tmp, out)
     build_seconds = time.perf_counter() - t0
+    devtel.note_build(build_seconds, "g++:native")  # the build watchdog (obs/devtel.py)
     return out
 
 

@@ -1,6 +1,7 @@
 """The native media plane, assembled: RTP ⇄ H.264 ⇄ frame ring ⇄ pipeline
-(the port's copy of ai_rtc_agent_tpu/media/plane.py, without the frame
-lifecycle traces and the broadcast plane's AU tap):
+(the port's copy of ai_rtc_agent_tpu/media/plane.py, without the broadcast
+plane's AU tap; the frame traces of obs/trace.py stamp ``decode``,
+``encode`` and ``packetize`` here, and a TX-deadline shed seals ``shed``):
 
   RTP packets ──► RtpDepacketizer ──► H264Decoder ──► FrameRing (native
   SPSC, latest-wins) ──► H264RingSource.recv() ──► VideoStreamTrack ──►
@@ -25,6 +26,7 @@ from fractions import Fraction
 
 import numpy as np
 
+from ..obs.trace import get_trace
 from ..utils import env as env_util
 from ..utils.profiling import FrameStats
 from . import native
@@ -79,6 +81,10 @@ class H264RingSource:
         self._depkt = RtpDepacketizer() if native.load() else None
         self._reorder = RtpReorderBuffer()
         self._meta: dict = {}  # pts -> wall_ts at decode completion
+        # the native tier mints each frame's trace at decode (the frame id is
+        # the RTP pts) while a session tracer is attached and tracing is live
+        self.tracer = None  # SessionTracer | None (set by the agent's wiring)
+        self._trace_decode: dict = {}  # pts -> (t0, t1) of its decode
         self._ended = False
         self._handlers: dict = {}
         # decode runs on an executor thread while close() runs on the event
@@ -162,6 +168,13 @@ class H264RingSource:
             if len(self._meta) > 64:  # bound the pts->wall map
                 for k in sorted(self._meta)[:-64]:
                     self._meta.pop(k, None)
+            tracer = self.tracer
+            if tracer is not None and tracer.controller.active():
+                # the stage gauge's clock reads are the decode span
+                self._trace_decode[int(out_pts)] = (t0, now)
+                if len(self._trace_decode) > 64:  # the same bound as _meta
+                    for k in sorted(self._trace_decode)[:-64]:
+                        self._trace_decode.pop(k, None)
             if frame.shape != self._ring.frame_shape:
                 # real-SDP offers carry no geometry — the H.264 SPS is the
                 # source of truth.  A browser camera at any resolution must
@@ -191,6 +204,13 @@ class H264RingSource:
         vf.pts = int(pts)
         vf.time_base = Fraction(1, CLOCK_RATE)
         vf.wall_ts = self._meta.get(int(pts))
+        tracer = self.tracer
+        if tracer is not None and tracer.controller.active():
+            trace = tracer.mint(frame_id=int(pts))
+            dec = self._trace_decode.pop(int(pts), None)
+            if dec is not None:
+                trace.add_span("decode", dec[0], dec[1])
+            vf.trace = trace
         return vf
 
     def recv_nowait(self) -> VideoFrame | None:
@@ -356,6 +376,7 @@ class H264Sink:
         else:
             arr, pts, wall = np.asarray(frame), self._pts, None
         self._pts = int(pts) + self._pts_step
+        trace = get_trace(frame)
         if (
             wall is not None
             and self._deadline_s
@@ -363,6 +384,9 @@ class H264Sink:
         ):
             self.shed_stale += 1
             self.stats.count("overload_shed_tx_stale")
+            if trace is not None:  # the TX-deadline eviction seals the timeline
+                trace.mark("tx_shed")
+                trace.finish("shed")
             return []
 
         t0 = time.monotonic()
@@ -406,6 +430,8 @@ class H264Sink:
                 au = NullCodec.encode(arr, pts=int(pts))
         now = time.monotonic()
         self.stats.record_stage("encode", now - t0)
+        if trace is not None:
+            trace.add_span("encode", t0, now)  # the stage gauge's stamps
         if wall is not None:
             self.stats.record_stage("glass", now - wall)
         if not au:
@@ -414,11 +440,15 @@ class H264Sink:
             if self._pkt is None:
                 return [au] if not self._closed else []
             t1 = time.perf_counter()
+            # the µs gauges run on perf_counter, the trace on monotonic
+            tm0 = time.monotonic() if trace is not None else 0.0
             pkts = self._pkt.packetize(au, int(pts))
             if self.plane_stats is not None:
                 self.plane_stats.record_stage(
                     "packetize", time.perf_counter() - t1
                 )
+            if trace is not None:
+                trace.add_span("packetize", tm0, time.monotonic())
             return pkts
 
     def force_keyframe(self):

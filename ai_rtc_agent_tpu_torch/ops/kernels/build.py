@@ -4,7 +4,9 @@ Sources live in ``ai_rtc_agent_tpu_torch/csrc``; outputs go to ``build/`` at
 the root of the checkout (listed in .gitignore), named by a digest of the
 source and flags so an edited source never loads a stale library.  The
 libraries have a plain C interface and are loaded with ctypes; nothing here
-includes PyTorch's headers, so one source builds in seconds.
+includes PyTorch's headers, so one source builds in seconds.  A build
+reports its seconds to the device telemetry's build watchdog
+(obs/devtel.py), attributed to ``nvcc:<source>``.
 """
 
 from __future__ import annotations
@@ -15,7 +17,10 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
+
+from ...obs import devtel
 
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -52,12 +57,14 @@ def build_library(source: str) -> Path:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
     cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / source)]
+    t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(
             f"nvcc failed on {source} (rc={proc.returncode}):\n{proc.stderr}"
         )
     os.replace(tmp, out)
+    devtel.note_build(time.perf_counter() - t0, f"nvcc:{source}")
     return out
 
 

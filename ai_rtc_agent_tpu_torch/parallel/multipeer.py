@@ -33,6 +33,7 @@ import torch
 
 from .. import resolve_device
 from ..aot.cache import CapturedStep, GraphCache, stream_engine_key
+from ..obs import devtel
 from ..stream.engine import (
     StreamConfig,
     StreamEngine,
@@ -104,7 +105,7 @@ class BucketStep:
         if idx is None:
             if len(self._idx) > 512:
                 self._idx.clear()
-            idx = stage_rows(np.asarray(pad, np.int32), self.device)
+            idx = _upload(np.asarray(pad, np.int32), self.device)
             self._idx[key] = idx
         return idx
 
@@ -163,8 +164,14 @@ class BucketStep:
 
 def stage_rows(frames: np.ndarray, device) -> torch.Tensor:
     """Host uint8 frames -> the device: from pinned memory without blocking
-    on the card, as they are on the CPU."""
-    t = torch.from_numpy(np.ascontiguousarray(frames))
+    on the card, as they are on the CPU.  One of the two H2D paths of
+    frames, so one of the two H2D meters (obs/devtel.py)."""
+    devtel.note_h2d(frames.nbytes)
+    return _upload(frames, device)
+
+
+def _upload(arr: np.ndarray, device) -> torch.Tensor:
+    t = torch.from_numpy(np.ascontiguousarray(arr))
     if device.type == "cuda":
         return t.pin_memory().to(device, non_blocking=True)
     return t.to(device)
@@ -192,9 +199,13 @@ class Readback:
         return self.event is None or self.event.query()
 
     def row(self, i: int) -> np.ndarray:
+        """Row ``i`` on the host (each rider reads its row once: the D2H
+        meter of obs/devtel.py counts it here)."""
         if self.event is not None:
             self.event.synchronize()
-        return self.host[i].numpy()
+        out = self.host[i].numpy()
+        devtel.note_d2h(out.nbytes)
+        return out
 
 
 class MultiPeerEngine:
@@ -324,7 +335,8 @@ class MultiPeerEngine:
         capture, a launch path's first use or a new thread's library
         handles."""
         for k in self.bucket_keys():
-            self._bucket.warm(self.params, self.states, k)
+            with devtel.compile_scope(f"peers-{k}:full"):
+                self._bucket.warm(self.params, self.states, k)
             logger.info("prewarmed multipeer bucket %d/%d", k, self.max_peers)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)

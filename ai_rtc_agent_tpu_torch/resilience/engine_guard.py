@@ -23,7 +23,9 @@ batch down at once, and no per-slot state machine can express that.  The
   (``scheduler.rebuild_engine``: new static buffers, a new graph pool,
   every bucket captured again) with exponential backoff, up to
   ``ENGINE_REBUILD_MAX_ATTEMPTS`` attempts, restoring every live slot
-  from the snapshot bank captured before the fault, bit for bit.
+  from the snapshot bank captured before the fault, bit for bit.  The
+  device telemetry (obs/devtel.py) is in its warmup phase meanwhile, so
+  the recaptures are no serve-time breach.
 * **evacuate** — on exhaustion the guard calls ``on_exhausted`` (the
   agent's self-evacuation client, a no-op without ``EVACUATE_URL``) and
   parks in ``FAILED``.
@@ -40,6 +42,7 @@ import threading
 import time
 from collections import deque
 
+from ..obs import devtel
 from ..utils import env
 from .faults import DeviceLostError
 from .supervisor import _StepRunner, _StepTimeout
@@ -209,8 +212,15 @@ class EngineGuard:
                 self.state = "REBUILDING"
                 self._attempt = attempt
             t0 = self._clock()
+            plane, was_serving = self._devtel_plane()
             try:
-                restored = self._sched.rebuild_engine(snaps)
+                if plane is not None:
+                    plane.warmup()  # the rebuild's captures are no serve-time stall
+                try:
+                    restored = self._sched.rebuild_engine(snaps)
+                finally:
+                    if plane is not None and was_serving:
+                        plane.serving()
             except Exception:
                 logger.exception(
                     "engine rebuild attempt %d/%d failed",
@@ -248,6 +258,14 @@ class EngineGuard:
         with self._lock:
             self.state = "FAILED"
         return False
+
+    @staticmethod
+    def _devtel_plane():
+        """(the active device telemetry plane or None, whether it serves)."""
+        plane = devtel.active()
+        if plane is None:
+            return None, False
+        return plane, plane.phase == devtel.PHASE_SERVING
 
     # -- observability --------------------------------------------------------
 

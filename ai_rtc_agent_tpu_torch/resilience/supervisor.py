@@ -38,6 +38,7 @@ import queue
 import threading
 import time
 
+from ..obs.trace import get_trace
 from ..utils import env
 from .faults import DeviceLostError
 from .overload import ShedFrame
@@ -661,6 +662,11 @@ class ResilientPipeline:
 
     def _passthrough(self, frame, n: int = 1):
         self.supervisor.note_frame_out(n, processed=False)
+        frame_trace = get_trace(frame)
+        if frame_trace is not None:
+            # the terminal marker: the engine was bypassed and the source
+            # pixels delivered; the timeline seals here (the frame flows on)
+            frame_trace.finish("passthrough")
         return frame
 
     def _admit_frame(self) -> bool:

@@ -9,7 +9,12 @@ ai_rtc_agent_tpu/server/agent.py).
   GET  /health                    supervisor rollup, ladders, engine guard
   GET  /capacity                  sessions still admitted, Retry-After hint
   POST /drain                     {"action": "freeze" | "unfreeze"}
-  GET  /metrics                   fps / latency / overload / scheduler / guard gauges
+  GET  /metrics[?format=prom]     fps / latency / overload / scheduler / guard /
+                                  flight / SLO / device telemetry gauges (JSON, or
+                                  the Prometheus text exposition)
+  GET/POST /debug/trace           the frame-trace window (+ the torch.profiler bridge)
+  GET  /debug/flight              the flight recorder: index, ?session=, ?id=,
+                                  ?journey=; &format=json|chrome|jsonl
 
 Each route maps a request onto a flow of ``server/sessions.py`` and its
 answer onto the JAX agent's status codes: 201 with ``Location`` for WHIP
@@ -177,7 +182,22 @@ async def drain(request):
 
 
 async def metrics(request):
-    return web.json_response(sessions.metrics(request.app))
+    return _response(sessions.metrics_reply(request.app, request.query.get("format", "json")))
+
+
+async def debug_trace(request):
+    app = request.app
+    if request.method == "GET" or app["flight"] is None:
+        return _response(await sessions.debug_trace(app))
+    try:
+        body = await request.json()
+    except (ValueError, LookupError):
+        return web.Response(status=400, text="invalid JSON body")
+    return _response(await sessions.debug_trace(app, body))
+
+
+async def debug_flight(request):
+    return _response(sessions.debug_flight(request.app, request.query))
 
 
 @web.middleware
@@ -237,6 +257,9 @@ def build_app(
     app.router.add_get("/capacity", capacity)
     app.router.add_post("/drain", drain)
     app.router.add_get("/metrics", metrics)
+    app.router.add_get("/debug/trace", debug_trace)
+    app.router.add_post("/debug/trace", debug_trace)
+    app.router.add_get("/debug/flight", debug_flight)
     return app
 
 

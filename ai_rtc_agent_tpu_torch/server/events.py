@@ -7,8 +7,13 @@ fire-and-forget on the event loop so a slow endpoint never stalls the media
 path.  The events are plain dataclasses whose ``asdict`` equals the JAX
 package's pydantic dump (keyword arguments that are not fields are
 dropped, as pydantic drops them); ``aiohttp`` is imported only when a
-webhook is posted.  The migration event comes with migration, and the
-flight recorder's snapshot id is None until the port has a recorder.
+webhook is posted.  The migration event comes with migration.
+
+A StreamDegraded event carries the flight recorder's snapshot id and the
+last entries of the session's event log (obs/recorder.py); the SLO and
+device telemetry planes raise StreamDegraded with ``state="SLO_BREACH"``
+and ``"RETRACE_BREACH"`` through :meth:`StreamEventHandler.handle_session_state`.
+``on_emit`` tells the flight recorder what the outside world was told.
 """
 
 from __future__ import annotations
@@ -106,6 +111,9 @@ class StreamEventHandler:
         self.token = env.get_str("AUTH_TOKEN")
         self._session_factory = session_factory
         self._tasks: set = set()
+        # flight-recorder hook: callable(event_name, stream_id), fired when a
+        # webhook is dispatched
+        self.on_emit = None
 
     async def _post(self, event: WebhookEvent):
         headers = {"Content-Type": "application/json", "Authorization": f"Bearer {self.token}"}
@@ -138,6 +146,11 @@ class StreamEventHandler:
         fields = {f.name for f in dataclasses.fields(cls)}
         ev = cls(stream_id=stream_id, room_id=room_id, timestamp=int(time.time()),
                  **{k: v for k, v in extra.items() if k in fields})
+        if self.on_emit is not None:
+            try:
+                self.on_emit(event_name, stream_id)
+            except Exception:
+                logger.exception("webhook on_emit hook failed")
         try:
             task = asyncio.get_running_loop().create_task(self._post(ev))
         except RuntimeError:

@@ -33,9 +33,13 @@ Offers WITHOUT a DTLS fingerprint (the JSON envelope above, LAN tools) ride
 plain RTP; fingerprinted offers (every browser/OBS) get the encrypted tier
 (server/secure/).
 
+A frame's trace (obs/trace.py) gets its ``protect`` and ``send`` spans in
+the sender pump (``per_packet_tx`` marks the per-packet tier's combined
+span) and its terminal there: ``sent``, or ``dropped`` while the secure
+tier has no keys yet.
+
 Not carried over from the JAX tier: the broadcast plane's viewer join
-(``join_broadcast``: a WHEP viewer here always gets its own sink and pump)
-and the frame lifecycle traces of the sender pump.
+(``join_broadcast``: a WHEP viewer here always gets its own sink and pump).
 """
 
 from __future__ import annotations
@@ -49,6 +53,7 @@ import uuid
 from ..media import rtcp as rtcp_mod
 from ..media import sockio
 from ..media.plane import H264RingSource, H264Sink
+from ..obs.trace import get_trace
 from ..utils import env as env_util
 from ..utils.dispatch import spawn
 from ..utils.profiling import FrameStats
@@ -330,20 +335,24 @@ class _RtpReceiverProtocol(asyncio.DatagramProtocol):
         self.transport.sendto(wire, addr)
         return True
 
-    def send_media_batch(self, packets) -> bool:
+    def send_media_batch(self, packets, trace=None) -> bool:
         """Outbound RTP, one whole frame at a time: frame-granular SRTP
         (protect_frame — one keystream pass for every fragment) and a
         single coalesced socket flush.  Returns False while the handshake
-        has not yet produced keys / an ICE-latched peer."""
+        has not yet produced keys / an ICE-latched peer.  ``trace``: the
+        frame's trace, which gets the protect and send spans (on the
+        monotonic clock, apart from the perf_counter µs gauges)."""
         if self.transport is None or self.session is None or not packets:
             return False
         stats = self._plane_stats
         t0 = time.perf_counter()
+        tm0 = time.monotonic() if trace is not None else 0.0
         wires = self.session.protect_rtp_frame(packets)
         addr = self.session.peer_addr
         if wires is None or addr is None:
             return False
         t1 = time.perf_counter()
+        tm1 = time.monotonic() if trace is not None else 0.0
         for plain, wire in zip(packets, wires):
             self._rtcp_state.sent(plain, wire)
         self._flush.flush(wires, addr)
@@ -352,6 +361,9 @@ class _RtpReceiverProtocol(asyncio.DatagramProtocol):
             stats.record_stage("protect", t1 - t0)
             stats.record_stage("send", t2 - t1)
             stats.count("tx_packets", len(wires))
+        if trace is not None:
+            trace.add_span("protect", tm0, tm1)
+            trace.add_span("send", tm1, time.monotonic())
         return True
 
     def datagram_received(self, data, addr):
@@ -936,26 +948,40 @@ class NativeRtpPeerConnection:
                     # IDRs replace per-PLI reaction under sustained loss
                     sink.force_keyframe()
                 pkts = await asyncio.to_thread(sink.consume, frame)
+                trace = get_trace(frame)
                 if not pkts:
-                    continue  # a TX-deadline shed, or the encoder buffers
+                    # a TX-deadline shed (sealed in the sink), or the encoder
+                    # buffers: the timeline stays open for its AU's frame
+                    continue
+                sent = False
                 if self._secure_session is not None:
                     # drops silently until DTLS keys + ICE latch exist
                     if self._batch_tx:
-                        self._recv_protocol.send_media_batch(pkts)
+                        sent = self._recv_protocol.send_media_batch(pkts, trace=trace)
                     else:
+                        # protect and send interleave per packet: one
+                        # combined span, marked per_packet_tx
+                        tm0 = time.monotonic() if trace is not None else 0.0
                         for pkt in pkts:
-                            self._recv_protocol.send_media(pkt)
+                            sent = self._recv_protocol.send_media(pkt) or sent
+                        if trace is not None:
+                            trace.mark("per_packet_tx")
+                            trace.add_span("send", tm0, time.monotonic())
                 else:
-                    self._send_plain(pkts)
+                    self._send_plain(pkts, trace=trace)
+                    sent = True
+                if trace is not None:
+                    trace.finish("sent" if sent else "dropped")
         except (ConnectionError, asyncio.CancelledError):
             pass
         except Exception:
             logger.exception("sender pump failed")
 
-    def _send_plain(self, pkts) -> None:
+    def _send_plain(self, pkts, trace=None) -> None:
         """Plain-tier frame flush: one coalesced batch on the connected
         send socket (per-packet sendto when batching is off)."""
         t0 = time.perf_counter()
+        tm0 = time.monotonic() if trace is not None else 0.0
         for pkt in pkts:
             self._rtcp_state.sent(pkt, pkt)
         if self._batch_tx:
@@ -965,6 +991,8 @@ class NativeRtpPeerConnection:
                 self._send_transport.sendto(pkt)
         self.plane_stats.record_stage("send", time.perf_counter() - t0)
         self.plane_stats.count("tx_packets", len(pkts))
+        if trace is not None:
+            trace.add_span("send", tm0, time.monotonic())
 
     # OBS full-gather parity — nothing to gather on plain UDP
     async def _RTCPeerConnection__gather(self):

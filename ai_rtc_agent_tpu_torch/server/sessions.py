@@ -51,8 +51,24 @@ session's RTCP feedback walks its network ladder (``NETADAPT``,
 resilience/netadapt.py, joined to the overload ladder), ``/metrics``
 carries each session's host-plane stage histograms
 (``host_plane_sessions``) and ``/config {"encoder": ...}`` reconfigures
-every live session's encoder.  Journeys, the flight recorder, the SLO and
-device telemetry planes, migration and broadcast fan-out are later slices.
+every live session's encoder.
+
+Observability, on by the JAX agent's defaults (obs/):
+* ``DEVTEL_ENABLE``: the device telemetry plane, activated before anything
+  is built (every build of startup is a warmup build) and flipped to
+  serving at the end of :func:`startup`; a serve-time breach lands in every
+  live session's event log, the StreamDegraded webhook
+  (``RETRACE_BREACH``) and ``retrace_breaches_total``.
+* ``FLIGHT_RECORDER``: one recorder and one frame tracer per session (the
+  track mints at ingest; the native tier at decode), the event log fed by
+  the supervisor, the overload and network ladders and the webhooks, and
+  a snapshot frozen at DEGRADED/FAILED whose id rides StreamDegraded.
+* ``SLO_ENABLE`` (with the recorder): per-stage budgets, breaches as
+  StreamDegraded ``SLO_BREACH``.
+``debug_trace``, ``debug_flight`` and ``metrics_reply`` are the bodies of
+/debug/trace, /debug/flight and /metrics (JSON or ``format=prom``), and
+``health`` carries each session's ``slo`` and ``devtel`` views.  Journeys,
+migration and broadcast fan-out are later slices.
 """
 
 from __future__ import annotations
@@ -65,7 +81,14 @@ import uuid
 from dataclasses import dataclass, field
 
 from .. import resolve_device
+from ..aot.cache import inventory
 from ..models import registry
+from ..obs import devtel as obs_devtel
+from ..obs import export as obs_export
+from ..obs.promexport import CONTENT_TYPE, render
+from ..obs.recorder import FlightRecorder
+from ..obs.slo import SloPlane
+from ..obs.trace import safe_list
 from ..parallel.multipeer import CapacityError
 from ..resilience.engine_guard import EngineGuard
 from ..resilience.overload import OverloadControlPlane, QueueProbe, ShedFrame
@@ -239,9 +262,14 @@ def build_pipeline(model_id: str, fbs: int = 0, device=None) -> StreamDiffusionP
 
 
 async def startup(app):
-    """Build the serving plane (see the module docstring) and the fault
-    domain over it, on the running loop.  A plane that cannot be built
-    raises: the agent never serves another one instead."""
+    """Build the serving plane (see the module docstring), the fault domain
+    and the observability planes over it, on the running loop.  A plane
+    that cannot be built raises: the agent never serves another one
+    instead."""
+    # device telemetry first: every build of startup is then a warmup build
+    app["devtel"] = None
+    if env.devtel_enabled():
+        app["devtel"] = obs_devtel.activate(obs_devtel.DevTelPlane())
     if app["multipeer"] and app["multipeer_pipeline"] is None:
         from .multipeer_serving import MultiPeerPipeline
 
@@ -275,9 +303,21 @@ async def startup(app):
         # submit -> fetch latency at /metrics
         app["provider"].attach_stats(app["stats"])
     app["supervisors"] = {}
+    _start_observability(app)
+    if app["slo"] is not None:
+        await app["slo"].start()
     app["overload"] = None
     if env.get_bool("OVERLOAD_CONTROL", True):
         app["overload"] = OverloadControlPlane(app["stats"])
+        flight = app["flight"]
+        if flight is not None:
+
+            def overload_event(session_key, kind, **data):
+                rec = flight.session(session_key)
+                if rec is not None:
+                    rec.event(kind, **data)
+
+            app["overload"].on_event = overload_event
         await app["overload"].start()
     sched = app["batch_scheduler"]
     if sched is not None and app["overload"] is not None:
@@ -291,18 +331,94 @@ async def startup(app):
 
         def engine_transition(event_name, info):
             extra = {k: v for k, v in info.items() if k not in ("state", "reason")}
-
-            def fire():
-                handler.handle_engine_state(event_name, info.get("state", ""),
-                                            reason=str(info.get("reason", "")), **extra)
-
-            try:  # guard trips and rebuilds happen off the loop
-                loop.call_soon_threadsafe(fire)
-            except RuntimeError:
-                pass  # the loop closed (teardown)
+            # guard trips and rebuilds happen off the loop
+            _call_on_loop(loop, lambda: handler.handle_engine_state(
+                event_name, info.get("state", ""), reason=str(info.get("reason", "")), **extra))
 
         app["engine_guard"] = EngineGuard(sched, on_transition=engine_transition,
                                           on_exhausted=lambda: evacuate_agent(app))
+    plane = app["devtel"]
+    if plane is not None:
+        plane.device = _serving_device(app)
+        # the graph caches built before the plane (an injected plane) count too
+        plane.set_aot_inventory(*inventory())
+        if app["overload"] is not None:
+            # the memory sample rides the ladder's tick (rate-limited there)
+            app["overload"].on_tick = plane.sample_memory
+        # startup is done: a build from here on that no expected scope
+        # blesses is a serve-time breach
+        plane.serving()
+
+
+def _serving_device(app):
+    """The serving plane's device (None for an injected plane without one)."""
+    for plane in (app["batch_scheduler"], app["multipeer_pipeline"], app["pipeline"]):
+        dev = getattr(plane, "device", None)
+        if getattr(dev, "type", None) is not None:
+            return dev
+    return None
+
+
+def _call_on_loop(loop, fn):
+    """Run ``fn`` on ``loop`` from any thread (webhooks belong on the loop)."""
+    try:
+        loop.call_soon_threadsafe(fn)
+    except RuntimeError:
+        pass  # the loop closed (teardown)
+
+
+def _start_observability(app):
+    """The SLO plane, the flight recorder and the device telemetry's breach
+    fan-out, as the JAX agent wires them (the SLO plane first, so that every
+    session tracer is born with its feed)."""
+    loop = asyncio.get_running_loop()
+    handler: StreamEventHandler = app["stream_event_handler"]
+    recorder_on = env.get_bool("FLIGHT_RECORDER", True)
+    plane = app["devtel"]
+    if plane is not None:
+        plane.stats = app["stats"]  # breaches land as retrace_breaches_total
+    app["slo"] = None
+    if env.slo_enabled() and recorder_on:
+        app["slo"] = SloPlane(stats=app["stats"])
+
+        def slo_breach(session_key, stage, state, info):
+            flight = app.get("flight")
+            rec = flight.session(session_key) if flight is not None else None
+            if rec is not None:
+                rec.event("slo", stage=stage, state=state, **info)
+            if state != "breach":
+                return
+            recent = rec.recent_events() if rec is not None else None
+            reason = (f"slo breach: {stage} over {info['budget_ms']}ms budget "
+                      f"(burn fast={info['burn_fast']} slow={info['burn_slow']})")
+            _call_on_loop(loop, lambda: handler.handle_session_state(
+                session_key, "", "SLO_BREACH", reason, recent_events=recent))
+
+        app["slo"].on_breach = slo_breach
+    app["flight"] = None
+    if recorder_on:
+        flight = app["flight"] = FlightRecorder(stats=app["stats"], slo=app["slo"])
+
+        def webhook_emitted(event_name, stream_id):
+            rec = flight.session(stream_id)
+            if rec is not None:
+                rec.event("webhook", event=event_name)
+
+        handler.on_emit = webhook_emitted
+    if plane is not None:
+
+        def retrace_breach(info):
+            # the capture froze every live session: each black box hears it
+            flight = app.get("flight")
+            if flight is not None:
+                for rec in list(flight.sessions.values()):
+                    rec.event("retrace", **info)
+            reason = (f"serve-time retrace: {info['context']} compiled "
+                      f"{info['duration_ms']}ms after prewarm completed")
+            _call_on_loop(loop, lambda: handler.handle_session_state(
+                "device-telemetry", "", "RETRACE_BREACH", reason))
+
+        plane.on_breach = retrace_breach
 
 
 def evacuate_agent(app):
@@ -334,6 +450,10 @@ def evacuate_agent(app):
 
 
 async def shutdown(app):
+    if app["devtel"] is not None:
+        obs_devtel.deactivate(app["devtel"])
+    if app["slo"] is not None:
+        app["slo"].stop()
     ov = app["overload"]
     if ov is not None:
         ov.stop()
@@ -356,7 +476,9 @@ async def shutdown(app):
 def metrics(app) -> dict:
     """FrameStats, the native provider's per-session host-plane stages
     (``host_plane_sessions``), the overload plane, the batch scheduler's
-    ``batchsched_*`` gauges and the engine guard's counters."""
+    ``batchsched_*`` gauges, the engine guard's counters, the flight
+    recorder's, the SLO plane's and the device telemetry's gauges (the
+    cached memory sample: never a device probe per scrape)."""
     out = app["stats"].snapshot()
     snapshot = getattr(app["provider"], "host_plane_snapshot", None)
     if snapshot is not None:
@@ -370,7 +492,28 @@ def metrics(app) -> dict:
         out.update(app["batch_scheduler"].snapshot())
     if app["engine_guard"] is not None:
         out.update(app["engine_guard"].snapshot())
+    flight = app["flight"]
+    if flight is not None:
+        out["trace_enabled"] = int(flight.controller.active())
+        out["flight_sessions"] = len(flight.sessions)
+        out["flight_snapshots_stored"] = len(flight.snapshots)
+    if app["slo"] is not None:
+        out.update(app["slo"].snapshot())
+    if app["devtel"] is not None:
+        out.update(app["devtel"].snapshot())
     return out
+
+
+def metrics_reply(app, fmt: str = "json") -> Reply:
+    """/metrics: the :func:`metrics` dict as JSON, or with ``format=prom``
+    the Prometheus text exposition (the same scalars and the SLO plane's
+    stage histograms); 400 for another format."""
+    out = metrics(app)
+    if fmt == "prom":
+        return Reply(200, render(out, slo=app["slo"]), None, {"Content-Type": CONTENT_TYPE})
+    if fmt != "json":
+        return Reply(400, f"unknown format {fmt!r}")
+    return Reply(200, json.dumps(out), "application/json")
 
 
 def health(app) -> dict:
@@ -392,10 +535,24 @@ def health(app) -> dict:
         for k, snap in sched.session_snapshots().items():
             if k in sessions:
                 sessions[k]["batchsched"] = snap
+    slo_plane = app["slo"]
+    if slo_plane is not None:
+        for k in sessions:
+            snap = slo_plane.session_snapshot(k)
+            if snap is not None:
+                sessions[k]["slo"] = snap
+    plane = app["devtel"]
+    if plane is not None:
+        # a serve-time capture freezes every live session: each carries it
+        view = plane.session_view()
+        for k in sessions:
+            sessions[k]["devtel"] = view
     body = {"status": worst_state(s["state"] for s in sessions.values()), "sessions": sessions}
     if ov is not None:
         body["overload"] = {"pressure": round(ov.admission.pressure(), 4),
                             "frozen": ov.admission.frozen, "draining": ov.draining}
+    if plane is not None:
+        body["devtel"] = plane.health()
     guard = app["engine_guard"]
     if guard is not None:
         body["engine"] = guard.health()
@@ -436,6 +593,115 @@ def drain(app, body) -> Reply:
     return Reply(200, json.dumps({"draining": ov.draining, "changed": changed,
                                   "live_sessions": len(app["supervisors"])}),
                  "application/json")
+
+
+# -- the debug surface (/debug/trace, /debug/flight) -----------------------------------
+
+def _debug_error(status: int, message: str) -> Reply:
+    """The debug surface's errors are JSON bodies (tooling reads them)."""
+    return Reply(status, json.dumps({"error": message}), "application/json")
+
+
+def _json(body) -> Reply:
+    return Reply(200, json.dumps(body), "application/json")
+
+
+async def debug_trace(app, body=None) -> Reply:
+    """/debug/trace: ``body=None`` is the GET (the trace window's status);
+    a POST body ``{"action": "start", "duration_s": 30, "jax_profiler_dir":
+    DIR}`` opens a window (capped at TRACE_MAX_CAPTURE_S) and, with a
+    directory, the torch.profiler bridge over it (obs/export.py; its Chrome
+    trace lands in DIR at stop), ``{"action": "stop"}`` closes both.  The
+    bridge starts and stops off the loop.  404 without the recorder."""
+    flight = app["flight"]
+    if flight is None:
+        return Reply(404, "flight recorder disabled")
+    if body is None:
+        return _json(flight.controller.status())
+    action = body.get("action") if isinstance(body, dict) else None
+    if action == "start":
+        duration = body.get("duration_s")
+        if duration is not None:
+            try:
+                duration = float(duration)
+            except (TypeError, ValueError):
+                return Reply(400, "duration_s must be a number")
+        granted = flight.controller.start(duration)
+        out = {"tracing": True, "duration_s": round(granted, 3)}
+        log_dir = body.get("jax_profiler_dir")
+        if log_dir:
+            err = await asyncio.to_thread(obs_export.start_profiler_bridge, log_dir)
+            out["jax_profiler"] = err or f"tracing to {log_dir}"
+        return _json(out)
+    if action == "stop":
+        flight.controller.stop()
+        err = await asyncio.to_thread(obs_export.stop_profiler_bridge)
+        out = {"tracing": False}
+        if err:
+            out["jax_profiler"] = err
+        return _json(out)
+    return Reply(400, "action must be start|stop")
+
+
+def debug_flight(app, query: dict) -> Reply:
+    """/debug/flight: no query, the index (sessions, snapshots); ``session=``
+    a live capture; ``id=`` a stored snapshot; ``journey=`` the journey's
+    fragment (404 when no session or snapshot carries it: the port has no
+    journeys yet); ``format=json|chrome|jsonl`` renders a capture.  Bad
+    queries answer 400, unknown ids 404, both with a JSON error."""
+    flight = app["flight"]
+    if flight is None:
+        return _debug_error(404, "flight recorder disabled")
+    unknown = sorted(k for k in query if k not in ("id", "session", "format", "journey"))
+    if unknown:
+        return _debug_error(400, f"unknown query param(s): {', '.join(unknown)}")
+    fmt = query.get("format", "json")
+    if fmt not in ("json", "chrome", "jsonl"):
+        return _debug_error(400, f"unknown format {fmt!r}")
+    if "journey" in query:
+        if "id" in query or "session" in query:
+            return _debug_error(400, "journey= is a selector of its own — drop id=/session=")
+        if fmt != "json":
+            return _debug_error(
+                400, "journey fragments are JSON — the router's /fleet/debug/journey "
+                     "endpoint renders the merged chrome trace")
+        return _journey_fragment(app, flight, query["journey"])
+    if "id" in query:
+        snap = flight.get_snapshot(query["id"])
+        if snap is None:
+            return _debug_error(404, f"unknown snapshot {query['id']!r}")
+    elif "session" in query:
+        rec = flight.session(query["session"])
+        if rec is None:
+            return _debug_error(404, f"unknown session {query['session']!r}")
+        snap = rec.snapshot(reason="on-demand")
+    else:
+        if fmt != "json":
+            return _debug_error(400, "format= applies to a capture — pass id= or session=")
+        return _json(flight.index())
+    if fmt == "chrome":
+        return _json(obs_export.to_chrome_trace(snap))
+    if fmt == "jsonl":
+        return Reply(200, obs_export.to_jsonl(snap), "application/x-ndjson")
+    return _json(snap)
+
+
+def _journey_fragment(app, flight, journey_id: str) -> Reply:
+    """This agent's share of a fleet journey: live captures of its sessions,
+    stored snapshots that carry it, the device telemetry's fragment; 404
+    when nothing here carries it."""
+    captures = {sid: rec.snapshot(reason="journey-pull")
+                for sid, rec in list(flight.sessions.items())
+                if (rec.journey or {}).get("journey_id") == journey_id}
+    snapshots = [snap for snap in safe_list(flight.snapshots)
+                 if (snap.get("journey") or {}).get("journey_id") == journey_id]
+    if not captures and not snapshots:
+        return _debug_error(404, f"no records for journey {journey_id!r} on this agent")
+    fragment = {"agent": env.get_str("WORKER_ID") or "", "journey_id": journey_id,
+                "sessions": captures, "snapshots": snapshots}
+    if app["devtel"] is not None:
+        fragment["devtel"] = app["devtel"].fragment()
+    return _json(fragment)
 
 
 async def update_config(app, config):
@@ -496,6 +762,8 @@ def supervise(app, pc, pipeline, session_key: str, room_id: str = ""):
     stats: FrameStats = app["stats"]
     handler: StreamEventHandler = app["stream_event_handler"]
     loop = asyncio.get_running_loop()
+    flight = app["flight"]
+    rec = flight.register(session_key) if flight is not None else None
 
     def resync():
         # a keyframe after recovery: our encoder's IDR and the publisher's
@@ -508,14 +776,23 @@ def supervise(app, pc, pipeline, session_key: str, room_id: str = ""):
 
     def on_transition(old, new, reason):
         stats.count(f"supervisor_{new.lower()}")
-        try:  # may fire on a worker thread: webhooks belong on the loop
-            loop.call_soon_threadsafe(
-                lambda: handler.handle_session_state(session_key, room_id, new, reason))
-        except RuntimeError:
-            pass  # the loop closed (teardown)
+        snap_id = recent = None
+        if rec is not None:
+            rec.event("supervisor", old=old, new=new, reason=reason)
+            if new in ("DEGRADED", "FAILED"):
+                # the black box freezes now, before recovery churns the
+                # rings; the snapshot's id rides the StreamDegraded webhook
+                snap_id = flight.take_snapshot(session_key, reason=f"{new}: {reason}")
+            recent = rec.recent_events()
+        # may fire on a worker thread: webhooks belong on the loop
+        _call_on_loop(loop, lambda: handler.handle_session_state(
+            session_key, room_id, new, reason, flight_snapshot_id=snap_id,
+            recent_events=recent))
 
     sup = SessionSupervisor(session_key, resync=resync, on_transition=on_transition)
     sup.context["room_id"] = room_id
+    if rec is not None:
+        sup.on_event = rec.event  # restart attempts and outcomes -> the event log
     wrapped = ResilientPipeline(pipeline, sup)
     ov = app["overload"]
     if ov is not None:
@@ -539,12 +816,28 @@ def register_ingest_queue(app, session_key: str, track):
         app["overload"].register_queue(f"ingest:{session_key}", QueueProbe(src_q))
 
 
+def session_tracer(app, session_key: str, src_track=None):
+    """The session's frame tracer, registered with the flight recorder; None
+    without the recorder.  A native-tier source (``H264RingSource``) gets
+    it too, so that its frames' ids mint at decode."""
+    flight = app["flight"]
+    if flight is None:
+        return None
+    tracer = flight.register(session_key).tracer
+    if src_track is not None and hasattr(src_track, "tracer"):
+        src_track.tracer = tracer
+    return tracer
+
+
 def end_supervision(app, session_key: str):
     sup = app["supervisors"].pop(session_key, None)
     if sup is not None:
         sup.stop()
     if app["overload"] is not None:
         app["overload"].unregister_session(session_key)
+    if app["flight"] is not None:
+        # the live rings go with the session; stored snapshots stay
+        app["flight"].unregister(session_key)
 
 
 async def claim_pipeline(app, session_key: str):
@@ -667,7 +960,8 @@ async def publish(app, sdp: str) -> Reply:
             if track.kind == "video":
                 supervised = supervise(app, pc, TimedPipeline(pipeline, stats), session_id)
                 register_ingest_queue(app, session_id, track)
-                vt = VideoStreamTrack(track, supervised, overload=app["overload"])
+                vt = VideoStreamTrack(track, supervised, overload=app["overload"],
+                                      tracer=session_tracer(app, session_id, track))
                 relay = TrackRelay(vt, stats=FrameStats())
                 state["whip_tracks"][session_id] = vt
                 state["whip_relays"][session_id] = relay
@@ -794,7 +1088,8 @@ async def offer(app, params: dict) -> Reply:
             if track.kind == "video":
                 supervised = supervise(app, pc, TimedPipeline(pipeline, stats), stream_id, room_id)
                 register_ingest_queue(app, stream_id, track)
-                video["track"] = VideoStreamTrack(track, supervised, overload=app["overload"])
+                video["track"] = VideoStreamTrack(track, supervised, overload=app["overload"],
+                                                  tracer=session_tracer(app, stream_id, track))
                 sender = pc.addTrack(video["track"])
                 provider.force_codec(pc, sender, "video/H264")
 

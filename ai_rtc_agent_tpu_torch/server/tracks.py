@@ -23,13 +23,20 @@ hop: a pulled frame older than half of ``OVERLOAD_FRAME_DEADLINE_MS`` is
 shed while a fresher one waits behind it (freshest frame wins, counted),
 and each admitted frame's age lands in /metrics' freshness reservoir.
 Sources that can skip ahead expose ``recv_nowait()`` (the loopback track
-does); others never shed here.  Frame tracing is a later slice.
+does); others never shed here.
+
+With a session tracer (obs/trace.py ``SessionTracer``) the track is also
+the ingest hop of a frame's trace: a frame that arrives without one (the
+loopback and aiortc tiers; the native tier mints at decode) gets one here,
+the ``ingest`` span runs from its decode stamp to its admission, and a
+frame shed at ingest is marked ``ingest_shed`` and sealed ``shed``.
 """
 
 from __future__ import annotations
 
 import asyncio
 import logging
+import time
 from collections import deque
 
 from ..resilience.overload import ShedFrame
@@ -42,10 +49,12 @@ logger = logging.getLogger(__name__)
 class VideoStreamTrack:
     kind = "video"
 
-    def __init__(self, track, pipeline, pipeline_depth: int | None = None, overload=None):
+    def __init__(self, track, pipeline, pipeline_depth: int | None = None, overload=None,
+                 tracer=None):
         self.track = track
         self.pipeline = pipeline
         self.overload = overload  # OverloadControlPlane | None
+        self.tracer = tracer  # SessionTracer | None: None never touches a trace
         self.warmup_frame_idx = 0
         self.warmup_frames = env.warmup_frames()
         self.drop_frames = env.drop_frames()
@@ -74,14 +83,25 @@ class VideoStreamTrack:
     def _fbs(self) -> int:
         return int(getattr(self.pipeline, "frame_buffer_size", 1) or 1)
 
+    @staticmethod
+    def _stamp_ingest(trace, frame):
+        """The ingest span: decode complete (the wall_ts stamp) -> admitted."""
+        now = time.monotonic()
+        wall = getattr(frame, "wall_ts", None)
+        trace.add_span("ingest", wall if wall is not None else now, now)
+
     async def _pull_fresh(self):
         """One source frame, freshest wins: while the frame at hand is older
         than half the deadline and the source has a fresher one, shed it and
         take the next.  A stale frame with nothing behind it is delivered
         (a late frame beats a frozen stream)."""
         frame = await self.track.recv()
+        tracer = self.tracer
+        trace = tracer.attach(frame) if tracer is not None else None
         ov = self.overload
         if ov is None:
+            if trace is not None:
+                self._stamp_ingest(trace, frame)
             return frame
         recv_nowait = getattr(self.track, "recv_nowait", None)
         if ov.frame_deadline_s and recv_nowait is not None:
@@ -90,10 +110,16 @@ class VideoStreamTrack:
                 nxt = recv_nowait()
                 if nxt is None:
                     break
+                if trace is not None:  # the shed frame's timeline ends here
+                    trace.mark("ingest_shed")
+                    trace.finish("shed")
                 frame = nxt
+                trace = tracer.attach(frame) if tracer is not None else None
                 shed += 1
             if shed:
                 ov.note_shed_ingest(shed)
+        if trace is not None:
+            self._stamp_ingest(trace, frame)
         if getattr(frame, "wall_ts", None) is not None:  # unstamped frames have no age
             ov.note_delivered(ov.frame_age(frame))
         return frame

@@ -42,6 +42,7 @@ import torch
 
 from .. import resolve_device
 from ..aot.cache import GraphCache, stream_engine_key
+from ..obs import devtel
 from ..ops import image as I
 from ..ops import lcm as L
 from ..ops import rcfg as R
@@ -347,7 +348,10 @@ def install_state(state: dict, new: dict):
 
 def stage_into(buf: torch.Tensor, frames: np.ndarray) -> torch.Tensor:
     """Host uint8 frames -> the device buffer ``buf`` (a step's static
-    frame buffer), from pinned memory without blocking on the card."""
+    frame buffer), from pinned memory without blocking on the card.  One
+    of the two H2D paths of frames, so one of the two H2D meters
+    (obs/devtel.py)."""
+    devtel.note_h2d(frames.nbytes)
     t = torch.from_numpy(np.ascontiguousarray(frames)).reshape(buf.shape)
     if buf.device.type == "cuda":
         t = t.pin_memory()
@@ -419,7 +423,9 @@ class _Readback:
     def result(self) -> np.ndarray:
         if self.event is not None:
             self.event.synchronize()
-        return self.host.numpy()
+        out = self.host.numpy()
+        devtel.note_d2h(out.nbytes)
+        return out
 
 
 class StreamEngine:
@@ -555,9 +561,10 @@ class StreamEngine:
             saved = tree_map(lambda a: a.clone(), self.state) if self.graphs else None
             frame = torch.zeros((cfg.frame_buffer_size, cfg.height, cfg.width, 3),
                                 dtype=torch.uint8, device=self.device)
-            self._static_step = self.graph_cache.get(self.key, lambda: (
-                lambda inputs: self._step(self.params, self.state, inputs["frame"])[1],
-                {"frame": frame}))
+            with devtel.compile_scope("engine-step"):
+                self._static_step = self.graph_cache.get(self.key, lambda: (
+                    lambda inputs: self._step(self.params, self.state, inputs["frame"])[1],
+                    {"frame": frame}))
             if saved is not None:
                 install_state(self.state, saved)
                 self._graph_state = self.state

@@ -14,12 +14,16 @@ façade is built (the counterpart of the JAX pipeline adopting its AOT
 engine at build) and replayed per frame; ``restart`` and the ``update_*``
 methods write the state in place, which the graph reads.  There is no
 build-time probe with a fallback: a kernel that fails to build or launch,
-or a capture that fails, raises.  The safety checker and tracing spans are
-later slices.
+or a capture that fails, raises.  A frame that carries a trace
+(obs/trace.py) gets the JAX pipeline's spans: ``submit``, ``engine_step``
+(on the pipelined path submit-end -> the readback resolved, stamped on the
+host), ``fetch``, ``postprocess`` and the ``similar_skip`` mark.  The
+safety checker is a later slice.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Sequence
 
 import numpy as np
@@ -27,6 +31,7 @@ import numpy as np
 from .. import resolve_device
 from ..media.frames import wrap_processed
 from ..models import registry
+from ..obs.trace import get_trace
 from ..utils import env
 from .engine import StreamConfig, StreamEngine
 
@@ -127,20 +132,42 @@ class StreamDiffusionPipeline:
             return wrap_processed(out_u8, src_frame)
         return out_u8
 
-    def _finish(self, out_u8: np.ndarray, src_frame):
-        """The output contract (:func:`finish_output`)."""
-        return finish_output(out_u8, src_frame)
-
     def __call__(self, frame):
-        return self._finish(self.engine(self.preprocess(frame)), frame)
+        trace = get_trace(frame)  # None (one getattr) unless a trace rides the frame
+        if trace is None:
+            return finish_output(self.engine(self.preprocess(frame)), frame)
+        with trace.span("submit"):
+            pre = self.preprocess(frame)
+        with trace.span("engine_step"):  # the synchronous path: the whole step
+            out = self.engine(pre)
+        if self.engine.last_submit_was_skip:
+            trace.mark("similar_skip")
+        return finish_output(out, frame, trace=trace)
 
     def submit(self, frame):
         """Queue one frame without waiting; returns a handle for :meth:`fetch`."""
-        return self.engine.submit(self.preprocess(frame))
+        trace = get_trace(frame)
+        if trace is None:
+            return self.engine.submit(self.preprocess(frame))
+        with trace.span("submit"):  # host preprocess, staging and the replay's launch
+            handle = self.engine.submit(self.preprocess(frame))
+        if self.engine.last_submit_was_skip:
+            trace.mark("similar_skip")
+        return handle
 
     def fetch(self, handle, src_frame=None):
         """Resolve a :meth:`submit` handle; attaches ``src_frame``'s pts."""
-        return self._finish(self.engine.fetch(handle), src_frame)
+        trace = get_trace(src_frame) if src_frame is not None else None
+        if trace is None:
+            return finish_output(self.engine.fetch(handle), src_frame)
+        t0 = time.monotonic()
+        out = self.engine.fetch(handle)
+        t1 = time.monotonic()
+        # fetch: the blocking resolve; engine_step: submit-end -> resolved
+        trace.add_span("fetch", t0, t1)
+        sub_end = trace.span_end("submit")
+        trace.add_span("engine_step", sub_end if sub_end is not None else t0, t1)
+        return finish_output(out, src_frame, trace=trace)
 
     # -- frame_buffer_size > 1: fbs consecutive frames in one step ----------------
 
@@ -157,19 +184,22 @@ class StreamDiffusionPipeline:
         with its source's pts."""
         out = self.engine.fetch(handle)  # [fbs, H, W, 3]
         return [
-            self._finish(out[i], src_frames[i] if src_frames else None)
+            finish_output(out[i], src_frames[i] if src_frames else None)
             for i in range(out.shape[0])
         ]
 
 
-def finish_output(out_u8: np.ndarray, src_frame=None):
+def finish_output(out_u8: np.ndarray, src_frame=None, trace=None):
     """The output contract every serving plane shares (the pipeline, the
     batch scheduler's sessions, --multipeer's peers): the source frame's
-    pts carried to the output, unless HW_ENCODE serving wants bare
-    ndarrays."""
+    pts (and trace) carried to the output, unless HW_ENCODE serving wants
+    bare ndarrays; the ``postprocess`` span when a trace rides along."""
     if env.hw_encode() or src_frame is None or not hasattr(src_frame, "pts"):
         return out_u8
-    return wrap_processed(out_u8, src_frame)
+    if trace is None:
+        return wrap_processed(out_u8, src_frame)
+    with trace.span("postprocess"):
+        return wrap_processed(out_u8, src_frame)
 
 
 def coerce_frame(frame, h: int, w: int) -> np.ndarray:

@@ -73,6 +73,8 @@ import torch
 
 from .. import resolve_device
 from ..aot.cache import stream_engine_key
+from ..obs import devtel
+from ..obs.trace import get_trace
 from ..parallel.multipeer import (
     BucketStep,
     CapacityError,
@@ -110,14 +112,15 @@ POLL_S = 2e-4  # the completion poll of a guarded step
 
 
 class _PendingFrame:
-    """One enqueued frame: its waiter future, the staged device copy and
-    the stamps the gauges read."""
+    """One enqueued frame: its waiter future, the staged device copy, the
+    stamps the gauges read and the frame's trace (obs/trace.py)."""
 
     __slots__ = ("frame", "frame_dev", "future", "t_enq", "t_dispatch", "occupancy", "skipped",
-                 "sub")
+                 "sub", "trace")
 
-    def __init__(self, frame):
+    def __init__(self, frame, trace=None):
         self.frame = frame  # host pixels (shed passthrough, similarity)
+        self.trace = trace
         self.frame_dev = None  # [1,H,W,3] on the device
         self.future: Future = Future()
         self.t_enq = time.monotonic()
@@ -202,14 +205,24 @@ class ScheduledSession:
         """Coerce, stage and enqueue one frame; -> a handle for :meth:`fetch`.
         A similarity skip never enters the window: its handle resolves with
         the previous submit's output."""
-        arr = coerce_frame(frame, self._owner.height, self._owner.width)
+        trace = get_trace(frame)
+        if trace is None:
+            return self._submit_arr(coerce_frame(frame, self._owner.height, self._owner.width))
+        with trace.span("submit"):
+            handle = self._submit_arr(
+                coerce_frame(frame, self._owner.height, self._owner.width), trace)
+        if handle.skipped:
+            trace.mark("similar_skip")
+        return handle
+
+    def _submit_arr(self, arr: np.ndarray, trace=None) -> _PendingFrame:
         self.frames_submitted += 1
         last = self._last_pending
         if self._sim is not None and self._sim.should_skip(
             arr, have_output=self._had_output and last is not None
         ):
             self.frames_skipped_similar += 1
-            p = _PendingFrame(arr)
+            p = _PendingFrame(arr, trace)
             p.skipped = True
 
             def copy(f, p=p):
@@ -222,7 +235,7 @@ class ScheduledSession:
 
             last.future.add_done_callback(copy)
             return p
-        p = _PendingFrame(arr)
+        p = _PendingFrame(arr, trace)
         p.frame_dev = stage_rows(arr[None], self._owner.device)
         self._owner._enqueue(self.slot, p)
         if self._sim is not None:
@@ -231,7 +244,15 @@ class ScheduledSession:
 
     def fetch(self, handle: _PendingFrame, src_frame=None):
         """Resolve a handle to this session's output frame (its own row of
-        the step it rode).  A shed frame comes back as the ``ShedFrame``."""
+        the step it rode).  A shed frame comes back as the ``ShedFrame``.
+        With a trace: ``batch_join`` (enqueue -> dispatch), ``engine_step``
+        (dispatch -> the row resolved on the host: a replay returns at
+        once, so the step ends at its readback's completion, never at the
+        launch), the ``batch_k<occupancy>`` mark, ``fetch`` (the blocking
+        resolve) and ``postprocess``."""
+        trace = handle.trace
+        if trace is None and src_frame is not None:
+            trace = get_trace(src_frame)
         t0 = time.monotonic()
         try:
             out = handle.future.result(timeout=self._owner.fetch_timeout)
@@ -240,10 +261,20 @@ class ScheduledSession:
         if isinstance(out, ShedFrame):
             return out
         out = self._owner._resolve_row(*out, t0=t0)
+        t1 = time.monotonic()
         if self._owner.fbs > 1:
             out = out[handle.sub]
         self._had_output = True
-        return finish_output(out, src_frame)
+        if trace is not None:
+            td = handle.t_dispatch
+            if td is not None and not handle.skipped:
+                # a similarity skip rode no step of its own: its marker says so
+                trace.add_span("batch_join", handle.t_enq, td)
+                trace.add_span("engine_step", td, t1)
+                if handle.occupancy:
+                    trace.mark(f"batch_k{handle.occupancy}")
+            trace.add_span("fetch", t0, t1)
+        return finish_output(out, src_frame, trace=trace)
 
     def __call__(self, frame):
         return self.fetch(self.submit(frame), frame)
@@ -463,7 +494,7 @@ class BatchScheduler:
         logger.info("batchsched session released <- slot %d", slot)
 
     def _build_state(self, prompt, guidance, delta, seed, t_index_list) -> dict:
-        with self._heavy_lock:
+        with self._heavy_lock, devtel.expected_scope("sched-state-build"):
             state = self._template.build_state(prompt, guidance_scale=guidance, delta=delta,
                                                seed=seed)
             if tuple(t_index_list) != tuple(self.cfg.t_index_list):
@@ -472,16 +503,16 @@ class BatchScheduler:
             return state
 
     def _install(self, slot: int, state: dict):
-        with self._step_lock:
+        with self._step_lock, devtel.expected_scope("sched-slot-install"):
             install_row(self.states, slot, state)
 
     def _encode(self, prompt: str):
-        with self._heavy_lock:
+        with self._heavy_lock, devtel.expected_scope("sched-prompt-encode"):
             return self._template._encode(prompt)
 
     def _apply_prompt(self, slot: int, encoded):
         cond, uncond = encoded
-        with self._step_lock:
+        with self._step_lock, devtel.expected_scope("sched-control-write"):
             self.states["cond"][slot].copy_(cond)
             self.states["uncond"][slot].copy_(uncond)
 
@@ -490,12 +521,12 @@ class BatchScheduler:
 
     def _apply_t_index(self, slot: int, t_index_list):
         coeffs = self._check_t_index(t_index_list)
-        with self._step_lock:
+        with self._step_lock, devtel.expected_scope("sched-control-write"):
             for name, v in coeffs.items():
                 self.states["coeffs"][name][slot].copy_(v)
 
     def _apply_guidance(self, slot: int, guidance, delta):
-        with self._step_lock:
+        with self._step_lock, devtel.expected_scope("sched-control-write"):
             if guidance is not None:
                 self.states["guidance"][slot].fill_(guidance)
             if delta is not None:
@@ -547,13 +578,20 @@ class BatchScheduler:
         """{bucket size -> captured} (False throughout when stepping eagerly)."""
         return self._bucket.status(self.bucket_keys())
 
+    @staticmethod
+    def _bucket_label(k: int) -> str:
+        """The build watchdog's label of bucket k (obs/devtel.py; the JAX
+        spelling, with the port's one variant)."""
+        return f"sbucket-{k}:full"
+
     def prewarm_buckets(self):
         """Capture every bucket size on the calling thread, writing no
         session's state (``BucketStep.warm``; eagerly: step each once).  The
         scheduler calls it on its dispatcher thread at startup (a graph
-        replays from any thread: the guard's runner steps them)."""
+        replays from any thread: the guard's runner steps them).  Its builds
+        are expected, in any phase: an operator's prewarm never breaches."""
         for k in self._bucket_sizes:
-            with self._step_lock:
+            with self._step_lock, devtel.compile_scope(self._bucket_label(k), expected=True):
                 self._bucket.warm(self.params, self.states, k)
                 self._warmed.add(k)
             logger.info("prewarmed batchsched bucket %d/%d", k, self.max_sessions)
@@ -670,7 +708,8 @@ class BatchScheduler:
                 with self._step_lock:
                     if self._epoch != epoch:
                         raise StaleStepError("a later rebuild attempt owns the plane")
-                    bucket.warm(self.params, states, k)
+                    with devtel.compile_scope(self._bucket_label(k), expected=True):
+                        bucket.warm(self.params, states, k)
                     self._warmed.add(k)
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
@@ -794,7 +833,10 @@ class BatchScheduler:
             with self._epoch_lock:
                 if self._epoch != epoch:
                     raise StaleStepError("the plane was rebuilt while this step was held")
-                out = self._bucket(self.params, self.states, frames, slots, k)
+                # a bucket built here (prewarm off, or a size it left out)
+                # is a lazy build at dispatch: in the serving phase, a breach
+                with devtel.compile_scope(self._bucket_label(k)):
+                    out = self._bucket(self.params, self.states, frames, slots, k)
                 return Readback(out, n)
 
         def until_complete() -> Readback:

@@ -48,6 +48,21 @@ Variables read by the port's server:
   ENGINE_SNAPSHOT_EVERY_S           snapshot bank cadence (5 s; <= 0 off)
   EVACUATE_URL, WORKER_ID           self-evacuation on an exhausted rebuild
   FAULT_PLAN                        fault injection plan (JSON, or @file)
+  TRACE_ENABLE                      frame tracing from startup (off; /debug/trace opens windows)
+  TRACE_RING_FRAMES                 completed timelines kept per session (256)
+  TRACE_MAX_CAPTURE_S               a /debug/trace window's cap (300 s)
+  FLIGHT_RECORDER                   the flight recorder, tracing and the SLO feed (on)
+  FLIGHT_EVENTS, FLIGHT_SNAPSHOTS   its event log per session (256), snapshots kept (8)
+  SLO_ENABLE                        the stage-latency SLO plane (on; needs FLIGHT_RECORDER)
+  SLO_<STAGE>_BUDGET_MS             each stage's budget (obs/slo.py, the JAX defaults)
+  SLO_TICK_S, SLO_OBJECTIVE, SLO_BURN_THRESHOLD, SLO_FAST_WINDOW_S, SLO_SLOW_WINDOW_S,
+  SLO_UP_TICKS, SLO_DOWN_TICKS      its burn-rate cadence, windows and hysteresis
+  DEVTEL_ENABLE                     device telemetry: the build watchdog, graph-cache,
+                                    transfer and memory gauges (on)
+  DEVTEL_RETRACE_MIN_MS             a serving-phase build that breaches (250 ms)
+  DEVTEL_MEM_INTERVAL_S             the memory sample's rate limit (5 s)
+  DEVTEL_COMPILE_LOG                builds kept for /health (64)
+  DEVTEL_BREACH_COALESCE_S          one breach alert volley per window (5 s)
 """
 
 from __future__ import annotations
@@ -132,3 +147,15 @@ def batchsched_enabled() -> bool:
     the default single-device serving path; BATCHSCHED=0 serves every
     session through the one shared pipeline."""
     return get_bool("BATCHSCHED", True)
+
+
+def slo_enabled() -> bool:
+    """The stage-latency SLO plane (obs/slo.py); it rides the session
+    tracers, so it also needs FLIGHT_RECORDER on."""
+    return get_bool("SLO_ENABLE", True)
+
+
+def devtel_enabled() -> bool:
+    """The device telemetry plane (obs/devtel.py); DEVTEL_ENABLE=0 leaves
+    its hooks one module-global read each."""
+    return get_bool("DEVTEL_ENABLE", True)

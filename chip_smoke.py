@@ -132,7 +132,35 @@ Phases (each prints its own lines; any failure exits non-zero):
                 µs per frame (packetize and send from /metrics
                 host_plane_sessions, recv summed over the agent's receive
                 callbacks).
-  9. a "kernels" JSON line (launch counts of phases 4 to 8), then the last
+  9. obs      — observability on the card (obs/, wired by server/sessions.py
+                as the agent wires it, the JAX defaults: SLO, device telemetry
+                and the flight recorder on) over phase 4's pipeline and a
+                4-slot graph BatchScheduler under the guard.  9a: a trace
+                window opened through the /debug/trace body with the
+                torch.profiler bridge writing into build/; one and then four
+                loopback WHIP/WHEP sessions of 24 frames (the viewer's
+                receipt seals each frame ``sent``, the hop a wire tier's
+                sender stamps): every viewed frame's spans submit,
+                batch_join, engine_step, fetch and postprocess in order and
+                non-negative; the session's Chrome rendering (one track per
+                stage, ph/ts/dur); the /metrics Prometheus text parsed (every
+                sample's family declared, histogram buckets cumulative, +Inf
+                = _count); the H2D/D2H meters against the frames submitted
+                and fetched x 512*512*3; aot_cache_entries against the
+                captured graphs; a forced memory sample between two readings
+                of memory_allocated(); no serve-time breach; the profiler
+                trace's kernels against 32 + 1 per bucket step counted; each
+                stage's p50 at k=1 and k=4 beside the ms between bucket
+                steps.  9b: a 2-slot scheduler whose prewarm left out bucket
+                1, with the window closed: a live session's first dispatch
+                captures it, one RETRACE_BREACH on the flight recorder, the
+                webhook (a local sink) and retrace_breaches_total (JSON and
+                Prometheus), attributed to the bucket's key with its capture
+                ms.  9c: served fps and ms between bucket steps at k=1 and
+                k=4 with the planes at their defaults, all off and with the
+                window open, interleaved (A B C C B A).  Phase 8 prints the
+                SLO plane's breaches per stage.
+ 10. a "kernels" JSON line (launch counts of phases 4 to 9), then the last
      line {"ok": true, "device": ...}.
 
 Imports nothing of JAX or of the JAX package.  `python3 chip_smoke.py
@@ -957,11 +985,13 @@ async def open_loopback_session(state: dict):
     return pub_id, live["whip_pcs"][pub_id], view_id, live["whep_pcs"][view_id].out_tracks[0]
 
 
-async def exchange(publisher_pc, viewer, frames, first_pts: int, n_view: int, timeout_s=120.0):
+async def exchange(publisher_pc, viewer, frames, first_pts: int, n_view: int, timeout_s=120.0,
+                   on_view=None):
     """Push ``frames`` (uint8 arrays) into the publisher's track as
     VideoFrames with pts first_pts, first_pts+1, ... while pulling
     ``n_view`` frames from the viewer; returns the frames pulled and the
-    host clock (perf_counter) at each."""
+    host clock (perf_counter) at each.  ``on_view(frame)`` runs at each
+    frame's arrival."""
     from fractions import Fraction
 
     from ai_rtc_agent_tpu_torch.media.frames import VideoFrame
@@ -978,6 +1008,8 @@ async def exchange(publisher_pc, viewer, frames, first_pts: int, n_view: int, ti
         for _ in range(n_view):
             views.append(await asyncio.wait_for(viewer.recv(), timeout_s))
             times.append(time.perf_counter())
+            if on_view is not None:
+                on_view(views[-1])
         return views, times
     finally:
         await pusher
@@ -2454,6 +2486,7 @@ def phase_native(torch, card: str, pipe, loopback_fps: float):
             sessions.configure(state, model_id=pipe.model_id, pipeline=pipe, provider=provider,
                                batch_scheduler=sched)
             await sessions.startup(state)
+            slo_breaches.update(count_slo_breaches(state["slo"]))
             results = []
             for label, how, k, fps, n in NATIVE_RUNS:
                 legs = [await open_native_leg(np, state, how, s, fps,
@@ -2492,17 +2525,38 @@ def phase_native(torch, card: str, pipe, loopback_fps: float):
             probe = (label, "offer", 1, fps, n, [leg], t0, attn, epi, metrics, stages, uplink,
                      [leg.downlink], ring_drops, direct)
             await close_native(state, "offer", [leg])
+            slo_stages.update(state["slo"].snapshot()["slo_stages"])
             await sessions.shutdown(state)
             return results, probe
 
+        slo_breaches, slo_stages = {}, {}
         results, probe = asyncio.run(run_all())
     for (label, how, k, fps, n, legs, t0, attn, epi, metrics, stages, uplink, downlink,
          ring_drops, direct) in results + [probe]:
         report_native_run(np, card, label, k, fps, n, legs, t0, attn, epi, metrics, stages,
                           uplink, downlink, ring_drops, direct, tap, loopback_fps,
                           probe=label == NATIVE_PROBE[0])
+    say(f"native: {card} | the SLO plane over phase 8 (the JAX budgets, 1 s ticks): breaches "
+        f"per stage {json.dumps(slo_breaches['breach'])}, over budget / frames per stage "
+        f"{json.dumps({k: [v['over'], v['count'], v['budget_ms']] for k, v in slo_stages.items()})}")
     say(f"native: phase 8 took {time.perf_counter() - t_phase:.1f} s")
     return attn_total, epi_total
+
+
+def count_slo_breaches(slo) -> dict:
+    """{"breach": {stage: transitions into breach}}, counted from now on: the
+    plane's breach callback, wrapped (the agent's webhooks still fire)."""
+    counts = {"breach": {}}
+    inner = slo.on_breach
+
+    def counting(session_key, stage, state, info):
+        if state == "breach":
+            counts["breach"][stage] = counts["breach"].get(stage, 0) + 1
+        if inner is not None:
+            inner(session_key, stage, state, info)
+
+    slo.on_breach = counting
+    return counts
 
 
 def report_native_run(np, card, label, k, fps, n, legs, t0, attn, epi, metrics, stages, uplink,
@@ -2565,6 +2619,375 @@ def report_native_run(np, card, label, k, fps, n, legs, t0, attn, epi, metrics, 
         f"{json.dumps(stages)}")
 
 
+# -- phase 9: observability --------------------------------------------------------------
+
+OBS_FRAMES = 24  # frames viewed per session in each run
+OBS_FILL = 4  # each session's first viewed frames: outside the steady window
+OBS_SESSIONS = (1, 4)
+OBS_STAGES = ("submit", "batch_join", "engine_step", "fetch", "postprocess")
+OBS_TURNS = ("defaults", "off", "window", "window", "off", "defaults")  # 9c, A B C C B A
+OBS_PLANES_OFF = {"SLO_ENABLE": 0, "DEVTEL_ENABLE": 0, "FLIGHT_RECORDER": 0}
+OBS_TRACE_DIR = Path(__file__).resolve().parent / "build" / "obs-trace"
+
+
+def trace_kernels(path) -> dict:
+    """Kernels of a torch.profiler Chrome trace: {"attention", "epilogue",
+    "kernels"} (device kernel events by name)."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    names = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    return {"attention": sum("flash_attention_kernel" in n for n in names),
+            "epilogue": sum("stream_epilogue_kernel" in n for n in names),
+            "kernels": len(names)}
+
+
+def check_prom(text: str) -> int:
+    """Parse a Prometheus text exposition as a scraper would: every sample's
+    family declared by a TYPE line, histogram buckets cumulative in ``le``
+    order with the +Inf terminal equal to ``_count``; -> the sample count."""
+    types, hist, n = {}, {}, 0
+    for line in text.splitlines():
+        if line.startswith("# TYPE "):
+            _, _, name, kind = line.split(" ")
+            if name in types:
+                fail(f"obs: prom family {name} declared twice")
+            types[name] = kind
+            continue
+        if line.startswith("#") or not line:
+            continue
+        head, value = line.rsplit(" ", 1)
+        float(value)
+        name, _, labels = head.partition("{")
+        base = name
+        for suffix in ("_bucket", "_sum", "_count"):
+            if name.endswith(suffix) and types.get(name[: -len(suffix)]) == "histogram":
+                base = name[: -len(suffix)]
+        if base not in types:
+            fail(f"obs: prom sample {name} has no TYPE line")
+        n += 1
+        if base != name:
+            series = dict(kv.split("=", 1) for kv in labels.rstrip("}").split(",") if kv)
+            le = series.pop("le", None)
+            key = (base, tuple(sorted(series.items())))
+            entry = hist.setdefault(key, {"buckets": [], "count": None})
+            if name.endswith("_bucket"):
+                entry["buckets"].append((le.strip('"'), float(value)))
+            elif name.endswith("_count"):
+                entry["count"] = float(value)
+    for key, entry in hist.items():
+        les = [le for le, _ in entry["buckets"]]
+        counts = [c for _, c in entry["buckets"]]
+        bounds = [math.inf if le == "+Inf" else float(le) for le in les]
+        if not les or les[-1] != "+Inf" or bounds != sorted(bounds) or counts != sorted(counts):
+            fail(f"obs: prom histogram {key} malformed: {entry['buckets']}")
+        if entry["count"] != counts[-1]:
+            fail(f"obs: prom histogram {key}: _count {entry['count']} != +Inf {counts[-1]}")
+    return n
+
+
+class ObsRun:
+    """k loopback WHIP/WHEP sessions through the session layer, each fed
+    OBS_FRAMES (+ the track's in-flight tail) and viewed: the viewed frames
+    (the viewer's receipt seals each trace ``sent``), their arrival times."""
+
+    def __init__(self, k):
+        self.k, self.pairs, self.views, self.times = k, [], [], []
+
+    async def run(self, np, state, size, seed, depth):
+        from ai_rtc_agent_tpu_torch.obs.trace import get_trace
+
+        def seal(frame):
+            trace = get_trace(frame)
+            if trace is not None:
+                trace.finish("sent")
+
+        for _ in range(self.k):
+            self.pairs.append(await open_loopback_session(state))
+        frames = [_frames(np, OBS_FRAMES, seed=seed + i, size=size) for i in range(self.k)]
+        self.t0 = time.perf_counter()
+        got = await asyncio.gather(*[
+            exchange(pc, viewer, fr + fr[-1:] * (depth - 1), 0, OBS_FRAMES, on_view=seal)
+            for (_, pc, _, viewer), fr in zip(self.pairs, frames)])
+        self.views = [v for v, _ in got]
+        self.times = [[t - self.t0 for t in ts] for _, ts in got]
+        return self
+
+    async def close(self, state):
+        from ai_rtc_agent_tpu_torch.server import sessions
+
+        for pub_id, _, view_id, _ in self.pairs:
+            await sessions.close(state, "whep", view_id)
+            await sessions.close(state, "whip", pub_id)
+
+    def fps(self) -> float:
+        return sum((len(t) - OBS_FILL) / (t[-1] - t[OBS_FILL - 1]) for t in self.times)
+
+    def step_ms(self, tap) -> tuple:
+        """(ms between bucket steps, steps) over the steps that carried
+        each session's frames past its first OBS_FILL."""
+        keys = {pub_id for pub_id, _, _, _ in self.pairs}
+        t = sorted({td for (key, pts), (_, td) in tap.rode.items()
+                    if key in keys and pts >= OBS_FILL})
+        return (1e3 * (t[-1] - t[0]) / (len(t) - 1) if len(t) > 1 else float("nan")), len(t)
+
+
+def check_timeline(trace, label):
+    """A viewed frame's timeline: the scheduler's spans in order and
+    non-negative, sealed ``sent``; -> {stage: ms}."""
+    if trace is None or trace.terminal != "sent":
+        fail(f"obs: {label}: a viewed frame without a sealed trace ({trace})")
+    spans = {}
+    for name, t0, t1 in trace.spans:
+        if t1 < t0:
+            fail(f"obs: {label}: span {name} is negative: {t0} -> {t1}")
+        spans.setdefault(name, (t0, t1))
+    order = [n for n, _, _ in trace.spans if n in OBS_STAGES]
+    if order != list(OBS_STAGES):
+        fail(f"obs: {label}: spans {[n for n, _, _ in trace.spans]}, want {OBS_STAGES} in order")
+    sub, join, step, fetch, post = (spans[n] for n in OBS_STAGES)
+    if not (sub[0] <= join[0] and join[1] == step[0] and step[1] == fetch[1] <= post[0]):
+        fail(f"obs: {label}: spans out of order: {trace.spans}")
+    return {n: 1e3 * (t1 - t0) for n, (t0, t1) in spans.items()}
+
+
+def phase_obs(torch, card: str, pipe):
+    """Phase 9: observability on the card (see the module docstring)."""
+    import gc
+
+    import numpy as np
+
+    from ai_rtc_agent_tpu_torch.aot import cache as aot_cache
+    from ai_rtc_agent_tpu_torch.obs import export
+    from ai_rtc_agent_tpu_torch.server import sessions
+    from ai_rtc_agent_tpu_torch.server.signaling import LoopbackProvider
+    from ai_rtc_agent_tpu_torch.stream.scheduler import BatchScheduler
+    from ai_rtc_agent_tpu_torch.utils import env
+
+    t_phase = time.perf_counter()
+    cuda = pipe.device.type == "cuda"  # False only in a CPU rehearsal
+    size = pipe.config.width
+    frame_bytes = size * size * 3
+    depth = env.pipeline_depth()
+    os.environ["WARMUP_FRAMES"] = "0"  # read where each session's track is made
+    os.environ["DROP_FRAMES"] = "0"
+    gc.collect()  # earlier phases' graph caches leave the inventory
+    sched = BatchScheduler.from_pipeline(pipe, max_sessions=max(OBS_SESSIONS))
+    tap = StepTap(sched)
+    attn_total = epi_total = 0
+
+    async def start(extra_env=None):
+        state = {}
+        with _Env(**(extra_env or {})):
+            sessions.configure(state, model_id=pipe.model_id, pipeline=pipe,
+                               provider=LoopbackProvider(), batch_scheduler=sched)
+            await sessions.startup(state)
+        return state
+
+    async def stop(state):
+        state["batch_scheduler"] = None  # the next turn serves it again
+        await sessions.shutdown(state)
+
+    # -- 9a: a traced serve -----------------------------------------------------------
+    async def traced():
+        nonlocal attn_total, epi_total
+        state = await start()
+        plane = state["devtel"]
+        if plane is None or state["slo"] is None or state["flight"] is None:
+            fail("obs: the planes are not on by default")
+        reply = await sessions.debug_trace(state, {"action": "start", "duration_s": 600,
+                                                   "jax_profiler_dir": str(OBS_TRACE_DIR)})
+        body = json.loads(reply.body)
+        if reply.status != 200 or body.get("jax_profiler") != f"tracing to {OBS_TRACE_DIR}":
+            fail(f"obs: /debug/trace start answered {reply.status} {reply.body}")
+        steps0, launches0 = sched.steps_total, _launches()
+        runs, results = [], {}
+        for k in OBS_SESSIONS:
+            run = await ObsRun(k).run(np, state, size, 900 + 10 * k, depth)
+            runs.append(run)
+            stages = {}
+            for s, views in enumerate(run.views):
+                for i, vf in enumerate(views):
+                    if vf.pts != i or vf.to_ndarray().shape != (size, size, 3):
+                        fail(f"obs: k={k} session {s}: frame {i} has pts {vf.pts}")
+                    for n, ms in check_timeline(vf.trace, f"k={k} session {s} frame {i}").items():
+                        stages.setdefault(n, []).append(ms)
+            pub_id = run.pairs[0][0]
+            reply = sessions.debug_flight(state, {"session": pub_id, "format": "chrome"})
+            doc = json.loads(reply.body)
+            tracks = {e["args"]["name"].split(" #")[0] for e in doc["traceEvents"]
+                      if e["ph"] == "M" and e["name"] == "thread_name"}
+            xs = [e for e in doc["traceEvents"] if e["ph"] == "X"]
+            if not set(OBS_STAGES) <= tracks or not xs or any(
+                    not {"ph", "ts", "dur"} <= set(e) or e["dur"] < 0 for e in xs):
+                fail(f"obs: k={k}: the Chrome rendering lacks a stage track or ph/ts/dur: "
+                     f"{sorted(tracks)}")
+            results[k] = (stages, run.step_ms(tap), run.fps(), len(xs))
+            await run.close(state)
+        # the window closes on an idle card: each session's tail frame may
+        # still be stepping after its close
+        last = -1
+        while sched.steps_total != last:
+            last = sched.steps_total
+            await asyncio.sleep(0.3)
+        _sync(torch, pipe.device)
+        steps = sched.steps_total - steps0
+        attn, epi = _launches()
+        launches = (attn - launches0[0], epi - launches0[1])
+        attn_total += launches[0]
+        epi_total += launches[1]
+        reply = await sessions.debug_trace(state, {"action": "stop"})
+        if reply.status != 200 or "jax_profiler" in json.loads(reply.body):
+            fail(f"obs: /debug/trace stop answered {reply.status} {reply.body}")
+        prom = sessions.metrics_reply(state, "prom")
+        samples = check_prom(prom.body)
+        metrics = sessions.metrics(state)
+        submitted = sum(sess.frames_submitted for sess in tap.sessions.values())
+        fetched = len(tap.rode)
+        _sync(torch, pipe.device)
+        before = torch.cuda.memory_allocated() if cuda else 0
+        plane.sample_memory(force=True)
+        after = torch.cuda.memory_allocated() if cuda else 0
+        snap = plane.snapshot()
+        graphs = (sum(len(c.steps()) for c in list(aot_cache._LIVE)),
+                  sum(pipe.engine.graph_cache.status().values()),
+                  sum(sched.graph_status().values()))
+        health = sessions.health(state)
+        await stop(state)
+        return (results, steps, launches, prom, samples, metrics, submitted, fetched, before, after,
+                snap, graphs, health)
+
+    (results, steps, (attn, epi), prom, samples, metrics, submitted, fetched, before, after, snap,
+     graphs, health) = asyncio.run(traced())
+    counts = trace_kernels(export.last_trace_path)
+    say(f"obs 9a: {card} | torch.profiler trace {export.last_trace_path} "
+        f"({os.path.getsize(export.last_trace_path) / 2**20:.1f} MiB): {counts['kernels']} kernels, "
+        f"attention {counts['attention']}, epilogue {counts['epilogue']} over {steps} bucket steps "
+        f"(launches counted: {attn}, {epi})")
+    if (attn, epi) != (32 * steps, steps) or cuda and (
+            counts["attention"], counts["epilogue"]) != (32 * steps, steps):
+        fail("obs: the profiler trace must hold 32 attention and 1 epilogue kernels a bucket step")
+    if (metrics["devtel_h2d_bytes_total"], metrics["devtel_d2h_bytes_total"]) != (
+            submitted * frame_bytes, fetched * frame_bytes):
+        fail(f"obs: H2D/D2H bytes {metrics['devtel_h2d_bytes_total']}/"
+             f"{metrics['devtel_d2h_bytes_total']}, want {submitted} and {fetched} frames")
+    if metrics["aot_cache_entries"] != graphs[0] or cuda and graphs[2] != len(sched.bucket_keys()):
+        fail(f"obs: aot_cache_entries {metrics['aot_cache_entries']}; steps held by the live "
+             f"caches, the pipeline's and the scheduler's graphs {graphs}")
+    if cuda and not min(before, after) <= snap["device_mem_bytes_in_use"] <= max(before, after):
+        fail(f"obs: device_mem_bytes_in_use {snap['device_mem_bytes_in_use']} outside "
+             f"[{before}, {after}]")
+    if metrics.get("retrace_breaches_total", 0) or metrics["devtel_serving_compiles_total"]:
+        fail(f"obs: a serve-time build while serving steadily: {health['devtel']}")
+    say(f"obs 9a: {card} | H2D {metrics['devtel_h2d_bytes_total']} B ({submitted} frames), D2H "
+        f"{metrics['devtel_d2h_bytes_total']} B ({fetched} frames) | aot_cache_entries "
+        f"{metrics['aot_cache_entries']} (the pipeline's graph {graphs[1]}, the scheduler's "
+        f"{graphs[2]}), aot_cache_bytes "
+        f"{metrics['aot_cache_bytes']}, hits {metrics['aot_cache_hits_total']} | device memory in "
+        f"use {snap.get('device_mem_bytes_in_use')} (memory_allocated {before}, {after}), peak "
+        f"{snap.get('device_mem_peak_bytes_in_use')}, limit {snap.get('device_mem_bytes_limit')}, "
+        f"live buffers {snap['device_live_buffers']} | prom: {samples} samples parsed | breaches 0 | "
+        f"SLO over budget / frames {json.dumps({k: [v['over'], v['count']] for k, v in metrics['slo_stages'].items()})}")
+    for k, (stages, (step_ms, n_steps), fps, n_x) in results.items():
+        p50 = {n: round(_median(v), 3) for n, v in stages.items()}
+        say(f"obs 9a k={k}: {card} | stage p50 ms {json.dumps(p50)} | {step_ms:.2f} ms between "
+            f"bucket steps over {n_steps} | served {fps:.2f} fps | {n_x} spans rendered")
+
+    # -- 9b: a serve-time capture ---------------------------------------------------------
+    sched_b = BatchScheduler.from_pipeline(pipe, max_sessions=2, prewarm=False)
+    with sched_b._step_lock:  # its "prewarm" leaves out bucket 1
+        sched_b._bucket.warm(sched_b.params, sched_b.states, 2)
+        sched_b._warmed.add(2)
+    key = sched_b.bucket_keys()[1]
+
+    posted = []
+
+    class Sink:  # the webhook endpoint, in process
+        async def post(self, url, headers=None, json=None):
+            posted.append(json)
+            return type("Resp", (), {"status": 200})()
+
+    async def breach():
+        state = {}
+        sessions.configure(state, model_id=pipe.model_id, pipeline=pipe,
+                           provider=LoopbackProvider(), batch_scheduler=sched_b)
+        await sessions.startup(state)
+        handler = state["stream_event_handler"]
+        handler.webhook_url, handler.token = "http://127.0.0.1/sink", "tok"
+        handler._session_factory = Sink
+        try:
+            run = await ObsRun(1).run(np, state, size, 990, depth)
+            pub_id = run.pairs[0][0]
+            for _ in range(200):
+                if any(p.get("state") == "RETRACE_BREACH" for p in posted):
+                    break
+                await asyncio.sleep(0.01)
+            events = [e for e in state["flight"].session(pub_id).events if e["kind"] == "retrace"]
+            metrics = sessions.metrics(state)
+            prom = sessions.metrics_reply(state, "prom").body
+            plane = state["devtel"]
+            await run.close(state)
+            return events, metrics, prom, plane.last_breach, plane.retrace_breaches
+        finally:
+            await sessions.shutdown(state)
+
+    launches0 = _launches()
+    events, metrics, prom, last, n_breach = asyncio.run(breach())
+    attn, epi = _launches()
+    attn_total += attn - launches0[0]
+    epi_total += epi - launches0[1]
+    hooks = [p for p in posted if p.get("state") == "RETRACE_BREACH"]
+    if (n_breach != 1 or len(events) != 1 or len(hooks) != 1
+            or metrics["retrace_breaches_total"] != 1
+            or "retrace_breaches_total 1" not in prom.splitlines()):
+        fail(f"obs 9b: want exactly one breach on each surface: plane {n_breach}, events "
+             f"{events}, webhooks {hooks}, retrace_breaches_total "
+             f"{metrics.get('retrace_breaches_total')}")
+    if events[0]["context"] != key or key not in hooks[0]["reason"] or last["context"] != key:
+        fail(f"obs 9b: the breach is not attributed to bucket 1's key {key}: {events[0]}")
+    say(f"obs 9b: {card} | one serve-time capture of bucket 1 at dispatch, a session live: "
+        f"{last['duration_ms']:.1f} ms, attributed to {key}; one RETRACE_BREACH on the flight "
+        f"recorder, the webhook ({hooks[0]['reason']!r}) and retrace_breaches_total (JSON and "
+        f"prom) | graph-cache builds {metrics['aot_cache_builds_total']}, captures "
+        f"{sum(sched_b.graph_status().values())} of {len(sched_b.graph_status())} buckets")
+    sched_b.close()
+
+    # -- 9c: what the planes cost --------------------------------------------------------
+    async def turn(setting):
+        nonlocal attn_total, epi_total
+        state = await start(OBS_PLANES_OFF if setting == "off" else None)
+        if (state["devtel"] is None) != (setting == "off"):
+            fail(f"obs 9c: setting {setting} did not take")
+        if setting == "window":
+            await sessions.debug_trace(state, {"action": "start", "duration_s": 600})
+        out = {}
+        try:
+            for k in OBS_SESSIONS:
+                before = _launches()
+                run = await ObsRun(k).run(np, state, size, 950 + 10 * k, depth)
+                after = _launches()
+                attn_total += after[0] - before[0]
+                epi_total += after[1] - before[1]
+                out[k] = (run.step_ms(tap)[0], run.fps())
+                await run.close(state)
+        finally:
+            if setting == "window":
+                await sessions.debug_trace(state, {"action": "stop"})
+            await stop(state)
+        return out
+
+    cost = {setting: [] for setting in set(OBS_TURNS)}
+    for setting in OBS_TURNS:
+        cost[setting].append(asyncio.run(turn(setting)))
+    sched.close()
+    for k in OBS_SESSIONS:
+        say(f"obs 9c k={k}: {card} | ms between bucket steps / served fps, {len(OBS_TURNS)} turns "
+            f"({', '.join(OBS_TURNS)}): " + "; ".join(
+                f"{setting} {[f'{r[k][0]:.2f} ms / {r[k][1]:.2f} fps' for r in cost[setting]]}"
+                for setting in ("defaults", "off", "window")))
+    say(f"obs: phase 9 took {time.perf_counter() - t_phase:.1f} s")
+    return attn_total, epi_total
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -2589,8 +3012,9 @@ def main():
     sessions_attn, sessions_epi = phase_sessions(torch, card, pipe, ref_bundle)
     faults_attn, faults_epi = phase_faults(torch, card, pipe, ref_bundle)
     native_attn, native_epi = phase_native(torch, card, pipe, serve_fps)
-    attn_launches += serve_attn + sessions_attn + faults_attn + native_attn
-    epi_launches += serve_epi + sessions_epi + faults_epi + native_epi
+    obs_attn, obs_epi = phase_obs(torch, card, pipe)
+    attn_launches += serve_attn + sessions_attn + faults_attn + native_attn + obs_attn
+    epi_launches += serve_epi + sessions_epi + faults_epi + native_epi + obs_epi
     kernels = [
         {
             "name": "flash_attention", "route": "cuda",

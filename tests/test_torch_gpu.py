@@ -750,3 +750,93 @@ def test_fbs2_sessions_through_the_scheduler_on_the_card(cuda):
     finally:
         guard.close()
         sched.close()
+
+
+# -- observability on the card (obs/) ----------------------------------------------------
+
+def test_devtel_memory_gauges_are_the_allocator_s(cuda):
+    """A forced sample of the device telemetry's memory gauges reads the
+    serving device's allocator: in use between two readings of
+    memory_allocated() taken around it, the peak no lower, the limit the
+    card's total memory, live buffers the allocator's active blocks."""
+    from ai_rtc_agent_tpu_torch.obs import devtel
+
+    plane = devtel.DevTelPlane(device=cuda)
+    keep = torch.empty(64 << 20, dtype=torch.uint8, device=cuda)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_stats(cuda)
+    plane.sample_memory(force=True)
+    after = torch.cuda.memory_stats(cuda)
+    snap = plane.snapshot()
+
+    def between(value, key):
+        return min(before[key], after[key]) <= value <= max(before[key], after[key])
+
+    # other threads of the process may allocate meanwhile: the sample lies
+    # between the two readings around it
+    assert between(snap["device_mem_bytes_in_use"], "allocated_bytes.all.current")
+    assert between(snap["device_live_buffers"], "active.all.current")
+    assert snap["device_mem_peak_bytes_in_use"] >= snap["device_mem_bytes_in_use"]
+    assert snap["device_mem_bytes_limit"] == torch.cuda.mem_get_info(cuda)[1]
+    del keep
+
+
+def test_serve_time_capture_breaches_and_a_guard_rebuild_does_not(cuda):
+    """With a device telemetry plane serving: a bucket evicted from the
+    scheduler's graph cache is captured again at dispatch, a breach
+    attributed to its key with the capture's ms; the guard's rebuild, which
+    captures every bucket again, is none; the graph-cache gauges count the
+    captures and the pools' bytes."""
+    from ai_rtc_agent_tpu_torch.obs import devtel
+
+    sched, guard, sess = _tiny_guarded(2, 1)
+    fired = []
+    plane = devtel.activate(devtel.DevTelPlane(on_breach=fired.append, device=cuda))
+    try:
+        plane.retrace_min_ms = 0.0  # a tiny bucket captures in well under the default
+        plane.serving()
+        frames = chip_smoke._frames(np, 3, seed=4, size=64)
+        _step_all(sess, [frames[0]])
+        assert plane.retrace_breaches == 0 and plane.aot_hits >= 1
+        key = sched.bucket_keys()[1]
+        sched._bucket.graph_cache._steps.pop(key)
+        _step_all(sess, [frames[1]])
+        assert plane.retrace_breaches == 1 and len(fired) == 1
+        assert fired[0]["context"] == key and fired[0]["phase"] == "serving"
+        assert fired[0]["duration_ms"] > 0 and plane.aot_bytes > 0
+        builds = plane.aot_builds
+        guard._trip("test trip")
+        assert guard.run_rebuild() and guard.state == "ARMED"
+        assert plane.aot_builds == builds + len(sched.bucket_keys())
+        assert plane.retrace_breaches == 1 and plane.phase == "serving"
+        _step_all(sess, [frames[2]])
+        assert plane.retrace_breaches == 1
+    finally:
+        devtel.deactivate(plane)
+        guard.close()
+        sched.close()
+
+
+def test_profiler_bridge_sees_the_kernels_of_a_replayed_bucket_step(cuda, turbo_pipe, tmp_path):
+    """The torch.profiler bridge, opened and closed on threads of its own,
+    traces one replayed sd-turbo bucket step launched from the scheduler's
+    dispatcher thread: 32 flash_attention and 1 epilogue kernels."""
+    from ai_rtc_agent_tpu_torch.obs import export
+    from ai_rtc_agent_tpu_torch.stream.scheduler import BatchScheduler
+
+    sched = BatchScheduler.from_pipeline(turbo_pipe, max_sessions=1)
+    try:
+        sess = sched.claim("s0")
+        frame = chip_smoke._frames(np, 1, seed=5)[0]
+        sess(frame)
+        torch.cuda.synchronize()
+        assert export.start_profiler_bridge(str(tmp_path)) is None
+        steps = sched.steps_total
+        sess(frame)
+        torch.cuda.synchronize()
+        assert export.stop_profiler_bridge() is None
+        assert sched.steps_total - steps == 1
+        counts = chip_smoke.trace_kernels(export.last_trace_path)
+        assert (counts["attention"], counts["epilogue"]) == (32, 1), counts
+    finally:
+        sched.close()

@@ -21,6 +21,7 @@ server/sdp.py, media/) against the JAX agent, on the CPU.
 """
 
 import asyncio
+import importlib
 import json
 import re
 import time
@@ -213,6 +214,60 @@ def test_clients_and_agents_interoperate(agent, client, how):
     got = asyncio.run(_serve(agent, Invert(), how, frames, client_side=client))
     for i, f in enumerate(frames):
         assert np.array_equal(got[i * 3000], 255 - f), i
+
+
+class TracedInvert(Invert):
+    """Inverts colours and carries the source frame's pts and trace to the
+    output (the pipelines' output contract), so the sender pump seals it."""
+
+    def __init__(self, frames_mod):
+        self.frames_mod = frames_mod
+
+    def __call__(self, frame):
+        return self.frames_mod.wrap_processed(super().__call__(frame), frame)
+
+
+@pytest.mark.parametrize("how", ["offer", "whip"], ids=["offer", "whip+whep"])
+def test_native_tier_frame_traces_match_the_jax_agent(monkeypatch, how):
+    """TRACE_ENABLE=1: each frame's timeline on the native tier, minted at
+    decode (its id the RTP pts) and sealed ``sent`` by the sender pump, with
+    the decode, ingest, encode, packetize and send spans, as the JAX agent
+    records it (clock readings left out).  The JAX agent's WHEP viewer takes
+    its dedicated per-viewer chain (BROADCAST_FANOUT=0), the one the port
+    has until its broadcast plane."""
+    monkeypatch.setenv("TRACE_ENABLE", "1")
+    monkeypatch.setenv("BROADCAST_FANOUT", "0")
+    frames = _frames(5, seed=23)
+
+    async def run(side):
+        mod = SIDES[side].agent.__name__.rsplit(".", 2)[0]
+        frames_mod = importlib.import_module(f"{mod}.media.frames")
+        app, http = await _start(side, TracedInvert(frames_mod))
+        pub = view = None
+        try:
+            pub, view = await _open_session(SIDES[side].client, http, how)
+            got = await _exchange(pub, view, frames)
+            flight = app["flight"]
+            for _ in range(200):  # the last frame's pump seals it after its send
+                if sum(r.tracer.frames_completed for r in flight.sessions.values()) >= len(frames):
+                    break
+                await asyncio.sleep(0.01)
+            (key,) = [k for k, r in flight.sessions.items() if r.tracer.frames_completed]
+            r = await http.get("/debug/flight", params={"session": key})
+            capture = await r.json()
+            return [sorted(got)[:len(frames)],
+                    [[f["frame_id"], f["terminal"], [s[0] for s in f["spans"]],
+                      [m[0] for m in f["marks"]]] for f in capture["frames"]][:len(frames)]]
+        finally:
+            for c in {id(x): x for x in (pub, view) if x is not None}.values():
+                c.close()
+            await http.close()
+
+    got = {side: asyncio.run(run(side)) for side in SIDES}
+    assert got["port"] == got["jax"]
+    spans = got["port"][1][0][2]
+    assert spans == ["decode", "ingest", "encode", "packetize", "send"], spans
+    assert all(f[1] == "sent" for f in got["port"][1])
 
 
 # -- SDP -------------------------------------------------------------------------------

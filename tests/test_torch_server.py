@@ -127,11 +127,11 @@ async def _obs(r) -> dict:
     }
 
 
-def _run_both(case, monkeypatch):
+def _run_both(case, monkeypatch, make_pipe=None):
     """Run ``case(ctx)`` against each agent; the transcripts must be equal."""
 
     async def drive(m):
-        pipe = FakePipeline()
+        pipe = (make_pipe or FakePipeline)()
         app = m.agent.build_app(pipeline=pipe, provider=m.signaling.LoopbackProvider())
         client = TestClient(TestServer(app))
         await client.start_server()
@@ -366,11 +366,20 @@ def jax_defaults(monkeypatch):
 def _health(body: dict) -> dict:
     """A /health body as the contract fixes it: the ported planes, each
     session's supervisor snapshot with its clock readings as types, the
-    sessions sorted by their snapshots (their ids are random)."""
+    sessions sorted by their snapshots (their ids are random).  Compared by
+    key: the overload plane's ``pressure`` (a ratio of two EWMAs of clock
+    readings), the SLO views' clock readings (``timed``) and the device
+    telemetry's ``watchdog`` (the JAX plane hears XLA through
+    jax.monitoring, the port's builds report themselves: "cache-wrap",
+    obs/devtel.py)."""
     out = ported(body)
+    if "overload" in out:  # a ratio of the step and loop-lag EWMAs: a clock reading
+        out["overload"] = dict(out["overload"], pressure=type(out["overload"]["pressure"]).__name__)
+    if "devtel" in out:
+        out["devtel"] = dict(out["devtel"], watchdog=type(out["devtel"]["watchdog"]).__name__)
     sessions = []
     for snap in out.get("sessions", {}).values():
-        snap = ported(snap)
+        snap = timed(ported(snap))
         for k in ("since_s", "last_frame_age_s"):
             snap[k] = type(snap[k]).__name__
         snap["transitions"] = [{k: v for k, v in t.items() if k != "t"}
@@ -474,12 +483,57 @@ def test_operator_endpoints_without_the_overload_plane(monkeypatch):
 
 # the JAX agent's planes the port has not ported yet (ROADMAP §A): their keys
 # are left out of a comparison of bodies
-UNPORTED_KEYS = ("aot_cache_", "broadcast", "boot_id", "device_live_buffers", "devtel",
-                 "flight_", "slo", "trace_enabled")
+UNPORTED_KEYS = ("broadcast", "boot_id")
 
 
 def ported(body: dict) -> dict:
     return {k: v for k, v in body.items() if not k.startswith(UNPORTED_KEYS)}
+
+
+# readings of a clock (and of the process's live buffers: JAX arrays against
+# torch tensors): compared by key and type, everything else by value
+TIMING_KEYS = {"t", "born", "taken_at", "ts", "dur", "remaining_s", "timestamp", "fps",
+               "device_live_buffers", "p50_ms", "p99_ms", "burn_fast", "burn_slow", "over",
+               "overload_pressure"}
+TIMING_METRIC = re.compile(r"^(latency_|overload_(loop_lag|freshness|step)).*_ms(_\w+)?$")
+
+
+def timed(obj):
+    """``obj`` with every clock reading replaced by its type: the keys of
+    TIMING_KEYS and TIMING_METRIC, a span ``[name, t0, t1]`` and a mark
+    ``[name, t]`` by their names."""
+    if isinstance(obj, dict):
+        out = {}
+        for k, v in obj.items():
+            if k in TIMING_KEYS or TIMING_METRIC.match(k):
+                out[k] = type(v).__name__
+            elif k in ("spans", "marks"):
+                out[k] = [x[0] for x in v]
+            else:
+                out[UUID.sub("<id>", k)] = timed(v)
+        return out
+    if isinstance(obj, list):
+        return [timed(x) for x in obj]
+    if isinstance(obj, str):
+        return UUID.sub("<id>", obj)
+    return obj
+
+
+def prom_samples(text: str) -> list:
+    """A Prometheus exposition as (line) tuples, clock readings masked: a
+    comment line as it is, a sample as (name, labels, value or its type)."""
+    out = []
+    for line in text.splitlines():
+        if line.startswith("#"):
+            out.append(line)
+            continue
+        head, value = line.rsplit(" ", 1)
+        name = head.split("{", 1)[0]
+        if name in TIMING_KEYS or TIMING_METRIC.match(name) or name in (
+                "slo_stage_latency_ms_bucket", "slo_stage_latency_ms_sum"):
+            value = "<reading>"
+        out.append((head, value))
+    return out
 
 
 def test_port_metrics_are_the_jax_frame_stats():
@@ -497,6 +551,187 @@ def test_port_metrics_are_the_jax_frame_stats():
     got = asyncio.run(go(SIDES["port"]))
     assert set(got) == set(ported(asyncio.run(go(SIDES["jax"]))))
     assert set(JPROF.FrameStats().snapshot()) < set(got)
+
+
+# -- observability: /debug/trace, /debug/flight, /metrics?format=prom ----------------
+
+async def _jobs(r) -> list:
+    """A JSON (or JSONL) response as the contract fixes it: status, content
+    type, CORS, the body with clock readings and ids masked."""
+    text = await r.text()
+    if r.content_type == "application/x-ndjson":
+        body = [timed(json.loads(line)) for line in text.splitlines()]
+    elif r.content_type == "application/json":
+        body = timed(json.loads(text))
+    else:
+        body = UUID.sub("<id>", text)
+    return [r.status, r.content_type, [r.headers.get(k) for k in CORS], body]
+
+
+def _stale(fill: int, age_s: float, m):
+    f = m.frames.VideoFrame.from_ndarray(np.full((8, 8, 3), fill, dtype=np.uint8))
+    f.wall_ts = time.monotonic() - age_s
+    return f
+
+
+async def case_debug_trace(c):
+    """GET status, a start clamped to TRACE_MAX_CAPTURE_S, /metrics'
+    trace_enabled, stop, the 400s, and a window with the profiler bridge
+    (``jax_profiler_dir``: jax.profiler there, torch.profiler here)."""
+    get, post = c.client.get, c.client.post
+    out = [await _jobs(await get("/debug/trace"))]
+    out.append(await _jobs(await post("/debug/trace", json={"action": "start", "duration_s": 9000})))
+    out.append(await _jobs(await get("/debug/trace")))
+    out.append((await (await get("/metrics")).json())["trace_enabled"])
+    out.append(await _jobs(await post("/debug/trace", json={"action": "stop"})))
+    out.append((await (await get("/metrics")).json())["trace_enabled"])
+    for body in ({"action": "bogus"}, {"action": "start", "duration_s": "abc"}, {}):
+        out.append(await _obs(await post("/debug/trace", json=body)))
+    out.append(await _obs(await post("/debug/trace", data=b"not json")))
+    log_dir = c.tmp / c.m.agent.__name__.split(".")[0]
+    r = await post("/debug/trace", json={"action": "start", "duration_s": 5,
+                                         "jax_profiler_dir": str(log_dir)})
+    body = await r.json()
+    out.append((r.status, body["tracing"], body["jax_profiler"].replace(str(log_dir), "<dir>")))
+    out.append(await _jobs(await post("/debug/trace", json={"action": "stop"})))
+    out.append(log_dir.is_dir() and any(log_dir.rglob("*")))
+    return out
+
+
+async def case_debug_flight(c):
+    """TRACE_ENABLE=1 with the JAX defaults: a WHIP session whose ingest
+    sheds three stale frames (their timelines sealed ``shed``), then the
+    index, a live capture, a stored snapshot in the three formats, and the
+    400 and 404 cases."""
+    get = c.client.get
+    out = [await _obs(await _whip(c))]
+    (sid,) = c.app["state"]["whip_pcs"]
+    pub = c.app["state"]["whip_pcs"][sid]
+    track = c.app["state"]["whip_tracks"][sid]
+    for fill in (10, 11, 12):
+        await pub.in_track.push(_stale(fill, 10.0, c.m))
+    await pub.in_track.push(_stale(40, 0.0, c.m))
+    got = await asyncio.wait_for(track.recv(), 10)
+    out.append((got if isinstance(got, np.ndarray) else got.to_ndarray()).tolist())
+    out.append(await _jobs(await get("/debug/flight")))
+    out.append(await _jobs(await get("/debug/flight", params={"session": sid})))
+    out.append(c.app["flight"].take_snapshot(sid, reason="operator"))
+    for fmt in ("json", "chrome", "jsonl"):
+        out.append(await _jobs(await get("/debug/flight", params={"id": "flt-1", "format": fmt})))
+    out.append(await _jobs(await get("/debug/flight", params={"session": sid, "format": "chrome"})))
+    out.append(await _jobs(await get("/debug/flight")))
+    for params in ({"id": "flt-none"}, {"session": "nope"}, {"id": "flt-1", "format": "bogus"},
+                   {"format": "chrome"}, {"bogus": "1"}, {"journey": "j-1"},
+                   {"journey": "j-1", "id": "flt-1"}, {"journey": "j-1", "format": "chrome"}):
+        out.append(await _jobs(await get("/debug/flight", params=params)))
+    return out
+
+
+async def case_metrics_prom(c):
+    """/metrics as JSON and as the Prometheus exposition after a served
+    frame (clock readings masked), and an unknown format."""
+    out = [await _obs(await _whip(c)), await _obs(await _whep(c))]
+    (viewer,) = _viewers(c)
+    pub = next(iter(c.app["state"]["whip_pcs"].values()))
+    for fill in (20, 30):
+        await pub.in_track.push(_stale(fill, 0.0, c.m))
+        out.append((await viewer.recv()).tolist())
+    r = await c.client.get("/metrics")
+    out.append([r.status, r.content_type, timed(ported(await r.json()))])
+    r = await c.client.get("/metrics", params={"format": "prom"})
+    out.append([r.status, r.headers.get("Content-Type"), prom_samples(await r.text())])
+    out.append(await _obs(await c.client.get("/metrics", params={"format": "xml"})))
+    return out
+
+
+async def case_kill_switches(c):
+    """FLIGHT_RECORDER=0 or DEVTEL_ENABLE=0 (set by the test): the planes'
+    keys and the debug surface as each agent leaves them."""
+    out = [await _jobs(await c.client.get("/debug/flight")),
+           await _jobs(await c.client.get("/debug/trace")),
+           await _jobs(await c.client.post("/debug/trace", data=b"not json"))]
+    out.append(await _obs(await _whip(c)))
+    r = await c.client.get("/metrics")
+    out.append(sorted(ported(timed(await r.json()))))
+    out.append(_health((await _get_json(c, "/health"))[2]))
+    out.append((c.app["flight"] is None, c.app["slo"] is None, c.app["devtel"] is None))
+    return out
+
+
+class _RaisingPipeline(FakePipeline):
+    """Inverts colours; its calls 2 to 4 raise (a burst of failed steps)."""
+
+    def __call__(self, frame):
+        if 1 <= self.calls <= 3:
+            self.calls += 1
+            raise RuntimeError("synthetic step failure")
+        return super().__call__(frame)
+
+    def restart(self):
+        pass
+
+
+async def case_degraded_webhook_carries_flight_fields(c):
+    """A failed step degrades a supervised session: the StreamDegraded
+    webhook carries the snapshot frozen at the transition and the event
+    log's last entries; the snapshot is stored under that id."""
+    posted = []
+
+    class Sess:
+        async def post(self, url, headers=None, json=None):
+            posted.append(json)
+            return SimpleNamespace(status=200)
+
+    handler = c.app["stream_event_handler"]
+    handler.webhook_url, handler.token = "http://orchestrator/hook", "tok"
+    handler._session_factory = Sess
+    out = [await _obs(await _whip(c))]
+    pub = next(iter(c.app["state"]["whip_pcs"].values()))
+    (track,) = c.app["state"]["whip_tracks"].values()
+    for fill in (50, 60, 70, 80):
+        await pub.in_track.push(_stale(fill, 0.0, c.m))
+        got = await asyncio.wait_for(track.recv(), 10)
+        out.append((got if isinstance(got, np.ndarray) else got.to_ndarray()).tolist())
+    for _ in range(200):
+        if any(p["event"] == "StreamDegraded" for p in posted):
+            break
+        await asyncio.sleep(0.01)
+    degraded = next(p for p in posted if p["event"] == "StreamDegraded")
+    out.append(timed(degraded))
+    snap = c.app["flight"].get_snapshot(degraded["flight_snapshot_id"])
+    out.append((snap["reason"], timed(snap["events"][:1])))
+    return out
+
+
+case_degraded_webhook_carries_flight_fields.pipeline = _RaisingPipeline
+
+OBS_CASES = [
+    (case_debug_trace, {"TRACE_MAX_CAPTURE_S": "60"}),
+    (case_debug_flight, {"TRACE_ENABLE": "1"}),
+    (case_metrics_prom, {}),
+    (case_kill_switches, {"FLIGHT_RECORDER": "0"}),
+    (case_kill_switches, {"DEVTEL_ENABLE": "0"}),
+    (case_kill_switches, {"SLO_ENABLE": "0"}),
+    (case_degraded_webhook_carries_flight_fields, {}),
+]
+
+
+@pytest.mark.parametrize("case,env", OBS_CASES,
+                         ids=[f.__name__[5:] + "".join(f"-{k}={v}" for k, v in e.items())
+                              for f, e in OBS_CASES])
+def test_observability_transcripts_match_jax_agent(monkeypatch, tmp_path, case, env):
+    """/debug/trace, /debug/flight, /metrics?format=prom, the kill switches
+    and the StreamDegraded webhook's flight fields, under the JAX defaults:
+    equal to the JAX agent's, clock readings compared by key."""
+    jax_defaults(monkeypatch)
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+
+    async def with_tmp(c):
+        c.tmp = tmp_path
+        return await case(c)
+
+    _run_both(with_tmp, monkeypatch, getattr(case, "pipeline", None))
 
 
 # -- the slice as a whole: the tiny-test turbo pipeline served by each agent ------
