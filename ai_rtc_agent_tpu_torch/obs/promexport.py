@@ -38,12 +38,51 @@ _HELP = {
     ),
     "slo_stage_budget_ms": "per-stage latency budget (SLO_<STAGE>_BUDGET_MS)",
     "slo_stage_over_budget_total": "observations past the stage budget",
+    # the fleet router's rollup (fleet/routing.py): aggregated across
+    # agents; per-agent detail is /fleet/health, JSON only
+    "fleet_sessions": "live sessions across the fleet (summed per-agent /health)",
+    "fleet_capacity_free": (
+        "remaining admission capacity summed over bounded, unsaturated agents"
+    ),
+    "fleet_placements_total": "sessions placed by the fleet router",
+    "fleet_drains_total": "agent drains initiated via POST /fleet/drain",
+    "fleet_sessions_repointed_total": (
+        "clients re-pointed off DEAD agents through AGENT_DEAD webhooks"
+    ),
+    # journey rollup (fleet/journey.py): the journey id is never a label;
+    # per-journey detail lives at GET /fleet/debug/journey/<id>
+    "journeys_total": "session journeys placed by the router (one per client session, across every leg)",
+    "journeys_tracked": "journeys currently held in the bounded router table",
+    "journey_legs_total": "placements across all journeys (leg 1 + crash re-placements)",
+    "journey_replacements_total": "crash re-placements: legs that continued an existing journey on a new agent",
+    "journey_events_total": "entries appended to journey event rings",
+    "journeys_evicted_total": "journeys evicted from the bounded table (oldest first)",
+    "journey_evidence_captured_total": "agent-side captures stored on breach webhooks (the records that survive a corpse)",
+    "journey_bundles_sealed_total": "incident bundles frozen on the alert paths (AGENT_DEAD, breach volleys)",
+    "journey_bundles_stored": "sealed incident bundles currently retained (bounded store)",
+    "journey_started_total": "StreamStarted webhooks joined to a placement (placement-to-first-frame samples)",
+    "journey_place_to_start_ms_p50": "placement-to-first-frame latency, median (bounded reservoir)",
+    "journey_place_to_start_ms_p95": "placement-to-first-frame latency, p95",
+    "journey_place_to_start_ms_p99": "placement-to-first-frame latency, p99",
+    # live session migration (the router's drain-as-move and crash
+    # restore): never a per-session or per-agent label
+    "migrations_total": "sessions moved to another agent (drain-as-move + crash restore)",
+    "migrations_failed_total": "migration attempts aborted (source kept serving; kill-drain semantics)",
+    "migration_fallbacks_total": "migrate-drains that hit MIGRATE_TIMEOUT_S and fell back to kill-drain",
+    "migration_snapshots_banked": "recent session exports held for the crash-restore path (bounded, TTL'd)",
+    "migration_ms_p50": "export-to-re-point migration latency, median (bounded reservoir)",
+    "migration_ms_p99": "export-to-re-point migration latency, p99",
     # engine fault domain (resilience/engine_guard.py): the guard's counters
     "engine_trips_total": "engine guard trips (step deadline blown or device lost)",
     "engine_rebuilds_total": "successful engine rebuilds after a trip",
     "engine_quarantined": "1 while the engine guard is not ARMED (no dispatches)",
     "engine_rebuild_ms_p50": "engine rebuild wall time, median (bounded reservoir)",
     "engine_rebuild_ms_p99": "engine rebuild wall time, p99",
+    # the router's evacuation rollup
+    "fleet_agents_failed": "agents parked FAILED after self-evacuation",
+    "evacuations_total": "agent self-evacuations accepted via POST /fleet/evacuate",
+    "evacuation_session_move_ms_p50": "per-session evacuation move latency, median",
+    "evacuation_session_move_ms_p99": "per-session evacuation move latency, p99",
 }
 
 

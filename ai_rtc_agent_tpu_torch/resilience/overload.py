@@ -767,6 +767,18 @@ class OverloadControlPlane:
         (and therefore its ladder) ever existed."""
         self._pending.pop(key, None)
 
+    def adopt_reservation(self, old_key: str, new_key: str) -> bool:
+        """Move a reservation to a new session key (the migration handshake:
+        /migrate/import reserved under its token; the adopting re-offer
+        serves under a new stream id), with its original deadline.  False
+        when it already expired: the caller runs the gate instead."""
+        self._expire_pending()
+        deadline = self._pending.pop(old_key, None)
+        if deadline is None:
+            return False
+        self._pending[new_key] = deadline
+        return True
+
     def capacity(self, free_slots: int | None = None) -> dict:
         """/capacity body: admission view of remaining headroom, with
         pending reservations counted as live so a burst of in-flight

@@ -15,6 +15,9 @@ ai_rtc_agent_tpu/server/agent.py).
   GET/POST /debug/trace           the frame-trace window (+ the torch.profiler bridge)
   GET  /debug/flight              the flight recorder: index, ?session=, ?id=,
                                   ?journey=; &format=json|chrome|jsonl
+  GET  /migrate/export?session=   one live session's snapshot (live migration)
+  POST /migrate/import            {"token", "snapshot"}: restore and park it
+  POST /admin/recycle             {"respawn": bool}: restart in place (handoff file)
 
 Each route maps a request onto a flow of ``server/sessions.py`` and its
 answer onto the JAX agent's status codes: 201 with ``Location`` for WHIP
@@ -22,7 +25,9 @@ and WHEP, 400 for a wrong content type, undecodable body or bad JSON, 401
 for WHEP without a publisher, 200/404 for a DELETE of a known/unknown
 session, 503 with ``Retry-After`` when every session slot is claimed, the
 admission gate refuses (pressure, a freeze, a drain) or the engine guard
-holds the plane quarantined.  CORS allows all origins.
+holds the plane quarantined.  The router's journey headers are echoed in
+the answers of /offer, /whip and /whep; a re-offer carrying
+``X-Migrated-Session`` adopts a migrated session.  CORS allows all origins.
 
     python -m ai_rtc_agent_tpu_torch.server.agent --model-id stabilityai/sd-turbo
     WEBRTC_PROVIDER=native-rtp python -m ai_rtc_agent_tpu_torch.server.agent \\
@@ -96,6 +101,17 @@ def patch_loop_datagram(local_ports: List[int]):
     loop._patch_done = True
 
 
+#: (method, path) of every route; ``sessions.route`` answers them all
+ROUTES = (
+    ("POST", "/whip"), ("DELETE", "/whip"), ("DELETE", "/whip/{session}"),
+    ("POST", "/whep"), ("DELETE", "/whep"), ("DELETE", "/whep/{session}"),
+    ("POST", "/offer"), ("POST", "/config"), ("GET", "/"), ("GET", "/health"),
+    ("GET", "/capacity"), ("POST", "/drain"), ("GET", "/metrics"), ("GET", "/debug/trace"),
+    ("POST", "/debug/trace"), ("GET", "/debug/flight"), ("GET", "/migrate/export"),
+    ("POST", "/migrate/import"), ("POST", "/admin/recycle"),
+)
+
+
 def _response(reply: sessions.Reply) -> web.Response:
     kwargs = {} if reply.body is None else {"text": reply.body}
     return web.Response(
@@ -103,101 +119,12 @@ def _response(reply: sessions.Reply) -> web.Response:
     )
 
 
-async def offer(request):
-    try:
-        params = await request.json()
-    except (ValueError, LookupError) as e:  # bad JSON, or an unknown charset=
-        return web.Response(status=400, text=f"invalid offer request: {e}")
-    try:
-        return _response(await sessions.offer(request.app, params))
-    except ValueError as e:
-        return web.Response(status=400, text=f"invalid offer request: {e}")
-
-
-async def whep(request):
-    app = request.app
-    if request.method == "DELETE":
-        ok = await sessions.close(app, "whep", request.match_info.get("session"))
-        return web.Response(status=200 if ok else 404)
-    if request.content_type != "application/sdp":
-        return web.Response(status=400)
-    if not sessions.has_publisher(app):
-        return web.Response(status=401)
-    try:
-        body = await request.text()
-    except (ValueError, LookupError) as e:
-        return web.Response(status=400, text=f"invalid offer body: {e}")
-    try:
-        return _response(await sessions.subscribe(app, body))
-    except ValueError as e:
-        return web.Response(status=400, text=f"invalid offer: {e}")
-
-
-async def whip(request):
-    app = request.app
-    if request.method == "DELETE":
-        ok = await sessions.close(app, "whip", request.match_info.get("session"))
-        return web.Response(status=200 if ok else 404)
-    if request.content_type != "application/sdp":
-        return web.Response(status=400)
-    try:
-        return _response(await sessions.publish(app, await request.text()))
-    except (ValueError, LookupError) as e:
-        return web.Response(status=400, text=f"invalid offer: {e}")
-
-
-async def update_config(request):
-    try:
-        config = await request.json()
-    except (ValueError, LookupError):
-        return web.Response(status=400, text="invalid JSON body")
-    logger.info("received config: %s", config)
-    try:
-        await sessions.update_config(request.app, config)
-    except ValueError as e:
-        return web.Response(status=400, text=str(e))
-    return web.Response(content_type="application/json", text="OK")
-
-
-async def health(_):
-    return web.Response(content_type="application/json", text="OK")
-
-
-async def health_detail(request):
-    return web.json_response(sessions.health(request.app))
-
-
-async def capacity(request):
-    return web.json_response(sessions.capacity(request.app))
-
-
-async def drain(request):
-    if request.app["overload"] is None:
-        return _response(sessions.drain(request.app, None))
-    try:
-        body = await request.json()
-    except (ValueError, LookupError):
-        return web.Response(status=400, text="invalid JSON body")
-    return _response(sessions.drain(request.app, body))
-
-
-async def metrics(request):
-    return _response(sessions.metrics_reply(request.app, request.query.get("format", "json")))
-
-
-async def debug_trace(request):
-    app = request.app
-    if request.method == "GET" or app["flight"] is None:
-        return _response(await sessions.debug_trace(app))
-    try:
-        body = await request.json()
-    except (ValueError, LookupError):
-        return web.Response(status=400, text="invalid JSON body")
-    return _response(await sessions.debug_trace(app, body))
-
-
-async def debug_flight(request):
-    return _response(sessions.debug_flight(request.app, request.query))
+async def serve(request):
+    """Every route: the request's method (HEAD as GET), path, query, headers
+    and body to the session layer's route table (``sessions.route``)."""
+    method = "GET" if request.method == "HEAD" else request.method
+    return _response(await sessions.route(request.app, method, request.path, request.query,
+                                          request.headers, await request.read()))
 
 
 @web.middleware
@@ -244,22 +171,11 @@ def build_app(
     app["udp_ports"] = udp_ports
     app.on_startup.append(on_startup)
     app.on_shutdown.append(on_shutdown)
-    app.router.add_post("/whip", whip)
-    app.router.add_delete("/whip", whip)
-    app.router.add_delete("/whip/{session}", whip)
-    app.router.add_post("/whep", whep)
-    app.router.add_delete("/whep", whep)
-    app.router.add_delete("/whep/{session}", whep)
-    app.router.add_post("/offer", offer)
-    app.router.add_post("/config", update_config)
-    app.router.add_get("/", health)
-    app.router.add_get("/health", health_detail)
-    app.router.add_get("/capacity", capacity)
-    app.router.add_post("/drain", drain)
-    app.router.add_get("/metrics", metrics)
-    app.router.add_get("/debug/trace", debug_trace)
-    app.router.add_post("/debug/trace", debug_trace)
-    app.router.add_get("/debug/flight", debug_flight)
+    for method, path in ROUTES:
+        if method == "GET":
+            app.router.add_get(path, serve)  # and HEAD, as aiohttp's add_get does
+        else:
+            app.router.add_route(method, path, serve)
     return app
 
 

@@ -1,13 +1,19 @@
 """Stream lifecycle webhooks (counterpart of ai_rtc_agent_tpu/server/events.py).
 
 The started and ended events, the supervisor's degraded and recovered
-events and the engine guard's degraded, recovered and evacuating events,
-posted as JSON with a bearer token to ``WEBHOOK_URL`` (``AUTH_TOKEN``),
+events, the fleet's migrated event and the engine guard's degraded,
+recovered and evacuating events, posted as JSON with a bearer token to ``WEBHOOK_URL`` (``AUTH_TOKEN``),
 fire-and-forget on the event loop so a slow endpoint never stalls the media
 path.  The events are plain dataclasses whose ``asdict`` equals the JAX
 package's pydantic dump (keyword arguments that are not fields are
 dropped, as pydantic drops them); ``aiohttp`` is imported only when a
-webhook is posted.  The migration event comes with migration.
+webhook is posted.  The fleet router runs a handler of its own, pointed at
+the clients' notification endpoint (``webhook_url``/``token``).
+
+Started, ended, degraded and migrated events carry the fleet journey's
+correlation key (``journey_id``, ``journey_leg``) when the session is a
+leg of one; the router's AGENT_DEAD and AGENT_RECYCLED re-points ride
+StreamDegraded.
 
 A StreamDegraded event carries the flight recorder's snapshot id and the
 last entries of the session's event log (obs/recorder.py); the SLO and
@@ -27,11 +33,30 @@ from ..utils import env
 
 logger = logging.getLogger(__name__)
 
+#: the closed webhook vocabulary (the JAX module's sets)
+EVENT_NAMES = frozenset({
+    "StreamStarted", "StreamEnded", "StreamDegraded",
+    "StreamRecovered", "StreamMigrated",
+    # the engine fault domain (resilience/engine_guard.py)
+    "EngineDegraded", "EngineRecovered", "AgentEvacuating",
+})
+STATE_NAMES = frozenset({
+    # supervisor states (resilience/supervisor.py)
+    "HEALTHY", "DEGRADED", "RECOVERING", "FAILED",
+    # fleet agent states (fleet/registry.py AGENT_STATES)
+    "DRAINING", "DEAD",
+    # breach and lifecycle states ridden by StreamDegraded
+    "SLO_BREACH", "RETRACE_BREACH", "AGENT_DEAD", "AGENT_RECYCLED",
+    # engine guard states (terminal FAILED is the supervisor's word too)
+    "ARMED", "QUARANTINED", "REBUILDING", "EVACUATING",
+})
+
 
 @dataclasses.dataclass
 class WebhookEvent:
-    """``journey_id``/``journey_leg`` are the fleet's correlation key; None
-    on a single-process deployment (the port has no fleet yet)."""
+    """``journey_id``/``journey_leg`` are the fleet's correlation key
+    (fleet/journey.py), threaded by the router's ``X-Journey-Id`` header;
+    None on a single-process deployment."""
 
     stream_id: str
     room_id: str
@@ -70,6 +95,19 @@ class StreamRecoveredEvent(WebhookEvent):
 
 
 @dataclasses.dataclass
+class StreamMigratedEvent(WebhookEvent):
+    """The fleet moved this session to another agent (drain-as-move,
+    evacuation or crash restore): its state already waits on
+    ``target_agent``; the client re-offers through the router echoing
+    ``journey_id`` and resumes mid-stream."""
+
+    event: str = "StreamMigrated"
+    source_agent: str = ""
+    target_agent: str = ""
+    reason: str = ""
+
+
+@dataclasses.dataclass
 class EngineDegradedEvent(WebhookEvent):
     """The engine guard tripped: every session serves passthrough while the
     rebuild runs (``state``: QUARANTINED or REBUILDING)."""
@@ -100,15 +138,17 @@ class AgentEvacuatingEvent(WebhookEvent):
 
 EVENTS = {cls.event: cls for cls in (
     StreamStartedEvent, StreamEndedEvent, StreamDegradedEvent, StreamRecoveredEvent,
-    EngineDegradedEvent, EngineRecoveredEvent, AgentEvacuatingEvent)}
+    StreamMigratedEvent, EngineDegradedEvent, EngineRecoveredEvent, AgentEvacuatingEvent)}
 
 
 class StreamEventHandler:
-    def __init__(self, session_factory=None):
+    def __init__(self, session_factory=None, webhook_url=None, token=None):
         """``session_factory`` returns an object with an async ``post(url,
-        headers=, json=)`` in place of an aiohttp session."""
-        self.webhook_url = env.get_str("WEBHOOK_URL")
-        self.token = env.get_str("AUTH_TOKEN")
+        headers=, json=)`` in place of an aiohttp session; ``webhook_url``
+        and ``token`` override WEBHOOK_URL and AUTH_TOKEN (the router's
+        handler posts to the clients, not to itself)."""
+        self.webhook_url = env.get_str("WEBHOOK_URL") if webhook_url is None else webhook_url
+        self.token = env.get_str("AUTH_TOKEN") if token is None else token
         self._session_factory = session_factory
         self._tasks: set = set()
         # flight-recorder hook: callable(event_name, stream_id), fired when a
@@ -161,11 +201,30 @@ class StreamEventHandler:
         task.add_done_callback(self._tasks.discard)
         return task
 
-    def handle_stream_started(self, stream_id: str, room_id: str):
-        return self.send_request("StreamStarted", stream_id, room_id)
+    @staticmethod
+    def _journey_extra(journey: dict | None) -> dict:
+        """``journey``: the agent's ``{"journey_id", "leg"}`` binding,
+        flattened into the event's correlation fields."""
+        if not journey:
+            return {}
+        return {"journey_id": journey.get("journey_id"), "journey_leg": journey.get("leg")}
 
-    def handle_stream_ended(self, stream_id: str, room_id: str):
-        return self.send_request("StreamEnded", stream_id, room_id)
+    def handle_stream_started(self, stream_id: str, room_id: str, journey: dict | None = None):
+        return self.send_request("StreamStarted", stream_id, room_id,
+                                 **self._journey_extra(journey))
+
+    def handle_stream_ended(self, stream_id: str, room_id: str, journey: dict | None = None):
+        return self.send_request("StreamEnded", stream_id, room_id,
+                                 **self._journey_extra(journey))
+
+    def handle_stream_migrated(self, stream_id: str, room_id: str, source_agent: str,
+                               target_agent: str, reason: str = "",
+                               journey: dict | None = None):
+        """The router's move notice: the client re-offers echoing the
+        journey id and lands on ``target_agent``, where its state waits."""
+        return self.send_request("StreamMigrated", stream_id, room_id,
+                                 source_agent=source_agent, target_agent=target_agent,
+                                 reason=reason, **self._journey_extra(journey))
 
     def handle_engine_state(self, event_name: str, state: str, reason: str = "", **extra):
         """An engine-guard transition (EngineDegraded / EngineRecovered /
@@ -176,9 +235,11 @@ class StreamEventHandler:
 
     def handle_session_state(self, stream_id: str, room_id: str, state: str, reason: str,
                              flight_snapshot_id: str | None = None,
-                             recent_events: list | None = None):
+                             recent_events: list | None = None,
+                             journey: dict | None = None):
         """A supervisor transition: StreamRecovered on a return to HEALTHY,
-        StreamDegraded (with the new state) otherwise."""
+        StreamDegraded (with the new state) otherwise; the journey's key
+        rides either."""
         name = "StreamRecovered" if state == "HEALTHY" else "StreamDegraded"
         extra = {"state": state, "reason": reason}
         if name == "StreamDegraded":
@@ -186,4 +247,5 @@ class StreamEventHandler:
                 extra["flight_snapshot_id"] = flight_snapshot_id
             if recent_events:
                 extra["recent_events"] = recent_events
+        extra.update(self._journey_extra(journey))
         return self.send_request(name, stream_id, room_id, **extra)

@@ -67,8 +67,29 @@ Observability, on by the JAX agent's defaults (obs/):
   StreamDegraded ``SLO_BREACH``.
 ``debug_trace``, ``debug_flight`` and ``metrics_reply`` are the bodies of
 /debug/trace, /debug/flight and /metrics (JSON or ``format=prom``), and
-``health`` carries each session's ``slo`` and ``devtel`` views.  Journeys,
-migration and broadcast fan-out are later slices.
+``health`` carries each session's ``slo`` and ``devtel`` views.
+
+Sessions that move (the fleet tier, fleet/):
+* **Journeys** (``JOURNEY_ENABLE``): the router's ``X-Journey-Id`` /
+  ``X-Journey-Leg`` headers bind the session before its SDP exchange (the
+  journey map, the flight recorder and its tracer, the supervisor's
+  context, every webhook) and come back in the answer; ``debug_flight``
+  answers ``?journey=`` with this agent's fragment.
+* **Migration** (``MIGRATE_ENABLE``): ``migrate_export`` serialises one
+  live session (the scheduler's snapshot, or a control-plane one; while
+  the guard holds the plane quarantined, the bank), ``migrate_import``
+  takes a counted admission reservation under the router's token,
+  restores the snapshot into a slot and parks it; the client's re-offer
+  carrying ``X-Migrated-Session`` adopts it and its reservation
+  (``_admit_or_adopt``); an unadopted import expires with its reservation.
+* **Restart in place** (``RECYCLE_ENABLE``): ``admin_recycle`` exports every
+  live session into a handoff file (server/lifecycle.py), spawns the
+  replacement and exits; a replacement started with ``RECYCLE_HANDOFF``
+  parks each session at the end of :func:`startup`, after its buckets are
+  captured and before it reports healthy, and announces it with an
+  ``AGENT_RECYCLED`` webhook.  ``app["recycle_exit"]`` replaces the
+  spawn-and-exit step (an in-process restart).
+Broadcast fan-out is a later slice.
 """
 
 from __future__ import annotations
@@ -76,6 +97,7 @@ from __future__ import annotations
 import asyncio
 import json
 import logging
+import os
 import time
 import uuid
 from dataclasses import dataclass, field
@@ -96,7 +118,7 @@ from ..resilience.supervisor import ResilientPipeline, SessionSupervisor, worst_
 from ..stream.pipeline import StreamDiffusionPipeline
 from ..utils import env
 from ..utils.profiling import FrameStats
-from . import turn, wire
+from . import lifecycle, turn, wire
 from .events import StreamEventHandler
 from .relay import TrackRelay
 from .signaling import get_provider
@@ -235,12 +257,13 @@ def wire_datachannel(pipeline, channel, guard=None, encoders=None):
 
 def configure(app, model_id: str = "stabilityai/sd-turbo", pipeline=None, provider=None,
               fbs: int = 0, device=None, multipeer: int = 0, multipeer_pipeline=None,
-              batch_scheduler=None):
+              batch_scheduler=None, events_handler=None):
     """Fill the app state's configuration.  ``pipeline=None`` builds the
     port's StreamDiffusionPipeline at :func:`startup`, and the batch
     scheduler over it; ``multipeer`` N > 0 builds the N-slot peer engine
     instead.  ``pipeline``, ``multipeer_pipeline`` and ``batch_scheduler``
-    are injectable (tests)."""
+    are injectable (tests), and so is ``events_handler``, the webhook
+    sender (a ``StreamEventHandler`` that posts elsewhere than aiohttp)."""
     app["model_id"] = model_id
     app["pipeline"] = pipeline
     app["provider"] = provider or get_provider()
@@ -249,6 +272,21 @@ def configure(app, model_id: str = "stabilityai/sd-turbo", pipeline=None, provid
     app["multipeer"] = multipeer
     app["multipeer_pipeline"] = multipeer_pipeline
     app["batch_scheduler"] = batch_scheduler
+    app["events_handler"] = events_handler
+    # the fleet journey binding of each session (JOURNEY_ENABLE=0: the
+    # router's headers are ignored)
+    app["journey_enabled"] = env.journey_enabled()
+    app["journey_map"] = {}
+    # migrated-in sessions parked until the client's re-offer adopts them
+    app["imported_sessions"] = {}
+    app["importing_tokens"] = set()
+    app["import_timers"] = {}  # token -> the expiry timer of its parked import
+    # the process nonce on /capacity: the fleet registry tells a recycled
+    # replacement from the process it replaced by it
+    app["boot_id"] = uuid.uuid4().hex[:12]
+    app["recycling"] = False
+    app["recycle_tasks"] = set()
+    app["recycle_exit"] = None  # None: spawn the replacement, then exit the process
 
 
 def build_pipeline(model_id: str, fbs: int = 0, device=None) -> StreamDiffusionPipeline:
@@ -288,7 +326,7 @@ async def startup(app):
             app["batch_scheduler"] = BatchScheduler.from_pipeline(app["pipeline"])
     app["pcs"] = set()
     app["releasing"] = set()  # slot releases in flight
-    app["stream_event_handler"] = StreamEventHandler()
+    app["stream_event_handler"] = app["events_handler"] or StreamEventHandler()
     app["state"] = {
         "source_track": None,  # the newest live publisher's processed track
         "source_relay": None,  # and its relay, which viewers subscribe to
@@ -348,6 +386,9 @@ async def startup(app):
         # startup is done: a build from here on that no expected scope
         # blesses is a serve-time breach
         plane.serving()
+    # a recycled replacement adopts its predecessor's handoff last: the
+    # planes exist, and the agent reports healthy only after it
+    await import_handoff(app)
 
 
 def _serving_device(app):
@@ -391,8 +432,9 @@ def _start_observability(app):
             recent = rec.recent_events() if rec is not None else None
             reason = (f"slo breach: {stage} over {info['budget_ms']}ms budget "
                       f"(burn fast={info['burn_fast']} slow={info['burn_slow']})")
+            journey = journey_of(app, session_key)
             _call_on_loop(loop, lambda: handler.handle_session_state(
-                session_key, "", "SLO_BREACH", reason, recent_events=recent))
+                session_key, "", "SLO_BREACH", reason, recent_events=recent, journey=journey))
 
         app["slo"].on_breach = slo_breach
     app["flight"] = None
@@ -450,6 +492,8 @@ def evacuate_agent(app):
 
 
 async def shutdown(app):
+    for task in list(app["recycle_tasks"]):
+        task.cancel()
     if app["devtel"] is not None:
         obs_devtel.deactivate(app["devtel"])
     if app["slo"] is not None:
@@ -466,6 +510,18 @@ async def shutdown(app):
     for relay in app["state"]["whip_relays"].values():
         relay.stop()
     await asyncio.gather(*app["releasing"])
+    for timer in app["import_timers"].values():
+        timer.cancel()
+    app["import_timers"].clear()
+    for entry in app["imported_sessions"].values():
+        # unadopted migrated-in sessions die with the scheduler
+        sess = entry.get("session")
+        if sess is not None:
+            try:
+                sess.release()
+            except Exception:
+                logger.exception("releasing an imported session failed")
+    app["imported_sessions"].clear()
     if app["engine_guard"] is not None:
         app["engine_guard"].close()
     for plane in (app["multipeer_pipeline"], app["batch_scheduler"]):
@@ -570,6 +626,7 @@ def capacity(app) -> dict:
                 "retry_after_s": 0.0}
     else:
         body = ov.capacity(free_slots=free)
+    body["boot_id"] = app["boot_id"]
     guard = app["engine_guard"]
     if guard is not None and guard.quarantined:
         body["saturated"] = True
@@ -645,9 +702,9 @@ async def debug_trace(app, body=None) -> Reply:
 
 def debug_flight(app, query: dict) -> Reply:
     """/debug/flight: no query, the index (sessions, snapshots); ``session=``
-    a live capture; ``id=`` a stored snapshot; ``journey=`` the journey's
-    fragment (404 when no session or snapshot carries it: the port has no
-    journeys yet); ``format=json|chrome|jsonl`` renders a capture.  Bad
+    a live capture; ``id=`` a stored snapshot; ``journey=`` this agent's
+    fragment of a fleet journey (404 when no session or snapshot carries
+    it); ``format=json|chrome|jsonl`` renders a capture.  Bad
     queries answer 400, unknown ids 404, both with a JSON error."""
     flight = app["flight"]
     if flight is None:
@@ -784,13 +841,18 @@ def supervise(app, pc, pipeline, session_key: str, room_id: str = ""):
                 # rings; the snapshot's id rides the StreamDegraded webhook
                 snap_id = flight.take_snapshot(session_key, reason=f"{new}: {reason}")
             recent = rec.recent_events()
+        journey = journey_of(app, session_key)
         # may fire on a worker thread: webhooks belong on the loop
         _call_on_loop(loop, lambda: handler.handle_session_state(
             session_key, room_id, new, reason, flight_snapshot_id=snap_id,
-            recent_events=recent))
+            recent_events=recent, journey=journey))
 
     sup = SessionSupervisor(session_key, resync=resync, on_transition=on_transition)
+    # the recycle handoff's AGENT_RECYCLED announce needs each session's room
     sup.context["room_id"] = room_id
+    jmeta = journey_of(app, session_key)
+    if jmeta is not None:
+        sup.context["journey"] = jmeta  # /health shows which journey this is a leg of
     if rec is not None:
         sup.on_event = rec.event  # restart attempts and outcomes -> the event log
     wrapped = ResilientPipeline(pipeline, sup)
@@ -831,6 +893,7 @@ def session_tracer(app, session_key: str, src_track=None):
 
 def end_supervision(app, session_key: str):
     sup = app["supervisors"].pop(session_key, None)
+    app["journey_map"].pop(session_key, None)
     if sup is not None:
         sup.stop()
     if app["overload"] is not None:
@@ -840,32 +903,402 @@ def end_supervision(app, session_key: str):
         app["flight"].unregister(session_key)
 
 
-async def claim_pipeline(app, session_key: str):
+def _release_off_loop(app, sess):
+    """``sess.release()`` on a worker thread, awaited at shutdown."""
+    releasing = app["releasing"]
+    task = asyncio.ensure_future(asyncio.to_thread(sess.release))
+    releasing.add(task)
+    task.add_done_callback(releasing.discard)
+
+
+async def claim_pipeline(app, session_key: str, imported=None):
     """-> (pipeline, release) for a new connection: a multipeer slot, a
     scheduler session or the shared pipeline; (None, None) when the slots
     are full.  The claim (a text encode and a state build) runs off the
     loop, and so does the release, which is safe to call twice.  A
-    scheduler session's window queue joins the overload plane's registry."""
+    scheduler session's window queue joins the overload plane's registry.
+    ``imported``: a restored session parked by :func:`migrate_import`,
+    adopted as the claim under this connection's key (no prepare: the
+    stream resumes where the source froze it)."""
     mp, sched = app["multipeer_pipeline"], app["batch_scheduler"]
-    if mp is None and sched is None:
+    if imported is not None:
+        imported.session_key = session_key
+        claimed = imported
+    elif mp is None and sched is None:
         return app["pipeline"], lambda: None
-    try:
-        if mp is not None:
-            claimed = await asyncio.to_thread(mp.claim)
-        else:
-            claimed = await asyncio.to_thread(sched.claim, session_key)
-    except CapacityError:
-        return None, None
-    if sched is not None and app["overload"] is not None:
+    else:
+        try:
+            if mp is not None:
+                claimed = await asyncio.to_thread(mp.claim)
+            else:
+                claimed = await asyncio.to_thread(sched.claim, session_key)
+        except CapacityError:
+            return None, None
+    if (sched is not None or imported is not None) and app["overload"] is not None:
         app["overload"].register_queue(f"batchwin:{session_key}", claimed.window_queue)
-    releasing = app["releasing"]
+    return claimed, lambda: _release_off_loop(app, claimed)
 
-    def release():
-        task = asyncio.ensure_future(asyncio.to_thread(claimed.release))
-        releasing.add(task)
-        task.add_done_callback(releasing.discard)
 
-    return claimed, release
+# -- fleet journeys ---------------------------------------------------------------------
+
+def journey_of(app, session_key: str) -> dict | None:
+    """The session's journey binding (``{"journey_id", "leg", "agent"}``),
+    or None on a single-process deployment."""
+    return app["journey_map"].get(session_key)
+
+
+def parse_journey(app, headers) -> dict | None:
+    """The router's ``X-Journey-Id``/``X-Journey-Leg`` headers as a binding;
+    None without them or with ``JOURNEY_ENABLE=0``."""
+    if not app["journey_enabled"] or not headers:
+        return None
+    journey_id = headers.get(wire.JOURNEY_ID)
+    if not journey_id:
+        return None
+    try:
+        leg = max(1, int(headers.get(wire.JOURNEY_LEG, "1")))
+    except ValueError:
+        leg = 1
+    return {"journey_id": journey_id, "leg": leg, "agent": env.get_str("WORKER_ID") or ""}
+
+
+def bind_journey(app, headers, session_key: str) -> dict | None:
+    """Thread the journey headers into the session: the journey map
+    (webhooks, /health) and its flight recorder and tracer (every snapshot
+    and sealed timeline), before its SDP exchange."""
+    meta = parse_journey(app, headers)
+    if meta is None:
+        return None
+    app["journey_map"][session_key] = meta
+    flight = app["flight"]
+    if flight is not None:
+        flight.register(session_key).set_journey(**meta)
+    return meta
+
+
+def journey_headers(meta: dict | None) -> dict:
+    """The answer's echo of the journey (the client learns its id here)."""
+    if not meta:
+        return {}
+    return {wire.JOURNEY_ID: meta["journey_id"], wire.JOURNEY_LEG: str(meta["leg"])}
+
+
+# -- live session migration ----------------------------------------------------------
+
+_IMPORTED_TTL_S = 30.0  # the admission reservation's TTL
+
+_BAD_JSON = object()  # a request body that did not parse
+
+# control-plane-only snapshots (a serving tier without a state row to
+# move: the target primes like a fresh offer); scheduler snapshots carry
+# stream/scheduler.SESSION_SNAPSHOT_SCHEMA
+_CONTROL_SNAPSHOT_SCHEMA = 1
+
+
+def _scheduler_session(app, sid: str):
+    """The batch scheduler when it holds ``sid`` (live, or banked while
+    quarantined), else None."""
+    sched = app["batch_scheduler"]
+    if sched is None or not hasattr(sched, "snapshot_session"):
+        return None
+    if sched.session(sid) is None:
+        return None
+    return sched
+
+
+def _expire_imported(app, token: str | None = None):
+    """Drop stale parked imports (or the one ``token`` whose timer fired):
+    release the restored slot and the import's admission reservation."""
+    imp = app["imported_sessions"]
+    if token is not None:
+        keys = [token] if token in imp else []
+    else:
+        now = time.monotonic()
+        keys = [k for k, e in imp.items() if now - e["ts"] >= _IMPORTED_TTL_S]
+    for k in keys:
+        entry = imp.pop(k, None)
+        if entry is None:
+            continue
+        timer = app["import_timers"].pop(k, None)
+        if timer is not None:
+            timer.cancel()
+        if entry.get("session") is not None:
+            _release_off_loop(app, entry["session"])
+        release_admission(app, k)
+        logger.warning("imported session %s expired unadopted", k)
+
+
+def _park_import(app, token: str, sess):
+    """Park an import until a re-offer adopts it, with its expiry timer
+    (the reservation's TTL; an adopted token makes it a no-op)."""
+    app["imported_sessions"][token] = {"session": sess, "ts": time.monotonic()}
+    old = app["import_timers"].pop(token, None)
+    if old is not None:
+        old.cancel()
+    app["import_timers"][token] = asyncio.get_running_loop().call_later(
+        _IMPORTED_TTL_S + 1.0, _expire_imported, app, token)
+
+
+def _admit_or_adopt(app, headers, stream_id: str):
+    """Admission for /offer and /whip, migration-aware: a re-offer carrying
+    ``X-Migrated-Session`` takes the parked import (its admission
+    reservation moves to ``stream_id``; a restored session is adopted in
+    place of a fresh claim).  -> (imported session or None, refusal or None)."""
+    token = headers.get(wire.MIGRATED_SESSION) if headers else None
+    entry = None
+    if token:
+        _expire_imported(app)
+        entry = app["imported_sessions"].pop(token, None)
+        timer = app["import_timers"].pop(token, None)
+        if timer is not None:
+            timer.cancel()
+    ov = app["overload"]
+    adopted = False
+    if entry is not None:
+        adopted = ov.adopt_reservation(token, stream_id) if ov is not None else True
+    if not adopted:
+        rejected = admission_gate(app, stream_id)
+        if rejected is not None:
+            if entry is not None and entry.get("session") is not None:
+                # the reservation lapsed and the agent refuses: free the slot
+                _release_off_loop(app, entry["session"])
+            return None, rejected
+    return (entry or {}).get("session"), None
+
+
+def _control_snapshot(sid: str) -> dict:
+    return {"schema": _CONTROL_SNAPSHOT_SCHEMA, "kind": "control-plane", "session": sid}
+
+
+async def _export_session(app, sid: str) -> dict | None:
+    """``sid``'s scheduler snapshot (the row read takes the step lock: off
+    the loop), or None when the scheduler does not hold it."""
+    sched = _scheduler_session(app, sid)
+    if sched is None:
+        return None
+    try:
+        snap = await asyncio.to_thread(sched.snapshot_session, sid)
+    except KeyError:
+        return None  # released between the lookup and the read
+    snap.setdefault("kind", "scheduler")
+    snap["session"] = sid
+    return snap
+
+
+async def migrate_export(app, query) -> Reply:
+    """GET /migrate/export?session=<stream id>: one live session for
+    migration (the scheduler's snapshot, or a control-plane one on another
+    tier).  The session keeps serving here until the client moves."""
+    if not env.migrate_enabled():
+        return _debug_error(404, "session migration disabled (MIGRATE_ENABLE=0)")
+    sid = query.get("session")
+    if not sid:
+        return _debug_error(400, "session= query required")
+    if _scheduler_session(app, sid) is not None:
+        snap = await _export_session(app, sid)
+        if snap is None:
+            return _debug_error(404, f"unknown session {sid!r}")
+        return _json(snap)
+    if sid not in app["supervisors"]:
+        return _debug_error(404, f"unknown session {sid!r}")
+    return _json(_control_snapshot(sid))
+
+
+async def migrate_import(app, body) -> Reply:
+    """POST /migrate/import {"token", "snapshot"}: land a migrated session.
+    A counted admission reservation under the token comes first; a
+    scheduler snapshot then restores into a slot, parked until the re-offer
+    carrying ``X-Migrated-Session`` adopts it.  409 for a refused snapshot
+    (terminal for the router's retry), 503 with Retry-After when slots or
+    admission are exhausted; a retried token answers the parked import."""
+    if not env.migrate_enabled():
+        return _debug_error(404, "session migration disabled (MIGRATE_ENABLE=0)")
+    if body is _BAD_JSON:
+        return _debug_error(400, "invalid JSON body")
+    if not isinstance(body, dict):
+        return _debug_error(400, "body must be an object")
+    token = str(body.get("token") or "")
+    snap = body.get("snapshot")
+    if not token or not isinstance(snap, dict):
+        return _debug_error(400, "token and snapshot object required")
+    _expire_imported(app)
+    parked = app["imported_sessions"].get(token)
+    if parked is not None:
+        # an idempotent retry: restoring again would orphan the parked slot
+        return _json({"ok": True, "token": token, "restored": parked.get("session") is not None})
+    importing: set = app["importing_tokens"]
+    if token in importing:
+        return overloaded(app, "import already in progress")
+    rejected = admission_gate(app, token)  # the reservation comes first
+    if rejected is not None:
+        return rejected
+    kind = snap.get("kind")
+    sess = None
+    importing.add(token)
+    try:
+        if kind == "scheduler":
+            sched = app["batch_scheduler"]
+            if sched is None or not hasattr(sched, "restore_session"):
+                release_admission(app, token)
+                return _debug_error(409, "no batch scheduler on this agent to restore into")
+            from ..stream.scheduler import SnapshotMismatch
+
+            try:
+                sess = await asyncio.to_thread(sched.restore_session, snap, token)
+            except SnapshotMismatch as e:
+                release_admission(app, token)
+                return _debug_error(409, f"snapshot refused: {e}")
+            except CapacityError:
+                release_admission(app, token)
+                return _slots_full(app)
+            except BaseException:
+                # the 500 the router retries must not strand the reservation
+                release_admission(app, token)
+                raise
+        elif kind == "control-plane":
+            if snap.get("schema") != _CONTROL_SNAPSHOT_SCHEMA:
+                release_admission(app, token)
+                return _debug_error(
+                    409, f"control-plane snapshot schema {snap.get('schema')!r} unsupported "
+                         f"(this build speaks {_CONTROL_SNAPSHOT_SCHEMA})")
+        else:
+            release_admission(app, token)
+            return _debug_error(400, f"unknown snapshot kind {kind!r}")
+        # parked before the in-flight mark clears: a racing retry sees one or the other
+        _park_import(app, token, sess)
+    finally:
+        importing.discard(token)
+    app["stats"].count("migrate_imports")
+    return _json({"ok": True, "token": token, "restored": sess is not None})
+
+
+# -- restart in place ---------------------------------------------------------------
+
+async def _export_all_sessions(app) -> list:
+    """Every live session as a handoff entry: its migration snapshot, its
+    journey binding and its room."""
+    out = []
+    for sid, sup in list(app["supervisors"].items()):
+        snap = await _export_session(app, sid) or _control_snapshot(sid)
+        out.append({"session": sid, "snapshot": snap, "journey": journey_of(app, sid),
+                    "room_id": str(sup.context.get("room_id") or "")})
+    return out
+
+
+def _exit_and_respawn(app, respawn: bool, handoff: str) -> bool:
+    """The process path of a recycle (blocking): spawn the replacement, then
+    exit at once.  False when no backend could spawn."""
+    if respawn and not lifecycle.spawn_replacement(handoff):
+        return False
+    logger.info("recycling: exiting (respawn=%s, handoff=%s)", respawn, handoff)
+    lifecycle.exit_process(0)
+    return True
+
+
+def _spawn_recycle_exit(app, respawn: bool, handoff: str):
+    """After a beat (the 202 and any webhooks flush first), the recycle's
+    exit: ``app["recycle_exit"]`` (an in-process restart) or
+    :func:`_exit_and_respawn`, off the loop.  A failed spawn aborts the
+    recycle: the sessions keep serving here."""
+    step = app["recycle_exit"] or _exit_and_respawn
+
+    async def run():
+        await asyncio.sleep(env.get_float("RECYCLE_EXIT_DELAY_S", 0.2))
+        if not await asyncio.to_thread(step, app, respawn, handoff):
+            logger.error("recycle aborted: replacement spawn failed")
+            app["recycling"] = False
+
+    tasks = app["recycle_tasks"]
+    task = asyncio.get_running_loop().create_task(run())
+    tasks.add(task)
+    task.add_done_callback(tasks.discard)
+
+
+async def admin_recycle(app, body) -> Reply:
+    """POST /admin/recycle {"respawn": true|false}: restart (or retire) this
+    agent in place.  Every live session goes into the handoff file; the
+    replacement imports it before it reports healthy and announces each
+    session (AGENT_RECYCLED).  Answers 202 at once; the exit comes a beat
+    later.  ``respawn: false`` (the autoscaler's retire) writes nothing
+    and only exits."""
+    if not env.get_bool("RECYCLE_ENABLE", True):
+        return _debug_error(404, "recycle disabled (RECYCLE_ENABLE=0)")
+    if app["recycling"]:
+        return _debug_error(409, "recycle already in progress")
+    respawn = bool(body.get("respawn", True)) if isinstance(body, dict) else True
+    app["recycling"] = True
+    sessions = await _export_all_sessions(app)
+    path = lifecycle.handoff_path()
+    if respawn:
+        handler = app["stream_event_handler"]
+        # the webhook configuration survives the swap: the replacement's
+        # AGENT_RECYCLED announces are the handoff's point
+        meta = {"worker_id": env.get_str("WORKER_ID") or "",
+                "webhook": {"url": handler.webhook_url, "token": handler.token}}
+        await asyncio.to_thread(lifecycle.write_handoff, path, sessions, meta)
+    _spawn_recycle_exit(app, respawn, path)
+    app["stats"].count("recycles")
+    return Reply(202, json.dumps({"recycling": True, "respawn": respawn,
+                                  "sessions": len(sessions),
+                                  "handoff": path if respawn else None}),
+                 "application/json")
+
+
+async def import_handoff(app):
+    """A recycled replacement's last startup step: adopt the predecessor's
+    handoff (``RECYCLE_HANDOFF``).  Each session takes a counted admission
+    reservation and parks like a /migrate/import under the token
+    ``rcy-<stream id>`` (the router builds the same token from the
+    AGENT_RECYCLED webhook and pins the re-offer here with it); the file is
+    consumed whatever happens, so a crash loop never adopts it twice."""
+    path = env.get_str("RECYCLE_HANDOFF")
+    if not path or not os.path.exists(path):
+        return
+    data = await asyncio.to_thread(lifecycle.read_handoff, path)
+    await asyncio.to_thread(lifecycle.consume_handoff, path)
+    if data is None:
+        logger.warning("recycle handoff at %s unreadable: booting clean", path)
+        return
+    handler: StreamEventHandler = app["stream_event_handler"]
+    webhook = data.get("webhook")
+    if isinstance(webhook, dict) and handler.webhook_url is None and webhook.get("url"):
+        handler.webhook_url = webhook["url"]
+        handler.token = webhook.get("token")
+    sched = app["batch_scheduler"]
+    restored = 0
+    for entry in data.get("sessions", ()):
+        if not isinstance(entry, dict):
+            continue
+        sid = str(entry.get("session") or "")
+        snap = entry.get("snapshot")
+        if not sid or not isinstance(snap, dict):
+            continue
+        token = f"rcy-{sid}"
+        if admission_gate(app, token) is not None:
+            logger.warning("handoff session %s refused at admission", sid)
+            continue
+        sess = None
+        if snap.get("kind") == "scheduler" and sched is not None and hasattr(
+                sched, "restore_session"):
+            from ..stream.scheduler import SnapshotMismatch
+
+            try:
+                sess = await asyncio.to_thread(sched.restore_session, snap, token)
+            except (SnapshotMismatch, CapacityError) as e:
+                release_admission(app, token)
+                logger.warning("handoff restore of %s refused: %s", sid, e)
+                continue
+        _park_import(app, token, sess)
+        jmeta = entry.get("journey")
+        journey = jmeta if isinstance(jmeta, dict) and jmeta.get("journey_id") else None
+        handler.handle_session_state(
+            sid, str(entry.get("room_id") or ""), "AGENT_RECYCLED",
+            "agent recycled in place — re-offer through the router to resume on the same box",
+            journey=journey)
+        restored += 1
+        app["stats"].count("recycle_imports")
+    if restored:
+        logger.info("recycle handoff adopted: %d session(s) parked", restored)
 
 
 # -- flows -------------------------------------------------------------------------
@@ -891,11 +1324,12 @@ def _client_error(e: Exception, kinds: tuple) -> Exception:
     return e
 
 
-def _sdp_answer(sdp: str, location: str) -> Reply:
+def _sdp_answer(sdp: str, location: str, journey: dict | None = None) -> Reply:
     return Reply(201, sdp, "application/sdp", {
         "Access-Control-Allow-Origin": "*",
         "Access-Control-Allow-Headers": "*",
         wire.LOCATION: location,
+        **journey_headers(journey),
     })
 
 
@@ -920,18 +1354,20 @@ def has_publisher(app) -> bool:
     return app["state"]["source_track"] is not None
 
 
-async def publish(app, sdp: str) -> Reply:
+async def publish(app, sdp: str, headers=None) -> Reply:
     """WHIP: a publisher's stream goes through the pipeline; its processed
-    track becomes the source that viewers subscribe to (newest wins)."""
+    track becomes the source that viewers subscribe to (newest wins).
+    ``headers``: the request's (a journey, a migrated session's token)."""
     pcs, provider, state, stats = app["pcs"], app["provider"], app["state"], app["stats"]
     session_id = str(uuid.uuid4())
-    rejected = admission_gate(app, session_id)
+    imported, rejected = _admit_or_adopt(app, headers, session_id)
     if rejected is not None:
         return rejected
-    pipeline, release_pipeline = await claim_pipeline(app, session_id)
+    pipeline, release_pipeline = await claim_pipeline(app, session_id, imported=imported)
     if pipeline is None:
         release_admission(app, session_id)
         return _slots_full(app)
+    jmeta = bind_journey(app, headers, session_id)
     pc = None
     try:
         offer_sdp = provider.session_description(sdp=sdp, type="offer")
@@ -994,12 +1430,13 @@ async def publish(app, sdp: str) -> Reply:
         # setRemoteDescription); its end releases the admission reservation
         end_supervision(app, session_id)
         raise _client_error(e, (LookupError,))
-    return _sdp_answer(answer.sdp, f"/whip/{session_id}")
+    return _sdp_answer(answer.sdp, f"/whip/{session_id}", jmeta)
 
 
-async def subscribe(app, sdp: str) -> Reply:
+async def subscribe(app, sdp: str, headers=None) -> Reply:
     """WHEP: a viewer gets its own relayed view of the newest publisher's
-    processed stream; 401 when there is no publisher."""
+    processed stream; 401 when there is no publisher.  A viewer echoes
+    its journey without binding it (it owns no recorder)."""
     state = app["state"]
     source_track = state["source_track"]
     if source_track is None:
@@ -1045,12 +1482,13 @@ async def subscribe(app, sdp: str) -> Reply:
         await _discard_pc(pc, pcs)
         end_viewer()
         raise
-    return _sdp_answer(answer.sdp, f"/whep/{session_id}")
+    return _sdp_answer(answer.sdp, f"/whep/{session_id}", parse_journey(app, headers))
 
 
-async def offer(app, params: dict) -> Reply:
+async def offer(app, params: dict, headers=None) -> Reply:
     """/offer: a bidirectional browser session — the peer's track comes back
-    processed on the same connection; webhooks on connect and close."""
+    processed on the same connection; webhooks on connect and close.
+    ``headers``: the request's (a journey, a migrated session's token)."""
     try:
         room_id = params["room_id"]
         offer_params = params["offer"]
@@ -1059,13 +1497,16 @@ async def offer(app, params: dict) -> Reply:
     pcs, provider, stats = app["pcs"], app["provider"], app["stats"]
     events: StreamEventHandler = app["stream_event_handler"]
     stream_id = str(uuid.uuid4())
-    rejected = admission_gate(app, stream_id)
+    imported, rejected = _admit_or_adopt(app, headers, stream_id)
     if rejected is not None:
         return rejected
-    pipeline, release_pipeline = await claim_pipeline(app, stream_id)
+    pipeline, release_pipeline = await claim_pipeline(app, stream_id, imported=imported)
     if pipeline is None:
         release_admission(app, stream_id)
         return _slots_full(app)
+    # bound before the SDP exchange: on_track (inside setRemoteDescription)
+    # supervises a session that already knows its journey
+    jmeta = bind_journey(app, headers, stream_id)
     pc = None
     try:
         offer_sdp = provider.session_description(sdp=offer_params["sdp"], type=offer_params["type"])
@@ -1101,11 +1542,12 @@ async def offer(app, params: dict) -> Reply:
                 await pc.close()
                 pcs.discard(pc)
                 release_pipeline()
+                journey = journey_of(app, stream_id)  # before the map clears
                 end_supervision(app, stream_id)
                 if conn == "closed":
-                    events.handle_stream_ended(stream_id, room_id)
+                    events.handle_stream_ended(stream_id, room_id, journey=journey)
             elif conn == "connected":
-                events.handle_stream_started(stream_id, room_id)
+                events.handle_stream_started(stream_id, room_id, journey=journey_of(app, stream_id))
 
         await pc.setRemoteDescription(offer_sdp)
         answer = await pc.createAnswer()
@@ -1119,7 +1561,7 @@ async def offer(app, params: dict) -> Reply:
         200,
         json.dumps({"sdp": pc.localDescription.sdp, "type": pc.localDescription.type}),
         "application/json",
-        {wire.STREAM_ID: stream_id},
+        {wire.STREAM_ID: stream_id, **journey_headers(jmeta)},
     )
 
 
@@ -1140,3 +1582,121 @@ async def close(app, kind: str, session: str | None = None) -> bool:
     if kind == "whip":
         _refresh_source_track(state)
     return session is None or bool(closing)
+
+
+# -- the routes ------------------------------------------------------------------------
+
+def _mime(headers) -> tuple:
+    """(media type, charset) of a request's Content-Type, as aiohttp reads
+    them (no header: application/octet-stream)."""
+    raw = (headers or {}).get("Content-Type") or ""
+    mime, *params = raw.split(";")
+    charset = None
+    for param in params:
+        key, _, value = param.strip().partition("=")
+        if key.strip().lower() == "charset":
+            charset = value.strip().strip('"') or None
+    return mime.strip().lower() or "application/octet-stream", charset
+
+
+def _text(headers, body: bytes) -> str:
+    """The body decoded by its charset (utf-8 without one); ValueError for
+    bytes that do not decode, LookupError for an unknown charset."""
+    return body.decode(_mime(headers)[1] or "utf-8")
+
+
+def _json_body(headers, body: bytes):
+    return json.loads(_text(headers, body))
+
+
+async def route(app, method: str, path: str, query=None, headers=None, body: bytes = b"") -> Reply:
+    """One request to the agent: the status mapping of every route the HTTP
+    layer (server/agent.py) serves, over the flows above.  The fleet's
+    in-process transport (fleet/transport.py) calls it the same way, so an
+    agent answers alike over HTTP and in the same process.  404 for a path
+    no route serves."""
+    query = query if query is not None else {}
+    kind, _, session = path.strip("/").partition("/")
+    if kind in ("whip", "whep") and method == "DELETE":
+        ok = await close(app, kind, session or None)
+        return Reply(200 if ok else 404)
+    if (method, path) == ("POST", "/offer"):
+        try:
+            params = _json_body(headers, body)
+        except (ValueError, LookupError) as e:  # bad JSON, or an unknown charset=
+            return Reply(400, f"invalid offer request: {e}")
+        try:
+            return await offer(app, params, headers)
+        except ValueError as e:
+            return Reply(400, f"invalid offer request: {e}")
+    if (method, path) == ("POST", "/whep"):
+        if _mime(headers)[0] != "application/sdp":
+            return Reply(400)
+        if not has_publisher(app):
+            return Reply(401)
+        try:
+            text = _text(headers, body)
+        except (ValueError, LookupError) as e:
+            return Reply(400, f"invalid offer body: {e}")
+        try:
+            return await subscribe(app, text, headers)
+        except ValueError as e:
+            return Reply(400, f"invalid offer: {e}")
+    if (method, path) == ("POST", "/whip"):
+        if _mime(headers)[0] != "application/sdp":
+            return Reply(400)
+        try:
+            return await publish(app, _text(headers, body), headers)
+        except (ValueError, LookupError) as e:
+            return Reply(400, f"invalid offer: {e}")
+    if (method, path) == ("POST", "/config"):
+        try:
+            config = _json_body(headers, body)
+        except (ValueError, LookupError):
+            return Reply(400, "invalid JSON body")
+        logger.info("received config: %s", config)
+        try:
+            await update_config(app, config)
+        except ValueError as e:
+            return Reply(400, str(e))
+        return Reply(200, "OK", "application/json")
+    if (method, path) == ("GET", "/"):
+        return Reply(200, "OK", "application/json")
+    if (method, path) == ("GET", "/health"):
+        return _json(health(app))
+    if (method, path) == ("GET", "/capacity"):
+        return _json(capacity(app))
+    if (method, path) == ("POST", "/drain"):
+        if app["overload"] is None:
+            return drain(app, None)
+        try:
+            return drain(app, _json_body(headers, body))
+        except (ValueError, LookupError):
+            return Reply(400, "invalid JSON body")
+    if (method, path) == ("GET", "/metrics"):
+        return metrics_reply(app, query.get("format", "json"))
+    if path == "/debug/trace" and method in ("GET", "POST"):
+        if method == "GET" or app["flight"] is None:
+            return await debug_trace(app)
+        try:
+            parsed = _json_body(headers, body)
+        except (ValueError, LookupError):
+            return Reply(400, "invalid JSON body")
+        return await debug_trace(app, parsed)
+    if (method, path) == ("GET", "/debug/flight"):
+        return debug_flight(app, query)
+    if (method, path) == ("GET", "/migrate/export"):
+        return await migrate_export(app, query)
+    if (method, path) == ("POST", "/migrate/import"):
+        try:
+            parsed = _json_body(headers, body)
+        except (ValueError, LookupError):
+            parsed = _BAD_JSON
+        return await migrate_import(app, parsed)
+    if (method, path) == ("POST", "/admin/recycle"):
+        try:
+            parsed = _json_body(headers, body)
+        except (ValueError, LookupError):
+            parsed = {}
+        return await admin_recycle(app, parsed)
+    return Reply(404, "404: Not Found")

@@ -33,6 +33,8 @@ txt2img, ControlNet, SDXL conditioning and DeepCache raise.
 
 from __future__ import annotations
 
+import base64
+import binascii
 import threading
 from dataclasses import dataclass
 from typing import Callable
@@ -389,6 +391,36 @@ class SimilarityFilter:
         self._prev_small = small
         self._skip_count = 0
         return False
+
+    def export_state(self) -> dict:
+        """The filter's decision state as JSON (a session migration): the
+        subsampled previous frame, the skip streak and the RNG position, in
+        the JAX filter's layout."""
+        prev = self._prev_small
+        return {
+            "skip_count": int(self._skip_count),
+            "rng_state": self._rng.bit_generator.state,
+            "prev_small": None if prev is None else {
+                "shape": list(prev.shape),
+                "b64": base64.b64encode(
+                    np.ascontiguousarray(prev, dtype=np.float32).tobytes()).decode("ascii"),
+            },
+        }
+
+    def restore_state(self, state: dict):
+        """Inverse of :meth:`export_state`; a bad payload raises ValueError."""
+        try:
+            self._skip_count = int(state["skip_count"])
+            self._rng.bit_generator.state = state["rng_state"]
+            prev = state.get("prev_small")
+            if prev is None:
+                self._prev_small = None
+            else:
+                raw = base64.b64decode(prev["b64"])
+                self._prev_small = np.frombuffer(raw, dtype=np.float32).reshape(
+                    [int(s) for s in prev["shape"]]).copy()
+        except (KeyError, TypeError, ValueError, binascii.Error) as e:
+            raise ValueError(f"similarity-filter state unusable: {e}") from e
 
 
 class StaleStepError(RuntimeError):

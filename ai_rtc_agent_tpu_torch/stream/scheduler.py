@@ -56,12 +56,30 @@ admission EWMA through :attr:`on_step`.
 
 Outputs are a dedicated engine's for the same state row and frames
 (tests/test_torch_scheduler.py on the CPU, chip_smoke.py phase 6 on the
-card).  Snapshot/restore in its serialised form, the dp-sharded session
-axis, adapters, DeepCache and w8 are later slices.
+card).
+
+Live migration (:meth:`snapshot_session`, :meth:`restore_session`, the
+JAX scheduler's schema 2): a session's state row goes out as the pytree
+wire codec's blob (parallel/checkpoint.py, the JAX bytes) with its control
+plane, and comes in written into a free slot in place (``install_row``:
+the captured graphs read the stacked buffers' storage, so a leaf is never
+rebound).  The row is gathered under the step lock, on the stepping
+stream, into a fresh buffer (``states[..][slot]`` is a view the next
+replay overwrites) and pulled to the host outside the lock.  A mismatched
+schema, fingerprint or row, or a full slot pool, is refused before any
+state is touched.  The fingerprint equals the JAX scheduler's for the same
+configuration, so a JAX snapshot restores here and back.  The engine
+guard's bank is refreshed on the device; at quarantine its rows go to the
+host once and become full snapshot dicts (:meth:`capture_quarantine_snapshots`),
+which a quarantined :meth:`snapshot_session` serves and the rebuild
+restores from.  The dp-sharded session axis, adapters, DeepCache and w8
+are later slices.
 """
 
 from __future__ import annotations
 
+import base64
+import binascii
 import logging
 import threading
 import time
@@ -75,6 +93,7 @@ from .. import resolve_device
 from ..aot.cache import stream_engine_key
 from ..obs import devtel
 from ..obs.trace import get_trace
+from ..parallel.checkpoint import deserialize_pytree, serialize_pytree
 from ..parallel.multipeer import (
     BucketStep,
     CapacityError,
@@ -106,9 +125,22 @@ from .pipeline import (
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["BatchScheduler", "ScheduledSession", "CapacityError"]
+__all__ = ["BatchScheduler", "ScheduledSession", "CapacityError", "SESSION_SNAPSHOT_SCHEMA",
+           "SnapshotMismatch"]
 
 POLL_S = 2e-4  # the completion poll of a guarded step
+
+# the layout of snapshot_session()/restore_session(): the JAX scheduler's
+# version, so snapshots cross between the packages (the blob carries its own
+# byte-layout version inside)
+SESSION_SNAPSHOT_SCHEMA = 2
+
+
+class SnapshotMismatch(ValueError):
+    """A session snapshot does not fit this scheduler: another schema, model,
+    geometry or variant fingerprint, or a state row whose structure, shape
+    or dtype differs from the stacked state's.  Restore refuses; the source
+    keeps serving."""
 
 
 class _PendingFrame:
@@ -409,8 +441,9 @@ class BatchScheduler:
         # session's control plane)
         self._snap_every_s = env.get_float("ENGINE_SNAPSHOT_EVERY_S", 5.0)
         self._snap_rows: dict = {}  # slot -> cloned state rows
+        self._snap_ready = None  # the CUDA event after the bank's gather
         self._last_snap_t = 0.0
-        self._quarantine_snaps: dict = {}  # session key -> banked rows, at the trip
+        self._quarantine_snaps: dict = {}  # session key -> banked snapshot dict, at the trip
         self._prewarm = env.get_bool("BATCHSCHED_PREWARM", True) if prewarm is None else prewarm
         self._started = threading.Event()
         self._start_error: BaseException | None = None
@@ -492,6 +525,164 @@ class BatchScheduler:
         while (got := q.pop()) is not None:
             got[0].future.cancel()
         logger.info("batchsched session released <- slot %d", slot)
+
+    # -- live session migration (snapshot / restore) ----------------------------------
+
+    def session(self, session_key: str) -> ScheduledSession | None:
+        """The live session claimed under ``session_key``, or None."""
+        for sess in list(self._sessions.values()):
+            if sess.session_key == session_key:
+                return sess
+        return None
+
+    def snapshot_fingerprint(self) -> dict:
+        """What must match for a snapshot to restore here: the JAX
+        scheduler's keys and values for the same configuration (the port
+        has one UNet variant, no w8, no DeepCache, no adapters)."""
+        return {
+            "model_id": self.model_id,
+            "height": self.height,
+            "width": self.width,
+            "fbs": self.fbs,
+            "n_stages": int(self.cfg.n_stages),
+            "dtype": str(self.cfg.torch_dtype).rsplit(".", 1)[-1],
+            "unet_cache": 0,
+            "similar_filter": bool(self.cfg.similar_image_filter),
+            "quant": "",
+        }
+
+    def snapshot_session(self, session_key: str) -> dict:
+        """One live session for migration: its state row (the wire codec's
+        blob, bit for bit) and its control plane, under the versioned
+        schema.  While the guard holds the plane quarantined, the snapshot
+        banked at the trip.  Frames still in the window stay here: this
+        scheduler keeps serving until the client moves."""
+        if self.quarantined:
+            snap = self._quarantine_snaps.get(session_key)
+            if snap is not None:
+                return dict(snap)
+            raise KeyError(f"no banked snapshot for quarantined session {session_key!r}")
+        sess = self.session(session_key)
+        if sess is None:
+            raise KeyError(f"no live scheduler session {session_key!r}")
+        with self._step_lock:
+            if self._sessions.get(sess.slot) is not sess:
+                # released between the lookup and the lock (its slot may be
+                # another session's now): never pair two sessions' halves
+                raise KeyError(f"session {session_key!r} released mid-export")
+            # a fresh buffer on the stepping stream: the next replay writes
+            # the slot's view, never this copy
+            row = tree_map(lambda a: a[sess.slot].clone(), self.states)
+        return self._row_snapshot(sess, tree_map(lambda a: a.cpu(), row))
+
+    def _row_snapshot(self, sess: ScheduledSession, row: dict) -> dict:
+        """A session's full snapshot dict from a state row on the host (the
+        live export and the quarantine bank)."""
+        snap = {
+            "schema": SESSION_SNAPSHOT_SCHEMA,
+            "kind": "scheduler",
+            "fingerprint": self.snapshot_fingerprint(),
+            "session": sess.session_key,
+            "prompt": sess.prompt,
+            "guidance_scale": float(sess.guidance_scale),
+            "delta": float(sess.delta),
+            "t_index_list": [int(t) for t in sess.t_index_list],
+            "seed": int(sess._seed),
+            "had_output": bool(sess._had_output),
+            "frames_submitted": int(sess.frames_submitted),
+            "frames_skipped_similar": int(sess.frames_skipped_similar),
+            # the JAX DeepCache alignment fields: no DeepCache here
+            "cache_tick": 0,
+            "cache_uncaptured": False,
+            "adapter": None,
+            "state_b64": base64.b64encode(serialize_pytree(row)).decode("ascii"),
+        }
+        if sess._sim is not None:
+            snap["similarity"] = sess._sim.export_state()
+        return snap
+
+    def _check_row(self, row):
+        """Refuse a row whose structure, shape or dtype differs from one
+        slot of the stacked state (the captured steps would misread it)."""
+        def walk(got, want, path):
+            if isinstance(want, dict):
+                if not isinstance(got, dict) or sorted(got) != sorted(want):
+                    keys = sorted(got) if isinstance(got, dict) else type(got).__name__
+                    raise SnapshotMismatch(
+                        f"state-row structure differs from this scheduler's stacked state at "
+                        f"{path or 'the root'} ({keys} vs {sorted(want)})")
+                for k in want:
+                    walk(got[k], want[k], f"{path}/{k}")
+                return
+            wshape, wdtype = tuple(want.shape[1:]), want.dtype
+            if not isinstance(got, torch.Tensor) or tuple(got.shape) != wshape or got.dtype != wdtype:
+                desc = (f"{tuple(got.shape)}/{got.dtype}" if isinstance(got, torch.Tensor)
+                        else type(got).__name__)
+                raise SnapshotMismatch(
+                    f"state-row leaf {path} {desc} does not match the compiled {wshape}/{wdtype}")
+
+        walk(row, self.states, "")
+
+    def restore_session(self, snapshot: dict, session_key: str | None = None) -> ScheduledSession:
+        """Install a migrated session: claim a slot and write the snapshot's
+        row into it in place (no prepare: the stream resumes where the
+        source froze it).  Refuses a mismatched schema, fingerprint or row
+        (SnapshotMismatch) and a full pool or a quarantined plane
+        (CapacityError) before any state is touched."""
+        if self.quarantined:
+            raise CapacityError("engine quarantined — rebuild in progress")
+        if not isinstance(snapshot, dict):
+            raise SnapshotMismatch("session snapshot must be an object")
+        schema = snapshot.get("schema")
+        if schema != SESSION_SNAPSHOT_SCHEMA:
+            raise SnapshotMismatch(f"session-snapshot schema {schema!r} unsupported (this "
+                                   f"build speaks {SESSION_SNAPSHOT_SCHEMA})")
+        fp, want = snapshot.get("fingerprint"), self.snapshot_fingerprint()
+        if fp != want:
+            diffs = sorted(k for k in set(want) | set(fp or {})
+                           if (fp or {}).get(k) != want.get(k))
+            raise SnapshotMismatch(f"snapshot fingerprint mismatch on {diffs} "
+                                   f"(snapshot {fp!r}, this scheduler {want!r})")
+        try:
+            row = deserialize_pytree(base64.b64decode(snapshot["state_b64"], validate=True))
+            prompt = str(snapshot["prompt"])
+            guidance = float(snapshot["guidance_scale"])
+            delta = float(snapshot["delta"])
+            t_index_list = [int(t) for t in snapshot["t_index_list"]]
+            seed = int(snapshot.get("seed", 0))
+            if len(t_index_list) != self.cfg.n_stages:
+                raise ValueError(f"t_index_list length {len(t_index_list)} != compiled "
+                                 f"n_stages {self.cfg.n_stages}")
+            self._check_t_index(t_index_list)  # a bad list refuses now, not at a restart
+        except (KeyError, IndexError, TypeError, ValueError, binascii.Error) as e:
+            raise SnapshotMismatch(f"session snapshot unusable: {e}") from e
+        self._check_row(row)
+        with self._lock:
+            slot = self._pick_slot_locked()
+            self.active[slot] = True
+        try:
+            sess = ScheduledSession(self, slot, session_key or snapshot.get("session")
+                                    or f"slot-{slot}", prompt, seed)
+            sess.guidance_scale, sess.delta, sess.t_index_list = guidance, delta, t_index_list
+            sess._had_output = bool(snapshot.get("had_output", False))
+            sess.frames_submitted = int(snapshot.get("frames_submitted", 0))
+            sess.frames_skipped_similar = int(snapshot.get("frames_skipped_similar", 0))
+            sim_state = snapshot.get("similarity")
+            if sess._sim is not None and sim_state is not None:
+                try:
+                    sess._sim.restore_state(sim_state)
+                except ValueError as e:
+                    raise SnapshotMismatch(str(e)) from e
+            self._install(slot, row)
+        except Exception:
+            with self._lock:
+                self.active[slot] = False
+            raise
+        with self._lock:
+            self._sessions[slot] = sess
+        logger.info("batchsched session restored from snapshot -> slot %d (%s)", slot,
+                    sess.session_key)
+        return sess
 
     def _build_state(self, prompt, guidance, delta, seed, t_index_list) -> dict:
         with self._heavy_lock, devtel.expected_scope("sched-state-build"):
@@ -625,35 +816,63 @@ class BatchScheduler:
         self._last_snap_t = now
         slots = [slot for slot in list(self._sessions) if self.active[slot]]
         if not slots:
-            self._snap_rows = {}
+            self._snap_rows, self._snap_ready = {}, None
             return
         # one gather per leaf (a fresh buffer), then each slot's rows as views of it
         bank = tree_map(lambda a: a.index_select(0, self._bucket.index(slots)), self.states)
         self._snap_rows = {slot: tree_map(lambda a, i=i: a[i], bank) for i, slot in enumerate(slots)}
+        self._snap_ready = None
+        if self.device.type == "cuda":
+            # the quarantine capture reads the bank behind this event, never
+            # behind the (possibly stalled) steps queued after it
+            self._snap_ready = torch.cuda.Event()
+            self._snap_ready.record()
+
+    def _bank_to_host(self, rows: dict, ready) -> dict:
+        """One banked slot's rows on the host (on the CPU they are).  On the
+        card the copy runs on a side stream that waits only for the bank's
+        gather."""
+        if ready is None:
+            return rows
+        side = torch.cuda.Stream(self.device)
+        side.wait_event(ready)
+        with torch.cuda.stream(side):
+            host = tree_map(lambda a: a.to("cpu", non_blocking=True), rows)
+        side.synchronize()
+        return host
 
     def capture_quarantine_snapshots(self) -> dict:
-        """{session key: banked rows} of the live sessions, frozen at
-        quarantine entry (the guard calls this once, before any rebuild
-        attempt).  A session claimed after the last bank refresh has none
-        and is rebuilt from its control plane."""
+        """{session key: full snapshot dict} of the live sessions from the
+        bank, frozen at quarantine entry (the guard calls this once, before
+        any rebuild attempt): each banked row goes to the host once and
+        becomes the dict a live export would give, and a quarantined
+        :meth:`snapshot_session` serves it.  A session claimed after the
+        last bank refresh has none and is rebuilt from its control plane;
+        a row that cannot be read costs only its own session."""
         with self._lock:
-            rows = dict(self._snap_rows)
+            rows, ready = dict(self._snap_rows), self._snap_ready
             sessions = {slot: sess for slot, sess in self._sessions.items() if self.active[slot]}
+        self._use_device()
         snaps = {}
         for slot, sess in sessions.items():
-            if slot in rows:
-                snaps[sess.session_key] = rows[slot]
-            else:
+            if slot not in rows:
                 logger.warning("quarantine capture: slot %d has no banked row (claimed after "
                                "the last bank refresh): control-plane rebuild only", slot)
+                continue
+            try:
+                snaps[sess.session_key] = self._row_snapshot(sess, self._bank_to_host(rows[slot],
+                                                                                     ready))
+            except Exception:
+                logger.exception("quarantine capture failed for slot %d (%s)", slot,
+                                 sess.session_key)
         self._quarantine_snaps = snaps
         return snaps
 
     def rebuild_engine(self, snapshots: dict | None = None) -> int:
         """Quarantine recovery: a new plane (new stacked state buffers, a new
         bucket step with its own graph pool and static buffers) with every
-        live slot restored from its banked rows bit for bit, or from its
-        session's control plane without one; every bucket is captured
+        live slot restored from its banked snapshot's row bit for bit, or from
+        its session's control plane without one; every bucket is captured
         again.  The attempt runs on the guard's runner (the thread that
         steps) under the cold deadline: behind a stalled device it times
         out instead of hanging.  -> the number of slots restored from the
@@ -686,12 +905,14 @@ class BatchScheduler:
                         placeholder = self._build_state(self.prompt, self.guidance_scale,
                                                         self.delta, slot, self.t_index_list)
                     per.append(placeholder)
-                elif sess.session_key in snapshots:
-                    per.append(snapshots[sess.session_key])
-                    exact += 1
                 else:
-                    per.append(self._build_state(sess.prompt, sess.guidance_scale, sess.delta,
-                                                 sess._seed, sess.t_index_list))
+                    row = self._banked_row(snapshots.get(sess.session_key), slot)
+                    if row is None:
+                        row = self._build_state(sess.prompt, sess.guidance_scale, sess.delta,
+                                                sess._seed, sess.t_index_list)
+                    else:
+                        exact += 1
+                    per.append(row)
             states = stack_states(per)  # new buffers: the banked rows copied in
             bucket = self._new_bucket(self._bucket.graphs)
             with self._epoch_lock:
@@ -702,7 +923,7 @@ class BatchScheduler:
                 self._warmed = set()
             with self._lock:  # batches of the old plane are nobody's to wait for
                 self._batches = deque(maxlen=self._batches.maxlen)
-            self._snap_rows, self._last_snap_t = {}, 0.0
+            self._snap_rows, self._snap_ready, self._last_snap_t = {}, None, 0.0
         if self._prewarm:
             for k in self._bucket_sizes:
                 with self._step_lock:
@@ -714,6 +935,20 @@ class BatchScheduler:
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
         return exact
+
+    def _banked_row(self, snap: dict | None, slot: int) -> dict | None:
+        """The state row of a banked snapshot dict, or None (no snapshot, or
+        one that does not decode or fit: the slot is rebuilt from its
+        control plane)."""
+        if snap is None:
+            return None
+        try:
+            row = deserialize_pytree(base64.b64decode(snap["state_b64"]))
+            self._check_row(row)
+        except Exception:
+            logger.exception("banked row unusable for slot %d: control-plane rebuild", slot)
+            return None
+        return tree_map(lambda a: a.to(self.device), row)
 
     def _retire_plane(self):
         """Keep the old plane (its graphs, pool, static and state buffers)

@@ -63,6 +63,45 @@ Variables read by the port's server:
   DEVTEL_MEM_INTERVAL_S             the memory sample's rate limit (5 s)
   DEVTEL_COMPILE_LOG                builds kept for /health (64)
   DEVTEL_BREACH_COALESCE_S          one breach alert volley per window (5 s)
+  MIGRATE_ENABLE                    live session migration: /migrate/export, /migrate/import,
+                                    the router's drain?mode=migrate and crash restore (on)
+  MIGRATE_TIMEOUT_S                 one migrate-drain sweep's budget; the rest keep
+                                    kill-drain semantics (30 s)
+  MIGRATE_MAX_PARALLEL              sessions moved at once in a sweep (2)
+  RECYCLE_ENABLE                    the agent's POST /admin/recycle restart-in-place (on)
+  RECYCLE_HANDOFF                   the handoff file of exported sessions (unset: a per-pid
+                                    file under the temp dir); the replacement reads and
+                                    removes it at startup, before it reports healthy
+  RECYCLE_EXEC_HOOK                 shell command that spawns the replacement (unset:
+                                    argv re-exec)
+  RECYCLE_EXIT_DELAY_S              beat between the 202 and the old process's exit (0.2 s)
+  UPGRADE_STEP_TIMEOUT_S            each phase of one rolling-upgrade step (60 s)
+  JOURNEY_ENABLE                    the fleet journey plane: X-Journey-Id per placed session,
+                                    journey rings, incident bundles (on)
+  JOURNEY_MAX, JOURNEY_RING, JOURNEY_EVIDENCE, JOURNEY_BUNDLES
+                                    its bounds: journeys (1024), ring entries (64), evidence
+                                    captures per journey (4), sealed bundles (8)
+  FLEET_POLL_S, FLEET_POLL_TIMEOUT_S  the router's poll cadence and timeout (0.25, 2 s)
+  FLEET_DEAD_AFTER                  failed polls before an agent is DEAD (3)
+  FLEET_MAX_AGENTS                  bounded membership (64)
+  FLEET_PLACE_ATTEMPTS              agents tried per placement (3)
+  FLEET_RETRY_AFTER_S               fleet-wide refusal's Retry-After (2 s)
+  FLEET_PROXY_TIMEOUT_S             one proxied signaling exchange (30 s)
+  FLEET_SESSION_TABLE               the router's session table bound (4096)
+  AUTOSCALE_ENABLE                  the router's demand-driven scaling loop (off)
+  AUTOSCALE_HIGH, AUTOSCALE_LOW, AUTOSCALE_ALPHA, AUTOSCALE_UP_TICKS,
+  AUTOSCALE_DOWN_TICKS, AUTOSCALE_COOLDOWN_S, AUTOSCALE_MIN_AGENTS,
+  AUTOSCALE_MAX_AGENTS, AUTOSCALE_TICK_S
+                                    its pressure EWMA, hysteresis, cooldown and bounds
+                                    (0.8, 0.2, 0.3, 3, 10, 30 s, 1, 16, 1 s)
+  AUTOSCALE_EXEC_HOOK               shell command that provisions one new agent
+  WORKER_PUBLISH_URL                the worker sidecar's publish target (the router's
+                                    /fleet/register); unset: log only
+  WORKER_ID                         identity published (hostname)
+  PUBLIC_IP, PUBLIC_PORT            the published address (unset / the agent's port)
+  AGENT_TIMEOUT                     the worker's lease after publishing (600 s)
+  WORKER_REPUBLISH_S                capacity re-check cadence during the lease (5 s)
+  BROADCAST_EDGE_PULL               the router places viewers on edge agents (on)
 """
 
 from __future__ import annotations
@@ -159,3 +198,29 @@ def devtel_enabled() -> bool:
     """The device telemetry plane (obs/devtel.py); DEVTEL_ENABLE=0 leaves
     its hooks one module-global read each."""
     return get_bool("DEVTEL_ENABLE", True)
+
+
+def journey_enabled() -> bool:
+    """The fleet journey plane (fleet/journey.py): the router mints an
+    ``X-Journey-Id`` per placed session, keeps a bounded event ring per
+    journey and serves incident bundles; ``JOURNEY_ENABLE=0`` removes it
+    (no ids minted or forwarded, the debug endpoints 404, agents ignore
+    the headers)."""
+    return get_bool("JOURNEY_ENABLE", True)
+
+
+def migrate_enabled() -> bool:
+    """Live session migration: the agent's /migrate/export and
+    /migrate/import and the router's ``drain?mode=migrate`` and crash
+    restore; ``MIGRATE_ENABLE=0`` turns the whole surface off (the agent
+    endpoints 404, the router refuses mode=migrate with 409)."""
+    return get_bool("MIGRATE_ENABLE", True)
+
+
+def broadcast_edge_pull_enabled() -> bool:
+    """The router's two-level fan-out (fleet/routing.py): a viewer placed
+    on a non-owner agent first asks it to pull one copy of the publisher's
+    stream (``POST /broadcast/pull``; an agent without the broadcast plane
+    refuses and the viewer lands on the owner).  ``BROADCAST_EDGE_PULL=0``
+    pins every viewer onto the owning agent."""
+    return get_bool("BROADCAST_EDGE_PULL", True)

@@ -160,7 +160,40 @@ Phases (each prints its own lines; any failure exits non-zero):
                 k=4 with the planes at their defaults, all off and with the
                 window open, interleaved (A B C C B A).  Phase 8 prints the
                 SLO plane's breaches per stage.
- 10. a "kernels" JSON line (launch counts of phases 4 to 9), then the last
+ 10. fleet    — sessions that move (server/sessions.py's migration, journeys
+                and restart in place; fleet/ the router's core, in this
+                process through fleet/transport.py's InProcessTransport) over
+                phase 4's pipeline: port agents A and B, each a 4-slot graph
+                BatchScheduler under the guard (every bucket captured), with
+                loopback WHIP/WHEP placed through the router.  10a: B serves
+                a resident session; a session placed on A streams 24 frames,
+                /fleet/drain?agent=A&mode=migrate exports it, B imports it,
+                the pinned re-offer adopts it as journey leg 2 and it streams
+                24 frames on B: held bit for bit to a reference scheduler
+                with the exported row restored at the same slot (else phase
+                4's criterion, printed which); the resident row unchanged by
+                the import, its frames to its dedicated references; the
+                journey bundle's live fragments from both agents; the
+                snapshot's bytes, export and import ms, the gap between the
+                last frame from A and the first from B.  10b: A's guard
+                exhausts its rebuild (device_lost, one attempt refused);
+                EVACUATE_URL is the router behind a stdlib HTTP server on
+                127.0.0.1, the router exports A's banked snapshot while A is
+                quarantined and B imports it: the banked row equals A's rows
+                at its last refresh, the frames after the move are held to
+                a reference restored from the same banked snapshot; trip ->
+                evacuation request -> first frame on B.  10c: POST
+                /admin/recycle on B (2 sessions) writes the handoff
+                (build/phase10-handoff.json) and shuts B down (its scheduler
+                collected); a replacement app-state with RECYCLE_HANDOFF
+                captures its buckets, imports the handoff before it reports
+                healthy and announces AGENT_RECYCLED; the re-offers adopt,
+                each export equals the handoff's row byte for byte, the
+                frames after are held to 10a's reference; handoff write ms,
+                start -> healthy split into captures and imports.  (The
+                process spawn of a recycle is covered on the CPU by
+                tests/test_torch_recycle_proc.py.)
+ 11. a "kernels" JSON line (launch counts of phases 4 to 10), then the last
      line {"ok": true, "device": ...}.
 
 Imports nothing of JAX or of the JAX package.  `python3 chip_smoke.py
@@ -1571,13 +1604,13 @@ class _Env:
                 os.environ[k] = v
 
 
-def _wait_for(pred, timeout_s: float, what: str) -> float:
+def _wait_for(pred, timeout_s: float, what: str, phase: str = "faults") -> float:
     """Poll ``pred`` until it holds; -> the seconds it took (fails past the
-    timeout: nothing in phase 7 may hang)."""
+    timeout: nothing in phases 7 and 10 may hang)."""
     t = time.perf_counter()
     while not pred():
         if time.perf_counter() - t > timeout_s:
-            fail(f"faults: no {what} within {timeout_s:.0f} s")
+            fail(f"{phase}: no {what} within {timeout_s:.0f} s")
         time.sleep(0.002)
     return time.perf_counter() - t
 
@@ -2988,6 +3021,541 @@ def phase_obs(torch, card: str, pipe):
     return attn_total, epi_total
 
 
+# -- phase 10: sessions that move ------------------------------------------------------
+
+MOVE_FRAMES = 24  # 10a: frames streamed before and after the move
+EVAC_FRAMES = 8  # 10b: frames on A before the trip, and on B after the move
+RECYCLE_FRAMES = 8  # 10c: frames after the restart in place
+RESIDENT_FRAMES = 4  # 10a: the resident session's frames before and after the import
+FLEET_PORTS = {"A": 18101, "B": 18102}  # in-process agents: the base URLs' keys, never bound
+
+
+class _RouterPoster:
+    """An agent's webhook sender into the in-process router's /fleet/events
+    (the card's machine has no aiohttp)."""
+
+    def __init__(self, router: dict):
+        self.router = router
+
+    def __call__(self):
+        return self
+
+    async def post(self, url, headers=None, json=None):
+        from ai_rtc_agent_tpu_torch.fleet import routing
+
+        return await routing.handle(self.router, "POST", "/fleet/events", headers=headers,
+                                    body=json)
+
+
+class _ClientSink:
+    """The clients' notification endpoint: the router's webhooks land here,
+    stamped with the host clock."""
+
+    status = 200
+
+    def __init__(self):
+        self.events = []
+
+    def __call__(self):
+        return self
+
+    async def post(self, url, headers=None, json=None):
+        self.events.append((json, time.perf_counter()))
+        return self
+
+    def of(self, name: str, state: str | None = None) -> list:
+        return [e for e, _ in self.events
+                if e.get("event") == name and (state is None or e.get("state") == state)]
+
+
+class _LocalRouter:
+    """The router's core behind a stdlib HTTP server on 127.0.0.1 (an agent's
+    self-evacuation is an HTTP POST to EVACUATE_URL): each request runs on
+    the phase's event loop; the arrival times are kept."""
+
+    def __init__(self, router: dict, loop):
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+        from urllib.parse import parse_qsl, urlsplit
+
+        from ai_rtc_agent_tpu_torch.fleet import routing
+
+        self.arrivals = []
+        outer = self
+
+        class Handler(BaseHTTPRequestHandler):
+            def do_POST(self):
+                outer.arrivals.append((self.path, time.perf_counter()))
+                parts = urlsplit(self.path)
+                body = self.rfile.read(int(self.headers.get("Content-Length") or 0))
+                reply = asyncio.run_coroutine_threadsafe(routing.handle(
+                    router, "POST", parts.path, query=dict(parse_qsl(parts.query)),
+                    headers=dict(self.headers), body=body), loop).result(60)
+                data = reply.body.encode() if isinstance(reply.body, str) else reply.body or b""
+                self.send_response(reply.status)
+                self.send_header("Content-Length", str(len(data)))
+                self.end_headers()
+                self.wfile.write(data)
+
+            def log_message(self, *args):
+                pass
+
+        self.server = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.url = f"http://127.0.0.1:{self.server.server_address[1]}"
+        self.thread = threading.Thread(target=self.server.serve_forever, daemon=True)
+        self.thread.start()
+
+    def close(self):
+        self.server.shutdown()
+        self.server.server_close()
+        self.thread.join(10)
+
+
+def _timed(obj, name: str, log: list):
+    """Wrap ``obj.name`` to append (result, ms on the host clock) to ``log``."""
+    fn = getattr(obj, name)
+
+    def wrapper(*a, **kw):
+        t = time.perf_counter()
+        out = fn(*a, **kw)
+        log.append((out, (time.perf_counter() - t) * 1e3))
+        return out
+
+    setattr(obj, name, wrapper)
+
+
+def _state_bytes(snap: dict) -> bytes:
+    import base64
+
+    return base64.b64decode(snap["state_b64"])
+
+
+def _row_of(snap: dict, device=None) -> dict:
+    """A snapshot's state row (on ``device``, else the host)."""
+    from ai_rtc_agent_tpu_torch.parallel.checkpoint import deserialize_pytree
+    from ai_rtc_agent_tpu_torch.tree import tree_map
+
+    row = deserialize_pytree(_state_bytes(snap))
+    return row if device is None else tree_map(lambda a: a.to(device), row)
+
+
+def _same_frames(np, got, want) -> bool:
+    return len(got) == len(want) and all(np.array_equal(np.asarray(a), np.asarray(b))
+                                         for a, b in zip(got, want))
+
+
+def phase_fleet(torch, card: str, pipe, ref_bundle):
+    """10a live migration, 10b evacuation from the engine guard's bank, 10c
+    restart in place: port agents (server/sessions.py app-states, each a
+    4-slot graph scheduler under the guard) behind the router's core
+    (fleet/routing.py) in this process.  -> the attention and epilogue
+    launches of the steps it drove."""
+    # sessions sit idle between the sub-phases: the output-age watchdog
+    # (phase 7's subject) would degrade them, and a StreamDegraded webhook
+    # marks their agent DEGRADED at the router, no migration target
+    with _Env(WARMUP_FRAMES=0, DROP_FRAMES=0, FLEET_POLL_S=3600, ENGINE_SNAPSHOT_EVERY_S=1e-6,
+              ENGINE_REBUILD_MAX_ATTEMPTS=1, ENGINE_REBUILD_BACKOFF_S=0.05, AUTH_TOKEN="t",
+              RECYCLE_EXIT_DELAY_S=0.05, WORKER_ID="A", SUPERVISOR_STALL_AFTER_S=600):
+        return asyncio.run(fleet_run(torch, card, pipe, ref_bundle))
+
+
+async def fleet_run(torch, card, pipe, ref_bundle):
+    import gc
+    import weakref
+
+    import numpy as np
+
+    from ai_rtc_agent_tpu_torch.fleet import routing
+    from ai_rtc_agent_tpu_torch.fleet.transport import InProcessTransport
+    from ai_rtc_agent_tpu_torch.resilience import faults
+    from ai_rtc_agent_tpu_torch.server import lifecycle
+    from ai_rtc_agent_tpu_torch.server import sessions as SL
+    from ai_rtc_agent_tpu_torch.server.events import StreamEventHandler
+    from ai_rtc_agent_tpu_torch.server.signaling import LoopbackProvider, make_loopback_offer
+    from ai_rtc_agent_tpu_torch.stream.scheduler import BatchScheduler
+
+    loop = asyncio.get_running_loop()
+    eng, dev, size = pipe.engine, pipe.device, pipe.config.height
+    depth = int(os.environ.get("PIPELINE_DEPTH", "2"))
+    sdp = {"Content-Type": "application/sdp"}
+    clients = _ClientSink()
+    transport = InProcessTransport()
+    R = routing.configure({}, events_handler=StreamEventHandler(
+        session_factory=clients, webhook_url="inproc://clients", token="t"), transport=transport)
+    await routing.startup(R)
+    local = _LocalRouter(R, loop)
+    scheds, deds, agents = [], [], {}
+
+    def steps() -> int:
+        return sum(s.steps_total for s in scheds) + sum(len(d.outs) for d in deds)
+
+    def count(before, steps0, label):
+        n = steps() - steps0
+        a, e = (x - y for x, y in zip(_launches(), before))
+        say(f"fleet {label}: launches over {n} steps: attention {a}, epilogue {e}")
+        if a != 32 * n or e != n:
+            fail(f"fleet {label}: expected {32 * n} attention and {n} epilogue launches")
+        return a, e
+
+    def scheduler():
+        s = BatchScheduler.from_pipeline(pipe, max_sessions=4)
+        scheds.append(s)
+        return s
+
+    async def agent(name, sched):
+        st = {}
+        SL.configure(st, model_id=pipe.model_id, pipeline=pipe, provider=LoopbackProvider(),
+                     batch_scheduler=sched, events_handler=StreamEventHandler(
+                         session_factory=_RouterPoster(R), webhook_url="inproc://router",
+                         token="t"))
+        await SL.startup(st)
+        url = f"http://127.0.0.1:{FLEET_PORTS[name]}"
+        transport.add(url, st)
+        r = await routing.handle(R, "POST", "/fleet/register", body={
+            "worker_id": name, "public_ip": "127.0.0.1", "public_port": str(FLEET_PORTS[name]),
+            "status": "ready", "capacity": 4, "boot_id": st["boot_id"]})
+        if r.status != 200:
+            fail(f"fleet: registering {name} answered {r.status} {r.body!r}")
+        agents[name] = st
+        return st
+
+    async def poll():
+        await R["poller"].poll_once()
+
+    def owner(sid):
+        return R["session_table"].owner(sid)
+
+    async def place(kind, headers=None, video=True):
+        offer = make_loopback_offer() if video else make_loopback_offer(video=False,
+                                                                          datachannel=False)
+        r = await routing.handle(R, "POST", f"/{kind}", headers={**sdp, **(headers or {})},
+                                 body=offer)
+        if r.status != 201:
+            fail(f"fleet: {kind} through the router answered {r.status} {r.body!r}")
+        sid = r.headers["Location"].rsplit("/", 1)[1]
+        return sid, r.headers
+
+    async def publisher(headers=None):
+        sid, h = await place("whip", headers)
+        st = agents[owner(sid)]
+        return sid, h, st["state"]["whip_pcs"][sid]
+
+    async def viewer():
+        vid, _ = await place("whep", video=False)
+        st = agents[owner(vid)]
+        return vid, st["state"]["whep_pcs"][vid].out_tracks[0]
+
+    async def close(kind, sid):
+        r = await routing.handle(R, "DELETE", f"/{kind}/{sid}")
+        if r.status != 200:
+            fail(f"fleet: DELETE /{kind}/{sid} answered {r.status}")
+
+    async def stream(sched, pub_pc, view, frames, first_pts):
+        """Push ``frames`` (and the depth - 1 behind the last that bring it
+        out) through a publisher; -> the viewed frames, their times, and
+        once every pushed frame has stepped."""
+        pushed = frames + frames[-1:] * (depth - 1)
+        s0 = sched.steps_total
+        got, times = await exchange(pub_pc, view, pushed, first_pts, len(frames))
+        await asyncio.to_thread(_wait_for, lambda: sched.steps_total >= s0 + len(pushed), 30.0,
+                                "the pushed frames' steps", "fleet")
+        return [vf.to_ndarray() for vf in got], times, pushed
+
+    async def migrated(sid, n=1):
+        await asyncio.to_thread(_wait_for, lambda: len([e for e in clients.of("StreamMigrated")
+                                                        if e["stream_id"] == sid]) >= n, 60.0,
+                                f"StreamMigrated for {sid}", "fleet")
+        return [e for e in clients.of("StreamMigrated") if e["stream_id"] == sid][-1]
+
+    def hold(label, got, ref_sess, frames, row):
+        """Against ``ref_sess`` (the same snapshot restored into another
+        scheduler at the same slot) stepping the same frames, bit for bit or
+        not; and always phase 4's criterion against a dedicated engine fed
+        ``row`` eagerly (a restore that rebound a leaf would leave both
+        schedulers' replays on stale storage, alike)."""
+        want = [ref_sess(f) for f in frames]
+        ded = Dedicated(torch, eng.models, eng.params, pipe.config, eng.encode_prompt, ref_bundle,
+                        row, dev)
+        deds.append(ded)
+        for f in frames[:len(got)]:
+            ded(f)
+        criterion = hold_to_references(np, label, got, ded)
+        if _same_frames(np, got, want[:len(got)]):
+            return f"bit for bit with the reference scheduler; phase 4's criterion: {criterion}"
+        diff = max(int(np.abs(np.asarray(a, np.int16) - np.asarray(b)).max())
+                   for a, b in zip(got, want))
+        return (f"not bit for bit (max {diff} levels from the reference scheduler); phase 4's "
+                f"criterion held: {criterion}")
+
+    # every input made before the agents start: a loop blocked for seconds
+    # reads as loop lag to the overload plane, which then refuses sessions
+    res_frames = _frames(np, 2 * RESIDENT_FRAMES, seed=600, size=size)
+    frames = _frames(np, MOVE_FRAMES, seed=610, size=size)
+    frames3 = _frames(np, 2 * EVAC_FRAMES, seed=620, size=size)
+    frames5 = _frames(np, RECYCLE_FRAMES, seed=630, size=size)
+    launches = [0, 0]
+
+    def add(pair):
+        launches[0] += pair[0]
+        launches[1] += pair[1]
+
+    try:
+        # -- 10a: live migration ------------------------------------------------
+        t = time.perf_counter()
+        A = await agent("A", scheduler())
+        B = await agent("B", scheduler())
+        schedA, schedB = A["batch_scheduler"], B["batch_scheduler"]
+        ref_sched = scheduler()  # the references: rows restored from the same snapshots
+        ref_sched.claim("filler", prompt=SESSION_PROMPTS[1], seed=500)
+        say(f"fleet: two agents up in {time.perf_counter() - t:.2f} s, buckets captured (s) "
+            f"A {capture_seconds(schedA)}, B {capture_seconds(schedB)}")
+        before, s0 = _launches(), steps()
+        res = schedB.claim("resident", prompt=SESSION_PROMPTS[1], seed=500)
+        res_row = session_row(schedB.states, res.slot)
+        res_ded = Dedicated(torch, eng.models, eng.params, pipe.config, eng.encode_prompt,
+                            ref_bundle, res_row, dev)
+        res_out = await asyncio.to_thread(lambda: [res(f) for f in res_frames[:RESIDENT_FRAMES]])
+        await poll()
+        sid, h, pub = await publisher()
+        jid = h["X-Journey-Id"]
+        vid, view = await viewer()
+        if (owner(sid), owner(vid)) != ("A", "A"):
+            fail(f"fleet 10a: placed on {owner(sid)}, viewer on {owner(vid)} (want A, A)")
+        on_a, times_a, _ = await stream(schedA, pub, view, frames, 0)
+        exports, imports = [], []
+        _timed(schedA, "snapshot_session", exports)
+        _timed(schedB, "restore_session", imports)
+        res_before = session_row(schedB.states, res.slot)
+        await close("whep", vid)  # the viewer re-subscribes after the move
+        await poll()
+        r = await routing.handle(R, "POST", "/fleet/drain", query={"agent": "A",
+                                                                    "mode": "migrate"})
+        body = json.loads(r.body)
+        if r.status != 200 or body["migrating"] != 1:
+            fail(f"fleet 10a: drain answered {r.status} {body}")
+        ev = await migrated(sid)
+        res_unmoved = _rows_equal(torch, session_row(schedB.states, res.slot), res_before)
+        if not res_unmoved:
+            fail("fleet 10a: the import moved the resident session's row")
+        snap = exports[-1][0]
+        raw, b64 = len(_state_bytes(snap)), len(snap["state_b64"])
+        sid2, h2, pub2 = await publisher({"X-Journey-Id": jid})
+        if (owner(sid2), h2["X-Journey-Leg"], B["imported_sessions"]) != ("B", "2", {}):
+            fail(f"fleet 10a: the re-offer landed on {owner(sid2)} leg {h2['X-Journey-Leg']}, "
+                 f"parked {list(B['imported_sessions'])}")
+        adopted = await SL.migrate_export(B, {"session": sid2})
+        if _state_bytes(json.loads(adopted.body)) != _state_bytes(snap):
+            fail("fleet 10a: the adopted session's row is not the exported row byte for byte")
+        r = await routing.handle(R, "GET", f"/fleet/debug/journey/{jid}")
+        bundle = json.loads(r.body)
+        live = sorted(f["agent"] for f in bundle["fragments"] if f["source"] == "live")
+        legs = [leg["agent"] for leg in bundle["journey"]["legs"]]
+        if r.status != 200 or live != ["A", "B"] or legs != ["A", "B"]:
+            fail(f"fleet 10a: the journey bundle has fragments {live}, legs {legs}")
+        await close("whip", sid)
+        vid2, view2 = await viewer()
+        on_b, times_b, pushed_b = await stream(schedB, pub2, view2, frames, MOVE_FRAMES + depth)
+        res_out += await asyncio.to_thread(lambda: [res(f) for f in res_frames[RESIDENT_FRAMES:]])
+        ref = await asyncio.to_thread(ref_sched.restore_session, snap, "reference")
+        if ref.slot != schedB.session(sid2).slot:
+            fail(f"fleet 10a: the reference row sits at slot {ref.slot}, the moved one at "
+                 f"{schedB.session(sid2).slot}")
+        held = await asyncio.to_thread(hold, "10a moved session", on_b, ref, pushed_b,
+                                       _row_of(snap, dev))
+        deds.append(res_ded)
+        await asyncio.to_thread(lambda: [res_ded(f) for f in res_frames])
+        res_held = hold_to_references(np, "10a resident session", res_out, res_ded)
+        add(count(before, s0, "10a"))
+        say(f"fleet 10a live migration: {card} | session {sid[:8]} (journey {jid[:8]}) "
+            f"{MOVE_FRAMES} frames on A, drain mode=migrate -> StreamMigrated {ev['source_agent']}"
+            f" -> {ev['target_agent']} ({ev['reason']}), the re-offer adopted on B as leg 2 | "
+            f"snapshot {raw} B raw, {b64} B base64; export {exports[-1][1]:.2f} ms, import "
+            f"{imports[-1][1]:.2f} ms (host clock) | last frame from A -> first from B "
+            f"{(times_b[0] - times_a[-1]) * 1e3:.1f} ms (with the re-offer and the viewer's "
+            f"re-subscribe) | moved frames: {held} | resident row unchanged by the import byte for"
+            f" byte; resident frames: {res_held} | journey bundle: live fragments from {live}")
+
+        # -- 10b: evacuation from the bank ------------------------------------------
+        before, s0 = _launches(), steps()
+        r = await routing.handle(R, "POST", "/fleet/drain", query={"agent": "A",
+                                                                    "action": "cancel"})
+        await close("whep", vid2)
+        await poll()
+        sid3, h3, pub3 = await publisher()
+        jid3 = h3["X-Journey-Id"]
+        vid3, view3 = await viewer()
+        if (owner(sid3), owner(vid3)) != ("A", "A"):
+            fail(f"fleet 10b: placed on {owner(sid3)}, viewer on {owner(vid3)} (want A, A)")
+        await stream(schedA, pub3, view3, frames3[:EVAC_FRAMES], 0)
+        sess3 = schedA.session(sid3)
+        last_rows = session_row(schedA.states, sess3.slot)  # the bank refreshes after every step
+        guard = A["engine_guard"]
+        events = []
+        fire = A["stream_event_handler"].handle_engine_state
+
+        def record(event, st, reason="", **extra):
+            events.append((event, time.perf_counter()))
+            return fire(event, st, reason=reason, **extra)
+
+        def refuse(*a, **k):
+            raise RuntimeError("device still gone (injected)")
+
+        A["stream_event_handler"].handle_engine_state = record
+        os.environ["EVACUATE_URL"] = f"{local.url}/fleet/evacuate"
+        schedA.rebuild_engine = refuse
+        schedA._fault_scope = _inject(faults, "device_lost")
+        t_trip = time.perf_counter()
+        try:
+            out = await asyncio.to_thread(lambda: sess3.fetch(sess3.submit(frames3[0])))
+        except Exception as e:  # noqa: BLE001 - the tripping step's own error
+            out = e
+        ev3 = await migrated(sid3)
+        schedA._fault_scope = None
+        faults.deactivate()
+        banked = schedA._quarantine_snaps.get(sid3)
+        if guard.state not in ("EVACUATING", "FAILED") or banked is None:
+            fail(f"fleet 10b: guard {guard.state}, banked {banked is not None}")
+        if not _rows_equal(torch, _row_of(banked), _to_cpu(last_rows)):
+            fail("fleet 10b: the banked row is not the row A held at its last refresh")
+        t_request = next(t for p, t in local.arrivals if p.startswith("/fleet/evacuate"))
+        sid4, h4, pub4 = await publisher({"X-Journey-Id": jid3})
+        if (owner(sid4), h4["X-Journey-Leg"]) != ("B", "2"):
+            fail(f"fleet 10b: the re-offer landed on {owner(sid4)} leg {h4['X-Journey-Leg']}")
+        vid4, view4 = await viewer()
+        on_b4, times_b4, pushed_b4 = await stream(schedB, pub4, view4, frames3[EVAC_FRAMES:],
+                                                  0)
+        ref4 = await asyncio.to_thread(ref_sched.restore_session, banked, "reference-evac")
+        if ref4.slot != schedB.session(sid4).slot:
+            fail(f"fleet 10b: the reference row sits at slot {ref4.slot}, the moved one at "
+                 f"{schedB.session(sid4).slot}")
+        held4 = await asyncio.to_thread(hold, "10b evacuated session", on_b4, ref4, pushed_b4,
+                                        _row_of(banked, dev))
+        names = [e for e, _ in events]
+        add(count(before, s0, "10b"))
+        t_degraded = next(t for e, t in events if e == "EngineDegraded")
+        say(f"fleet 10b evacuation: {card} | device_lost with 1 rebuild attempt (refused): "
+            f"engine webhooks {names}, guard {guard.state}; the router's /fleet/evacuate "
+            f"migrate-placed {sid3[:8]} from the bank on {ev3['target_agent']} "
+            f"({ev3['reason']}) | trip -> EngineDegraded {(t_degraded - t_trip) * 1e3:.1f} ms -> "
+            f"evacuation request {(t_request - t_trip) * 1e3:.1f} ms -> first frame on B "
+            f"{(times_b4[0] - t_trip) * 1e3:.1f} ms | banked row = A's rows at its last refresh "
+            f"byte for byte; the tripping step: {type(out).__name__} | frames after the move: "
+            f"{held4}")
+
+        # -- 10c: restart in place -------------------------------------------------
+        res.release()
+        await close("whep", vid4)
+        handoff = str(Path("build") / "phase10-handoff.json")
+        os.environ["RECYCLE_HANDOFF"] = handoff
+        wrote, done = [], threading.Event()
+        write = lifecycle.write_handoff
+
+        def timed_write(*a, **kw):
+            t = time.perf_counter()
+            write(*a, **kw)
+            wrote.append((time.perf_counter() - t) * 1e3)
+
+        def exit_in_process(app, respawn, path):
+            asyncio.run_coroutine_threadsafe(SL.shutdown(app), loop).result(120)
+            done.set()
+            return True
+
+        mem0 = _memory(torch, dev.type == "cuda")
+        lifecycle.write_handoff = timed_write
+        B["recycle_exit"] = exit_in_process
+        try:
+            t = time.perf_counter()
+            r = await SL.admin_recycle(B, {"respawn": True})
+            recycle_ms = (time.perf_counter() - t) * 1e3
+        finally:
+            lifecycle.write_handoff = write
+        body = json.loads(r.body)
+        if (r.status, body["sessions"]) != (202, 2):
+            fail(f"fleet 10c: /admin/recycle answered {r.status} {body}")
+        handoff_bytes = os.path.getsize(handoff)
+        with open(handoff) as f:
+            written = {e["session"]: e for e in json.load(f)["sessions"]}
+        await asyncio.to_thread(_wait_for, lambda: done.is_set() and not B["recycle_tasks"],
+                                120.0, "the recycled agent's shutdown", "fleet")
+        # the old plane goes before the replacement's pools grow
+        transport.remove(f"http://127.0.0.1:{FLEET_PORTS['B']}")
+        scheds.remove(schedB)
+        agents.pop("B")
+        old = weakref.ref(schedB)
+        imports.clear()
+        del schedB, B, res, pub2, view2, pub4, view4
+        gc.collect()
+        if old() is not None:
+            fail(f"fleet 10c: the recycled agent's scheduler is still referenced "
+                 f"({len(gc.get_referrers(old()))} referrers)")
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        mem1 = _memory(torch, dev.type == "cuda")
+        t_start = time.perf_counter()
+        sched2 = scheduler()
+        t_captured = time.perf_counter()
+        restores = []
+        _timed(sched2, "restore_session", restores)
+        B2 = await agent("B", sched2)
+        t_healthy = time.perf_counter()
+        before, s0 = _launches(), steps()
+        if os.path.exists(handoff):
+            fail("fleet 10c: the replacement did not consume the handoff")
+        await poll()
+        await asyncio.to_thread(_wait_for, lambda: len(clients.of(
+            "StreamDegraded", "AGENT_RECYCLED")) >= 2, 30.0, "AGENT_RECYCLED re-points", "fleet")
+        by_stream = {e["stream_id"]: e for e in clients.of("StreamDegraded", "AGENT_RECYCLED")}
+        if set(by_stream) != set(written):
+            fail(f"fleet 10c: AGENT_RECYCLED for {sorted(by_stream)}, handoff {sorted(written)}")
+        order = [s for s in written if s != sid2] + [sid2]  # the 10a session last: the viewer's
+        moved = {}
+        for old in order:
+            new, hh, pp = await publisher({"X-Journey-Id": by_stream[old]["journey_id"]})
+            if owner(new) != "B":
+                fail(f"fleet 10c: the re-offer of {old[:8]} landed on {owner(new)}")
+            got = await SL.migrate_export(B2, {"session": new})
+            if _state_bytes(json.loads(got.body)) != _state_bytes(written[old]["snapshot"]):
+                fail(f"fleet 10c: {old[:8]}'s export after the restart is not the handoff's row")
+            moved[old] = (new, pp)
+        if B2["imported_sessions"]:
+            fail(f"fleet 10c: parked imports left {list(B2['imported_sessions'])}")
+        new, pp = moved[sid2]
+        vid5, view5 = await viewer()
+        on_b2, _, pushed5 = await stream(sched2, pp, view5, frames5, 0)
+        held5 = await asyncio.to_thread(hold, "10c restarted session", on_b2, ref, pushed5,
+                                        _row_of(written[sid2]["snapshot"], dev))
+        add(count(before, s0, "10c"))
+        mem2 = _memory(torch, dev.type == "cuda")
+        say(f"fleet 10c restart in place: {card} | /admin/recycle of B (2 sessions) answered 202 "
+            f"in {recycle_ms:.1f} ms (handoff write {wrote[0]:.2f} ms, {handoff_bytes} B); "
+            f"the old plane shut down and its scheduler collected (allocated {mem0[0]} -> "
+            f"{mem1[0]} B, reserved {mem0[1]} -> {mem1[1]} B) | "
+            f"replacement start -> healthy {(t_healthy - t_start) * 1e3:.1f} ms: captures "
+            f"{(t_captured - t_start) * 1e3:.1f} ms (buckets {capture_seconds(sched2)} s), "
+            f"imports {sum(ms for _, ms in restores):.2f} ms for {len(restores)} | "
+            f"AGENT_RECYCLED x{len(by_stream)}, the re-offers adopted, each export = the "
+            f"handoff's row byte for byte | frames after: {held5} | allocated now {mem2[0]} B, "
+            f"peak {mem2[2]} B")
+        for name, st in agents.items():
+            breaches = SL.metrics(st).get("retrace_breaches_total", 0)
+            if breaches:
+                fail(f"fleet: agent {name} had {breaches} serve-time capture(s)")
+    finally:
+        faults.deactivate()
+        os.environ.pop("EVACUATE_URL", None)
+        os.environ.pop("RECYCLE_HANDOFF", None)
+        local.close()
+        for st in list(agents.values()):
+            await SL.shutdown(st)
+        await routing.cleanup(R)
+        for s in scheds:
+            s.close()
+    return tuple(launches)
+
+
+def _to_cpu(v):
+    return {k: _to_cpu(x) for k, x in v.items()} if isinstance(v, dict) else v.cpu()
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -3013,8 +3581,9 @@ def main():
     faults_attn, faults_epi = phase_faults(torch, card, pipe, ref_bundle)
     native_attn, native_epi = phase_native(torch, card, pipe, serve_fps)
     obs_attn, obs_epi = phase_obs(torch, card, pipe)
-    attn_launches += serve_attn + sessions_attn + faults_attn + native_attn + obs_attn
-    epi_launches += serve_epi + sessions_epi + faults_epi + native_epi + obs_epi
+    fleet_attn, fleet_epi = phase_fleet(torch, card, pipe, ref_bundle)
+    attn_launches += serve_attn + sessions_attn + faults_attn + native_attn + obs_attn + fleet_attn
+    epi_launches += serve_epi + sessions_epi + faults_epi + native_epi + obs_epi + fleet_epi
     kernels = [
         {
             "name": "flash_attention", "route": "cuda",

@@ -840,3 +840,56 @@ def test_profiler_bridge_sees_the_kernels_of_a_replayed_bucket_step(cuda, turbo_
         assert (counts["attention"], counts["epilogue"]) == (32, 1), counts
     finally:
         sched.close()
+
+
+def test_a_restored_row_is_what_the_replay_reads(cuda):
+    """A session's snapshot restored into another graph scheduler, beside a
+    session of its own: the restored row is written into the stacked
+    buffers the captured graphs read (a rebound leaf would leave the replay
+    on the slot's old rows), so its next frames equal the source's own
+    continuation bit for bit, and its export is the snapshot's row."""
+    src, src_guard, (a,) = _tiny_guarded(2, 1)
+    dst, dst_guard, (other,) = _tiny_guarded(2, 1)
+    try:
+        frames = chip_smoke._frames(np, 6, seed=40, size=64)
+        for f in frames[:3]:
+            a(f)
+        snap = src.snapshot_session("s0")
+        moved = dst.restore_session(snap, "moved")
+        assert moved.slot == 1 and other.slot == 0
+        assert dst.snapshot_session("moved")["state_b64"] == snap["state_b64"]
+        for f in frames[3:]:
+            assert np.array_equal(moved(f), a(f))
+    finally:
+        for g, s in ((src_guard, src), (dst_guard, dst)):
+            g.close()
+            s.close()
+
+
+def test_the_quarantine_capture_does_not_wait_behind_a_stalled_step(cuda):
+    """A sleep kernel holds the default stream for 2 s after a step: the
+    quarantine capture still reads the bank at once (its copy waits only for
+    the bank's own event, on a side stream) and the banked row is the row
+    after that step."""
+    sched, guard, (a,) = _tiny_guarded(2, 1)
+    try:
+        frames = chip_smoke._frames(np, 2, seed=41, size=64)
+        for f in frames:
+            a(f)
+        torch.cuda.synchronize()
+        row = _row(sched, a.slot)
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        torch.cuda._sleep(50_000_000)
+        e1.record()
+        torch.cuda.synchronize()
+        torch.cuda._sleep(int(2000 * 50_000_000 / e0.elapsed_time(e1)))
+        t = time.perf_counter()
+        bank = sched.capture_quarantine_snapshots()
+        took = time.perf_counter() - t
+        torch.cuda.synchronize()
+        assert took < 1.0, f"the capture waited {took:.2f} s behind the stall"
+        assert _rows_equal(chip_smoke._to_cpu(row), chip_smoke._row_of(bank["s0"]))
+    finally:
+        guard.close()
+        sched.close()

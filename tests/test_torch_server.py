@@ -977,8 +977,8 @@ def test_webhooks_off_without_url_and_token(monkeypatch):
     assert PE.StreamEventHandler().handle_stream_started("s", "r") is None
     monkeypatch.setenv("WEBHOOK_URL", "http://hook/x")
     monkeypatch.setenv("AUTH_TOKEN", "tok")
-    with pytest.raises(ValueError):  # migration's event is a later slice
-        PE.StreamEventHandler().send_request("StreamMigrated", "s", "r")
+    with pytest.raises(ValueError):  # a name outside the closed vocabulary
+        PE.StreamEventHandler().send_request("StreamTeleported", "s", "r")
 
 
 TOKEN = {"ice_servers": [
@@ -1135,7 +1135,8 @@ def _port_files():
 def test_only_the_http_layer_imports_aiohttp_at_module_level():
     importers = [p.relative_to(REPO).as_posix() for p in _port_files()
                  if "aiohttp" in _module_level_imports(ast.parse(p.read_text()))]
-    assert importers == ["ai_rtc_agent_tpu_torch/server/agent.py"]
+    assert importers == ["ai_rtc_agent_tpu_torch/fleet/router.py",
+                         "ai_rtc_agent_tpu_torch/server/agent.py"]
 
 
 def test_nothing_imports_pydantic():
