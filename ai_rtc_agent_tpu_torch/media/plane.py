@@ -1,6 +1,5 @@
 """The native media plane, assembled: RTP ⇄ H.264 ⇄ frame ring ⇄ pipeline
-(the port's copy of ai_rtc_agent_tpu/media/plane.py, without the broadcast
-plane's AU tap; the frame traces of obs/trace.py stamp ``decode``,
+(the port's copy of ai_rtc_agent_tpu/media/plane.py; the frame traces of obs/trace.py stamp ``decode``,
 ``encode`` and ``packetize`` here, and a TX-deadline shed seals ``shed``):
 
   RTP packets ──► RtpDepacketizer ──► H264Decoder ──► FrameRing (native
@@ -280,12 +279,18 @@ class H264Sink:
         ssrc: int = 0x5EED,
         payload_type: int = 96,
         plane_stats: FrameStats | None = None,
+        au_tap=None,
     ):
         """``payload_type``: RTP PT for outgoing packets — real-SDP answers
         echo the client's offered H264 payload number (server/sdp.py), so
         the wire must carry the same value.  ``plane_stats``: per-session
-        host-plane stage gauges (packetize µs histograms at /metrics)."""
+        host-plane stage gauges (packetize µs histograms at /metrics).
+        ``au_tap``: an optional ``(au_bytes, pts)`` callable, called on the
+        worker thread with every non-empty encoded AU before packetize (the
+        broadcast plane's GOP cache; the AU bytes are stable, the packets
+        below are pooled views)."""
         self.stats = stats or FrameStats()
+        self._au_tap = au_tap
         self.plane_stats = plane_stats
         self.use_h264 = native.h264_available() if use_h264 is None else use_h264
         self._enc = H264Encoder(width, height, fps) if self.use_h264 else None
@@ -436,6 +441,8 @@ class H264Sink:
             self.stats.record_stage("glass", now - wall)
         if not au:
             return []
+        if self._au_tap is not None:
+            self._au_tap(au, int(pts))
         with self._enc_lock:  # close() frees the native packetizer too
             if self._pkt is None:
                 return [au] if not self._closed else []

@@ -1,6 +1,5 @@
 """RTP packetization: native RFC 6184 wrappers + the batched host plane (the
-port's copy of ai_rtc_agent_tpu/media/rtp.py, without the broadcast
-plane's per-viewer header rewriter).
+port's copy of ai_rtc_agent_tpu/media/rtp.py).
 
 Three packetizers share one wire format (byte-identical output, pinned by
 tests/test_torch_media.py against the JAX package):
@@ -13,6 +12,9 @@ tests/test_torch_media.py against the JAX package):
   fragments a whole access unit into a preallocated pool slot with a
   header template + numpy fills (no per-packet ``struct.pack``, no
   per-packet allocation) and emits a list of memoryviews.
+
+:class:`RtpHeaderRewriter` is the broadcast plane's per-viewer pass over
+one packetized frame: SSRC, seq and ts patched in a pooled copy.
 
 Pool contract (all three): a frame's packet views stay valid until the
 pool wraps — i.e. for the next ``pool_slots - 1`` ``packetize`` calls.
@@ -401,6 +403,131 @@ class BatchedRtpPacketizer:
 def _seq_lt(a: int, b: int) -> bool:
     """RFC 1889 sequence-number comparison with 16-bit wraparound."""
     return ((a - b) & 0xFFFF) > 0x8000
+
+
+class RtpHeaderRewriter:
+    """Per-viewer TX leg of the broadcast fan-out plane (server/broadcast.py).
+
+    A :class:`BroadcastGroup` packetizes each access unit ONCE; every
+    additional viewer then costs only this pass: one bulk copy of the
+    frame's packets into a pooled slot plus a vectorized numpy patch of
+    the three per-viewer header fields — SSRC (this viewer's stream
+    identity), sequence number (this viewer's own continuous space, so
+    per-viewer SRTP index estimation keeps its consecutive-seq fast
+    path) and timestamp (per-viewer random offset, RFC 3550 s5.1).
+    Everything else — marker bit, FU-A framing, STAP-A layout, payload
+    bytes — is preserved by the copy, so the output is byte-identical
+    to a dedicated per-viewer packetize except those fields
+    (tests/test_torch_broadcast.py pins this for all three packet shapes,
+    and the bytes against the JAX package's).
+
+    ``payload_type=None`` keeps the source PT; a viewer whose offer
+    negotiated a different H264 payload number sets its own and the
+    pass patches byte 1 (marker bit preserved).
+
+    Pool contract: same as the packetizers — a frame's rewritten views
+    stay valid until this rewriter's pool wraps (``pool_slots - 1``
+    further ``rewrite`` calls); holders copy.
+    """
+
+    def __init__(self, ssrc: int, payload_type: int | None = None,
+                 seq0: int = 0, ts_offset: int = 0,
+                 pool_slots: int | None = None):
+        self.ssrc = ssrc & 0xFFFFFFFF
+        self.payload_type = payload_type
+        self.seq = seq0 & 0xFFFF
+        self.ts_offset = ts_offset & 0xFFFFFFFF
+        self._pool = _BufferPool(pool_slots or _pool_slots_default())
+        self._ssrc_b = np.frombuffer(
+            struct.pack("!I", self.ssrc), np.uint8
+        ).copy()
+        self.frames = 0  # rewrites served (monotonic, for group stats)
+
+    def aligned(self, pkts) -> bool:
+        """True when :meth:`rewrite` will take the identity fast path for
+        these packets: the viewer patches nothing (same SSRC, source PT,
+        zero ts offset) and its seq cursor matches the source's — so the
+        source views ARE this viewer's wire packets.  Groups whose live
+        and replay traffic share one packetizer (AU mode) keep every
+        viewer aligned forever; a frame-mode viewer desyncs at its first
+        GOP replay and copies from then on."""
+        if self.payload_type is not None or self.ts_offset:
+            return False
+        b0 = pkts[0]
+        return (self.seq == ((b0[2] << 8) | b0[3])
+                and self.ssrc == struct.unpack_from("!I", b0, 8)[0])
+
+    def plan(self, pkts) -> tuple:
+        """Shared per-frame precomputation: the joined wire bytes and the
+        packet-start offsets are identical for EVERY viewer rewriting this
+        frame, so the group computes them once and passes the plan to each
+        :meth:`rewrite` call instead of paying the gather per viewer."""
+        n = len(pkts)
+        offs = np.empty(n, np.intp)
+        need = 0
+        for i, p in enumerate(pkts):
+            offs[i] = need
+            need += len(p)
+        return b"".join(pkts), offs, need
+
+    def rewrite(self, pkts, plan=None) -> list:
+        """One frame's (or one replayed AU's) packets -> this viewer's
+        wire packets.  Accepts pooled memoryviews; emits pooled
+        memoryviews from OUR pool (the source views are only read).
+
+        Identity fast path: every WHEP viewer of a group shares the
+        publisher's SSRC and payload type (rtc_native's fixed OUT_SSRC),
+        so a viewer whose sequence space is still aligned with the source
+        packetizer (joined live, never served a GOP replay) needs no
+        rewrite at all — the source views are returned as-is and only the
+        seq cursor advances.  A replay desyncs the cursor and the viewer
+        drops to the copying path for good."""
+        n = len(pkts)
+        if n == 0:
+            return []
+        if self.aligned(pkts):
+            self.seq = (self.seq + n) & 0xFFFF
+            self.frames += 1
+            return pkts if isinstance(pkts, list) else list(pkts)
+        if plan is None:
+            plan = self.plan(pkts)
+        joined, offs, need = plan
+        buf, np_buf, mv = self._pool.acquire(need)
+        # ONE C-level gather instead of n slice assignments: at fan-out
+        # packet counts the per-iteration buffer-protocol overhead of
+        # per-packet copies dwarfs the actual byte moving
+        buf[:need] = joined
+        v = offs[:n]
+        # sequence: this viewer's own continuous space, vectorized
+        seqs = (self.seq + np.arange(n, dtype=np.int64)) & 0xFFFF
+        np_buf[v + 2] = seqs >> 8
+        np_buf[v + 3] = seqs & 0xFF
+        self.seq = (self.seq + n) & 0xFFFF
+        # timestamp: all packets of an AU share one, read once from the
+        # source header and shifted by the viewer's stream offset
+        ts = (struct.unpack_from("!I", pkts[0], 4)[0] + self.ts_offset) & 0xFFFFFFFF
+        np_buf[v + 4] = (ts >> 24) & 0xFF
+        np_buf[v + 5] = (ts >> 16) & 0xFF
+        np_buf[v + 6] = (ts >> 8) & 0xFF
+        np_buf[v + 7] = ts & 0xFF
+        ssrc_b = self._ssrc_b
+        np_buf[v + 8] = ssrc_b[0]
+        np_buf[v + 9] = ssrc_b[1]
+        np_buf[v + 10] = ssrc_b[2]
+        np_buf[v + 11] = ssrc_b[3]
+        if self.payload_type is not None:
+            np_buf[v + 1] = (np_buf[v + 1] & 0x80) | self.payload_type
+        self.frames += 1
+        out = []
+        off = 0
+        for p in pkts:
+            ln = len(p)
+            out.append(mv[off:off + ln])
+            off += ln
+        return out
+
+    def close(self):
+        pass
 
 
 class RtpReorderBuffer:

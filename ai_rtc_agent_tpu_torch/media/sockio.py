@@ -1,6 +1,5 @@
 """Coalesced UDP socket I/O for the host media plane (the port's copy of
-ai_rtc_agent_tpu/media/sockio.py, without the broadcast plane's
-multi-destination burst).
+ai_rtc_agent_tpu/media/sockio.py).
 
 The per-packet tier paid one ``transport.sendto`` (and so one event-loop
 hop) per FU-A fragment and one ``recvfrom`` allocation per inbound
@@ -57,6 +56,21 @@ def dup_raw_socket(sock):
         return None
     raw.setblocking(False)
     return raw
+
+
+# Linux's SO_RCVBUFFORCE, which Python's socket module does not always name
+_SO_RCVBUFFORCE = getattr(socket, "SO_RCVBUFFORCE", 33)
+
+
+def set_rcvbuf(sock, nbytes: int) -> int:
+    """Ask for a ``nbytes`` receive buffer on ``sock``: past
+    ``net.core.rmem_max`` where the process may (SO_RCVBUFFORCE), else up
+    to it.  -> the size the kernel granted (it doubles the request)."""
+    try:
+        sock.setsockopt(socket.SOL_SOCKET, _SO_RCVBUFFORCE, nbytes)
+    except OSError:
+        sock.setsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF, nbytes)
+    return sock.getsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF)
 
 
 class _iovec(ctypes.Structure):
@@ -170,6 +184,13 @@ class BatchSender:
             ctypes.byref(self._sa), ctypes.c_void_p
         ).value  # stable for the object's lifetime
         self._sa_len = ctypes.sizeof(self._sa)
+        # multi-destination state (send_grouped): per-entry msg_name
+        # values as plain ints (delta-written: a stable audience pays no
+        # ctypes attribute write after its first burst) and a bounded
+        # (host, port) -> pinned sockaddr cache
+        self._entry_name: list = []
+        self._addr_cache: dict = {}
+        self._last_spans = None  # the grouped layout already in the headers
 
     def _ensure(self, n: int, name_ptr, name_len) -> None:
         if n <= self._cap and name_ptr == self._cap_addr:
@@ -192,16 +213,19 @@ class BatchSender:
                     (ctypes.c_char * (cap * _IOV_SIZE)).from_buffer(self._iovs)
                 ).cast("B").cast("Q")
             self._hdr0_ref = ctypes.byref(self._hdrs[0])
+            self._entry_name = [None] * cap
             self._cap = cap
         # destination rarely changes per sender: write msg_name once
         for mh in self._mhdr_list:
             mh.msg_name = name_ptr
             mh.msg_namelen = name_len
+        self._entry_name = [name_ptr] * self._cap
         self._cap_addr = name_ptr
+        self._last_spans = None  # the uniform rewrite invalidated the layout
 
-    def _fill_pool(self, pkts) -> bool:
+    def _fill_pool(self, pkts, entry0: int = 0) -> bool:
         """Fast-path frame staging: copy every packet into its pool slot
-        and pack its iovec in place.
+        (slots indexed from ``entry0``) and pack its iovec in place.
         False when any packet outgrows the slot (caller falls back to the
         pin path for the whole frame — the iovecs written so far are
         fully overwritten there)."""
@@ -209,8 +233,8 @@ class BatchSender:
             return False
         pool_mv, iov_mv, base = self._pool_mv, self._iov_mv, self._pool_base
         slot = _POOL_SLOT
-        off = 0
-        q = 0  # word index into the "Q"-cast iovec view: 2/entry
+        off = entry0 * slot
+        q = 2 * entry0  # word index into the "Q"-cast iovec view: 2/entry
         try:
             for pkt in pkts:
                 ln = len(pkt)
@@ -297,6 +321,140 @@ class BatchSender:
             sent += r
         return sent
 
+    # -- multi-destination burst (the broadcast fan-out) ---------------------
+
+    _ADDR_CACHE_MAX = 4096  # pinned sockaddrs (≈ viewer audience bound)
+
+    def _sockaddr_for(self, addr):
+        """(host, port) -> (ptr, len) of a pinned sockaddr_in, or None for
+        non-IPv4.  Cached per destination — an audience's sockaddrs are
+        packed once, not once per frame."""
+        hit = self._addr_cache.get(addr)
+        if hit is not None:
+            return hit
+        try:
+            packed = socket.inet_aton(addr[0])
+        except OSError:
+            return None
+        sa = _sockaddr_in()
+        sa.sin_family = socket.AF_INET
+        sa.sin_port = socket.htons(addr[1])
+        ctypes.memmove(sa.sin_addr, packed, 4)
+        if len(self._addr_cache) >= self._ADDR_CACHE_MAX:
+            self._addr_cache.clear()  # churny audience: re-pack, stay bounded
+        entry = (
+            sa,  # keeps the struct alive while cached
+            ctypes.cast(ctypes.byref(sa), ctypes.c_void_p).value,
+            ctypes.sizeof(sa),
+        )
+        self._addr_cache[addr] = entry
+        return entry
+
+    def send_grouped(self, sock, batches, fallback=None) -> int:
+        """One sendmmsg burst across MULTIPLE destinations: ``batches``
+        is ``[(pkts, addr), ...]`` — the broadcast fan-out's whole-
+        audience flush (every viewer's rewritten frame in one syscall).
+        Per-entry destinations ride each mmsghdr's ``msg_name``; for a
+        stable audience the pointers are delta-written, so steady-state
+        cost is the same slot memcpys as :meth:`send`.  Returns packets
+        handed to the kernel.  Non-IPv4 destinations, oversized packets
+        or a missing libc sendmmsg fall back per batch."""
+        fn = self._fn
+        if fn is None:
+            sent = 0
+            for pkts, addr in batches:
+                sent += self._loop_send(sock, pkts, addr, fallback)
+            return sent
+        flat: list = []
+        # (start, end, name_ptr, name_len, addr, dup_start) per batch;
+        # dup_start >= 0 marks a batch whose pkts LIST is the same object
+        # as an earlier batch's (broadcast identity fast path: aligned
+        # viewers share the source views) — its iovecs are word-copied
+        # from that batch's, no byte is staged twice
+        spans: list = []
+        seen: dict = {}  # id(pkts) -> first batch's start (refs held by
+        deferred: list = []  # `batches` for the duration of this call)
+        for pkts, addr in batches:
+            if not pkts:
+                continue
+            sa = self._sockaddr_for(addr) if addr is not None else None
+            if addr is not None and sa is None:
+                deferred.append((pkts, addr))
+                continue
+            ptr, ln = (sa[1], sa[2]) if sa is not None else (None, 0)
+            start = len(flat)
+            flat.extend(pkts)  # C-speed — no per-packet Python loop
+            spans.append((start, len(flat), ptr, ln, addr,
+                          seen.setdefault(id(pkts), start)))
+        sent = 0
+        n = len(flat)
+        if n:
+            if n > self._cap:  # growth only — names are delta-written below
+                self._ensure(n, None, 0)
+            refs: list = []
+            iov_mv = self._iov_mv
+            staged = self._pool_mv is not None
+            if staged:
+                for start, end, _ptr, _ln, _addr, dup in spans:
+                    if dup != start:  # shared views: copy iovec words
+                        q0, q1 = 2 * start, 2 * end
+                        s0 = 2 * dup
+                        iov_mv[q0:q1] = iov_mv[s0:s0 + (q1 - q0)]
+                    elif not self._fill_pool(flat[start:end], start):
+                        staged = False
+                        break
+            if not staged:
+                pin = self._pin
+                iovs = self._iov_list
+                for i, pkt in enumerate(flat):
+                    base, ln = pin(pkt, refs)
+                    iov = iovs[i]
+                    iov.iov_base = base
+                    iov.iov_len = ln
+            if spans != self._last_spans:
+                # delta-write per entry; a stable audience (same batch
+                # layout burst after burst) skips the whole per-packet
+                # loop on the spans comparison above
+                names = self._entry_name
+                mhdrs = self._mhdr_list
+                for start, end, ptr, ln, _addr, _dup in spans:
+                    for i in range(start, end):
+                        if names[i] != ptr:
+                            mh = mhdrs[i]
+                            mh.msg_name = ptr
+                            mh.msg_namelen = ln
+                            names[i] = ptr
+                self._last_spans = spans
+            self._cap_addr = -1  # uniform-destination send() must rewrite
+            fd = sock.fileno()
+            while sent < n:
+                r = fn(
+                    fd,
+                    self._hdr0_ref if sent == 0
+                    else ctypes.byref(self._hdrs[sent]),
+                    n - sent,
+                    0,
+                )
+                if r < 0:
+                    e = ctypes.get_errno()
+                    if e == errno.EINTR:
+                        continue
+                    if e not in (errno.EAGAIN, errno.EWOULDBLOCK):
+                        logger.debug(
+                            "grouped sendmmsg errno %d; per-packet fallback", e
+                        )
+                    for start, end, _ptr, _ln, addr, _dup in spans:
+                        lo = max(start, sent)
+                        if lo < end:
+                            sent += self._loop_send(
+                                sock, flat[lo:end], addr, fallback
+                            )
+                    break
+                sent += r
+        for pkts, addr in deferred:
+            sent += self._loop_send(sock, pkts, addr, fallback)
+        return sent
+
     @staticmethod
     def _loop_send(sock, pkts, addr, fallback) -> int:
         sent = 0
@@ -353,6 +511,19 @@ class CoalescedFlush:
                 self._fallback(pkt, addr)
             return
         self._sender.send(self.sock, pkts, addr, fallback=self._fallback)
+
+    def flush_grouped(self, batches) -> None:
+        """Multi-destination flush: ``batches`` = [(pkts, addr), ...], the
+        broadcast fan-out's whole-audience burst (one sendmmsg for every
+        viewer's copy of the frame, server/broadcast.py)."""
+        if not batches or self._transport is None:
+            return
+        if self.sock is None:
+            for pkts, addr in batches:
+                for pkt in pkts:
+                    self._fallback(pkt, addr)
+            return
+        self._sender.send_grouped(self.sock, batches, fallback=self._fallback)
 
     def close(self) -> None:
         if self.sock is not None:

@@ -2,7 +2,10 @@
 ai_rtc_agent_tpu/server/agent.py).
 
   POST/DELETE /whip[/{session}]   publish a stream (OBS, browser)
-  POST/DELETE /whep[/{session}]   view the processed stream
+  POST/DELETE /whep[/{session}]   view the processed stream (on the native tier
+                                  a viewer of the publisher's broadcast group)
+  POST /broadcast/pull            {"owner_url": ...}: pull one copy of another
+                                  agent's stream for viewers placed here
   POST /offer                     bidirectional browser session
   POST /config                    runtime prompt / t_index / guidance update
   GET  /                          liveness ("OK")
@@ -18,14 +21,16 @@ ai_rtc_agent_tpu/server/agent.py).
   GET  /migrate/export?session=   one live session's snapshot (live migration)
   POST /migrate/import            {"token", "snapshot"}: restore and park it
   POST /admin/recycle             {"respawn": bool}: restart in place (handoff file)
+  GET  /demo                      the bundled browser client for /offer
 
 Each route maps a request onto a flow of ``server/sessions.py`` and its
 answer onto the JAX agent's status codes: 201 with ``Location`` for WHIP
 and WHEP, 400 for a wrong content type, undecodable body or bad JSON, 401
 for WHEP without a publisher, 200/404 for a DELETE of a known/unknown
 session, 503 with ``Retry-After`` when every session slot is claimed, the
-admission gate refuses (pressure, a freeze, a drain) or the engine guard
-holds the plane quarantined.  The router's journey headers are echoed in
+admission gate refuses (pressure, a freeze, a drain), the engine guard
+holds the plane quarantined or a WHEP viewer is past
+``BROADCAST_MAX_VIEWERS``.  The router's journey headers are echoed in
 the answers of /offer, /whip and /whep; a re-offer carrying
 ``X-Migrated-Session`` adopts a migrated session.  CORS allows all origins.
 
@@ -46,8 +51,11 @@ Each /offer and /whip connection claims a session of the batch scheduler
 peer slot; ``BATCHSCHED=0`` serves every connection through one pipeline.
 
 The pipeline runs on the card unless ``--device cpu`` is passed; without a
-card, startup raises.  This is the only module of the port that imports
-aiohttp.
+card, startup raises.  ``--profile-port`` parses as the JAX agent's does,
+but only 0: the JAX flag starts jax.profiler's trace server, which torch
+does not have; the port's profiler is the torch.profiler bridge of
+``POST /debug/trace``.  This module and fleet/router.py are the port's
+only modules that import aiohttp at module level.
 """
 
 from __future__ import annotations
@@ -105,10 +113,11 @@ def patch_loop_datagram(local_ports: List[int]):
 ROUTES = (
     ("POST", "/whip"), ("DELETE", "/whip"), ("DELETE", "/whip/{session}"),
     ("POST", "/whep"), ("DELETE", "/whep"), ("DELETE", "/whep/{session}"),
-    ("POST", "/offer"), ("POST", "/config"), ("GET", "/"), ("GET", "/health"),
-    ("GET", "/capacity"), ("POST", "/drain"), ("GET", "/metrics"), ("GET", "/debug/trace"),
-    ("POST", "/debug/trace"), ("GET", "/debug/flight"), ("GET", "/migrate/export"),
-    ("POST", "/migrate/import"), ("POST", "/admin/recycle"),
+    ("POST", "/broadcast/pull"), ("POST", "/offer"), ("POST", "/config"), ("GET", "/"),
+    ("GET", "/health"), ("GET", "/capacity"), ("POST", "/drain"), ("GET", "/migrate/export"),
+    ("POST", "/migrate/import"), ("POST", "/admin/recycle"), ("GET", "/metrics"),
+    ("GET", "/debug/flight"), ("GET", "/debug/trace"), ("POST", "/debug/trace"),
+    ("GET", "/demo"),
 )
 
 
@@ -194,7 +203,15 @@ def main(argv=None):
                         choices=["DEBUG", "INFO", "WARNING", "ERROR", "CRITICAL"])
     parser.add_argument("--device", default=None,
                         help="torch device of the pipeline (default: the card; 'cpu' only when asked)")
+    parser.add_argument("--profile-port", default=0, type=int,
+                        help="0 only: the JAX agent's jax.profiler trace server has no torch "
+                             "counterpart; trace through POST /debug/trace instead")
     args = parser.parse_args(argv)
+    if args.profile_port:
+        parser.error(f"--profile-port {args.profile_port}: the port has no profiler trace "
+                     "server (the JAX agent's is jax.profiler's); its profiler is the "
+                     "torch.profiler bridge of POST /debug/trace "
+                     '({"action": "start", "jax_profiler_dir": DIR})')
     logging.basicConfig(level=args.log_level.upper())
     app = build_app(
         model_id=args.model_id,

@@ -38,8 +38,10 @@ the sender pump (``per_packet_tx`` marks the per-packet tier's combined
 span) and its terminal there: ``sent``, or ``dropped`` while the secure
 tier has no keys yet.
 
-Not carried over from the JAX tier: the broadcast plane's viewer join
-(``join_broadcast``: a WHEP viewer here always gets its own sink and pump).
+A WHEP viewer joined to its publisher's broadcast group (``join_broadcast``,
+server/broadcast.py) builds no sink and no pump of its own: a plain viewer
+takes its media from the group socket and sends its PLIs back there, a
+secure viewer keeps its own SRTP, fed the group's rewritten packets.
 """
 
 from __future__ import annotations
@@ -552,6 +554,11 @@ class NativeRtpPeerConnection:
         # agent's session wiring; None = no quality ladder on this session
         self.netadapt = None
         self.kf_governor = None
+        # the broadcast fan-out (server/broadcast.py): set by join_broadcast()
+        # before setRemoteDescription; the session is then a viewer of a
+        # shared TX plane instead of owning a sink and pump, and its PLIs
+        # go to the group's governed re-sync
+        self._broadcast_group = None
         provider.register_plane_session(self.pc_id, self.plane_stats, pc=self)
 
     # -- events --------------------------------------------------------------
@@ -701,14 +708,20 @@ class NativeRtpPeerConnection:
             and self._secure_session is None
             and self._client_addr is not None
         ):
-            # pure send side (WHEP viewer): bind the send socket NOW so
-            # the answer advertises ITS port — the viewer's RTCP PLI
-            # must have a reachable target or keyframe recovery never
-            # engages
-            await self._ensure_send_transport()
-            self.server_port = (
-                self._send_transport.get_extra_info("sockname")[1]
-            )
+            if self._broadcast_group is not None:
+                # broadcast viewer (plain tier): no socket of its own; its
+                # media comes from the group socket and its RTCP PLI goes
+                # back there, so that is the port the answer advertises
+                self.server_port = self._broadcast_group.port
+            else:
+                # pure send side (WHEP viewer): bind the send socket NOW so
+                # the answer advertises ITS port — the viewer's RTCP PLI
+                # must have a reachable target or keyframe recovery never
+                # engages
+                await self._ensure_send_transport()
+                self.server_port = (
+                    self._send_transport.get_extra_info("sockname")[1]
+                )
 
     async def createAnswer(self):
         if self._sdp_offer is not None:
@@ -852,6 +865,12 @@ class NativeRtpPeerConnection:
         """RTCP-PLI handler: the viewer dropped a frame — next encode is
         IDR.  Under network adaptation the keyframe governor coalesces
         storms: N PLIs inside one window cost ONE IDR."""
+        if self._broadcast_group is not None:
+            # broadcast viewer (secure tier: its PLIs arrive on its own
+            # demuxed socket): the re-sync is the group's governed GOP
+            # replay, never a sink of this session
+            self._broadcast_group.on_viewer_pli(self.pc_id)
+            return
         if self.kf_governor is not None and not self.kf_governor.request():
             return
         if self._sink is not None:
@@ -872,7 +891,26 @@ class NativeRtpPeerConnection:
         )
         self._plain_flush.bind(self._send_transport)
 
+    def join_broadcast(self, group) -> None:
+        """Make this session a viewer of a shared broadcast TX plane
+        (server/broadcast.py); call before setRemoteDescription.  The
+        session then builds no sink and no pump; it joins the group in
+        :meth:`_start_senders`, once the transports a viewer needs exist."""
+        self._broadcast_group = group
+
     async def _start_senders(self):
+        if self._broadcast_group is not None:
+            group = self._broadcast_group
+            if self._secure_session is not None:
+                # secure viewer: its SRTP and socket stay its own (the
+                # cached-cipher frame path), only encode and packetize are
+                # shared; send_media_batch protects (copies) before it returns
+                group.add_viewer(self.pc_id, send_secure=self._recv_protocol.send_media_batch,
+                                 payload_type=self._h264_pt)
+            elif self._client_addr is not None:
+                # plain viewer: its media and its RTCP go through the group socket
+                group.add_viewer(self.pc_id, addr=self._client_addr, payload_type=self._h264_pt)
+            return
         if not self.out_tracks:
             return
         if self._secure_session is None:
@@ -1003,6 +1041,9 @@ class NativeRtpPeerConnection:
             return
         self.connectionState = "closed"
         self._provider.unregister_plane_session(self.pc_id)
+        if self._broadcast_group is not None:
+            self._broadcast_group.remove_viewer(self.pc_id)
+            self._broadcast_group = None
         for t in self._sender_tasks:
             t.cancel()
         if self._sctp_timer_task is not None:

@@ -89,7 +89,15 @@ Sessions that move (the fleet tier, fleet/):
   captured and before it reports healthy, and announces it with an
   ``AGENT_RECYCLED`` webhook.  ``app["recycle_exit"]`` replaces the
   spawn-and-exit step (an in-process restart).
-Broadcast fan-out is a later slice.
+
+The broadcast fan-out (``BROADCAST_FANOUT``, server/broadcast.py): a WHEP
+viewer on the native tier joins its publisher's ``BroadcastGroup`` (one
+encode and one packetize for the audience, a header rewrite per viewer),
+within ``BROADCAST_MAX_VIEWERS``; a viewer that cannot join is refused, and
+the loopback provider's viewers keep their relayed views.
+``broadcast_pull`` (``POST /broadcast/pull``) makes this agent an edge of
+another's stream: one ``EdgePuller`` subscribed to the owner's /whep through
+``app["transport"]`` feeds a local AU-mode group.
 """
 
 from __future__ import annotations
@@ -117,6 +125,7 @@ from ..resilience.overload import OverloadControlPlane, QueueProbe, ShedFrame
 from ..resilience.supervisor import ResilientPipeline, SessionSupervisor, worst_state
 from ..stream.pipeline import StreamDiffusionPipeline
 from ..utils import env
+from ..utils.dispatch import spawn
 from ..utils.profiling import FrameStats
 from . import lifecycle, turn, wire
 from .events import StreamEventHandler
@@ -257,13 +266,15 @@ def wire_datachannel(pipeline, channel, guard=None, encoders=None):
 
 def configure(app, model_id: str = "stabilityai/sd-turbo", pipeline=None, provider=None,
               fbs: int = 0, device=None, multipeer: int = 0, multipeer_pipeline=None,
-              batch_scheduler=None, events_handler=None):
+              batch_scheduler=None, events_handler=None, transport=None):
     """Fill the app state's configuration.  ``pipeline=None`` builds the
     port's StreamDiffusionPipeline at :func:`startup`, and the batch
     scheduler over it; ``multipeer`` N > 0 builds the N-slot peer engine
     instead.  ``pipeline``, ``multipeer_pipeline`` and ``batch_scheduler``
     are injectable (tests), and so is ``events_handler``, the webhook
-    sender (a ``StreamEventHandler`` that posts elsewhere than aiohttp)."""
+    sender (a ``StreamEventHandler`` that posts elsewhere than aiohttp).
+    ``transport`` (fleet/transport.py): how this agent reaches other
+    agents (the edge pull); None: HTTP through aiohttp, made at first use."""
     app["model_id"] = model_id
     app["pipeline"] = pipeline
     app["provider"] = provider or get_provider()
@@ -273,6 +284,8 @@ def configure(app, model_id: str = "stabilityai/sd-turbo", pipeline=None, provid
     app["multipeer_pipeline"] = multipeer_pipeline
     app["batch_scheduler"] = batch_scheduler
     app["events_handler"] = events_handler
+    app["transport"] = transport
+    app["owns_transport"] = False
     # the fleet journey binding of each session (JOURNEY_ENABLE=0: the
     # router's headers are ignored)
     app["journey_enabled"] = env.journey_enabled()
@@ -334,6 +347,8 @@ async def startup(app):
         "whip_tracks": {},
         "whip_relays": {},
         "whep_pcs": {},
+        "broadcast_groups": {},  # publisher session id (or "edge") -> BroadcastGroup
+        "edge_puller": None,  # this agent's pull of another's stream (/broadcast/pull)
     }
     app["stats"] = FrameStats()
     if hasattr(app["provider"], "attach_stats"):
@@ -509,6 +524,14 @@ async def shutdown(app):
     pcs.clear()
     for relay in app["state"]["whip_relays"].values():
         relay.stop()
+    puller = app["state"]["edge_puller"]
+    if puller is not None:
+        await puller.close()
+    groups = app["state"]["broadcast_groups"]
+    await asyncio.gather(*[g.close() for g in groups.values()])
+    groups.clear()
+    if app["owns_transport"]:
+        await app["transport"].close()
     await asyncio.gather(*app["releasing"])
     for timer in app["import_timers"].values():
         timer.cancel()
@@ -534,7 +557,8 @@ def metrics(app) -> dict:
     (``host_plane_sessions``), the overload plane, the batch scheduler's
     ``batchsched_*`` gauges, the engine guard's counters, the flight
     recorder's, the SLO plane's and the device telemetry's gauges (the
-    cached memory sample: never a device probe per scrape)."""
+    cached memory sample: never a device probe per scrape), the broadcast
+    plane's (``broadcast``, ``broadcast_sessions``)."""
     out = app["stats"].snapshot()
     snapshot = getattr(app["provider"], "host_plane_snapshot", None)
     if snapshot is not None:
@@ -557,6 +581,15 @@ def metrics(app) -> dict:
         out.update(app["slo"].snapshot())
     if app["devtel"] is not None:
         out.update(app["devtel"].snapshot())
+    # the broadcast plane: the audience's gauges, and each group's snapshot
+    # with its stage histograms (keyed by publisher, never by viewer)
+    out["broadcast"] = broadcast_gauges(app)
+    bsessions = {}
+    for sid, g in app["state"]["broadcast_groups"].items():
+        if not g.closed:
+            bsessions[sid] = {**g.snapshot(), **g.stats.stage_snapshot_us()}
+    if bsessions:
+        out["broadcast_sessions"] = bsessions
     return out
 
 
@@ -604,6 +637,9 @@ def health(app) -> dict:
         for k in sessions:
             sessions[k]["devtel"] = view
     body = {"status": worst_state(s["state"] for s in sessions.values()), "sessions": sessions}
+    # the audience beside the sessions: a publisher can be at its viewer
+    # cap with no engine pressure
+    body["broadcast"] = broadcast_gauges(app)
     if ov is not None:
         body["overload"] = {"pressure": round(ov.admission.pressure(), 4),
                             "frozen": ov.admission.frozen, "draining": ov.draining}
@@ -627,6 +663,8 @@ def capacity(app) -> dict:
     else:
         body = ov.capacity(free_slots=free)
     body["boot_id"] = app["boot_id"]
+    # viewers are a pool of their own: a broadcast viewer claims no slot
+    body["broadcast"] = broadcast_gauges(app)
     guard = app["engine_guard"]
     if guard is not None and guard.quarantined:
         body["saturated"] = True
@@ -653,6 +691,18 @@ def drain(app, body) -> Reply:
 
 
 # -- the debug surface (/debug/trace, /debug/flight) -----------------------------------
+
+DEMO_PAGE = os.path.join(os.path.dirname(__file__), "static", "demo.html")
+
+
+def demo() -> Reply:
+    """GET /demo: the bundled browser client for /offer; 404 when the page
+    is not bundled."""
+    if not os.path.exists(DEMO_PAGE):
+        return Reply(404, "demo page not bundled")
+    with open(DEMO_PAGE, encoding="utf-8") as f:
+        return Reply(200, f.read(), "text/html")
+
 
 def _debug_error(status: int, message: str) -> Reply:
     """The debug surface's errors are JSON bodies (tooling reads them)."""
@@ -1335,13 +1385,19 @@ def _sdp_answer(sdp: str, location: str, journey: dict | None = None) -> Reply:
 
 def _refresh_source_track(state: dict):
     """Point source_track and source_relay at the newest still-live
-    publisher (or None), after stopping the relays of every dead one."""
+    publisher (or None), after stopping the relays and closing the
+    broadcast groups of every dead one (their viewers stay open, fed
+    nothing)."""
     live, tracks, relays = state["whip_pcs"], state["whip_tracks"], state["whip_relays"]
+    groups = state["broadcast_groups"]
     for sid in [s for s in tracks if s not in live]:
         tracks.pop(sid, None)
         dead = relays.pop(sid, None)
         if dead is not None:
             dead.stop()
+        group = groups.pop(sid, None)
+        if group is not None:
+            spawn(group.close())
     for sid in reversed(list(tracks)):
         state["source_track"] = tracks[sid]
         state["source_relay"] = relays.get(sid)
@@ -1350,8 +1406,122 @@ def _refresh_source_track(state: dict):
     state["source_relay"] = None
 
 
-def has_publisher(app) -> bool:
-    return app["state"]["source_track"] is not None
+def has_stream(app) -> bool:
+    """Whether a viewer has something to view: a live publisher, or an
+    edge-pulled stream."""
+    return app["state"]["source_track"] is not None or _edge_group(app) is not None
+
+
+def _edge_group(app):
+    """The live AU-mode group of this agent's edge pull, or None."""
+    group = app["state"]["broadcast_groups"].get("edge")
+    return None if group is None or group.closed else group
+
+
+async def _ensure_broadcast_group(app):
+    """The broadcast group of the edge-pulled stream, else of the newest
+    publisher, made (and its pump started on a view of the publisher's
+    relay) at its first viewer.  None when there is no publisher's relay to
+    subscribe to."""
+    groups = app["state"]["broadcast_groups"]
+    edge = _edge_group(app)
+    if edge is not None:
+        return edge
+    relay = app["state"]["source_relay"]
+    if relay is None:
+        return None
+    sid = next((s for s, r in app["state"]["whip_relays"].items() if r is relay), None)
+    if sid is None:
+        return None
+    group = groups.get(sid)
+    if group is None or group.closed:
+        from .broadcast import BroadcastGroup
+
+        provider = app["provider"]
+        group = BroadcastGroup(
+            sid,
+            width=getattr(provider, "default_width", 512),
+            height=getattr(provider, "default_height", 512),
+            use_h264=getattr(provider, "use_h264", None),
+            stats=relay.stats,  # the relay's drop and freshness counts beside the group's
+        )
+        await group.start(relay.subscribe())
+        groups[sid] = group
+    return group
+
+
+def broadcast_gauges(app) -> dict:
+    """The broadcast plane's gauges on /health, /capacity and /metrics:
+    groups and viewers against the viewer cap."""
+    groups = [g for g in app["state"]["broadcast_groups"].values() if not g.closed]
+    viewers = sum(g.viewer_count for g in groups)
+    cap = env.broadcast_max_viewers()
+    return {
+        "broadcast_groups": len(groups),
+        "broadcast_viewers": viewers,
+        "broadcast_max_viewers": cap,
+        "broadcast_viewer_slots_free": max(0, cap - viewers) if cap else -1,
+    }
+
+
+def _transport(app):
+    """How this agent reaches another (the edge pull's calls to the owner):
+    the configured transport, else HTTP through aiohttp, made at first use."""
+    if app["transport"] is None:
+        from ..fleet.transport import AiohttpTransport
+
+        app["transport"] = AiohttpTransport(env.get_float("FLEET_PROXY_TIMEOUT_S", 30.0))
+        app["owns_transport"] = True
+    return app["transport"]
+
+
+async def broadcast_pull(app, body) -> Reply:
+    """POST /broadcast/pull ``{"owner_url": ...}``: pull one copy of the
+    publisher's stream from its owning agent into a local AU-mode group, so
+    that viewers placed here (by the fleet router) fan out from this agent.
+    Idempotent while the same owner's pull is live (``exists``); another
+    owner_url replaces the pull.  409 with fan-out or the edge pull off,
+    400 for a bad body, 502 when the pull cannot be set up."""
+    if not (env.broadcast_fanout_enabled() and env.broadcast_edge_pull_enabled()):
+        return Reply(409, "broadcast edge pull disabled")
+    if body is _BAD_JSON:
+        return Reply(400, "invalid JSON body")
+    owner_url = body.get("owner_url") if isinstance(body, dict) else None
+    if not owner_url or not isinstance(owner_url, str):
+        return Reply(400, "owner_url required")
+    state = app["state"]
+    groups = state["broadcast_groups"]
+    puller = state["edge_puller"]
+    if puller is not None and not puller.closed and puller.owner_url == owner_url.rstrip("/"):
+        group = _edge_group(app)
+        if group is not None:
+            return _json({"status": "exists", "aus": puller.aus, "viewers": group.viewer_count})
+    from .broadcast import BroadcastGroup, EdgePuller
+
+    provider = app["provider"]
+    old = groups.pop("edge", None)
+    if old is not None:
+        await old.close()
+    if puller is not None:
+        await puller.close()
+        state["edge_puller"] = None
+    group = BroadcastGroup(
+        "edge",
+        width=getattr(provider, "default_width", 512),
+        height=getattr(provider, "default_height", 512),
+        use_h264=getattr(provider, "use_h264", None),
+    )
+    await group.start()  # AU mode: the puller feeds it, no local sink
+    try:
+        puller = await EdgePuller(group, owner_url, _transport(app)).open()
+    except Exception as e:
+        # no native runtime, the owner unreachable or refusing: the viewer
+        # goes to the owning agent instead
+        await group.close()
+        return Reply(502, f"edge pull failed: {e}")
+    groups["edge"] = group
+    state["edge_puller"] = puller
+    return _json({"status": "pulling", "owner_url": puller.owner_url})
 
 
 async def publish(app, sdp: str, headers=None) -> Reply:
@@ -1434,21 +1604,44 @@ async def publish(app, sdp: str, headers=None) -> Reply:
 
 
 async def subscribe(app, sdp: str, headers=None) -> Reply:
-    """WHEP: a viewer gets its own relayed view of the newest publisher's
-    processed stream; 401 when there is no publisher.  A viewer echoes
-    its journey without binding it (it owns no recorder)."""
+    """WHEP: a viewer of the newest publisher's processed stream, or of the
+    edge-pulled one; 401 when there is neither.  On a provider that can
+    join one (the native tier) with ``BROADCAST_FANOUT`` on, the viewer
+    joins the publisher's broadcast group, within ``BROADCAST_MAX_VIEWERS``
+    (503 with Retry-After past it), and is refused when no group can be
+    had; otherwise (the loopback and aiortc providers, or fan-out off) it
+    gets its own relayed view.  A viewer echoes its journey without
+    binding it (it owns no recorder)."""
     state = app["state"]
     source_track = state["source_track"]
-    if source_track is None:
+    if source_track is None and _edge_group(app) is None:
         return Reply(401)
     pcs, provider = app["pcs"], app["provider"]
     offer_sdp = provider.session_description(sdp=sdp, type="offer")
     pc = provider.peer_connection()
     session_id = str(uuid.uuid4())
+    # the broadcast fan-out: viewers share one encode and one packetize and
+    # claim no engine slot; their admission is the viewer cap
+    group = None
+    joins = env.broadcast_fanout_enabled() and hasattr(pc, "join_broadcast")
+    if joins:
+        group = await _ensure_broadcast_group(app)
+    if group is None and (joins or source_track is None):
+        await _discard_pc(pc, pcs)
+        if source_track is None:
+            return overloaded(app, "edge stream requires the broadcast plane")
+        return overloaded(app, "no broadcast group for the publisher")
+    if group is not None:
+        cap = env.broadcast_max_viewers()
+        if cap and group.viewer_count >= cap:
+            await _discard_pc(pc, pcs)
+            return overloaded(app, "broadcast viewer capacity reached", retry_after=2.0)
+        pc.join_broadcast(group)
     pcs.add(pc)
     state["whep_pcs"][session_id] = pc
-    # each viewer its own relayed view: never concurrent recv() on the track
-    relay = state["source_relay"]
+    # a viewer outside a group gets its own relayed view (never concurrent
+    # recv() on the track); a group holds the one subscription of its members
+    relay = state["source_relay"] if group is None else None
     viewer_track = relay.subscribe() if relay is not None else source_track
 
     def end_viewer():
@@ -1472,8 +1665,9 @@ async def subscribe(app, sdp: str, headers=None) -> Reply:
             end_viewer()
 
     try:
-        sender = pc.addTrack(viewer_track)
-        provider.force_codec(pc, sender, "video/H264")
+        if group is None:
+            sender = pc.addTrack(viewer_track)
+            provider.force_codec(pc, sender, "video/H264")
         await pc.setRemoteDescription(offer_sdp)
         await pc._RTCPeerConnection__gather()
         answer = await pc.createAnswer()
@@ -1632,7 +1826,7 @@ async def route(app, method: str, path: str, query=None, headers=None, body: byt
     if (method, path) == ("POST", "/whep"):
         if _mime(headers)[0] != "application/sdp":
             return Reply(400)
-        if not has_publisher(app):
+        if not has_stream(app):
             return Reply(401)
         try:
             text = _text(headers, body)
@@ -1649,6 +1843,14 @@ async def route(app, method: str, path: str, query=None, headers=None, body: byt
             return await publish(app, _text(headers, body), headers)
         except (ValueError, LookupError) as e:
             return Reply(400, f"invalid offer: {e}")
+    if (method, path) == ("POST", "/broadcast/pull"):
+        try:
+            parsed = _json_body(headers, body)
+        except (ValueError, LookupError):
+            parsed = _BAD_JSON
+        return await broadcast_pull(app, parsed)
+    if (method, path) == ("GET", "/demo"):
+        return demo()
     if (method, path) == ("POST", "/config"):
         try:
             config = _json_body(headers, body)

@@ -101,7 +101,11 @@ Variables read by the port's server:
   PUBLIC_IP, PUBLIC_PORT            the published address (unset / the agent's port)
   AGENT_TIMEOUT                     the worker's lease after publishing (600 s)
   WORKER_REPUBLISH_S                capacity re-check cadence during the lease (5 s)
-  BROADCAST_EDGE_PULL               the router places viewers on edge agents (on)
+  BROADCAST_FANOUT                  WHEP viewers of a native-tier stream join the
+                                    publisher's broadcast group (on; server/broadcast.py)
+  BROADCAST_MAX_VIEWERS             viewers admitted per agent (256; 0: uncapped)
+  BROADCAST_EDGE_PULL               the router places viewers on edge agents, which
+                                    pull one copy from the owner (on)
 """
 
 from __future__ import annotations
@@ -217,10 +221,26 @@ def migrate_enabled() -> bool:
     return get_bool("MIGRATE_ENABLE", True)
 
 
+def broadcast_fanout_enabled() -> bool:
+    """The broadcast TX plane (server/broadcast.py): WHEP viewers of a
+    native-tier stream share one encode and one packetize and pay only a
+    header rewrite, their SRTP (secure viewers) and a share of one
+    ``sendmmsg`` burst each.  ``BROADCAST_FANOUT=0`` gives each viewer its
+    own sink and sender pump."""
+    return get_bool("BROADCAST_FANOUT", True)
+
+
+def broadcast_max_viewers() -> int:
+    """Viewers admitted per agent (``BROADCAST_MAX_VIEWERS``): /whep answers
+    503 with Retry-After past it.  Viewers claim no engine slot, so this
+    bounds the fan-out's host cost, not the device's.  0 = uncapped."""
+    return max(0, get_int("BROADCAST_MAX_VIEWERS", 256))
+
+
 def broadcast_edge_pull_enabled() -> bool:
     """The router's two-level fan-out (fleet/routing.py): a viewer placed
     on a non-owner agent first asks it to pull one copy of the publisher's
-    stream (``POST /broadcast/pull``; an agent without the broadcast plane
-    refuses and the viewer lands on the owner).  ``BROADCAST_EDGE_PULL=0``
-    pins every viewer onto the owning agent."""
+    stream (``POST /broadcast/pull``, 409 when the agent's fan-out or edge
+    pull is off, and the viewer lands on the owner).
+    ``BROADCAST_EDGE_PULL=0`` pins every viewer onto the owning agent."""
     return get_bool("BROADCAST_EDGE_PULL", True)

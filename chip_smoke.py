@@ -115,7 +115,8 @@ Phases (each prints its own lines; any failure exits non-zero):
                 the port's NativeRtpClient in this process (paced packets,
                 an 8 MiB receive buffer; the agent's sockets as the JAX tier
                 leaves them): one session over a JSON-envelope /offer at 30
-                fps, one over /whip + /whep at 60 fps, two /offer sessions
+                fps, one over /whip + /whep at 60 fps (the viewer a member
+                of the publisher's broadcast group), two /offer sessions
                 at 30 fps each; then a probe of one /offer session whose
                 client runs in a process of its own (its packets spread over
                 half of each frame interval).  Each returned frame, matched
@@ -193,12 +194,40 @@ Phases (each prints its own lines; any failure exits non-zero):
                 start -> healthy split into captures and imports.  (The
                 process spawn of a recycle is covered on the CPU by
                 tests/test_torch_recycle_proc.py.)
- 11. a "kernels" JSON line (launch counts of phases 4 to 10), then the last
+ 11. broadcast — the broadcast fan-out (server/broadcast.py, the header
+                rewrite of media/rtp.py, the grouped sendmmsg of
+                media/sockio.py) on the native tier: WEBRTC_PROVIDER=
+                native-rtp, NullCodec, phase 4's pipeline under a 2-slot
+                graph BatchScheduler with the guard, real loopback UDP; the
+                viewers in a process of their own (``--broadcast-viewers``:
+                two reassemble frames, the rest count and hash datagrams).
+                11a: one /whip publisher at 30 fps (16 frames) and V = 1, 4
+                and 16 WHEP viewers of its group, BROADCAST_MAX_VIEWERS=V:
+                viewer V+1 refused with 503 and Retry-After; every viewer's
+                datagrams equal but for SSRC, seq and ts; the reassembled
+                frames each bit for bit its direct call through the same
+                captured bucket step; at most one bucket step a frame and
+                32 + 1 launches a step, whatever V; a PLI from every viewer
+                twice: one GOP replay, then none inside the coalesce window,
+                no engine step, no encoder IDR.  The group's µs per frame
+                (encode, packetize, the rewrites, the one burst: their p50s)
+                at each V; at V=4 the same beside BROADCAST_FANOUT=0's
+                dedicated chain (each viewer's encode, packetize and send),
+                in ABBA order.  11b: the edge pull: port agents A (the
+                owner, the same scheduler) and B (no engine) behind the
+                router's core in this process (fleet/transport.py's
+                InProcessTransport, the media over real UDP); the publisher
+                placed on A through the router, one viewer on A, two placed
+                through the router on B, whose POST /broadcast/pull answers
+                pulling, then exists; A's group counts one viewer for B's
+                pull; 8 frames: B's viewers' payload equal to A's viewer's,
+                frames bit for bit; PLI storms at B reach A at most once.
+ 12. a "kernels" JSON line (launch counts of phases 4 to 11), then the last
      line {"ok": true, "device": ...}.
 
 Imports nothing of JAX or of the JAX package.  `python3 chip_smoke.py
---native-client SPEC` is phase 8's client process (no CUDA), started by
-the phase itself.
+--native-client SPEC` is phase 8's client process and `--broadcast-viewers
+SPEC` phase 11's viewers (no CUDA), each started by its phase.
 """
 
 from __future__ import annotations
@@ -2426,13 +2455,18 @@ def direct_outputs(np, tap, legs) -> dict:
 
 def plane_stages(provider, legs) -> dict:
     """Host-plane µs per frame of one leg: packetize and send from /metrics'
-    host_plane_sessions (one sample a frame), recv summed over the agent's
-    receive callbacks (each drains a burst of datagrams)."""
+    host_plane_sessions (one sample a frame; a WHEP viewer's from its
+    broadcast group), recv summed over the agent's receive callbacks (each
+    drains a burst of datagrams)."""
     snap = provider.host_plane_snapshot()
     leg = legs[0]
     merged = {}
     for pc in leg.pcs:
         merged.update(snap.get(pc.pc_id, {}))
+        group = getattr(pc, "_broadcast_group", None)
+        if group is not None:
+            merged.update({k: v for k, v in group.stats.stage_snapshot_us().items()
+                           if k.startswith(("packetize", "send", "tx_packets"))})
     frames = max(1, len(leg.got))
     return {
         "recv_us_per_frame": round(1e6 * leg.recv_s / len(leg.frames), 2),
@@ -3552,6 +3586,575 @@ async def fleet_run(torch, card, pipe, ref_bundle):
     return tuple(launches)
 
 
+# -- phase 11: the broadcast plane --------------------------------------------------------
+
+BROADCAST_AUDIENCES = (1, 4, 16)  # 11a: viewers of one publisher
+BROADCAST_AB = ("group", "dedicated", "dedicated", "group")  # 11a at V=4, ABBA
+BROADCAST_AB_V = 4
+BROADCAST_FRAMES = 16  # frames the publisher pushes in each run, at 30 fps
+BROADCAST_REASSEMBLE = 2  # viewers that reassemble frames; the rest count and hash datagrams
+BROADCAST_RCVBUF = 32 << 20  # each viewer socket's receive buffer (the viewers' process)
+BROADCAST_QUIET_S = 0.3  # the viewers' process: this long without a datagram ends a run
+EDGE_FRAMES = 8  # 11b: frames pushed through the owner
+EDGE_PORTS = {"A": 18111, "B": 18112}  # 11b: the in-process agents' base URLs, never bound
+
+
+def broadcast_viewers(spec: dict):
+    """``python3 chip_smoke.py --broadcast-viewers SPEC``: phase 11's viewers
+    in a process of their own (no CUDA; the receive path's Python must not
+    share the agent's loop).  One JSON command a line on stdin, one JSON
+    answer a line on stdout:
+      {"cmd": "open", "n": N}      N UDP sockets on 127.0.0.1 with a
+                                   BROADCAST_RCVBUF receive buffer, drained by
+                                   a thread -> {"ports", "rcvbuf"}
+      {"cmd": "mark"}              note how many datagrams each has so far
+      {"cmd": "pli", "ports": [p]} a PLI from socket i to the agent's port
+                                   p[i] (null: none)
+      {"cmd": "close", "out": path, "reassemble": R}
+                                   once no datagram came for BROADCAST_QUIET_S:
+                                   per socket the datagrams, a sha256 over every
+                                   packet's bytes but SSRC, seq and ts (up to
+                                   the mark, and of all), the SSRCs, the seq
+                                   gaps; the first R sockets' packets
+                                   depacketized and decoded into frames, saved
+                                   to ``path`` (npz)
+      {"cmd": "exit"}"""
+    import hashlib
+    import selectors
+    import socket
+
+    import numpy as np
+
+    from ai_rtc_agent_tpu_torch.media.plane import H264RingSource
+    from ai_rtc_agent_tpu_torch.media.rtp import make_pli
+    from ai_rtc_agent_tpu_torch.media.sockio import set_rcvbuf
+
+    size = spec["size"]
+    socks, boxes, marks, stop, thread = [], [], [], None, None
+
+    def drain(socks, boxes, stop):
+        sel = selectors.DefaultSelector()
+        for i, s in enumerate(socks):
+            sel.register(s, selectors.EVENT_READ, i)
+        while not stop.is_set():
+            for key, _ in sel.select(0.02):
+                box = boxes[key.data]
+                try:
+                    while True:
+                        box.append(key.fileobj.recv(2048))
+                except BlockingIOError:
+                    pass
+        sel.close()
+
+    def digest(box):
+        h = hashlib.sha256()
+        for p in box:
+            h.update(p[:2])
+            h.update(p[12:])
+        return h.hexdigest()
+
+    def reply(obj):
+        print(json.dumps(obj), flush=True)
+
+    while True:
+        line = sys.stdin.readline()
+        if not line:
+            break
+        cmd = json.loads(line)
+        op = cmd["cmd"]
+        if op == "open":
+            socks = []
+            for _ in range(cmd["n"]):
+                s = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+                s.bind(("127.0.0.1", 0))
+                set_rcvbuf(s, BROADCAST_RCVBUF)
+                s.setblocking(False)
+                socks.append(s)
+            boxes, marks = [[] for _ in socks], None
+            stop = threading.Event()
+            thread = threading.Thread(target=drain, args=(socks, boxes, stop), daemon=True)
+            thread.start()
+            reply({"ports": [s.getsockname()[1] for s in socks],
+                   "rcvbuf": socks[0].getsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF)})
+        elif op == "mark":
+            marks = [len(b) for b in boxes]
+            reply({"datagrams": marks})
+        elif op == "pli":
+            pli = make_pli()
+            for s, port in zip(socks, cmd["ports"]):
+                if port is not None:
+                    s.sendto(pli, ("127.0.0.1", port))
+            reply({"sent": sum(p is not None for p in cmd["ports"])})
+        elif op == "close":
+            seen = -1
+            while seen != sum(len(b) for b in boxes):
+                seen = sum(len(b) for b in boxes)
+                time.sleep(BROADCAST_QUIET_S)
+            stop.set()
+            thread.join()
+            views = []
+            for i, box in enumerate(boxes):
+                seqs = [int.from_bytes(p[2:4], "big") for p in box]
+                upto = box if marks is None else box[:marks[i]]
+                views.append({"datagrams": len(box), "sha256": digest(upto),
+                              "sha256_all": digest(box),
+                              "ssrcs": sorted({p[8:12].hex() for p in box}),
+                              "seq_gaps": sum((a + 1) & 0xFFFF != b for a, b in zip(seqs, seqs[1:]))})
+            saved = {}
+            for i, box in enumerate(boxes[:cmd["reassemble"]]):
+                src = H264RingSource(size, size, use_h264=False)
+                got = []
+                for p in box:
+                    src.feed_packet(p)
+                    while (item := src.poll()) is not None:
+                        got.append((item[1], item[0].copy()))
+                src.close()
+                saved[f"pts{i}"] = np.array([p for p, _ in got], np.int64)
+                saved[f"frames{i}"] = (np.stack([a for _, a in got]) if got
+                                       else np.zeros((0, size, size, 3), np.uint8))
+            np.savez(cmd["out"], **saved)
+            for s in socks:
+                s.close()
+            reply({"viewers": views})
+        elif op == "exit":
+            break
+
+
+class ViewerProcess:
+    """Phase 11's viewers (``--broadcast-viewers``), driven from the agent's
+    loop: one command, one answer."""
+
+    def __init__(self, proc):
+        self.proc = proc
+
+    @classmethod
+    async def start(cls, size: int) -> "ViewerProcess":
+        here = Path(__file__).resolve().parent
+        proc = await asyncio.create_subprocess_exec(
+            sys.executable, str(here / "chip_smoke.py"), "--broadcast-viewers",
+            json.dumps({"size": size}), stdin=asyncio.subprocess.PIPE,
+            stdout=asyncio.subprocess.PIPE)
+        return cls(proc)
+
+    async def call(self, **cmd) -> dict:
+        self.proc.stdin.write(json.dumps(cmd).encode() + b"\n")
+        await self.proc.stdin.drain()
+        try:
+            line = await asyncio.wait_for(self.proc.stdout.readline(), 120)
+        except asyncio.TimeoutError:
+            line = b""
+        if not line:
+            self.kill()
+            fail(f"broadcast: the viewers' process gave no answer to {cmd['cmd']}")
+        return json.loads(line)
+
+    def kill(self):
+        if self.proc.returncode is None:
+            self.proc.kill()
+
+    async def close(self):
+        if self.proc.returncode is None:
+            self.proc.stdin.write(b'{"cmd": "exit"}\n')
+            try:
+                await asyncio.wait_for(self.proc.wait(), 30)
+            except asyncio.TimeoutError:
+                self.kill()
+                await self.proc.wait()
+
+
+def _viewer_offer(size: int, port: int) -> str:
+    return json.dumps({"native_rtp": True, "video": False, "width": size, "height": size,
+                       "client_addr": ["127.0.0.1", port]})
+
+
+async def _push(pub, frames, fps: int = 30):
+    """The publisher's frames at ``fps``, each frame's packets in paced bursts."""
+    t_next = time.monotonic()
+    for i, arr in enumerate(frames):
+        await pub.send_paced(arr, i, NATIVE_BURST)
+        t_next += 1.0 / fps
+        await asyncio.sleep(max(0.0, t_next - time.monotonic()))
+
+
+async def _settle(read, quiet_s: float = 0.5, timeout_s: float = 60.0):
+    """Wait until ``read()`` stops changing for ``quiet_s``."""
+    t_end = time.monotonic() + timeout_s
+    last = read()
+    while time.monotonic() < t_end:
+        await asyncio.sleep(quiet_s)
+        now = read()
+        if now == last:
+            return now
+        last = now
+    fail(f"broadcast: the stream did not settle within {timeout_s:.0f} s")
+
+
+def _group_us(stats) -> dict:
+    """µs per frame of a group's TX plane from its stage p50s: encode once,
+    packetize once, the rewrites of every viewer, the one sendmmsg burst."""
+    st = stats.stage_snapshot_us()
+    out = {k: st.get(f"{k}_p50_us", 0.0) for k in ("encode", "packetize", "rewrite", "send")}
+    out["per_frame"] = round(sum(out.values()), 2)
+    return out
+
+
+def _dedicated_us(encode_stats, pcs) -> dict:
+    """The same for the dedicated chain: each viewer's own encode,
+    packetize and send (the p50s of its plane stats and the shared encode
+    stage), summed over the viewers."""
+    enc = encode_stats.stage_snapshot_us().get("encode_p50_us", 0.0)
+    pk = [pc.plane_stats.stage_snapshot_us().get("packetize_p50_us", 0.0) for pc in pcs]
+    sd = [pc.plane_stats.stage_snapshot_us().get("send_p50_us", 0.0) for pc in pcs]
+    return {"encode": enc, "packetize": pk, "send": sd,
+            "per_frame": round(len(pcs) * enc + sum(pk) + sum(sd), 2)}
+
+
+def _hold_reassembled(np, label, tap, key, frames, saved, n: int, same: bool = True) -> int:
+    """The reassembling viewers' frames (``saved``, npz) each bit for bit the
+    direct call of the publisher's session on the pushed frame of its pts;
+    with ``same``, the viewers decoded the same frames.  -> frames held."""
+    got, lists = {}, []
+    for i in range(n):
+        pts, arrs = saved[f"pts{i}"], saved[f"frames{i}"]
+        lists.append(sorted({int(p) for p in pts}))  # a GOP replay repeats the last
+        for p, arr in zip(pts, arrs):
+            if int(p) in got and not np.array_equal(got[int(p)], arr):
+                fail(f"{label}: viewer {i} decoded pts {int(p)} unlike another viewer")
+            got[int(p)] = arr
+    if not got or (same and any(lst != lists[0] for lst in lists)):
+        fail(f"{label}: the reassembling viewers decoded {[len(x) for x in lists]} frames, "
+             "not the same ones")
+    leg = NativeLeg(key, None, None, [], frames, 30)
+    leg.got = [(p, arr, 0.0) for p, arr in sorted(got.items())]
+    direct = direct_outputs(np, tap, [leg])
+    bad = [p for p, arr, _ in leg.got if not np.array_equal(arr, direct[(key, p)])]
+    if bad:
+        fail(f"{label}: {len(bad)} reassembled frame(s) differ from their direct call "
+             f"(pts {bad[:4]})")
+    return len(got)
+
+
+async def _pli_storm(viewers, group, ports, sched, label) -> dict:
+    """Every viewer sends a PLI, twice: past the last grant, one GOP replay
+    for the first storm and none for the second (inside the coalesce
+    window), and no engine step."""
+    await asyncio.sleep(group.governor.coalesce_s)
+    s0, out = sched.steps_total, []
+    for storm in (1, 2):
+        c0 = group.stats.stage_snapshot_us()
+        g0 = group.governor.granted
+        sent = (await viewers.call(cmd="pli", ports=ports))["sent"]
+        t_end = time.monotonic() + 10
+        while group.stats.stage_snapshot_us().get("broadcast_pli_total", 0) < \
+                c0.get("broadcast_pli_total", 0) + sent:
+            if time.monotonic() > t_end:
+                fail(f"{label}: the group heard {sent} PLIs only in part")
+            await asyncio.sleep(0.005)
+        c1 = group.stats.stage_snapshot_us()
+        out.append({k: c1.get(f"broadcast_{k}_total", 0) - c0.get(f"broadcast_{k}_total", 0)
+                    for k in ("pli", "pli_coalesced", "gop_replays", "encoder_idr")})
+        out[-1]["granted"] = group.governor.granted - g0
+    steps = sched.steps_total - s0
+    want = [{"pli": len([p for p in ports if p is not None]), "granted": g, "gop_replays": g,
+             "encoder_idr": 0} for g in (1, 0)]
+    for got, w in zip(out, want):
+        if any(got[k] != v for k, v in w.items()) or steps:
+            fail(f"{label}: PLI storms {out} with {steps} engine step(s) (want {want}, none)")
+    return {"storms": out, "engine_steps": steps}
+
+
+async def broadcast_once(np, state, tap, sched, viewers, mode: str, V: int, frames, size: int,
+                         label: str) -> dict:
+    """One publisher at 30 fps and V viewers in the viewers' process: through
+    the publisher's broadcast group (``mode`` "group", BROADCAST_MAX_VIEWERS=V,
+    viewer V+1 refused) or each through its own sink and pump ("dedicated",
+    BROADCAST_FANOUT=0).  -> its readings (see phase_broadcast)."""
+    from ai_rtc_agent_tpu_torch.media.rtp_client import NativeRtpClient
+    from ai_rtc_agent_tpu_torch.server import sessions
+
+    live = state["state"]
+    pub = await NativeRtpClient(size, size, fps=30, use_h264=False, rcvbuf=NATIVE_RCVBUF).open()
+    r = await sessions.publish(state, pub.offer_envelope())
+    if r.status != 201:
+        fail(f"{label}: /whip answered {r.status} {r.body}")
+    key = r.headers["Location"].rsplit("/", 1)[1]
+    await pub.connect(json.loads(r.body)["server_port"])
+    opened = await viewers.call(cmd="open", n=V + 1)  # the last: the refused viewer's
+    ports, vids, refused = opened["ports"], [], None
+    group_mode = mode == "group"
+    with _Env(BROADCAST_FANOUT=int(group_mode), BROADCAST_MAX_VIEWERS=V if group_mode else 0):
+        for port in ports[:V]:
+            rv = await sessions.subscribe(state, _viewer_offer(size, port))
+            if rv.status != 201:
+                fail(f"{label}: /whep answered {rv.status} {rv.body}")
+            vids.append(rv.headers["Location"].rsplit("/", 1)[1])
+        if group_mode:
+            rv = await sessions.subscribe(state, _viewer_offer(size, ports[V]))
+            refused = [rv.status, rv.headers.get("Retry-After"), rv.body]
+            if rv.status != 503 or not rv.headers.get("Retry-After"):
+                fail(f"{label}: viewer {V + 1} past BROADCAST_MAX_VIEWERS={V} answered "
+                     f"{refused} (want 503 with Retry-After)")
+    pcs = [live["whep_pcs"][v] for v in vids]
+    group = live["broadcast_groups"].get(key)
+    if group_mode and (group is None or group.viewer_count != V
+                       or any(pc._sink is not None for pc in pcs)):
+        fail(f"{label}: the viewers did not all join the publisher's group")
+    if not group_mode and (live["broadcast_groups"] or any(pc._sink is None for pc in pcs)):
+        fail(f"{label}: BROADCAST_FANOUT=0 and a viewer has no sink of its own")
+    _reset_launches()
+    s0 = sched.steps_total
+    t0 = time.perf_counter()
+    await _push(pub, frames)
+    if group_mode:
+        await _settle(lambda: (sched.steps_total, group.frames))
+    else:
+        await _settle(lambda: (sched.steps_total,
+                               [pc.plane_stats.stage_snapshot_us().get("tx_packets_total")
+                                for pc in pcs]))
+    wall = time.perf_counter() - t0
+    attn, epi = _launches()
+    steps = sched.steps_total - s0
+    if not 0 < steps <= len(frames) or epi != steps or attn != 32 * steps:
+        fail(f"{label}: {steps} bucket steps for {len(frames)} frames pushed, launches "
+             f"attention {attn}, epilogue {epi} (want at most one step a frame, 32 + 1 a step)")
+    out = {"label": label, "mode": mode, "V": V, "steps": steps, "attn": attn, "epi": epi,
+           "wall_s": wall, "refused": refused, "rcvbuf": opened["rcvbuf"]}
+    if group_mode:
+        out["us"] = _group_us(group.stats)
+        out["fanned"] = group.frames
+        await viewers.call(cmd="mark")
+        out["pli"] = await _pli_storm(viewers, group, [group.port] * V + [None], sched, label)
+    else:
+        out["us"] = _dedicated_us(state["stats"], pcs)
+    R = min(BROADCAST_REASSEMBLE, V)
+    npz = Path(__file__).resolve().parent / "build" / "broadcast_viewers.npz"
+    npz.parent.mkdir(exist_ok=True)
+    report = (await viewers.call(cmd="close", out=str(npz), reassemble=R))["viewers"][:V]
+    out["datagrams"] = [v["datagrams"] for v in report]
+    if group_mode:
+        if (len({v["sha256_all"] for v in report}) != 1 or len(set(out["datagrams"])) != 1
+                or any(v["ssrcs"] != ["00005eed"] or v["seq_gaps"] for v in report)):
+            fail(f"{label}: the viewers' streams differ beyond SSRC, seq and ts: {report}")
+    with np.load(npz) as saved:
+        out["held"] = await asyncio.to_thread(_hold_reassembled, np, label, tap, key, frames,
+                                              dict(saved), R, group_mode)
+    for vid in vids:
+        if not await sessions.close(state, "whep", vid):
+            fail(f"{label}: closing a viewer found nothing to close")
+    if not await sessions.close(state, "whip", key):
+        fail(f"{label}: closing the publisher found nothing to close")
+    pub.close()
+    await asyncio.sleep(0)
+    await asyncio.gather(*state["releasing"])
+    if state["pcs"] or sched.free_slots != sched.max_sessions:
+        fail(f"{label}: {len(state['pcs'])} peer connection(s) and "
+             f"{sched.max_sessions - sched.free_slots} slot(s) left after closing")
+    return out
+
+
+class _PullTap:
+    """An InProcessTransport whose /broadcast/pull answers are kept."""
+
+    def __init__(self, inner):
+        self.inner, self.pulls = inner, []
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+    async def request(self, method, url, **kw):
+        resp = await self.inner.request(method, url, **kw)
+        if url.endswith("/broadcast/pull"):
+            self.pulls.append((resp.status, resp.json() if resp.status == 200 else resp.text()))
+        return resp
+
+
+async def edge_pull(np, A, provider_b, tap, sched, viewers, transport, frames, size: int) -> dict:
+    """11b: agent A (``A``, the owner) and B (the edge) behind the router's
+    core in this process; the publisher placed on A through the router, one
+    viewer on A, two placed through the router (on B, which pulls one copy
+    from A)."""
+    from ai_rtc_agent_tpu_torch.fleet import routing
+    from ai_rtc_agent_tpu_torch.media.rtp_client import NativeRtpClient
+    from ai_rtc_agent_tpu_torch.server import sessions
+
+    label = "broadcast 11b"
+    sdp = {"Content-Type": "application/sdp"}
+    R = routing.configure({}, transport=transport)
+    await routing.startup(R)
+    B = {}
+    sessions.configure(B, model_id=A["model_id"], pipeline=A["pipeline"], provider=provider_b,
+                       transport=transport)
+    await sessions.startup(B)
+    pub = None
+    try:
+        async def register(name, st):
+            transport.add(f"http://127.0.0.1:{EDGE_PORTS[name]}", st)
+            r = await routing.handle(R, "POST", "/fleet/register", body={
+                "worker_id": name, "public_ip": "127.0.0.1", "public_port": str(EDGE_PORTS[name]),
+                "status": "ready", "capacity": 2, "boot_id": st["boot_id"]})
+            if r.status != 200:
+                fail(f"{label}: registering {name} answered {r.status} {r.body!r}")
+            await R["poller"].poll_once()
+
+        def owner(sid):
+            return R["session_table"].owner(sid)
+
+        await register("A", A)  # A alone: the publisher lands there
+        pub = await NativeRtpClient(size, size, fps=30, use_h264=False,
+                                    rcvbuf=NATIVE_RCVBUF).open()
+        r = await routing.handle(R, "POST", "/whip", headers=sdp, body=pub.offer_envelope())
+        if r.status != 201:
+            fail(f"{label}: /whip through the router answered {r.status} {r.body!r}")
+        key = r.headers["Location"].rsplit("/", 1)[1]
+        await pub.connect(json.loads(r.body)["server_port"])
+        await register("B", B)
+        ports = (await viewers.call(cmd="open", n=3))["ports"]
+        rv = await sessions.subscribe(A, _viewer_offer(size, ports[0]))
+        if rv.status != 201:
+            fail(f"{label}: /whep on A answered {rv.status}")
+        a_view = rv.headers["Location"].rsplit("/", 1)[1]
+        placed = []
+        for port in ports[1:]:
+            rv = await routing.handle(R, "POST", "/whep", headers=sdp,
+                                      body=_viewer_offer(size, port))
+            if rv.status != 201:
+                fail(f"{label}: /whep through the router answered {rv.status} {rv.body!r}")
+            placed.append(rv.headers["Location"].rsplit("/", 1)[1])
+        where = [owner(key)] + [owner(v) for v in placed]
+        pulls = [p[1]["status"] if isinstance(p[1], dict) else p for p in transport.pulls]
+        if where != ["A", "B", "B"] or pulls != ["pulling", "exists"]:
+            fail(f"{label}: publisher and viewers placed on {where}, B's pulls answered "
+                 f"{transport.pulls} (want A, B, B; pulling, exists)")
+        ga, gb = A["state"]["broadcast_groups"][key], B["state"]["broadcast_groups"]["edge"]
+        puller = B["state"]["edge_puller"]
+        pull_port = puller._transport.get_extra_info("sockname")[1]
+        from_b = [a for a in ga._by_addr if a[1] == pull_port]
+        if (ga.viewer_count, len(from_b), gb.viewer_count) != (2, 1, 2):
+            fail(f"{label}: A's group has {ga.viewer_count} viewers ({len(from_b)} from B's "
+                 f"pull), B's {gb.viewer_count} (want 2 with 1 from B's pull, and 2)")
+        _reset_launches()
+        s0 = sched.steps_total
+        await _push(pub, frames)
+        await _settle(lambda: (sched.steps_total, ga.frames, gb.frames))
+        attn, epi = _launches()
+        steps = sched.steps_total - s0
+        if not 0 < steps <= len(frames) or epi != steps or attn != 32 * steps:
+            fail(f"{label}: {steps} bucket steps, launches attention {attn}, epilogue {epi}")
+        await viewers.call(cmd="mark")
+        a_pli0 = ga.stats.stage_snapshot_us().get("broadcast_pli_total", 0)
+        storm = await _pli_storm(viewers, gb, [None, gb.port, gb.port], sched, label)
+        a_pli = ga.stats.stage_snapshot_us().get("broadcast_pli_total", 0) - a_pli0
+        if a_pli > 1:
+            fail(f"{label}: B's PLI storms reached A {a_pli} times in one coalesce window")
+        npz = Path(__file__).resolve().parent / "build" / "broadcast_edge.npz"
+        report = (await viewers.call(cmd="close", out=str(npz), reassemble=2))["viewers"]
+        if len({v["sha256"] for v in report}) != 1 or any(v["seq_gaps"] for v in report):
+            fail(f"{label}: B's viewers' payload differs from A's viewer's: {report}")
+        with np.load(npz) as saved:
+            held = await asyncio.to_thread(_hold_reassembled, np, label, tap, key, frames,
+                                           dict(saved), 2)
+        out = {"steps": steps, "attn": attn, "epi": epi, "pulls": pulls, "where": where,
+               "fanned": [ga.frames, gb.frames], "aus": puller.aus, "held": held,
+               "pull_rcvbuf": puller.rcvbuf,
+               "datagrams": [v["datagrams"] for v in report], "pli": storm, "a_pli": a_pli,
+               "us": {"A": _group_us(ga.stats), "B": _group_us(gb.stats)}}
+        for vid in placed:
+            r = await routing.handle(R, "DELETE", f"/whep/{vid}")
+            if r.status != 200:
+                fail(f"{label}: DELETE /whep through the router answered {r.status}")
+        await sessions.close(A, "whep", a_view)
+        r = await routing.handle(R, "DELETE", f"/whip/{key}")
+        if r.status != 200:
+            fail(f"{label}: DELETE /whip through the router answered {r.status}")
+        return out
+    finally:
+        if pub is not None:
+            pub.close()
+        await sessions.shutdown(B)
+        await routing.cleanup(R)
+
+
+def phase_broadcast(torch, card: str, pipe):
+    """Phase 11 (see the module docstring).  -> the attention and epilogue
+    launches of the steps it drove."""
+    # the fan-out to 16 viewers holds the loop for tens of ms a frame: the
+    # overload plane would read that as loop lag and refuse the next /whip;
+    # a publisher sits idle while its frames are held to direct calls, past
+    # the output-age watchdog (phase 7's subject)
+    with _Env(WEBRTC_PROVIDER="native-rtp", WARMUP_FRAMES=0, DROP_FRAMES=0,
+              OVERLOAD_RX_QUEUE_BOUND=16384, OVERLOAD_LOOP_LAG_BUDGET_MS=5000,
+              FLEET_POLL_S=3600, SUPERVISOR_STALL_AFTER_S=600):
+        return asyncio.run(broadcast_run(torch, card, pipe))
+
+
+async def broadcast_run(torch, card, pipe):
+    import numpy as np
+
+    from ai_rtc_agent_tpu_torch.fleet.transport import InProcessTransport
+    from ai_rtc_agent_tpu_torch.server import sessions
+    from ai_rtc_agent_tpu_torch.server.signaling import get_provider
+    from ai_rtc_agent_tpu_torch.stream.scheduler import BatchScheduler
+
+    t_phase = time.perf_counter()
+    size = pipe.config.width
+    base = _frames(np, NATIVE_DISTINCT, seed=1100, size=size)
+    frames = [base[i % NATIVE_DISTINCT] for i in range(BROADCAST_FRAMES)]
+    edge_frames = _frames(np, EDGE_FRAMES, seed=1110, size=size)
+    providers = [get_provider(), get_provider()]
+    for p in providers:
+        if type(p).__name__ != "NativeRtpProvider":
+            fail(f"broadcast: WEBRTC_PROVIDER=native-rtp gave {type(p).__name__}")
+        p.use_h264 = False  # NullCodec: lossless, so frames compare bit for bit
+    sched = BatchScheduler.from_pipeline(pipe, max_sessions=2)
+    tap = StepTap(sched)
+    transport = _PullTap(InProcessTransport())
+    state = {}
+    sessions.configure(state, model_id=pipe.model_id, pipeline=pipe, provider=providers[0],
+                       batch_scheduler=sched, transport=transport)
+    await sessions.startup(state)
+    viewers = await ViewerProcess.start(size)
+    runs, edge = [], None
+    try:
+        order = [("group", BROADCAST_AUDIENCES[0])]
+        order += [(mode, BROADCAST_AB_V) for mode in BROADCAST_AB]
+        order += [("group", v) for v in BROADCAST_AUDIENCES[1:] if v != BROADCAST_AB_V]
+        for mode, V in order:
+            label = f"broadcast 11a {mode} V={V}"
+            runs.append(await broadcast_once(np, state, tap, sched, viewers, mode, V, frames,
+                                             size, label))
+        edge = await edge_pull(np, state, providers[1], tap, sched, viewers, transport,
+                               edge_frames, size)
+    finally:
+        await viewers.close()
+        await sessions.shutdown(state)
+    attn = sum(r["attn"] for r in runs) + edge["attn"]
+    epi = sum(r["epi"] for r in runs) + edge["epi"]
+    for r in runs:
+        say(f"{r['label']}: {card} | {r['steps']} bucket steps for {BROADCAST_FRAMES} frames "
+            f"pushed, launches attention {r['attn']}, epilogue {r['epi']} (32 + 1 a step) | "
+            f"datagrams per viewer {r['datagrams']} | reassembled frames held bit for bit to "
+            f"their direct calls: {r['held']} | µs per frame {json.dumps(r['us'])} | wall "
+            f"{r['wall_s']:.2f} s | viewer socket rcvbuf {r['rcvbuf']} B")
+        if r["mode"] == "group":
+            say(f"{r['label']}: {r['fanned']} frames fanned out; every viewer's datagrams equal "
+                f"but for SSRC, seq and ts (one SSRC, no seq gap); viewer {r['V'] + 1} refused "
+                f"{r['refused'][:2]}; PLI storms {json.dumps(r['pli'])}")
+    ab = [r["us"]["per_frame"] for r in runs if r["V"] == BROADCAST_AB_V]
+    say(f"broadcast 11a: {card} | µs per frame, group at V = "
+        f"{[(r['V'], r['us']['per_frame']) for r in runs if r['mode'] == 'group']}; at "
+        f"V={BROADCAST_AB_V}, ABBA {list(zip(BROADCAST_AB, ab))}")
+    say(f"broadcast 11b: {card} | placed {edge['where']}, B's pulls {edge['pulls']}, A counts 1 "
+        f"viewer for B's pull | {edge['steps']} bucket steps, launches attention "
+        f"{edge['attn']}, epilogue {edge['epi']} | fanned out A {edge['fanned'][0]}, B "
+        f"{edge['fanned'][1]} ({edge['aus']} AUs pulled; the pull socket's rcvbuf "
+        f"{edge['pull_rcvbuf']} B) | datagrams [A's viewer, B's two] "
+        f"{edge['datagrams']}, payload equal | frames held {edge['held']} | PLI storms at B "
+        f"{json.dumps(edge['pli'])}, PLIs reaching A {edge['a_pli']} | µs per frame "
+        f"{json.dumps(edge['us'])}")
+    say(f"broadcast: phase 11 took {time.perf_counter() - t_phase:.1f} s")
+    return attn, epi
+
+
 def _to_cpu(v):
     return {k: _to_cpu(x) for k, x in v.items()} if isinstance(v, dict) else v.cpu()
 
@@ -3568,6 +4171,9 @@ def main():
     if sys.argv[1:2] == ["--native-client"]:  # phase 8's probe: the client side
         native_client(json.loads(sys.argv[2]))
         return
+    if sys.argv[1:2] == ["--broadcast-viewers"]:  # phase 11's viewers
+        broadcast_viewers(json.loads(sys.argv[2]))
+        return
     import torch
 
     card = phase_device(torch)
@@ -3582,8 +4188,11 @@ def main():
     native_attn, native_epi = phase_native(torch, card, pipe, serve_fps)
     obs_attn, obs_epi = phase_obs(torch, card, pipe)
     fleet_attn, fleet_epi = phase_fleet(torch, card, pipe, ref_bundle)
-    attn_launches += serve_attn + sessions_attn + faults_attn + native_attn + obs_attn + fleet_attn
-    epi_launches += serve_epi + sessions_epi + faults_epi + native_epi + obs_epi + fleet_epi
+    broadcast_attn, broadcast_epi = phase_broadcast(torch, card, pipe)
+    attn_launches += (serve_attn + sessions_attn + faults_attn + native_attn + obs_attn
+                      + fleet_attn + broadcast_attn)
+    epi_launches += (serve_epi + sessions_epi + faults_epi + native_epi + obs_epi + fleet_epi
+                     + broadcast_epi)
     kernels = [
         {
             "name": "flash_attention", "route": "cuda",

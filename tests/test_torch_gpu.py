@@ -373,6 +373,47 @@ def test_native_rtp_session_through_the_scheduler_on_the_card(cuda, monkeypatch)
     assert left == (0, 2)
 
 
+def test_broadcast_group_fans_one_encode_out_to_4_viewers_on_the_card(cuda, turbo_pipe,
+                                                                       monkeypatch):
+    """One /whip publisher over the native tier (NullCodec, loopback UDP) into
+    a 2-slot graph scheduler over sd-turbo 512x512 bf16, and 4 plain WHEP
+    viewers of its broadcast group in a process of their own: every viewer's
+    datagrams equal but for SSRC, seq and ts, the frames two of them
+    reassemble equal bit for bit to direct calls, 32 + 1 launches a bucket
+    step, a 5th viewer refused with 503 and Retry-After (chip_smoke's phase
+    11 run at V=4)."""
+    from ai_rtc_agent_tpu_torch.media import native
+    from ai_rtc_agent_tpu_torch.server.signaling import get_provider
+    from ai_rtc_agent_tpu_torch.stream.scheduler import BatchScheduler
+
+    assert native.load() is not None, native.load_error()
+    for name, value in (("WEBRTC_PROVIDER", "native-rtp"), ("WARMUP_FRAMES", "0"),
+                        ("OVERLOAD_RX_QUEUE_BOUND", "16384")):
+        monkeypatch.setenv(name, value)
+    provider = get_provider()
+    provider.use_h264 = False
+    sched = BatchScheduler.from_pipeline(turbo_pipe, max_sessions=2)
+    tap = chip_smoke.StepTap(sched)
+    frames = chip_smoke._frames(np, 8, seed=11)
+
+    async def serve():
+        state = {}
+        sessions.configure(state, pipeline=turbo_pipe, provider=provider, batch_scheduler=sched)
+        await sessions.startup(state)
+        viewers = await chip_smoke.ViewerProcess.start(512)
+        try:
+            return await chip_smoke.broadcast_once(np, state, tap, sched, viewers, "group", 4,
+                                                   frames, 512, "card test")
+        finally:
+            await viewers.close()
+            await sessions.shutdown(state)
+
+    out = asyncio.run(serve())  # broadcast_once fails (SystemExit) on any broken hold
+    assert len(set(out["datagrams"])) == 1 and out["datagrams"][0] > 0
+    assert out["held"] > 0 and out["attn"] == 32 * out["epi"] == 32 * out["steps"]
+    assert out["refused"][:2] == [503, "2"]
+
+
 def _tiny_ring(device, graphs):
     """tiny-test's 4-stage LCM cfg-self ring in f32 with plain attention (the
     ring and stock move every step), as an engine (graph or eager)."""

@@ -438,7 +438,8 @@ def test_the_import_walk_covers_the_new_modules():
 
 
 @pytest.mark.parametrize("rel", ["fleet/routing.py", "fleet/transport.py", "fleet/registry.py",
-                                 "fleet/journey.py", "server/sessions.py"])
+                                 "fleet/journey.py", "server/sessions.py",
+                                 "server/broadcast.py"])
 def test_the_cores_import_no_aiohttp_at_module_level(rel):
     """The router's core and the session layer run on the card, which has no
     aiohttp: routing.py and sessions.py import none at all; the transport
@@ -448,5 +449,5 @@ def test_the_cores_import_no_aiohttp_at_module_level(rel):
     top = {n.names[0].name.split(".")[0] for n in tree.body if isinstance(n, ast.Import)} | {
         (n.module or "").split(".")[0] for n in tree.body if isinstance(n, ast.ImportFrom)}
     assert "aiohttp" not in top
-    if rel in ("fleet/routing.py", "server/sessions.py"):
+    if rel in ("fleet/routing.py", "server/sessions.py", "server/broadcast.py"):
         assert "aiohttp" not in _all_imports(path)

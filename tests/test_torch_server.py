@@ -27,6 +27,7 @@ agent, on the CPU.
 import ast
 import asyncio
 import json
+import os
 import random
 import re
 import time
@@ -364,7 +365,7 @@ def jax_defaults(monkeypatch):
 
 
 def _health(body: dict) -> dict:
-    """A /health body as the contract fixes it: the ported planes, each
+    """A /health body as the contract fixes it: every plane, each
     session's supervisor snapshot with its clock readings as types, the
     sessions sorted by their snapshots (their ids are random).  Compared by
     key: the overload plane's ``pressure`` (a ratio of two EWMAs of clock
@@ -372,14 +373,14 @@ def _health(body: dict) -> dict:
     telemetry's ``watchdog`` (the JAX plane hears XLA through
     jax.monitoring, the port's builds report themselves: "cache-wrap",
     obs/devtel.py)."""
-    out = ported(body)
+    out = comparable(body)
     if "overload" in out:  # a ratio of the step and loop-lag EWMAs: a clock reading
         out["overload"] = dict(out["overload"], pressure=type(out["overload"]["pressure"]).__name__)
     if "devtel" in out:
         out["devtel"] = dict(out["devtel"], watchdog=type(out["devtel"]["watchdog"]).__name__)
     sessions = []
     for snap in out.get("sessions", {}).values():
-        snap = timed(ported(snap))
+        snap = timed(comparable(snap))
         for k in ("since_s", "last_frame_age_s"):
             snap[k] = type(snap[k]).__name__
         snap["transitions"] = [{k: v for k, v in t.items() if k != "t"}
@@ -405,7 +406,7 @@ async def case_operator_endpoints(c):
     out = []
     status, ctype, body = await _get_json(c, "/health")
     out.append((status, ctype, _health(body)))
-    out.append((await _get_json(c, "/capacity"))[:2] + (ported((await _get_json(c, "/capacity"))[2]),))
+    out.append((await _get_json(c, "/capacity"))[:2] + (comparable((await _get_json(c, "/capacity"))[2]),))
     out.append(await _obs(await _whip(c)))
     out.append(await _obs(await _whep(c)))
     (viewer,) = _viewers(c)
@@ -417,7 +418,7 @@ async def case_operator_endpoints(c):
     for action in ("freeze", "freeze"):
         r = await post("/drain", json={"action": action})
         out.append((r.status, r.content_type, await r.json()))
-    out.append(ported((await _get_json(c, "/capacity"))[2]))
+    out.append(comparable((await _get_json(c, "/capacity"))[2]))
     out.append(await _refused(await _whip(c)))
     offer = {"sdp": c.m.signaling.make_loopback_offer(), "type": "offer"}
     out.append(await _refused(await post("/offer", json={"room_id": "r", "offer": offer})))
@@ -426,7 +427,7 @@ async def case_operator_endpoints(c):
     out.append(_health((await _get_json(c, "/health"))[2]))
     r = await post("/drain", json={"action": "unfreeze"})
     out.append((r.status, await r.json()))
-    out.append(ported((await _get_json(c, "/capacity"))[2]))
+    out.append(comparable((await _get_json(c, "/capacity"))[2]))
     out.append(await _obs(await _whip(c)))
     for raw in ('{"action": "melt"}', "[1]", "{"):
         out.append(await _obs(await post("/drain", data=raw,
@@ -441,10 +442,10 @@ async def case_session_cap_refuses_with_retry_after(c):
     out = [await _obs(await _whip(c))]
     r = await _whip(c)
     out.append(await _refused(r))
-    out.append(ported((await _get_json(c, "/capacity"))[2]))
+    out.append(comparable((await _get_json(c, "/capacity"))[2]))
     out.append(await _obs(await c.client.delete("/whip")))
     await asyncio.sleep(0)  # the close handlers end supervision
-    out.append(ported((await _get_json(c, "/capacity"))[2]))
+    out.append(comparable((await _get_json(c, "/capacity"))[2]))
     out.append(await _obs(await _whip(c)))
     return out
 
@@ -465,7 +466,7 @@ def test_http_contract_under_the_jax_defaults(monkeypatch, case):
 
 async def case_no_overload_plane(c):
     out = [await _obs(await c.client.post("/drain", json={"action": "freeze"}))]
-    out.append(ported((await _get_json(c, "/capacity"))[2]))
+    out.append(comparable((await _get_json(c, "/capacity"))[2]))
     status, _, body = await _get_json(c, "/health")
     out.append((status, _health(body)))
     out.append(await _obs(await _whip(c)))
@@ -481,13 +482,17 @@ def test_operator_endpoints_without_the_overload_plane(monkeypatch):
     _run_both(case_no_overload_plane, monkeypatch)
 
 
-# the JAX agent's planes the port has not ported yet (ROADMAP §A): their keys
-# are left out of a comparison of bodies
-UNPORTED_KEYS = ("broadcast", "boot_id")
+BOOT_ID = re.compile(r"[0-9a-f]{12}")
 
 
-def ported(body: dict) -> dict:
-    return {k: v for k, v in body.items() if not k.startswith(UNPORTED_KEYS)}
+def comparable(body: dict) -> dict:
+    """``body`` with its ``boot_id`` (a random nonce per process, so never
+    equal across agents) held to the nonce's form, 12 hex digits, and
+    masked; every other key kept as it is."""
+    if "boot_id" not in body:
+        return dict(body)
+    assert BOOT_ID.fullmatch(str(body["boot_id"])), body["boot_id"]
+    return {**body, "boot_id": "<boot_id>"}
 
 
 # readings of a clock (and of the process's live buffers: JAX arrays against
@@ -538,7 +543,7 @@ def prom_samples(text: str) -> list:
 
 def test_port_metrics_are_the_jax_frame_stats():
     """/metrics carries FrameStats and the overload plane's gauges under the
-    JAX agent's names (the planes not ported yet aside)."""
+    JAX agent's names, the broadcast plane's included."""
     async def go(m):
         app = m.agent.build_app(pipeline=FakePipeline(), provider=m.signaling.LoopbackProvider())
         client = TestClient(TestServer(app))
@@ -549,7 +554,7 @@ def test_port_metrics_are_the_jax_frame_stats():
             await client.close()
 
     got = asyncio.run(go(SIDES["port"]))
-    assert set(got) == set(ported(asyncio.run(go(SIDES["jax"]))))
+    assert set(got) == set(comparable(asyncio.run(go(SIDES["jax"]))))
     assert set(JPROF.FrameStats().snapshot()) < set(got)
 
 
@@ -637,7 +642,7 @@ async def case_metrics_prom(c):
         await pub.in_track.push(_stale(fill, 0.0, c.m))
         out.append((await viewer.recv()).tolist())
     r = await c.client.get("/metrics")
-    out.append([r.status, r.content_type, timed(ported(await r.json()))])
+    out.append([r.status, r.content_type, timed(comparable(await r.json()))])
     r = await c.client.get("/metrics", params={"format": "prom"})
     out.append([r.status, r.headers.get("Content-Type"), prom_samples(await r.text())])
     out.append(await _obs(await c.client.get("/metrics", params={"format": "xml"})))
@@ -652,7 +657,7 @@ async def case_kill_switches(c):
            await _jobs(await c.client.post("/debug/trace", data=b"not json"))]
     out.append(await _obs(await _whip(c)))
     r = await c.client.get("/metrics")
-    out.append(sorted(ported(timed(await r.json()))))
+    out.append(sorted(comparable(timed(await r.json()))))
     out.append(_health((await _get_json(c, "/health"))[2]))
     out.append((c.app["flight"] is None, c.app["slo"] is None, c.app["devtel"] is None))
     return out
@@ -1137,6 +1142,55 @@ def test_only_the_http_layer_imports_aiohttp_at_module_level():
                  if "aiohttp" in _module_level_imports(ast.parse(p.read_text()))]
     assert importers == ["ai_rtc_agent_tpu_torch/fleet/router.py",
                          "ai_rtc_agent_tpu_torch/server/agent.py"]
+
+
+def test_route_table_equals_the_jax_agents():
+    """Every (method, path) the JAX agent serves, /broadcast/pull and /demo
+    included, and nothing else (HEAD comes with each GET on both)."""
+    def table(app):
+        return sorted((r.method, r.resource.canonical) for r in app.router.routes())
+
+    assert table(PA.build_app(pipeline=FakePipeline(), provider=PS.LoopbackProvider())) == \
+        table(JA.build_app(pipeline=FakePipeline(), provider=JS.LoopbackProvider()))
+
+
+def test_profile_port_zero_parses_and_any_other_is_refused(monkeypatch, capsys):
+    """``--profile-port 0`` parses as the JAX agent's flag does; any other
+    value stops ``main`` with a parser error naming the port's profiler,
+    before anything is built or served."""
+    ran = []
+    monkeypatch.setattr(PA.web, "run_app", lambda app, **kw: ran.append(app))
+    PA.main(["--model-id", "tiny-test", "--device", "cpu", "--profile-port", "0"])
+    assert len(ran) == 1
+    with pytest.raises(SystemExit) as exc:
+        PA.main(["--model-id", "tiny-test", "--device", "cpu", "--profile-port", "9012"])
+    assert exc.value.code == 2 and len(ran) == 1
+    err = capsys.readouterr().err
+    assert "--profile-port 9012" in err and "POST /debug/trace" in err
+
+
+def test_demo_page_transcript_matches_jax(monkeypatch):
+    """GET /demo serves the bundled page (the JAX package's page, copied),
+    and answers 404 "demo page not bundled" without it."""
+    async def go(m):
+        app = m.agent.build_app(pipeline=FakePipeline(), provider=m.signaling.LoopbackProvider())
+        client = TestClient(TestServer(app))
+        await client.start_server()
+        try:
+            out = [await _obs(await client.get("/demo"))]
+            real = os.path.exists
+            with monkeypatch.context() as mp:
+                mp.setattr(os.path, "exists",
+                           lambda p: False if str(p).endswith("demo.html") else real(p))
+                out.append(await _obs(await client.get("/demo")))
+            return out
+        finally:
+            await client.close()
+
+    got, want = asyncio.run(go(SIDES["port"])), asyncio.run(go(SIDES["jax"]))
+    assert got == want
+    assert got[0]["status"] == 200 and "<html" in got[0]["body"].lower()
+    assert got[1]["status"] == 404 and got[1]["body"] == "demo page not bundled"
 
 
 def test_nothing_imports_pydantic():
