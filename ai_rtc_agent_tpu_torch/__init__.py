@@ -6,8 +6,10 @@ layout so each module has an obvious counterpart:
   ops/       numerics: noise schedules, LCM/Turbo step math, R-CFG, uint8
              image io, and ops/kernels/ (the hand-written Hopper kernels,
              each beside its plain PyTorch version).
-  models/    UNet, TAESD, CLIP text tower, tokenizer, registry (random
-             init at full architecture; no weight loading yet).
+  models/    UNet, TAESD, CLIP text tower, tokenizer, registry (a local
+             HF snapshot through loader.py's key maps, LoRA fused at load
+             by lora.py; random init at full architecture without one),
+             and the safety checker (safety.py over clip_vision.py).
   stream/    the stream-batch engine and the pipeline façade.
   aot/       engine keys (the JAX recipe) and the captured steps: one
              CUDA graph per engine and per bucket size.

@@ -81,7 +81,14 @@ def stream_engine_key(model_id: str, cfg, **extra) -> str:
     """The key of a (model, stream config) pair, as the JAX package's
     ``stream_engine_key`` spells it: every flag that changes the step's
     graph is in it.  A bucket adds ``sbucket``/``sessions``, --multipeer
-    ``peers``."""
+    ``peers``.
+
+    As in the JAX recipe, sequential mode (``use_denoising_batch=False``)
+    has no field of its own, and its batch size equals the denoising
+    batch's.  That is safe here: a :class:`GraphCache` belongs to one
+    engine, one scheduler's bucket step or one peer engine, each built over
+    one config, so a sequential step and a denoising-batch step never meet
+    in one cache, and every key stays the JAX spelling."""
     return engine_key(
         model_id,
         cfg.mode,

@@ -3,9 +3,13 @@
 Inputs are plain numpy trees (``jax.tree.map(np.asarray, tree)`` on the
 JAX side), so this module needs no JAX.
 
-* ``params_from_jax``: conv kernels HWIO -> OIHW (every 4-D leaf is a conv
-  kernel in these trees); linear kernels keep the JAX [in, out] layout,
-  because the port applies them as ``x @ w`` (models/layers.linear).
+* ``params_from_jax``: the rule is by rank.  Every 4-D leaf is a conv
+  kernel in these trees (the UNet's, TAESD's, the safety checker's patch
+  embedding) and goes HWIO -> OIHW.  Every other leaf crosses as it is:
+  linear kernels keep the JAX [in, out] layout, because the port applies
+  them as ``x @ w`` (models/layers.linear), and 2-D leaves that are no
+  kernel (embedding tables, the safety checker's ``concept_embeds`` and
+  ``special_care_embeds``) must not be transposed either.
 * ``state_from_jax``: ``jax.random`` and ``torch.Generator`` never draw the
   same noise, so a parity test hands the JAX engine's prepared state
   (noise, x_buf, stock, cond/uncond, coeffs, guidance, delta) to the port.

@@ -1,15 +1,23 @@
 """Model registry: model-id -> config + params + apply-fn bundle.
 
-Counterpart of ai_rtc_agent_tpu/models/registry.py for the families this
-slice serves (sd15, sd21 / SD-Turbo, tiny).  Weights are random at full
-architecture, made on the target device from a seeded torch.Generator —
-what the JAX package serves when it finds no snapshot.  Weight loading,
-LoRA, ControlNet and HED are later slices.
+Counterpart of ai_rtc_agent_tpu/models/registry.py for the families the
+port serves (sd15, sd21 / SD-Turbo, tiny).  As in the JAX package:
+
+1. weights found locally (an HF snapshot under HF_HUB_CACHE, or a snapshot
+   directory passed as the model id) stream from safetensors into the
+   param trees through the key maps (models/loader.py), in f32;
+2. no weights: random init at full architecture, made on the target device
+   from a seeded torch.Generator, with a warning.
+
+LoRA files (``lora_dict``: path -> scale) are fused at load, in f32, before
+the bundle is cast (models/lora.py).  ControlNet and HED are later slices.
 """
 
 from __future__ import annotations
 
+import glob
 import logging
+import os
 from dataclasses import dataclass
 from typing import Callable
 
@@ -18,7 +26,10 @@ import torch
 from .. import resolve_device
 from ..stream.engine import StreamConfig, StreamModels
 from ..tree import tree_map
+from ..utils import env
 from . import clip as C
+from . import loader as LD
+from . import lora as LR
 from . import taesd as T
 from . import tokenizer as TK
 from . import unet as U
@@ -37,6 +48,7 @@ class ModelBundle:
     taesd_cfg: T.TAESDConfig
     family: str  # sd15 | sd21 | tiny
     device: torch.device
+    loaded_real_weights: bool = False
 
 
 def family_of(model_id: str) -> str:
@@ -134,31 +146,105 @@ def init_params(fam: str, seed: int = 0, device="cpu") -> dict:
     }
 
 
+def resolve_snapshot_dir(model_id: str) -> str | None:
+    """A local HF snapshot of ``model_id``: the id itself when it is a
+    directory, else the newest ``models--<org>--<name>/snapshots/*`` under
+    HF_HUB_CACHE (default ``~/.cache/huggingface/hub``).  No network."""
+    if os.path.isdir(model_id):
+        return model_id
+    cache = env.get_str("HF_HUB_CACHE") or os.path.expanduser("~/.cache/huggingface/hub")
+    safe = "models--" + model_id.replace("/", "--")
+    snaps = sorted(glob.glob(os.path.join(cache, safe, "snapshots", "*")))
+    return snaps[-1] if snaps else None
+
+
+def _try_load_weights(params: dict, snap: str, unet_cfg, clip_cfg, taesd_cfg) -> bool:
+    """Stream the snapshot's ``unet/``, ``text_encoder/`` and ``vae/``
+    safetensors into ``params`` (in place, f32); True when any tensor
+    loaded.  A piece whose shapes do not fit is warned about and keeps its
+    random weights, as in the JAX package."""
+    any_loaded = False
+    pieces = [
+        ("unet", "unet", LD.unet_key_map(unet_cfg)),
+        ("clip", "text_encoder", LD.clip_key_map(clip_cfg)),
+        ("taesd", "vae", LD.taesd_key_map(taesd_cfg)),
+    ]
+    for ours, sub, km in pieces:
+        files = LD.find_safetensors(snap, sub)
+        if not files:
+            continue
+        sd: dict = {}
+        for f in files:
+            sd.update(LD.read_safetensors(f))
+        try:
+            params[ours], n = LD.load_into_tree(params[ours], sd, km, strict=False)
+            logger.info("loaded %d tensors into %s from %s", n, ours, sub)
+            any_loaded = any_loaded or n > 0
+        except ValueError as e:
+            logger.warning("weight load failed for %s: %s", ours, e)
+    return any_loaded
+
+
+def fuse_loras(unet_params: dict, unet_cfg, lora_dict: dict) -> dict:
+    """Fuse each LoRA file of ``lora_dict`` (path -> scale) into the UNet
+    tree, in order; one that matches no module raises ValueError (a
+    misnamed adapter would otherwise fuse to a silent no-op)."""
+    km = LD.unet_key_map(unet_cfg)
+    for path, scale in lora_dict.items():
+        groups = LR.parse_lora_state_dict(LD.read_safetensors(path))
+        unet_params, n, unmatched = LR.fuse_lora_into_unet(unet_params, groups, km, scale=scale)
+        if n == 0:
+            raise ValueError(
+                f"LoRA {path!r} matched 0 of {len(groups)} modules in this UNet "
+                f"({len(unmatched)} unmatched; first: {unmatched[:3]}) — wrong file or "
+                "wrong base model")
+        logger.info("fused LoRA %s (scale %s): %d modules (%d unmatched)",
+                    path, scale, n, len(unmatched))
+    return unet_params
+
+
 def load_model_bundle(
     model_id: str,
     device=None,
     seed: int = 0,
     attn_impl: str = "kernel",
     params: dict | None = None,
+    lora_dict: dict | None = None,
 ) -> ModelBundle:
     """Build the bundle on ``device`` (default "cuda"; raises without a
     card).  ``params``: a ready param tree (e.g. ``bridge.params_from_jax``
-    of a JAX tree); otherwise random init from ``seed``.  ``attn_impl``
-    ("kernel" | "plain") is baked into the UNet closure, as in the JAX
-    bundle."""
+    of a JAX tree); otherwise random init from ``seed``, overwritten by a
+    local snapshot's weights where one resolves (:func:`resolve_snapshot_dir`).
+    ``lora_dict`` (path -> scale) fuses LoRA files into the UNet, in f32.
+    ``attn_impl`` ("kernel" | "plain") is baked into the UNet closure, as in
+    the JAX bundle.  Real weights with no tokenizer vocab raise."""
     device = resolve_device(device)
     fam = family_of(model_id)
     unet_cfg, clip_cfg, taesd_cfg = _model_configs(fam)
     if attn_impl not in ATTN_IMPLS:
         raise ValueError(f"attn_impl {attn_impl!r} not in {ATTN_IMPLS}")
+    snap = resolve_snapshot_dir(model_id)
+    loaded = False
     if params is None:
         params = init_params(fam, seed, device)
-        if fam != "tiny":
-            logger.warning("no weights for %s in the port yet — serving RANDOM weights", model_id)
+        if snap:
+            loaded = _try_load_weights(params, snap, unet_cfg, clip_cfg, taesd_cfg)
+        if not loaded and fam != "tiny":
+            logger.warning("no local weights for %s — serving RANDOM weights", model_id)
+    if lora_dict:
+        params = dict(params)
+        params["unet"] = fuse_loras(params["unet"], unet_cfg, lora_dict)
+    tok = TK.find_clip_tokenizer(snap or "", max_length=clip_cfg.max_length)
     if fam == "tiny":
         tok = TK.HashTokenizer(vocab_size=clip_cfg.vocab_size, max_length=clip_cfg.max_length)
-    else:
-        tok = TK.find_clip_tokenizer("", max_length=clip_cfg.max_length)
+    elif loaded and isinstance(tok, TK.HashTokenizer):
+        # hash ids would index random rows of a real embedding table: every
+        # prompt garbage, with only a log line to show for it
+        raise FileNotFoundError(
+            f"model weights loaded from {snap!r} but no tokenizer vocab.json/merges.txt "
+            "found under tokenizer/, tokenizer_2/ or the snapshot root — refusing to serve "
+            "real weights with the hermetic HashTokenizer (prompts would be garbage); "
+            "re-download the snapshot with its tokenizer files")
 
     def unet_apply(p, x, t, ctx):
         return U.apply_unet(p["unet"], x, t, ctx, unet_cfg, attn_impl=attn_impl)
@@ -188,4 +274,5 @@ def load_model_bundle(
         taesd_cfg=taesd_cfg,
         family=fam,
         device=device,
+        loaded_real_weights=loaded,
     )

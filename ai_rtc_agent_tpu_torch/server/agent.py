@@ -40,6 +40,7 @@ the answers of /offer, /whip and /whep; a re-offer carrying
     WEBRTC_PROVIDER=loopback python -m ai_rtc_agent_tpu_torch.server.agent \\
         --model-id tiny-test --device cpu
     ... --multipeer 2        # two peer slots stepped as one batch
+    ... --mode txt2img       # generate from the prompt, ignore the pixels
 
 The WebRTC provider is ``WEBRTC_PROVIDER`` (aiortc | native-rtp |
 loopback); unset, aiortc, else the native tier (server/rtc_native.py: real
@@ -169,6 +170,7 @@ def build_app(
     multipeer: int = 0,
     multipeer_pipeline=None,
     batch_scheduler=None,
+    mode: str = "img2img",
 ) -> web.Application:
     """``pipeline``, ``multipeer_pipeline``, ``batch_scheduler``: injectable
     for tests; built at startup when None, on ``device`` (the card unless
@@ -176,7 +178,8 @@ def build_app(
     app = web.Application(middlewares=[cors_middleware])
     sessions.configure(app, model_id=model_id, pipeline=pipeline, provider=provider,
                        fbs=fbs, device=device, multipeer=multipeer,
-                       multipeer_pipeline=multipeer_pipeline, batch_scheduler=batch_scheduler)
+                       multipeer_pipeline=multipeer_pipeline, batch_scheduler=batch_scheduler,
+                       mode=mode)
     app["udp_ports"] = udp_ports
     app.on_startup.append(on_startup)
     app.on_shutdown.append(on_shutdown)
@@ -191,7 +194,8 @@ def build_app(
 def main(argv=None):
     parser = argparse.ArgumentParser(description="Run the agent on the port's pipeline")
     parser.add_argument("--model-id", default="stabilityai/sd-turbo",
-                        help="model id (sd15 / sd-turbo families, tiny-test)")
+                        help="model id (sd15 / sd-turbo families, tiny-test), or a local HF "
+                             "snapshot dir (unet/, text_encoder/, vae/, tokenizer/)")
     parser.add_argument("--port", default=8888, type=int, help="HTTP signaling port")
     parser.add_argument("--udp-ports", default=None, help="comma-separated UDP media ports")
     parser.add_argument("--fbs", default=0, type=int, metavar="N",
@@ -199,6 +203,9 @@ def main(argv=None):
     parser.add_argument("--multipeer", default=0, type=int, metavar="N",
                         help="serve N peers, each with its own stream state, batched in one "
                              "step (503 past N)")
+    parser.add_argument("--mode", default="img2img", choices=["img2img", "txt2img"],
+                        help="txt2img ignores incoming pixels and generates from the prompt "
+                             "each tick (reference txt2img dispatch, lib/wrapper.py:236-260)")
     parser.add_argument("--log-level", default="INFO",
                         choices=["DEBUG", "INFO", "WARNING", "ERROR", "CRITICAL"])
     parser.add_argument("--device", default=None,
@@ -218,6 +225,7 @@ def main(argv=None):
         fbs=args.fbs,
         device=args.device,
         multipeer=args.multipeer,
+        mode=args.mode,
         udp_ports=args.udp_ports.split(",") if args.udp_ports else None,
     )
     web.run_app(app, host="0.0.0.0", port=args.port)

@@ -34,7 +34,7 @@ from .. import resolve_device
 from ..models import registry
 from ..parallel.multipeer import CapacityError, MultiPeerEngine
 from ..resilience.overload import DeadlineQueue, ShedFrame, shed_to_passthrough
-from ..stream.pipeline import DEFAULT_PROMPT, coerce_frame, finish_output
+from ..stream.pipeline import DEFAULT_PROMPT, coerce_frame, finish_output, maybe_load_safety_checker
 
 logger = logging.getLogger(__name__)
 
@@ -57,7 +57,7 @@ class PeerPipeline:
         out = handle.result(timeout=self._owner.fetch_timeout)
         if isinstance(out, ShedFrame):
             return out
-        return finish_output(out, src_frame)
+        return finish_output(out, src_frame, self._owner.safety_checker)
 
     def __call__(self, frame):
         return self.fetch(self.submit(frame), frame)
@@ -78,7 +78,10 @@ class PeerPipeline:
 class MultiPeerPipeline:
     """Owns the MultiPeerEngine and the coordinator thread.  Runs on the
     card unless ``device`` says otherwise; ``params``: a ready param tree
-    (otherwise random weights from a fixed seed)."""
+    (otherwise the local snapshot's weights, or random weights from a fixed
+    seed).  ``config``: any engine mode (full CFG, sequential, txt2img) the
+    bucket steps run; the safety checker (SAFETY_CHECKER) gates each peer's
+    output at its fetch, as on the single-peer path."""
 
     # steps in flight: step N's readback overlaps step N+1's launch
     PIPELINE_DEPTH = 2
@@ -100,6 +103,7 @@ class MultiPeerPipeline:
         self.height, self.width = cfg.height, cfg.width
         self.max_peers = max_peers
         self.fetch_timeout = fetch_timeout
+        self.safety_checker = maybe_load_safety_checker(model_id, device=self.device)
         self._lock = threading.Lock()  # the engine's state
         self._has_work = threading.Condition(self._lock)
         # bounded per-slot queues of (frame, Future): a peer that outpaces the

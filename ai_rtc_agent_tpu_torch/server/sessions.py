@@ -8,7 +8,7 @@ that ``chip_smoke.py`` drives a whole session on the card, where aiohttp is
 not installed, and ``server/agent.py`` maps HTTP requests onto it.
 
 The app-state mapping (an aiohttp ``Application`` or a plain dict) holds
-``model_id``, ``pipeline``, ``provider``, ``fbs``, ``device``,
+``model_id``, ``pipeline``, ``provider``, ``fbs``, ``mode``, ``device``,
 ``multipeer``, ``multipeer_pipeline`` and ``batch_scheduler`` from
 :func:`configure`, and after :func:`startup` also ``pcs`` (every live peer
 connection), ``state`` (publishers, their tracks and relays, viewers),
@@ -266,7 +266,8 @@ def wire_datachannel(pipeline, channel, guard=None, encoders=None):
 
 def configure(app, model_id: str = "stabilityai/sd-turbo", pipeline=None, provider=None,
               fbs: int = 0, device=None, multipeer: int = 0, multipeer_pipeline=None,
-              batch_scheduler=None, events_handler=None, transport=None):
+              batch_scheduler=None, events_handler=None, transport=None,
+              mode: str = "img2img"):
     """Fill the app state's configuration.  ``pipeline=None`` builds the
     port's StreamDiffusionPipeline at :func:`startup`, and the batch
     scheduler over it; ``multipeer`` N > 0 builds the N-slot peer engine
@@ -279,6 +280,7 @@ def configure(app, model_id: str = "stabilityai/sd-turbo", pipeline=None, provid
     app["pipeline"] = pipeline
     app["provider"] = provider or get_provider()
     app["fbs"] = fbs
+    app["mode"] = mode
     app["device"] = device
     app["multipeer"] = multipeer
     app["multipeer_pipeline"] = multipeer_pipeline
@@ -302,14 +304,25 @@ def configure(app, model_id: str = "stabilityai/sd-turbo", pipeline=None, provid
     app["recycle_exit"] = None  # None: spawn the replacement, then exit the process
 
 
-def build_pipeline(model_id: str, fbs: int = 0, device=None) -> StreamDiffusionPipeline:
-    """The served pipeline, on the card unless ``device`` says otherwise
-    (raises without one: the server never carries on on the CPU)."""
-    dev = resolve_device(device)
-    cfg = None
-    if fbs > 1:
-        cfg = registry.default_stream_config(model_id, device=dev, frame_buffer_size=fbs)
-    return StreamDiffusionPipeline(model_id, config=cfg, device=dev)
+def stream_config(app, device):
+    """The served stream config: the family's default with the agent's
+    flags (``--fbs`` N > 1, ``--mode``), for both serving modes (no silent
+    flag drops); None (the family's default) without any."""
+    overrides = {}
+    if app.get("fbs", 0) > 1:
+        overrides["frame_buffer_size"] = app["fbs"]
+    if app.get("mode", "img2img") != "img2img":
+        overrides["mode"] = app["mode"]
+    if not overrides:
+        return None
+    return registry.default_stream_config(app["model_id"], device=device, **overrides)
+
+
+def build_pipeline(app) -> StreamDiffusionPipeline:
+    """The served pipeline, on the card unless the app's ``device`` says
+    otherwise (raises without one: the server never carries on on the CPU)."""
+    dev = resolve_device(app["device"])
+    return StreamDiffusionPipeline(app["model_id"], config=stream_config(app, dev), device=dev)
 
 
 async def startup(app):
@@ -328,11 +341,13 @@ async def startup(app):
             raise ValueError(
                 "--fbs is not supported with --multipeer (peers are already the batch dimension)"
             )
+        dev = resolve_device(app["device"])
         app["multipeer_pipeline"] = MultiPeerPipeline(
-            app["model_id"], max_peers=app["multipeer"], device=resolve_device(app["device"])
+            app["model_id"], max_peers=app["multipeer"], device=dev,
+            config=stream_config(app, dev),
         )
     elif app["pipeline"] is None and app["multipeer_pipeline"] is None:
-        app["pipeline"] = build_pipeline(app["model_id"], app["fbs"], app["device"])
+        app["pipeline"] = build_pipeline(app)
         if app["batch_scheduler"] is None and env.batchsched_enabled():
             from ..stream.scheduler import BatchScheduler
 

@@ -25,10 +25,18 @@ Batch law: B = len(t_index_list) * frame_buffer_size.  Each step takes
 fbs new frames at the noisiest sub-timestep, advances every buffered
 latent one stage, and emits the frames that finished the last stage.
 
-This slice covers img2img in denoising-batch mode with cfg_type
-none/self/initialize, each through the fused epilogue kernel or the
-composed ops (``use_fused_epilogue``).  Full CFG, sequential mode,
-txt2img, ControlNet, SDXL conditioning and DeepCache raise.
+Modes, as in the JAX engine:
+* img2img (the frame is encoded into the ring) or txt2img (fresh noise
+  enters the ring; the frame is not read);
+* denoising batch (the ring above) or sequential (``use_denoising_batch=
+  False``: every stage of the new frames now, n_stages UNet passes of fbs
+  rows, the ring buffer untouched);
+* cfg_type none, self, initialize or full (2·rows through the UNet, the
+  uncond rows first; the stock is left as it is).
+The post-UNet chain runs as the fused epilogue kernel where the JAX
+``fused_ok`` holds (``use_fused_epilogue``, denoising batch, epsilon
+prediction, cfg none/self/initialize), otherwise as the composed ops.
+ControlNet, SDXL conditioning and DeepCache raise.
 """
 
 from __future__ import annotations
@@ -116,12 +124,6 @@ class StreamModels:
 
 def _check_supported(cfg: StreamConfig):
     later = []
-    if cfg.mode != "img2img":
-        later.append(f"mode={cfg.mode!r}")
-    if cfg.cfg_type == "full":
-        later.append("cfg_type='full'")
-    if not cfg.use_denoising_batch:
-        later.append("sequential mode (use_denoising_batch=False)")
     if cfg.use_controlnet:
         later.append("ControlNet")
     if cfg.use_added_cond:
@@ -164,34 +166,89 @@ def _coeffs(d: dict, sl=slice(None)) -> L.StepCoeffs:
     )
 
 
+def fused_ok(cfg: StreamConfig) -> bool:
+    """Whether the post-UNet chain runs as the epilogue kernel (the JAX
+    engine's ``fused_ok``): the ring (denoising batch), epsilon prediction
+    and cfg none/self/initialize; full CFG and sequential mode run the
+    composed ops."""
+    return (cfg.use_fused_epilogue and cfg.use_denoising_batch
+            and cfg.prediction_type == "epsilon"
+            and cfg.cfg_type in ("none", "self", "initialize"))
+
+
+def _guided(models: StreamModels, cfg: StreamConfig, params, x, t, cond, uncond, stock,
+            coeffs: L.StepCoeffs, guidance, delta):
+    """One guided UNet pass over ``x`` [n,h,w,c] with the per-row ``t``,
+    ``cond`` and ``uncond`` [n,L,D]: -> (eps, new stock or None when the
+    stock stays).  ``guidance``/``delta``: a scalar or a per-row column.
+    Full CFG runs the 2n rows uncond first and combines them (the JAX
+    ``unet_with_guidance``)."""
+    if cfg.cfg_type == "full":
+        out = models.unet(params, torch.cat([x, x]), torch.cat([t, t]),
+                          torch.cat([uncond, cond]))
+        eps_u, eps_c = out.chunk(2)
+        return R.combine_full(eps_u, eps_c, guidance), None
+    eps_c = models.unet(params, x, t, cond)
+    if cfg.cfg_type == "none":
+        return eps_c, None
+    eps = R.combine_residual(eps_c, stock, guidance, delta)
+    if cfg.cfg_type == "self":
+        return eps, R.update_stock_noise(stock, eps_c, coeffs.alpha, coeffs.sigma)
+    return eps, None
+
+
+def _denoise(cfg: StreamConfig, x, eps, coeffs: L.StepCoeffs):
+    if cfg.scheduler == "turbo":
+        return L.turbo_denoise(x, eps, coeffs, cfg.prediction_type)
+    return L.lcm_denoise(x, eps, coeffs, cfg.prediction_type)
+
+
 def make_step_fn(models: StreamModels, cfg: StreamConfig):
     """Build the step function (eager PyTorch; the kernels launch inside)."""
     _check_supported(cfg)
     B = cfg.batch_size
     fbs = cfg.frame_buffer_size
     dt = cfg.torch_dtype
-    fused = cfg.use_fused_epilogue and cfg.prediction_type == "epsilon"
+    fused = fused_ok(cfg)
 
     @torch.inference_mode()
     def step(params, state, frame_u8):
-        """frame_u8: [fbs,H,W,3] (or [H,W,3] when fbs==1) uint8 on the device."""
+        """frame_u8: [fbs,H,W,3] (or [H,W,3] when fbs==1) uint8 on the device
+        (not read in txt2img)."""
         coeffs = _coeffs(state["coeffs"])
         noise = state["noise"]
 
-        img = I.preprocess_uint8(frame_u8, dtype=dt)
-        z0 = models.vae_encode(params, img)
-        if cfg.do_add_noise:
-            a0 = coeffs.alpha[:fbs].reshape(-1, 1, 1, 1).to(dt)
-            s0 = coeffs.sigma[:fbs].reshape(-1, 1, 1, 1).to(dt)
-            x_new = a0 * z0 + s0 * noise[:fbs].to(dt)
-        else:
-            x_new = z0
-        x_t = torch.cat([x_new, state["x_buf"].to(dt)]) if B > fbs else x_new
-        cond = state["cond"].to(dt).expand(B, *state["cond"].shape[1:])
-        eps_c = models.unet(params, x_t, coeffs.timesteps, cond)
+        if cfg.mode == "img2img":
+            img = I.preprocess_uint8(frame_u8, dtype=dt)
+            z0 = models.vae_encode(params, img)
+            if cfg.do_add_noise:
+                a0 = coeffs.alpha[:fbs].reshape(-1, 1, 1, 1).to(dt)
+                s0 = coeffs.sigma[:fbs].reshape(-1, 1, 1, 1).to(dt)
+                x_new = a0 * z0 + s0 * noise[:fbs].to(dt)
+            else:
+                x_new = z0
+        else:  # txt2img: fresh noise enters the ring
+            x_new = noise[:fbs].to(dt)
         stock = state["stock"].to(dt)
+        rows = lambda a, n: a.to(dt).expand(n, *a.shape[1:])  # noqa: E731  [1,L,D] -> [n,L,D]
 
-        if fused:
+        if not cfg.use_denoising_batch:
+            # sequential: every stage of the new frames now, fbs rows a pass
+            x, stocks = x_new, []
+            for i in range(cfg.n_stages):
+                sl = slice(i * fbs, (i + 1) * fbs)
+                sub = _coeffs(state["coeffs"], sl)
+                eps, st = _guided(models, cfg, params, x, sub.timesteps, rows(state["cond"], fbs),
+                                  rows(state["uncond"], fbs), stock[sl], sub, state["guidance"],
+                                  state["delta"])
+                stocks.append(st)
+                x = L.renoise_next(_denoise(cfg, x, eps, sub), noise[sl].to(dt), sub)
+            if stocks[0] is not None:
+                state["stock"].copy_(torch.cat(stocks))
+            out_latent = x
+        elif fused:
+            x_t = torch.cat([x_new, state["x_buf"].to(dt)]) if B > fbs else x_new
+            eps_c = models.unet(params, x_t, coeffs.timesteps, rows(state["cond"], B))
             # the whole post-UNet chain in one launch: entry b renoises with
             # slot b+fbs's noise (exit entries with 0), the advanced entries
             # land in the ring buffer and the new stock in the stock, in place
@@ -200,26 +257,21 @@ def make_step_fn(models: StreamModels, cfg: StreamConfig):
                 cfg_type=cfg.cfg_type, turbo=cfg.scheduler == "turbo", noise_shift=fbs,
                 advanced_out=state["x_buf"], stock_out=state["stock"],
             )[0]
+            out_latent = denoised[B - fbs:]
         else:
-            new_stock = stock
-            if cfg.cfg_type == "none":
-                eps = eps_c
-            else:
-                eps = R.combine_residual(eps_c, stock, state["guidance"], state["delta"])
-                if cfg.cfg_type == "self":
-                    new_stock = R.update_stock_noise(stock, eps_c, coeffs.alpha, coeffs.sigma)
-            if cfg.scheduler == "turbo":
-                denoised = L.turbo_denoise(x_t, eps, coeffs, cfg.prediction_type)
-            else:
-                denoised = L.lcm_denoise(x_t, eps, coeffs, cfg.prediction_type)
+            x_t = torch.cat([x_new, state["x_buf"].to(dt)]) if B > fbs else x_new
+            eps, new_stock = _guided(models, cfg, params, x_t, coeffs.timesteps,
+                                     rows(state["cond"], B), rows(state["uncond"], B), stock,
+                                     coeffs, state["guidance"], state["delta"])
+            denoised = _denoise(cfg, x_t, eps, coeffs)
             if B > fbs:
                 state["x_buf"].copy_(L.renoise_next(
                     denoised[: B - fbs], noise[fbs:].to(dt),
                     _coeffs(state["coeffs"], slice(0, B - fbs)),
                 ))
-            if new_stock is not stock:
+            if new_stock is not None:
                 state["stock"].copy_(new_stock)
-        out_latent = denoised[B - fbs:]
+            out_latent = denoised[B - fbs:]
 
         img_out = models.vae_decode(params, out_latent)
         return state, I.postprocess_uint8(img_out.float())
@@ -253,12 +305,18 @@ def make_session_step_fn(models: StreamModels, cfg: StreamConfig):
     The fused epilogue reads the stock, noise, coefficients, guidance and
     delta at the slots and writes the ring and stock rows in place; the
     composed ops gather the same rows and write the first k_real back
-    (``write_segments``: masked on the device, so they capture too)."""
+    (``write_segments``: masked on the device, so they capture too).  The
+    other modes batch as the JAX ``vmap`` of the single step does, each
+    session's rows keeping their own uncond, cond, stock and coefficients:
+    full CFG runs the 2·k·B rows through one UNet pass (every session's
+    uncond rows first), sequential mode runs n_stages passes of k·fbs rows,
+    txt2img takes each session's first fbs noise rows in place of its
+    encoded frames (which it does not read)."""
     _check_supported(cfg)
     B = cfg.batch_size
     fbs = cfg.frame_buffer_size
     dt = cfg.torch_dtype
-    fused = cfg.use_fused_epilogue and cfg.prediction_type == "epsilon"
+    fused = fused_ok(cfg)
 
     @torch.inference_mode()
     def step(params, states, frames_u8, slots, k_real):
@@ -267,55 +325,75 @@ def make_session_step_fn(models: StreamModels, cfg: StreamConfig):
         take = lambda a: a.index_select(0, slots)  # noqa: E731
         rows = lambda a: a.reshape(k * a.shape[1], *a.shape[2:])  # noqa: E731  [k, n, ...] -> [k*n, ...]
 
-        img = I.preprocess_uint8(frames_u8.reshape(k * fbs, *frames_u8.shape[-3:]), dtype=dt)
-        z0 = models.vae_encode(params, img)  # [k*fbs,h,w,c]
-        z0 = z0.view(k, fbs, *z0.shape[1:])
-        if cfg.do_add_noise:
-            a0 = take(c["alpha"][:, :fbs]).reshape(k, fbs, 1, 1, 1).to(dt)
-            s0 = take(c["sigma"][:, :fbs]).reshape(k, fbs, 1, 1, 1).to(dt)
-            x_new = a0 * z0 + s0 * take(states["noise"][:, :fbs]).to(dt)
-        else:
-            x_new = z0
-        x_t = rows(torch.cat([x_new, take(states["x_buf"]).to(dt)], dim=1)) \
-            if B > fbs else rows(x_new)
-        cond = take(states["cond"]).to(dt)  # [k,1,L,D]
-        cond = rows(cond.expand(k, B, *cond.shape[2:]))
-        eps_c = models.unet(params, x_t, take(c["timesteps"]).reshape(-1), cond)
+        def ctx(name, n):  # each session's [1,L,D] embedding on its n rows
+            e = take(states[name]).to(dt)  # [k,1,L,D]
+            return rows(e.expand(k, n, *e.shape[2:]))
 
-        if fused:
-            denoised = fused_stream_epilogue(
-                x_t, eps_c, states["stock"], states["noise"], _coeffs(c), states["guidance"],
-                states["delta"], cfg_type=cfg.cfg_type, turbo=cfg.scheduler == "turbo",
-                noise_shift=fbs, advanced_out=states["x_buf"], stock_out=states["stock"],
-                slots=slots, k_real=k_real,
-            )[0]
-        else:
-            co = _coeffs({name: take(v).reshape(-1) for name, v in c.items()})
-            stock = rows(take(states["stock"])).to(dt)
-            if cfg.cfg_type == "none":
-                eps = eps_c
+        def col(v, n):  # each session's scalar on its n rows
+            return take(v).repeat_interleave(n).reshape(-1, 1, 1, 1)
+
+        def co_of(sl):  # the rows' coefficients, stage slice ``sl`` of each session
+            return _coeffs({name: take(v)[:, sl].reshape(-1) for name, v in c.items()})
+
+        if cfg.mode == "img2img":
+            img = I.preprocess_uint8(frames_u8.reshape(k * fbs, *frames_u8.shape[-3:]), dtype=dt)
+            z0 = models.vae_encode(params, img)  # [k*fbs,h,w,c]
+            z0 = z0.view(k, fbs, *z0.shape[1:])
+            if cfg.do_add_noise:
+                a0 = take(c["alpha"][:, :fbs]).reshape(k, fbs, 1, 1, 1).to(dt)
+                s0 = take(c["sigma"][:, :fbs]).reshape(k, fbs, 1, 1, 1).to(dt)
+                x_new = a0 * z0 + s0 * take(states["noise"][:, :fbs]).to(dt)
             else:
-                col = lambda v: take(v).repeat_interleave(B).reshape(-1, 1, 1, 1)  # noqa: E731
-                eps = R.combine_residual(eps_c, stock, col(states["guidance"]),
-                                         col(states["delta"]))
-                if cfg.cfg_type == "self":
-                    new_stock = R.update_stock_noise(stock, eps_c, co.alpha, co.sigma)
+                x_new = z0
+        else:  # txt2img: each session's fresh noise enters its ring
+            x_new = take(states["noise"][:, :fbs]).to(dt)
+
+        if not cfg.use_denoising_batch:
+            # sequential: every stage of the new frames now, k*fbs rows a pass
+            x, stocks = rows(x_new), []
+            for i in range(cfg.n_stages):
+                sl = slice(i * fbs, (i + 1) * fbs)
+                sub = co_of(sl)
+                eps, st = _guided(
+                    models, cfg, params, x, sub.timesteps, ctx("cond", fbs), ctx("uncond", fbs),
+                    rows(take(states["stock"][:, sl])).to(dt), sub,
+                    col(states["guidance"], fbs), col(states["delta"], fbs))
+                stocks.append(st)
+                x = L.renoise_next(_denoise(cfg, x, eps, sub),
+                                   rows(take(states["noise"][:, sl])).to(dt), sub)
+            if stocks[0] is not None:
+                new = torch.cat([st.view(k, fbs, *st.shape[1:]) for st in stocks], dim=1)
+                write_segments(states["stock"], new, slots, k_real)
+            last = x.view(k, fbs, *x.shape[1:])
+        else:
+            x_t = rows(torch.cat([x_new, take(states["x_buf"]).to(dt)], dim=1)) \
+                if B > fbs else rows(x_new)
+            if fused:
+                eps_c = models.unet(params, x_t, take(c["timesteps"]).reshape(-1),
+                                    ctx("cond", B))
+                denoised = fused_stream_epilogue(
+                    x_t, eps_c, states["stock"], states["noise"], _coeffs(c), states["guidance"],
+                    states["delta"], cfg_type=cfg.cfg_type, turbo=cfg.scheduler == "turbo",
+                    noise_shift=fbs, advanced_out=states["x_buf"], stock_out=states["stock"],
+                    slots=slots, k_real=k_real,
+                )[0]
+            else:
+                co = co_of(slice(None))
+                eps, new_stock = _guided(
+                    models, cfg, params, x_t, co.timesteps, ctx("cond", B), ctx("uncond", B),
+                    rows(take(states["stock"])).to(dt), co, col(states["guidance"], B),
+                    col(states["delta"], B))
+                if new_stock is not None:
                     write_segments(states["stock"], new_stock.view(k, B, *x_t.shape[1:]), slots,
                                    k_real)
-            if cfg.scheduler == "turbo":
-                denoised = L.turbo_denoise(x_t, eps, co, cfg.prediction_type)
-            else:
-                denoised = L.lcm_denoise(x_t, eps, co, cfg.prediction_type)
-            if B > fbs:
-                head = lambda a: a.view(k, B, *a.shape[1:])[:, : B - fbs]  # noqa: E731
-                sub = L.StepCoeffs(*(rows(head(v)).reshape(-1) for v in (
-                    co.timesteps, co.alpha, co.sigma, co.c_skip, co.c_out, co.next_alpha,
-                    co.next_sigma)))
-                advanced = L.renoise_next(rows(head(denoised)),
-                                          rows(take(states["noise"])[:, fbs:]).to(dt), sub)
-                write_segments(states["x_buf"], advanced.view(k, B - fbs, *x_t.shape[1:]),
-                               slots, k_real)
-        last = denoised.view(k, B, *x_t.shape[1:])[:, B - fbs:]  # each session's exit rows
+                denoised = _denoise(cfg, x_t, eps, co)
+                if B > fbs:
+                    advanced = L.renoise_next(
+                        rows(denoised.view(k, B, *x_t.shape[1:])[:, : B - fbs]),
+                        rows(take(states["noise"])[:, fbs:]).to(dt), co_of(slice(0, B - fbs)))
+                    write_segments(states["x_buf"], advanced.view(k, B - fbs, *x_t.shape[1:]),
+                                   slots, k_real)
+            last = denoised.view(k, B, *x_t.shape[1:])[:, B - fbs:]  # each session's exit rows
         out_latent = last[:, 0] if fbs == 1 else rows(last)  # a view at fbs == 1
 
         img_out = I.postprocess_uint8(models.vae_decode(params, out_latent).float())

@@ -17,8 +17,13 @@ build-time probe with a fallback: a kernel that fails to build or launch,
 or a capture that fails, raises.  A frame that carries a trace
 (obs/trace.py) gets the JAX pipeline's spans: ``submit``, ``engine_step``
 (on the pipelined path submit-end -> the readback resolved, stamped on the
-host), ``fetch``, ``postprocess`` and the ``similar_skip`` mark.  The
-safety checker is a later slice.
+host), ``fetch``, ``postprocess`` and the ``similar_skip`` mark.
+
+``lora_dict`` (path -> scale) fuses LoRA files at load (models/lora.py).
+The safety checker (``use_safety_checker``, default the SAFETY_CHECKER
+env) runs on every output after its readback, as in the JAX pipeline, and
+on the same device as the pipeline; the batch scheduler and --multipeer
+apply the pipeline's checker through :func:`finish_output`.
 """
 
 from __future__ import annotations
@@ -50,21 +55,26 @@ class StreamDiffusionPipeline:
         device=None,
         params: dict | None = None,
         graphs: bool | None = None,
+        lora_dict: dict | None = None,
+        use_safety_checker: bool | None = None,
     ):
         """``params``: a ready param tree (e.g. ``bridge.params_from_jax`` of
-        a JAX pipeline's); otherwise random weights from a fixed seed.
-        ``graphs`` (default: on a CUDA device) captures the step now and
-        replays it per frame; False steps eagerly (the A/B on the card)."""
+        a JAX pipeline's); otherwise the local snapshot's weights, or random
+        weights from a fixed seed.  ``graphs`` (default: on a CUDA device)
+        captures the step now and replays it per frame; False steps eagerly
+        (the A/B on the card)."""
         self.device = resolve_device(device)
         self.model_id = model_id
         self.prompt = prompt
         self.guidance_scale = DEFAULT_GUIDANCE_SCALE
         self.delta = DEFAULT_DELTA
         self._seed = seed
+        self.safety_checker = maybe_load_safety_checker(model_id, use_safety_checker,
+                                                        device=self.device)
         cfg = config or registry.default_stream_config(model_id, device=self.device)
         bundle = registry.load_model_bundle(
             model_id, device=self.device, seed=0,
-            attn_impl=cfg.attn_impl, params=params,
+            attn_impl=cfg.attn_impl, params=params, lora_dict=lora_dict,
         )
         bundle.params = registry.cast_params(bundle.params, cfg.dtype)
         self.bundle = bundle
@@ -135,11 +145,13 @@ class StreamDiffusionPipeline:
     def __call__(self, frame):
         trace = get_trace(frame)  # None (one getattr) unless a trace rides the frame
         if trace is None:
-            return finish_output(self.engine(self.preprocess(frame)), frame)
+            return finish_output(self.engine(self.preprocess(frame)), frame, self.safety_checker)
         with trace.span("submit"):
             pre = self.preprocess(frame)
         with trace.span("engine_step"):  # the synchronous path: the whole step
             out = self.engine(pre)
+            if self.safety_checker is not None:
+                out = self.safety_checker(out)
         if self.engine.last_submit_was_skip:
             trace.mark("similar_skip")
         return finish_output(out, frame, trace=trace)
@@ -159,15 +171,16 @@ class StreamDiffusionPipeline:
         """Resolve a :meth:`submit` handle; attaches ``src_frame``'s pts."""
         trace = get_trace(src_frame) if src_frame is not None else None
         if trace is None:
-            return finish_output(self.engine.fetch(handle), src_frame)
+            return finish_output(self.engine.fetch(handle), src_frame, self.safety_checker)
         t0 = time.monotonic()
         out = self.engine.fetch(handle)
         t1 = time.monotonic()
         # fetch: the blocking resolve; engine_step: submit-end -> resolved
+        # (stamped before the safety checker, as the JAX pipeline stamps it)
         trace.add_span("fetch", t0, t1)
         sub_end = trace.span_end("submit")
         trace.add_span("engine_step", sub_end if sub_end is not None else t0, t1)
-        return finish_output(out, src_frame, trace=trace)
+        return finish_output(out, src_frame, self.safety_checker, trace=trace)
 
     # -- frame_buffer_size > 1: fbs consecutive frames in one step ----------------
 
@@ -183,23 +196,46 @@ class StreamDiffusionPipeline:
         """Resolve a :meth:`submit_batch` handle -> a list of fbs frames, each
         with its source's pts."""
         out = self.engine.fetch(handle)  # [fbs, H, W, 3]
+        if self.safety_checker is not None:
+            out = self.safety_checker(out)
         return [
             finish_output(out[i], src_frames[i] if src_frames else None)
             for i in range(out.shape[0])
         ]
 
 
-def finish_output(out_u8: np.ndarray, src_frame=None, trace=None):
+def finish_output(out_u8: np.ndarray, src_frame=None, safety_checker=None, trace=None):
     """The output contract every serving plane shares (the pipeline, the
-    batch scheduler's sessions, --multipeer's peers): the source frame's
-    pts (and trace) carried to the output, unless HW_ENCODE serving wants
-    bare ndarrays; the ``postprocess`` span when a trace rides along."""
+    batch scheduler's sessions, --multipeer's peers): the safety checker
+    on the pixels, then the source frame's pts (and trace) carried to the
+    output, unless HW_ENCODE serving wants bare ndarrays; the
+    ``postprocess`` span when a trace rides along."""
+    if safety_checker is not None:
+        out_u8 = safety_checker(out_u8)
     if env.hw_encode() or src_frame is None or not hasattr(src_frame, "pts"):
         return out_u8
     if trace is None:
         return wrap_processed(out_u8, src_frame)
     with trace.span("postprocess"):
         return wrap_processed(out_u8, src_frame)
+
+
+def maybe_load_safety_checker(model_id: str, use: bool | None = None, device=None):
+    """The NSFW gate shared by every serving plane, or None when it is off
+    (``use=None``: the SAFETY_CHECKER env).  Weights from the model's
+    snapshot's ``safety_checker/`` subfolder, else from a local snapshot of
+    CompVis/stable-diffusion-safety-checker, else random (flags nothing)."""
+    if use is None:
+        use = env.get_bool("SAFETY_CHECKER", False)
+    if not use:
+        return None
+    from ..models import loader
+    from ..models.safety import SafetyChecker
+
+    snap = registry.resolve_snapshot_dir(model_id)
+    if not snap or not loader.find_safetensors(snap, "safety_checker"):
+        snap = registry.resolve_snapshot_dir("CompVis/stable-diffusion-safety-checker") or snap
+    return SafetyChecker.load(snap, device=device)
 
 
 def coerce_frame(frame, h: int, w: int) -> np.ndarray:

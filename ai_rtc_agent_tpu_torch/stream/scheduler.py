@@ -306,7 +306,7 @@ class ScheduledSession:
                 if handle.occupancy:
                     trace.mark(f"batch_k{handle.occupancy}")
             trace.add_span("fetch", t0, t1)
-        return finish_output(out, src_frame, trace=trace)
+        return finish_output(out, src_frame, self._owner.safety_checker, trace=trace)
 
     def __call__(self, frame):
         return self.fetch(self.submit(frame), frame)
@@ -372,9 +372,11 @@ class BatchScheduler:
                  queue_bound: int | None = None, fetch_timeout: float = 120.0,
                  default_prompt: str = "", guidance_scale: float | None = None,
                  delta: float | None = None, schedule=None, prewarm: bool | None = None,
-                 device=None, graphs: bool | None = None):
+                 device=None, graphs: bool | None = None, safety_checker=None):
         """``graphs`` (default: on a CUDA device): each bucket size steps by
-        replaying its captured CUDA graph; False steps eagerly."""
+        replaying its captured CUDA graph; False steps eagerly.
+        ``safety_checker`` (a models/safety.py ``SafetyChecker``, or None)
+        gates each rider's output at its fetch."""
         self.device = resolve_device(device)
         self.fbs = int(cfg.frame_buffer_size)
         if self.fbs > 1 and cfg.similar_image_filter:
@@ -397,6 +399,7 @@ class BatchScheduler:
                 f"queue_bound ({self.queue_bound}) must hold at least one fbs group "
                 f"({self.fbs}) or no frame could ever dispatch")
         self.fetch_timeout = fetch_timeout
+        self.safety_checker = safety_checker
         # defaults for new sessions; the global update_* methods move them
         self.prompt = default_prompt or DEFAULT_PROMPT
         self.guidance_scale = DEFAULT_GUIDANCE_SCALE if guidance_scale is None else guidance_scale
@@ -463,13 +466,15 @@ class BatchScheduler:
     def from_pipeline(cls, pipeline, **kw) -> "BatchScheduler":
         """A scheduler serving what ``pipeline`` (a StreamDiffusionPipeline)
         serves: its weights, config, prompt encoder, schedule, device, graphs
-        setting and live prompt, guidance and delta as the defaults."""
+        setting, safety checker and live prompt, guidance and delta as the
+        defaults."""
         eng = pipeline.engine
         kw.setdefault("graphs", eng.graphs)
         return cls(eng.models, eng.params, pipeline.config, eng.encode_prompt,
                    model_id=pipeline.model_id, default_prompt=pipeline.prompt,
                    guidance_scale=pipeline.guidance_scale, delta=pipeline.delta,
-                   schedule=eng.schedule, device=pipeline.device, **kw)
+                   schedule=eng.schedule, device=pipeline.device,
+                   safety_checker=pipeline.safety_checker, **kw)
 
     # -- session lifecycle --------------------------------------------------------
 

@@ -106,6 +106,10 @@ Variables read by the port's server:
   BROADCAST_MAX_VIEWERS             viewers admitted per agent (256; 0: uncapped)
   BROADCAST_EDGE_PULL               the router places viewers on edge agents, which
                                     pull one copy from the owner (on)
+  HF_HUB_CACHE                      the local HF snapshot cache the registry looks in
+                                    (~/.cache/huggingface/hub; models/registry.py)
+  SAFETY_CHECKER                    the NSFW gate on every served frame (off;
+                                    models/safety.py, stream/pipeline.py)
 """
 
 from __future__ import annotations

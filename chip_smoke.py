@@ -153,8 +153,9 @@ Phases (each prints its own lines; any failure exits non-zero):
                 trace's kernels against 32 + 1 per bucket step counted; each
                 stage's p50 at k=1 and k=4 beside the ms between bucket
                 steps.  9b: a 2-slot scheduler whose prewarm left out bucket
-                1, with the window closed: a live session's first dispatch
-                captures it, one RETRACE_BREACH on the flight recorder, the
+                1, with the window closed and DEVTEL_RETRACE_MIN_MS at 0: a
+                live session's first dispatch captures it, the only
+                serve-time build, one RETRACE_BREACH on the flight recorder, the
                 webhook (a local sink) and retrace_breaches_total (JSON and
                 Prometheus), attributed to the bucket's key with its capture
                 ms.  9c: served fps and ms between bucket steps at k=1 and
@@ -222,7 +223,37 @@ Phases (each prints its own lines; any failure exits non-zero):
                 pulling, then exists; A's group counts one viewer for B's
                 pull; 8 frames: B's viewers' payload equal to A's viewer's,
                 frames bit for bit; PLI storms at B reach A at most once.
- 12. a "kernels" JSON line (launch counts of phases 4 to 11), then the last
+ 12. sd15     — SD1.5 stream-batch LCM, the reference's own default, at
+                512^2 bf16 with weights from a snapshot (phases 4-11's
+                pipeline and f32 reference are dropped first).  12a: the
+                port's seeded sd15 tree written as an HF snapshot under
+                build/phase12-hub (HF_HUB_CACHE; unet/, text_encoder/, vae/
+                in f32 through tree_to_state_dict and write_safetensors, a
+                tiny tokenizer/ vocab) and two rank-64 LCM-LoRAs (diffusers
+                on every attention projection, kohya on every proj_in/
+                proj_out and again on attn2.to_k); load_model_bundle(
+                lora_dict=...) in f32 and the served pipeline in bf16, every
+                leaf the seeded tree plus the f32 fusion (cast once) bit for
+                bit; load seconds and bytes.  12b: the 4-stage cfg-self ring
+                through a graph BatchScheduler at k = 1, 2 and 4 sessions:
+                one bucket replay = an eager bucket step bit for bit, 32 + 1
+                launches a bucket step, each session held to phase 4's
+                criterion, ms between bucket steps and fps, and a
+                device-only trace of the served run (busy ms a bucket step,
+                idle share).  12c: full CFG (32 launches at 2x the rows, no
+                epilogue) and sequential mode (4 x 32, no epilogue) through
+                graph schedulers at k = 1 and 2, held the same way; then
+                --mode txt2img as the agent hands it to server/sessions.py
+                (startup builds the pipeline from the snapshot and the
+                scheduler), SAFETY_CHECKER=1: one loopback /offer, 32 + 1
+                launches a step, frames equal to a dedicated engine's fed
+                black frames.  12d: the random-weight checker flags nothing;
+                every concept threshold below every score and a second
+                /offer: every frame black; a repeated frame runs the tower
+                once; its ms a frame.  12e: attention at one SD1.5 step's 32
+                launches (D 40/80/160) at B = 4, 8 and 16, each against its
+                plain version, with kernel, plain, SDPA and bound times.
+ 13. a "kernels" JSON line (launch counts of phases 4 to 12), then the last
      line {"ok": true, "device": ...}.
 
 Imports nothing of JAX or of the JAX package.  `python3 chip_smoke.py
@@ -261,6 +292,7 @@ MAIN_ATTENTION = [
 EXTRA_ATTENTION = [
     (1, 1000, 77, 10, 64), (1, 65, 300, 2, 64), (2, 1000, 1000, 8, 40), (1, 256, 77, 2, 160),
     (4, 1024, 1024, 5, 64), (4, 4096, 77, 8, 40), (4, 1024, 77, 8, 80),
+    (4, 256, 256, 8, 160), (4, 64, 64, 8, 160), (4, 4096, 4096, 8, 40),
 ]
 # the bucket step's batches: k sessions x B rows (sd-turbo: 1 row, up to 8
 # sessions; the 4-stage LCM ring: 4 rows, 8 at 2 sessions, 32 at 8), at two
@@ -293,7 +325,9 @@ def edge_attention(key_tile) -> list:
 
 
 def fail(msg: str):
+    """Print the failure on both streams (a caller may keep only one) and exit 1."""
     print(f"FAIL: {msg}", flush=True)
+    print(f"FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
 
 
@@ -923,20 +957,34 @@ GRAPH_PARITY_FRAMES = 6
 
 
 def kernel_trace(torch, fn) -> dict:
-    """Kernel names and counts on the device over one call of ``fn`` (a
-    device-only torch.profiler trace): {"attention", "epilogue", "kernels"}."""
+    """A device-only torch.profiler trace of one call of ``fn``: kernel
+    counts {"attention", "epilogue", "kernels"}, and busy ms (the union of
+    the device intervals), the span from the first one's start to the last
+    one's end and the idle share 1 - busy/span."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    names = [ev.name for ev in prof.events()
-             if ev.device_type == torch.autograd.DeviceType.CUDA and "emcpy" not in ev.name
-             and "emset" not in ev.name]
+    evs = [ev for ev in prof.events() if ev.device_type == torch.autograd.DeviceType.CUDA]
+    spans = sorted((ev.time_range.start, ev.time_range.end) for ev in evs
+                   if ev.time_range.end > ev.time_range.start)
+    if not spans:
+        fail("the profiler recorded no device time")
+    busy, (cur_start, cur_end) = 0.0, spans[0]
+    for start, end in spans[1:]:
+        if start > cur_end:
+            busy += cur_end - cur_start
+            cur_start = start
+        cur_end = max(cur_end, end)
+    busy += cur_end - cur_start
+    span = spans[-1][1] - spans[0][0]
+    names = [ev.name for ev in evs if "emcpy" not in ev.name and "emset" not in ev.name]
     return {"attention": sum("flash_attention_kernel" in n for n in names),
             "epilogue": sum("stream_epilogue_kernel" in n for n in names),
-            "kernels": len(names)}
+            "kernels": len(names), "busy_ms": busy / 1e3, "span_ms": span / 1e3,
+            "idle": 1.0 - busy / span}
 
 
 def _median(xs):
@@ -2695,6 +2743,7 @@ OBS_STAGES = ("submit", "batch_join", "engine_step", "fetch", "postprocess")
 OBS_TURNS = ("defaults", "off", "window", "window", "off", "defaults")  # 9c, A B C C B A
 OBS_PLANES_OFF = {"SLO_ENABLE": 0, "DEVTEL_ENABLE": 0, "FLIGHT_RECORDER": 0}
 OBS_TRACE_DIR = Path(__file__).resolve().parent / "build" / "obs-trace"
+OBS_RETRACE_MIN_MS = 0  # 9b: every unblessed serve-time build is a breach
 
 
 def trace_kernels(path) -> dict:
@@ -2975,9 +3024,12 @@ def phase_obs(torch, card: str, pipe):
 
     async def breach():
         state = {}
-        sessions.configure(state, model_id=pipe.model_id, pipeline=pipe,
-                           provider=LoopbackProvider(), batch_scheduler=sched_b)
-        await sessions.startup(state)
+        # the plane's threshold at 0 ms: a bucket's capture takes 0.2-0.7 s on
+        # the card, so at the 250 ms default whether it breaches is the clock's
+        with _Env(DEVTEL_RETRACE_MIN_MS=OBS_RETRACE_MIN_MS):
+            sessions.configure(state, model_id=pipe.model_id, pipeline=pipe,
+                               provider=LoopbackProvider(), batch_scheduler=sched_b)
+            await sessions.startup(state)
         handler = state["stream_event_handler"]
         handler.webhook_url, handler.token = "http://127.0.0.1/sink", "tok"
         handler._session_factory = Sink
@@ -3004,15 +3056,18 @@ def phase_obs(torch, card: str, pipe):
     epi_total += epi - launches0[1]
     hooks = [p for p in posted if p.get("state") == "RETRACE_BREACH"]
     if (n_breach != 1 or len(events) != 1 or len(hooks) != 1
-            or metrics["retrace_breaches_total"] != 1
+            or metrics.get("retrace_breaches_total") != 1
+            or metrics["devtel_serving_compiles_total"] != 1
             or "retrace_breaches_total 1" not in prom.splitlines()):
         fail(f"obs 9b: want exactly one breach on each surface: plane {n_breach}, events "
              f"{events}, webhooks {hooks}, retrace_breaches_total "
-             f"{metrics.get('retrace_breaches_total')}")
+             f"{metrics.get('retrace_breaches_total')}, serve-time builds "
+             f"{metrics['devtel_serving_compiles_total']}")
     if events[0]["context"] != key or key not in hooks[0]["reason"] or last["context"] != key:
         fail(f"obs 9b: the breach is not attributed to bucket 1's key {key}: {events[0]}")
     say(f"obs 9b: {card} | one serve-time capture of bucket 1 at dispatch, a session live: "
-        f"{last['duration_ms']:.1f} ms, attributed to {key}; one RETRACE_BREACH on the flight "
+        f"{last['duration_ms']:.1f} ms (DEVTEL_RETRACE_MIN_MS={OBS_RETRACE_MIN_MS}), attributed "
+        f"to {key}; the only serve-time build; one RETRACE_BREACH on the flight "
         f"recorder, the webhook ({hooks[0]['reason']!r}) and retrace_breaches_total (JSON and "
         f"prom) | graph-cache builds {metrics['aot_cache_builds_total']}, captures "
         f"{sum(sched_b.graph_status().values())} of {len(sched_b.graph_status())} buckets")
@@ -4155,6 +4210,566 @@ async def broadcast_run(torch, card, pipe):
     return attn, epi
 
 
+# -- phase 12: SD1.5 stream-batch LCM, the reference's own default ---------------------
+
+SD15_ID = "runwayml/stable-diffusion-v1-5"
+SD15_SEED = 12
+SD15_HUB = Path(__file__).resolve().parent / "build" / "phase12-hub"
+SD15_RING_K = (1, 2, 4)  # 12b: sessions (4, 8 and 16 UNet rows a bucket step)
+SD15_FRAMES = 36  # 12b/12c: frames per session at each k (phase 6a's window)
+SD15_FILL = 4  # of them, each session's first outputs: outside the steady window
+SD15_PARITY = 8  # of them, each session's first outputs: held to dedicated engines
+SD15_TRACE_FRAMES = 12  # 12b/12c: frames per session in the traced run
+MODE_K = (1, 2)  # 12c: sessions in each mode
+TXT_FRAMES = 6  # 12c/12d: frames viewed through each /offer session
+LORA_RANK = 64
+# SD1.5 at 512^2, 8 heads: (Lq, Lk, D, launches per UNet pass); 32 in all
+SD15_ATTENTION = [
+    (4096, 4096, 40, 5), (4096, 77, 40, 5), (1024, 1024, 80, 5), (1024, 77, 80, 5),
+    (256, 256, 160, 5), (256, 77, 160, 5), (64, 64, 160, 1), (64, 77, 160, 1),
+]
+SD15_ATTENTION_B = (4, 8, 16)  # the ring's rows at k = 1, 2 and 4 sessions
+# per mode: (attention, epilogue) launches a bucket step
+MODE_LAUNCHES = {"ring": (32, 1), "full": (32, 0), "sequential": (128, 0), "txt2img": (32, 1)}
+
+
+def sd15_snapshot(torch, np, seeded: dict, snap: Path, model_id: str = SD15_ID) -> dict:
+    """Write ``seeded`` (the port's f32 tree of ``model_id``) as an HF snapshot at
+    ``snap`` through the port's tree_to_state_dict and write_safetensors:
+    unet/, text_encoder/ and vae/ in f32, and a tokenizer/ vocab of single
+    characters (every lowercase prompt gets ids).  -> {piece: bytes}."""
+    from ai_rtc_agent_tpu_torch.models import loader as LD
+    from ai_rtc_agent_tpu_torch.models import registry
+
+    unet_cfg, clip_cfg, taesd_cfg = registry._model_configs(registry.family_of(model_id))
+    sizes = {}
+    for sub, name, km, tree in (
+        ("unet", "diffusion_pytorch_model.safetensors", LD.unet_key_map(unet_cfg), seeded["unet"]),
+        ("text_encoder", "model.safetensors", LD.clip_key_map(clip_cfg), seeded["clip"]),
+        ("vae", "diffusion_pytorch_model.safetensors", LD.taesd_key_map(taesd_cfg),
+         seeded["taesd"]),
+    ):
+        (snap / sub).mkdir(parents=True, exist_ok=True)
+        LD.write_safetensors(str(snap / sub / name), LD.tree_to_state_dict(tree, km))
+        sizes[sub] = (snap / sub / name).stat().st_size
+    chars = [chr(c) for c in range(ord("a"), ord("z") + 1)]
+    vocab = {"<|startoftext|>": 0, "<|endoftext|>": 1}
+    for piece in chars + [c + "</w>" for c in chars]:
+        vocab[piece] = len(vocab)
+    (snap / "tokenizer").mkdir(exist_ok=True)
+    (snap / "tokenizer" / "vocab.json").write_text(json.dumps(vocab))
+    (snap / "tokenizer" / "merges.txt").write_text("#version: 0.2\n")
+    return sizes
+
+
+def lcm_lora_files(torch, np, seeded_unet: dict, root: Path, model_id: str = SD15_ID) -> tuple:
+    """Two synthetic LCM-LoRAs of rank LORA_RANK from a numpy seed: one in
+    the diffusers (peft) format on every attention projection (to_q, to_k,
+    to_v, to_out.0 of attn1 and attn2), one in the kohya format on every
+    proj_in/proj_out (1x1 convs) and again on every attn2.to_k (two LoRAs
+    on one kernel, fused in order).  -> (lora_dict {path: scale}, the
+    factors per file: [(tree path, down, up, alpha)])."""
+    import re
+
+    from ai_rtc_agent_tpu_torch.models import loader as LD
+    from ai_rtc_agent_tpu_torch.models import registry
+
+    km = LD.unet_key_map(registry._model_configs(registry.family_of(model_id))[0])
+    rng = np.random.default_rng(SD15_SEED)
+    r = LORA_RANK
+
+    def factors(module):
+        path = km[module + ".weight"]
+        node = seeded_unet
+        for key in path:
+            node = node[key]
+        if node.ndim == 2:  # [in, out]
+            cin, cout, tap = node.shape[0], node.shape[1], ()
+        else:  # OIHW 1x1
+            cout, cin, tap = node.shape[0], node.shape[1], (1, 1)
+        down = (rng.standard_normal((r, cin) + tap) / math.sqrt(cin)).astype(np.float32)
+        up = (rng.standard_normal((cout, r) + tap) * 0.05 / math.sqrt(r)).astype(np.float32)
+        return path, down, up
+
+    modules = [k[: -len(".weight")] for k in km]
+    attn = [m for m in modules if re.search(r"\.attn[12]\.to_(q|k|v|out\.0)$", m)]
+    proj = [m for m in modules if re.search(r"\.proj_(in|out)$", m)]
+    twice = [m for m in attn if m.endswith("attn2.to_k")]
+    diffusers, kohya, plan = {}, {}, {}
+    plan["diffusers"] = []
+    for m in attn:
+        path, down, up = factors(m)
+        diffusers[f"unet.{m}.lora_A.weight"] = down
+        diffusers[f"unet.{m}.lora_B.weight"] = up
+        plan["diffusers"].append((path, down, up, None))
+    plan["kohya"] = []
+    for m in proj + twice:
+        path, down, up = factors(m)
+        base = "lora_unet_" + m.replace(".", "_")
+        kohya[f"{base}.lora_down.weight"] = down
+        kohya[f"{base}.lora_up.weight"] = up
+        kohya[f"{base}.alpha"] = np.array(r / 2, np.float32)
+        plan["kohya"].append((path, down, up, r / 2))
+    paths = {}
+    for name, sd in (("diffusers", diffusers), ("kohya", kohya)):
+        paths[name] = str(root / f"lcm-lora-{name}.safetensors")
+        LD.write_safetensors(paths[name], sd)
+    scales = {"diffusers": 1.0, "kohya": 0.5}
+    return {paths[n]: scales[n] for n in ("diffusers", "kohya")}, [
+        (scales[n], plan[n]) for n in ("diffusers", "kohya")]
+
+
+def expected_unet(torch, np, seeded_unet: dict, plans) -> dict:
+    """{tree path: the f32 kernel} of every LoRA target: the seeded kernel
+    plus each LoRA in order, as plain f32 arithmetic on the host
+    (models/lora.py ``lora_delta``, scale * alpha / r)."""
+    from ai_rtc_agent_tpu_torch.models import lora as LR
+
+    want = {}
+    for scale, plan in plans:
+        for path, down, up, alpha in plan:
+            if path not in want:
+                node = seeded_unet
+                for key in path:
+                    node = node[key]
+                want[path] = node.float().cpu().numpy()
+            s = float(scale) * (float(alpha) / down.shape[0] if alpha is not None else 1.0)
+            want[path] = want[path] + s * LR.lora_delta(want[path].shape, down, up)
+    return want
+
+
+def _tree_paths(tree, path=()):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _tree_paths(v, path + (k,))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _tree_paths(v, path + (i,))
+    elif tree is not None:
+        yield path, tree
+
+
+def hold_loaded(torch, label: str, got: dict, seeded: dict, want_unet: dict, dtype) -> int:
+    """Every leaf of ``got`` bit for bit: the seeded leaf, or for a LoRA
+    target the expected fused kernel, each cast once to ``dtype``.
+    -> leaves checked."""
+    seeded_leaves = dict(_tree_paths(seeded))
+    n = 0
+    for path, leaf in _tree_paths(got):
+        if path[0] == "unet" and path[1:] in want_unet:
+            want = torch.from_numpy(want_unet[path[1:]]).to(leaf.device)
+        else:
+            want = seeded_leaves[path]
+        if leaf.shape != want.shape or not torch.equal(leaf, want.to(dtype)):
+            fail(f"{label}: leaf {'/'.join(map(str, path))} is not the seeded tree plus the "
+                 "f32 fusion, cast once")
+        n += 1
+    return n
+
+
+def replay_equals_eager(torch, np, label: str, sched, frames: np.ndarray, slots: list) -> str:
+    """One bucket step of the scheduler's captured graph against an eager
+    bucket step over a copy of the same states, frames and slots: the
+    outputs and every state leaf bit for bit.  The states are put back
+    after, under the step lock."""
+    from ai_rtc_agent_tpu_torch.parallel.multipeer import BucketStep
+    from ai_rtc_agent_tpu_torch.stream.engine import install_state
+    from ai_rtc_agent_tpu_torch.tree import tree_map
+
+    k = sched._bucket_for(len(slots))
+    with sched._step_lock:
+        saved = tree_map(lambda a: a.clone(), sched.states)
+        copy = tree_map(lambda a: a.clone(), sched.states)
+        eager = BucketStep(sched._template.models, sched.cfg, sched.device, graphs=False)
+        want = eager(sched.params, copy, frames, slots, k).clone()
+        got = sched._bucket(sched.params, sched.states, frames, slots, k).clone()
+        _sync(torch, sched.device)
+        same_out = torch.equal(got, want)
+        same_state = all(torch.equal(a, b) for (_, a), (_, b) in
+                         zip(_tree_paths(sched.states), _tree_paths(copy)))
+        install_state(sched.states, saved)
+    if not (same_out and same_state):
+        diff = (got.int() - want.int()).abs().max().item()
+        fail(f"{label}: the bucket replay differs from the eager bucket step (outputs equal "
+             f"{same_out}, max {diff} levels; state equal {same_state})")
+    return f"replay = eager bit for bit (bucket {k}, outputs and state)"
+
+
+def phase_sd15(torch, card: str) -> tuple:
+    """Phase 12: SD1.5 stream-batch LCM with weights from a snapshot and a
+    fused LCM-LoRA (12a), the ring on the captured bucket steps at k = 1, 2
+    and 4 (12b), full CFG, sequential mode and txt2img (12c), the safety
+    checker on the served path (12d), attention at SD1.5's shapes (12e).
+    -> the attention and epilogue launches of 12b and 12c's steps."""
+    import shutil
+
+    import numpy as np
+
+    from ai_rtc_agent_tpu_torch.models import registry
+    from ai_rtc_agent_tpu_torch.models import tokenizer as TK
+    from ai_rtc_agent_tpu_torch.stream.pipeline import StreamDiffusionPipeline
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(SD15_HUB, ignore_errors=True)
+    os.environ["HF_HUB_CACHE"] = str(SD15_HUB)
+    snap = SD15_HUB / f"models--{SD15_ID.replace('/', '--')}" / "snapshots" / "phase12"
+    total = [0, 0]
+    try:
+        # -- 12a: the snapshot, the LoRAs, the load ---------------------------------------
+        t = time.perf_counter()
+        seeded = registry.init_params(registry.family_of(SD15_ID), seed=SD15_SEED, device="cuda")
+        sizes = sd15_snapshot(torch, np, seeded, snap)
+        lora_dict, plans = lcm_lora_files(torch, np, seeded["unet"], SD15_HUB)
+        write_s = time.perf_counter() - t
+        lora_bytes = sum(os.path.getsize(p) for p in lora_dict)
+        t = time.perf_counter()
+        ref = registry.load_model_bundle(SD15_ID, attn_impl="plain", lora_dict=lora_dict)
+        _sync(torch, ref.device)
+        load_s = time.perf_counter() - t
+        if not ref.loaded_real_weights or not isinstance(
+                TK.find_clip_tokenizer(str(snap)), TK.CLIPBPETokenizer):
+            fail("sd15 12a: the snapshot's weights or its vocab did not load")
+        want_unet = expected_unet(torch, np, seeded["unet"], plans)
+        n32 = hold_loaded(torch, "sd15 12a f32", ref.params, seeded, want_unet, torch.float32)
+        proj = ref.params["unet"]["down_blocks"][0]["attentions"][0]["proj_in"]["kernel"]
+        t = time.perf_counter()
+        pipe = StreamDiffusionPipeline(SD15_ID, lora_dict=lora_dict, seed=2)
+        _sync(torch, pipe.device)
+        pipe_s = time.perf_counter() - t
+        n16 = hold_loaded(torch, f"sd15 12a {pipe.config.dtype}", pipe.bundle.params, seeded,
+                          want_unet, pipe.config.torch_dtype)
+        del seeded
+        targets = sum(len(p) for _, p in plans)
+        say(f"sd15 12a: {card} | snapshot {SD15_ID} written from the seeded sd15 tree in "
+            f"{write_s:.1f}s (f32 bytes: " + ", ".join(f"{k} {v}" for k, v in sizes.items())
+            + f"; two LCM-LoRAs of rank {LORA_RANK}, diffusers on {len(plans[0][1])} attention "
+            f"projections and kohya on {len(plans[1][1])} proj_in/proj_out/attn2.to_k kernels, "
+            f"{lora_bytes} B) | load_model_bundle(lora_dict=...) f32 in {load_s:.1f}s: "
+            f"{n32} leaves = seeded + the f32 fusion ({targets} LoRA pairs) bit for bit, proj_in "
+            f"{tuple(proj.shape)} (a 1x1 conv) | the served pipeline (load, fuse, one bf16 cast, "
+            f"capture) in {pipe_s:.1f}s: {n16} leaves = the same, cast once, bit for bit")
+        attn, epi = phase_sd15_ring(torch, np, card, pipe, ref)
+        total[0] += attn
+        total[1] += epi
+        attn, epi = phase_sd15_modes(torch, np, card, pipe, ref)
+        total[0] += attn
+        total[1] += epi
+        del ref, pipe
+        attn, epi = phase_sd15_served(torch, np, card)
+        total[0] += attn
+        total[1] += epi
+        phase_sd15_attention(torch, card)
+    finally:
+        shutil.rmtree(SD15_HUB, ignore_errors=True)
+    say(f"sd15: phase 12 took {time.perf_counter() - t_phase:.1f} s")
+    return tuple(total)
+
+
+def _count(label: str, before: tuple, steps: int, per_step: tuple) -> tuple:
+    a, e = (x - y for x, y in zip(_launches(), before))
+    say(f"{label}: launches over {steps} bucket steps: attention {a}, epilogue {e} "
+        f"({per_step[0]} + {per_step[1]} a step)")
+    if steps < 1 or (a, e) != (per_step[0] * steps, per_step[1] * steps):
+        fail(f"{label}: expected {per_step[0] * steps} attention and {per_step[1] * steps} "
+             "epilogue launches")
+    return a, e
+
+
+def sd15_run(torch, np, label: str, card: str, sched, sess, frames, make_ded, per_step: tuple,
+             what: str) -> tuple:
+    """One run of ``sess`` through ``sched``'s captured bucket steps: a replay
+    against the eager step, then SD15_FRAMES frames a session with the
+    launches counted (``per_step`` (attention, epilogue) a bucket step),
+    each session's first SD15_PARITY outputs held to phase 4's criterion
+    against ``make_ded(row)``, the steady window past each session's first
+    SD15_FILL outputs on the host clock, and a device-only trace of
+    SD15_TRACE_FRAMES frames a session whose kernels must be ``per_step``
+    a bucket step too.  -> the launches counted."""
+    dev = sched.device
+    rows = [session_row(sched.states, s.slot) for s in sess]
+    eq = replay_equals_eager(torch, np, label, sched, np.stack([f[0] for f in frames[:len(sess)]]),
+                             [s.slot for s in sess])
+    _sync(torch, dev)
+    _reset_launches()
+    steps0, before = sched.steps_total, _launches()
+    run = drive_sessions(torch, sess, frames, SD15_FRAMES)
+    counted = _count(label, before, sched.steps_total - steps0, per_step)
+    held = []
+    for i, s in enumerate(sess):
+        ded = make_ded(rows[i])
+        for f in frames[i][:SD15_PARITY]:
+            ded(f)
+        held.append(f"session {i} (slot {s.slot}): " + hold_to_references(
+            np, f"{label} session {i}", run.outs[i][:SD15_PARITY], ded))
+    step_ms, nsteps = run.steady_step_ms(SD15_FILL)
+    fps = run.steady_fps(SD15_FILL)
+    trace = kernel_trace(torch, lambda: drive_sessions(
+        torch, sess, [f[:SD15_TRACE_FRAMES] for f in frames], SD15_TRACE_FRAMES))
+    traced = trace["attention"] // per_step[0]
+    say(f"{label}: {card} | {eq} | {what}; steady window (outputs {SD15_FILL + 1}-"
+        f"{SD15_FRAMES} of each session): {step_ms:.2f} ms between bucket steps over {nsteps} "
+        f"steps, aggregate {sum(fps):.2f} fps, per session {min(fps):.2f}-{max(fps):.2f} fps | "
+        f"device trace of {SD15_TRACE_FRAMES} frames a session ({traced} bucket steps): busy "
+        f"{trace['busy_ms'] / max(traced, 1):.3f} ms a bucket step, idle share "
+        f"{trace['idle']:.3f} of {trace['span_ms']:.1f} ms, {trace['kernels']} kernels "
+        f"(attention {trace['attention']}, epilogue {trace['epilogue']}) | first "
+        f"{SD15_PARITY} outputs of each " + "; ".join(held))
+    if not traced or (trace["attention"], trace["epilogue"]) != (per_step[0] * traced,
+                                                                  per_step[1] * traced):
+        fail(f"{label}: the trace must show {per_step[0]} attention and {per_step[1]} epilogue "
+             "kernels a bucket step")
+    return counted
+
+
+def phase_sd15_ring(torch, np, card: str, pipe, ref) -> tuple:
+    """12b: the 4-stage cfg-self LCM ring through a graph BatchScheduler at
+    k = 1, 2 and 4 sessions."""
+    from ai_rtc_agent_tpu_torch.stream.scheduler import BatchScheduler
+
+    b, cfg, dev = pipe.bundle, pipe.config, pipe.device
+    t = time.perf_counter()
+    sched = BatchScheduler.from_pipeline(pipe, max_sessions=max(SD15_RING_K))
+    say(f"sd15 12b: {SD15_ID} {cfg.height}x{cfg.width} {cfg.dtype} scheduler={cfg.scheduler} "
+        f"cfg_type={cfg.cfg_type} t_index_list={cfg.t_index_list} fused_epilogue="
+        f"{cfg.use_fused_epilogue}, buckets {sched._bucket_sizes} captured {sched.graph_status()} "
+        f"in {time.perf_counter() - t:.1f}s")
+    frames = [_frames(np, SD15_FRAMES, seed=120 + i, size=cfg.height)
+              for i in range(max(SD15_RING_K))]
+    total = [0, 0]
+    try:
+        for k in SD15_RING_K:
+            sess = [sched.claim(f"sd15-{k}-{i}", prompt=SESSION_PROMPTS[i], seed=300 + i)
+                    for i in range(k)]
+            counted = sd15_run(
+                torch, np, f"sd15 12b k={k}", card, sched, sess, frames,
+                lambda row: Dedicated(torch, b.stream_models, b.params, cfg, b.encode_prompt, ref,
+                                      row, dev),
+                MODE_LAUNCHES["ring"], f"{k * cfg.batch_size} UNet rows a bucket step")
+            for i, x in enumerate(counted):
+                total[i] += x
+            for s in sess:
+                s.release()
+    finally:
+        sched.close()
+    return tuple(total)
+
+
+def phase_sd15_modes(torch, np, card: str, pipe, ref) -> tuple:
+    """12c: full CFG and sequential mode through graph BatchSchedulers over
+    the served weights, at k = 1 and 2 sessions."""
+    from ai_rtc_agent_tpu_torch.stream.engine import fused_ok
+    from ai_rtc_agent_tpu_torch.stream.scheduler import BatchScheduler
+
+    eng, dev = pipe.engine, pipe.device
+    total = [0, 0]
+    for mode, overrides in (("full", dict(cfg_type="full")),
+                            ("sequential", dict(use_denoising_batch=False))):
+        cfg = replace(pipe.config, **overrides)
+        if fused_ok(cfg):
+            fail(f"sd15 12c {mode}: must run the composed ops, not the epilogue kernel")
+        t = time.perf_counter()
+        sched = BatchScheduler(eng.models, eng.params, cfg, eng.encode_prompt, model_id=SD15_ID,
+                               max_sessions=max(MODE_K), schedule=eng.schedule, device=dev)
+        say(f"sd15 12c {mode}: cfg_type={cfg.cfg_type} use_denoising_batch="
+            f"{cfg.use_denoising_batch}, buckets {sched._bucket_sizes} captured "
+            f"{sched.graph_status()} in {time.perf_counter() - t:.1f}s")
+        frames = [_frames(np, SD15_FRAMES, seed=140 + i, size=cfg.height)
+                  for i in range(max(MODE_K))]
+        try:
+            for k in MODE_K:
+                sess = [sched.claim(f"{mode}-{k}-{i}", prompt=SESSION_PROMPTS[i], seed=400 + i)
+                        for i in range(k)]
+                counted = sd15_run(
+                    torch, np, f"sd15 12c {mode} k={k}", card, sched, sess, frames,
+                    lambda row: Dedicated(torch, eng.models, eng.params, cfg, eng.encode_prompt,
+                                          ref, row, dev),
+                    MODE_LAUNCHES[mode], f"{k} session(s)")
+                for i, x in enumerate(counted):
+                    total[i] += x
+                for s in sess:
+                    s.release()
+        finally:
+            sched.close()
+    return tuple(total)
+
+
+def phase_sd15_served(torch, np, card: str) -> tuple:
+    """12c txt2img and 12d: ``--mode txt2img`` as the agent passes it to the
+    session layer (server/sessions.py ``configure(mode=...)``; startup
+    builds the pipeline from the snapshot and the batch scheduler over it),
+    with SAFETY_CHECKER=1 (random weights): one loopback /offer session
+    whose frames must not depend on the pixels pushed, no frame flagged;
+    then the checker's concept thresholds below every score and a second
+    /offer: every frame black; the memo; the checker's ms a frame."""
+    from ai_rtc_agent_tpu_torch.models import registry
+    from ai_rtc_agent_tpu_torch.server import sessions
+    from ai_rtc_agent_tpu_torch.server.signaling import LoopbackProvider, make_loopback_offer
+    from ai_rtc_agent_tpu_torch.utils import env
+
+    saved_env = {k: os.environ.get(k) for k in
+                 ("SAFETY_CHECKER", "BATCHSCHED_MAX_SESSIONS", "WARMUP_FRAMES", "DROP_FRAMES")}
+    os.environ.update(SAFETY_CHECKER="1", BATCHSCHED_MAX_SESSIONS="1", WARMUP_FRAMES="0",
+                      DROP_FRAMES="0")
+    depth = env.pipeline_depth()
+    # the snapshot without the LoRA, f32: the served pipeline's reference
+    ref = registry.load_model_bundle(SD15_ID, attn_impl="plain")
+    size = registry.default_stream_config(SD15_ID).height
+    frames = _frames(np, TXT_FRAMES + depth - 1, seed=160, size=size)
+    blank_frames = [np.zeros_like(f) for f in frames]
+    total = [0, 0]
+
+    async def one_offer(state, label):
+        """One /offer session: TXT_FRAMES viewed, its launches counted once
+        every pushed frame has been stepped; -> (frames, state row, pc)."""
+        known = set(state["pcs"])
+        r = await sessions.offer(state, {"room_id": label, "offer": {
+            "sdp": make_loopback_offer(), "type": "offer"}})
+        if r.status != 200:
+            fail(f"{label}: /offer answered {r.status}")
+        pc = next(iter(state["pcs"] - known))
+        sched = state["batch_scheduler"]
+        row = session_row(sched.states, sched.active.index(True))
+        _sync(torch, sched.device)
+        _reset_launches()
+        steps0, before = sched.steps_total, _launches()
+        views, _ = await exchange(pc, pc.out_tracks[0], frames, 0, TXT_FRAMES)
+        deadline = time.perf_counter() + 30
+        while sched.steps_total - steps0 < len(frames) and time.perf_counter() < deadline:
+            await asyncio.sleep(0.01)
+        _sync(torch, sched.device)
+        a, e = _count(label, before, sched.steps_total - steps0, MODE_LAUNCHES["txt2img"])
+        total[0] += a
+        total[1] += e
+        await pc.close()
+        await asyncio.sleep(0)
+        await asyncio.gather(*state["releasing"])
+        return [v.to_ndarray() for v in views], row
+
+    async def serve():
+        state = {}
+        sessions.configure(state, model_id=SD15_ID, mode="txt2img", provider=LoopbackProvider())
+        t = time.perf_counter()
+        await sessions.startup(state)
+        built = time.perf_counter() - t
+        pipe, sched = state["pipeline"], state["batch_scheduler"]
+        checker = pipe.safety_checker
+        if pipe.config.mode != "txt2img" or sched is None or sched.safety_checker is not checker \
+                or checker is None or checker.loaded_real_weights:
+            fail("sd15 12c txt2img: the session layer did not build a txt2img pipeline and "
+                 "scheduler with the random-weight safety checker")
+        say(f"sd15 12c txt2img: sessions.configure(mode='txt2img') + startup in {built:.1f}s: "
+            f"config mode={pipe.config.mode} cfg_type={pipe.config.cfg_type}, the pipeline's "
+            f"weights from the snapshot (loaded_real_weights={pipe.bundle.loaded_real_weights}), "
+            f"SafetyChecker on {checker.device} (random weights), buckets "
+            f"{sched.graph_status()}")
+        served, row = await one_offer(state, "sd15 12c txt2img")
+        # 12d (ii): every concept threshold below every score
+        checker.params["concept_embeds_weights"].fill_(-2.0)
+        checker._memo_in = None
+        blacked, _ = await one_offer(state, "sd15 12d thresholds below every score")
+        await sessions.shutdown(state)
+        return pipe, checker, served, row, blacked
+
+    try:
+        pipe, checker, served, row, blacked = asyncio.run(serve())
+    finally:
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    b = pipe.bundle
+    ded = Dedicated(torch, b.stream_models, b.params, pipe.config, b.encode_prompt, ref, row,
+                    pipe.device)
+    for f in blank_frames[:TXT_FRAMES]:  # other pixels: txt2img reads none
+        ded(f)
+    diff = np.stack([np.abs(s.astype(np.int16) - d) for s, d in zip(served, ded.outs)])
+    black = [bool((s == 0).all()) for s in served]
+    say(f"sd15 12c txt2img: {card} | {TXT_FRAMES} frames viewed through /offer vs a dedicated "
+        f"engine from the same state fed black frames: max |diff| {diff.max()} levels, mean "
+        f"{diff.mean():.4f}; " + hold_to_references(np, "sd15 12c txt2img", served, ded)
+        + f" | 12d: frames flagged by the random-weight checker: {sum(black)} of {len(black)}")
+    if diff.max() > 1:
+        fail("sd15 12c txt2img: the served frames depend on the pixels pushed")
+    if any(black):
+        fail("sd15 12d: the random-weight safety checker flagged a frame")
+    if not all((f == 0).all() for f in blacked) or len(blacked) != TXT_FRAMES:
+        fail("sd15 12d: with every threshold below every score, a served frame was not black")
+    # 12d (iii): the memo and the checker's cost a frame
+    calls = []
+    real = checker.flags
+    checker.flags = lambda batch: calls.append(1) or real(batch)
+    checker._memo_in = None
+    checker(served[0])
+    checker(served[0])
+    memo_calls = len(calls)
+    checker.flags = real
+    _sync(torch, checker.device)
+    t = time.perf_counter()
+    for s in served:
+        checker.flags(s[None])
+    ms = (time.perf_counter() - t) * 1e3 / len(served)
+    t = time.perf_counter()
+    for s in served:  # the crossing alone: the frame to the card, as flags() sends it
+        torch.from_numpy(np.ascontiguousarray(s[None])).to(checker.device)
+        _sync(torch, checker.device)
+    h2d = (time.perf_counter() - t) * 1e3 / len(served)
+    trace = kernel_trace(torch, lambda: [checker.flags(s[None]) for s in served])
+    say(f"sd15 12d: {card} | second /offer with every concept threshold at -2: {len(blacked)} of "
+        f"{len(blacked)} frames black | the same frame twice: the tower ran {memo_calls} time(s) "
+        f"| the checker (ViT-L/14 f32, the 512^2 frame to the card, resize, tower, heads, flags "
+        f"back; host clock, synchronous) {ms:.2f} ms a frame over {len(served)} frames: the "
+        f"frame's crossing {h2d:.3f} ms, device busy {trace['busy_ms'] / len(served):.3f} ms "
+        f"({trace['kernels'] / len(served):.0f} kernels a frame, idle share {trace['idle']:.3f} "
+        f"of the traced span: the host's launches)")
+    if memo_calls != 1:
+        fail("sd15 12d: a repeated frame ran the tower again")
+    return tuple(total)
+
+
+def phase_sd15_attention(torch, card: str):
+    """12e: the attention kernel at one SD1.5 step's 32 launches (8 shapes,
+    8 heads, D 40/80/160) at B = 4, 8 and 16 rows: each checked against its
+    plain version (ops/kernels/tolerance.py), timed as phase 3 times it,
+    beside SDPA and the bound; the sums over one step's launches."""
+    import torch.nn.functional as F
+
+    from ai_rtc_agent_tpu_torch.ops.kernels import attention as KA
+    from ai_rtc_agent_tpu_torch.ops.kernels import tolerance
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    for b in SD15_ATTENTION_B:
+        sums = dict.fromkeys(("ms", "plain_ms", "sdpa_ms", "bound_ms"), 0.0)
+        worst = 0.0
+        for lq, lk, d, per_step in SD15_ATTENTION:
+            h = 8
+            q, k, v = (torch.randn((b, n, h, d), generator=gen, device="cuda").to(torch.bfloat16)
+                       for n in (lq, lk, lk))
+            out = KA.flash_attention(q, k, v)
+            torch.cuda.synchronize()
+            e = tolerance.attention_error(out, KA.attention_plain(q, k, v))
+            label = f"sd15 12e attention B={b} Lq={lq} Lk={lk} H={h} D={d}"
+            if not e["ok"]:
+                fail(f"{label}: over tolerance ({e})")
+            worst = max(worst, e["max_abs"] / max(e["tol_abs"], 1e-30))
+            reps = 10 if lq * lk >= 1 << 20 else 50
+            ms = time_ms(torch, lambda: KA.flash_attention(q, k, v), reps)
+            plain = time_ms(torch, lambda: KA.attention_plain(q, k, v), max(3, reps // 5))
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            lib = time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt), reps)
+            flops = 4.0 * b * h * lq * lk * d
+            bms, by = bound(flops, PEAK_BF16_FLOPS, 2.0 * (2 * q.numel() + k.numel() + v.numel()))
+            say(f"{label}: max_abs_err {e['max_abs']:.3e} (tol {e['tol_abs']:.3e}), rel L2 "
+                f"{e['rel_l2']:.3e} | kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain "
+                f"{plain:.4f} ms, sdpa {lib:.4f} ms, bound {bms:.4f} ms ({by}), x{per_step}/step")
+            for key, val in (("ms", ms), ("plain_ms", plain), ("sdpa_ms", lib), ("bound_ms", bms)):
+                sums[key] += per_step * val
+            del q, k, v, out
+        say(f"sd15 12e attention per SD1.5 step (32 launches, B={b}): {card} | kernel "
+            f"{sums['ms']:.4f} ms, plain {sums['plain_ms']:.4f} ms, sdpa {sums['sdpa_ms']:.4f} ms, "
+            f"bound {sums['bound_ms']:.4f} ms; worst max_abs_err {worst:.2f} of its tolerance")
+
+
 def _to_cpu(v):
     return {k: _to_cpu(x) for k, x in v.items()} if isinstance(v, dict) else v.cpu()
 
@@ -4189,10 +4804,12 @@ def main():
     obs_attn, obs_epi = phase_obs(torch, card, pipe)
     fleet_attn, fleet_epi = phase_fleet(torch, card, pipe, ref_bundle)
     broadcast_attn, broadcast_epi = phase_broadcast(torch, card, pipe)
+    del pipe, ref_bundle
+    sd15_attn, sd15_epi = phase_sd15(torch, card)
     attn_launches += (serve_attn + sessions_attn + faults_attn + native_attn + obs_attn
-                      + fleet_attn + broadcast_attn)
+                      + fleet_attn + broadcast_attn + sd15_attn)
     epi_launches += (serve_epi + sessions_epi + faults_epi + native_epi + obs_epi + fleet_epi
-                     + broadcast_epi)
+                     + broadcast_epi + sd15_epi)
     kernels = [
         {
             "name": "flash_attention", "route": "cuda",

@@ -1,0 +1,97 @@
+#!/usr/bin/env python3
+"""Phases of ``chip_smoke.py`` over and over in one process on the card, to
+find a check that fails only now and then.
+
+    python3 scripts/smoke_loop.py [--loops N] [--phases faults,native,obs,fleet]
+                                  [--once faults] [--busy N]
+
+Phases 1, 2, 4 and 5 run once (the kernels, the pipeline, phase 5's served
+rate for phase 8); then each loop runs the chosen phases in turn: ``faults``
+(7), ``native`` (8), ``obs`` (9), ``fleet`` (10).  A failed check prints its
+``FAIL:`` line and the loop goes on with the next phase.  ``--once`` names
+phases run in the first loop only; ``--busy N`` keeps N host processes
+spinning throughout the loops, as a host shared with other work would.  The
+last line is the JSON list of failures, ``[loop, phase, message]``; the exit
+code is 1 if there was any.  Needs one NVIDIA card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+import traceback
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+
+
+class CheckFailed(Exception):
+    pass
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--loops", type=int, default=5)
+    ap.add_argument("--phases", default="faults,native,obs,fleet")
+    ap.add_argument("--once", default="", help="phases run in the first loop only")
+    ap.add_argument("--busy", type=int, default=0, help="host processes kept spinning")
+    args = ap.parse_args()
+
+    sys.path.insert(0, str(ROOT))
+    import torch
+
+    import chip_smoke as cs
+
+    def fail(msg: str):
+        print(f"FAIL: {msg}", flush=True)
+        raise CheckFailed(msg)
+
+    cs.fail = fail
+    card = cs.phase_device(torch)
+    cs.phase_build(torch)
+    pipe, ref_bundle, _, _ = cs.phase_main(torch, card)
+    _, _, fps = cs.phase_serve(torch, card, pipe)
+    run = {
+        "faults": lambda: cs.phase_faults(torch, card, pipe, ref_bundle),
+        "native": lambda: cs.phase_native(torch, card, pipe, fps),
+        "obs": lambda: cs.phase_obs(torch, card, pipe),
+        "fleet": lambda: cs.phase_fleet(torch, card, pipe, ref_bundle),
+    }
+    phases = [p for p in args.phases.split(",") if p]
+    once = {p for p in args.once.split(",") if p}
+    unknown = [p for p in phases + sorted(once) if p not in run]
+    if unknown:
+        ap.error(f"unknown phase(s) {unknown}; known: {sorted(run)}")
+    busy = [subprocess.Popen([sys.executable, "-c", "while True: pass"])
+            for _ in range(args.busy)]
+    failures = []
+    try:
+        for i in range(args.loops):
+            for name in phases:
+                if name in once and i > 0:
+                    continue
+                t = time.perf_counter()
+                try:
+                    run[name]()
+                    verdict = "ok"
+                except CheckFailed as e:
+                    failures.append([i, name, str(e)])
+                    verdict = "FAILED"
+                except Exception as e:  # noqa: BLE001 - recorded, and the loop goes on
+                    traceback.print_exc()
+                    failures.append([i, name, repr(e)])
+                    verdict = "RAISED"
+                print(f"loop {i} {name} {verdict} in {time.perf_counter() - t:.1f} s", flush=True)
+    finally:
+        for p in busy:
+            p.kill()
+            p.wait()
+    print(json.dumps(failures), flush=True)
+    return 1 if failures else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -55,6 +55,8 @@ def _edges():
 @pytest.mark.parametrize("b,lq,lk,h,d", [
     (1, 4096, 4096, 5, 64), (1, 1024, 77, 10, 64), (2, 1000, 77, 8, 40), (1, 64, 64, 2, 160),
     (4, 1024, 1024, 5, 64), (4, 300, 77, 2, 64), (4, 1024, 77, 8, 80),
+    # SD1.5's own step shapes (8 heads): D=160 at Lq 256 and 64, D=40 self at 4096
+    (4, 256, 256, 8, 160), (4, 64, 64, 8, 160), (4, 4096, 4096, 8, 40), (16, 4096, 77, 8, 40),
 ] + _edges())
 def test_attention_kernel_matches_plain(cuda, b, lq, lk, h, d):
     gen = torch.Generator(device=cuda).manual_seed(0)
@@ -934,3 +936,70 @@ def test_the_quarantine_capture_does_not_wait_behind_a_stalled_step(cuda):
     finally:
         guard.close()
         sched.close()
+
+
+# -- SD1.5 (the reference's own default): the loaded and fused bundle, the modes ----------
+
+def test_sd15_snapshot_and_lcm_loras_load_bit_for_bit(cuda, tmp_path, monkeypatch):
+    """A synthetic SD1.5 snapshot from the seeded tree and two rank-64
+    LCM-LoRAs (diffusers and kohya) load through load_model_bundle: every
+    leaf is the seeded tree plus the f32 fusion, bit for bit, in f32 and
+    cast once to bf16; proj_in stays a 1x1 conv."""
+    from ai_rtc_agent_tpu_torch.models import registry
+
+    snap = tmp_path / f"models--{chip_smoke.SD15_ID.replace('/', '--')}" / "snapshots" / "x"
+    monkeypatch.setenv("HF_HUB_CACHE", str(tmp_path))
+    seeded = registry.init_params("sd15", seed=3, device=cuda)
+    chip_smoke.sd15_snapshot(torch, np, seeded, snap)
+    lora_dict, plans = chip_smoke.lcm_lora_files(torch, np, seeded["unet"], tmp_path)
+    want = chip_smoke.expected_unet(torch, np, seeded["unet"], plans)
+    bundle = registry.load_model_bundle(chip_smoke.SD15_ID, attn_impl="plain",
+                                        lora_dict=lora_dict)
+    assert bundle.loaded_real_weights
+    n = chip_smoke.hold_loaded(torch, "f32", bundle.params, seeded, want, torch.float32)
+    cast = registry.cast_params(bundle.params, "bfloat16")
+    assert chip_smoke.hold_loaded(torch, "bf16", cast, seeded, want, torch.bfloat16) == n
+    proj = bundle.params["unet"]["mid_block"]["attention"]["proj_out"]["kernel"]
+    assert proj.shape == (1280, 1280, 1, 1)
+
+
+@pytest.fixture(scope="module")
+def sd15_bundle():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the kernel has no CPU mode")
+    from ai_rtc_agent_tpu_torch.models import registry
+
+    bundle = registry.load_model_bundle("runwayml/stable-diffusion-v1-5", seed=0)
+    bundle.params = registry.cast_params(bundle.params, "bfloat16")
+    return bundle
+
+
+@pytest.mark.parametrize("mode", ["ring", "full", "sequential", "txt2img"])
+def test_sd15_modes_launch_counts(cuda, sd15_bundle, mode):
+    """The session step at k=2 eagerly and bucket 2's captured graph: the
+    ring and txt2img 32 + 1 launches a step, full CFG 32 (at 2x the rows)
+    and no epilogue, sequential mode 4 x 32 and no epilogue."""
+    from dataclasses import replace
+
+    from ai_rtc_agent_tpu_torch.models import registry
+    from ai_rtc_agent_tpu_torch.parallel.multipeer import BucketStep
+    from ai_rtc_agent_tpu_torch.stream.engine import StreamEngine, make_session_step_fn, \
+        stack_states
+
+    overrides = {"ring": {}, "full": {"cfg_type": "full"},
+                 "sequential": {"use_denoising_batch": False}, "txt2img": {"mode": "txt2img"}}
+    cfg = replace(registry.default_stream_config("runwayml/stable-diffusion-v1-5"),
+                  **overrides[mode])
+    b = sd15_bundle
+    eng = StreamEngine(b.stream_models, b.params, cfg, b.encode_prompt, graphs=False)
+    states = stack_states([eng.build_state("a cat", seed=s) for s in (1, 2)])
+    frames = torch.from_numpy(np.stack(chip_smoke._frames(np, 2, seed=5))).to(cuda)
+    slots = torch.tensor([0, 1], dtype=torch.int32, device=cuda)
+    step = make_session_step_fn(b.stream_models, cfg)
+    a0, e0 = KA.launches, KF.launches
+    out = step(b.params, states, frames, slots, 2)
+    torch.cuda.synchronize()
+    assert out.shape == (2, 512, 512, 3)
+    assert (KA.launches - a0, KF.launches - e0) == chip_smoke.MODE_LAUNCHES[mode]
+    captured = BucketStep(b.stream_models, cfg, cuda).step_for(b.params, states, 2)
+    assert captured.captured and captured.launches == chip_smoke.MODE_LAUNCHES[mode]

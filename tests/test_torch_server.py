@@ -1317,3 +1317,59 @@ def test_cli_serves_on_the_cpu_only_when_asked(monkeypatch, device):
     got = asyncio.run(go())
     if device == "cpu":
         assert got == ((64, 64, 3), np.uint8, 200, "a red boat", "cpu")
+
+
+def test_mode_txt2img_parses_and_serves_an_offer_as_the_jax_agent(monkeypatch):
+    """``--mode txt2img`` on each agent's command line reaches the served
+    config (no silent flag drop); one /offer session on each, the JAX
+    session's weights and state carried across, other pixels pushed into
+    the port's: the answers' forms agree and every viewed frame is within 1
+    level of the JAX agent's (txt2img reads no pixel)."""
+    for name, value in (("WEBRTC_PROVIDER", "loopback"), ("SUPERVISOR", "0"),
+                        ("WARMUP_FRAMES", "0"), ("BATCHSCHED_MAX_SESSIONS", "1"),
+                        ("OVERLOAD_LOOP_LAG_BUDGET_MS", "100000")):
+        monkeypatch.setenv(name, value)
+    built = {}
+    for name, m, extra in (("jax", JA, []), ("port", PA, ["--device", "cpu"])):
+        monkeypatch.setattr(m.web, "run_app", lambda app, name=name, **kw: built.update({name: app}))
+        m.main(["--model-id", "tiny-test", "--mode", "txt2img"] + extra)
+    assert built["jax"]["mode"] == built["port"]["mode"] == "txt2img"
+    got = {}
+
+    async def serve(name, frames, hook):
+        app = built[name]
+        client = TestClient(TestServer(app))
+        await client.start_server()
+        try:
+            m = SIDES[name]
+            r = await client.post("/offer", json={
+                "room_id": "r", "offer": {"sdp": m.signaling.make_loopback_offer(),
+                                          "type": "offer"}})
+            body = await r.json()
+            assert app["pipeline"].config.mode == "txt2img"
+            hook(app)
+            pc = next(iter(app["pcs"]))
+            for i, f in enumerate(frames):
+                vf = m.frames.VideoFrame.from_ndarray(f)
+                vf.pts, vf.time_base = i, Fraction(1, 30)
+                await pc.in_track.push(vf)
+            seen = [(await asyncio.wait_for(pc.out_tracks[0].recv(), 120)).to_ndarray()
+                    for _ in range(len(frames) - 2)]  # the track keeps 2 in flight
+            return r.status, sorted(body), body["type"], seen
+        finally:
+            await client.close()
+
+    def keep(app):
+        got["params"] = jax.tree.map(np.asarray, app["pipeline"].engine.params)
+        got["states"] = jax.tree.map(np.asarray, app["batch_scheduler"].states)
+
+    want = asyncio.run(serve("jax", _frames(6, seed=20), keep))
+    params = bridge.params_from_jax(got["params"])
+    monkeypatch.setattr(PREG, "init_params", lambda fam, seed=0, device="cpu": params)
+    port = asyncio.run(serve("port", _frames(6, seed=21),
+                             lambda app: bridge.states_from_jax(got["states"],
+                                                                app["batch_scheduler"].states)))
+    assert port[:3] == want[:3] and want[0] == 200
+    assert len(port[3]) == len(want[3]) == 4
+    for a, b in zip(port[3], want[3]):
+        assert np.abs(a.astype(np.int16) - b.astype(np.int16)).max() <= 1

@@ -236,10 +236,13 @@ def test_default_stream_config_matches_jax(model_id):
 
 
 @pytest.mark.parametrize("overrides", [
-    {"cfg_type": "full"}, {"mode": "txt2img"}, {"use_denoising_batch": False},
+    {"use_controlnet": True}, {"use_added_cond": True}, {"unet_cache_interval": 2},
     {"unet_cache_interval": 3},
 ])
 def test_later_slices_raise(port_params, overrides):
+    """ControlNet, SDXL added conditioning and DeepCache (from its smallest
+    interval, 2) are later slices; the engine modes run
+    (tests/test_torch_modes.py)."""
     with pytest.raises(NotImplementedError):
         _port_engine(port_params, overrides, True, "kernel")
 
@@ -349,9 +352,11 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     """Nor triton: both kernels are CUDA C++ built with nvcc."""
     files = sorted((REPO / "ai_rtc_agent_tpu_torch").rglob("*.py")) + [
         REPO / "chip_smoke.py", REPO / "scripts" / "torch_step_profile.py",
-        REPO / "scripts" / "epilogue_ab.py",
+        REPO / "scripts" / "epilogue_ab.py", REPO / "scripts" / "smoke_loop.py",
     ]
     assert len(files) > 10 and REPO / "ai_rtc_agent_tpu_torch" / "aot" / "cache.py" in files
+    for name in ("loader", "lora", "safety", "clip_vision"):
+        assert REPO / "ai_rtc_agent_tpu_torch" / "models" / f"{name}.py" in files
     for path in files:
         for name in _imports(path):
             root = name.split(".")[0]
