@@ -4,8 +4,10 @@ The JAX package never runs a step op by op: every step path is one compiled
 executable with donated state, built before the first frame (its
 ``prewarm_buckets``) and keyed by one recipe (``engine_key``,
 ``stream_engine_key``, the scheduler's ``bucket_keys``).  The port's
-counterpart is one CUDA graph per engine and per bucket size, captured at
-prewarm on the thread that will step it and replayed per step:
+counterpart is one CUDA graph per engine and per bucket size (a DeepCache
+config: a capture and a cached graph each, keyed ``variant-capture`` /
+``variant-cached``; w8 params add ``quant-w8``), captured at prewarm on the
+thread that will step it and replayed per step:
 
 * :func:`engine_key` / :func:`stream_engine_key`: the JAX recipe, copied
   (the port imports nothing of the JAX package), with the port's version.

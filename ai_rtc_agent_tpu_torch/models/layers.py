@@ -10,6 +10,10 @@ nested dicts (and lists) of tensors with the JAX tree's names.
   a conv runs on the NHWC tensor's NCHW view, which is channels_last in
   memory, so no transpose is copied.
 * Linear kernels keep the JAX [in, out] layout and apply as ``x @ w``.
+* A w8 kernel (models/quant.py: ``kernel_q`` int8 + a per-output-channel
+  ``scale``) is dequantized in the primitive, in the activation dtype, as
+  the JAX ``_kernel`` does: the int8 tensor stays int8 in device memory and
+  the dequant runs inside the step (a captured step carries it).
 * Compute follows the activation dtype; normalization statistics are f32.
 """
 
@@ -21,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.kernels import attention as kattn
+from . import quant as Q
 
 # --------------------------------------------------------------------------
 # initializers (fan-in normal, like the JAX init; a meta device gives shapes
@@ -59,8 +64,15 @@ def init_norm(ch, device="cpu"):
 # --------------------------------------------------------------------------
 
 
+def _kernel(p, dtype):
+    """The dense kernel, or a w8 kernel dequantized in ``dtype``."""
+    if "kernel_q" in p:
+        return Q.dequantize(p, dtype)
+    return p["kernel"].to(dtype)
+
+
 def linear(p, x):
-    y = x @ p["kernel"].to(x.dtype)
+    y = x @ _kernel(p, x.dtype)
     if "bias" in p:
         y = y + p["bias"].to(x.dtype)
     return y
@@ -70,7 +82,7 @@ def conv2d(p, x, stride: int = 1, padding="SAME"):
     """NHWC conv with an OIHW kernel.  ``"SAME"`` at stride 1 pads k//2 (1
     for 3x3, 0 for 1x1); an int pads symmetrically, as torch convs do —
     the stride-2 call sites pass 1, matching the JAX package."""
-    w = p["kernel"].to(x.dtype)
+    w = _kernel(p, x.dtype)
     if padding == "SAME":
         if stride != 1:
             raise ValueError("SAME padding is only defined here at stride 1")

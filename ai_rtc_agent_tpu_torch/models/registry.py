@@ -10,7 +10,9 @@ port serves (sd15, sd21 / SD-Turbo, tiny).  As in the JAX package:
    from a seeded torch.Generator, with a warning.
 
 LoRA files (``lora_dict``: path -> scale) are fused at load, in f32, before
-the bundle is cast (models/lora.py).  ControlNet and HED are later slices.
+the bundle is cast (models/lora.py).  ``cast_params`` applies QUANT_WEIGHTS
+(w8, models/quant.py); the bundle carries the DeepCache pair
+(``unet_capture``/``unet_cached``).  ControlNet and HED are later slices.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from ..utils import env
 from . import clip as C
 from . import loader as LD
 from . import lora as LR
+from . import quant as Q
 from . import taesd as T
 from . import tokenizer as TK
 from . import unet as U
@@ -104,7 +107,27 @@ def default_stream_config(model_id: str, device="cuda", **overrides) -> StreamCo
     base.update(overrides)
     base.setdefault("use_fused_epilogue", True)
     base.setdefault("dtype", "bfloat16" if torch.device(device).type == "cuda" else "float32")
-    return StreamConfig(**base)
+    # DeepCache (UNET_CACHE=N or deepcache:N): the full UNet every Nth step,
+    # the outermost tier between; an explicit override wins
+    env_cache = env.get_str("UNET_CACHE") or ""
+    if env_cache and "unet_cache_interval" not in base:
+        prefix, _, n = env_cache.rpartition(":")
+        if prefix not in ("", "deepcache"):
+            raise ValueError(f"UNET_CACHE={env_cache!r}: expected N or deepcache:N")
+        try:
+            base["unet_cache_interval"] = int(n)
+        except ValueError as e:
+            raise ValueError(f"UNET_CACHE={env_cache!r}: expected N or deepcache:N") from e
+    cfg = StreamConfig(**base)
+    if cfg.unet_cache_interval >= 2 and cfg.use_controlnet:
+        raise ValueError("UNET_CACHE is incompatible with ControlNet (residuals feed the "
+                         "skipped deep blocks) — unset one")
+    if cfg.unet_cache_interval >= 2 and cfg.mode == "txt2img":
+        logger.warning(
+            "UNET_CACHE with txt2img: consecutive ticks share no input frame, so the "
+            "temporal-coherence assumption behind the cache is weak — expect a stronger "
+            "approximation than img2img")
+    return cfg
 
 
 def _model_configs(fam: str):
@@ -119,18 +142,35 @@ def _model_configs(fam: str):
 
 
 def cast_params(params, dtype: str):
-    """Cast f32 leaves to the compute dtype (bf16 on the card); conv
-    kernels go channels_last so cuDNN runs the NHWC activations as they
-    are."""
+    """Cast f32 leaves to the compute dtype (bf16 on the card), then, under
+    QUANT_WEIGHTS=w8 (QUANT_MIN_SIZE), store the large kernels as int8 + a
+    per-output-channel f32 scale (models/quant.py) — the JAX order: the
+    int8 values come from the cast weights.  A w8 pair's ``scale`` stays
+    f32, as in the JAX tree (the primitives cast it at use).  Conv kernels,
+    int8 ones too, go channels_last so cuDNN runs the NHWC activations as
+    they are."""
 
-    def cast(a):
-        if dtype == "bfloat16" and a.dtype == torch.float32:
-            a = a.to(torch.bfloat16)
+    def cast(node):
+        if isinstance(node, dict):
+            keep = "kernel_q" in node  # a w8 pair: its scale stays f32
+            return {k: v if keep and k == "scale" else cast(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(cast(v) for v in node)
+        if dtype == "bfloat16" and node is not None and node.dtype == torch.float32:
+            return node.to(torch.bfloat16)
+        return node
+
+    params = cast(params)
+    if (env.get_str("QUANT_WEIGHTS") or "").lower() in ("w8", "int8"):
+        params, n = Q.quantize_params(params, min_size=env.get_int("QUANT_MIN_SIZE", Q.MIN_SIZE))
+        logger.info("quantized %d kernels to int8 (w8a16)", n)
+
+    def layout(a):
         if a.ndim == 4:
             a = a.contiguous(memory_format=torch.channels_last)
         return a
 
-    return tree_map(cast, params)
+    return tree_map(layout, params)
 
 
 def init_params(fam: str, seed: int = 0, device="cpu") -> dict:
@@ -249,6 +289,14 @@ def load_model_bundle(
     def unet_apply(p, x, t, ctx):
         return U.apply_unet(p["unet"], x, t, ctx, unet_cfg, attn_impl=attn_impl)
 
+    def unet_capture(p, x, t, ctx):
+        return U.apply_unet(p["unet"], x, t, ctx, unet_cfg, attn_impl=attn_impl,
+                            deep_cache="capture")
+
+    def unet_cached(p, x, t, ctx, deep_h):
+        return U.apply_unet(p["unet"], x, t, ctx, unet_cfg, attn_impl=attn_impl,
+                            deep_cache="use", cached_h=deep_h)
+
     def vae_encode(p, img):
         return T.encode(p["taesd"]["encoder"], img, taesd_cfg)
 
@@ -267,7 +315,10 @@ def load_model_bundle(
 
     return ModelBundle(
         params=params,
-        stream_models=StreamModels(unet=unet_apply, vae_encode=vae_encode, vae_decode=vae_decode),
+        stream_models=StreamModels(
+            unet=unet_apply, vae_encode=vae_encode, vae_decode=vae_decode,
+            unet_capture=unet_capture, unet_cached=unet_cached,
+            deep_cache_shape=lambda x_shape: U.deep_cache_shape(unet_cfg, x_shape)),
         encode_prompt=encode_prompt,
         unet_cfg=unet_cfg,
         clip_cfg=clip_cfg,

@@ -1,9 +1,9 @@
 """Conditional diffusion UNet (SD1.5 / SD2.1 / SD-Turbo geometry).
 
 Counterpart of ai_rtc_agent_tpu/models/unet.py: the same config, param
-tree and forward, NHWC.  This slice covers the plain forward
-(``deep_cache="off"``, no ControlNet residuals, no SDXL addition
-embedding); those variants are later slices.
+tree and forward, NHWC, with the DeepCache pair (``deep_cache="capture"``
+/ ``"use"``).  ControlNet residuals and the SDXL addition embedding are
+later slices.
 """
 
 from __future__ import annotations
@@ -229,11 +229,64 @@ def time_cond_embedding(p, cfg: UNetConfig, timesteps, dtype=torch.float32):
     return linear(te["linear_2"], silu(linear(te["linear_1"], temb)))
 
 
-def apply_unet(p, x, timesteps, context, cfg: UNetConfig, attn_impl: str = "kernel"):
-    """x [B,h,w,Cin], timesteps [B], context [B,L,cross_dim] -> [B,h,w,Cout]."""
+def deep_cache_shape(cfg: UNetConfig, x_shape) -> tuple:
+    """The shape of the feature ``deep_cache="capture"`` returns for a UNet
+    input of ``x_shape`` [n,h,w,c]: the input of the outermost up block, at
+    the latent resolution, with the channels of the tier above it."""
+    n, h, w = x_shape[:3]
+    return (n, h, w, cfg.block_out_channels[min(1, len(cfg.block_out_channels) - 1)])
+
+
+def apply_unet(p, x, timesteps, context, cfg: UNetConfig, attn_impl: str = "kernel",
+               deep_cache: str = "off", cached_h=None, down_residuals=None, mid_residual=None):
+    """x [B,h,w,Cin], timesteps [B], context [B,L,cross_dim] -> [B,h,w,Cout].
+
+    ``deep_cache`` (DeepCache, the JAX static-cadence variant: two fixed
+    graphs, no data-dependent control flow):
+      - "off":     the plain forward;
+      - "capture": the plain forward that also returns the feature entering
+                   the outermost up block -> (out, deep_h);
+      - "use":     only the outermost tier (conv_in, the first down block,
+                   the last up block) around ``cached_h``, spliced in for the
+                   deep remainder; with identical inputs and a cache captured
+                   from them the output equals the full pass exactly.
+    ``down_residuals``/``mid_residual`` (ControlNet's) are not served by the
+    port yet; "use" refuses them as the JAX forward does."""
     nb = len(cfg.block_out_channels)
     temb = time_cond_embedding(p, cfg, timesteps, dtype=x.dtype)
     context = context.to(x.dtype)
+    if down_residuals is not None or mid_residual is not None:
+        if deep_cache == "use":
+            raise ValueError("deep_cache='use' is incompatible with ControlNet residuals "
+                             "(they feed the skipped deep blocks)")
+        raise NotImplementedError("ControlNet residuals are not ported yet (a later slice)")
+
+    if deep_cache == "use":
+        if cached_h is None:
+            raise ValueError("deep_cache='use' requires cached_h")
+        h = conv2d(p["conv_in"], x)
+        skips = [h]
+        blk0 = p["down_blocks"][0]
+        for j, rn in enumerate(blk0["resnets"]):
+            h = _resnet(rn, h, temb, cfg.norm_groups)
+            if blk0["attentions"]:
+                h = _transformer(blk0["attentions"][j], h, context, cfg,
+                                 cfg.num_heads_per_block[0], attn_impl)
+            skips.append(h)
+        blk = p["up_blocks"][-1]
+        if len(blk["resnets"]) != len(skips):
+            raise ValueError(
+                f"deep-cache skip mismatch: outermost up block wants {len(blk['resnets'])} "
+                f"skips, shallow pass made {len(skips)}")
+        h = cached_h.to(x.dtype)
+        for j, rn in enumerate(blk["resnets"]):
+            h = torch.cat([h, skips.pop()], dim=-1)
+            h = _resnet(rn, h, temb, cfg.norm_groups)
+            if blk["attentions"]:
+                h = _transformer(blk["attentions"][j], h, context, cfg,
+                                 cfg.num_heads_per_block[0], attn_impl)
+        h = group_norm(p["conv_norm_out"], h, cfg.norm_groups)
+        return conv2d(p["conv_out"], silu(h))
 
     h = conv2d(p["conv_in"], x)
     skips = [h]
@@ -254,8 +307,11 @@ def apply_unet(p, x, timesteps, context, cfg: UNetConfig, attn_impl: str = "kern
     h = _transformer(mb["attention"], h, context, cfg, cfg.num_heads_per_block[-1], attn_impl)
     h = _resnet(mb["resnet2"], h, temb, cfg.norm_groups)
 
+    deep_h = None
     for k, blk in enumerate(p["up_blocks"]):
         i = nb - 1 - k
+        if k == len(p["up_blocks"]) - 1 and deep_cache == "capture":
+            deep_h = h  # the feature the "use" pass splices back in
         for j, rn in enumerate(blk["resnets"]):
             h = torch.cat([h, skips.pop()], dim=-1)
             h = _resnet(rn, h, temb, cfg.norm_groups)
@@ -267,4 +323,5 @@ def apply_unet(p, x, timesteps, context, cfg: UNetConfig, attn_impl: str = "kern
             h = conv2d(blk["upsample"], upsample2x(h))
 
     h = group_norm(p["conv_norm_out"], h, cfg.norm_groups)
-    return conv2d(p["conv_out"], silu(h))
+    out = conv2d(p["conv_out"], silu(h))
+    return (out, deep_h) if deep_cache == "capture" else out

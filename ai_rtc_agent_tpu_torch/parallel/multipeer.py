@@ -20,6 +20,12 @@ package's one executable per bucket.  The same bucket step serves
 ``MultiPeerEngine`` (fixed slots, ``--multipeer N``) and the continuous
 batch scheduler (stream/scheduler.py).  This is BASELINE.json configs[4]
 ("Multi-peer WebRTC: N concurrent streams batched on one chip").
+
+DeepCache (``unet_cache_interval`` >= 2) doubles the buckets: each size has
+a capture and a cached step, one graph each, keyed (k, variant).  The peer
+engine keeps the JAX engine's global cadence: every slot captures on the
+same tick, and an install, a prompt or a t-index write makes the next
+step a capture.
 """
 
 from __future__ import annotations
@@ -40,9 +46,11 @@ from ..stream.engine import (
     StreamModels,
     install_row,
     make_session_step_fn,
+    params_variant_extra,
     stack_states,
     stage_into,
     t_index_coeffs,
+    unet_variants,
 )
 from ..utils import env
 
@@ -83,18 +91,22 @@ class BucketStep:
 
     Each bucket size k has static buffers: frames [k,H,W,3] uint8 ([k,fbs,
     H,W,3] with frame_buffer_size fbs > 1), slots [k] int32 and the count
-    of real sessions (an int32 scalar, which the epilogue reads).  ``graphs`` (default: on a CUDA device) captures the
-    bucket once, at its first use (``warm`` at prewarm) on the calling
-    thread, and replays it per step; otherwise it steps eagerly over the
-    same buffers.  ``key(k)`` names bucket k (the engine-key recipe)."""
+    of real sessions (an int32 scalar, which the epilogue reads).  ``graphs``
+    (default: on a CUDA device) captures the bucket once, at its first use
+    (``warm`` at prewarm) on the calling thread, and replays it per step;
+    otherwise it steps eagerly over the same buffers.  With DeepCache each
+    size has one step per variant (``variants``: capture, cached), each
+    with its own buffers.  ``key(k, variant)`` names bucket k's step (the
+    engine-key recipe)."""
 
     def __init__(self, models: StreamModels, cfg: StreamConfig, device, *, graphs=None,
-                 key: Callable[[int], str] | None = None):
-        self._step = make_session_step_fn(models, cfg)
+                 key: Callable[[int, str], str] | None = None):
+        self.variants = unet_variants(cfg)
+        self._steps = {v: make_session_step_fn(models, cfg, unet_variant=v) for v in self.variants}
         self.device = device
         self.graphs = device.type == "cuda" if graphs is None else bool(graphs)
         self.graph_cache = GraphCache(self.graphs, device)
-        self.key = key or (lambda k: f"sbucket-{k}")
+        self.key = key or (lambda k, v: f"sbucket-{k}:{v}")
         fbs = cfg.frame_buffer_size
         self._frame_shape = ((fbs,) if fbs > 1 else ()) + (cfg.height, cfg.width, 3)
         self._idx: dict = {}
@@ -109,10 +121,13 @@ class BucketStep:
             self._idx[key] = idx
         return idx
 
-    def step_for(self, params, states, k: int) -> CapturedStep:
-        """Bucket k's step over ``states``, built (and captured) at its first
-        use.  Its buffers start blank with no real session, so the capture's
+    def step_for(self, params, states, k: int, variant: str | None = None) -> CapturedStep:
+        """Bucket k's step of ``variant`` (default: the first, full or
+        capture) over ``states``, built (and captured) at its first use.
+        Its buffers start blank with no real session, so the capture's
         warm-up steps write no slot."""
+        variant = variant or self.variants[0]
+        fn = self._steps[variant]
 
         def build():
             inputs = {
@@ -121,19 +136,19 @@ class BucketStep:
                 "slots": torch.zeros(k, dtype=torch.int32, device=self.device),
                 "k_real": torch.zeros((), dtype=torch.int32, device=self.device),
             }
-            return (lambda b: self._step(params, states, b["frames"], b["slots"], b["k_real"]),
-                    inputs)
+            return (lambda b: fn(params, states, b["frames"], b["slots"], b["k_real"]), inputs)
 
-        return self.graph_cache.get(self.key(k), build)
+        return self.graph_cache.get(self.key(k, variant), build)
 
-    def __call__(self, params, states, frames, slots: list, k: int):
-        """One step of bucket k for the real sessions ``slots``.  ``frames``:
+    def __call__(self, params, states, frames, slots: list, k: int, variant: str | None = None):
+        """One step of bucket k (its ``variant``) for the real sessions
+        ``slots``.  ``frames``:
         a host uint8 array [m,H,W,3] ([m,fbs,H,W,3]; staged from pinned
         memory straight into the static buffer) or device frames, one row
         per session; with m < k the last is repeated.  -> [k,H,W,3] uint8
         ([k,fbs,H,W,3]; the replay's output on the card); rows past
         ``len(slots)`` are padding."""
-        step = self.step_for(params, states, k)
+        step = self.step_for(params, states, k, variant)
         buf = step.inputs["frames"]
         m = len(frames)
         if isinstance(frames, np.ndarray):
@@ -147,19 +162,19 @@ class BucketStep:
         step.inputs["k_real"].fill_(len(slots))
         return step.run()
 
-    def warm(self, params, states, k: int):
-        """Get bucket k ready before the first session's frame, writing no
-        slot: with graphs, its capture (warm-up steps included); without,
-        one eager step of blank frames with no real session in it."""
-        step = self.step_for(params, states, k)
+    def warm(self, params, states, k: int, variant: str | None = None):
+        """Get bucket k's ``variant`` ready before the first session's frame,
+        writing no slot: with graphs, its capture (warm-up steps included);
+        without, one eager step of blank frames with no real session in it."""
+        step = self.step_for(params, states, k, variant)
         if not step.graph:
             step.inputs["k_real"].fill_(0)
             step.run()
 
     def status(self, keys) -> dict:
-        """{k: captured} for the bucket keys ``{k: key}``."""
+        """{bucket: captured} for the bucket keys ``{bucket: key}``."""
         done = self.graph_cache.status()
-        return {k: done.get(key, False) for k, key in keys.items()}
+        return {b: done.get(key, False) for b, key in keys.items()}
 
 
 def stage_rows(frames: np.ndarray, device) -> torch.Tensor:
@@ -216,7 +231,8 @@ class MultiPeerEngine:
     through power-of-two buckets, so an 8-slot engine with one peer does
     one peer's work (MULTIPEER_BUCKETS=0 steps every slot every time); at
     and above the largest bucket every slot steps.  Runs on ``device`` (the
-    card unless the caller asks for another)."""
+    card unless the caller asks for another).  DeepCache: the JAX global
+    cadence over the (k, variant) steps (``_tick``)."""
 
     def __init__(self, models: StreamModels, params, cfg: StreamConfig, encode_prompt: Callable,
                  max_peers: int, device=None, model_id: str = ""):
@@ -233,8 +249,11 @@ class MultiPeerEngine:
         # guards the template engine during heavy state builds (text encode
         # + prepare), apart from any caller-level step lock
         self._heavy_lock = threading.Lock()
+        self._cache_interval = cfg.unet_cache_interval if cfg.unet_cache_interval >= 2 else 0
+        self._tick = 0
         self._bucket_sizes = bucket_sizes(max_peers, include_capacity=False)
-        self._bucket = BucketStep(models, cfg, self.device, key=self.bucket_keys().__getitem__)
+        keys = self.bucket_keys()
+        self._bucket = BucketStep(models, cfg, self.device, key=lambda k, v: keys[(k, v)])
         self._use_buckets = env.get_bool("MULTIPEER_BUCKETS", True)
 
     def _fresh_state(self, prompt: str, seed: int) -> dict:
@@ -268,8 +287,10 @@ class MultiPeerEngine:
         return self._fresh_state(prompt, seed=seed)
 
     def install(self, slot: int, state: dict):
-        """Cheap slot-state write (the slot's rows, in place)."""
+        """Cheap slot-state write (the slot's rows, in place).  DeepCache: the
+        fresh slot's deep cache is zeros, so the next step captures."""
         install_row(self.states, slot, state)
+        self._tick = 0
         logger.info("peer connected -> slot %d", slot)
 
     def connect(self, prompt: str, seed: int | None = None) -> int:
@@ -296,6 +317,7 @@ class MultiPeerEngine:
     def apply_prompt(self, slot: int, cond, uncond):
         self.states["cond"][slot].copy_(cond)
         self.states["uncond"][slot].copy_(uncond)
+        self._tick = 0  # DeepCache: no stale deep features under a new prompt
 
     def update_prompt(self, slot: int, prompt: str):
         self.apply_prompt(slot, *self.encode(prompt))
@@ -306,6 +328,7 @@ class MultiPeerEngine:
         coeffs = t_index_coeffs(self.cfg, self._template.schedule, t_index_list, self.device)
         for name, v in coeffs.items():
             self.states["coeffs"][name][slot].copy_(v)
+        self._tick = 0  # DeepCache: new timesteps -> the next step captures
 
     # -- active-count buckets ---------------------------------------------------
 
@@ -317,27 +340,32 @@ class MultiPeerEngine:
         return bucket_for(self._bucket_sizes, n_active)
 
     def bucket_keys(self) -> dict:
-        """{bucket size -> engine key} for every bucket this engine steps:
-        the JAX multipeer recipe (``peers``) for the step of every slot,
-        plus ``sbucket`` for the buckets below it."""
-        return {k: stream_engine_key(self.model_id, self.cfg, peers=self.max_peers,
-                                     **({} if k == self.max_peers else {"sbucket": k}))
-                for k in self._bucket_sizes + [self.max_peers]}
+        """{(bucket size, variant) -> engine key} for every step this engine
+        takes: the JAX multipeer recipe (``peers``, with DeepCache
+        ``variant``, w8 params ``quant``) for the step of every slot, plus
+        ``sbucket`` for the buckets below it."""
+        qextra = params_variant_extra(self.params)
+        return {(k, v): stream_engine_key(self.model_id, self.cfg, peers=self.max_peers,
+                                          **({} if k == self.max_peers else {"sbucket": k}),
+                                          **({"variant": v} if v != "full" else {}), **qextra)
+                for k in self._bucket_sizes + [self.max_peers] for v in unet_variants(self.cfg)}
 
     def graph_status(self) -> dict:
-        """{bucket size -> captured} (False throughout when stepping eagerly)."""
+        """{(bucket size, variant) -> captured} (False throughout when
+        stepping eagerly)."""
         return self._bucket.status(self.bucket_keys())
 
     def prewarm_buckets(self):
-        """Capture every bucket size, and the step of every slot, on the
-        calling thread (the thread that will step them), writing no slot's
-        state (eagerly: step each once): no peer's first frame pays a
-        capture, a launch path's first use or a new thread's library
-        handles."""
-        for k in self.bucket_keys():
-            with devtel.compile_scope(f"peers-{k}:full"):
-                self._bucket.warm(self.params, self.states, k)
-            logger.info("prewarmed multipeer bucket %d/%d", k, self.max_peers)
+        """Capture every bucket size and variant, and the step of every
+        slot, on the calling thread (the thread that will step them),
+        writing no slot's state (eagerly: step each once): no peer's first
+        frame pays a capture, a launch path's first use or a new thread's
+        library handles.  The build scopes keep the JAX labels
+        (``peers-<k>:full`` for the full or capture graph, ``:cached``)."""
+        for k, v in self.bucket_keys():
+            with devtel.compile_scope(f"peers-{k}:{'cached' if v == 'cached' else 'full'}"):
+                self._bucket.warm(self.params, self.states, k, v)
+            logger.info("prewarmed multipeer bucket %d/%d (%s)", k, self.max_peers, v)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
@@ -358,7 +386,14 @@ class MultiPeerEngine:
         k = self._bucket_for(len(active))
         slots = active if k is not None else list(range(self.max_peers))
         k = k or self.max_peers
-        out = self._bucket(self.params, self.states, frames[pad_bucket(slots, k)], slots, k)
+        variant = self._bucket.variants[0]
+        if self._cache_interval:
+            # the global cadence: every slot captures on the same tick
+            if self._tick % self._cache_interval != 0:
+                variant = "cached"
+            self._tick += 1
+        out = self._bucket(self.params, self.states, frames[pad_bucket(slots, k)], slots, k,
+                           variant)
         return Readback(out, len(slots)), slots
 
     def fetch(self, pending) -> np.ndarray:

@@ -171,6 +171,7 @@ def build_app(
     multipeer_pipeline=None,
     batch_scheduler=None,
     mode: str = "img2img",
+    unet_cache: int = 0,
 ) -> web.Application:
     """``pipeline``, ``multipeer_pipeline``, ``batch_scheduler``: injectable
     for tests; built at startup when None, on ``device`` (the card unless
@@ -179,7 +180,7 @@ def build_app(
     sessions.configure(app, model_id=model_id, pipeline=pipeline, provider=provider,
                        fbs=fbs, device=device, multipeer=multipeer,
                        multipeer_pipeline=multipeer_pipeline, batch_scheduler=batch_scheduler,
-                       mode=mode)
+                       mode=mode, unet_cache=unet_cache)
     app["udp_ports"] = udp_ports
     app.on_startup.append(on_startup)
     app.on_shutdown.append(on_shutdown)
@@ -206,6 +207,10 @@ def main(argv=None):
     parser.add_argument("--mode", default="img2img", choices=["img2img", "txt2img"],
                         help="txt2img ignores incoming pixels and generates from the prompt "
                              "each tick (reference txt2img dispatch, lib/wrapper.py:236-260)")
+    parser.add_argument("--unet-cache", default=0, type=int, metavar="N",
+                        help="DeepCache interval: full UNet every Nth frame, outermost-tier-only "
+                             "between (the JAX package counts the cached step at ~0.54x the "
+                             "FLOPs at 512^2; equivalent env UNET_CACHE=N); 0 = off")
     parser.add_argument("--log-level", default="INFO",
                         choices=["DEBUG", "INFO", "WARNING", "ERROR", "CRITICAL"])
     parser.add_argument("--device", default=None,
@@ -226,6 +231,7 @@ def main(argv=None):
         device=args.device,
         multipeer=args.multipeer,
         mode=args.mode,
+        unet_cache=args.unet_cache,
         udp_ports=args.udp_ports.split(",") if args.udp_ports else None,
     )
     web.run_app(app, host="0.0.0.0", port=args.port)

@@ -8,7 +8,7 @@ that ``chip_smoke.py`` drives a whole session on the card, where aiohttp is
 not installed, and ``server/agent.py`` maps HTTP requests onto it.
 
 The app-state mapping (an aiohttp ``Application`` or a plain dict) holds
-``model_id``, ``pipeline``, ``provider``, ``fbs``, ``mode``, ``device``,
+``model_id``, ``pipeline``, ``provider``, ``fbs``, ``mode``, ``unet_cache``, ``device``,
 ``multipeer``, ``multipeer_pipeline`` and ``batch_scheduler`` from
 :func:`configure`, and after :func:`startup` also ``pcs`` (every live peer
 connection), ``state`` (publishers, their tracks and relays, viewers),
@@ -267,7 +267,7 @@ def wire_datachannel(pipeline, channel, guard=None, encoders=None):
 def configure(app, model_id: str = "stabilityai/sd-turbo", pipeline=None, provider=None,
               fbs: int = 0, device=None, multipeer: int = 0, multipeer_pipeline=None,
               batch_scheduler=None, events_handler=None, transport=None,
-              mode: str = "img2img"):
+              mode: str = "img2img", unet_cache: int = 0):
     """Fill the app state's configuration.  ``pipeline=None`` builds the
     port's StreamDiffusionPipeline at :func:`startup`, and the batch
     scheduler over it; ``multipeer`` N > 0 builds the N-slot peer engine
@@ -275,12 +275,14 @@ def configure(app, model_id: str = "stabilityai/sd-turbo", pipeline=None, provid
     are injectable (tests), and so is ``events_handler``, the webhook
     sender (a ``StreamEventHandler`` that posts elsewhere than aiohttp).
     ``transport`` (fleet/transport.py): how this agent reaches other
-    agents (the edge pull); None: HTTP through aiohttp, made at first use."""
+    agents (the edge pull); None: HTTP through aiohttp, made at first use.
+    ``unet_cache`` N >= 2: the DeepCache interval (``--unet-cache``)."""
     app["model_id"] = model_id
     app["pipeline"] = pipeline
     app["provider"] = provider or get_provider()
     app["fbs"] = fbs
     app["mode"] = mode
+    app["unet_cache"] = unet_cache
     app["device"] = device
     app["multipeer"] = multipeer
     app["multipeer_pipeline"] = multipeer_pipeline
@@ -306,11 +308,14 @@ def configure(app, model_id: str = "stabilityai/sd-turbo", pipeline=None, provid
 
 def stream_config(app, device):
     """The served stream config: the family's default with the agent's
-    flags (``--fbs`` N > 1, ``--mode``), for both serving modes (no silent
-    flag drops); None (the family's default) without any."""
+    flags (``--fbs`` N > 1, ``--unet-cache`` N >= 2, ``--mode``), for both
+    serving modes (no silent flag drops); None (the family's default,
+    UNET_CACHE and all) without any."""
     overrides = {}
     if app.get("fbs", 0) > 1:
         overrides["frame_buffer_size"] = app["fbs"]
+    if app.get("unet_cache", 0) >= 2:
+        overrides["unet_cache_interval"] = app["unet_cache"]
     if app.get("mode", "img2img") != "img2img":
         overrides["mode"] = app["mode"]
     if not overrides:

@@ -32,7 +32,11 @@ Modes, as in the JAX engine:
   False``: every stage of the new frames now, n_stages UNet passes of fbs
   rows, the ring buffer untouched);
 * cfg_type none, self, initialize or full (2·rows through the UNet, the
-  uncond rows first; the stock is left as it is).
+  uncond rows first; the stock is left as it is);
+* the speed variants: w8 params (models/quant.py; the primitives
+  dequantize, the keys gain ``quant-w8``) and DeepCache
+  (``unet_cache_interval``: a capture and a cached step over one state, the
+  deep feature in ``state["unet_cache"]``, alternated on a host tick).
 The post-UNet chain runs as the fused epilogue kernel where the JAX
 ``fused_ok`` holds (``use_fused_epilogue``, denoising batch, epsilon
 prediction, cfg none/self/initialize), otherwise as the composed ops.
@@ -52,6 +56,7 @@ import torch
 
 from .. import resolve_device
 from ..aot.cache import GraphCache, stream_engine_key
+from ..models import quant as Q
 from ..obs import devtel
 from ..ops import image as I
 from ..ops import lcm as L
@@ -93,6 +98,11 @@ class StreamConfig:
     use_fused_epilogue: bool = False
     # "kernel" (flash-attention kernel) | "plain"
     attn_impl: str = "kernel"
+    # DeepCache (UNET_CACHE / --unet-cache): every Nth step runs the full
+    # UNet and keeps the feature entering the outermost up block in the
+    # state's ``unet_cache``; the steps between recompute only the
+    # outermost tier and splice it in.  0/1: off.  Denoising batch only, no
+    # ControlNet (the JAX refusals).
     unet_cache_interval: int = 0
 
     @property
@@ -115,21 +125,51 @@ class StreamConfig:
 @dataclass
 class StreamModels:
     """unet(params, x, t, context) -> model_out [B,h,w,4];
-    vae_encode(params, img01_nhwc) -> latents; vae_decode(params, z) -> img01."""
+    vae_encode(params, img01_nhwc) -> latents; vae_decode(params, z) -> img01.
+
+    The DeepCache pair (None: the family has none), as in the JAX bundle:
+    unet_capture(params, x, t, context) -> (model_out, deep_h);
+    unet_cached(params, x, t, context, deep_h) -> model_out;
+    deep_cache_shape(x_shape) -> deep_h's shape for a UNet input of x_shape
+    (what the JAX engine reads off ``jax.eval_shape`` of the capture step)."""
 
     unet: Callable
     vae_encode: Callable
     vae_decode: Callable
+    unet_capture: Callable | None = None
+    unet_cached: Callable | None = None
+    deep_cache_shape: Callable | None = None
 
 
-def _check_supported(cfg: StreamConfig):
+UNET_VARIANTS = ("full", "capture", "cached")
+
+
+def unet_variants(cfg: StreamConfig) -> tuple:
+    """The step variants an engine of ``cfg`` alternates: the DeepCache pair
+    when ``unet_cache_interval`` >= 2, else the one full step."""
+    return ("capture", "cached") if cfg.unet_cache_interval >= 2 else ("full",)
+
+
+def _check_supported(cfg: StreamConfig, models: StreamModels, unet_variant: str = "full"):
+    if unet_variant not in UNET_VARIANTS:
+        raise ValueError(f"unet_variant {unet_variant!r} not in {UNET_VARIANTS}")
+    if unet_variant != "full":  # the JAX make_step_fn's refusals
+        if models.unet_capture is None or models.unet_cached is None:
+            raise ValueError("unet_cache_interval set but this model bundle has no DeepCache "
+                             "apply pair (unet_capture/unet_cached)")
+        if cfg.use_controlnet:
+            raise ValueError("unet_cache_interval is incompatible with ControlNet (residuals "
+                             "feed the skipped deep blocks)")
+        if not cfg.use_denoising_batch:
+            raise ValueError(
+                "unet_cache_interval requires denoising-batch mode (the sequential path runs "
+                "multiple timesteps per slot, so the per-slot timestep alignment the cache "
+                "relies on is lost)")
     later = []
     if cfg.use_controlnet:
         later.append("ControlNet")
     if cfg.use_added_cond:
         later.append("SDXL added conditioning")
-    if cfg.unet_cache_interval >= 2:
-        later.append("DeepCache (unet_cache_interval)")
     if cfg.cfg_type not in R.CFG_TYPES:
         raise ValueError(f"unknown cfg_type {cfg.cfg_type!r}")
     if later:
@@ -176,25 +216,45 @@ def fused_ok(cfg: StreamConfig) -> bool:
             and cfg.cfg_type in ("none", "self", "initialize"))
 
 
-def _guided(models: StreamModels, cfg: StreamConfig, params, x, t, cond, uncond, stock,
-            coeffs: L.StepCoeffs, guidance, delta):
+def unet_runner(models: StreamModels, unet_variant: str = "full") -> Callable:
+    """``run(params, x, t, ctx, cache) -> (model_out, deep_h or None)`` for
+    one step variant (the JAX step's ``run_unet``): "full" the plain UNet,
+    "capture" the full UNet that also returns the deep feature, "cached"
+    the outermost tier around ``cache``."""
+    if unet_variant == "capture":
+        return lambda params, x, t, ctx, cache: models.unet_capture(params, x, t, ctx)
+    if unet_variant == "cached":
+        return lambda params, x, t, ctx, cache: (models.unet_cached(params, x, t, ctx, cache), None)
+    return lambda params, x, t, ctx, cache: (models.unet(params, x, t, ctx), None)
+
+
+def _guided(run: Callable, cfg: StreamConfig, params, x, t, cond, uncond, stock,
+            coeffs: L.StepCoeffs, guidance, delta, cache=None):
     """One guided UNet pass over ``x`` [n,h,w,c] with the per-row ``t``,
     ``cond`` and ``uncond`` [n,L,D]: -> (eps, new stock or None when the
-    stock stays).  ``guidance``/``delta``: a scalar or a per-row column.
-    Full CFG runs the 2n rows uncond first and combines them (the JAX
+    stock stays, the deep feature of a capture or None).  ``run``:
+    :func:`unet_runner`; ``cache``: a cached step's deep feature, the pass's
+    rows.  ``guidance``/``delta``: a scalar or a per-row column.  Full CFG
+    runs the 2n rows uncond first and combines them (the JAX
     ``unet_with_guidance``)."""
     if cfg.cfg_type == "full":
-        out = models.unet(params, torch.cat([x, x]), torch.cat([t, t]),
-                          torch.cat([uncond, cond]))
+        out, deep = run(params, torch.cat([x, x]), torch.cat([t, t]), torch.cat([uncond, cond]),
+                        cache)
         eps_u, eps_c = out.chunk(2)
-        return R.combine_full(eps_u, eps_c, guidance), None
-    eps_c = models.unet(params, x, t, cond)
+        return R.combine_full(eps_u, eps_c, guidance), None, deep
+    eps_c, deep = run(params, x, t, cond, cache)
     if cfg.cfg_type == "none":
-        return eps_c, None
+        return eps_c, None, deep
     eps = R.combine_residual(eps_c, stock, guidance, delta)
     if cfg.cfg_type == "self":
-        return eps, R.update_stock_noise(stock, eps_c, coeffs.alpha, coeffs.sigma)
-    return eps, None
+        return eps, R.update_stock_noise(stock, eps_c, coeffs.alpha, coeffs.sigma), deep
+    return eps, None, deep
+
+
+def deep_cache_rows(cfg: StreamConfig) -> int:
+    """The UNet rows of one session's step (its deep feature's rows): the
+    stream batch, twice over with full CFG."""
+    return cfg.batch_size * (2 if cfg.cfg_type == "full" else 1)
 
 
 def _denoise(cfg: StreamConfig, x, eps, coeffs: L.StepCoeffs):
@@ -203,13 +263,20 @@ def _denoise(cfg: StreamConfig, x, eps, coeffs: L.StepCoeffs):
     return L.lcm_denoise(x, eps, coeffs, cfg.prediction_type)
 
 
-def make_step_fn(models: StreamModels, cfg: StreamConfig):
-    """Build the step function (eager PyTorch; the kernels launch inside)."""
-    _check_supported(cfg)
+def make_step_fn(models: StreamModels, cfg: StreamConfig, unet_variant: str = "full"):
+    """Build the step function (eager PyTorch; the kernels launch inside).
+
+    ``unet_variant``: "full", or the DeepCache pair — "capture" (the full
+    UNet; the deep feature lands in ``state["unet_cache"]``, in place) and
+    "cached" (the outermost tier around ``state["unet_cache"]``).  The
+    engine alternates the two on a host-side cadence, as the JAX engine
+    does."""
+    _check_supported(cfg, models, unet_variant)
     B = cfg.batch_size
     fbs = cfg.frame_buffer_size
     dt = cfg.torch_dtype
     fused = fused_ok(cfg)
+    run = unet_runner(models, unet_variant)
 
     @torch.inference_mode()
     def step(params, state, frame_u8):
@@ -238,9 +305,9 @@ def make_step_fn(models: StreamModels, cfg: StreamConfig):
             for i in range(cfg.n_stages):
                 sl = slice(i * fbs, (i + 1) * fbs)
                 sub = _coeffs(state["coeffs"], sl)
-                eps, st = _guided(models, cfg, params, x, sub.timesteps, rows(state["cond"], fbs),
-                                  rows(state["uncond"], fbs), stock[sl], sub, state["guidance"],
-                                  state["delta"])
+                eps, st, _ = _guided(run, cfg, params, x, sub.timesteps, rows(state["cond"], fbs),
+                                     rows(state["uncond"], fbs), stock[sl], sub, state["guidance"],
+                                     state["delta"])
                 stocks.append(st)
                 x = L.renoise_next(_denoise(cfg, x, eps, sub), noise[sl].to(dt), sub)
             if stocks[0] is not None:
@@ -248,7 +315,8 @@ def make_step_fn(models: StreamModels, cfg: StreamConfig):
             out_latent = x
         elif fused:
             x_t = torch.cat([x_new, state["x_buf"].to(dt)]) if B > fbs else x_new
-            eps_c = models.unet(params, x_t, coeffs.timesteps, rows(state["cond"], B))
+            eps_c, deep = run(params, x_t, coeffs.timesteps, rows(state["cond"], B),
+                              state.get("unet_cache"))
             # the whole post-UNet chain in one launch: entry b renoises with
             # slot b+fbs's noise (exit entries with 0), the advanced entries
             # land in the ring buffer and the new stock in the stock, in place
@@ -260,9 +328,10 @@ def make_step_fn(models: StreamModels, cfg: StreamConfig):
             out_latent = denoised[B - fbs:]
         else:
             x_t = torch.cat([x_new, state["x_buf"].to(dt)]) if B > fbs else x_new
-            eps, new_stock = _guided(models, cfg, params, x_t, coeffs.timesteps,
-                                     rows(state["cond"], B), rows(state["uncond"], B), stock,
-                                     coeffs, state["guidance"], state["delta"])
+            eps, new_stock, deep = _guided(run, cfg, params, x_t, coeffs.timesteps,
+                                           rows(state["cond"], B), rows(state["uncond"], B), stock,
+                                           coeffs, state["guidance"], state["delta"],
+                                           state.get("unet_cache"))
             denoised = _denoise(cfg, x_t, eps, coeffs)
             if B > fbs:
                 state["x_buf"].copy_(L.renoise_next(
@@ -272,6 +341,8 @@ def make_step_fn(models: StreamModels, cfg: StreamConfig):
             if new_stock is not None:
                 state["stock"].copy_(new_stock)
             out_latent = denoised[B - fbs:]
+        if unet_variant == "capture":
+            state["unet_cache"].copy_(deep)
 
         img_out = models.vae_decode(params, out_latent)
         return state, I.postprocess_uint8(img_out.float())
@@ -279,7 +350,7 @@ def make_step_fn(models: StreamModels, cfg: StreamConfig):
     return step
 
 
-def make_session_step_fn(models: StreamModels, cfg: StreamConfig):
+def make_session_step_fn(models: StreamModels, cfg: StreamConfig, unet_variant: str = "full"):
     """The step of k sessions at once over a stacked state (counterpart of
     ``jax.vmap(make_step_fn(...), in_axes=(None, 0, 0))`` inside the JAX
     package's ``make_bucket_step``), written out as one batch of k*B rows:
@@ -311,12 +382,19 @@ def make_session_step_fn(models: StreamModels, cfg: StreamConfig):
     full CFG runs the 2·k·B rows through one UNet pass (every session's
     uncond rows first), sequential mode runs n_stages passes of k·fbs rows,
     txt2img takes each session's first fbs noise rows in place of its
-    encoded frames (which it does not read)."""
-    _check_supported(cfg)
+    encoded frames (which it does not read).
+
+    ``unet_variant`` (the DeepCache pair, as :func:`make_step_fn`): each
+    session's deep feature is its row of ``states["unet_cache"]`` in the
+    single step's layout (full CFG: its uncond rows, then its cond rows); a
+    capture writes the real sessions' rows in place."""
+    _check_supported(cfg, models, unet_variant)
     B = cfg.batch_size
     fbs = cfg.frame_buffer_size
     dt = cfg.torch_dtype
     fused = fused_ok(cfg)
+    run = unet_runner(models, unet_variant)
+    split = 2 if cfg.cfg_type == "full" else 1  # a session's cache rows: split blocks of B
 
     @torch.inference_mode()
     def step(params, states, frames_u8, slots, k_real):
@@ -334,6 +412,19 @@ def make_session_step_fn(models: StreamModels, cfg: StreamConfig):
 
         def co_of(sl):  # the rows' coefficients, stage slice ``sl`` of each session
             return _coeffs({name: take(v)[:, sl].reshape(-1) for name, v in c.items()})
+
+        def cache_in():  # each session's cache rows, in the pass's row order
+            if unet_variant != "cached":
+                return None
+            a = take(states["unet_cache"])  # [k, split*B, ...]
+            a = a.reshape(k, split, B, *a.shape[2:]).transpose(0, 1)
+            return a.reshape(split * k * B, *a.shape[3:])
+
+        def cache_out(deep):  # a capture's deep feature -> each real session's row
+            if unet_variant == "capture":
+                d = deep.reshape(split, k, B, *deep.shape[1:]).transpose(0, 1)
+                write_segments(states["unet_cache"], d.reshape(k, split * B, *deep.shape[1:]),
+                               slots, k_real)
 
         if cfg.mode == "img2img":
             img = I.preprocess_uint8(frames_u8.reshape(k * fbs, *frames_u8.shape[-3:]), dtype=dt)
@@ -354,8 +445,8 @@ def make_session_step_fn(models: StreamModels, cfg: StreamConfig):
             for i in range(cfg.n_stages):
                 sl = slice(i * fbs, (i + 1) * fbs)
                 sub = co_of(sl)
-                eps, st = _guided(
-                    models, cfg, params, x, sub.timesteps, ctx("cond", fbs), ctx("uncond", fbs),
+                eps, st, _ = _guided(
+                    run, cfg, params, x, sub.timesteps, ctx("cond", fbs), ctx("uncond", fbs),
                     rows(take(states["stock"][:, sl])).to(dt), sub,
                     col(states["guidance"], fbs), col(states["delta"], fbs))
                 stocks.append(st)
@@ -369,8 +460,8 @@ def make_session_step_fn(models: StreamModels, cfg: StreamConfig):
             x_t = rows(torch.cat([x_new, take(states["x_buf"]).to(dt)], dim=1)) \
                 if B > fbs else rows(x_new)
             if fused:
-                eps_c = models.unet(params, x_t, take(c["timesteps"]).reshape(-1),
-                                    ctx("cond", B))
+                eps_c, deep = run(params, x_t, take(c["timesteps"]).reshape(-1), ctx("cond", B),
+                                  cache_in())
                 denoised = fused_stream_epilogue(
                     x_t, eps_c, states["stock"], states["noise"], _coeffs(c), states["guidance"],
                     states["delta"], cfg_type=cfg.cfg_type, turbo=cfg.scheduler == "turbo",
@@ -379,10 +470,10 @@ def make_session_step_fn(models: StreamModels, cfg: StreamConfig):
                 )[0]
             else:
                 co = co_of(slice(None))
-                eps, new_stock = _guided(
-                    models, cfg, params, x_t, co.timesteps, ctx("cond", B), ctx("uncond", B),
+                eps, new_stock, deep = _guided(
+                    run, cfg, params, x_t, co.timesteps, ctx("cond", B), ctx("uncond", B),
                     rows(take(states["stock"])).to(dt), co, col(states["guidance"], B),
-                    col(states["delta"], B))
+                    col(states["delta"], B), cache_in())
                 if new_stock is not None:
                     write_segments(states["stock"], new_stock.view(k, B, *x_t.shape[1:]), slots,
                                    k_real)
@@ -394,12 +485,20 @@ def make_session_step_fn(models: StreamModels, cfg: StreamConfig):
                     write_segments(states["x_buf"], advanced.view(k, B - fbs, *x_t.shape[1:]),
                                    slots, k_real)
             last = denoised.view(k, B, *x_t.shape[1:])[:, B - fbs:]  # each session's exit rows
+            cache_out(deep)
         out_latent = last[:, 0] if fbs == 1 else rows(last)  # a view at fbs == 1
 
         img_out = I.postprocess_uint8(models.vae_decode(params, out_latent).float())
         return img_out.view(frames_u8.shape)
 
     return step
+
+
+def params_variant_extra(params) -> dict:
+    """Engine-key extras of the params variant (the JAX engine's): w8
+    params (models/quant.py) change the step without touching the config,
+    so their keys gain ``quant-w8``; dense params add nothing."""
+    return {"quant": "w8"} if Q.has_quantized_kernels(params) else {}
 
 
 def stack_states(states: list) -> dict:
@@ -546,8 +645,16 @@ class StreamEngine:
     without a card).  Frames stage host->device from pinned memory without
     blocking, and several steps can be in flight (``submit``/``fetch``).
     ``graphs`` (default: on a CUDA device) steps by replaying one captured
-    CUDA graph, keyed by ``stream_engine_key(model_id, cfg)``; False steps
-    eagerly over the same static buffers."""
+    CUDA graph, keyed by ``stream_engine_key(model_id, cfg)`` (plus the
+    params variant, ``quant-w8``); False steps eagerly over the same static
+    buffers.
+
+    DeepCache (``cfg.unet_cache_interval`` N >= 2): two steps over the same
+    state, the capture and the cached (keys ``variant-capture`` /
+    ``variant-cached``), both captured into one pool; a host-side tick picks
+    the capture every Nth submit and the cached step between.  ``prepare``,
+    ``update_prompt``, ``update_t_index_list`` and ``reset_cache_cadence``
+    set the tick back to 0, so the next step captures."""
 
     def __init__(
         self,
@@ -567,12 +674,20 @@ class StreamEngine:
         self.encode_prompt = encode_prompt
         self.schedule = schedule or S.make_schedule()
         self._t_index_list = tuple(cfg.t_index_list)
-        self._step = make_step_fn(models, cfg)
+        self.variants = unet_variants(cfg)
+        self._cache_interval = cfg.unet_cache_interval if cfg.unet_cache_interval >= 2 else 0
+        self._tick = 0  # the DeepCache cadence: a capture when tick % N == 0
+        self._steps = {v: make_step_fn(models, cfg, unet_variant=v) for v in self.variants}
+        self._step = self._steps[self.variants[0]]  # the full (or capture) step
         self.graphs = self.device.type == "cuda" if graphs is None else bool(graphs)
-        self.key = stream_engine_key(model_id, cfg)
+        qextra = params_variant_extra(params)
+        self.keys = {v: stream_engine_key(model_id, cfg, **({"variant": v} if v != "full" else {}),
+                                          **qextra)
+                     for v in self.variants}
+        self.key = self.keys[self.variants[0]]
         self.graph_cache = GraphCache(self.graphs, self.device)
-        self._static_step = None
-        self._graph_state = None  # the state the graph was captured over
+        self._static_steps = None  # {variant: CapturedStep}
+        self._graph_state = None  # the state the graphs were captured over
         self.state = None
         self._last_out = None
         self._last_submitted = None
@@ -629,17 +744,25 @@ class StreamEngine:
                 state["stock"] = self.models.unet(
                     self.params, noise, state["coeffs"]["timesteps"], unc
                 ).to(dt)
+        if self._cache_interval:
+            # the DeepCache slot, pre-sized (zeros) so that every step sees
+            # one state structure; the first step after prepare() captures
+            shape = self.models.deep_cache_shape(
+                (deep_cache_rows(cfg), h, w, cfg.latent_channels))
+            state["unet_cache"] = torch.zeros(shape, dtype=dt, device=self.device)
         return state
 
     def prepare(self, prompt: str, num_inference_steps: int | None = None,
                 guidance_scale: float = 1.2, delta: float = 1.0, seed: int = 2):
         """(Re)build the state from ``prompt`` and ``seed``: the first call
-        sets it, a later one (a restart) writes it in place."""
+        sets it, a later one (a restart) writes it in place.  The next step
+        captures (DeepCache)."""
         state = self.build_state(prompt, num_inference_steps, guidance_scale, delta, seed)
         if self.state is None:
             self.state = state
         else:
             install_state(self.state, state)
+        self._tick = 0
         return self
 
     def _scalar(self, v):
@@ -655,26 +778,31 @@ class StreamEngine:
 
     # -- the captured step ----------------------------------------------------
 
-    def capture(self):
-        """Build the step over its static buffers and, with ``graphs``,
-        capture it now, on the calling thread (the counterpart of the JAX
-        engine's compile before the first frame).  The capture's warm-up
-        steps write the ring and the stock; they are put back after."""
+    def capture(self) -> dict:
+        """Build the step (each DeepCache variant) over its static buffers
+        and, with ``graphs``, capture it now, on the calling thread (the
+        counterpart of the JAX engine's compile before the first frame).
+        The captures' warm-up steps write the ring, the stock and the deep
+        cache; they are put back after.  -> {variant: CapturedStep}."""
         with self._submit_lock:
-            return self._static_step_locked()
+            return self._static_steps_locked()
 
-    def _static_step_locked(self):
+    def _static_steps_locked(self) -> dict:
         if self.state is None:
             raise RuntimeError("call prepare() first")
-        if self._static_step is None:
+        if self._static_steps is None:
             cfg = self.cfg
             saved = tree_map(lambda a: a.clone(), self.state) if self.graphs else None
+            # one frame buffer for every variant: a submit stages once
             frame = torch.zeros((cfg.frame_buffer_size, cfg.height, cfg.width, 3),
                                 dtype=torch.uint8, device=self.device)
-            with devtel.compile_scope("engine-step"):
-                self._static_step = self.graph_cache.get(self.key, lambda: (
-                    lambda inputs: self._step(self.params, self.state, inputs["frame"])[1],
-                    {"frame": frame}))
+            steps = {}
+            for v in self.variants:
+                with devtel.compile_scope("engine-step"):
+                    steps[v] = self.graph_cache.get(self.keys[v], lambda v=v: (
+                        lambda inputs: self._steps[v](self.params, self.state, inputs["frame"])[1],
+                        {"frame": frame}))
+            self._static_steps = steps
             if saved is not None:
                 install_state(self.state, saved)
                 self._graph_state = self.state
@@ -682,7 +810,16 @@ class StreamEngine:
             raise RuntimeError(
                 "the engine's state was replaced after its step was captured: write it in "
                 "place (prepare(), install_state)")
-        return self._static_step
+        return self._static_steps
+
+    def _next_variant_locked(self) -> str:
+        """The variant of the next step (DeepCache: the capture every Nth
+        step, the cached step between), advancing the cadence."""
+        if not self._cache_interval:
+            return self.variants[0]
+        v = "capture" if self._tick % self._cache_interval == 0 else "cached"
+        self._tick += 1
+        return v
 
     # -- hot path -----------------------------------------------------------
 
@@ -725,7 +862,7 @@ class StreamEngine:
                 if self._last_submitted is not None:
                     return self._last_submitted
                 return None, squeeze
-            step = self._static_step_locked()
+            step = self._static_steps_locked()[self._next_variant_locked()]
             stage_into(step.inputs["frame"], frame_u8)
             self._last_submitted = (_Readback(step.run()), squeeze)
             return self._last_submitted
@@ -744,16 +881,28 @@ class StreamEngine:
     # -- control plane (in place: a captured step reads these tensors) -------
 
     def update_prompt(self, prompt: str):
+        """The prompt's embeddings, in place; DeepCache: the next step
+        captures (stale deep cross-attention features never serve under a
+        new prompt)."""
         cond, uncond = self._encode(prompt)
         with self._submit_lock:
             install_state(self.state, {"cond": cond, "uncond": uncond})
+            self._tick = 0
 
     def update_t_index_list(self, t_index_list):
-        """Same-length update = coefficient swap; the length is fixed."""
+        """Same-length update = coefficient swap; the length is fixed.
+        DeepCache: new timesteps, so the next step captures."""
         coeffs = t_index_coeffs(self.cfg, self.schedule, t_index_list, self.device)
         self._t_index_list = tuple(int(t) for t in t_index_list)
         with self._submit_lock:
             install_state(self.state, {"coeffs": coeffs})
+            self._tick = 0
+
+    def reset_cache_cadence(self):
+        """DeepCache: make the next step a capture (after a warm-up, and
+        across any known discontinuity)."""
+        with self._submit_lock:
+            self._tick = 0
 
     def update_guidance(self, guidance_scale=None, delta=None):
         new = {}

@@ -11,8 +11,9 @@ frame), ``frame_buffer_size`` and ``submit_batch``/``fetch_batch``.
 It runs on the card unless ``device="cpu"`` is passed, and raises without
 one.  On the card the engine's step is captured as one CUDA graph when the
 façade is built (the counterpart of the JAX pipeline adopting its AOT
-engine at build) and replayed per frame; ``restart`` and the ``update_*``
-methods write the state in place, which the graph reads.  There is no
+engine at build) and replayed per frame (DeepCache: both graphs of the
+pair, the first live frame a capture); ``restart`` and the ``update_*``
+methods write the state in place, which the graphs read.  There is no
 build-time probe with a fallback: a kernel that fails to build or launch,
 or a capture that fails, raises.  A frame that carries a trace
 (obs/trace.py) gets the JAX pipeline's spans: ``submit``, ``engine_step``
@@ -93,6 +94,9 @@ class StreamDiffusionPipeline:
             prompt=prompt, guidance_scale=self.guidance_scale, delta=self.delta, seed=seed
         )
         self.engine.capture()
+        # DeepCache: both graphs are warm; the first live frame captures
+        # (the JAX pipeline's probe resets the cadence after its warm-up)
+        self.engine.reset_cache_cadence()
 
     def restart(self):
         """Re-prepare the engine in place (fresh stream state, same params),

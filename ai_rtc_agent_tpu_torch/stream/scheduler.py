@@ -72,8 +72,19 @@ configuration, so a JAX snapshot restores here and back.  The engine
 guard's bank is refreshed on the device; at quarantine its rows go to the
 host once and become full snapshot dicts (:meth:`capture_quarantine_snapshots`),
 which a quarantined :meth:`snapshot_session` serves and the rebuild
-restores from.  The dp-sharded session axis, adapters, DeepCache and w8
-are later slices.
+restores from.  The dp-sharded session axis and adapters are later slices.
+
+The speed variants ride the same bucket steps, as in the JAX scheduler.
+``QUANT_WEIGHTS=w8`` params serve unchanged (the dequant lives in the layer
+primitives; the keys and the fingerprint gain ``quant``).  DeepCache
+(``unet_cache_interval`` N >= 2) keeps a capture and a cached step per
+bucket size, keyed (k, variant), both captured at prewarm, on one global
+cadence: a bucket step captures when ``tick % N == 0`` or when any rider's
+slot is uncaptured (installed, restored, recovered, or given a new prompt
+or t-indices since its last capture: its deep-cache row is zeros or
+stale), and the cached step runs otherwise.  A snapshot carries the
+session's row with its deep cache and the cadence's ``cache_tick`` /
+``cache_uncaptured``; a restored slot rides a capture first.
 """
 
 from __future__ import annotations
@@ -112,8 +123,10 @@ from .engine import (
     StreamEngine,
     coeff_state,
     install_row,
+    params_variant_extra,
     stack_states,
     t_index_coeffs,
+    unet_variants,
 )
 from .pipeline import (
     DEFAULT_DELTA,
@@ -412,8 +425,14 @@ class BatchScheduler:
                                       device=self.device, graphs=False)
         S = self.max_sessions
         self._bucket_sizes = bucket_sizes(S)
+        # DeepCache: the global cadence over the (k, variant) steps; the slots
+        # whose deep-cache row must not be read until a capture carries them
+        self._variants = unet_variants(cfg)
+        self._cache_interval = cfg.unet_cache_interval if cfg.unet_cache_interval >= 2 else 0
+        self._tick = 0
+        self._uncaptured: set = set()
         self._bucket = self._new_bucket(graphs)
-        self._warmed: set = set()  # bucket sizes stepped or captured (a cold step captures)
+        self._warmed: set = set()  # (k, variant) stepped or captured (a cold step captures)
         # one template state, stacked: a claim installs its own before any frame
         self.states = stack_states([self._template.build_state(
             self.prompt, guidance_scale=self.guidance_scale, delta=self.delta, seed=0)] * S)
@@ -459,8 +478,9 @@ class BatchScheduler:
 
     def _new_bucket(self, graphs) -> BucketStep:
         """A bucket step with its own static buffers and graph pool."""
+        keys = self.bucket_keys()
         return BucketStep(self._template.models, self.cfg, self.device, graphs=graphs,
-                          key=self.bucket_keys().__getitem__)
+                          key=lambda k, v: keys[(k, v)])
 
     @classmethod
     def from_pipeline(cls, pipeline, **kw) -> "BatchScheduler":
@@ -542,8 +562,9 @@ class BatchScheduler:
 
     def snapshot_fingerprint(self) -> dict:
         """What must match for a snapshot to restore here: the JAX
-        scheduler's keys and values for the same configuration (the port
-        has one UNet variant, no w8, no DeepCache, no adapters)."""
+        scheduler's keys and values for the same configuration, the
+        DeepCache interval and the params variant (w8) included (the port
+        has no adapters yet)."""
         return {
             "model_id": self.model_id,
             "height": self.height,
@@ -551,9 +572,9 @@ class BatchScheduler:
             "fbs": self.fbs,
             "n_stages": int(self.cfg.n_stages),
             "dtype": str(self.cfg.torch_dtype).rsplit(".", 1)[-1],
-            "unet_cache": 0,
+            "unet_cache": int(self._cache_interval),
             "similar_filter": bool(self.cfg.similar_image_filter),
-            "quant": "",
+            "quant": str(params_variant_extra(self.params).get("quant", "")),
         }
 
     def snapshot_session(self, session_key: str) -> dict:
@@ -578,11 +599,15 @@ class BatchScheduler:
             # a fresh buffer on the stepping stream: the next replay writes
             # the slot's view, never this copy
             row = tree_map(lambda a: a[sess.slot].clone(), self.states)
-        return self._row_snapshot(sess, tree_map(lambda a: a.cpu(), row))
+            cache_tick, uncaptured = self._tick, sess.slot in self._uncaptured
+        return self._row_snapshot(sess, tree_map(lambda a: a.cpu(), row), cache_tick, uncaptured)
 
-    def _row_snapshot(self, sess: ScheduledSession, row: dict) -> dict:
+    def _row_snapshot(self, sess: ScheduledSession, row: dict, cache_tick: int,
+                      cache_uncaptured: bool) -> dict:
         """A session's full snapshot dict from a state row on the host (the
-        live export and the quarantine bank)."""
+        live export and the quarantine bank).  The DeepCache cadence rides
+        along for observability, as in the JAX snapshot: a restore marks
+        the slot uncaptured whatever it says."""
         snap = {
             "schema": SESSION_SNAPSHOT_SCHEMA,
             "kind": "scheduler",
@@ -596,9 +621,8 @@ class BatchScheduler:
             "had_output": bool(sess._had_output),
             "frames_submitted": int(sess.frames_submitted),
             "frames_skipped_similar": int(sess.frames_skipped_similar),
-            # the JAX DeepCache alignment fields: no DeepCache here
-            "cache_tick": 0,
-            "cache_uncaptured": False,
+            "cache_tick": int(cache_tick),
+            "cache_uncaptured": bool(cache_uncaptured),
             "adapter": None,
             "state_b64": base64.b64encode(serialize_pytree(row)).decode("ascii"),
         }
@@ -701,6 +725,16 @@ class BatchScheduler:
     def _install(self, slot: int, state: dict):
         with self._step_lock, devtel.expected_scope("sched-slot-install"):
             install_row(self.states, slot, state)
+            self._mark_uncaptured_locked(slot)
+
+    def _mark_uncaptured_locked(self, *slots):
+        """DeepCache: the slots' deep-cache rows are zeros or stale (an
+        install, a restore, a recovery, a new prompt or new t-indices): the
+        next bucket step captures, and so does any later one that carries
+        one of them before a capture has (the caller holds the step lock)."""
+        if self._cache_interval:
+            self._tick = 0
+            self._uncaptured.update(slots)
 
     def _encode(self, prompt: str):
         with self._heavy_lock, devtel.expected_scope("sched-prompt-encode"):
@@ -711,6 +745,7 @@ class BatchScheduler:
         with self._step_lock, devtel.expected_scope("sched-control-write"):
             self.states["cond"][slot].copy_(cond)
             self.states["uncond"][slot].copy_(uncond)
+            self._mark_uncaptured_locked(slot)
 
     def _check_t_index(self, t_index_list) -> dict:
         return t_index_coeffs(self.cfg, self._template.schedule, t_index_list, self.device)
@@ -720,6 +755,7 @@ class BatchScheduler:
         with self._step_lock, devtel.expected_scope("sched-control-write"):
             for name, v in coeffs.items():
                 self.states["coeffs"][name][slot].copy_(v)
+            self._mark_uncaptured_locked(slot)
 
     def _apply_guidance(self, slot: int, guidance, delta):
         with self._step_lock, devtel.expected_scope("sched-control-write"):
@@ -764,33 +800,41 @@ class BatchScheduler:
         return bucket_for(self._bucket_sizes, n) or self._bucket_sizes[-1]
 
     def bucket_keys(self, model_id: str | None = None) -> dict:
-        """{bucket size -> engine key}: the JAX scheduler's recipe (the stream
-        key plus ``sbucket``/``sessions``; the port has one UNet variant)."""
+        """{(bucket size k, unet variant) -> engine key}: the JAX scheduler's
+        recipe (the stream key plus ``sbucket``/``sessions``; a DeepCache
+        config keys a capture + cached pair per bucket, w8 params add
+        ``quant-w8``)."""
         model_id = model_id or self.model_id
-        return {k: stream_engine_key(model_id, self.cfg, sbucket=k, sessions=self.max_sessions)
-                for k in self._bucket_sizes}
+        qextra = params_variant_extra(self.params)
+        return {(k, v): stream_engine_key(model_id, self.cfg, sbucket=k, sessions=self.max_sessions,
+                                          **({"variant": v} if v != "full" else {}), **qextra)
+                for k in self._bucket_sizes for v in self._variants}
 
     def graph_status(self) -> dict:
-        """{bucket size -> captured} (False throughout when stepping eagerly)."""
+        """{(bucket size, variant) -> captured} (False throughout when
+        stepping eagerly)."""
         return self._bucket.status(self.bucket_keys())
 
     @staticmethod
-    def _bucket_label(k: int) -> str:
-        """The build watchdog's label of bucket k (obs/devtel.py; the JAX
-        spelling, with the port's one variant)."""
-        return f"sbucket-{k}:full"
+    def _bucket_label(k: int, variant: str) -> str:
+        """The build watchdog's label of bucket k's variant (obs/devtel.py;
+        the JAX spelling ``sbucket-<k>:<variant>``)."""
+        return f"sbucket-{k}:{variant}"
 
     def prewarm_buckets(self):
-        """Capture every bucket size on the calling thread, writing no
-        session's state (``BucketStep.warm``; eagerly: step each once).  The
-        scheduler calls it on its dispatcher thread at startup (a graph
-        replays from any thread: the guard's runner steps them).  Its builds
-        are expected, in any phase: an operator's prewarm never breaches."""
+        """Capture every bucket size and variant on the calling thread,
+        writing no session's state (``BucketStep.warm``; eagerly: step each
+        once).  The scheduler calls it on its dispatcher thread at startup
+        (a graph replays from any thread: the guard's runner steps them).
+        Its builds are expected, in any phase: an operator's prewarm never
+        breaches."""
         for k in self._bucket_sizes:
-            with self._step_lock, devtel.compile_scope(self._bucket_label(k), expected=True):
-                self._bucket.warm(self.params, self.states, k)
-                self._warmed.add(k)
-            logger.info("prewarmed batchsched bucket %d/%d", k, self.max_sessions)
+            for v in self._variants:
+                with self._step_lock, devtel.compile_scope(self._bucket_label(k, v),
+                                                           expected=True):
+                    self._bucket.warm(self.params, self.states, k, v)
+                    self._warmed.add((k, v))
+                logger.info("prewarmed batchsched bucket %d/%d (%s)", k, self.max_sessions, v)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
@@ -857,6 +901,7 @@ class BatchScheduler:
         with self._lock:
             rows, ready = dict(self._snap_rows), self._snap_ready
             sessions = {slot: sess for slot, sess in self._sessions.items() if self.active[slot]}
+            cache_tick, uncaptured = self._tick, set(self._uncaptured)
         self._use_device()
         snaps = {}
         for slot, sess in sessions.items():
@@ -865,8 +910,8 @@ class BatchScheduler:
                                "the last bank refresh): control-plane rebuild only", slot)
                 continue
             try:
-                snaps[sess.session_key] = self._row_snapshot(sess, self._bank_to_host(rows[slot],
-                                                                                     ready))
+                snaps[sess.session_key] = self._row_snapshot(
+                    sess, self._bank_to_host(rows[slot], ready), cache_tick, slot in uncaptured)
             except Exception:
                 logger.exception("quarantine capture failed for slot %d (%s)", slot,
                                  sess.session_key)
@@ -926,17 +971,20 @@ class BatchScheduler:
                 self._retire_plane()
                 self.states, self._bucket = states, bucket
                 self._warmed = set()
+                # fresh deep caches (zeros, or banked rows): every slot captures first
+                self._mark_uncaptured_locked(*range(self.max_sessions))
             with self._lock:  # batches of the old plane are nobody's to wait for
                 self._batches = deque(maxlen=self._batches.maxlen)
             self._snap_rows, self._snap_ready, self._last_snap_t = {}, None, 0.0
         if self._prewarm:
             for k in self._bucket_sizes:
-                with self._step_lock:
-                    if self._epoch != epoch:
-                        raise StaleStepError("a later rebuild attempt owns the plane")
-                    with devtel.compile_scope(self._bucket_label(k), expected=True):
-                        bucket.warm(self.params, states, k)
-                    self._warmed.add(k)
+                for v in self._variants:
+                    with self._step_lock:
+                        if self._epoch != epoch:
+                            raise StaleStepError("a later rebuild attempt owns the plane")
+                        with devtel.compile_scope(self._bucket_label(k, v), expected=True):
+                            bucket.warm(self.params, states, k, v)
+                        self._warmed.add((k, v))
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
         return exact
@@ -1061,7 +1109,8 @@ class BatchScheduler:
             # a short group (a release raced the pop) repeats its last frame
             bufs = (bufs + [bufs[-1]] * self.fbs)[: self.fbs]
             frames.append(bufs[0] if self.fbs == 1 else torch.cat(bufs))
-        feed = k in self._warmed
+        variant = self._next_variant_locked(slots)
+        feed = (k, variant) in self._warmed
         epoch = self._epoch
 
         def device_step() -> Readback:
@@ -1075,8 +1124,8 @@ class BatchScheduler:
                     raise StaleStepError("the plane was rebuilt while this step was held")
                 # a bucket built here (prewarm off, or a size it left out)
                 # is a lazy build at dispatch: in the serving phase, a breach
-                with devtel.compile_scope(self._bucket_label(k)):
-                    out = self._bucket(self.params, self.states, frames, slots, k)
+                with devtel.compile_scope(self._bucket_label(k, variant)):
+                    out = self._bucket(self.params, self.states, frames, slots, k, variant)
                 return Readback(out, n)
 
         def until_complete() -> Readback:
@@ -1092,7 +1141,7 @@ class BatchScheduler:
                 readback = device_step()
             else:
                 readback = self._guard.dispatch(until_complete, cold=not feed)
-            self._warmed.add(k)
+            self._warmed.add((k, variant))
             batch = _DispatchedBatch(readback, t_disp, slots, feed)
         except Exception as e:
             if not self.quarantined:
@@ -1134,12 +1183,28 @@ class BatchScheduler:
                 except InvalidStateError:
                     pass  # cancelled by a release
 
+    def _next_variant_locked(self, slots: list) -> str:
+        """The variant of the bucket step carrying ``slots`` (the caller holds
+        the step lock).  DeepCache, the JAX global cadence: the capture every
+        Nth step, or whenever a rider's slot is uncaptured (a cached step
+        over its zeroed or stale row would be wrong; an extra capture is only
+        slower), the cached step otherwise."""
+        if not self._cache_interval:
+            return self._variants[0]
+        capture = (self._tick % self._cache_interval == 0
+                   or any(s in self._uncaptured for s in slots))
+        self._tick += 1
+        if capture:
+            self._uncaptured.difference_update(slots)
+        return "capture" if capture else "cached"
+
     def _recover_states_locked(self, cause):
         """After a failed step that was not the guard's: reinstall every live
         session's state from its control plane (the caller holds the step
-        lock).  Best effort: if the model itself is broken, the next step
-        says so."""
+        lock); every slot captures first.  Best effort: if the model itself
+        is broken, the next step says so."""
         try:
+            self._mark_uncaptured_locked(*range(self.max_sessions))
             for slot, sess in list(self._sessions.items()):
                 if self.active[slot]:
                     install_row(self.states, slot, self._build_state(
@@ -1227,7 +1292,8 @@ class BatchScheduler:
             "batchsched_dp": 1,
             "batchsched_fbs": self.fbs,
             "batchsched_occupancy_hist": {str(k): v for k, v in sorted(self._occ_hist.items())},
-            "batchsched_graphs": {str(k): v for k, v in self.graph_status().items()},
+            "batchsched_graphs": {f"{k}:{v}": done
+                                  for (k, v), done in self.graph_status().items()},
         }
         if occ:
             out["batchsched_occupancy_p50"] = self._percentile(occ, 0.5)

@@ -110,6 +110,11 @@ Variables read by the port's server:
                                     (~/.cache/huggingface/hub; models/registry.py)
   SAFETY_CHECKER                    the NSFW gate on every served frame (off;
                                     models/safety.py, stream/pipeline.py)
+  QUANT_WEIGHTS                     w8 (or int8): large kernels stored as int8 + a
+                                    per-output-channel scale (models/quant.py; off)
+  QUANT_MIN_SIZE                    elements below which a kernel stays dense (16384)
+  UNET_CACHE                        DeepCache interval, N or deepcache:N (the agent's
+                                    --unet-cache; 0/1 off; models/registry.py)
 """
 
 from __future__ import annotations

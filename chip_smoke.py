@@ -253,7 +253,32 @@ Phases (each prints its own lines; any failure exits non-zero):
                 once; its ms a frame.  12e: attention at one SD1.5 step's 32
                 launches (D 40/80/160) at B = 4, 8 and 16, each against its
                 plain version, with kernel, plain, SDPA and bound times.
- 13. a "kernels" JSON line (launch counts of phases 4 to 12), then the last
+ 13. variants — the JAX agent's two speed variants through the captured
+                steps, random weights at full width.  13a, w8 (QUANT_WEIGHTS=
+                w8): sd-turbo's pipeline graph and the SD1.5 ring's bucket
+                graphs at k = 1 and 2; the parameter bytes on the device, w8
+                against bf16 (the UNet and the bundle; every kernel_q int8,
+                every scale f32); each replay = its eager step bit for bit;
+                4 frames from one state no further from an f32 reference
+                with the same quantized weights than the dense path is from
+                its own (2x + 0.5 level), the w8 vs dense distance; device
+                busy ms a step and a bucket step, dense and w8 in ABBA turns.
+                13b, DeepCache at N=3: sd-turbo's pipeline captures both graphs
+                at build (launches a replay: 32 + 1 and 10 + 1), 12 frames
+                capture at ticks 0, 3, 6, 9, replay = eager for both, PSNR/SSIM
+                of N=3 against the full stream on moving_scene, busy ms of
+                each graph and attention's share; the SD1.5 ring's 2-slot
+                scheduler captures every (bucket, variant) at prewarm, a
+                session alone, a second that joins while the first steps on,
+                its first ride mid-cadence a capture, a prompt update a
+                capture (the bucket steps' variants and launches counted), a
+                snapshot restored on another scheduler rides a capture and
+                equals a reference restored from the same snapshot bit for
+                bit, busy ms of capture and cached at k = 1 and 2, fps full
+                vs N=3 at k=1 (ABBA, phase 6a's steady window), PSNR/SSIM.
+                13c: w8 + DeepCache through a 2-slot scheduler at k=2: both
+                replays = eager, one run, the launches a step counted.
+ 14. a "kernels" JSON line (launch counts of phases 4 to 13), then the last
      line {"ok": true, "device": ...}.
 
 Imports nothing of JAX or of the JAX package.  `python3 chip_smoke.py
@@ -958,9 +983,10 @@ GRAPH_PARITY_FRAMES = 6
 
 def kernel_trace(torch, fn) -> dict:
     """A device-only torch.profiler trace of one call of ``fn``: kernel
-    counts {"attention", "epilogue", "kernels"}, and busy ms (the union of
-    the device intervals), the span from the first one's start to the last
-    one's end and the idle share 1 - busy/span."""
+    counts {"attention", "epilogue", "kernels"}, the attention kernels' ms,
+    and busy ms (the union of the device intervals), the span from the
+    first one's start to the last one's end and the idle share 1 -
+    busy/span."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -981,7 +1007,10 @@ def kernel_trace(torch, fn) -> dict:
     busy += cur_end - cur_start
     span = spans[-1][1] - spans[0][0]
     names = [ev.name for ev in evs if "emcpy" not in ev.name and "emset" not in ev.name]
+    attention_us = sum(ev.time_range.end - ev.time_range.start for ev in evs
+                       if "flash_attention_kernel" in ev.name)
     return {"attention": sum("flash_attention_kernel" in n for n in names),
+            "attention_ms": attention_us / 1e3,
             "epilogue": sum("stream_epilogue_kernel" in n for n in names),
             "kernels": len(names), "busy_ms": busy / 1e3, "span_ms": span / 1e3,
             "idle": 1.0 - busy / span}
@@ -1456,7 +1485,7 @@ def phase_sessions(torch, card: str, pipe, ref_bundle, ring_model="stabilityai/s
         f"{card} | the graphs of buckets {sched._bucket_sizes} in one pool: allocated "
         f"+{(mem1[0] - mem0[0]) / 2**20:.0f} MiB, reserved +{(mem1[1] - mem0[1]) / 2**20:.0f} MiB, "
         f"peak allocated while capturing +{(mem1[2] - mem0[0]) / 2**20:.0f} MiB | keys "
-        f"{sched.bucket_keys()[1]} (k=1) ...")
+        f"{sched.bucket_keys()[(1, 'full')]} (k=1) ...")
     eager = BatchScheduler.from_pipeline(pipe, max_sessions=8, graphs=False)
     sides = {"graph": sched, "eager": eager}
     size = pipe.config.height
@@ -1781,7 +1810,7 @@ def fault_fbs(torch, card, pipe, ref_bundle, count, BatchScheduler):
                            window_ms=50.0, device=dev)
     say(f"faults 7a: BatchScheduler at fbs 2 (frames [k,2,{size},{size},3]), buckets "
         f"{sched.graph_status()} captured in {time.perf_counter() - t:.1f}s, queue bound "
-        f"{sched.queue_bound} | key {sched.bucket_keys()[2]}")
+        f"{sched.queue_bound} | key {sched.bucket_keys()[(2, 'full')]}")
     try:
         sess = [sched.claim(f"f{i}", prompt=SESSION_PROMPTS[i], seed=300 + i) for i in range(2)]
         rows = [session_row(sched.states, s.slot) for s in sess]
@@ -3012,8 +3041,8 @@ def phase_obs(torch, card: str, pipe):
     sched_b = BatchScheduler.from_pipeline(pipe, max_sessions=2, prewarm=False)
     with sched_b._step_lock:  # its "prewarm" leaves out bucket 1
         sched_b._bucket.warm(sched_b.params, sched_b.states, 2)
-        sched_b._warmed.add(2)
-    key = sched_b.bucket_keys()[1]
+        sched_b._warmed.add((2, "full"))
+    key = sched_b.bucket_keys()[(1, "full")]
 
     posted = []
 
@@ -4367,8 +4396,10 @@ def hold_loaded(torch, label: str, got: dict, seeded: dict, want_unet: dict, dty
     return n
 
 
-def replay_equals_eager(torch, np, label: str, sched, frames: np.ndarray, slots: list) -> str:
-    """One bucket step of the scheduler's captured graph against an eager
+def replay_equals_eager(torch, np, label: str, sched, frames: np.ndarray, slots: list,
+                        variant: str | None = None) -> str:
+    """One bucket step of the scheduler's captured graph (its ``variant``:
+    DeepCache's capture or cached; default the first) against an eager
     bucket step over a copy of the same states, frames and slots: the
     outputs and every state leaf bit for bit.  The states are put back
     after, under the step lock."""
@@ -4381,8 +4412,8 @@ def replay_equals_eager(torch, np, label: str, sched, frames: np.ndarray, slots:
         saved = tree_map(lambda a: a.clone(), sched.states)
         copy = tree_map(lambda a: a.clone(), sched.states)
         eager = BucketStep(sched._template.models, sched.cfg, sched.device, graphs=False)
-        want = eager(sched.params, copy, frames, slots, k).clone()
-        got = sched._bucket(sched.params, sched.states, frames, slots, k).clone()
+        want = eager(sched.params, copy, frames, slots, k, variant).clone()
+        got = sched._bucket(sched.params, sched.states, frames, slots, k, variant).clone()
         _sync(torch, sched.device)
         same_out = torch.equal(got, want)
         same_state = all(torch.equal(a, b) for (_, a), (_, b) in
@@ -4770,6 +4801,573 @@ def phase_sd15_attention(torch, card: str):
             f"bound {sums['bound_ms']:.4f} ms; worst max_abs_err {worst:.2f} of its tolerance")
 
 
+DC_INTERVAL = 3  # 13b/13c: UNET_CACHE=3, the JAX bench default
+VARIANT_PARITY = 4  # 13a: frames held to the f32 references from one state
+AB_STEPS = 12  # 13a/13b: steps traced per side in each turn
+AB_TURNS = ("dense", "w8", "w8", "dense")  # 13a: ABBA, the busy time a step
+DC_FRAMES = 36  # 13b: frames per session in each timed run at k=1 (phase 6a's window)
+DC_TURNS = ("full", "deepcache", "deepcache", "full")  # 13b: fps at k=1, ABBA
+CADENCE_STEPS = 12  # 13b: the pipeline's cadence, captures at ticks 0, 3, 6, 9
+QUALITY_FRAMES, QUALITY_WARMUP = 18, 6  # 13b: moving_scene, steady outputs only
+VARIANT_K = (1, 2)  # 13a-c: sessions through the bucket graphs
+
+
+def _tensors(tree):
+    """Every tensor leaf of a param tree (dicts, lists, None)."""
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensors(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _tensors(v)
+    elif tree is not None:
+        yield tree
+
+
+def param_bytes(tree) -> int:
+    """Bytes of a param tree's tensors as they sit in memory."""
+    return sum(a.numel() * a.element_size() for a in _tensors(tree))
+
+
+def w8_pairs(tree) -> list:
+    """The (kernel_q, scale) pairs of a param tree."""
+    if isinstance(tree, dict):
+        if "kernel_q" in tree:
+            return [(tree["kernel_q"], tree["scale"])]
+        return [p for v in tree.values() for p in w8_pairs(v)]
+    if isinstance(tree, (list, tuple)):
+        return [p for v in tree for p in w8_pairs(v)]
+    return []
+
+
+def graft_w8(f32_tree, w8_tree):
+    """``f32_tree`` with each kernel that ``w8_tree`` holds as a w8 pair
+    replaced by that pair (its int8 values, its f32 scale): the f32
+    reference with the same quantized weights; every other leaf stays f32."""
+    if isinstance(w8_tree, dict):
+        if "kernel_q" in w8_tree:
+            out = {k: v for k, v in f32_tree.items() if k != "kernel"}
+            out.update(kernel_q=w8_tree["kernel_q"], scale=w8_tree["scale"])
+            return out
+        return {k: graft_w8(f32_tree[k], v) for k, v in w8_tree.items()}
+    if isinstance(w8_tree, (list, tuple)):
+        return type(w8_tree)(graft_w8(a, b) for a, b in zip(f32_tree, w8_tree))
+    return f32_tree
+
+
+def attention_per_pass(ucfg, cached: bool) -> int:
+    """Attention launches of one UNet pass (self and cross in each
+    transformer block); ``cached``: a DeepCache cached pass, which keeps
+    only the first down block's and the last up block's."""
+    if cached:
+        n = (2 * ucfg.layers_per_block + 1) if ucfg.attn_blocks[0] else 0
+        return 2 * ucfg.transformer_layers_per_block[0] * n
+    blocks = sum(d * (2 * ucfg.layers_per_block + 1)
+                 for d, a in zip(ucfg.transformer_layers_per_block, ucfg.attn_blocks) if a)
+    return 2 * (blocks + ucfg.transformer_layers_per_block[-1])
+
+
+def engine_replay_equals_eager(torch, label: str, eng, frame) -> str:
+    """Each captured step of an engine (both DeepCache variants) against its
+    eager step from a copy of the same state and frame: the outputs and
+    every state leaf bit for bit.  The state is put back after."""
+    from ai_rtc_agent_tpu_torch.stream.engine import install_state
+    from ai_rtc_agent_tpu_torch.tree import tree_map
+
+    done = []
+    with eng._submit_lock:
+        steps = eng._static_steps_locked()
+        saved = tree_map(lambda a: a.clone(), eng.state)
+        fdev = torch.from_numpy(frame).to(eng.device)[None]
+        for v, step in steps.items():
+            copy = tree_map(lambda a: a.clone(), saved)
+            want = eng._steps[v](eng.params, copy, fdev)[1].clone()
+            step.inputs["frame"].copy_(fdev)
+            got = step.run().clone()
+            _sync(torch, eng.device)
+            same = torch.equal(got, want) and _rows_equal(torch, eng.state, copy)
+            install_state(eng.state, saved)
+            if not same:
+                fail(f"{label} {v}: the replay differs from the eager step (max "
+                     f"{(got.int() - want.int()).abs().max().item()} levels)")
+            done.append(v)
+    return f"replay = eager bit for bit ({', '.join(done)}: outputs and state)"
+
+
+def bucket_launches(sched) -> dict:
+    """{(k, variant): (attention, epilogue) a replay} of a scheduler's captured buckets."""
+    steps = sched._bucket.graph_cache.steps()
+    return {kv: steps[key].launches for kv, key in sched.bucket_keys().items() if key in steps}
+
+
+def timed_busy(torch, fn, steps: int = 0, attention_a_step: int = 0) -> dict:
+    """A device-only trace of ``fn``: busy ms a step, idle share, attention
+    ms a step (the trace's attention kernels), over ``steps`` steps, or
+    over the trace's attention kernels / ``attention_a_step``."""
+    tr = kernel_trace(torch, fn)
+    steps = steps or tr["attention"] // attention_a_step
+    if not steps:
+        fail("the trace shows no step")
+    return {"busy": tr["busy_ms"] / steps, "idle": tr["idle"], "attn": tr["attention_ms"] / steps,
+            "steps": steps}
+
+
+def variant_busy(torch, sched, k: int, variant: str, reps: int) -> dict:
+    """Busy ms of ``reps`` replays of bucket k's ``variant`` over k blank
+    frames and slots 0..k-1 (the states are put back after)."""
+    from ai_rtc_agent_tpu_torch.stream.engine import install_state
+    from ai_rtc_agent_tpu_torch.tree import tree_map
+
+    frames = torch.zeros((k, sched.height, sched.width, 3), dtype=torch.uint8, device=sched.device)
+    with sched._step_lock:
+        saved = tree_map(lambda a: a.clone(), sched.states)
+        out = timed_busy(torch, lambda: [sched._bucket(sched.params, sched.states, list(frames),
+                                                       list(range(k)), k, variant)
+                                         for _ in range(reps)], reps)
+        install_state(sched.states, saved)
+    return out
+
+
+def phase_variants(torch, card: str, turbo_id: str = "stabilityai/sd-turbo",
+                   ring_id: str = SD15_ID) -> tuple:
+    """Phase 13: the speed variants through the captured steps — w8 weights
+    (13a), DeepCache at N=3 (13b), both at once (13c), on sd-turbo's
+    pipeline and the SD1.5 ring's bucket graphs.  -> the attention and
+    epilogue launches of its counted runs."""
+    import numpy as np
+
+    from ai_rtc_agent_tpu_torch.models import registry
+    from ai_rtc_agent_tpu_torch.stream.pipeline import StreamDiffusionPipeline
+
+    t_phase = time.perf_counter()
+    total = [0, 0]
+    turbo = StreamDiffusionPipeline(turbo_id, seed=2)
+    ring = StreamDiffusionPipeline(ring_id, seed=2)
+    with _Env(QUANT_WEIGHTS="w8"):
+        turbo8 = StreamDiffusionPipeline(turbo_id, seed=2)
+        ring8 = StreamDiffusionPipeline(ring_id, seed=2)
+    for part in (variants_w8, variants_deepcache, variants_both):
+        a, e = part(torch, np, card, turbo, turbo8, ring, ring8, registry)
+        total[0] += a
+        total[1] += e
+    say(f"variants: phase 13 took {time.perf_counter() - t_phase:.1f} s; launches counted "
+        f"attention {total[0]}, epilogue {total[1]}")
+    return tuple(total)
+
+
+def variants_w8(torch, np, card, turbo, turbo8, ring, ring8, registry) -> tuple:
+    """13a: w8 weights (QUANT_WEIGHTS=w8) on sd-turbo's pipeline graph and the
+    SD1.5 ring's bucket graphs at k = 1 and 2."""
+    from ai_rtc_agent_tpu_torch.stream.scheduler import BatchScheduler
+
+    cuda = turbo.device.type == "cuda"
+    total = [0, 0]
+    per = attention_per_pass(turbo.bundle.unet_cfg, False)
+    # -- the bytes on the device, and int8 staying int8 ---------------------------------
+    for name, dense, w8 in (("sd-turbo", turbo, turbo8), ("sd15", ring, ring8)):
+        pairs = w8_pairs(w8.bundle.params)
+        if not pairs or any(q.dtype != torch.int8 or q.device.type != w8.device.type
+                            or s.dtype != torch.float32 for q, s in pairs):
+            fail(f"variants 13a {name}: the w8 kernels are not int8 (+ f32 scale) on the device")
+        u_d, u_w = param_bytes(dense.bundle.params["unet"]), param_bytes(w8.bundle.params["unet"])
+        a_d, a_w = param_bytes(dense.bundle.params), param_bytes(w8.bundle.params)
+        q = sum(k.numel() for k, _ in pairs)
+        say(f"variants 13a {name}: {card} | parameter bytes on the device, {dense.config.dtype} -> "
+            f"w8: UNet "
+            f"{u_d} -> {u_w} ({(u_d - u_w) / 1e9:.3f} GB less, x{u_w / u_d:.3f}), bundle {a_d} -> "
+            f"{a_w} ({(a_d - a_w) / 1e9:.3f} GB less, x{a_w / a_d:.3f}) | {len(pairs)} kernels "
+            f"int8 ({q} elements, {q / 1e6:.1f}M), key {w8.engine.key.split('--v-')[0][-60:]}")
+        if "quant-w8" not in w8.engine.key or u_w >= u_d:
+            fail(f"variants 13a {name}: the w8 tree is not smaller, or its key lacks quant-w8")
+    # -- sd-turbo through the pipeline's graph ------------------------------------------
+    frames = _frames(np, VARIANT_PARITY + 2, seed=131, size=turbo.config.height)
+    eq = engine_replay_equals_eager(torch, "variants 13a sd-turbo w8", turbo8.engine, frames[0])
+    ref_d = registry.load_model_bundle(turbo.model_id, attn_impl="plain", seed=0)
+    ref_d.params = registry.cast_params(ref_d.params, "float32")
+    ref_w = registry.load_model_bundle(turbo.model_id, attn_impl="plain",
+                                       params=graft_w8(ref_d.params, turbo8.bundle.params))
+    dist = {}
+    outs = {}
+    for name, pipe, ref in (("dense", turbo, ref_d), ("w8", turbo8, ref_w)):
+        ded = Dedicated(torch, pipe.bundle.stream_models, pipe.bundle.params, pipe.config,
+                        pipe.bundle.encode_prompt, ref, session_row(pipe.engine.state, None),
+                        pipe.device)
+        _reset_launches()
+        got = [pipe(f) for f in frames[:VARIANT_PARITY]]
+        a, e = _launches()
+        for f in frames[:VARIANT_PARITY]:
+            ded(f)
+        if (a, e) != (per * VARIANT_PARITY, VARIANT_PARITY):
+            fail(f"variants 13a sd-turbo {name}: {a} attention and {e} epilogue launches over "
+                 f"{VARIANT_PARITY} steps, want {per} + 1 a step")
+        total[0] += a
+        total[1] += e
+        g = np.stack(got).astype(np.float32)
+        dist[name] = (np.abs(g - np.stack(ded.refs)).mean(), np.abs(g - np.stack(ded.outs)).max())
+        outs[name] = g
+        del ded
+    del ref_d, ref_w
+    moved = np.abs(outs["w8"] - outs["dense"])
+    say(f"variants 13a sd-turbo: {card} | {eq} | {VARIANT_PARITY} frames from one state, each "
+        f"against the f32 reference with its own weights: w8 {dist['w8'][0]:.3f} levels (its "
+        f"eager engine max {dist['w8'][1]:.0f}), dense {dist['dense'][0]:.3f} (max "
+        f"{dist['dense'][1]:.0f}) | w8 vs dense: mean {moved.mean():.3f} max {moved.max():.0f} "
+        f"levels")
+    if dist["w8"][0] > 2 * dist["dense"][0] + 0.5:
+        fail(f"variants 13a sd-turbo: w8 strays from its f32 reference ({dist['w8'][0]:.3f} vs "
+             f"the dense path's {dist['dense'][0]:.3f} levels)")
+    if cuda:  # busy ms a step, ABBA
+        busy = {"dense": [], "w8": []}
+        for side in AB_TURNS:
+            pipe = turbo if side == "dense" else turbo8
+            f = frames[-1]
+            pipe(f)
+            busy[side].append(timed_busy(torch, lambda: [pipe(f) for _ in range(AB_STEPS)],
+                                         AB_STEPS))
+        say(f"variants 13a sd-turbo A/B ({' '.join(AB_TURNS)}, {AB_STEPS} steps a turn, device "
+            f"busy ms a step): {card} | dense " + " / ".join(
+                f"{b['busy']:.3f}" for b in busy["dense"]) + " | w8 " + " / ".join(
+                f"{b['busy']:.3f}" for b in busy["w8"]) + f" | w8 - dense "
+            f"{_median([b['busy'] for b in busy['w8']]) - _median([b['busy'] for b in busy['dense']]):+.3f} ms")
+    # -- the SD1.5 ring through the bucket graphs, k = 1 and 2 ------------------------------
+    ref_d = registry.load_model_bundle(ring.model_id, attn_impl="plain", seed=0)
+    ref_d.params = registry.cast_params(ref_d.params, "float32")
+    ref_w = registry.load_model_bundle(ring.model_id, attn_impl="plain",
+                                       params=graft_w8(ref_d.params, ring8.bundle.params))
+    del ref_d
+    scheds = {name: BatchScheduler.from_pipeline(p, max_sessions=max(VARIANT_K))
+              for name, p in (("dense", ring), ("w8", ring8))}
+    per = attention_per_pass(ring.bundle.unet_cfg, False)
+    try:
+        frames = [_frames(np, VARIANT_PARITY + 2 * AB_STEPS, seed=133 + i, size=ring.config.height)
+                  for i in range(max(VARIANT_K))]
+        for k in VARIANT_K:
+            sess = {name: [s.claim(f"w8-{name}-{k}-{i}", prompt=SESSION_PROMPTS[i], seed=500 + i)
+                           for i in range(k)] for name, s in scheds.items()}
+            s8 = scheds["w8"]
+            eq = replay_equals_eager(torch, np, f"variants 13a sd15 w8 k={k}", s8,
+                                     np.stack([f[0] for f in frames[:k]]),
+                                     [x.slot for x in sess["w8"]])
+            rows = [session_row(s8.states, x.slot) for x in sess["w8"]]
+            _sync(torch, s8.device)
+            _reset_launches()
+            steps0 = s8.steps_total
+            run = drive_sessions(torch, sess["w8"], frames, VARIANT_PARITY)
+            a, e = _count(f"variants 13a sd15 w8 k={k}", (0, 0), s8.steps_total - steps0,
+                          (per, 1))
+            total[0] += a
+            total[1] += e
+            held = []
+            for i, x in enumerate(sess["w8"]):
+                ded = Dedicated(torch, ring8.bundle.stream_models, ring8.bundle.params,
+                                ring8.config, ring8.bundle.encode_prompt, ref_w, rows[i],
+                                ring8.device)
+                for f in frames[i][:VARIANT_PARITY]:
+                    ded(f)
+                held.append(hold_to_references(np, f"variants 13a sd15 w8 k={k} session {i}",
+                                               run.outs[i], ded))
+            dense_run = drive_sessions(torch, sess["dense"], frames, VARIANT_PARITY)
+            moved = max(np.abs(np.asarray(x, np.int16) - y).max()
+                        for o, d in zip(run.outs, dense_run.outs) for x, y in zip(o, d))
+            line = (f"variants 13a sd15 w8 k={k}: {card} | {eq} | {VARIANT_PARITY} frames a "
+                    f"session: " + "; ".join(held) + f" | w8 vs dense max {moved} levels")
+            if cuda:  # busy ms a bucket step, ABBA
+                busy = {"dense": [], "w8": []}
+                for j, side in enumerate(AB_TURNS):
+                    sl = slice(VARIANT_PARITY + (j % 2) * AB_STEPS,
+                               VARIANT_PARITY + (j % 2 + 1) * AB_STEPS)
+                    busy[side].append(timed_busy(torch, lambda: drive_sessions(
+                        torch, sess[side], [f[sl] for f in frames], AB_STEPS),
+                        attention_a_step=per))
+                line += (f" | A/B busy ms a bucket step ({' '.join(AB_TURNS)}, {AB_STEPS} frames a "
+                         f"session a turn): dense " + " / ".join(
+                             f"{b['busy']:.3f} ({b['steps']} steps)" for b in busy["dense"])
+                         + ", w8 " + " / ".join(
+                             f"{b['busy']:.3f} ({b['steps']} steps)" for b in busy["w8"]))
+            say(line)
+            for x in sess["dense"] + sess["w8"]:
+                x.release()
+    finally:
+        for s in scheds.values():
+            s.close()
+    del ref_w
+    return tuple(total)
+
+
+def variants_deepcache(torch, np, card, turbo, turbo8, ring, ring8, registry) -> tuple:
+    """13b: DeepCache at N=3 on sd-turbo's pipeline graphs and the SD1.5
+    ring's bucket graphs: both graphs of every bucket captured at prewarm,
+    each replay = its eager step, the cadence, forced captures (a join, a
+    prompt), a move between schedulers, busy ms capture vs cached, fps full
+    vs N=3 at k=1, PSNR/SSIM against the full stream."""
+    from ai_rtc_agent_tpu_torch.ops.kernels import attention as KA
+    from ai_rtc_agent_tpu_torch.stream.engine import fused_ok
+    from ai_rtc_agent_tpu_torch.stream.pipeline import StreamDiffusionPipeline
+    from ai_rtc_agent_tpu_torch.stream.scheduler import BatchScheduler
+    from ai_rtc_agent_tpu_torch.utils.quality import moving_scene, psnr, ssim
+
+    cuda = turbo.device.type == "cuda"
+    total = [0, 0]
+    # -- sd-turbo: the pipeline's two graphs and the cadence ----------------------------
+    t = time.perf_counter()
+    dc = StreamDiffusionPipeline(turbo.model_id, seed=2,
+                                 config=replace(turbo.config, unet_cache_interval=DC_INTERVAL))
+    built = time.perf_counter() - t
+    eng = dc.engine
+    ucfg = dc.bundle.unet_cfg
+    per = {"capture": attention_per_pass(ucfg, False), "cached": attention_per_pass(ucfg, True)}
+    epi = 1 if fused_ok(dc.config) else 0
+    steps = eng.graph_cache.steps()
+    launches = {v: steps[eng.keys[v]].launches for v in eng.variants}
+    if cuda and launches != {v: (per[v], epi) for v in eng.variants}:
+        fail(f"variants 13b sd-turbo: the captured pair records {launches} launches a replay, "
+             f"want {per} + {epi}")
+    if eng._tick != 0 or (cuda and not all(eng.graph_cache.status().values())):
+        fail("variants 13b sd-turbo: the pipeline did not capture both graphs and reset the cadence")
+    frames = moving_scene(max(CADENCE_STEPS, QUALITY_FRAMES), dc.config.height, dc.config.width)
+    seq = []
+    _reset_launches()
+    for f in frames[:CADENCE_STEPS]:
+        before = KA.launches
+        dc(f)
+        seq.append(KA.launches - before)
+    a, e = _launches()
+    want = [per["capture"] if i % DC_INTERVAL == 0 else per["cached"]
+            for i in range(CADENCE_STEPS)]
+    if seq != want:
+        fail(f"variants 13b sd-turbo: attention launches per step {seq}, want {want} (captures at "
+             f"ticks 0, 3, 6, 9)")
+    total[0] += a
+    total[1] += e
+    eq = engine_replay_equals_eager(torch, "variants 13b sd-turbo", eng, frames[0])
+    # the quality of N=3 against the full stream, from one state
+    eng.prepare(dc.prompt, seed=2)
+    turbo.engine.prepare(turbo.prompt, seed=2)
+    full = [turbo(f) for f in frames[:QUALITY_FRAMES]]
+    cached = [dc(f) for f in frames[:QUALITY_FRAMES]]
+    # one stage and no ring: a capture step's frame is the full stream's, so
+    # the cached steps' frames carry the comparison
+    same = sum(np.array_equal(x, y) for i, (x, y) in enumerate(zip(full, cached))
+               if i % DC_INTERVAL == 0)
+    pairs = [(x, y) for i, (x, y) in enumerate(zip(full, cached))
+             if i >= QUALITY_WARMUP and i % DC_INTERVAL]
+    p = float(np.mean([psnr(x, y) for x, y in pairs]))
+    s = float(np.mean([ssim(x, y) for x, y in pairs]))
+    line = (f"variants 13b sd-turbo N={DC_INTERVAL}: {card} | pipeline built in {built:.1f}s, "
+            f"both graphs captured ({', '.join(f'{v} {launches[v]}' for v in eng.variants)} "
+            f"launches a replay), the first frame a capture | attention launches per step over "
+            f"{CADENCE_STEPS} frames {seq} | {eq} | moving_scene {dc.config.height}^2, "
+            f"{QUALITY_FRAMES} frames from one state vs the full stream: the capture steps' frames "
+            f"equal it ({same} of {len(range(0, QUALITY_FRAMES, DC_INTERVAL))}), the cached steps' "
+            f"frames past output {QUALITY_WARMUP} ({len(pairs)}): PSNR {p:.2f} dB, SSIM {s:.4f}")
+    if cuda:
+        busy = {}
+        for v, step in eng._static_steps_locked().items():
+            busy[v] = timed_busy(torch, lambda step=step: [step.run() for _ in range(AB_STEPS)],
+                                 AB_STEPS)
+        line += (f" | busy ms a replay: capture {busy['capture']['busy']:.3f} (attention "
+                 f"{busy['capture']['attn']:.3f}), cached {busy['cached']['busy']:.3f} (attention "
+                 f"{busy['cached']['attn']:.3f}, {busy['cached']['attn'] / busy['cached']['busy']:.3f}"
+                 f" of it), ratio {busy['cached']['busy'] / busy['capture']['busy']:.3f} (the JAX "
+                 f"package's FLOP count: 0.54x)")
+        eng.prepare(dc.prompt, seed=2)
+    say(line)
+    del dc, eng
+    # -- the SD1.5 ring through the bucket graphs ---------------------------------------
+    cfg = replace(ring.config, unet_cache_interval=DC_INTERVAL)
+    rdc = StreamDiffusionPipeline(ring.model_id, seed=2, config=cfg)
+    t = time.perf_counter()
+    # a long window: every bucket step carries every live session that has a
+    # frame waiting (a session alone steps at once), so the cadence's steps
+    # are the ones counted below
+    sched = BatchScheduler.from_pipeline(rdc, max_sessions=max(VARIANT_K), window_ms=10_000.0)
+    built = time.perf_counter() - t
+    dest = BatchScheduler.from_pipeline(rdc, max_sessions=max(VARIANT_K), window_ms=10_000.0)
+    full = BatchScheduler.from_pipeline(ring, max_sessions=max(VARIANT_K))
+    ucfg = rdc.bundle.unet_cfg
+    per = {"capture": attention_per_pass(ucfg, False), "cached": attention_per_pass(ucfg, True)}
+    try:
+        got = bucket_launches(sched)
+        want = {(k, v): (per[v], 1) for k in sched._bucket_sizes for v in ("capture", "cached")}
+        if cuda and (got != want or not all(sched.graph_status().values())):
+            fail(f"variants 13b sd15: prewarm captured {sched.graph_status()} with {got} "
+                 f"launches a replay, want every (bucket, variant) and {want}")
+        say(f"variants 13b sd15 N={DC_INTERVAL}: {card} | buckets {sched._bucket_sizes} x "
+            f"(capture, cached) captured at prewarm in {built:.1f}s: {got}")
+        frames = [_frames(np, DC_FRAMES, seed=150 + i, size=cfg.height) for i in range(2)]
+        variants = []
+        real = sched._next_variant_locked
+
+        def spy(slots):
+            v = real(slots)
+            variants.append((sched._bucket_for(len(slots)), v))
+            return v
+
+        sched._next_variant_locked = spy
+        # a alone (capture, cached); b joins, and a steps on alone (the join
+        # resets the cadence: capture, cached); b's first ride, mid-cadence
+        # at tick 2, captures; a prompt on a: the next step captures
+        a_ = sched.claim("dc-a", prompt=SESSION_PROMPTS[0], seed=600)
+        eqs = [f"k=1 {v}: " + replay_equals_eager(
+            torch, np, f"variants 13b sd15 k=1 {v}", sched, np.stack(frames[0][:1]), [a_.slot], v)
+            for v in ("capture", "cached")]
+        _reset_launches()
+        drive_sessions(torch, [a_], frames, 2)
+        b_ = sched.claim("dc-b", prompt=SESSION_PROMPTS[1], seed=601)
+        window, sched.window_s = sched.window_s, 0.0  # a alone while b is live
+        drive_sessions(torch, [a_], [frames[0][2:]], 2)
+        sched.window_s = window
+        both = [a_, b_]
+        drive_sessions(torch, both, [frames[0][4:], frames[1]], 3)
+        a_.update_prompt(SESSION_PROMPTS[2])
+        drive_sessions(torch, both, [frames[0][7:], frames[1][3:]], 2)
+        a, e = _launches()
+        sched._next_variant_locked = real
+        eqs += [f"k=2 {v}: " + replay_equals_eager(
+            torch, np, f"variants 13b sd15 k=2 {v}", sched, np.stack([frames[0][9], frames[1][5]]),
+            [x.slot for x in both], v) for v in ("capture", "cached")]
+        want = [(1, "capture"), (1, "cached"), (1, "capture"), (1, "cached"), (2, "capture"),
+                (2, "capture"), (2, "cached"), (2, "capture"), (2, "cached")]
+        if variants != want:
+            fail(f"variants 13b sd15: bucket steps {variants}, want {want} (a join and a prompt "
+                 "force a capture)")
+        want = (sum(per[v] for _, v in want), len(want))
+        if (a, e) != want:
+            fail(f"variants 13b sd15: {a} attention and {e} epilogue launches, want {want}")
+        total[0] += a
+        total[1] += e
+        say(f"variants 13b sd15: {card} | " + "; ".join(eqs) + f" | bucket steps (a alone, b joins "
+            f"and a steps on alone, both, a prompt, both): {variants}, launches attention {a}, "
+            f"epilogue {e}")
+        # a move: a's snapshot restored on another scheduler, and as the reference on this one
+        snap = sched.snapshot_session("dc-a")
+        b_.release()
+        a_.release()
+        t = time.perf_counter()
+        moved = dest.restore_session(snap, "dc-moved")
+        ref = sched.restore_session(snap, "dc-ref")
+        restore_ms = (time.perf_counter() - t) * 1e3
+        if moved.slot != ref.slot or moved.slot not in dest._uncaptured:
+            fail("variants 13b sd15: the restored sessions are not at one slot, uncaptured")
+        seen = []
+        real = dest._next_variant_locked
+        dest._next_variant_locked = lambda slots: seen.append(real(slots)) or seen[-1]
+        after = [frames[0][8:14]]
+        mv = drive_sessions(torch, [moved], after, 6)
+        rf = drive_sessions(torch, [ref], after, 6)
+        dest._next_variant_locked = real
+        same = all(np.array_equal(x, y) for x, y in zip(mv.outs[0], rf.outs[0]))
+        nbytes = len(_state_bytes(snap))
+        say(f"variants 13b sd15 move: {card} | snapshot {nbytes} B (the row with its deep cache "
+            f"{tuple(dest.states['unet_cache'][moved.slot].shape)}), cache_tick "
+            f"{snap['cache_tick']}, "
+            f"uncaptured {snap['cache_uncaptured']}; restored on another scheduler and as the "
+            f"reference in {restore_ms:.1f} ms; its steps {seen}; 6 frames vs the reference: "
+            f"{'bit for bit' if same else 'DIFFER'}")
+        if seen[0] != "capture" or not same:
+            fail("variants 13b sd15 move: the restored session must ride a capture first and then "
+                 "match the reference restored from the same snapshot bit for bit")
+        moved.release()
+        ref.release()
+        # busy ms of each variant at k = 1 and 2, and fps full vs N=3 at k = 1
+        if cuda:
+            rows = []
+            for k in VARIANT_K:
+                b = {v: variant_busy(torch, sched, k, v, AB_STEPS) for v in ("capture", "cached")}
+                rows.append(f"k={k}: capture {b['capture']['busy']:.3f} ms (attention "
+                            f"{b['capture']['attn']:.3f}), cached {b['cached']['busy']:.3f} ms "
+                            f"(attention {b['cached']['attn']:.3f}, "
+                            f"{b['cached']['attn'] / b['cached']['busy']:.3f} of it), ratio "
+                            f"{b['cached']['busy'] / b['capture']['busy']:.3f}")
+            fps = {"full": [], "deepcache": []}
+            steps_ms = {"full": [], "deepcache": []}
+            captures = []
+            for side in DC_TURNS:
+                s_ = full if side == "full" else sched
+                x = s_.claim(f"fps-{side}", prompt=SESSION_PROMPTS[0], seed=610)
+                before, steps0 = KA.launches, s_.steps_total
+                run = drive_sessions(torch, [x], frames, DC_FRAMES)
+                fps[side].append(run.steady_fps(SD15_FILL)[0])
+                steps_ms[side].append(run.steady_step_ms(SD15_FILL)[0])
+                if side == "deepcache":  # captures among the run's steps, from its launches
+                    n = s_.steps_total - steps0
+                    c = (KA.launches - before - per["cached"] * n) // (
+                        per["capture"] - per["cached"])
+                    captures.append(f"{c} of {n}")
+                x.release()
+            say(f"variants 13b sd15 busy ms a bucket step (replays of blank frames, "
+                f"{AB_STEPS} each): {card} | " + "; ".join(rows) + f" | k=1 steady window "
+                f"(outputs {SD15_FILL + 1}-{DC_FRAMES}, {' '.join(DC_TURNS)}): full " + " / ".join(
+                    f"{f:.2f} fps ({m:.2f} ms)" for f, m in zip(fps["full"], steps_ms["full"]))
+                + f", N={DC_INTERVAL} " + " / ".join(
+                    f"{f:.2f} fps ({m:.2f} ms, captures {c})" for f, m, c in zip(
+                        fps["deepcache"], steps_ms["deepcache"], captures)))
+        # quality on the ring: N=3 vs the full stream from one state
+        scene = moving_scene(QUALITY_FRAMES, cfg.height, cfg.width)
+        outs = {}
+        for side, s_ in (("full", full), ("deepcache", sched)):
+            x = s_.claim(f"q-{side}", prompt=SESSION_PROMPTS[0], seed=620)
+            outs[side] = [x(f) for f in scene][QUALITY_WARMUP:]
+            x.release()
+        p = float(np.mean([psnr(x, y) for x, y in zip(outs["full"], outs["deepcache"])]))
+        s = float(np.mean([ssim(x, y) for x, y in zip(outs["full"], outs["deepcache"])]))
+        say(f"variants 13b sd15 quality: {card} | moving_scene {cfg.height}^2, {QUALITY_FRAMES} "
+            f"frames (outputs {QUALITY_WARMUP + 1}-{QUALITY_FRAMES}), N={DC_INTERVAL} vs the full "
+            f"stream, random weights: PSNR {p:.2f} dB, SSIM {s:.4f}")
+    finally:
+        for s_ in (sched, dest, full):
+            s_.close()
+    return tuple(total)
+
+
+def variants_both(torch, np, card, turbo, turbo8, ring, ring8, registry) -> tuple:
+    """13c: w8 weights and DeepCache at once, through the scheduler's bucket
+    graphs at k=2: one run of both variants, each replay = its eager step,
+    the launches counted."""
+    from ai_rtc_agent_tpu_torch.stream.scheduler import BatchScheduler
+
+    eng = ring8.engine
+    cfg = replace(ring8.config, unet_cache_interval=DC_INTERVAL)
+    sched = BatchScheduler(eng.models, eng.params, cfg, eng.encode_prompt, model_id=ring8.model_id,
+                           max_sessions=2, schedule=eng.schedule, device=ring8.device,
+                           window_ms=10_000.0)
+    ucfg = ring8.bundle.unet_cfg
+    per = {"capture": attention_per_pass(ucfg, False), "cached": attention_per_pass(ucfg, True)}
+    try:
+        keys = sched.bucket_keys()
+        if not all("quant-w8" in k and f"dcache-{DC_INTERVAL}" in k for k in keys.values()):
+            fail(f"variants 13c: the keys lack quant-w8 or dcache: {keys}")
+        sess = [sched.claim(f"both-{i}", prompt=SESSION_PROMPTS[i], seed=700 + i) for i in range(2)]
+        frames = [_frames(np, 2 * DC_INTERVAL, seed=170 + i, size=cfg.height) for i in range(2)]
+        eqs = [replay_equals_eager(torch, np, f"variants 13c {v}", sched,
+                                   np.stack([f[0] for f in frames]), [x.slot for x in sess], v)
+               for v in ("capture", "cached")]
+        _reset_launches()
+        steps0 = sched.steps_total
+        seen = []
+        real = sched._next_variant_locked
+        sched._next_variant_locked = lambda slots: seen.append(real(slots)) or seen[-1]
+        run = drive_sessions(torch, sess, frames, 2 * DC_INTERVAL)
+        sched._next_variant_locked = real
+        a, e = _launches()
+        n = sched.steps_total - steps0
+        want = (sum(per[v] for v in seen), len(seen))
+        if (a, e) != want or n != len(seen) or seen[0] != "capture":
+            fail(f"variants 13c: {a} attention and {e} epilogue launches over {n} bucket steps "
+                 f"{seen}, want {want}")
+        ok = all(o.shape == (cfg.height, cfg.width, 3) for out in run.outs for o in out)
+        say(f"variants 13c w8 + DeepCache N={DC_INTERVAL}, k=2: {card} | {'; '.join(eqs)} | "
+            f"{n} bucket steps {seen}: attention {a}, epilogue {e} launches | frames "
+            f"{'ok' if ok else 'BAD'} | keys {keys[(2, 'cached')].split('--v-')[0][-70:]}")
+        if not ok:
+            fail("variants 13c: bad output frames")
+        for x in sess:
+            x.release()
+        return a, e
+    finally:
+        sched.close()
+
+
 def _to_cpu(v):
     return {k: _to_cpu(x) for k, x in v.items()} if isinstance(v, dict) else v.cpu()
 
@@ -4806,10 +5404,11 @@ def main():
     broadcast_attn, broadcast_epi = phase_broadcast(torch, card, pipe)
     del pipe, ref_bundle
     sd15_attn, sd15_epi = phase_sd15(torch, card)
+    variants_attn, variants_epi = phase_variants(torch, card)
     attn_launches += (serve_attn + sessions_attn + faults_attn + native_attn + obs_attn
-                      + fleet_attn + broadcast_attn + sd15_attn)
+                      + fleet_attn + broadcast_attn + sd15_attn + variants_attn)
     epi_launches += (serve_epi + sessions_epi + faults_epi + native_epi + obs_epi + fleet_epi
-                     + broadcast_epi + sd15_epi)
+                     + broadcast_epi + sd15_epi + variants_epi)
     kernels = [
         {
             "name": "flash_attention", "route": "cuda",

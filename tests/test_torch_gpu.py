@@ -841,7 +841,7 @@ def test_serve_time_capture_breaches_and_a_guard_rebuild_does_not(cuda):
         frames = chip_smoke._frames(np, 3, seed=4, size=64)
         _step_all(sess, [frames[0]])
         assert plane.retrace_breaches == 0 and plane.aot_hits >= 1
-        key = sched.bucket_keys()[1]
+        key = sched.bucket_keys()[(1, "full")]
         sched._bucket.graph_cache._steps.pop(key)
         _step_all(sess, [frames[1]])
         assert plane.retrace_breaches == 1 and len(fired) == 1

@@ -98,12 +98,13 @@ def test_every_graph_flag_changes_the_key():
     assert len(set(keys)) == len(keys)
 
 
-def _jax_bucket_keys(model_id, jax_cfg, max_sessions, sizes):
-    """The JAX ``BatchScheduler.bucket_keys`` of a dense, single-device,
-    adapterless scheduler, called on a stand-in for its ``self``."""
-    owner = SimpleNamespace(model_id=model_id, params={}, mesh=None, _adapter_rank=0,
+def _jax_bucket_keys(model_id, jax_cfg, max_sessions, sizes, params=None, variants=("full",)):
+    """The JAX ``BatchScheduler.bucket_keys`` of a single-device, adapterless
+    scheduler (dense unless ``params`` are given), called on a stand-in for
+    its ``self``."""
+    owner = SimpleNamespace(model_id=model_id, params=params or {}, mesh=None, _adapter_rank=0,
                             cfg=jax_cfg, max_sessions=max_sessions, _bucket_sizes=sizes,
-                            _variants=["full"])
+                            _variants=list(variants))
     return JBatchScheduler.bucket_keys(owner, model_id)
 
 
@@ -124,9 +125,9 @@ def test_scheduler_bucket_keys_are_the_jax_recipe(port_bundle, max_sessions):
         want = _jax_bucket_keys("tiny-test", _configs(dataclasses.asdict(cfg))[1], max_sessions,
                                 sched._bucket_sizes)
         assert {k: _unversioned(v) for k, v in got.items()} == {
-            k: _unversioned(v) for (k, variant), v in want.items() if variant == "full"}
+            k: _unversioned(v) for k, v in want.items()}
         assert sched.graph_status() == dict.fromkeys(got, False)  # the CPU steps eagerly
-        assert sched.snapshot()["batchsched_graphs"] == {str(k): False for k in got}
+        assert sched.snapshot()["batchsched_graphs"] == {f"{k}:{v}": False for k, v in got}
     finally:
         sched.close()
 
@@ -137,10 +138,43 @@ def test_multipeer_keys_extend_the_jax_peers_key(port_bundle):
     mp = MultiPeerEngine(b.stream_models, b.params, cfg, b.encode_prompt, max_peers=4,
                          device="cpu", model_id="tiny-test")
     keys = mp.bucket_keys()
-    assert sorted(keys) == [1, 2, 4]
+    assert sorted(keys) == [(1, "full"), (2, "full"), (4, "full")]
     want = JENG.stream_engine_key("tiny-test", _configs(dataclasses.asdict(cfg))[1], peers=4)
-    assert _unversioned(keys[4]) == _unversioned(want)
-    assert len(set(keys.values())) == 3 and all("sbucket" in keys[k] for k in (1, 2))
+    assert _unversioned(keys[(4, "full")]) == _unversioned(want)
+    assert len(set(keys.values())) == 3 and all("sbucket" in keys[(k, "full")] for k in (1, 2))
+
+
+def test_variant_bucket_keys_are_the_jax_recipe(port_bundle, monkeypatch):
+    """DeepCache keys a capture + cached pair per bucket and w8 params add
+    ``quant-w8``: the scheduler's keys are the JAX scheduler's, and the
+    peer engine's full step keys are the JAX MultiPeerEngine's AOT pair."""
+    monkeypatch.setenv("QUANT_WEIGHTS", "w8")
+    monkeypatch.setenv("QUANT_MIN_SIZE", "256")
+    jb = JREG.load_model_bundle("tiny-test")
+    jq = JREG.cast_params(jb.params, "float32")
+    params = bridge.params_from_jax(jax.tree.map(np.asarray, jq))
+    b = port_bundle
+    cfg = PREG.default_stream_config("tiny-test", device="cpu", unet_cache_interval=3)
+    jcfg = _configs(dataclasses.asdict(cfg))[1]
+    sched = BatchScheduler(b.stream_models, params, cfg, b.encode_prompt, max_sessions=4,
+                           prewarm=False, device="cpu", model_id="tiny-test")
+    try:
+        got = sched.bucket_keys()
+        want = _jax_bucket_keys("tiny-test", jcfg, 4, sched._bucket_sizes, params=jq,
+                                variants=("capture", "cached"))
+        assert {k: _unversioned(v) for k, v in got.items()} == {
+            k: _unversioned(v) for k, v in want.items()}
+        assert all("quant-w8" in v and "dcache-3" in v for v in got.values())
+        assert sched._bucket_label(2, "cached") == "sbucket-2:cached"
+    finally:
+        sched.close()
+    mp = MultiPeerEngine(b.stream_models, params, cfg, b.encode_prompt, max_peers=4,
+                         device="cpu", model_id="tiny-test")
+    keys = mp.bucket_keys()
+    for v in ("capture", "cached"):
+        want = JENG.stream_engine_key("tiny-test", jcfg, peers=4, variant=v,
+                                      **JENG.params_variant_extra(jq))
+        assert _unversioned(keys[(4, v)]) == _unversioned(want)
 
 
 # -- captured steps on the CPU ---------------------------------------------------------

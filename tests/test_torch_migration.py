@@ -18,6 +18,14 @@
   JAX one for the same state row, field for field (there are no clock
   readings in it); a quarantined scheduler serves it and its rebuild
   restores the row bit for bit.
+* The speed variants (w8 weights, DeepCache at N = 3; the JAX w8 tree
+  carried by ``bridge``): the fingerprints are equal dicts with ``unet_cache``
+  3 and ``quant`` "w8"; a JAX snapshot (its row carries the deep-feature
+  cache, bit for bit) restores into the port and rides a capture first,
+  and the next frames stay within 1 uint8 level of a JAX reference
+  restored from the same snapshot, on the same cadence; a snapshot of
+  another variant (``unet_cache`` or ``quant`` differs) is refused on both
+  sides as the JAX scheduler refuses it.
 * The import rules: the AST walk of tests/test_torch_stream.py covers the
   new modules, and the router's core and the session layer import no
   aiohttp at all.
@@ -173,10 +181,15 @@ def test_similarity_filter_state_matches_the_jax_filter():
 # -- across frameworks -----------------------------------------------------------------
 
 @pytest.fixture(scope="module")
-def pair():
+def jax_tiny():
+    return JREG.load_model_bundle("tiny-test")
+
+
+@pytest.fixture(scope="module")
+def pair(jax_tiny):
     """A JAX and a port scheduler (2 slots, 2-stage ring at 32x32) over the
     same weights."""
-    jb = JREG.load_model_bundle("tiny-test")
+    jb = jax_tiny
     js = JS.BatchScheduler(jb.stream_models, jb.params, JREG.default_stream_config(
         "tiny-test", **RING), jb.encode_prompt, max_sessions=2, window_ms=10_000.0,
         prewarm=False, dp=1, model_id="tiny-test")
@@ -404,6 +417,101 @@ def test_a_quarantined_scheduler_serves_the_bank_and_rebuilds_from_it(pair):
         assert sched._quarantine_snaps == {}
     finally:
         sched.close()
+
+
+# -- the speed variants: w8 weights and DeepCache ----------------------------------------
+
+@pytest.fixture(scope="module")
+def variant_pair(jax_tiny):
+    """The pair's schedulers serving w8 weights (QUANT_MIN_SIZE 256) under
+    DeepCache at N = 3."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("QUANT_WEIGHTS", "w8")
+        mp.setenv("QUANT_MIN_SIZE", "256")
+        jq = JREG.cast_params(jax_tiny.params, "float32")
+    cfg = dict(RING, unet_cache_interval=3)
+    js = JS.BatchScheduler(jax_tiny.stream_models, jq, JREG.default_stream_config(
+        "tiny-test", **cfg), jax_tiny.encode_prompt, max_sessions=2, window_ms=10_000.0,
+        prewarm=False, dp=1, model_id="tiny-test")
+    pb = PREG.load_model_bundle("tiny-test", device="cpu",
+                                params=bridge.params_from_jax(jax.tree.map(np.asarray, jq)))
+    ps = PS.BatchScheduler(pb.stream_models, pb.params, PREG.default_stream_config(
+        "tiny-test", device="cpu", **cfg), pb.encode_prompt, max_sessions=2, window_ms=10_000.0,
+        device="cpu", model_id="tiny-test")
+    try:
+        yield SimpleNamespace(js=js, ps=ps, pb=pb)
+    finally:
+        js.close()
+        ps.close()
+
+
+def test_variant_fingerprints_are_equal_dicts(variant_pair):
+    fp = variant_pair.ps.snapshot_fingerprint()
+    assert fp == variant_pair.js.snapshot_fingerprint()
+    assert (fp["unet_cache"], fp["quant"]) == (3, "w8")
+
+
+def test_a_jax_variant_snapshot_restores_into_the_port(variant_pair):
+    """The source steps 4 frames (capture, cached, cached, capture) and
+    leaves; its snapshot restores into the port and, as the reference, into
+    the JAX scheduler again: both ride a capture first and then the same
+    cadence, every frame within 1 level."""
+    js, ps = variant_pair.js, variant_pair.ps
+    frames = _frames(9, 13)
+    src = js.claim("src", prompt="a w8 session", seed=5)
+    dst = ref = None
+    try:
+        for f in frames[:4]:
+            _tick(src, f)
+        snap = js.snapshot_session("src")
+        src.release()
+        src = None
+        assert (snap["cache_tick"], snap["cache_uncaptured"]) == (4, False)
+        row = JC.deserialize_pytree(base64.b64decode(snap["state_b64"]))
+        assert row["unet_cache"].shape == (2, 8, 8, 16) and np.abs(
+            np.asarray(row["unet_cache"], np.float32)).max() > 0
+        dst = ps.restore_session(snap, "dst")
+        ref = js.restore_session(snap, "ref")
+        assert dst.slot in ps._uncaptured and ref.slot in js._uncaptured
+        got = ps.states["unet_cache"][dst.slot]
+        assert _raw(got)[2] == np.ascontiguousarray(row["unet_cache"]).tobytes()
+        levels = []
+        for f in frames[4:]:
+            levels.append(_levels(_tick(dst, f), _tick(ref, f)))
+            assert ps._tick == js._tick
+        assert max(levels) <= 1, levels
+        back = ps.snapshot_session("dst")
+        assert back["fingerprint"] == snap["fingerprint"]
+        assert (back["cache_tick"], back["cache_uncaptured"]) == (js._tick, False)
+    finally:
+        _released(*(s for s in (src, dst, ref) if s is not None))
+
+
+@pytest.mark.parametrize("case", ["dense_into_variant", "variant_into_dense", "unet_cache",
+                                  "quant"])
+def test_another_variant_is_refused_on_both_sides(pair, variant_pair, case):
+    """A snapshot of another params variant or DeepCache interval is refused
+    by both packages' schedulers (SnapshotMismatch naming the key), which
+    stay untouched."""
+    origin, targets = (pair, variant_pair) if case == "dense_into_variant" else (
+        variant_pair, pair if case == "variant_into_dense" else variant_pair)
+    live = origin.js.claim("live-j", prompt="live", seed=1)
+    try:
+        snap = origin.js.snapshot_session("live-j")
+    finally:
+        live.release()
+    if case in ("unet_cache", "quant"):
+        snap = dict(snap, fingerprint=dict(snap["fingerprint"], **{
+            case: 2 if case == "unet_cache" else ""}))
+        keys = [case]
+    else:
+        keys = ["quant", "unet_cache"]
+    for target, mismatch in ((targets.js, JS.SnapshotMismatch), (targets.ps, PS.SnapshotMismatch)):
+        free = target.free_slots
+        with pytest.raises(mismatch, match=r"fingerprint mismatch on \[" + ", ".join(
+                f"'{k}'" for k in keys) + r"\]"):
+            target.restore_session(snap, "x")
+        assert target.free_slots == free
 
 
 def _flat_items(tree, slot, prefix=""):

@@ -59,6 +59,16 @@ class _Capture:
         return self
 
 
+@pytest.fixture(autouse=True)
+def admission_out_of_reach(monkeypatch):
+    """Both agents' admission budgets beyond what a loaded test box can
+    trip: under the suite's parallel workers the JAX agent's loop-lag EWMA
+    crossed its 200 ms budget and refused the router's first /offer (503
+    "fleet saturated").  These tests are about the move, not admission."""
+    monkeypatch.setenv("OVERLOAD_LOOP_LAG_BUDGET_MS", "100000")
+    monkeypatch.setenv("OVERLOAD_STEP_BUDGET_MS", "100000")
+
+
 @pytest.fixture(scope="module")
 def bundles():
     jb = JREG.load_model_bundle("tiny-test")

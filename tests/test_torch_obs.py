@@ -797,7 +797,7 @@ def test_agent_serve_time_bucket_build_breaches_on_all_three_surfaces(monkeypatc
             assert any(n.startswith("batch_k") for n, _ in tr.marks)
             assert plane.retrace_breaches == 0
             # a bucket evicted: the next dispatch builds it, at serve time
-            evicted = sched._bucket.graph_cache._steps.pop(keys[1])
+            evicted = sched._bucket.graph_cache._steps.pop(keys[(1, "full")])
             assert evicted is not None
             await pub.in_track.push(_frame(PF, 90, 3))
             await asyncio.wait_for(track.recv(), 60)
@@ -805,10 +805,10 @@ def test_agent_serve_time_bucket_build_breaches_on_all_three_surfaces(monkeypatc
                         "RETRACE_BREACH webhook")
             breaches = [p for p in sink.posted if p.get("state") == "RETRACE_BREACH"]
             assert len(breaches) == 1 and breaches[0]["event"] == "StreamDegraded"
-            assert keys[1] in breaches[0]["reason"]
+            assert keys[(1, "full")] in breaches[0]["reason"]
             assert breaches[0]["stream_id"] == "device-telemetry"
             events = [e for e in flight.session(sid).events if e["kind"] == "retrace"]
-            assert [e["context"] for e in events] == [keys[1]]
+            assert [e["context"] for e in events] == [keys[(1, "full")]]
             assert events[0]["phase"] == "serving" and events[0]["expected"] is False
             body = await (await client.get("/metrics")).json()
             assert body["retrace_breaches_total"] == 1
@@ -818,7 +818,8 @@ def test_agent_serve_time_bucket_build_breaches_on_all_three_surfaces(monkeypatc
             health = await (await client.get("/health")).json()
             assert health["devtel"]["retrace_breaches"] == 1
             assert health["devtel"]["watchdog"] == "cache-wrap"
-            assert health["sessions"][sid]["devtel"]["last_breach"]["context"] == keys[1]
+            last = health["sessions"][sid]["devtel"]["last_breach"]
+            assert last["context"] == keys[(1, "full")]
             # the engine guard's rebuild recaptures every bucket: no breach
             guard = app["engine_guard"]
             builds = plane.aot_builds

@@ -26,6 +26,7 @@ agent, on the CPU.
 
 import ast
 import asyncio
+import base64
 import json
 import os
 import random
@@ -44,6 +45,7 @@ from aiohttp.test_utils import TestClient, TestServer
 from _torch_threads import few_torch_threads  # noqa: F401  (autouse)
 from ai_rtc_agent_tpu.media import frames as JF
 from ai_rtc_agent_tpu.models import registry as JREG
+from ai_rtc_agent_tpu.parallel import checkpoint as JC
 from ai_rtc_agent_tpu.resilience import retry as JRETRY
 from ai_rtc_agent_tpu.server import agent as JA
 from ai_rtc_agent_tpu.server import events as JE
@@ -1372,4 +1374,96 @@ def test_mode_txt2img_parses_and_serves_an_offer_as_the_jax_agent(monkeypatch):
     assert port[:3] == want[:3] and want[0] == 200
     assert len(port[3]) == len(want[3]) == 4
     for a, b in zip(port[3], want[3]):
+        assert np.abs(a.astype(np.int16) - b.astype(np.int16)).max() <= 1
+
+
+def test_unet_cache_3_serves_an_offer_as_the_jax_agent(monkeypatch):
+    """``--unet-cache 3`` on each agent's command line reaches the served
+    config of the pipeline and the batch scheduler (no silent flag drop);
+    one /offer session on each agent, the JAX weights and session state
+    carried across, the same frames pushed into both.  The transcript
+    compared whole: the answers' forms; after 3 steps, /migrate/export's
+    fingerprint (``unet_cache`` 3), cadence fields (``cache_tick`` 3,
+    ``cache_uncaptured`` false) and control plane equal the JAX agent's, its
+    deep-feature row within 1e-3 of the JAX row (f32, 3 steps); a /config
+    prompt mid-session (the next step recaptures on both); every viewed
+    frame within 1 level of the JAX agent's."""
+    for name, value in (("WEBRTC_PROVIDER", "loopback"), ("SUPERVISOR", "0"),
+                        ("WARMUP_FRAMES", "0"), ("BATCHSCHED_MAX_SESSIONS", "1"),
+                        ("OVERLOAD_LOOP_LAG_BUDGET_MS", "100000")):
+        monkeypatch.setenv(name, value)
+    built = {}
+    for name, m, extra in (("jax", JA, []), ("port", PA, ["--device", "cpu"])):
+        monkeypatch.setattr(m.web, "run_app", lambda app, name=name, **kw: built.update({name: app}))
+        m.main(["--model-id", "tiny-test", "--unet-cache", "3"] + extra)
+    assert built["jax"]["unet_cache"] == built["port"]["unet_cache"] == 3
+    frames = _frames(8, seed=40)
+    got = {}
+
+    async def until_dispatched(sched, n):
+        """The cadence's tick counts the bucket steps dispatched since the
+        claim on both schedulers (their steps_total counts at different
+        points: the JAX one at a row's first fetch)."""
+        deadline = time.monotonic() + 120
+        while sched._tick < n:
+            assert time.monotonic() < deadline, "steps never ran"
+            await asyncio.sleep(0.02)
+
+    async def serve(name, hook):
+        app = built[name]
+        client = TestClient(TestServer(app))
+        await client.start_server()
+        try:
+            m = SIDES[name]
+            r = await client.post("/offer", json={
+                "room_id": "r", "offer": {"sdp": m.signaling.make_loopback_offer(),
+                                          "type": "offer"}})
+            body = await r.json()
+            sched = app["batch_scheduler"]
+            assert app["pipeline"].config.unet_cache_interval == 3 and sched._cache_interval == 3
+            hook(app)
+            pc = next(iter(app["pcs"]))
+
+            async def push(fs, i0):
+                for i, f in enumerate(fs):
+                    vf = m.frames.VideoFrame.from_ndarray(f)
+                    vf.pts, vf.time_base = i0 + i, Fraction(1, 30)
+                    await pc.in_track.push(vf)
+
+            async def view(n):
+                return [(await asyncio.wait_for(pc.out_tracks[0].recv(), 120)).to_ndarray()
+                        for _ in range(n)]
+
+            await push(frames[:4], 0)
+            seen = await view(2)  # the track keeps 2 in flight: 3 frames submitted
+            await until_dispatched(sched, 3)
+            export = await (await client.get(
+                f"/migrate/export?session={r.headers['X-Stream-Id']}")).json()
+            row = JC.deserialize_pytree(base64.b64decode(export.pop("state_b64")))
+            config = await client.post("/config", json={"prompt": "a watercolor fox"})
+            await push(frames[4:], 4)
+            seen += await view(4)
+            plane = {k: export[k] for k in ("schema", "kind", "fingerprint", "cache_tick",
+                                           "cache_uncaptured", "prompt", "t_index_list",
+                                           "frames_submitted", "had_output")}
+            return (r.status, sorted(body), body["type"], plane, config.status, sched._tick,
+                    seen, np.asarray(row["unet_cache"], np.float32))
+        finally:
+            await client.close()
+
+    def keep(app):
+        got["params"] = jax.tree.map(np.asarray, app["pipeline"].engine.params)
+        got["states"] = jax.tree.map(np.asarray, app["batch_scheduler"].states)
+
+    want = asyncio.run(serve("jax", keep))
+    params = bridge.params_from_jax(got["params"])
+    monkeypatch.setattr(PREG, "init_params", lambda fam, seed=0, device="cpu": params)
+    port = asyncio.run(serve("port", lambda app: bridge.states_from_jax(
+        got["states"], app["batch_scheduler"].states)))
+    assert port[:6] == want[:6] and want[0] == 200 and want[4] == 200
+    assert want[3]["fingerprint"]["unet_cache"] == 3 and want[3]["cache_tick"] == 3
+    np.testing.assert_allclose(port[7], want[7], rtol=1e-3, atol=1e-3)
+    assert np.abs(want[7]).max() > 0
+    assert len(port[6]) == len(want[6]) == 6
+    for a, b in zip(port[6], want[6]):
         assert np.abs(a.astype(np.int16) - b.astype(np.int16)).max() <= 1

@@ -240,9 +240,14 @@ def test_default_stream_config_matches_jax(model_id):
     {"unet_cache_interval": 3},
 ])
 def test_later_slices_raise(port_params, overrides):
-    """ControlNet, SDXL added conditioning and DeepCache (from its smallest
-    interval, 2) are later slices; the engine modes run
+    """ControlNet and SDXL added conditioning are later slices and raise;
+    DeepCache (from its smallest interval, 2) builds its capture + cached
+    pair (tests/test_torch_deepcache.py); the engine modes run
     (tests/test_torch_modes.py)."""
+    if overrides.get("unet_cache_interval", 0) >= 2:
+        eng = _port_engine(port_params, overrides, True, "kernel")
+        assert eng.variants == ("capture", "cached") and set(eng.keys) == set(eng.variants)
+        return
     with pytest.raises(NotImplementedError):
         _port_engine(port_params, overrides, True, "kernel")
 
