@@ -3,13 +3,17 @@
 Inputs are plain numpy trees (``jax.tree.map(np.asarray, tree)`` on the
 JAX side), so this module needs no JAX.
 
-* ``params_from_jax``: the rule is by rank.  Every 4-D leaf is a conv
-  kernel in these trees (the UNet's, TAESD's, the safety checker's patch
-  embedding) and goes HWIO -> OIHW.  Every other leaf crosses as it is:
-  linear kernels keep the JAX [in, out] layout, because the port applies
-  them as ``x @ w`` (models/layers.linear), and 2-D leaves that are no
-  kernel (embedding tables, the safety checker's ``concept_embeds`` and
-  ``special_care_embeds``) must not be transposed either.
+* ``params_from_jax``: the rule is by rank.  Every 4-D leaf but one is a
+  conv kernel in these trees (the UNet's, the ControlNet's zero convs and
+  cond embedding, HED's, TAESD's, the safety checker's patch embedding)
+  and goes HWIO -> OIHW.  The one exception is HED's ``norm``, a 4-D leaf
+  [1,1,1,3] that is no kernel but the input bias the NHWC image broadcasts
+  against: a leaf named ``norm`` crosses as it is (everywhere else
+  ``norm`` names a dict of scale and bias).  Every other leaf crosses as
+  it is: linear kernels keep the JAX [in, out] layout, because the port
+  applies them as ``x @ w`` (models/layers.linear), and 2-D leaves that
+  are no kernel (embedding tables, the safety checker's ``concept_embeds``
+  and ``special_care_embeds``) must not be transposed either.
 * ``state_from_jax``: ``jax.random`` and ``torch.Generator`` never draw the
   same noise, so a parity test hands the JAX engine's prepared state
   (noise, x_buf, stock, cond/uncond, coeffs, guidance, delta) to the port.
@@ -40,7 +44,16 @@ def params_from_jax(tree, device="cpu") -> dict:
             a = np.ascontiguousarray(a.transpose(3, 2, 0, 1))
         return _tensor(a, device)
 
-    return tree_map(leaf, tree)
+    def walk(node, key=None):
+        if isinstance(node, dict):
+            return {k: walk(v, k) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(walk(v) for v in node)
+        if node is None:
+            return None
+        return _tensor(node, device) if key == "norm" else leaf(node)
+
+    return walk(tree)
 
 
 def state_from_jax(state, device="cpu") -> dict:

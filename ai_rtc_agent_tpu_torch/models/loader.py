@@ -7,8 +7,10 @@ two to the same bytes and the same key maps.
 * :func:`read_safetensors` / :func:`write_safetensors`: the format written
   by hand (numpy only), since the card's machine may lack the
   ``safetensors`` package.
-* :func:`unet_key_map`, :func:`taesd_key_map`, :func:`clip_key_map`:
-  ``{hf key -> our leaf path}``, derived from the config-driven tree.
+* :func:`unet_key_map`, :func:`controlnet_key_map`, :func:`taesd_key_map`,
+  :func:`clip_key_map`: ``{hf key -> our leaf path}``, derived from the
+  config-driven tree; the UNet and the ControlNet share the encoder half
+  (:func:`_encoder_keys`).
 * :func:`load_into_tree` / :func:`tree_to_state_dict`: the boundary's
   layout rule.  The port keeps conv kernels OIHW, as torch checkpoints
   store them, and linear kernels [in, out] (``models/layers.linear``
@@ -17,9 +19,8 @@ two to the same bytes and the same key maps.
   crosses as it is.  SD1.5's ``proj_in``/``proj_out`` are 1x1 convs and
   stay 4-D.
 
-``controlnet_key_map`` (ControlNet) and the SDXL extras (the addition
-embedding, the text projection of the second tower) come with their
-families in a later slice.
+The SDXL extras (the addition embedding, the text projection of the second
+tower) come with their family in a later slice.
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ import torch
 
 from ..tree import tree_map
 from .clip import CLIPTextConfig
+from .controlnet import _skip_channels, cond_embed_widths
 from .taesd import TAESDConfig
 from .unet import UNetConfig
 
@@ -143,30 +145,37 @@ def _transformer_keys(prefix: str, path: tuple, depth: int) -> Iterator[tuple[st
     yield from _leaf_keys(prefix + ".proj_out", path + ("proj_out",), "conv")
 
 
-def unet_key_map(cfg: UNetConfig) -> dict[str, tuple]:
-    """diffusers UNet2DConditionModel -> the UNet tree (models/unet.py)."""
-    m: dict[str, tuple] = {}
-
-    def add(gen):
-        m.update(gen)
-
-    add(_leaf_keys("conv_in", ("conv_in",), "conv"))
-    add(_leaf_keys("time_embedding.linear_1", ("time_embedding", "linear_1"), "linear"))
-    add(_leaf_keys("time_embedding.linear_2", ("time_embedding", "linear_2"), "linear"))
+def _encoder_keys(cfg: UNetConfig) -> Iterator[tuple[str, tuple]]:
+    """The encoder half: conv_in, the time embedding, the down blocks and the
+    mid block, named alike in diffusers' UNet2DConditionModel and
+    ControlNetModel."""
+    yield from _leaf_keys("conv_in", ("conv_in",), "conv")
+    yield from _leaf_keys("time_embedding.linear_1", ("time_embedding", "linear_1"), "linear")
+    yield from _leaf_keys("time_embedding.linear_2", ("time_embedding", "linear_2"), "linear")
     nb = len(cfg.block_out_channels)
     for i in range(nb):
         base, path = f"down_blocks.{i}", ("down_blocks", i)
         for j in range(cfg.layers_per_block):
-            add(_resnet_keys(f"{base}.resnets.{j}", path + ("resnets", j)))
+            yield from _resnet_keys(f"{base}.resnets.{j}", path + ("resnets", j))
             if cfg.attn_blocks[i]:
-                add(_transformer_keys(f"{base}.attentions.{j}", path + ("attentions", j),
-                                      cfg.transformer_layers_per_block[i]))
+                yield from _transformer_keys(f"{base}.attentions.{j}", path + ("attentions", j),
+                                             cfg.transformer_layers_per_block[i])
         if i < nb - 1:
-            add(_leaf_keys(f"{base}.downsamplers.0.conv", path + ("downsample",), "conv"))
-    add(_resnet_keys("mid_block.resnets.0", ("mid_block", "resnet1")))
-    add(_transformer_keys("mid_block.attentions.0", ("mid_block", "attention"),
-                          cfg.transformer_layers_per_block[-1]))
-    add(_resnet_keys("mid_block.resnets.1", ("mid_block", "resnet2")))
+            yield from _leaf_keys(f"{base}.downsamplers.0.conv", path + ("downsample",), "conv")
+    yield from _resnet_keys("mid_block.resnets.0", ("mid_block", "resnet1"))
+    yield from _transformer_keys("mid_block.attentions.0", ("mid_block", "attention"),
+                                 cfg.transformer_layers_per_block[-1])
+    yield from _resnet_keys("mid_block.resnets.1", ("mid_block", "resnet2"))
+
+
+def unet_key_map(cfg: UNetConfig) -> dict[str, tuple]:
+    """diffusers UNet2DConditionModel -> the UNet tree (models/unet.py)."""
+    m: dict[str, tuple] = dict(_encoder_keys(cfg))
+
+    def add(gen):
+        m.update(gen)
+
+    nb = len(cfg.block_out_channels)
     for k in range(nb):
         i = nb - 1 - k
         base, path = f"up_blocks.{k}", ("up_blocks", k)
@@ -179,6 +188,30 @@ def unet_key_map(cfg: UNetConfig) -> dict[str, tuple]:
             add(_leaf_keys(f"{base}.upsamplers.0.conv", path + ("upsample",), "conv"))
     add(_leaf_keys("conv_norm_out", ("conv_norm_out",), "norm"))
     add(_leaf_keys("conv_out", ("conv_out",), "conv"))
+    return m
+
+
+def controlnet_key_map(cfg: UNetConfig, num_down: int = 3) -> dict[str, tuple]:
+    """diffusers ControlNetModel -> the ControlNet tree (models/controlnet.py).
+
+    The encoder half shares the UNet's names (:func:`_encoder_keys`); the
+    extras are the conditioning embedding (diffusers' flat ``blocks.{0..}``:
+    even indices the same-width conv1 of a stage, odd ones its stride-2
+    conv2) and the zero convs (``controlnet_down_blocks.{i}``,
+    ``controlnet_mid_block``).  ``num_down`` is init_controlnet's (3:
+    diffusers' ladder)."""
+    m: dict[str, tuple] = dict(_encoder_keys(cfg))
+    ce = "controlnet_cond_embedding"
+    m.update(_leaf_keys(f"{ce}.conv_in", ("cond_embedding", "conv_in"), "conv"))
+    for s in range(len(cond_embed_widths(num_down)) - 1):
+        m.update(_leaf_keys(f"{ce}.blocks.{2 * s}", ("cond_embedding", "blocks", s, "conv1"),
+                            "conv"))
+        m.update(_leaf_keys(f"{ce}.blocks.{2 * s + 1}", ("cond_embedding", "blocks", s, "conv2"),
+                            "conv"))
+    m.update(_leaf_keys(f"{ce}.conv_out", ("cond_embedding", "conv_out"), "conv"))
+    for i in range(len(_skip_channels(cfg))):
+        m.update(_leaf_keys(f"controlnet_down_blocks.{i}", ("zero_convs", i), "conv"))
+    m.update(_leaf_keys("controlnet_mid_block", ("mid_zero_conv",), "conv"))
     return m
 
 

@@ -11,8 +11,13 @@ port serves (sd15, sd21 / SD-Turbo, tiny).  As in the JAX package:
 
 LoRA files (``lora_dict``: path -> scale) are fused at load, in f32, before
 the bundle is cast (models/lora.py).  ``cast_params`` applies QUANT_WEIGHTS
-(w8, models/quant.py); the bundle carries the DeepCache pair
-(``unet_capture``/``unet_cached``).  ControlNet and HED are later slices.
+(w8, models/quant.py) to the whole tree, the ControlNet and HED included;
+the bundle carries the DeepCache pair (``unet_capture``/``unet_cached``).
+``controlnet=`` (a model id or a snapshot dir) adds the ControlNet branch
+(models/controlnet.py; random from the seed, its snapshot's safetensors
+through ``loader.controlnet_key_map`` where one resolves) and its apply
+closure; ``annotator="hed"`` adds the HED detector (models/hed.py; a local
+ControlNetHED.pth, HED_CHECKPOINT, where one exists).
 """
 
 from __future__ import annotations
@@ -30,6 +35,8 @@ from ..stream.engine import StreamConfig, StreamModels
 from ..tree import tree_map
 from ..utils import env
 from . import clip as C
+from . import controlnet as CN
+from . import hed as HED
 from . import loader as LD
 from . import lora as LR
 from . import quant as Q
@@ -225,6 +232,56 @@ def _try_load_weights(params: dict, snap: str, unet_cfg, clip_cfg, taesd_cfg) ->
     return any_loaded
 
 
+def _controlnet_params(controlnet: str, unet_cfg, num_down: int, fam: str, seed: int,
+                       device) -> dict:
+    """The ControlNet tree: random from the port's own generator (seed ``seed``
+    + 7), then the safetensors of ``controlnet``'s snapshot (its root or its
+    ``controlnet/`` subfolder) through ``loader.controlnet_key_map``, not
+    strict, in f32; a piece whose shapes do not fit keeps its random weights
+    with a warning, as in the JAX package."""
+    device = torch.device(device)
+    gen = None if device.type == "meta" else torch.Generator(device=device).manual_seed(seed + 7)
+    p = CN.init_controlnet(gen, unet_cfg, num_down=num_down, device=device)
+    snap = resolve_snapshot_dir(controlnet)
+    files = (LD.find_safetensors(snap) or LD.find_safetensors(snap, "controlnet")) if snap else []
+    if files:
+        sd: dict = {}
+        for f in files:
+            sd.update(LD.read_safetensors(f))
+        try:
+            p, n = LD.load_into_tree(p, sd, LD.controlnet_key_map(unet_cfg, num_down),
+                                     strict=False)
+            logger.info("loaded %d tensors into controlnet", n)
+        except ValueError as e:
+            logger.warning("controlnet weight load failed: %s", e)
+    elif fam != "tiny":
+        logger.warning("no local weights for controlnet %s (snapshot=%s) — random init",
+                       controlnet, snap)
+    return p
+
+
+def _hed_params(fam: str, seed: int, device) -> dict:
+    """The HED tree: TINY_STAGES for the tiny family, else FULL_STAGES with a
+    local ControlNetHED.pth (models/hed.find_hed_checkpoint) read in; random
+    from the port's own generator (seed ``seed`` + 11) otherwise."""
+    device = torch.device(device)
+    gen = None if device.type == "meta" else torch.Generator(device=device).manual_seed(seed + 11)
+    stages = HED.TINY_STAGES if fam == "tiny" else HED.FULL_STAGES
+    params = HED.init_hed(gen, stages=stages, device=device)
+    if stages is HED.FULL_STAGES:
+        ckpt = HED.find_hed_checkpoint()
+        if ckpt:
+            try:
+                params, n = HED.load_hed_from_torch(params, ckpt)
+                logger.info("loaded %d HED tensors from %s", n, ckpt)
+            except Exception as e:  # noqa: BLE001 - any unreadable file: random, as in JAX
+                logger.warning("HED checkpoint load failed (%s); random init", e)
+        else:
+            logger.warning("no local HED checkpoint (lllyasviel/Annotators) — random edge "
+                           "detector; download on a connected host")
+    return params
+
+
 def fuse_loras(unet_params: dict, unet_cfg, lora_dict: dict) -> dict:
     """Fuse each LoRA file of ``lora_dict`` (path -> scale) into the UNet
     tree, in order; one that matches no module raises ValueError (a
@@ -250,19 +307,33 @@ def load_model_bundle(
     attn_impl: str = "kernel",
     params: dict | None = None,
     lora_dict: dict | None = None,
+    controlnet: str | None = None,
+    annotator: str | None = None,
+    latent_scale: int = 8,
 ) -> ModelBundle:
     """Build the bundle on ``device`` (default "cuda"; raises without a
     card).  ``params``: a ready param tree (e.g. ``bridge.params_from_jax``
     of a JAX tree); otherwise random init from ``seed``, overwritten by a
     local snapshot's weights where one resolves (:func:`resolve_snapshot_dir`).
     ``lora_dict`` (path -> scale) fuses LoRA files into the UNet, in f32.
-    ``attn_impl`` ("kernel" | "plain") is baked into the UNet closure, as in
-    the JAX bundle.  Real weights with no tokenizer vocab raise."""
+    ``controlnet`` (a ControlNet model id or snapshot dir, as the JAX
+    bundle takes it) adds ``params["controlnet"]`` unless ``params`` holds
+    one; ``annotator="hed"`` with it adds ``params["hed"]`` the same way.
+    ``latent_scale`` sets the cond embedding's downsamples (8 -> 3, 4 -> 2,
+    2 -> 1; the tiny family is 4).  ``attn_impl`` ("kernel" | "plain") is
+    baked into the UNet and ControlNet closures, as in the JAX bundle.
+    Real weights with no tokenizer vocab raise."""
     device = resolve_device(device)
     fam = family_of(model_id)
     unet_cfg, clip_cfg, taesd_cfg = _model_configs(fam)
     if attn_impl not in ATTN_IMPLS:
         raise ValueError(f"attn_impl {attn_impl!r} not in {ATTN_IMPLS}")
+    if fam == "tiny":
+        latent_scale = 4
+    cnet_num_down = {8: 3, 4: 2, 2: 1}.get(latent_scale)
+    if controlnet is not None and cnet_num_down is None:
+        raise ValueError(
+            f"latent_scale {latent_scale} unsupported for controlnet (must be 2, 4 or 8)")
     snap = resolve_snapshot_dir(model_id)
     loaded = False
     if params is None:
@@ -271,6 +342,13 @@ def load_model_bundle(
             loaded = _try_load_weights(params, snap, unet_cfg, clip_cfg, taesd_cfg)
         if not loaded and fam != "tiny":
             logger.warning("no local weights for %s — serving RANDOM weights", model_id)
+    if controlnet is not None:
+        params = dict(params)
+        if "controlnet" not in params:
+            params["controlnet"] = _controlnet_params(controlnet, unet_cfg, cnet_num_down, fam,
+                                                      seed, device)
+        if annotator == "hed" and "hed" not in params:
+            params["hed"] = _hed_params(fam, seed, device)
     if lora_dict:
         params = dict(params)
         params["unet"] = fuse_loras(params["unet"], unet_cfg, lora_dict)
@@ -286,8 +364,13 @@ def load_model_bundle(
             "real weights with the hermetic HashTokenizer (prompts would be garbage); "
             "re-download the snapshot with its tokenizer files")
 
-    def unet_apply(p, x, t, ctx):
-        return U.apply_unet(p["unet"], x, t, ctx, unet_cfg, attn_impl=attn_impl)
+    def unet_apply(p, x, t, ctx, down_residuals=None, mid_residual=None):
+        return U.apply_unet(p["unet"], x, t, ctx, unet_cfg, attn_impl=attn_impl,
+                            down_residuals=down_residuals, mid_residual=mid_residual)
+
+    def controlnet_apply(p, x, t, ctx, cond_img, scale):
+        return CN.apply_controlnet(p["controlnet"], x, t, ctx, cond_img, unet_cfg,
+                                   conditioning_scale=scale, attn_impl=attn_impl)
 
     def unet_capture(p, x, t, ctx):
         return U.apply_unet(p["unet"], x, t, ctx, unet_cfg, attn_impl=attn_impl,
@@ -317,6 +400,7 @@ def load_model_bundle(
         params=params,
         stream_models=StreamModels(
             unet=unet_apply, vae_encode=vae_encode, vae_decode=vae_decode,
+            controlnet=controlnet_apply if controlnet is not None else None,
             unet_capture=unet_capture, unet_cached=unet_cached,
             deep_cache_shape=lambda x_shape: U.deep_cache_shape(unet_cfg, x_shape)),
         encode_prompt=encode_prompt,

@@ -2,8 +2,8 @@
 
 Counterpart of ai_rtc_agent_tpu/models/unet.py: the same config, param
 tree and forward, NHWC, with the DeepCache pair (``deep_cache="capture"``
-/ ``"use"``).  ControlNet residuals and the SDXL addition embedding are
-later slices.
+/ ``"use"``) and the ControlNet residuals (models/controlnet.py).  The
+SDXL addition embedding is a later slice.
 """
 
 from __future__ import annotations
@@ -250,16 +250,16 @@ def apply_unet(p, x, timesteps, context, cfg: UNetConfig, attn_impl: str = "kern
                    the last up block) around ``cached_h``, spliced in for the
                    deep remainder; with identical inputs and a cache captured
                    from them the output equals the full pass exactly.
-    ``down_residuals``/``mid_residual`` (ControlNet's) are not served by the
-    port yet; "use" refuses them as the JAX forward does."""
+    ``down_residuals``/``mid_residual`` (ControlNet's, one per skip and one
+    for the mid block) are added to the skips and to the mid block's output,
+    as in the JAX forward; "use" refuses them (they feed the skipped deep
+    blocks)."""
     nb = len(cfg.block_out_channels)
     temb = time_cond_embedding(p, cfg, timesteps, dtype=x.dtype)
     context = context.to(x.dtype)
-    if down_residuals is not None or mid_residual is not None:
-        if deep_cache == "use":
-            raise ValueError("deep_cache='use' is incompatible with ControlNet residuals "
-                             "(they feed the skipped deep blocks)")
-        raise NotImplementedError("ControlNet residuals are not ported yet (a later slice)")
+    if deep_cache == "use" and (down_residuals is not None or mid_residual is not None):
+        raise ValueError("deep_cache='use' is incompatible with ControlNet residuals "
+                         "(they feed the skipped deep blocks)")
 
     if deep_cache == "use":
         if cached_h is None:
@@ -302,10 +302,17 @@ def apply_unet(p, x, timesteps, context, cfg: UNetConfig, attn_impl: str = "kern
             h = conv2d(blk["downsample"], h, stride=2, padding=1)
             skips.append(h)
 
+    if down_residuals is not None:
+        if len(down_residuals) != len(skips):
+            raise ValueError(f"expected {len(skips)} down residuals, got {len(down_residuals)}")
+        skips = [s + r.to(s.dtype) for s, r in zip(skips, down_residuals)]
+
     mb = p["mid_block"]
     h = _resnet(mb["resnet1"], h, temb, cfg.norm_groups)
     h = _transformer(mb["attention"], h, context, cfg, cfg.num_heads_per_block[-1], attn_impl)
     h = _resnet(mb["resnet2"], h, temb, cfg.norm_groups)
+    if mid_residual is not None:
+        h = h + mid_residual.to(h.dtype)
 
     deep_h = None
     for k, blk in enumerate(p["up_blocks"]):

@@ -172,6 +172,8 @@ def build_app(
     batch_scheduler=None,
     mode: str = "img2img",
     unet_cache: int = 0,
+    controlnet: str | None = None,
+    annotator: str | None = None,
 ) -> web.Application:
     """``pipeline``, ``multipeer_pipeline``, ``batch_scheduler``: injectable
     for tests; built at startup when None, on ``device`` (the card unless
@@ -180,7 +182,8 @@ def build_app(
     sessions.configure(app, model_id=model_id, pipeline=pipeline, provider=provider,
                        fbs=fbs, device=device, multipeer=multipeer,
                        multipeer_pipeline=multipeer_pipeline, batch_scheduler=batch_scheduler,
-                       mode=mode, unet_cache=unet_cache)
+                       mode=mode, unet_cache=unet_cache, controlnet=controlnet,
+                       annotator=annotator)
     app["udp_ports"] = udp_ports
     app.on_startup.append(on_startup)
     app.on_shutdown.append(on_shutdown)
@@ -199,6 +202,14 @@ def main(argv=None):
                              "snapshot dir (unet/, text_encoder/, vae/, tokenizer/)")
     parser.add_argument("--port", default=8888, type=int, help="HTTP signaling port")
     parser.add_argument("--udp-ports", default=None, help="comma-separated UDP media ports")
+    parser.add_argument("--controlnet", default=None,
+                        help="optional ControlNet model id or snapshot dir (enables the "
+                             "canny-conditioned stream); without local weights its zero convs "
+                             "make it a no-op")
+    parser.add_argument("--annotator", default=None, choices=["canny", "hed", "identity"],
+                        help="ControlNet conditioning processor (default canny; hed = the "
+                             "reference's detector, in the step, weights from a local "
+                             "lllyasviel/Annotators or HED_CHECKPOINT)")
     parser.add_argument("--fbs", default=0, type=int, metavar="N",
                         help="frame_buffer_size: N consecutive frames per step; 0 = per frame")
     parser.add_argument("--multipeer", default=0, type=int, metavar="N",
@@ -232,6 +243,8 @@ def main(argv=None):
         multipeer=args.multipeer,
         mode=args.mode,
         unet_cache=args.unet_cache,
+        controlnet=args.controlnet,
+        annotator=args.annotator,
         udp_ports=args.udp_ports.split(",") if args.udp_ports else None,
     )
     web.run_app(app, host="0.0.0.0", port=args.port)

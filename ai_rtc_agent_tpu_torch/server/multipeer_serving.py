@@ -80,8 +80,10 @@ class MultiPeerPipeline:
     card unless ``device`` says otherwise; ``params``: a ready param tree
     (otherwise the local snapshot's weights, or random weights from a fixed
     seed).  ``config``: any engine mode (full CFG, sequential, txt2img) the
-    bucket steps run; the safety checker (SAFETY_CHECKER) gates each peer's
-    output at its fetch, as on the single-peer path."""
+    bucket steps run; ``controlnet`` (a model id or a snapshot dir): the
+    ControlNet they condition on, as the JAX plane takes it.  The safety
+    checker (SAFETY_CHECKER) gates each peer's output at its fetch, as on the
+    single-peer path."""
 
     # steps in flight: step N's readback overlaps step N+1's launch
     PIPELINE_DEPTH = 2
@@ -90,11 +92,14 @@ class MultiPeerPipeline:
 
     def __init__(self, model_id: str = "stabilityai/sd-turbo", max_peers: int = 4, config=None,
                  prompt: str = DEFAULT_PROMPT, fetch_timeout: float = 120.0, device=None,
-                 params: dict | None = None):
+                 params: dict | None = None, controlnet: str | None = None):
         self.device = resolve_device(device)
-        cfg = config or registry.default_stream_config(model_id, device=self.device)
-        bundle = registry.load_model_bundle(model_id, device=self.device, seed=0,
-                                            attn_impl=cfg.attn_impl, params=params)
+        cfg = config or registry.default_stream_config(
+            model_id, device=self.device, **({"use_controlnet": True} if controlnet else {}))
+        bundle = registry.load_model_bundle(
+            model_id, device=self.device, seed=0, attn_impl=cfg.attn_impl, params=params,
+            controlnet=controlnet, latent_scale=cfg.latent_scale,
+            annotator=cfg.annotator if cfg.use_controlnet else None)
         bundle.params = registry.cast_params(bundle.params, cfg.dtype)
         self.engine = MultiPeerEngine(bundle.stream_models, bundle.params, cfg,
                                       bundle.encode_prompt, max_peers=max_peers,

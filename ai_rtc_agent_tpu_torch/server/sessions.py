@@ -267,7 +267,8 @@ def wire_datachannel(pipeline, channel, guard=None, encoders=None):
 def configure(app, model_id: str = "stabilityai/sd-turbo", pipeline=None, provider=None,
               fbs: int = 0, device=None, multipeer: int = 0, multipeer_pipeline=None,
               batch_scheduler=None, events_handler=None, transport=None,
-              mode: str = "img2img", unet_cache: int = 0):
+              mode: str = "img2img", unet_cache: int = 0, controlnet: str | None = None,
+              annotator: str | None = None):
     """Fill the app state's configuration.  ``pipeline=None`` builds the
     port's StreamDiffusionPipeline at :func:`startup`, and the batch
     scheduler over it; ``multipeer`` N > 0 builds the N-slot peer engine
@@ -276,8 +277,14 @@ def configure(app, model_id: str = "stabilityai/sd-turbo", pipeline=None, provid
     sender (a ``StreamEventHandler`` that posts elsewhere than aiohttp).
     ``transport`` (fleet/transport.py): how this agent reaches other
     agents (the edge pull); None: HTTP through aiohttp, made at first use.
-    ``unet_cache`` N >= 2: the DeepCache interval (``--unet-cache``)."""
+    ``unet_cache`` N >= 2: the DeepCache interval (``--unet-cache``).
+    ``controlnet`` (a model id or a snapshot dir) and ``annotator`` (canny,
+    hed or identity): the ControlNet every serving plane conditions on
+    (``--controlnet``, ``--annotator``; an annotator without a ControlNet
+    is refused at :func:`startup`)."""
     app["model_id"] = model_id
+    app["controlnet"] = controlnet
+    app["annotator"] = annotator
     app["pipeline"] = pipeline
     app["provider"] = provider or get_provider()
     app["fbs"] = fbs
@@ -308,9 +315,11 @@ def configure(app, model_id: str = "stabilityai/sd-turbo", pipeline=None, provid
 
 def stream_config(app, device):
     """The served stream config: the family's default with the agent's
-    flags (``--fbs`` N > 1, ``--unet-cache`` N >= 2, ``--mode``), for both
+    flags (``--fbs`` N > 1, ``--unet-cache`` N >= 2, ``--mode``,
+    ``--annotator``, and ControlNet on with ``--controlnet``), for both
     serving modes (no silent flag drops); None (the family's default,
-    UNET_CACHE and all) without any."""
+    UNET_CACHE and all; ControlNet on when the plane is given one) without
+    any."""
     overrides = {}
     if app.get("fbs", 0) > 1:
         overrides["frame_buffer_size"] = app["fbs"]
@@ -318,8 +327,12 @@ def stream_config(app, device):
         overrides["unet_cache_interval"] = app["unet_cache"]
     if app.get("mode", "img2img") != "img2img":
         overrides["mode"] = app["mode"]
+    if app.get("annotator"):
+        overrides["annotator"] = app["annotator"]
     if not overrides:
         return None
+    if app.get("controlnet"):
+        overrides["use_controlnet"] = True
     return registry.default_stream_config(app["model_id"], device=device, **overrides)
 
 
@@ -327,7 +340,8 @@ def build_pipeline(app) -> StreamDiffusionPipeline:
     """The served pipeline, on the card unless the app's ``device`` says
     otherwise (raises without one: the server never carries on on the CPU)."""
     dev = resolve_device(app["device"])
-    return StreamDiffusionPipeline(app["model_id"], config=stream_config(app, dev), device=dev)
+    return StreamDiffusionPipeline(app["model_id"], config=stream_config(app, dev), device=dev,
+                                   controlnet=app.get("controlnet"))
 
 
 async def startup(app):
@@ -339,6 +353,8 @@ async def startup(app):
     app["devtel"] = None
     if env.devtel_enabled():
         app["devtel"] = obs_devtel.activate(obs_devtel.DevTelPlane())
+    if app.get("annotator") and not app.get("controlnet"):
+        raise ValueError("--annotator requires --controlnet")
     if app["multipeer"] and app["multipeer_pipeline"] is None:
         from .multipeer_serving import MultiPeerPipeline
 
@@ -349,7 +365,7 @@ async def startup(app):
         dev = resolve_device(app["device"])
         app["multipeer_pipeline"] = MultiPeerPipeline(
             app["model_id"], max_peers=app["multipeer"], device=dev,
-            config=stream_config(app, dev),
+            config=stream_config(app, dev), controlnet=app.get("controlnet"),
         )
     elif app["pipeline"] is None and app["multipeer_pipeline"] is None:
         app["pipeline"] = build_pipeline(app)

@@ -36,11 +36,17 @@ Modes, as in the JAX engine:
 * the speed variants: w8 params (models/quant.py; the primitives
   dequantize, the keys gain ``quant-w8``) and DeepCache
   (``unet_cache_interval``: a capture and a cached step over one state, the
-  deep feature in ``state["unet_cache"]``, alternated on a host tick).
+  deep feature in ``state["unet_cache"]``, alternated on a host tick);
+* ControlNet (``use_controlnet``; the bundle's ``controlnet`` apply): the
+  new frames are annotated in the step (``annotator`` canny, hed or
+  identity), ride a conditioning ring ``state["cnet_cond"]`` [B-fbs,H,W,3]
+  that rotates with the latent ring, and the ControlNet's residuals, scaled
+  by ``state["cnet_scale"]``, feed every UNet pass (not a DeepCache pair's,
+  which the JAX package refuses as well).
 The post-UNet chain runs as the fused epilogue kernel where the JAX
 ``fused_ok`` holds (``use_fused_epilogue``, denoising batch, epsilon
 prediction, cfg none/self/initialize), otherwise as the composed ops.
-ControlNet, SDXL conditioning and DeepCache raise.
+SDXL conditioning raises.
 """
 
 from __future__ import annotations
@@ -57,6 +63,8 @@ import torch
 from .. import resolve_device
 from ..aot.cache import GraphCache, stream_engine_key
 from ..models import quant as Q
+from ..models.controlnet import canny_soft
+from ..models.hed import apply_hed
 from ..obs import devtel
 from ..ops import image as I
 from ..ops import lcm as L
@@ -131,11 +139,16 @@ class StreamModels:
     unet_capture(params, x, t, context) -> (model_out, deep_h);
     unet_cached(params, x, t, context, deep_h) -> model_out;
     deep_cache_shape(x_shape) -> deep_h's shape for a UNet input of x_shape
-    (what the JAX engine reads off ``jax.eval_shape`` of the capture step)."""
+    (what the JAX engine reads off ``jax.eval_shape`` of the capture step).
+
+    ControlNet (None: the bundle has none): controlnet(params, x, t,
+    context, cond_img, scale) -> (down residuals, mid residual), which
+    ``unet(..., down_residuals=, mid_residual=)`` takes."""
 
     unet: Callable
     vae_encode: Callable
     vae_decode: Callable
+    controlnet: Callable | None = None
     unet_capture: Callable | None = None
     unet_cached: Callable | None = None
     deep_cache_shape: Callable | None = None
@@ -153,6 +166,9 @@ def unet_variants(cfg: StreamConfig) -> tuple:
 def _check_supported(cfg: StreamConfig, models: StreamModels, unet_variant: str = "full"):
     if unet_variant not in UNET_VARIANTS:
         raise ValueError(f"unet_variant {unet_variant!r} not in {UNET_VARIANTS}")
+    if cfg.use_controlnet and models.controlnet is None:
+        raise ValueError("cfg.use_controlnet=True but StreamModels.controlnet is None — load the "
+                         "bundle with a controlnet model id")
     if unet_variant != "full":  # the JAX make_step_fn's refusals
         if models.unet_capture is None or models.unet_cached is None:
             raise ValueError("unet_cache_interval set but this model bundle has no DeepCache "
@@ -165,17 +181,40 @@ def _check_supported(cfg: StreamConfig, models: StreamModels, unet_variant: str 
                 "unet_cache_interval requires denoising-batch mode (the sequential path runs "
                 "multiple timesteps per slot, so the per-slot timestep alignment the cache "
                 "relies on is lost)")
-    later = []
-    if cfg.use_controlnet:
-        later.append("ControlNet")
-    if cfg.use_added_cond:
-        later.append("SDXL added conditioning")
     if cfg.cfg_type not in R.CFG_TYPES:
         raise ValueError(f"unknown cfg_type {cfg.cfg_type!r}")
-    if later:
+    if cfg.use_added_cond:
         raise NotImplementedError(
-            "not ported yet (a later slice of the port): " + ", ".join(later)
-        )
+            "not ported yet (a later slice of the port): SDXL added conditioning")
+
+
+def check_params(cfg: StreamConfig, params):
+    """Refuse params that ``cfg`` cannot serve, at engine build: HED's convs
+    quantized (QUANT_WEIGHTS=w8 walks the HED tree too, and the HED convs
+    read a dense ``kernel``, so the JAX engine fails this combination at
+    its first step with a KeyError)."""
+    if (cfg.use_controlnet and cfg.annotator == "hed"
+            and Q.quantized_bytes_saved(params.get("hed")) > 0):
+        raise ValueError(
+            "annotator='hed' with QUANT_WEIGHTS=w8 params is not served: the HED annotator's "
+            "convs would be int8, which it cannot apply (the JAX package fails the same "
+            "combination) — unset QUANT_WEIGHTS or use another annotator")
+
+
+def _annotate(img01_nhwc, cfg: StreamConfig, params):
+    """The in-step conditioning annotator (the JAX ``_annotate``): canny (the
+    soft-Canny map the tracked configuration uses), hed (models/hed.py, its
+    params in the bundle) or identity."""
+    if cfg.annotator == "canny":
+        return canny_soft(img01_nhwc)
+    if cfg.annotator == "hed":
+        if params is None or "hed" not in params:
+            raise ValueError("annotator='hed' needs HED params in the bundle — load with "
+                             "registry.load_model_bundle(..., annotator='hed')")
+        return apply_hed(params["hed"], img01_nhwc)
+    if cfg.annotator == "identity":
+        return img01_nhwc
+    raise ValueError(f"unknown annotator {cfg.annotator!r} (canny|hed|identity)")
 
 
 def coeff_state(cfg: StreamConfig, schedule: S.NoiseSchedule, t_index_list, device) -> dict:
@@ -217,32 +256,44 @@ def fused_ok(cfg: StreamConfig) -> bool:
 
 
 def unet_runner(models: StreamModels, unet_variant: str = "full") -> Callable:
-    """``run(params, x, t, ctx, cache) -> (model_out, deep_h or None)`` for
-    one step variant (the JAX step's ``run_unet``): "full" the plain UNet,
-    "capture" the full UNet that also returns the deep feature, "cached"
-    the outermost tier around ``cache``."""
-    if unet_variant == "capture":
-        return lambda params, x, t, ctx, cache: models.unet_capture(params, x, t, ctx)
-    if unet_variant == "cached":
-        return lambda params, x, t, ctx, cache: (models.unet_cached(params, x, t, ctx, cache), None)
-    return lambda params, x, t, ctx, cache: (models.unet(params, x, t, ctx), None)
+    """``run(params, x, t, ctx, cache, cnet=None) -> (model_out, deep_h or
+    None)`` for one step variant (the JAX step's ``run_unet``): "full" the
+    plain UNet, "capture" the full UNet that also returns the deep feature,
+    "cached" the outermost tier around ``cache``.  ``cnet`` (cond images,
+    scale), the full variant only: the ControlNet's residuals feed the
+    UNet."""
+    def run(params, x, t, ctx, cache, cnet=None):
+        if cnet is not None:
+            down, mid = models.controlnet(params, x, t, ctx, *cnet)
+            return models.unet(params, x, t, ctx, down_residuals=down, mid_residual=mid), None
+        if unet_variant == "capture":
+            return models.unet_capture(params, x, t, ctx)
+        if unet_variant == "cached":
+            return models.unet_cached(params, x, t, ctx, cache), None
+        return models.unet(params, x, t, ctx), None
+
+    return run
 
 
 def _guided(run: Callable, cfg: StreamConfig, params, x, t, cond, uncond, stock,
-            coeffs: L.StepCoeffs, guidance, delta, cache=None):
+            coeffs: L.StepCoeffs, guidance, delta, cache=None, cnet=None):
     """One guided UNet pass over ``x`` [n,h,w,c] with the per-row ``t``,
     ``cond`` and ``uncond`` [n,L,D]: -> (eps, new stock or None when the
     stock stays, the deep feature of a capture or None).  ``run``:
     :func:`unet_runner`; ``cache``: a cached step's deep feature, the pass's
-    rows.  ``guidance``/``delta``: a scalar or a per-row column.  Full CFG
-    runs the 2n rows uncond first and combines them (the JAX
-    ``unet_with_guidance``)."""
+    rows; ``cnet``: (cond images [n,H,W,3], ControlNet scale: a scalar or a
+    per-row column) or None.  ``guidance``/``delta``: a scalar or a per-row
+    column.  Full CFG runs the 2n rows uncond first and combines them (the
+    JAX ``unet_with_guidance``), the cond images and scales doubled alike."""
     if cfg.cfg_type == "full":
+        if cnet is not None:
+            img, scale = cnet
+            cnet = (torch.cat([img, img]), torch.cat([scale, scale]) if scale.ndim else scale)
         out, deep = run(params, torch.cat([x, x]), torch.cat([t, t]), torch.cat([uncond, cond]),
-                        cache)
+                        cache, cnet)
         eps_u, eps_c = out.chunk(2)
         return R.combine_full(eps_u, eps_c, guidance), None, deep
-    eps_c, deep = run(params, x, t, cond, cache)
+    eps_c, deep = run(params, x, t, cond, cache, cnet)
     if cfg.cfg_type == "none":
         return eps_c, None, deep
     eps = R.combine_residual(eps_c, stock, guidance, delta)
@@ -281,12 +332,22 @@ def make_step_fn(models: StreamModels, cfg: StreamConfig, unet_variant: str = "f
     @torch.inference_mode()
     def step(params, state, frame_u8):
         """frame_u8: [fbs,H,W,3] (or [H,W,3] when fbs==1) uint8 on the device
-        (not read in txt2img)."""
+        (not read in txt2img, but for the ControlNet's annotator)."""
         coeffs = _coeffs(state["coeffs"])
         noise = state["noise"]
+        img = I.preprocess_uint8(frame_u8, dtype=dt) \
+            if cfg.mode == "img2img" or cfg.use_controlnet else None
+
+        cnet = None  # (cond images of the B rows, scale)
+        if cfg.use_controlnet:
+            # the new frames' annotations enter the conditioning ring, which
+            # rotates with the latent ring (written in place after the cat)
+            cond_full = torch.cat([_annotate(img, cfg, params), state["cnet_cond"].to(dt)])
+            if B > fbs:
+                state["cnet_cond"].copy_(cond_full[: B - fbs])
+            cnet = (cond_full, state["cnet_scale"])
 
         if cfg.mode == "img2img":
-            img = I.preprocess_uint8(frame_u8, dtype=dt)
             z0 = models.vae_encode(params, img)
             if cfg.do_add_noise:
                 a0 = coeffs.alpha[:fbs].reshape(-1, 1, 1, 1).to(dt)
@@ -307,7 +368,8 @@ def make_step_fn(models: StreamModels, cfg: StreamConfig, unet_variant: str = "f
                 sub = _coeffs(state["coeffs"], sl)
                 eps, st, _ = _guided(run, cfg, params, x, sub.timesteps, rows(state["cond"], fbs),
                                      rows(state["uncond"], fbs), stock[sl], sub, state["guidance"],
-                                     state["delta"])
+                                     state["delta"],
+                                     cnet=None if cnet is None else (cnet[0][:fbs], cnet[1]))
                 stocks.append(st)
                 x = L.renoise_next(_denoise(cfg, x, eps, sub), noise[sl].to(dt), sub)
             if stocks[0] is not None:
@@ -316,7 +378,7 @@ def make_step_fn(models: StreamModels, cfg: StreamConfig, unet_variant: str = "f
         elif fused:
             x_t = torch.cat([x_new, state["x_buf"].to(dt)]) if B > fbs else x_new
             eps_c, deep = run(params, x_t, coeffs.timesteps, rows(state["cond"], B),
-                              state.get("unet_cache"))
+                              state.get("unet_cache"), cnet)
             # the whole post-UNet chain in one launch: entry b renoises with
             # slot b+fbs's noise (exit entries with 0), the advanced entries
             # land in the ring buffer and the new stock in the stock, in place
@@ -331,7 +393,7 @@ def make_step_fn(models: StreamModels, cfg: StreamConfig, unet_variant: str = "f
             eps, new_stock, deep = _guided(run, cfg, params, x_t, coeffs.timesteps,
                                            rows(state["cond"], B), rows(state["uncond"], B), stock,
                                            coeffs, state["guidance"], state["delta"],
-                                           state.get("unet_cache"))
+                                           state.get("unet_cache"), cnet)
             denoised = _denoise(cfg, x_t, eps, coeffs)
             if B > fbs:
                 state["x_buf"].copy_(L.renoise_next(
@@ -387,7 +449,14 @@ def make_session_step_fn(models: StreamModels, cfg: StreamConfig, unet_variant: 
     ``unet_variant`` (the DeepCache pair, as :func:`make_step_fn`): each
     session's deep feature is its row of ``states["unet_cache"]`` in the
     single step's layout (full CFG: its uncond rows, then its cond rows); a
-    capture writes the real sessions' rows in place."""
+    capture writes the real sessions' rows in place.
+
+    ControlNet: each session's fbs new frames are annotated in one batch of
+    k·fbs, its conditioning ring (``states["cnet_cond"]`` at its slot)
+    follows them, the real sessions' rings are written back in place
+    (``write_segments``), and each row's residuals are scaled by its
+    session's ``cnet_scale``; sequential mode conditions every stage on the
+    new frames, full CFG doubles the cond images as it doubles the rows."""
     _check_supported(cfg, models, unet_variant)
     B = cfg.batch_size
     fbs = cfg.frame_buffer_size
@@ -426,8 +495,23 @@ def make_session_step_fn(models: StreamModels, cfg: StreamConfig, unet_variant: 
                 write_segments(states["unet_cache"], d.reshape(k, split * B, *deep.shape[1:]),
                                slots, k_real)
 
+        img = I.preprocess_uint8(frames_u8.reshape(k * fbs, *frames_u8.shape[-3:]), dtype=dt) \
+            if cfg.mode == "img2img" or cfg.use_controlnet else None
+
+        def cnet_of(n):  # (each session's first n cond images, its scale on them) or None
+            return None if cond_full is None else (rows(cond_full[:, :n]),
+                                                   col(states["cnet_scale"], n))
+
+        cond_full = None
+        if cfg.use_controlnet:
+            # each session's new annotations, then its ring: [k, B, H, W, 3];
+            # the real sessions' rings rotate in place, as their latent rings do
+            new = _annotate(img, cfg, params).reshape(k, fbs, *img.shape[1:])
+            cond_full = torch.cat([new, take(states["cnet_cond"]).to(dt)], dim=1)
+            if B > fbs:
+                write_segments(states["cnet_cond"], cond_full[:, : B - fbs], slots, k_real)
+
         if cfg.mode == "img2img":
-            img = I.preprocess_uint8(frames_u8.reshape(k * fbs, *frames_u8.shape[-3:]), dtype=dt)
             z0 = models.vae_encode(params, img)  # [k*fbs,h,w,c]
             z0 = z0.view(k, fbs, *z0.shape[1:])
             if cfg.do_add_noise:
@@ -448,7 +532,7 @@ def make_session_step_fn(models: StreamModels, cfg: StreamConfig, unet_variant: 
                 eps, st, _ = _guided(
                     run, cfg, params, x, sub.timesteps, ctx("cond", fbs), ctx("uncond", fbs),
                     rows(take(states["stock"][:, sl])).to(dt), sub,
-                    col(states["guidance"], fbs), col(states["delta"], fbs))
+                    col(states["guidance"], fbs), col(states["delta"], fbs), cnet=cnet_of(fbs))
                 stocks.append(st)
                 x = L.renoise_next(_denoise(cfg, x, eps, sub),
                                    rows(take(states["noise"][:, sl])).to(dt), sub)
@@ -461,7 +545,7 @@ def make_session_step_fn(models: StreamModels, cfg: StreamConfig, unet_variant: 
                 if B > fbs else rows(x_new)
             if fused:
                 eps_c, deep = run(params, x_t, take(c["timesteps"]).reshape(-1), ctx("cond", B),
-                                  cache_in())
+                                  cache_in(), cnet_of(B))
                 denoised = fused_stream_epilogue(
                     x_t, eps_c, states["stock"], states["noise"], _coeffs(c), states["guidance"],
                     states["delta"], cfg_type=cfg.cfg_type, turbo=cfg.scheduler == "turbo",
@@ -473,7 +557,7 @@ def make_session_step_fn(models: StreamModels, cfg: StreamConfig, unet_variant: 
                 eps, new_stock, deep = _guided(
                     run, cfg, params, x_t, co.timesteps, ctx("cond", B), ctx("uncond", B),
                     rows(take(states["stock"])).to(dt), co, col(states["guidance"], B),
-                    col(states["delta"], B), cache_in())
+                    col(states["delta"], B), cache_in(), cnet_of(B))
                 if new_stock is not None:
                     write_segments(states["stock"], new_stock.view(k, B, *x_t.shape[1:]), slots,
                                    k_real)
@@ -668,6 +752,7 @@ class StreamEngine:
         model_id: str = "",
     ):
         self.device = resolve_device(device)
+        check_params(cfg, params)
         self.models = models
         self.params = params
         self.cfg = cfg
@@ -737,6 +822,11 @@ class StreamEngine:
             "delta": self._scalar(delta),
             "coeffs": coeff_state(cfg, self.schedule, self._t_index_list, self.device),
         }
+        if cfg.use_controlnet:
+            # the conditioning ring, aligned with x_buf, and its scale
+            state["cnet_cond"] = torch.zeros((B - fbs, cfg.height, cfg.width, 3), dtype=dt,
+                                             device=self.device)
+            state["cnet_scale"] = self._scalar(1.0)
         if cfg.cfg_type == "initialize":
             # Onetime-Negative: seed the stock noise with one real uncond pass
             with torch.inference_mode():
@@ -903,6 +993,14 @@ class StreamEngine:
         across any known discontinuity)."""
         with self._submit_lock:
             self._tick = 0
+
+    def update_controlnet_scale(self, scale: float):
+        """The conditioning strength, in place (no new capture): the JAX
+        engine's runtime swap of the reference's fixed scale."""
+        if not self.cfg.use_controlnet:
+            raise RuntimeError("engine built without use_controlnet")
+        with self._submit_lock:
+            install_state(self.state, {"cnet_scale": self._scalar(scale)})
 
     def update_guidance(self, guidance_scale=None, delta=None):
         new = {}

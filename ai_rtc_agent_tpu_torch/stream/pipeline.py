@@ -20,7 +20,9 @@ or a capture that fails, raises.  A frame that carries a trace
 (on the pipelined path submit-end -> the readback resolved, stamped on the
 host), ``fetch``, ``postprocess`` and the ``similar_skip`` mark.
 
-``lora_dict`` (path -> scale) fuses LoRA files at load (models/lora.py).
+``lora_dict`` (path -> scale) fuses LoRA files at load (models/lora.py);
+``controlnet`` (a model id or a snapshot dir) adds the ControlNet branch,
+as the JAX pipeline's does.
 The safety checker (``use_safety_checker``, default the SAFETY_CHECKER
 env) runs on every output after its readback, as in the JAX pipeline, and
 on the same device as the pipeline; the batch scheduler and --multipeer
@@ -58,12 +60,15 @@ class StreamDiffusionPipeline:
         graphs: bool | None = None,
         lora_dict: dict | None = None,
         use_safety_checker: bool | None = None,
+        controlnet: str | None = None,
     ):
         """``params``: a ready param tree (e.g. ``bridge.params_from_jax`` of
         a JAX pipeline's); otherwise the local snapshot's weights, or random
         weights from a fixed seed.  ``graphs`` (default: on a CUDA device)
         captures the step now and replays it per frame; False steps eagerly
-        (the A/B on the card)."""
+        (the A/B on the card).  ``controlnet``: a ControlNet model id or
+        snapshot dir (the default config then conditions on it, with the
+        config's annotator)."""
         self.device = resolve_device(device)
         self.model_id = model_id
         self.prompt = prompt
@@ -72,10 +77,16 @@ class StreamDiffusionPipeline:
         self._seed = seed
         self.safety_checker = maybe_load_safety_checker(model_id, use_safety_checker,
                                                         device=self.device)
-        cfg = config or registry.default_stream_config(model_id, device=self.device)
+        cfg = config or registry.default_stream_config(
+            model_id, device=self.device, **({"use_controlnet": True} if controlnet else {}))
+        if cfg.use_controlnet and controlnet is None:
+            raise ValueError("StreamConfig.use_controlnet=True requires a controlnet model id "
+                             "(pass controlnet=... to StreamDiffusionPipeline)")
         bundle = registry.load_model_bundle(
             model_id, device=self.device, seed=0,
             attn_impl=cfg.attn_impl, params=params, lora_dict=lora_dict,
+            controlnet=controlnet, latent_scale=cfg.latent_scale,
+            annotator=cfg.annotator if cfg.use_controlnet else None,
         )
         bundle.params = registry.cast_params(bundle.params, cfg.dtype)
         self.bundle = bundle

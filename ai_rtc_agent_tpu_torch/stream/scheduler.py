@@ -85,6 +85,12 @@ or t-indices since its last capture: its deep-cache row is zeros or
 stale), and the cached step runs otherwise.  A snapshot carries the
 session's row with its deep cache and the cadence's ``cache_tick`` /
 ``cache_uncaptured``; a restored slot rides a capture first.
+
+A ControlNet configuration's rows carry the conditioning ring and scale
+(``cnet_cond``, ``cnet_scale``; stream/engine.py), which a snapshot's row
+carries as the JAX row does.  The fingerprint keeps the JAX keys, which
+name no ControlNet, so a ControlNet row offered to a plain scheduler (or the
+reverse) is refused by the row's structure, as the JAX scheduler refuses it.
 """
 
 from __future__ import annotations

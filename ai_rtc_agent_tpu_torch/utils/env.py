@@ -108,6 +108,8 @@ Variables read by the port's server:
                                     pull one copy from the owner (on)
   HF_HUB_CACHE                      the local HF snapshot cache the registry looks in
                                     (~/.cache/huggingface/hub; models/registry.py)
+  HED_CHECKPOINT                    a local ControlNetHED.pth for --annotator hed (else a
+                                    snapshot of lllyasviel/Annotators; models/hed.py)
   SAFETY_CHECKER                    the NSFW gate on every served frame (off;
                                     models/safety.py, stream/pipeline.py)
   QUANT_WEIGHTS                     w8 (or int8): large kernels stored as int8 + a

@@ -278,7 +278,38 @@ Phases (each prints its own lines; any failure exits non-zero):
                 vs N=3 at k=1 (ABBA, phase 6a's steady window), PSNR/SSIM.
                 13c: w8 + DeepCache through a 2-slot scheduler at k=2: both
                 replays = eager, one run, the launches a step counted.
- 14. a "kernels" JSON line (launch counts of phases 4 to 13), then the last
+ 14. controlnet — the reference's conditioned stream: the SD1.5 LCM ring
+                with a ControlNet of control_v11p_sd15_canny's geometry at
+                512^2 bf16 (random base weights from a seed).  14a: the
+                port's seeded ControlNet, its zero convs and the cond
+                embedding's conv_out filled from a seed (non-zero: zero, the
+                ControlNet is an exact no-op), written as a diffusers-named
+                snapshot under build/phase14-hub through controlnet_key_map,
+                and a synthetic ControlNetHED.pth (HED_CHECKPOINT);
+                load_model_bundle(controlnet=<dir>, annotator="hed") holds
+                every leaf of both bit for bit, the served pipeline every
+                ControlNet leaf cast once.  14b: the canny ring through
+                BatchScheduler.from_pipeline's bucket graphs at k = 1 and 2
+                beside the plain ring over the same weights: from one state
+                the residuals move the frames and cnet_scale 0 is the plain
+                ring within 1 level; replay = eager bit for bit; 46 attention
+                + 1 epilogue launches a bucket step; phase 4's criterion
+                against the f32 reference; the conditioning ring's head is
+                the frame's canny map and it rotates with the latents; busy
+                ms a bucket step (its kernels counted), idle share, ms
+                between bucket steps and fps, ControlNet and plain in ABBA
+                turns.  14c: hed (FULL_STAGES) and identity beside canny from
+                one state (hed's frames differ from canny's), each
+                annotator's ms on a frame and kernels a step; full CFG (46, no
+                epilogue) and sequential (4 x 46) at k=1; --fbs 2 at k=2 and
+                --multipeer 2, each held to dedicated engines; w8 HED params
+                refused at engine build.  14d: one WHIP session through the
+                session layer configured as --controlnet <dir>: its frames
+                equal direct calls from the same row; its snapshot (bytes
+                printed) restored on another scheduler equals a reference
+                restored from it, bit for bit.  14e: attention at the
+                ControlNet pass's 14 launches at B = 4 and 8, as 12e.
+ 15. a "kernels" JSON line (launch counts of phases 4 to 14), then the last
      line {"ok": true, "device": ...}.
 
 Imports nothing of JAX or of the JAX package.  `python3 chip_smoke.py
@@ -979,6 +1010,12 @@ def phase_main(torch, card: str):
 GRAPH_ROUNDS = 8  # phase 4's interleaved rounds, graph and eager in turns
 GRAPH_FRAMES = 8  # frames per side per round, through __call__ and with 2 in flight
 GRAPH_PARITY_FRAMES = 6
+# An idle card on each side of a traced call.  The profiler keeps only the
+# device records whose timestamps fall inside the window it opened on the
+# host clock, and the card's timestamps can run behind it: work launched at
+# once could drop its first kernels from the trace, while the wrappers
+# counted every launch (scripts/torch_trace_window.py shows it).
+TRACE_SETTLE_S = 0.5
 
 
 def kernel_trace(torch, fn) -> dict:
@@ -986,13 +1023,16 @@ def kernel_trace(torch, fn) -> dict:
     counts {"attention", "epilogue", "kernels"}, the attention kernels' ms,
     and busy ms (the union of the device intervals), the span from the
     first one's start to the last one's end and the idle share 1 -
-    busy/span."""
+    busy/span.  The window opens and closes TRACE_SETTLE_S away from
+    ``fn``'s work, so every kernel of it lies inside."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(TRACE_SETTLE_S)
         fn()
         torch.cuda.synchronize()
+        time.sleep(TRACE_SETTLE_S)
     evs = [ev for ev in prof.events() if ev.device_type == torch.autograd.DeviceType.CUDA]
     spans = sorted((ev.time_range.start, ev.time_range.end) for ev in evs
                    if ev.time_range.end > ev.time_range.start)
@@ -1316,8 +1356,9 @@ def session_row(states, slot, dtype=None) -> dict:
 
     row = tree_map(lambda a: (a if slot is None else a[slot]).clone(), states)
     if dtype is not None:
-        for key in ("x_buf", "noise", "stock", "cond", "uncond"):
-            row[key] = row[key].to(dtype)
+        for key in ("x_buf", "noise", "stock", "cond", "uncond", "cnet_cond"):
+            if key in row:
+                row[key] = row[key].to(dtype)
     return row
 
 
@@ -2944,6 +2985,7 @@ def phase_obs(torch, card: str, pipe):
         body = json.loads(reply.body)
         if reply.status != 200 or body.get("jax_profiler") != f"tracing to {OBS_TRACE_DIR}":
             fail(f"obs: /debug/trace start answered {reply.status} {reply.body}")
+        await asyncio.sleep(TRACE_SETTLE_S)  # the window opens on an idle card (kernel_trace)
         steps0, launches0 = sched.steps_total, _launches()
         runs, results = [], {}
         for k in OBS_SESSIONS:
@@ -4758,30 +4800,34 @@ def phase_sd15_served(torch, np, card: str) -> tuple:
     return tuple(total)
 
 
-def phase_sd15_attention(torch, card: str):
+def phase_sd15_attention(torch, card: str, shapes=SD15_ATTENTION, batches=SD15_ATTENTION_B,
+                         label: str = "sd15 12e", what: str = "SD1.5 step") -> dict:
     """12e: the attention kernel at one SD1.5 step's 32 launches (8 shapes,
     8 heads, D 40/80/160) at B = 4, 8 and 16 rows: each checked against its
     plain version (ops/kernels/tolerance.py), timed as phase 3 times it,
-    beside SDPA and the bound; the sums over one step's launches."""
+    beside SDPA and the bound; the sums over one step's launches.  (14e
+    passes the ControlNet pass's 14 launches.)  -> {B: the sums}."""
     import torch.nn.functional as F
 
     from ai_rtc_agent_tpu_torch.ops.kernels import attention as KA
     from ai_rtc_agent_tpu_torch.ops.kernels import tolerance
 
     gen = torch.Generator(device="cuda").manual_seed(12)
-    for b in SD15_ATTENTION_B:
+    n_launches = sum(x[-1] for x in shapes)
+    per_batch = {}
+    for b in batches:
         sums = dict.fromkeys(("ms", "plain_ms", "sdpa_ms", "bound_ms"), 0.0)
         worst = 0.0
-        for lq, lk, d, per_step in SD15_ATTENTION:
+        for lq, lk, d, per_step in shapes:
             h = 8
             q, k, v = (torch.randn((b, n, h, d), generator=gen, device="cuda").to(torch.bfloat16)
                        for n in (lq, lk, lk))
             out = KA.flash_attention(q, k, v)
             torch.cuda.synchronize()
             e = tolerance.attention_error(out, KA.attention_plain(q, k, v))
-            label = f"sd15 12e attention B={b} Lq={lq} Lk={lk} H={h} D={d}"
+            name = f"{label} attention B={b} Lq={lq} Lk={lk} H={h} D={d}"
             if not e["ok"]:
-                fail(f"{label}: over tolerance ({e})")
+                fail(f"{name}: over tolerance ({e})")
             worst = max(worst, e["max_abs"] / max(e["tol_abs"], 1e-30))
             reps = 10 if lq * lk >= 1 << 20 else 50
             ms = time_ms(torch, lambda: KA.flash_attention(q, k, v), reps)
@@ -4790,15 +4836,17 @@ def phase_sd15_attention(torch, card: str):
             lib = time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt), reps)
             flops = 4.0 * b * h * lq * lk * d
             bms, by = bound(flops, PEAK_BF16_FLOPS, 2.0 * (2 * q.numel() + k.numel() + v.numel()))
-            say(f"{label}: max_abs_err {e['max_abs']:.3e} (tol {e['tol_abs']:.3e}), rel L2 "
+            say(f"{name}: max_abs_err {e['max_abs']:.3e} (tol {e['tol_abs']:.3e}), rel L2 "
                 f"{e['rel_l2']:.3e} | kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain "
                 f"{plain:.4f} ms, sdpa {lib:.4f} ms, bound {bms:.4f} ms ({by}), x{per_step}/step")
             for key, val in (("ms", ms), ("plain_ms", plain), ("sdpa_ms", lib), ("bound_ms", bms)):
                 sums[key] += per_step * val
             del q, k, v, out
-        say(f"sd15 12e attention per SD1.5 step (32 launches, B={b}): {card} | kernel "
+        say(f"{label} attention per {what} ({n_launches} launches, B={b}): {card} | kernel "
             f"{sums['ms']:.4f} ms, plain {sums['plain_ms']:.4f} ms, sdpa {sums['sdpa_ms']:.4f} ms, "
             f"bound {sums['bound_ms']:.4f} ms; worst max_abs_err {worst:.2f} of its tolerance")
+        per_batch[b] = sums
+    return per_batch
 
 
 DC_INTERVAL = 3  # 13b/13c: UNET_CACHE=3, the JAX bench default
@@ -5368,6 +5416,570 @@ def variants_both(torch, np, card, turbo, turbo8, ring, ring8, registry) -> tupl
         sched.close()
 
 
+CNET_HUB = Path(__file__).resolve().parent / "build" / "phase14-hub"
+CNET_DIR = CNET_HUB / "control_v11p_sd15_canny"  # a diffusers-named ControlNet snapshot
+HED_PTH = CNET_HUB / "ControlNetHED.pth"
+CNET_SEED = 14
+CNET_ZERO_GAIN = 0.5  # 14a: zero convs N(0, (gain / sqrt(fan_in))^2): the residuals move the output
+CNET_K = (1, 2)  # 14b: sessions through the bucket graphs
+CNET_PARITY = 6  # 14b-c: each session's first outputs held to its references
+CNET_AB_FRAMES = 24  # 14b: frames a session in each timed turn (outputs 5-24 steady)
+CNET_TURNS = ("cnet", "plain", "plain", "cnet")  # 14b: ABBA against the plain ring
+CNET_TRACE_FRAMES = 12  # 14b: frames a session in each turn's device trace
+CNET_SERVE = 6  # 14d: frames viewed through the WHIP session, then again after the move
+# the ControlNet pass at 512^2, 8 heads: (Lq, Lk, D, launches): 14 in all
+CNET_ATTENTION = [
+    (4096, 4096, 40, 2), (4096, 77, 40, 2), (1024, 1024, 80, 2), (1024, 77, 80, 2),
+    (256, 256, 160, 2), (256, 77, 160, 2), (64, 64, 160, 1), (64, 77, 160, 1),
+]
+CNET_ATTENTION_B = (4, 8)  # the ring's rows at k = 1 and 2
+
+
+def cnet_snapshot(torch, np, model_id: str, device) -> tuple:
+    """14a: the port's seeded ControlNet of ``model_id``'s family
+    (control_v11p_sd15_canny's geometry for SD1.5) with every zero conv and
+    the cond embedding's conv_out filled from a seed (kernel N(0, (
+    CNET_ZERO_GAIN / sqrt(fan_in))^2), bias N(0, 0.01^2)), written as
+    diffusers' ControlNetModel safetensors at CNET_DIR through
+    loader.controlnet_key_map (f32); and HED_PTH, a ControlNetHED.pth of the
+    seeded FULL_STAGES net with a non-zero input bias and biases, in the
+    checkpoint's names (``netNetwork.`` prefix).  -> (the ControlNet tree,
+    the HED tree, bytes written)."""
+    from ai_rtc_agent_tpu_torch.models import controlnet as CN
+    from ai_rtc_agent_tpu_torch.models import hed as HED
+    from ai_rtc_agent_tpu_torch.models import loader as LD
+    from ai_rtc_agent_tpu_torch.models import registry
+
+    fam = registry.family_of(model_id)
+    cfg = registry._model_configs(fam)[0]
+    num_down = 2 if fam == "tiny" else 3
+    gen = torch.Generator(device=device).manual_seed(CNET_SEED)
+    tree = CN.init_controlnet(gen, cfg, num_down=num_down, device=device)
+    for zc in tree["zero_convs"] + [tree["mid_zero_conv"], tree["cond_embedding"]["conv_out"]]:
+        shape = zc["kernel"].shape
+        zc["kernel"] = torch.randn(shape, generator=gen, device=device) * (
+            CNET_ZERO_GAIN / math.sqrt(shape[1] * shape[2] * shape[3]))
+        zc["bias"] = torch.randn(zc["bias"].shape, generator=gen, device=device) * 0.01
+    CNET_DIR.mkdir(parents=True, exist_ok=True)
+    path = CNET_DIR / "diffusion_pytorch_model.safetensors"
+    LD.write_safetensors(str(path), LD.tree_to_state_dict(
+        tree, LD.controlnet_key_map(cfg, num_down)))
+    hed = HED.init_hed(torch.Generator().manual_seed(CNET_SEED), HED.FULL_STAGES)
+    rng = np.random.default_rng(CNET_SEED)
+    hed["norm"] = torch.from_numpy(rng.uniform(90, 130, (1, 1, 1, 3)).astype(np.float32))
+    sd = {"netNetwork.norm": hed["norm"].reshape(1, 3, 1, 1)}
+    for i, (_, cout, _) in enumerate(HED.FULL_STAGES, start=1):
+        blk = hed[f"block{i}"]
+        for j, conv in enumerate(blk["convs"]):
+            conv["bias"] = torch.from_numpy((0.05 * rng.standard_normal(cout)).astype(np.float32))
+            sd[f"netNetwork.block{i}.convs.{j}.weight"] = conv["kernel"]
+            sd[f"netNetwork.block{i}.convs.{j}.bias"] = conv["bias"]
+        sd[f"netNetwork.block{i}.projection.weight"] = blk["projection"]["kernel"]
+        sd[f"netNetwork.block{i}.projection.bias"] = blk["projection"]["bias"]
+    torch.save(sd, HED_PTH)
+    return tree, hed, path.stat().st_size + HED_PTH.stat().st_size
+
+
+def _levels(a, b) -> int:
+    """The largest difference of two uint8 frames, in levels."""
+    import numpy as np
+
+    return int(np.abs(np.asarray(a, np.int16) - np.asarray(b, np.int16)).max())
+
+
+def hold_tree(torch, label: str, got, want, dtype) -> int:
+    """Every leaf of ``got`` equal to ``want``'s at the same path, cast once
+    to ``dtype``, bit for bit, and no leaf missing.  -> leaves checked."""
+    want_leaves = dict(_tree_paths(want))
+    n = 0
+    for path, leaf in _tree_paths(got):
+        ref = want_leaves.get(path)
+        if ref is None or leaf.shape != ref.shape or not torch.equal(
+                leaf, ref.to(device=leaf.device, dtype=dtype)):
+            fail(f"{label}: leaf {'/'.join(map(str, path))} is not the written tree, cast once")
+        n += 1
+    if n != len(want_leaves):
+        fail(f"{label}: {n} leaves loaded of the {len(want_leaves)} written")
+    return n
+
+
+def cnet_per_step(ucfg, cfg) -> tuple:
+    """(attention, epilogue) launches of a ControlNet bucket step of ``cfg``:
+    each UNet pass (one; sequential mode one a stage) beside one ControlNet
+    pass, whose transformers are the encoder half's and the mid block's
+    (14 at SD1.5); the epilogue where the ring runs it."""
+    from ai_rtc_agent_tpu_torch.stream.engine import fused_ok
+
+    unet = attention_per_pass(ucfg, False)
+    up = 2 * sum(d * (ucfg.layers_per_block + 1)
+                 for d, a in zip(ucfg.transformer_layers_per_block, ucfg.attn_blocks) if a)
+    passes = 1 if cfg.use_denoising_batch else cfg.n_stages
+    return passes * (2 * unet - up), int(fused_ok(cfg))
+
+
+def _install_rows(sched, sess, rows, **edits):
+    """Each session's slot set to its saved row (``edits`` replacing leaves,
+    e.g. cnet_scale); leaves the scheduler's state lacks are left out."""
+    for x, row in zip(sess, rows):
+        sched._install(x.slot, {k: edits.get(k, v) for k, v in row.items() if k in sched.states})
+
+
+def bucket_outputs(sched, sess, frames, n: int):
+    """``n`` steps of the sessions ``sess`` through ``sched``'s bucket of
+    len(sess) (its graph on the card), under the step lock: -> uint8
+    [n, k, H, W, 3].  Every step has the same riders, so two schedulers
+    compare bucket for bucket."""
+    import numpy as np
+
+    k, slots = len(sess), [x.slot for x in sess]
+    outs = []
+    with sched._step_lock:
+        for j in range(n):
+            out = sched._bucket(sched.params, sched.states, np.stack([f[j] for f in frames[:k]]),
+                                slots, k)
+            outs.append(out[:k].cpu().numpy())
+    return np.stack(outs)
+
+
+def _light_run(torch, np, label, card, sched, sess, frames, make_ded, per_step) -> tuple:
+    """A bucket replay against its eager step, then CNET_PARITY frames a
+    session with the launches counted (``per_step`` a bucket step), each
+    session's outputs held to phase 4's criterion against ``make_ded(row)``.
+    -> (launches, each session's outputs)."""
+    rows = [session_row(sched.states, x.slot) for x in sess]
+    eq = replay_equals_eager(torch, np, label, sched, np.stack([f[0] for f in frames[:len(sess)]]),
+                             [x.slot for x in sess])
+    _sync(torch, sched.device)
+    _reset_launches()
+    steps0 = sched.steps_total
+    run = drive_sessions(torch, sess, frames, CNET_PARITY)
+    counted = _count(label, (0, 0), sched.steps_total - steps0, per_step)
+    held = []
+    for i, x in enumerate(sess):
+        ded = make_ded(rows[i])
+        for f in frames[i][:CNET_PARITY]:
+            ded(f)
+        held.append(f"session {i}: " + hold_to_references(np, f"{label} session {i}",
+                                                          run.outs[i], ded))
+    say(f"{label}: {card} | {eq} | {CNET_PARITY} frames a session: " + "; ".join(held))
+    return counted, run.outs
+
+
+def phase_controlnet(torch, card: str, model_id: str = SD15_ID) -> tuple:
+    """Phase 14: ControlNet on the card — the SD1.5 LCM ring conditioned by a
+    ControlNet of control_v11p_sd15_canny's geometry at 512^2 bf16 (random
+    base weights from a seed; the ControlNet and HED from synthetic
+    checkpoints whose zero convs are non-zero): the weights (14a), the
+    canny ring through the captured bucket steps at k = 1 and 2 against the
+    plain ring (14b), HED, identity, full CFG, sequential, --fbs 2,
+    --multipeer 2 and the w8 + HED refusal (14c), one WHIP session through
+    the session layer and its move (14d), attention at the ControlNet
+    pass's shapes (14e).  -> the attention and epilogue launches counted."""
+    import shutil
+
+    import numpy as np
+
+    from ai_rtc_agent_tpu_torch.models import registry
+    from ai_rtc_agent_tpu_torch.stream.pipeline import StreamDiffusionPipeline
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(CNET_HUB, ignore_errors=True)
+    total = [0, 0]
+    try:
+        with _Env(HED_CHECKPOINT=str(HED_PTH)):
+            # -- 14a: the synthetic checkpoints and their load ------------------------------
+            t = time.perf_counter()
+            dev = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+            tree, hed, nbytes = cnet_snapshot(torch, np, model_id, dev)
+            write_s = time.perf_counter() - t
+            t = time.perf_counter()
+            ref = registry.load_model_bundle(model_id, attn_impl="plain", controlnet=str(CNET_DIR),
+                                             annotator="hed")
+            _sync(torch, ref.device)
+            load_s = time.perf_counter() - t
+            n32 = hold_tree(torch, "controlnet 14a f32", ref.params["controlnet"], tree,
+                            torch.float32)
+            full_hed = registry.family_of(model_id) != "tiny"  # tiny: TINY_STAGES, no file read
+            nh = hold_tree(torch, "controlnet 14a hed f32", ref.params["hed"], hed,
+                           torch.float32) if full_hed else 0
+            t = time.perf_counter()
+            pipe = StreamDiffusionPipeline(model_id, controlnet=str(CNET_DIR), seed=2)
+            _sync(torch, pipe.device)
+            pipe_s = time.perf_counter() - t
+            n16 = hold_tree(torch, f"controlnet 14a {pipe.config.dtype}",
+                            pipe.bundle.params["controlnet"], tree, pipe.config.torch_dtype)
+            zc = tree["mid_zero_conv"]["kernel"]
+            say(f"controlnet 14a: {card} | {CNET_DIR.name} ({registry.family_of(model_id)} "
+                f"geometry) and ControlNetHED.pth (FULL_STAGES) written from seed {CNET_SEED} in "
+                f"{write_s:.1f}s ({nbytes} B; zero convs non-zero, mid_zero_conv std "
+                f"{float(zc.std()):.4f}) | load_model_bundle(controlnet=<dir>, annotator='hed') "
+                f"f32 in {load_s:.1f}s: {n32} ControlNet leaves and {nh} HED leaves "
+                f"(HED_CHECKPOINT) bit for bit | the served pipeline (use_controlnet="
+                f"{pipe.config.use_controlnet}, annotator {pipe.config.annotator}; load, one "
+                f"{pipe.config.dtype} cast, capture) in {pipe_s:.1f}s: {n16} ControlNet leaves = "
+                "the written tree cast once, bit for bit")
+            del tree
+            hed_params = registry.cast_params({"hed": ref.params["hed"]}, pipe.config.dtype)["hed"]
+            for part in (controlnet_ring, controlnet_modes):
+                a, e = part(torch, np, card, pipe, ref, hed_params)
+                total[0] += a
+                total[1] += e
+            del pipe, ref, hed_params
+            a, e = controlnet_served(torch, np, card, model_id)
+            total[0] += a
+            total[1] += e
+        if torch.cuda.is_available():
+            phase_sd15_attention(torch, card, CNET_ATTENTION, CNET_ATTENTION_B, "controlnet 14e",
+                                 "ControlNet pass")
+    finally:
+        shutil.rmtree(CNET_HUB, ignore_errors=True)
+    say(f"controlnet: phase 14 took {time.perf_counter() - t_phase:.1f} s; launches counted "
+        f"attention {total[0]}, epilogue {total[1]}")
+    return tuple(total)
+
+
+def controlnet_ring(torch, np, card, pipe, ref, hed_params) -> tuple:
+    """14b: the ControlNet-canny ring through BatchScheduler.from_pipeline's
+    bucket graphs at k = 1 and 2, beside the plain ring over the same
+    weights: the residuals move the frames and scale 0 does not, replay =
+    eager, the launches a bucket step, phase 4's criterion, the ring's
+    rotation, and ABBA turns of busy, idle, ms between bucket steps and fps."""
+    from ai_rtc_agent_tpu_torch.models import controlnet as CN
+    from ai_rtc_agent_tpu_torch.ops import image as I
+    from ai_rtc_agent_tpu_torch.stream.scheduler import BatchScheduler
+
+    b, cfg, eng, dev = pipe.bundle, pipe.config, pipe.engine, pipe.device
+    per = cnet_per_step(b.unet_cfg, cfg)
+    per_plain = attention_per_pass(b.unet_cfg, False)
+    t = time.perf_counter()
+    sched = BatchScheduler.from_pipeline(pipe, max_sessions=max(CNET_K))
+    plain = BatchScheduler(eng.models, eng.params, replace(cfg, use_controlnet=False),
+                           eng.encode_prompt, model_id=pipe.model_id, max_sessions=max(CNET_K),
+                           schedule=eng.schedule, device=dev)
+    key, pkey = sched.bucket_keys()[(1, "full")], plain.bucket_keys()[(1, "full")]
+    say(f"controlnet 14b: {pipe.model_id} + ControlNet {cfg.height}x{cfg.width} {cfg.dtype} "
+        f"cfg_type={cfg.cfg_type} t_index_list={cfg.t_index_list} annotator={cfg.annotator}, "
+        f"buckets {sched._bucket_sizes} captured {sched.graph_status()}, the plain ring's "
+        f"{plain.graph_status()}, in {time.perf_counter() - t:.1f}s | the keys' cnet field: "
+        f"{key.split('--cnet-')[1].split('--')[0]} vs the plain ring's "
+        f"{pkey.split('--cnet-')[1].split('--')[0]}")
+    if key == pkey or f"cnet-1{cfg.annotator}" not in key:
+        fail("controlnet 14b: the ControlNet bucket key must name it and differ from the plain one")
+    n = max(CNET_PARITY, 2 * CNET_AB_FRAMES)
+    frames = [_frames(np, n, seed=140 + i, size=cfg.height) for i in range(max(CNET_K))]
+    total = [0, 0]
+    try:
+        for k in CNET_K:
+            sess = [sched.claim(f"cnet-{k}-{i}", prompt=SESSION_PROMPTS[i], seed=800 + i)
+                    for i in range(k)]
+            psess = [plain.claim(f"plain-{k}-{i}", prompt=SESSION_PROMPTS[i], seed=800 + i)
+                     for i in range(k)]
+            rows = [session_row(sched.states, x.slot) for x in sess]
+            # from one state, through bucket k's graph on both sides (a bucket of
+            # another size rounds bf16 otherwise): the residuals move the frames,
+            # scale 0 is the plain ring
+            _install_rows(plain, psess, rows)
+            base = bucket_outputs(plain, psess, frames, CNET_PARITY)
+            on = bucket_outputs(sched, sess, frames, CNET_PARITY)
+            _install_rows(sched, sess, rows, cnet_scale=torch.zeros((), device=dev))
+            off = bucket_outputs(sched, sess, frames, CNET_PARITY)
+            moved = np.abs(on.astype(np.int16) - base)
+            zero = _levels(off, base)
+            say(f"controlnet 14b k={k}: {card} | {CNET_PARITY} frames a session from one state: "
+                f"the ControlNet ring vs the plain ring mean {moved.mean():.3f} max "
+                f"{moved.max()} levels; cnet_scale 0 vs the plain ring max {zero} levels")
+            if moved.max() <= 1 or zero > 1:
+                fail(f"controlnet 14b k={k}: the residuals must move the frames, and scale 0 "
+                     "must stay within 1 level of the plain ring")
+            _install_rows(sched, sess, rows)
+            counted, _ = _light_run(
+                torch, np, f"controlnet 14b k={k}", card, sched, sess, frames,
+                lambda row: Dedicated(torch, b.stream_models, b.params, cfg, b.encode_prompt, ref,
+                                      row, dev), per)
+            for i, x in enumerate(counted):
+                total[i] += x
+            if k == 1:  # the ring's head is the newest annotation and rotates with the latents
+                x = sess[0]
+                x(frames[0][0])
+                ring0 = sched.states["cnet_cond"][x.slot].clone()
+                x(frames[0][1])
+                ring1 = sched.states["cnet_cond"][x.slot].clone()
+                src = torch.from_numpy(frames[0][0]).to(dev)
+                head = CN.canny_soft(I.preprocess_uint8(src, dtype=cfg.torch_dtype))[0]
+                err = (ring0[0].float() - head.float()).abs().max().item()
+                rot = torch.equal(ring1[1], ring0[0]) and torch.equal(ring1[2], ring0[1])
+                say(f"controlnet 14b ring: after a frame the ring's head is that frame's canny map "
+                    f"(max |diff| {err:.4f} against canny_soft called alone), after the next it "
+                    f"sits one slot on, the rest with it: {'bit for bit' if rot else 'NOT'}")
+                if err > 1 / 64 or not rot:
+                    fail("controlnet 14b: the conditioning ring does not rotate with the latents")
+            if dev.type == "cuda":  # ABBA against the plain ring
+                res = {"cnet": [], "plain": []}
+                for j, side in enumerate(CNET_TURNS):
+                    s_, xs, a_step = (sched, sess, per[0]) if side == "cnet" else (
+                        plain, psess, per_plain)
+                    part = [f[(j % 2) * CNET_AB_FRAMES:(j % 2 + 1) * CNET_AB_FRAMES]
+                            for f in frames]
+                    run = drive_sessions(torch, xs, part, CNET_AB_FRAMES)
+                    tr = kernel_trace(torch, lambda: drive_sessions(
+                        torch, xs, [f[:CNET_TRACE_FRAMES] for f in part], CNET_TRACE_FRAMES))
+                    steps = tr["attention"] // a_step
+                    if not steps or tr["attention"] != a_step * steps or tr["epilogue"] != steps:
+                        fail(f"controlnet 14b k={k} {side}: the trace shows {tr['attention']} "
+                             f"attention and {tr['epilogue']} epilogue kernels, not {a_step} + 1 "
+                             "a bucket step")
+                    rep = variant_busy(torch, s_, k, "full", CNET_TRACE_FRAMES)
+                    res[side].append(dict(busy=tr["busy_ms"] / steps, idle=tr["idle"],
+                                          attn=tr["attention_ms"] / steps, steps=steps,
+                                          kernels=tr["kernels"] / steps,
+                                          ms=run.steady_step_ms(SD15_FILL)[0],
+                                          fps=sum(run.steady_fps(SD15_FILL)),
+                                          rep=rep["busy"], rep_attn=rep["attn"]))
+                say(f"controlnet 14b k={k} A/B ({' '.join(CNET_TURNS)}; {CNET_AB_FRAMES} frames a "
+                    f"session a turn, steady past each session's {SD15_FILL}th output; a "
+                    f"device-only trace of {CNET_TRACE_FRAMES} more, whose steps carry "
+                    f"{k * CNET_TRACE_FRAMES} frames; then {CNET_TRACE_FRAMES} replays of bucket "
+                    f"{k} over {k} slots): {card} | " + " | ".join(
+                        f"{side}: " + " / ".join(
+                            f"served: busy {r['busy']:.3f} ms a bucket step (attention "
+                            f"{r['attn']:.3f}, {r['kernels']:.0f} kernels, {r['steps']} steps), "
+                            f"idle {r['idle']:.3f}, {r['ms']:.2f} ms between bucket steps, "
+                            f"{r['fps']:.2f} fps; bucket {k} replay busy {r['rep']:.3f} ms "
+                            f"(attention {r['rep_attn']:.3f})" for r in res[side])
+                        for side in ("cnet", "plain")))
+            for x in sess + psess:
+                x.release()
+    finally:
+        sched.close()
+        plain.close()
+    return tuple(total)
+
+
+def controlnet_modes(torch, np, card, pipe, ref, hed_params) -> tuple:
+    """14c: HED at FULL_STAGES and identity beside canny on the ring at k=1,
+    full CFG and sequential mode with ControlNet at k=1, --fbs 2 at k=2,
+    --multipeer 2, and the w8 + HED refusal."""
+    from ai_rtc_agent_tpu_torch.models import controlnet as CN
+    from ai_rtc_agent_tpu_torch.models import hed as HED
+    from ai_rtc_agent_tpu_torch.models import quant as Q
+    from ai_rtc_agent_tpu_torch.ops import image as I
+    from ai_rtc_agent_tpu_torch.parallel.multipeer import MultiPeerEngine
+    from ai_rtc_agent_tpu_torch.stream.engine import StreamEngine
+    from ai_rtc_agent_tpu_torch.stream.scheduler import BatchScheduler
+
+    b, cfg, eng, dev = pipe.bundle, pipe.config, pipe.engine, pipe.device
+    params = dict(eng.params, hed=hed_params)
+    total = [0, 0]
+    frames = [_frames(np, 2 * CNET_PARITY, seed=150 + i, size=cfg.height) for i in range(2)]
+
+    def scheduler(k=1, **over):
+        return BatchScheduler(eng.models, params, replace(cfg, **over), eng.encode_prompt,
+                              model_id=pipe.model_id, max_sessions=k, schedule=eng.schedule,
+                              device=dev, window_ms=50.0)
+
+    def ded_of(c):
+        return lambda row: Dedicated(torch, eng.models, params, c, eng.encode_prompt, ref, row, dev)
+
+    def add(counted):
+        for i, v in enumerate(counted):
+            total[i] += v
+
+    # -- the annotators on the ring at k=1, from one state
+    outs, traces = {}, {}
+    for ann in ("canny", "hed", "identity"):
+        s_ = scheduler(annotator=ann)
+        try:
+            x = s_.claim(f"{ann}-0", prompt=SESSION_PROMPTS[0], seed=900)
+            counted, out = _light_run(torch, np, f"controlnet 14c {ann} k=1", card, s_, [x],
+                                      frames, ded_of(s_.cfg), cnet_per_step(b.unet_cfg, s_.cfg))
+            add(counted)
+            outs[ann] = out[0]
+            if dev.type == "cuda":
+                traces[ann] = kernel_trace(torch, lambda: drive_sessions(
+                    torch, [x], [frames[0][CNET_PARITY:]], CNET_PARITY))
+            x.release()
+        finally:
+            s_.close()
+    diff = {a: max(_levels(p, q) for p, q in zip(outs[a], outs["canny"]))
+            for a in ("hed", "identity")}
+    line = (f"controlnet 14c annotators: {card} | {CNET_PARITY} frames from one state, max |diff| "
+            f"against canny's: hed {diff['hed']}, identity {diff['identity']} levels")
+    if dev.type == "cuda":
+        img = I.preprocess_uint8(torch.from_numpy(frames[0][0]).to(dev), dtype=cfg.torch_dtype)
+        ms = {"canny": time_ms(torch, lambda: CN.canny_soft(img), 50),
+              "hed": time_ms(torch, lambda: HED.apply_hed(hed_params, img), 10)}
+        line += (f" | the annotator alone on one {cfg.height}^2 frame: canny {ms['canny']:.4f} ms, "
+                 f"hed (FULL_STAGES) {ms['hed']:.4f} ms | a bucket step (device trace of "
+                 f"{CNET_PARITY}): " + ", ".join(
+                     f"{a} {tr['kernels'] / CNET_PARITY:.0f} kernels, busy "
+                     f"{tr['busy_ms'] / CNET_PARITY:.3f} ms" for a, tr in traces.items()))
+    say(line)
+    if diff["hed"] <= 1:
+        fail("controlnet 14c: the hed ring's frames must differ from canny's")
+    # -- full CFG and sequential mode with ControlNet, k=1
+    for mode, over in (("full", dict(cfg_type="full")),
+                       ("sequential", dict(use_denoising_batch=False))):
+        s_ = scheduler(**over)
+        try:
+            x = s_.claim(f"{mode}-0", prompt=SESSION_PROMPTS[1], seed=910)
+            add(_light_run(torch, np, f"controlnet 14c {mode} k=1", card, s_, [x], frames,
+                           ded_of(s_.cfg), cnet_per_step(b.unet_cfg, s_.cfg))[0])
+            x.release()
+        finally:
+            s_.close()
+    # -- --fbs 2 through the scheduler, 2 sessions, two frames a session a bucket step
+    s_ = scheduler(k=2, frame_buffer_size=2)
+    try:
+        sess = [s_.claim(f"fbs-{i}", prompt=SESSION_PROMPTS[i], seed=920 + i) for i in range(2)]
+        rows = [session_row(s_.states, x.slot) for x in sess]
+        _reset_launches()
+        steps0 = s_.steps_total
+        got = drive_groups(sess, frames, 2 * CNET_PARITY)
+        add(_count("controlnet 14c fbs 2", (0, 0), s_.steps_total - steps0,
+                   cnet_per_step(b.unet_cfg, s_.cfg)))
+        held = []
+        for i in range(2):
+            ded = ded_of(s_.cfg)(rows[i])
+            for j in range(0, 2 * CNET_PARITY, 2):
+                ded(np.stack(frames[i][j:j + 2]))
+            ded.outs = [o for g in ded.outs for o in g]
+            ded.refs = [o for g in ded.refs for o in g]
+            held.append(f"session {i}: " + hold_to_references(np, f"14c fbs 2 session {i}",
+                                                              got[i], ded))
+        say(f"controlnet 14c fbs 2: {card} | 2 sessions x {2 * CNET_PARITY} frames, two a "
+            f"session a bucket step, occupancy {s_.snapshot()['batchsched_occupancy_hist']} | "
+            + "; ".join(held))
+    finally:
+        s_.close()
+    # -- --multipeer 2: each peer against a dedicated engine fed its slot's ticks
+    mp = MultiPeerEngine(eng.models, params, cfg, eng.encode_prompt, max_peers=2, device=dev,
+                         model_id=pipe.model_id).start(pipe.prompt)
+    mp.prewarm_buckets()
+    slots = [mp.connect(SESSION_PROMPTS[i], seed=930 + i) for i in range(2)]
+    rows = [session_row(mp.states, s) for s in slots]
+    _sync(torch, dev)
+    _reset_launches()
+    ticks = [mp.step_all(np.stack([frames[0][j], frames[1][j]])) for j in range(CNET_PARITY)]
+    _sync(torch, dev)
+    want = cnet_per_step(b.unet_cfg, cfg)
+    a, e = _launches()
+    if (a, e) != (want[0] * CNET_PARITY, want[1] * CNET_PARITY):
+        fail(f"controlnet 14c multipeer: {a} attention and {e} epilogue launches over "
+             f"{CNET_PARITY} ticks, want {want} a tick")
+    add((a, e))
+    held = []
+    for i, s in enumerate(slots):
+        ded = ded_of(cfg)(rows[i])
+        for j in range(CNET_PARITY):
+            ded(frames[i][j])
+        held.append(f"peer {s}: " + hold_to_references(
+            np, f"14c multipeer peer {s}", [np.asarray(tk[s]) for tk in ticks], ded))
+    say(f"controlnet 14c multipeer 2: {card} | {CNET_PARITY} ticks, {a} attention + {e} epilogue "
+        "launches | " + "; ".join(held))
+    del mp
+    # -- w8 + HED: refused at build
+    # (QUANT_MIN_SIZE's default at FULL_STAGES; TINY_STAGES' convs need a smaller one)
+    min_size = Q.MIN_SIZE if "block5" in hed_params else 1000
+    qhed, n = Q.quantize_params(hed_params, min_size=min_size)
+    try:
+        StreamEngine(eng.models, dict(params, hed=qhed), replace(cfg, annotator="hed"),
+                     eng.encode_prompt, device=dev)
+    except ValueError as err:
+        say(f"controlnet 14c w8 + hed: {n} of HED's convs int8 at QUANT_MIN_SIZE {min_size}; "
+            f"the engine refuses at build: {err}")
+    else:
+        fail("controlnet 14c: an engine was built for HED with w8 params")
+    return tuple(total)
+
+
+def controlnet_served(torch, np, card, model_id: str = SD15_ID) -> tuple:
+    """14d: one WHIP session through the port's session layer configured as
+    the agent's ``--controlnet <dir>`` (startup builds the pipeline and the
+    scheduler): its served frames equal direct calls of a session of the
+    same scheduler from the same row; then its snapshot restored on another
+    scheduler and, as the reference, on this one: bit for bit."""
+    from ai_rtc_agent_tpu_torch.server import sessions
+    from ai_rtc_agent_tpu_torch.server.signaling import LoopbackProvider
+    from ai_rtc_agent_tpu_torch.stream.scheduler import BatchScheduler
+    from ai_rtc_agent_tpu_torch.utils import env
+
+    total = [0, 0]
+
+    def direct_and_move(pipe, sched, row, served, pushed, snap) -> str:
+        direct = sched.claim("direct", prompt=pipe.prompt, seed=0)
+        sched._install(direct.slot, row)
+        want = [direct(f) for f in pushed[:CNET_SERVE]]
+        direct.release()
+        if len(served) != CNET_SERVE or not all(
+                np.array_equal(x, y) for x, y in zip(served, want)):
+            fail("controlnet 14d: the served frames must equal direct calls bit for bit")
+        dest = BatchScheduler.from_pipeline(pipe, max_sessions=1)
+        try:
+            t = time.perf_counter()
+            moved = dest.restore_session(snap, "moved")
+            refs = sched.restore_session(snap, "ref")
+            restore_ms = (time.perf_counter() - t) * 1e3
+            after = [_frames(np, CNET_SERVE, seed=171, size=pipe.config.height)]
+            mv = drive_sessions(torch, [moved], after, CNET_SERVE)
+            rf = drive_sessions(torch, [refs], after, CNET_SERVE)
+            if not all(np.array_equal(x, y) for x, y in zip(mv.outs[0], rf.outs[0])):
+                fail("controlnet 14d: the moved session must match the reference restored from "
+                     "the same snapshot bit for bit")
+            ring = dest.states["cnet_cond"][moved.slot]
+            moved.release()
+            refs.release()
+        finally:
+            dest.close()
+        return (f"{CNET_SERVE} frames viewed = direct calls from the same row, bit for bit | "
+                f"snapshot {len(_state_bytes(snap))} B (the row with its conditioning ring "
+                f"{tuple(ring.shape)} {ring.dtype}, {ring.numel() * ring.element_size()} B of "
+                f"it), {len(json.dumps(snap))} B as JSON; restored on another scheduler and as "
+                f"the reference in {restore_ms:.1f} ms; {CNET_SERVE} frames after the move = "
+                "the reference's, bit for bit")
+
+    async def serve():
+        state = {}
+        sessions.configure(state, model_id=model_id, controlnet=str(CNET_DIR),
+                           provider=LoopbackProvider())
+        t = time.perf_counter()
+        await sessions.startup(state)
+        built = time.perf_counter() - t
+        try:
+            pipe, sched = state["pipeline"], state["batch_scheduler"]
+            if not (pipe.config.use_controlnet and sched.cfg.use_controlnet):
+                fail("controlnet 14d: the session layer did not build a ControlNet plane")
+            depth = env.pipeline_depth()
+            pushed = _frames(np, CNET_SERVE + depth - 1, seed=170, size=pipe.config.height)
+            pub_id, pub_pc, _view_id, viewer = await open_loopback_session(state)
+            row = session_row(sched.states, sched.session(pub_id).slot)
+            _sync(torch, sched.device)
+            _reset_launches()
+            steps0 = sched.steps_total
+            views, _ = await exchange(pub_pc, viewer, pushed, 0, CNET_SERVE)
+            deadline = time.perf_counter() + 60
+            while sched.steps_total - steps0 < len(pushed) and time.perf_counter() < deadline:
+                await asyncio.sleep(0.01)
+            _sync(torch, sched.device)
+            counted = _count("controlnet 14d served", (0, 0), sched.steps_total - steps0,
+                             cnet_per_step(pipe.bundle.unet_cfg, pipe.config))
+            total[0] += counted[0]
+            total[1] += counted[1]
+            snap = sched.snapshot_session(pub_id)
+            await pub_pc.close()
+            await asyncio.sleep(0)
+            await asyncio.gather(*state["releasing"])
+            line = await asyncio.to_thread(direct_and_move, pipe, sched, row,
+                                           [v.to_ndarray() for v in views], pushed, snap)
+            say(f"controlnet 14d: {card} | sessions.configure(controlnet=<dir>) + startup in "
+                f"{built:.1f}s, one WHIP publisher and a WHEP viewer | {line}")
+        finally:
+            await sessions.shutdown(state)
+
+    with _Env(BATCHSCHED_MAX_SESSIONS=2, WARMUP_FRAMES=0, DROP_FRAMES=0):
+        asyncio.run(serve())
+    return tuple(total)
+
+
 def _to_cpu(v):
     return {k: _to_cpu(x) for k, x in v.items()} if isinstance(v, dict) else v.cpu()
 
@@ -5405,10 +6017,11 @@ def main():
     del pipe, ref_bundle
     sd15_attn, sd15_epi = phase_sd15(torch, card)
     variants_attn, variants_epi = phase_variants(torch, card)
+    cnet_attn, cnet_epi = phase_controlnet(torch, card)
     attn_launches += (serve_attn + sessions_attn + faults_attn + native_attn + obs_attn
-                      + fleet_attn + broadcast_attn + sd15_attn + variants_attn)
+                      + fleet_attn + broadcast_attn + sd15_attn + variants_attn + cnet_attn)
     epi_launches += (serve_epi + sessions_epi + faults_epi + native_epi + obs_epi + fleet_epi
-                     + broadcast_epi + sd15_epi + variants_epi)
+                     + broadcast_epi + sd15_epi + variants_epi + cnet_epi)
     kernels = [
         {
             "name": "flash_attention", "route": "cuda",

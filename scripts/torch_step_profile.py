@@ -114,7 +114,11 @@ def main():
 
     wall_ms = run_steps()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        # the window opens on an idle card: the profiler drops a device
+        # record stamped before it (scripts/torch_trace_window.py)
+        time.sleep(0.5)
         profiled_wall_ms = run_steps()
+        time.sleep(0.5)
 
     # idle share from this one trace: kernel intervals against their span
     spans = sorted(

@@ -1003,3 +1003,65 @@ def test_sd15_modes_launch_counts(cuda, sd15_bundle, mode):
     assert (KA.launches - a0, KF.launches - e0) == chip_smoke.MODE_LAUNCHES[mode]
     captured = BucketStep(b.stream_models, cfg, cuda).step_for(b.params, states, 2)
     assert captured.captured and captured.launches == chip_smoke.MODE_LAUNCHES[mode]
+
+
+# -- ControlNet on the SD1.5 ring -----------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def sd15_cnet_bundle():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the kernel has no CPU mode")
+    from ai_rtc_agent_tpu_torch.models import registry
+
+    bundle = registry.load_model_bundle("runwayml/stable-diffusion-v1-5", seed=0,
+                                        controlnet="lllyasviel/control_v11p_sd15_canny",
+                                        annotator="hed")
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    cnet = bundle.params["controlnet"]
+    for zc in cnet["zero_convs"] + [cnet["mid_zero_conv"], cnet["cond_embedding"]["conv_out"]]:
+        zc["kernel"] = torch.randn(zc["kernel"].shape, generator=gen, device="cuda") * 0.02
+    bundle.params = registry.cast_params(bundle.params, "bfloat16")
+    return bundle
+
+
+@pytest.mark.parametrize("mode,annotator", [("ring", "canny"), ("ring", "hed"), ("full", "canny"),
+                                            ("sequential", "identity")])
+def test_controlnet_session_step_launches_and_replay(cuda, sd15_cnet_bundle, mode, annotator):
+    """The ControlNet session step at k=2: the ring 46 + 1 launches a step
+    (the UNet's 32 and the ControlNet's 14), full CFG 46 and no epilogue,
+    sequential 4 x 46; bucket 2's captured graph launches the same and its
+    replay equals the eager step bit for bit, the conditioning ring too."""
+    from dataclasses import replace
+
+    from ai_rtc_agent_tpu_torch.models import registry
+    from ai_rtc_agent_tpu_torch.parallel.multipeer import BucketStep
+    from ai_rtc_agent_tpu_torch.stream.engine import StreamEngine, make_session_step_fn, \
+        stack_states
+    from ai_rtc_agent_tpu_torch.tree import tree_map
+
+    overrides = {"ring": {}, "full": {"cfg_type": "full"},
+                 "sequential": {"use_denoising_batch": False}}[mode]
+    cfg = replace(registry.default_stream_config("runwayml/stable-diffusion-v1-5",
+                                                 use_controlnet=True, annotator=annotator),
+                  **overrides)
+    b = sd15_cnet_bundle
+    eng = StreamEngine(b.stream_models, b.params, cfg, b.encode_prompt, graphs=False)
+    states = stack_states([eng.build_state("a cat", seed=s) for s in (1, 2)])
+    frames = torch.from_numpy(np.stack(chip_smoke._frames(np, 2, seed=5))).to(cuda)
+    slots = torch.tensor([0, 1], dtype=torch.int32, device=cuda)
+    want_launches = (46 * (4 if mode == "sequential" else 1), 1 if mode == "ring" else 0)
+    eager_states = tree_map(lambda a: a.clone(), states)
+    a0, e0 = KA.launches, KF.launches
+    want = make_session_step_fn(b.stream_models, cfg)(b.params, eager_states, frames, slots, 2)
+    torch.cuda.synchronize()
+    assert (KA.launches - a0, KF.launches - e0) == want_launches
+    step = BucketStep(b.stream_models, cfg, cuda).step_for(b.params, states, 2)
+    assert step.captured and step.launches == want_launches
+    step.inputs["frames"].copy_(frames)
+    step.inputs["slots"].copy_(slots)
+    step.inputs["k_real"].fill_(2)
+    got = step.run()
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(states["cnet_cond"], eager_states["cnet_cond"])
+    assert float(states["cnet_cond"][:, 0].float().abs().max()) > 0

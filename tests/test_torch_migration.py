@@ -26,6 +26,11 @@
   restored from the same snapshot, on the same cadence; a snapshot of
   another variant (``unet_cache`` or ``quant`` differs) is refused on both
   sides as the JAX scheduler refuses it.
+* ControlNet: a session's row carries its conditioning ring and scale;
+  its snapshot crosses between the packages both ways (the JAX schema and
+  codec bytes, the continuation within 1 level), and a ControlNet row is
+  refused by a plain scheduler (and a plain row by a ControlNet one) on
+  both packages, by the row's structure.
 * The import rules: the AST walk of tests/test_torch_stream.py covers the
   new modules, and the router's core and the session layer import no
   aiohttp at all.
@@ -520,6 +525,83 @@ def _flat_items(tree, slot, prefix=""):
             yield from _flat_items(tree[k], slot, f"{prefix}{k}/")
         else:
             yield f"{prefix}{k}", tree[k][slot]
+
+
+# -- ControlNet: the conditioning ring rides the row ----------------------------------------
+
+@pytest.fixture(scope="module")
+def cnet_pair():
+    """The pair's ring at 32x32 with a ControlNet (canny; its zero convs
+    non-zero from a seed, the JAX weights carried by ``bridge``)."""
+    jb = JREG.load_model_bundle("tiny-test", controlnet="tiny-cnet")
+    rng = np.random.default_rng(0)
+    cnet = jb.params["controlnet"]
+    for zc in cnet["zero_convs"] + [cnet["mid_zero_conv"], cnet["cond_embedding"]["conv_out"]]:
+        zc["kernel"] = jnp.asarray(0.3 * rng.standard_normal(zc["kernel"].shape), jnp.float32)
+    cfg = dict(RING, use_controlnet=True)
+    js = JS.BatchScheduler(jb.stream_models, jb.params, JREG.default_stream_config(
+        "tiny-test", **cfg), jb.encode_prompt, max_sessions=2, window_ms=10_000.0,
+        prewarm=False, dp=1, model_id="tiny-test")
+    pb = PREG.load_model_bundle("tiny-test", device="cpu", controlnet="tiny-cnet",
+                                params=bridge.params_from_jax(jax.tree.map(np.asarray, jb.params)))
+    ps = PS.BatchScheduler(pb.stream_models, pb.params, PREG.default_stream_config(
+        "tiny-test", device="cpu", **cfg), pb.encode_prompt, max_sessions=2, window_ms=10_000.0,
+        device="cpu", model_id="tiny-test")
+    try:
+        yield SimpleNamespace(js=js, ps=ps, pb=pb)
+    finally:
+        js.close()
+        ps.close()
+
+
+@pytest.mark.parametrize("direction", ["jax_to_port", "port_to_jax"])
+def test_a_controlnet_snapshot_crosses_between_the_packages(cnet_pair, direction):
+    """A ControlNet session steps 3 frames and is exported: its row carries
+    ``cnet_cond`` (the ring of the last frames' edge maps) and ``cnet_scale``
+    under the JAX fingerprint (no ControlNet key); restored on the other
+    package, the next 4 frames stay within 1 level of the source's own
+    continuation, and the restored row's bytes are the snapshot's."""
+    src_s, dst_s = (cnet_pair.js, cnet_pair.ps) if direction == "jax_to_port" else (
+        cnet_pair.ps, cnet_pair.js)
+    frames = _frames(7, 14)
+    src = src_s.claim("src", prompt="a conditioned session", seed=5)
+    dst = None
+    try:
+        for f in frames[:3]:
+            _tick(src, f)
+        snap = src_s.snapshot_session("src")
+        assert snap["fingerprint"] == cnet_pair.js.snapshot_fingerprint() == \
+            cnet_pair.ps.snapshot_fingerprint()
+        row = JC.deserialize_pytree(base64.b64decode(snap["state_b64"]))
+        assert row["cnet_cond"].shape == (1, 32, 32, 3) and float(row["cnet_scale"]) == 1.0
+        assert np.asarray(row["cnet_cond"], np.float32).max() > 0
+        assert PC.serialize_pytree(PC.deserialize_pytree(base64.b64decode(
+            snap["state_b64"]))) == base64.b64decode(snap["state_b64"])
+        dst = dst_s.restore_session(snap, "dst")
+        restored = dict(_flat_items(dst_s.states, dst.slot))
+        assert _raw(restored["cnet_cond"])[2] == np.ascontiguousarray(row["cnet_cond"]).tobytes()
+        levels = [_levels(_tick(dst, f), _tick(src, f)) for f in frames[3:]]
+        assert max(levels) <= 1, levels
+    finally:
+        _released(*(s for s in (src, dst) if s is not None))
+
+
+def test_a_controlnet_row_into_a_plain_scheduler_is_refused_on_both_sides(pair, cnet_pair):
+    """The fingerprints agree (they have no ControlNet key), so the row's
+    structure refuses it: SnapshotMismatch on both packages, both ways,
+    no slot taken."""
+    assert cnet_pair.js.snapshot_fingerprint() == pair.js.snapshot_fingerprint()
+    for origin, target in ((cnet_pair, pair), (pair, cnet_pair)):
+        live = origin.js.claim("live-j", prompt="live", seed=1)
+        try:
+            snap = origin.js.snapshot_session("live-j")
+        finally:
+            live.release()
+        for sched, mismatch in ((target.js, JS.SnapshotMismatch), (target.ps, PS.SnapshotMismatch)):
+            free = sched.free_slots
+            with pytest.raises(mismatch, match="structure differs"):
+                sched.restore_session(snap, "x")
+            assert sched.free_slots == free
 
 
 # -- the import rules --------------------------------------------------------------------

@@ -1467,3 +1467,111 @@ def test_unet_cache_3_serves_an_offer_as_the_jax_agent(monkeypatch):
     assert len(port[6]) == len(want[6]) == 6
     for a, b in zip(port[6], want[6]):
         assert np.abs(a.astype(np.int16) - b.astype(np.int16)).max() <= 1
+
+
+def test_controlnet_and_annotator_serve_an_offer_as_the_jax_agent(monkeypatch):
+    """``--controlnet tiny-cnet --annotator hed`` on each agent's command line
+    reaches the served config of the pipeline and the batch scheduler (no
+    silent flag drop); the JAX ControlNet's zero convs non-zero from a seed
+    (zero, the ControlNet is a no-op), its weights and the session's state
+    carried across; one /offer session on each agent, the same frames
+    pushed into both: the answers' forms agree, /migrate/export's row
+    carries the conditioning ring within 1e-4 of the JAX row, and every
+    viewed frame is within 1 level of the JAX agent's."""
+    from ai_rtc_agent_tpu.models import controlnet as JCN
+
+    for name, value in (("WEBRTC_PROVIDER", "loopback"), ("SUPERVISOR", "0"),
+                        ("WARMUP_FRAMES", "0"), ("BATCHSCHED_MAX_SESSIONS", "1"),
+                        ("OVERLOAD_LOOP_LAG_BUDGET_MS", "100000")):
+        monkeypatch.setenv(name, value)
+    init = JCN.init_controlnet
+
+    def woken(*a, **kw):
+        p = init(*a, **kw)
+        rng = np.random.default_rng(0)
+        for zc in p["zero_convs"] + [p["mid_zero_conv"], p["cond_embedding"]["conv_out"]]:
+            zc["kernel"] = jax.numpy.asarray(0.3 * rng.standard_normal(zc["kernel"].shape),
+                                             jax.numpy.float32)
+        return p
+
+    monkeypatch.setattr(JCN, "init_controlnet", woken)
+    built = {}
+    for name, m, extra in (("jax", JA, []), ("port", PA, ["--device", "cpu"])):
+        monkeypatch.setattr(m.web, "run_app", lambda app, name=name, **kw: built.update({name: app}))
+        m.main(["--model-id", "tiny-test", "--controlnet", "tiny-cnet", "--annotator", "hed"]
+               + extra)
+    assert built["jax"]["controlnet"] == built["port"]["controlnet"] == "tiny-cnet"
+    assert built["jax"]["annotator"] == built["port"]["annotator"] == "hed"
+    frames = _frames(6, seed=50)
+    got = {}
+
+    async def serve(name, hook):
+        app = built[name]
+        client = TestClient(TestServer(app))
+        await client.start_server()
+        try:
+            m = SIDES[name]
+            r = await client.post("/offer", json={
+                "room_id": "r", "offer": {"sdp": m.signaling.make_loopback_offer(),
+                                          "type": "offer"}})
+            body = await r.json()
+            cfg = app["pipeline"].config
+            assert (cfg.use_controlnet, cfg.annotator) == (True, "hed")
+            assert app["batch_scheduler"].cfg.annotator == "hed"
+            hook(app)
+            pc = next(iter(app["pcs"]))
+            for i, f in enumerate(frames):
+                vf = m.frames.VideoFrame.from_ndarray(f)
+                vf.pts, vf.time_base = i, Fraction(1, 30)
+                await pc.in_track.push(vf)
+            seen = [(await asyncio.wait_for(pc.out_tracks[0].recv(), 120)).to_ndarray()
+                    for _ in range(len(frames) - 2)]  # the track keeps 2 in flight
+            export = await (await client.get(
+                f"/migrate/export?session={r.headers['X-Stream-Id']}")).json()
+            row = JC.deserialize_pytree(base64.b64decode(export["state_b64"]))
+            return (r.status, sorted(body), body["type"], export["fingerprint"], seen,
+                    np.asarray(row["cnet_cond"], np.float32))
+        finally:
+            await client.close()
+
+    def keep(app):
+        got["params"] = jax.tree.map(np.asarray, app["pipeline"].engine.params)
+        got["states"] = jax.tree.map(np.asarray, app["batch_scheduler"].states)
+
+    want = asyncio.run(serve("jax", keep))
+    assert sorted(got["params"]) == ["clip", "controlnet", "hed", "taesd", "unet"]
+    params = bridge.params_from_jax(got["params"])
+    monkeypatch.setattr(PREG, "init_params", lambda fam, seed=0, device="cpu": params)
+    port = asyncio.run(serve("port", lambda app: bridge.states_from_jax(
+        got["states"], app["batch_scheduler"].states)))
+    assert port[:4] == want[:4] and want[0] == 200
+    np.testing.assert_allclose(port[5], want[5], rtol=1e-4, atol=1e-4)
+    assert want[5].max() > 0
+    assert len(port[4]) == len(want[4]) == 4
+    for a, b in zip(port[4], want[4]):
+        assert np.abs(a.astype(np.int16) - b.astype(np.int16)).max() <= 1
+
+
+@pytest.mark.parametrize("argv", [["--annotator", "hed"],
+                                  ["--controlnet", "tiny-cnet", "--unet-cache", "3"]],
+                         ids=["annotator_alone", "controlnet_with_unet_cache"])
+def test_controlnet_refusals_match_the_jax_agent(monkeypatch, argv):
+    """``--annotator`` without ``--controlnet``, and ``--controlnet`` with
+    ``--unet-cache``: both agents parse the line and refuse at startup with
+    the same ValueError, before any model is built."""
+    monkeypatch.setenv("WEBRTC_PROVIDER", "loopback")
+    built, errors = {}, {}
+    for name, m, extra in (("jax", JA, []), ("port", PA, ["--device", "cpu"])):
+        monkeypatch.setattr(m.web, "run_app", lambda app, name=name, **kw: built.update({name: app}))
+        m.main(["--model-id", "tiny-test"] + argv + extra)
+
+        async def start(app):
+            with pytest.raises(ValueError) as e:
+                await TestServer(app).start_server()
+            return str(e.value)
+
+        errors[name] = asyncio.run(start(built[name]))
+        assert built[name].get("pipeline") is None
+    assert errors["port"] == errors["jax"]
+    assert "--annotator requires --controlnet" in errors["jax"] or \
+        "UNET_CACHE is incompatible with ControlNet" in errors["jax"]

@@ -240,13 +240,25 @@ def test_default_stream_config_matches_jax(model_id):
     {"unet_cache_interval": 3},
 ])
 def test_later_slices_raise(port_params, overrides):
-    """ControlNet and SDXL added conditioning are later slices and raise;
-    DeepCache (from its smallest interval, 2) builds its capture + cached
-    pair (tests/test_torch_deepcache.py); the engine modes run
+    """SDXL added conditioning is a later slice and raises; ControlNet is
+    served (tests/test_torch_controlnet.py): a bundle without one is refused
+    with the JAX engine's ValueError and a bundle with one builds; DeepCache
+    (from its smallest interval, 2) builds its capture + cached pair
+    (tests/test_torch_deepcache.py); the engine modes run
     (tests/test_torch_modes.py)."""
     if overrides.get("unet_cache_interval", 0) >= 2:
         eng = _port_engine(port_params, overrides, True, "kernel")
         assert eng.variants == ("capture", "cached") and set(eng.keys) == set(eng.variants)
+        return
+    if overrides.get("use_controlnet"):
+        with pytest.raises(ValueError, match="StreamModels.controlnet is None"):
+            _port_engine(port_params, overrides, True, "kernel")
+        bundle = PREG.load_model_bundle("tiny-test", device="cpu", params=port_params,
+                                        controlnet="tiny-cnet")
+        cfg = PREG.default_stream_config("tiny-test", device="cpu", **overrides)
+        eng = PENG.StreamEngine(bundle.stream_models, bundle.params, cfg, bundle.encode_prompt,
+                                device="cpu")
+        assert "cnet-1canny" in eng.key
         return
     with pytest.raises(NotImplementedError):
         _port_engine(port_params, overrides, True, "kernel")
@@ -358,6 +370,7 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     files = sorted((REPO / "ai_rtc_agent_tpu_torch").rglob("*.py")) + [
         REPO / "chip_smoke.py", REPO / "scripts" / "torch_step_profile.py",
         REPO / "scripts" / "epilogue_ab.py", REPO / "scripts" / "smoke_loop.py",
+        REPO / "scripts" / "torch_trace_window.py",
     ]
     assert len(files) > 10 and REPO / "ai_rtc_agent_tpu_torch" / "aot" / "cache.py" in files
     for name in ("loader", "lora", "safety", "clip_vision"):
