@@ -107,6 +107,16 @@ def stream_engine_key(model_id: str, cfg, **extra) -> str:
     )
 
 
+
+def adapter_key_extra(rank: int) -> dict:
+    """Engine-key extras of the per-session LoRA factor bank (adapters/): an
+    adapterless scheduler (bank rank 0) keeps every key as it was, and a
+    bank keys on its padded rank, so a (k, variant, rank) graph never meets
+    an adapterless one.  The rank is the only shape the bank adds: targets
+    and adapter names live in the stacked state, so swaps leave the key."""
+    rank = int(rank or 0)
+    return {"lrank": rank} if rank > 0 else {}
+
 def _launches() -> tuple:
     return _attention.launches, _epilogue.launches
 

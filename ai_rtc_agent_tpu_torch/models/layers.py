@@ -14,6 +14,9 @@ nested dicts (and lists) of tensors with the JAX tree's names.
   ``scale``) is dequantized in the primitive, in the activation dtype, as
   the JAX ``_kernel`` does: the int8 tensor stays int8 in device memory and
   the dequant runs inside the step (a captured step carries it).
+* A style adapter's factors (``lora_down``/``lora_up`` beside a linear's
+  kernel, adapters/bank.py) add their low-rank residual, per row in the
+  session step.
 * Compute follows the activation dtype; normalization statistics are f32.
 """
 
@@ -73,9 +76,33 @@ def _kernel(p, dtype):
 
 def linear(p, x):
     y = x @ _kernel(p, x.dtype)
+    if "lora_down" in p:
+        # a per-session style adapter (adapters/bank.py grafts the factors
+        # beside the kernel): the low-rank residual after the dense or w8
+        # product and before the bias, as the JAX linear adds it
+        y = y + lora_residual(p["lora_down"], p["lora_up"], x)
     if "bias" in p:
         y = y + p["bias"].to(x.dtype)
     return y
+
+
+def lora_residual(down, up, x):
+    """``(x @ down.T) @ up.T`` in ``x``'s dtype.  The factors are shared,
+    ``down`` [R, in] and ``up`` [out, R], or per row, [N, R, in] and
+    [N, out, R] against ``x`` [N, ..., in] (each row of the session step
+    its own session's), as two batched products over ``x`` viewed as
+    [N, T, in].  The association is the JAX one, so a zero factor adds
+    exactly 0.0."""
+    down = down.to(x.dtype)
+    up = up.to(x.dtype)
+    if down.ndim == 2:
+        return (x @ down.T) @ up.T
+    n = down.shape[0]
+    if x.shape[0] != n:
+        raise ValueError(f"per-row factors for {n} rows against an input of {x.shape[0]} rows")
+    xs = x.reshape(n, -1, x.shape[-1])
+    r = torch.bmm(torch.bmm(xs, down.transpose(1, 2)), up.transpose(1, 2))
+    return r.reshape(*x.shape[:-1], up.shape[1])
 
 
 def conv2d(p, x, stride: int = 1, padding="SAME"):

@@ -213,11 +213,15 @@ def encoder_surface(provider):
 
 
 def apply_runtime_config(pipeline, config: dict, encoders=None):
-    """Apply a runtime config object to ``pipeline``: ``prompt``,
+    """Apply a runtime config object to ``pipeline``: ``adapter``, ``prompt``,
     ``t_index_list``, ``guidance_scale``/``delta``, and ``encoder`` through
     ``encoders`` (:func:`encoder_surface`).  Every capability and value
     check runs before anything changes, so a ``ValueError`` means nothing
-    was applied."""
+    was applied.  ``adapter`` is keyed by presence (JSON null clears the
+    style; an absent key touches nothing), needs the pipeline's
+    ``update_adapter`` (the batch scheduler's, and its sessions') and is
+    applied first: the name is checked against the registry before any
+    slot is written, so an unknown one refuses the whole body unapplied."""
     if not isinstance(config, dict):
         raise ValueError("config must be a JSON object")
     guidance_scale = config.get("guidance_scale")
@@ -233,8 +237,16 @@ def apply_runtime_config(pipeline, config: dict, encoders=None):
         if encoders is None:
             raise ValueError("encoder reconfigure not supported by this provider")
         encoder = encoders.validate_encoder_config(encoder)
-    if "adapter" in config:
-        raise ValueError("adapter hot-swap not supported by this pipeline")
+    has_adapter = "adapter" in config
+    update_adapter = getattr(pipeline, "update_adapter", None)
+    if has_adapter:
+        if update_adapter is None:
+            raise ValueError("adapter hot-swap not supported by this pipeline (the batch "
+                             "scheduler with a bound adapter registry owns it)")
+        adapter = config["adapter"]
+        if adapter is not None and not isinstance(adapter, str):
+            raise ValueError("adapter must be a string name or null")
+        update_adapter(adapter)
     t_index_list = config.get("t_index_list")
     if t_index_list is not None:
         pipeline.update_t_index_list(t_index_list)
@@ -344,6 +356,21 @@ def build_pipeline(app) -> StreamDiffusionPipeline:
                                    controlnet=app.get("controlnet"))
 
 
+def load_adapters(pipeline):
+    """The ADAPTER_DIR style catalog resolved against ``pipeline``'s served
+    UNet (w8 params included), or None when ADAPTER_DIR is unset.  A bad
+    catalog raises with the file's name: the agent refuses to boot rather
+    than serve the shared pipeline without styles."""
+    adir = env.adapter_dir()
+    if not adir:
+        return None
+    from ..adapters import build_registry
+
+    if not os.path.isdir(adir):
+        raise ValueError(f"ADAPTER_DIR {adir} is not a directory")
+    return build_registry(pipeline.engine.params["unet"], pipeline.bundle.unet_cfg, adir)
+
+
 async def startup(app):
     """Build the serving plane (see the module docstring), the fault domain
     and the observability planes over it, on the running loop.  A plane
@@ -372,7 +399,8 @@ async def startup(app):
         if app["batch_scheduler"] is None and env.batchsched_enabled():
             from ..stream.scheduler import BatchScheduler
 
-            app["batch_scheduler"] = BatchScheduler.from_pipeline(app["pipeline"])
+            app["batch_scheduler"] = BatchScheduler.from_pipeline(
+                app["pipeline"], adapters=load_adapters(app["pipeline"]))
     app["pcs"] = set()
     app["releasing"] = set()  # slot releases in flight
     app["stream_event_handler"] = app["events_handler"] or StreamEventHandler()

@@ -42,7 +42,10 @@ Modes, as in the JAX engine:
   identity), ride a conditioning ring ``state["cnet_cond"]`` [B-fbs,H,W,3]
   that rotates with the latent ring, and the ControlNet's residuals, scaled
   by ``state["cnet_scale"]``, feed every UNet pass (not a DeepCache pair's,
-  which the JAX package refuses as well).
+  which the JAX package refuses as well);
+* per-session style adapters (the session step): the stacked state's
+  ``adapters`` factor bank (adapters/) is grafted beside the UNet's target
+  linears, each row its own session's factors.
 The post-UNet chain runs as the fused epilogue kernel where the JAX
 ``fused_ok`` holds (``use_fused_epilogue``, denoising batch, epsilon
 prediction, cfg none/self/initialize), otherwise as the composed ops.
@@ -61,6 +64,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..adapters.bank import gather_factor_rows, graft_unet_params
 from ..aot.cache import GraphCache, stream_engine_key
 from ..models import quant as Q
 from ..models.controlnet import canny_soft
@@ -275,6 +279,29 @@ def unet_runner(models: StreamModels, unet_variant: str = "full") -> Callable:
     return run
 
 
+def styled_runner(run: Callable, bank, slots, n: int) -> Callable:
+    """``run`` with every UNet row meeting its own session's factor rows: a
+    pass of m rows is m // (k·n) blocks of the k sessions' n rows each,
+    session-major (full CFG: the uncond block, then the cond block).  The
+    rows are gathered from the stacked ``bank`` at ``slots`` on the device,
+    once for each pass size of the step, so a captured step reads the live
+    bank at every replay; a padded bucket's tail repeats its last slot's.
+    Only the UNet's params are grafted: the ControlNet, TAESD and the text
+    encoder keep their own, as in the JAX step."""
+    rows_of: dict = {}
+
+    def run_styled(params, x, t, ctx, cache, cnet=None):
+        m = x.shape[0]
+        rows = rows_of.get(m)
+        if rows is None:
+            index = slots.repeat_interleave(n).repeat(m // (slots.shape[0] * n))
+            rows = rows_of[m] = gather_factor_rows(bank, index)
+        return run(dict(params, unet=graft_unet_params(params["unet"], rows)), x, t, ctx, cache,
+                   cnet)
+
+    return run_styled
+
+
 def _guided(run: Callable, cfg: StreamConfig, params, x, t, cond, uncond, stock,
             coeffs: L.StepCoeffs, guidance, delta, cache=None, cnet=None):
     """One guided UNet pass over ``x`` [n,h,w,c] with the per-row ``t``,
@@ -456,7 +483,12 @@ def make_session_step_fn(models: StreamModels, cfg: StreamConfig, unet_variant: 
     follows them, the real sessions' rings are written back in place
     (``write_segments``), and each row's residuals are scaled by its
     session's ``cnet_scale``; sequential mode conditions every stage on the
-    new frames, full CFG doubles the cond images as it doubles the rows."""
+    new frames, full CFG doubles the cond images as it doubles the rows.
+
+    Style adapters (``states["adapters"]``, the stacked factor bank of
+    adapters/): every UNet pass grafts each row's own session's factor rows,
+    gathered at ``slots`` in that pass's row order (:func:`styled_runner`),
+    in every mode and variant; the ControlNet's params are not grafted."""
     _check_supported(cfg, models, unet_variant)
     B = cfg.batch_size
     fbs = cfg.frame_buffer_size
@@ -464,11 +496,14 @@ def make_session_step_fn(models: StreamModels, cfg: StreamConfig, unet_variant: 
     fused = fused_ok(cfg)
     run = unet_runner(models, unet_variant)
     split = 2 if cfg.cfg_type == "full" else 1  # a session's cache rows: split blocks of B
+    n_pass = B if cfg.use_denoising_batch else fbs  # a session's rows in one UNet pass
 
     @torch.inference_mode()
     def step(params, states, frames_u8, slots, k_real):
         k = frames_u8.shape[0]
         c = states["coeffs"]
+        bank = states.get("adapters")
+        run_ = run if bank is None else styled_runner(run, bank, slots, n_pass)
         take = lambda a: a.index_select(0, slots)  # noqa: E731
         rows = lambda a: a.reshape(k * a.shape[1], *a.shape[2:])  # noqa: E731  [k, n, ...] -> [k*n, ...]
 
@@ -530,7 +565,7 @@ def make_session_step_fn(models: StreamModels, cfg: StreamConfig, unet_variant: 
                 sl = slice(i * fbs, (i + 1) * fbs)
                 sub = co_of(sl)
                 eps, st, _ = _guided(
-                    run, cfg, params, x, sub.timesteps, ctx("cond", fbs), ctx("uncond", fbs),
+                    run_, cfg, params, x, sub.timesteps, ctx("cond", fbs), ctx("uncond", fbs),
                     rows(take(states["stock"][:, sl])).to(dt), sub,
                     col(states["guidance"], fbs), col(states["delta"], fbs), cnet=cnet_of(fbs))
                 stocks.append(st)
@@ -544,7 +579,7 @@ def make_session_step_fn(models: StreamModels, cfg: StreamConfig, unet_variant: 
             x_t = rows(torch.cat([x_new, take(states["x_buf"]).to(dt)], dim=1)) \
                 if B > fbs else rows(x_new)
             if fused:
-                eps_c, deep = run(params, x_t, take(c["timesteps"]).reshape(-1), ctx("cond", B),
+                eps_c, deep = run_(params, x_t, take(c["timesteps"]).reshape(-1), ctx("cond", B),
                                   cache_in(), cnet_of(B))
                 denoised = fused_stream_epilogue(
                     x_t, eps_c, states["stock"], states["noise"], _coeffs(c), states["guidance"],
@@ -555,7 +590,7 @@ def make_session_step_fn(models: StreamModels, cfg: StreamConfig, unet_variant: 
             else:
                 co = co_of(slice(None))
                 eps, new_stock, deep = _guided(
-                    run, cfg, params, x_t, co.timesteps, ctx("cond", B), ctx("uncond", B),
+                    run_, cfg, params, x_t, co.timesteps, ctx("cond", B), ctx("uncond", B),
                     rows(take(states["stock"])).to(dt), co, col(states["guidance"], B),
                     col(states["delta"], B), cache_in(), cnet_of(B))
                 if new_stock is not None:

@@ -72,7 +72,7 @@ configuration, so a JAX snapshot restores here and back.  The engine
 guard's bank is refreshed on the device; at quarantine its rows go to the
 host once and become full snapshot dicts (:meth:`capture_quarantine_snapshots`),
 which a quarantined :meth:`snapshot_session` serves and the rebuild
-restores from.  The dp-sharded session axis and adapters are later slices.
+restores from.  The dp-sharded session axis is a later slice.
 
 The speed variants ride the same bucket steps, as in the JAX scheduler.
 ``QUANT_WEIGHTS=w8`` params serve unchanged (the dequant lives in the layer
@@ -85,6 +85,22 @@ or t-indices since its last capture: its deep-cache row is zeros or
 stale), and the cached step runs otherwise.  A snapshot carries the
 session's row with its deep cache and the cadence's ``cache_tick`` /
 ``cache_uncaptured``; a restored slot rides a capture first.
+
+Per-session style adapters (``adapters=``, an adapters/ ``AdapterRegistry``
+with a non-zero ``bank_rank``): the registry's bank shape (rank, target
+set) is bound once at construction, and the stacked state gains an
+``adapters`` subtree {target path: {"down": [S, R, in], "up": [S, out,
+R]}} in the compute dtype, every slot born on the zero rows (bit for bit
+the base model).  Each row of a bucket step meets its own session's factors
+(stream/engine.py ``styled_runner``).  A claim's ``adapter=``, a session's
+and the global :meth:`update_adapter` are checked against the registry
+before any state is touched and written in place under the step lock (one
+``copy_`` per factor into the slot's row), so the captured graphs read the
+new style at their next replay and nothing is captured again; with
+DeepCache a swap makes the slot uncaptured, as a prompt write does.  The
+keys gain ``lrank-R``, the fingerprint ``adapter_rank`` and
+``adapter_targets`` (the JAX digest), a snapshot the ``adapter`` name, and
+its row carries the factors, so a styled session moves bit for bit.
 
 A ControlNet configuration's rows carry the conditioning ring and scale
 (``cnet_cond``, ``cnet_scale``; stream/engine.py), which a snapshot's row
@@ -107,7 +123,8 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from ..aot.cache import stream_engine_key
+from ..adapters.registry import targets_digest
+from ..aot.cache import adapter_key_extra, stream_engine_key
 from ..obs import devtel
 from ..obs.trace import get_trace
 from ..parallel.checkpoint import deserialize_pytree, serialize_pytree
@@ -219,6 +236,7 @@ class ScheduledSession:
         self.guidance_scale = owner.guidance_scale
         self.delta = owner.delta
         self.t_index_list = list(owner.t_index_list)
+        self.adapter: str | None = None  # the style riding this slot's factor rows
         self._seed = seed
         self._released = False
         cfg = owner.cfg
@@ -349,16 +367,23 @@ class ScheduledSession:
         if d is not None:
             self.delta = d
 
+    def update_adapter(self, name: str | None):
+        """Swap this slot's style-adapter factor rows (``None``: back to the
+        zero rows), in place; checked against the registry before any
+        state is touched, and never a capture."""
+        self._owner._apply_adapter(self.slot, name)
+        self.adapter = name
+
     def restart(self):
         """A fresh stream state for this slot with the live prompt,
-        guidance, delta and t-indices (the supervisor's recovery hook).
+        guidance, delta, t-indices and adapter (the supervisor's recovery hook).
         While the engine guard holds the plane quarantined this is its
         rebuild's job (the banked row is restored bit for bit): report
         success, so that the session goes on serving passthrough."""
         if self._owner.quarantined:
             return
         state = self._owner._build_state(self.prompt, self.guidance_scale, self.delta,
-                                         self._seed, self.t_index_list)
+                                         self._seed, self.t_index_list, self.adapter)
         self._owner._install(self.slot, state)
 
     def release(self):
@@ -369,13 +394,18 @@ class ScheduledSession:
     def snapshot(self) -> dict:
         """/health's per-session scheduler view (the JAX keys)."""
         q = self.window_queue
-        return {
+        out = {
             "slot": self.slot,
             "frames_submitted": self.frames_submitted,
             "frames_skipped_similar": self.frames_skipped_similar,
             "window_depth": q.depth,
             "window_shed": q.shed_overflow + q.shed_stale,
         }
+        if self._owner._adapter_rank:
+            # the style riding this slot's factor rows and the bank's rank
+            out["adapter"] = self.adapter
+            out["adapter_rank"] = self._owner._adapter_rank
+        return out
 
 
 class BatchScheduler:
@@ -391,11 +421,15 @@ class BatchScheduler:
                  queue_bound: int | None = None, fetch_timeout: float = 120.0,
                  default_prompt: str = "", guidance_scale: float | None = None,
                  delta: float | None = None, schedule=None, prewarm: bool | None = None,
-                 device=None, graphs: bool | None = None, safety_checker=None):
+                 device=None, graphs: bool | None = None, safety_checker=None,
+                 adapters=None):
         """``graphs`` (default: on a CUDA device): each bucket size steps by
         replaying its captured CUDA graph; False steps eagerly.
         ``safety_checker`` (a models/safety.py ``SafetyChecker``, or None)
-        gates each rider's output at its fetch."""
+        gates each rider's output at its fetch.  ``adapters`` (an
+        adapters/ ``AdapterRegistry``, or None): the style catalog whose
+        bank shape this scheduler binds; an empty one keeps the factors
+        path off, the state and keys an adapterless build's."""
         self.device = resolve_device(device)
         self.fbs = int(cfg.frame_buffer_size)
         if self.fbs > 1 and cfg.similar_image_filter:
@@ -424,6 +458,12 @@ class BatchScheduler:
         self.guidance_scale = DEFAULT_GUIDANCE_SCALE if guidance_scale is None else guidance_scale
         self.delta = DEFAULT_DELTA if delta is None else delta
         self.t_index_list = list(cfg.t_index_list)
+        # style adapters: the bank's shape (rank, targets) is bound here, once
+        self.adapters = adapters
+        self._adapter_rank = int(adapters.bank_rank) if adapters is not None else 0
+        self._adapter_targets = dict(adapters.targets) if self._adapter_rank else {}
+        self.default_adapter: str | None = None  # the global /config default
+        self.adapter_swaps_total = 0
         self.params = params
         # the admission feed: callable(dt_s, occupancy), dt amortised per session
         self.on_step = None
@@ -439,9 +479,13 @@ class BatchScheduler:
         self._uncaptured: set = set()
         self._bucket = self._new_bucket(graphs)
         self._warmed: set = set()  # (k, variant) stepped or captured (a cold step captures)
-        # one template state, stacked: a claim installs its own before any frame
-        self.states = stack_states([self._template.build_state(
-            self.prompt, guidance_scale=self.guidance_scale, delta=self.delta, seed=0)] * S)
+        # one template state, stacked: a claim installs its own before any
+        # frame; the factor bank stacks with it, every slot on the zero rows
+        template = self._template.build_state(self.prompt, guidance_scale=self.guidance_scale,
+                                              delta=self.delta, seed=0)
+        if self._adapter_rank:
+            template["adapters"] = self._adapter_rows(None)
+        self.states = stack_states([template] * S)
         self.active = [False] * S
         self._sessions: dict = {}  # slot -> ScheduledSession
         self._queues = [DeadlineQueue(self.queue_bound, on_evict=self._evict) for _ in range(S)]
@@ -493,7 +537,7 @@ class BatchScheduler:
         """A scheduler serving what ``pipeline`` (a StreamDiffusionPipeline)
         serves: its weights, config, prompt encoder, schedule, device, graphs
         setting, safety checker and live prompt, guidance and delta as the
-        defaults."""
+        defaults (``adapters=`` and the rest pass through)."""
         eng = pipeline.engine
         kw.setdefault("graphs", eng.graphs)
         return cls(eng.models, eng.params, pipeline.config, eng.encode_prompt,
@@ -509,13 +553,17 @@ class BatchScheduler:
         return self.active.count(False)
 
     def claim(self, session_key: str | None = None, prompt: str | None = None,
-              seed: int | None = None) -> ScheduledSession:
+              seed: int | None = None, adapter: str | None = None) -> ScheduledSession:
         """Claim a slot for a new connection; raises CapacityError when full
         or while the engine guard holds the plane quarantined (the agent
         answers 503 with Retry-After).  The state build runs outside the
-        locks, so live sessions keep stepping."""
+        locks, so live sessions keep stepping.  ``adapter``: the session's
+        style (default: :attr:`default_adapter`), checked against the
+        registry before a slot is taken."""
         if self.quarantined:
             raise CapacityError("engine quarantined — rebuild in progress")
+        adapter = self.default_adapter if adapter is None else adapter
+        self._adapter_rows(adapter)  # an unknown name takes no slot
         with self._lock:
             slot = self._pick_slot_locked()
             self.active[slot] = True
@@ -523,8 +571,9 @@ class BatchScheduler:
         seed = slot if seed is None else seed
         try:
             state = self._build_state(prompt, self.guidance_scale, self.delta, seed,
-                                      self.t_index_list)
+                                      self.t_index_list, adapter)
             sess = ScheduledSession(self, slot, session_key or f"slot-{slot}", prompt, seed)
+            sess.adapter = adapter
             self._install(slot, state)
         except Exception:
             with self._lock:
@@ -569,9 +618,10 @@ class BatchScheduler:
     def snapshot_fingerprint(self) -> dict:
         """What must match for a snapshot to restore here: the JAX
         scheduler's keys and values for the same configuration, the
-        DeepCache interval and the params variant (w8) included (the port
-        has no adapters yet)."""
-        return {
+        DeepCache interval, the params variant (w8) and a bound factor
+        bank's rank and target digest included (an adapterless scheduler
+        omits the adapter keys, as the JAX one does)."""
+        fp = {
             "model_id": self.model_id,
             "height": self.height,
             "width": self.width,
@@ -582,6 +632,10 @@ class BatchScheduler:
             "similar_filter": bool(self.cfg.similar_image_filter),
             "quant": str(params_variant_extra(self.params).get("quant", "")),
         }
+        if self._adapter_rank:
+            fp["adapter_rank"] = self._adapter_rank
+            fp["adapter_targets"] = targets_digest(self._adapter_targets)
+        return fp
 
     def snapshot_session(self, session_key: str) -> dict:
         """One live session for migration: its state row (the wire codec's
@@ -629,7 +683,7 @@ class BatchScheduler:
             "frames_skipped_similar": int(sess.frames_skipped_similar),
             "cache_tick": int(cache_tick),
             "cache_uncaptured": bool(cache_uncaptured),
-            "adapter": None,
+            "adapter": sess.adapter,
             "state_b64": base64.b64encode(serialize_pytree(row)).decode("ascii"),
         }
         if sess._sim is not None:
@@ -699,6 +753,8 @@ class BatchScheduler:
             sess = ScheduledSession(self, slot, session_key or snapshot.get("session")
                                     or f"slot-{slot}", prompt, seed)
             sess.guidance_scale, sess.delta, sess.t_index_list = guidance, delta, t_index_list
+            adapter = snapshot.get("adapter")
+            sess.adapter = str(adapter) if adapter is not None else None
             sess._had_output = bool(snapshot.get("had_output", False))
             sess.frames_submitted = int(snapshot.get("frames_submitted", 0))
             sess.frames_skipped_similar = int(snapshot.get("frames_skipped_similar", 0))
@@ -719,13 +775,32 @@ class BatchScheduler:
                     sess.session_key)
         return sess
 
-    def _build_state(self, prompt, guidance, delta, seed, t_index_list) -> dict:
+    def _adapter_rows(self, name: str | None):
+        """One session row of the factor bank for adapter ``name`` at the
+        bound shape, on the device in the compute dtype (the zero rows for
+        None), or None when no bank is bound.  Raises before any state is
+        touched: an adapter asked of a scheduler with no registry, an
+        unknown name, or an adapter that outgrew the bound rank."""
+        if not self._adapter_rank:
+            if name is not None:
+                raise ValueError(f"adapter {name!r} requested but this scheduler has no adapter "
+                                 "registry bound (set ADAPTER_DIR and restart)")
+            return None
+        return self.adapters.factor_rows(name, rank=self._adapter_rank,
+                                         targets=self._adapter_targets,
+                                         dtype=self.cfg.torch_dtype, device=self.device)
+
+    def _build_state(self, prompt, guidance, delta, seed, t_index_list,
+                     adapter: str | None = None) -> dict:
+        rows = self._adapter_rows(adapter)  # checked before the heavy build
         with self._heavy_lock, devtel.expected_scope("sched-state-build"):
             state = self._template.build_state(prompt, guidance_scale=guidance, delta=delta,
                                                seed=seed)
             if tuple(t_index_list) != tuple(self.cfg.t_index_list):
                 state["coeffs"] = coeff_state(self.cfg, self._template.schedule,
                                               tuple(t_index_list), self.device)
+            if rows is not None:  # the row mirrors the stacked state's structure
+                state["adapters"] = rows
             return state
 
     def _install(self, slot: int, state: dict):
@@ -761,6 +836,25 @@ class BatchScheduler:
         with self._step_lock, devtel.expected_scope("sched-control-write"):
             for name, v in coeffs.items():
                 self.states["coeffs"][name][slot].copy_(v)
+            self._mark_uncaptured_locked(slot)
+
+    def _apply_adapter(self, slot: int, name: str | None):
+        """Swap one slot's factor rows in the stacked bank, in place: one
+        ``copy_`` per factor into the slot's row under the step lock (every
+        adapter has the bank's shape), so the captured graphs read it at
+        their next replay.  ``None`` writes the zero rows back.  With
+        DeepCache the slot's deep feature was made under the old style:
+        the next step that carries it captures, as after a prompt write."""
+        rows = self._adapter_rows(name)  # raises before any write
+        if rows is None:
+            raise ValueError("adapter hot-swap unavailable: no adapter registry bound (set "
+                             "ADAPTER_DIR and restart)")
+        with self._step_lock, devtel.expected_scope("sched-control-write"):
+            bank = self.states["adapters"]
+            for path, f in rows.items():
+                bank[path]["down"][slot].copy_(f["down"])
+                bank[path]["up"][slot].copy_(f["up"])
+            self.adapter_swaps_total += 1
             self._mark_uncaptured_locked(slot)
 
     def _apply_guidance(self, slot: int, guidance, delta):
@@ -800,6 +894,21 @@ class BatchScheduler:
         if d is not None:
             self.delta = d
 
+    def update_adapter(self, name: str | None):
+        """The global adapter swap (POST /config): every live session and
+        the default of future claims; ``None`` clears to the zero rows.
+        Checked once up front, so a bad name fails this call even with no
+        live session, and a scheduler with no bank says why no swap can
+        work here."""
+        self._adapter_rows(name)
+        if not self._adapter_rank:
+            raise ValueError("adapter hot-swap unavailable: no adapter registry bound (set "
+                             "ADAPTER_DIR and restart)")
+        for sess in self._live():
+            self._apply_adapter(sess.slot, name)
+            sess.adapter = name
+        self.default_adapter = name
+
     # -- the bucket step ------------------------------------------------------------
 
     def _bucket_for(self, n: int) -> int:
@@ -809,11 +918,11 @@ class BatchScheduler:
         """{(bucket size k, unet variant) -> engine key}: the JAX scheduler's
         recipe (the stream key plus ``sbucket``/``sessions``; a DeepCache
         config keys a capture + cached pair per bucket, w8 params add
-        ``quant-w8``)."""
+        ``quant-w8``, a bound factor bank ``lrank-R``)."""
         model_id = model_id or self.model_id
-        qextra = params_variant_extra(self.params)
+        extra = {**params_variant_extra(self.params), **adapter_key_extra(self._adapter_rank)}
         return {(k, v): stream_engine_key(model_id, self.cfg, sbucket=k, sessions=self.max_sessions,
-                                          **({"variant": v} if v != "full" else {}), **qextra)
+                                          **({"variant": v} if v != "full" else {}), **extra)
                 for k in self._bucket_sizes for v in self._variants}
 
     def graph_status(self) -> dict:
@@ -821,11 +930,12 @@ class BatchScheduler:
         stepping eagerly)."""
         return self._bucket.status(self.bucket_keys())
 
-    @staticmethod
-    def _bucket_label(k: int, variant: str) -> str:
+    def _bucket_label(self, k: int, variant: str) -> str:
         """The build watchdog's label of bucket k's variant (obs/devtel.py;
-        the JAX spelling ``sbucket-<k>:<variant>``)."""
-        return f"sbucket-{k}:{variant}"
+        the JAX spelling ``sbucket-<k>:<variant>``, and ``:r<R>`` after it
+        with a bound factor bank)."""
+        label = f"sbucket-{k}:{variant}"
+        return f"{label}:r{self._adapter_rank}" if self._adapter_rank else label
 
     def prewarm_buckets(self):
         """Capture every bucket size and variant on the calling thread,
@@ -965,7 +1075,7 @@ class BatchScheduler:
                     row = self._banked_row(snapshots.get(sess.session_key), slot)
                     if row is None:
                         row = self._build_state(sess.prompt, sess.guidance_scale, sess.delta,
-                                                sess._seed, sess.t_index_list)
+                                                sess._seed, sess.t_index_list, sess.adapter)
                     else:
                         exact += 1
                     per.append(row)
@@ -1215,7 +1325,7 @@ class BatchScheduler:
                 if self.active[slot]:
                     install_row(self.states, slot, self._build_state(
                         sess.prompt, sess.guidance_scale, sess.delta, sess._seed,
-                        sess.t_index_list))
+                        sess.t_index_list, sess.adapter))
             logger.warning("batchsched: rebuilt the live session rows after a failed step (%r)",
                            cause)
         except Exception:
@@ -1304,6 +1414,12 @@ class BatchScheduler:
         if occ:
             out["batchsched_occupancy_p50"] = self._percentile(occ, 0.5)
             out["batchsched_occupancy_max"] = occ[-1]
+        if self._adapter_rank:
+            # the style plane: live sessions on a non-zero bank, swaps so far
+            out["adapter_sessions"] = sum(1 for s in list(self._sessions.values())
+                                          if s.adapter is not None)
+            out["adapter_swaps_total"] = self.adapter_swaps_total
+            out["adapter_rank"] = self._adapter_rank
         if waits:
             out["batchsched_window_wait_ms_p50"] = round(1e3 * self._percentile(waits, 0.5), 3)
             out["batchsched_window_wait_ms_p99"] = round(1e3 * self._percentile(waits, 0.99), 3)

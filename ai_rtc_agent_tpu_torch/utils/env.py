@@ -28,6 +28,9 @@ Variables read by the port's server:
   BATCHSCHED_WINDOW_MS              its coalescing window (3 ms)
   BATCHSCHED_QUEUE_BOUND            frames queued per session (2)
   BATCHSCHED_PREWARM                step every bucket once at startup (on)
+  ADAPTER_DIR                       per-session style adapters: a directory of LoRA
+                                    *.safetensors served as factor banks (unset: off)
+  ADAPTER_RANK_BUCKETS              the banks' padded ranks (4,8,16)
   MULTIPEER_BUCKETS                 --multipeer steps only the active slots (on)
   SUPERVISOR                        per-session supervision (on)
   SUPERVISOR_STALL_AFTER_S          output-age watchdog (5 s)
@@ -255,3 +258,30 @@ def broadcast_edge_pull_enabled() -> bool:
     pull is off, and the viewer lands on the owner).
     ``BROADCAST_EDGE_PULL=0`` pins every viewer onto the owning agent."""
     return get_bool("BROADCAST_EDGE_PULL", True)
+
+
+def adapter_dir() -> str | None:
+    """The boot-time style-adapter catalog (ADAPTER_DIR): a directory of
+    ``*.safetensors`` LoRA files (adapter name = file stem) served as
+    per-session factor banks through the batch scheduler (adapters/).
+    Unset (the default) keeps the factors path off: the stacked state
+    carries no bank and the graph keys are an adapterless build's."""
+    return get_str("ADAPTER_DIR")
+
+
+def adapter_rank_buckets() -> tuple:
+    """The rank buckets (ADAPTER_RANK_BUCKETS, e.g. "4,8,16"): every adapter
+    is zero-padded to the smallest bucket that holds its rank, and the
+    scheduler sizes its bank at the largest bucket in use, so every swap is
+    a write of one shape into captured buffers.  An adapter above the
+    largest bucket is refused, never truncated."""
+    v = get_str("ADAPTER_RANK_BUCKETS")
+    if not v:
+        return (4, 8, 16)
+    try:
+        buckets = tuple(sorted(int(p) for p in v.split(",") if p.strip()))
+    except ValueError as e:
+        raise ValueError(f"ADAPTER_RANK_BUCKETS={v!r} is not comma-separated ints") from e
+    if not buckets or any(b < 1 for b in buckets):
+        raise ValueError(f"ADAPTER_RANK_BUCKETS={v!r}: buckets must be >= 1")
+    return buckets

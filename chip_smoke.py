@@ -4957,7 +4957,7 @@ def timed_busy(torch, fn, steps: int = 0, attention_a_step: int = 0) -> dict:
     if not steps:
         fail("the trace shows no step")
     return {"busy": tr["busy_ms"] / steps, "idle": tr["idle"], "attn": tr["attention_ms"] / steps,
-            "steps": steps}
+            "kernels": tr["kernels"] / steps, "steps": steps}
 
 
 def variant_busy(torch, sched, k: int, variant: str, reps: int) -> dict:
@@ -5980,6 +5980,551 @@ def controlnet_served(torch, np, card, model_id: str = SD15_ID) -> tuple:
     return tuple(total)
 
 
+ADAPTER_RANKS = {"r4": 4, "r8": 8, "r16": 16}  # 15: the synthetic styles, name -> rank
+ADAPTER_GAIN = 0.2  # up factors N(0, (gain / sqrt(r))^2): each target's output moves ~20%
+
+
+def adapter_modules(unet_cfg) -> dict:
+    """{diffusers module path: its kernel's shape in the port's layout} of
+    every transformer block's linears and of each attention's proj_in and
+    proj_out (2-D at SD2.1, 1x1 convs at SD1.5), from the key map over a
+    shape-only tree."""
+    from ai_rtc_agent_tpu_torch.models import loader
+    from ai_rtc_agent_tpu_torch.models import unet as U
+
+    tree = U.init_unet(None, unet_cfg, "meta")
+    out = {}
+    for key, path in loader.unet_key_map(unet_cfg).items():
+        if ".attentions." not in key or not key.endswith(".weight") or path[-1] != "kernel":
+            continue
+        node = tree
+        for p in path:
+            node = node[p]
+        out[key[: -len(".weight")]] = tuple(node.shape)
+    return out
+
+
+def write_style_adapter(np, path, modules: dict, rank: int, seed: int,
+                        gain: float = ADAPTER_GAIN) -> int:
+    """A synthetic kohya LoRA file of ``rank`` over ``modules``
+    (:func:`adapter_modules`; alpha = rank, so its scale is 1): down
+    N(0, 1/in), up N(0, (gain/sqrt(r))^2), 1x1 convs in conv layout (the
+    registry drops those).  -> the bytes written."""
+    from ai_rtc_agent_tpu_torch.models import loader
+
+    rng = np.random.default_rng(seed)
+    tensors = {}
+    for mod, shape in modules.items():
+        conv = len(shape) == 4
+        din, dout = (shape[1], shape[0]) if conv else shape
+        tail = (1, 1) if conv else ()
+        key = "lora_unet_" + mod.replace(".", "_")
+        tensors[f"{key}.lora_down.weight"] = (
+            rng.standard_normal((rank, din) + tail) / np.sqrt(din)).astype(np.float32)
+        tensors[f"{key}.lora_up.weight"] = (
+            rng.standard_normal((dout, rank) + tail) * (gain / np.sqrt(rank))).astype(np.float32)
+        tensors[f"{key}.alpha"] = np.array(float(rank), np.float32)
+    loader.write_safetensors(str(path), tensors)
+    return os.path.getsize(path)
+
+
+ADAPTER_ROOT = Path(__file__).resolve().parent / "build" / "phase15-adapters"
+ADAPTER_SEED = 15
+ADAPTER_STYLES = {1: ("r16",), 2: ("r8", None), 4: ("r4", None, "r16", "r8")}  # 15a, sd-turbo
+RING_STYLES = {1: ("r16",), 2: ("r4", None)}  # 15c, the SD1.5 ring
+ADAPTER_PARITY = 3  # 15a/15c: frames a session held to its references
+ADAPTER_WINDOW_MS = 10_000.0  # 15: a bucket step waits for every live session (lock-step buckets)
+CHURN = (("join", "r8"), ("swap", "r4"), ("global", "r16"), ("join", None), ("swap", None),
+         ("global", None), ("swap", "r8"), ("leave", None))  # 15b, each before a step
+ADAPTER_AB = ("styled", "plain", "plain", "styled")  # 15e: ABBA, busy ms a bucket step
+ADAPTER_AB_REPS = 8  # 15e: replays a turn
+RING_CNET_ID = "lllyasviel/control_v11p_sd15_canny"  # 15c: random ControlNet weights
+
+
+def adapter_files(np, root: Path, unet_cfg) -> tuple:
+    """The three synthetic styles of :data:`ADAPTER_RANKS` at ``unet_cfg``'s
+    full geometry under ``root`` -> ({name: path}, bytes written)."""
+    root.mkdir(parents=True, exist_ok=True)
+    modules = adapter_modules(unet_cfg)
+    files, nbytes = {}, 0
+    for i, (name, rank) in enumerate(ADAPTER_RANKS.items()):
+        files[name] = root / f"{name}.safetensors"
+        nbytes += write_style_adapter(np, files[name], modules, rank, ADAPTER_SEED + i)
+    return files, nbytes
+
+
+def fused_references(torch, registry, pipe, ref32: dict, files: dict, reg) -> dict:
+    """{style: (the served pipeline's params with the style fused offline into
+    the UNet, then cast once; an f32 plain bundle with it fused)}, None for
+    the base weights.  Only the groups the registry serves are fused (an
+    SD1.5 file's conv groups are dropped at runtime, so here too)."""
+    from ai_rtc_agent_tpu_torch.models import loader, lora
+
+    km = loader.unet_key_map(pipe.bundle.unet_cfg)
+    def kept(path):
+        target = lora.resolve_lora_target(path, km)
+        return target is not None and ".".join(map(str, target[:-1])) in reg.targets
+
+    out = {None: (pipe.bundle.params, registry.load_model_bundle(
+        pipe.model_id, attn_impl="plain", params=ref32))}
+    for name, path in files.items():
+        groups = {p: g for p, g in lora.parse_lora_state_dict(loader.read_safetensors(path)).items()
+                  if kept(p)}
+        unet32, applied, _ = lora.fuse_lora_into_unet(ref32["unet"], groups, km)
+        if applied != len(reg.targets):
+            fail(f"adapters: the offline fuse of {name} applied {applied} of "
+                 f"{len(reg.targets)} targets")
+        served = dict(pipe.bundle.params, unet=registry.cast_params(
+            {"unet": unet32}, pipe.config.dtype)["unet"])
+        out[name] = (served, registry.load_model_bundle(
+            pipe.model_id, attn_impl="plain", params=dict(ref32, unet=unet32)))
+    return out
+
+
+def styled_dedicated(torch, pipe, refs: dict, style, row) -> "Dedicated":
+    """Phase 4's references of one session fed its state row: a dedicated
+    engine and an f32 plain engine over weights with ``style`` fused
+    offline (the row's factor bank left out)."""
+    params, ref = refs[style]
+    row = {k: v for k, v in row.items() if k != "adapters"}
+    return Dedicated(torch, pipe.bundle.stream_models, params, pipe.config,
+                     pipe.bundle.encode_prompt, ref, row, pipe.device)
+
+
+def lockstep(sessions, frames, n: int, start: int = 0) -> list:
+    """``n`` frames a session, every session's frame submitted before any
+    fetch (so each bucket step carries them all) -> each session's outputs."""
+    outs = [[] for _ in sessions]
+    for j in range(start, start + n):
+        handles = [s.submit(f[j]) for s, f in zip(sessions, frames)]
+        for i, (s, h) in enumerate(zip(sessions, handles)):
+            outs[i].append(s.fetch(h))
+    return outs
+
+
+def bank_bytes(sched) -> int:
+    return param_bytes(sched.states.get("adapters"))
+
+
+def build_counts(sched) -> tuple:
+    """(graphs built in the scheduler's cache, the device-telemetry plane's
+    cache builds and retrace breaches)."""
+    from ai_rtc_agent_tpu_torch.obs import devtel
+
+    plane = devtel.active()
+    return (len(sched._bucket.graph_cache.steps()), plane.aot_builds, plane.retrace_breaches)
+
+
+def phase_adapters(torch, card: str, pipe, ref_bundle, ring_id: str = SD15_ID,
+                   cnet_id: str = RING_CNET_ID) -> tuple:
+    """Phase 15: per-session style adapters (ADAPTER_DIR) through the captured
+    bucket steps — three synthetic kohya styles of ranks 4, 8 and 16 over
+    every transformer block's linears at full geometry, loaded by the
+    agent's own loader into a rank-16 bank: sd-turbo at k = 1, 2 and 4 with a
+    style per session and an adapterless one (15a), join/leave/swap churn
+    with no capture (15b), the SD1.5 ring at k = 1 and 2 with DeepCache and a
+    ControlNet (15c), a styled session's move and the refused cross-restores
+    (15d), busy ms a bucket step with and without the bank, ABBA (15e).
+    -> the attention and epilogue launches counted."""
+    import shutil
+
+    import numpy as np
+
+    from ai_rtc_agent_tpu_torch.models import registry
+    from ai_rtc_agent_tpu_torch.obs import devtel
+    from ai_rtc_agent_tpu_torch.server import sessions as S
+
+    t_phase = time.perf_counter()
+    total = [0, 0]
+    shutil.rmtree(ADAPTER_ROOT, ignore_errors=True)
+    saved_plane = devtel.active()
+    plane = devtel.activate(devtel.DevTelPlane())
+    try:
+        for part in (adapters_turbo, adapters_ring):
+            a, e = part(torch, np, card, pipe, ref_bundle, registry, S, plane, ring_id, cnet_id)
+            total[0] += a
+            total[1] += e
+    finally:
+        devtel.deactivate(plane)
+        if saved_plane is not None:
+            devtel.activate(saved_plane)
+        shutil.rmtree(ADAPTER_ROOT, ignore_errors=True)
+    say(f"adapters: phase 15 took {time.perf_counter() - t_phase:.1f} s; launches counted "
+        f"attention {total[0]}, epilogue {total[1]}")
+    return tuple(total)
+
+
+def _styled_k(torch, np, label, card, styled, plain, styles, refs, pipe, per, seed) -> tuple:
+    """One bucket of ``styles`` (a style name or None per session) through
+    ``styled``'s graphs and the same sessions through ``plain``'s (no bank):
+    replay = eager, the launches, each styled session held to phase 4's
+    criterion against its offline-fused references, each adapterless one
+    bit for bit the plain scheduler's and held to the base references.
+    -> the launches counted."""
+    k = len(styles)
+    ss = [styled.claim(f"{label}-s{i}", prompt=SESSION_PROMPTS[i % len(SESSION_PROMPTS)],
+                       seed=seed + i, adapter=st) for i, st in enumerate(styles)]
+    zs = [plain.claim(f"{label}-p{i}", prompt=SESSION_PROMPTS[i % len(SESSION_PROMPTS)],
+                      seed=seed + i) for i in range(k)]
+    try:
+        frames = [_frames(np, ADAPTER_PARITY, seed=seed + 50 + i, size=styled.height)
+                  for i in range(k)]
+        eq = replay_equals_eager(torch, np, label, styled, np.stack([f[0] for f in frames]),
+                                 [s.slot for s in ss])
+        rows = [session_row(styled.states, s.slot) for s in ss]
+        _sync(torch, styled.device)
+        _reset_launches()
+        steps0, before = styled.steps_total, _launches()
+        got = lockstep(ss, frames, ADAPTER_PARITY)
+        counted = _count(label, before, styled.steps_total - steps0, (per, 1))
+        base = lockstep(zs, frames, ADAPTER_PARITY)
+        held = []
+        for i, st in enumerate(styles):
+            ded = styled_dedicated(torch, pipe, refs, st, rows[i])
+            for f in frames[i]:
+                ded(f)
+            moved = max(_levels(a, b) for a, b in zip(got[i], base[i]))
+            if st is None and not _same_frames(np, got[i], base[i]):
+                fail(f"{label} session {i}: the zero slot differs from the rank-0 scheduler "
+                     f"(max {moved} levels)")
+            if st is not None and moved < 2:
+                fail(f"{label} session {i}: style {st} does not move the frames ({moved} levels)")
+            held.append(f"{st or 'none'} (slot {ss[i].slot}; vs rank 0 "
+                        + ("bit for bit" if st is None else f"max {moved} levels") + "): "
+                        + hold_to_references(np, f"{label} session {i} ({st})", got[i], ded))
+        say(f"{label}: {card} | {eq} | {ADAPTER_PARITY} frames a session, {per} + 1 launches a "
+            f"bucket step | " + "; ".join(held))
+    finally:
+        for s in ss + zs:
+            s.release()
+    return counted
+
+
+def adapters_turbo(torch, np, card, pipe, ref_bundle, registry, S, plane, ring_id,
+                   cnet_id) -> tuple:
+    """15a, 15b, 15d and 15e's sd-turbo half, on the served sd-turbo pipeline."""
+    from ai_rtc_agent_tpu_torch.stream.scheduler import BatchScheduler, SnapshotMismatch
+
+    total = [0, 0]
+    t = time.perf_counter()
+    files, nbytes = adapter_files(np, ADAPTER_ROOT / "sd-turbo", pipe.bundle.unet_cfg)
+    write_s = time.perf_counter() - t
+    t = time.perf_counter()
+    with _Env(ADAPTER_DIR=str(ADAPTER_ROOT / "sd-turbo")):
+        reg = S.load_adapters(pipe)  # the agent's own boot path
+    load_s = time.perf_counter() - t
+    linears = sum(len(sh) == 2 for sh in adapter_modules(pipe.bundle.unet_cfg).values())
+    if reg.bank_rank != 16 or len(reg.targets) != linears:
+        fail(f"adapters 15a: the registry holds rank {reg.bank_rank} over {len(reg.targets)} "
+             "targets")
+    refs = fused_references(torch, registry, pipe, ref_bundle.params, files, reg)
+    mk = lambda bank, n: BatchScheduler.from_pipeline(  # noqa: E731
+        pipe, max_sessions=n, window_ms=ADAPTER_WINDOW_MS, adapters=bank)
+    t = time.perf_counter()
+    styled = mk(reg, max(ADAPTER_STYLES))
+    build_s = time.perf_counter() - t
+    plain = mk(None, max(ADAPTER_STYLES))
+    per = attention_per_pass(pipe.bundle.unet_cfg, False)
+    bank = bank_bytes(styled)
+    key = styled.bucket_keys()[(1, styled._variants[0])]
+    say(f"adapters 15a sd-turbo: {card} | {len(files)} styles (ranks "
+        f"{', '.join(str(reg.rank_of(n)) for n in reg.names)}) over {len(reg.targets)} targets "
+        f"written in {write_s:.1f}s ({nbytes} B), loaded through ADAPTER_DIR in {load_s:.2f}s; "
+        f"the scheduler with a rank-{styled._adapter_rank} bank of {max(ADAPTER_STYLES)} slots "
+        f"built and captured in {build_s:.1f}s | bank {bank} B on the device "
+        f"({bank // max(ADAPTER_STYLES)} B a slot, {styled.cfg.dtype}) | key "
+        f"...{key.split('--v-')[0][-40:]} | fingerprint {styled.snapshot_fingerprint()['adapter_targets']}")
+    if "--lrank-16--" not in key or "lrank" in str(plain.bucket_keys()):
+        fail("adapters 15a: the keys must carry lrank-16 with the bank and nothing without")
+    try:
+        for k, styles in ADAPTER_STYLES.items():
+            a, e = _styled_k(torch, np, f"adapters 15a sd-turbo k={k}", card, styled, plain,
+                             styles, refs, pipe, per, 1500 + 10 * k)
+            total[0] += a
+            total[1] += e
+        a, e = adapters_churn(torch, np, card, pipe, styled, refs, plane, per)
+        total[0] += a
+        total[1] += e
+        adapters_move(torch, np, card, pipe, styled, plain, reg, mk, SnapshotMismatch)
+        if styled.device.type == "cuda":
+            adapters_busy(torch, card, "sd-turbo", styled, plain, tuple(ADAPTER_STYLES))
+    finally:
+        styled.close()
+        plain.close()
+    return tuple(total)
+
+
+def adapters_churn(torch, np, card, pipe, styled, refs, plane, per) -> tuple:
+    """15b: joins, leaves, per-session and global swaps and clears while the
+    sessions stream, each operation landing between a step's submit and its
+    fetch: no graph is built and no retrace is counted once prewarm is done,
+    and the launches stay 32 + 1 a step; the first frames after each
+    operation carry the new style, held afterwards to the same references
+    as 15a; each swap's ms."""
+    plane.serving()  # from here on a serve-time build would be a breach
+    before = build_counts(styled)
+    _reset_launches()
+    steps0 = styled.steps_total
+    live = [styled.claim("churn-lead", prompt=SESSION_PROMPTS[0], seed=1600, adapter="r16")]
+    frames = _frames(np, 3 * len(CHURN), seed=1601, size=styled.height)
+    swap_ms, after_op, n = [], [], 0
+    try:
+        for op, style in CHURN:
+            handles = [s.submit(frames[n]) for s in live]  # a step in flight
+            t = time.perf_counter()
+            if op == "join":
+                live.append(styled.claim(f"churn-{len(live)}", prompt=SESSION_PROMPTS[1],
+                                         seed=1610 + len(live), adapter=style))
+                want = style if style is not None else styled.default_adapter
+            elif op == "leave":
+                live.pop().release()
+            elif op == "swap":
+                live[-1].update_adapter(style)
+                want = style
+            else:
+                styled.update_adapter(style)
+                want = style
+            op_ms = (time.perf_counter() - t) * 1e3
+            if op in ("swap", "global"):
+                swap_ms.append(op_ms)
+            for s, h in zip(live[: len(handles)], handles):
+                s.fetch(h)
+            n += 1
+            if op == "leave":
+                continue
+            target = live[-1]
+            if target.adapter != want or (op == "global" and any(s.adapter != want for s in live)):
+                fail(f"adapters 15b: {op} {style} left {[s.adapter for s in live]}, want {want!r}")
+            # the first frames after the operation, every live session in lock-step
+            row = session_row(styled.states, target.slot)
+            outs = lockstep(live, [frames[n:n + 2]] * len(live), 2)
+            after_op.append((f"{op} {style or 'none'}", want, row, frames[n:n + 2],
+                             outs[live.index(target)]))
+            n += 2
+        idle_ms = []  # swaps with no step in flight, each to its end on the device
+        for style in ("r4", "r16", None, "r8") * 2:
+            t = time.perf_counter()
+            live[0].update_adapter(style)
+            _sync(torch, styled.device)
+            idle_ms.append((time.perf_counter() - t) * 1e3)
+        after = build_counts(styled)
+        steps = styled.steps_total - steps0
+        a, e = _count("adapters 15b", (0, 0), steps, (per, 1))
+        held = []
+        for label, want, row, fs, outs in after_op:
+            ded = styled_dedicated(torch, pipe, refs, want, row)
+            for f in fs:
+                ded(f)
+            held.append(f"{label}: " + hold_to_references(
+                np, f"adapters 15b after {label}", outs, ded).split(",")[0])
+        say(f"adapters 15b sd-turbo churn: {card} | {' '.join(f'{o}:{s}' for o, s in CHURN)} over "
+            f"{steps} bucket steps | graphs, cache builds, retrace breaches before {before} after "
+            f"{after} | swaps {styled.adapter_swaps_total}, swap ms "
+            + " / ".join(f"{m:.2f}" for m in swap_ms) + f" (median {_median(swap_ms):.2f}; "
+            f"each waits for the step in flight), with no step in flight "
+            + " / ".join(f"{m:.2f}" for m in idle_ms) + f" (median {_median(idle_ms):.2f}) | "
+            f"first 2 frames after each, vs f32: " + "; ".join(held))
+        if after != before:
+            fail(f"adapters 15b: the churn built graphs or counted retraces ({before} -> {after})")
+        metrics = styled.snapshot()
+        if metrics["adapter_swaps_total"] != styled.adapter_swaps_total or \
+                metrics["adapter_rank"] != 16:
+            fail(f"adapters 15b: /metrics adapter fields {metrics}")
+    finally:
+        for s in live:
+            s.release()
+        plane.warmup()
+    return a, e
+
+
+def adapters_move(torch, np, card, pipe, styled, plain, reg, mk, SnapshotMismatch):
+    """15d: a styled session's snapshot restored on a second scheduler with
+    the same bank and as the reference on the first: bit for bit; the
+    cross-restores between a bank and no bank are refused by the
+    fingerprint, both ways."""
+    frames = _frames(np, 8, seed=1700, size=styled.height)
+    src = styled.claim("move-src", prompt=SESSION_PROMPTS[2], seed=1700, adapter="r8")
+    lockstep([src], [frames], 2)
+    t = time.perf_counter()
+    snap = styled.snapshot_session("move-src")
+    export_ms = (time.perf_counter() - t) * 1e3
+    src.release()
+    dest = mk(reg, 1)
+    try:
+        t = time.perf_counter()
+        moved = dest.restore_session(snap, "move-dst")
+        import_ms = (time.perf_counter() - t) * 1e3
+        ref = styled.restore_session(snap, "move-ref")
+        if moved.adapter != "r8" or ref.adapter != "r8":
+            fail(f"adapters 15d: the restored sessions carry {moved.adapter!r} / {ref.adapter!r}")
+        got = lockstep([moved], [frames], 4, start=2)[0]
+        want = lockstep([ref], [frames], 4, start=2)[0]
+        same = _same_frames(np, got, want)
+        ref.release()
+        plain_src = plain.claim("move-plain", seed=1701)
+        plain_snap = plain.snapshot_session("move-plain")
+        plain_src.release()
+        refused = []
+        for name, target, s in (("bank -> no bank", plain, snap),
+                                ("no bank -> bank", styled, plain_snap)):
+            try:
+                target.restore_session(s, "move-refused")
+            except SnapshotMismatch as e:
+                if "adapter_rank" not in str(e) or "adapter_targets" not in str(e):
+                    fail(f"adapters 15d: {name} refused without naming the adapter keys: {e}")
+                refused.append(name)
+            else:
+                fail(f"adapters 15d: {name} restored")
+        say(f"adapters 15d move: {card} | snapshot {len(_state_bytes(snap))} B (adapter "
+            f"{snap['adapter']!r}, the row's bank {param_bytes(_row_of(snap)['adapters'])} B), "
+            f"export {export_ms:.1f} ms, import {import_ms:.1f} ms | 4 frames vs the reference "
+            f"restored from the same snapshot: {'bit for bit' if same else 'DIFFER'} | refused by "
+            f"the fingerprint: {', '.join(refused)}")
+        if not same:
+            fail("adapters 15d: the moved styled session differs from its reference")
+    finally:
+        dest.close()
+
+
+def adapters_busy(torch, card, what, styled, plain, ks):
+    """15e: busy ms a bucket step and kernels a step, with the rank-16 bank and
+    without, ABBA over the same buckets (``variant_busy``) in one call."""
+    rows = []
+    for k in ks:
+        got = {"styled": [], "plain": []}
+        for side in ADAPTER_AB:
+            sched = styled if side == "styled" else plain
+            got[side].append(variant_busy(torch, sched, k, sched._variants[0], ADAPTER_AB_REPS))
+        med = {side: _median([b["busy"] for b in v]) for side, v in got.items()}
+        kern = {side: got[side][0]["kernels"] for side in got}
+        rows.append(f"k={k}: styled " + " / ".join(f"{b['busy']:.3f}" for b in got["styled"])
+                    + ", plain " + " / ".join(f"{b['busy']:.3f}" for b in got["plain"])
+                    + f" ms (+{med['styled'] - med['plain']:.3f} ms, "
+                    f"x{med['styled'] / med['plain']:.3f}); kernels a step {kern['styled']:.0f} vs "
+                    f"{kern['plain']:.0f} (+{kern['styled'] - kern['plain']:.0f} for the factor "
+                    f"path); idle share " + " / ".join(f"{b['idle']:.3f}" for b in got["styled"])
+                    + " vs " + " / ".join(f"{b['idle']:.3f}" for b in got["plain"]))
+    say(f"adapters 15e {what} A/B ({' '.join(ADAPTER_AB)}, {ADAPTER_AB_REPS} replays a turn, "
+        f"device busy ms a bucket step): {card} | bank {bank_bytes(styled)} B | "
+        + " | ".join(rows))
+
+
+def adapters_ring(torch, np, card, pipe, ref_bundle, registry, S, plane, ring_id,
+                  cnet_id) -> tuple:
+    """15c and 15e's ring half: the SD1.5 ring's bucket graphs at k = 1 and 2
+    with its own rank-16 bank, DeepCache N=3 (a swap forces a capture) and
+    one ControlNet bucket step."""
+    from dataclasses import replace
+
+    from ai_rtc_agent_tpu_torch.stream.engine import install_state
+    from ai_rtc_agent_tpu_torch.stream.pipeline import StreamDiffusionPipeline
+    from ai_rtc_agent_tpu_torch.stream.scheduler import BatchScheduler
+    from ai_rtc_agent_tpu_torch.tree import tree_map
+
+    total = [0, 0]
+    t = time.perf_counter()
+    ring = StreamDiffusionPipeline(ring_id, seed=2)
+    ref32 = registry.cast_params(
+        registry.load_model_bundle(ring_id, attn_impl="plain", seed=0).params, "float32")
+    files, nbytes = adapter_files(np, ADAPTER_ROOT / "sd15", ring.bundle.unet_cfg)
+    with _Env(ADAPTER_DIR=str(ADAPTER_ROOT / "sd15")):
+        reg = S.load_adapters(ring)
+    modules = adapter_modules(ring.bundle.unet_cfg)
+    convs = sum(len(s) == 4 for s in modules.values())
+    refs = fused_references(torch, registry, ring, ref32, {n: files[n] for n in ("r4", "r16")},
+                            reg)
+    del ref32
+    mk = lambda bank, cfg=ring.config, models=ring.bundle.stream_models, \
+        params=ring.bundle.params, n=max(RING_STYLES): BatchScheduler(  # noqa: E731
+            models, params, cfg, ring.bundle.encode_prompt, model_id=ring.model_id,
+            max_sessions=n, window_ms=ADAPTER_WINDOW_MS, schedule=ring.engine.schedule,
+            device=ring.device, adapters=bank)
+    styled, plain = mk(reg), mk(None)
+    per = attention_per_pass(ring.bundle.unet_cfg, False)
+    say(f"adapters 15c sd15: {card} | built in {time.perf_counter() - t:.1f}s | {len(reg.targets)} "
+        f"targets of {len(modules)} written ({convs} 1x1-conv proj_in/proj_out groups dropped "
+        f"at load), {nbytes} B | bank {bank_bytes(styled)} B on the device")
+    try:
+        for k, styles in RING_STYLES.items():
+            a, e = _styled_k(torch, np, f"adapters 15c sd15 k={k}", card, styled, plain, styles,
+                             refs, ring, per, 1800 + 10 * k)
+            total[0] += a
+            total[1] += e
+        # DeepCache N=3: a swap makes the slot uncaptured; its next step captures
+        dc = mk(reg, replace(ring.config, unet_cache_interval=DC_INTERVAL), n=1)
+        try:
+            sess = dc.claim("dc", prompt=SESSION_PROMPTS[0], seed=1850, adapter="r16")
+            frames = _frames(np, 8, seed=1851, size=dc.height)
+            seen = []
+            real = dc._next_variant_locked
+            dc._next_variant_locked = lambda slots: seen.append(real(slots)) or seen[-1]
+            lockstep([sess], [frames], 4)
+            eqs = [replay_equals_eager(torch, np, f"adapters 15c sd15 deepcache {v}", dc,
+                                       frames[4][None], [sess.slot], v)
+                   for v in dc._variants]
+            sess.update_adapter("r4")
+            uncaptured, tick = sess.slot in dc._uncaptured, dc._tick
+            lockstep([sess], [frames], 3, start=4)
+            dc._next_variant_locked = real
+            say(f"adapters 15c sd15 deepcache N={DC_INTERVAL}: {card} | "
+                + "; ".join(f"{v} {e_}" for v, e_ in zip(dc._variants, eqs))
+                + f" | steps {seen[:4]} then swap r16 -> r4 (slot uncaptured {uncaptured}, tick "
+                f"{tick}) then {seen[4:]}")
+            if seen[0] != "capture" or "cached" not in seen[:4] or not uncaptured or tick != 0 \
+                    or seen[4] != "capture":
+                fail("adapters 15c deepcache: a swap must make the slot uncaptured and its next "
+                     "step a capture")
+            sess.release()
+        finally:
+            dc.close()
+        # one ControlNet bucket step, styled: 46 + 1 launches
+        cb = registry.load_model_bundle(ring_id, params=ring.bundle.params, controlnet=cnet_id,
+                                        latent_scale=ring.config.latent_scale)
+        cparams = dict(ring.bundle.params, controlnet=registry.cast_params(
+            {"controlnet": cb.params["controlnet"]}, ring.config.dtype)["controlnet"])
+        cn = mk(reg, replace(ring.config, use_controlnet=True), cb.stream_models, cparams, 2)
+        try:
+            ss = [cn.claim(f"cn-{i}", prompt=SESSION_PROMPTS[i], seed=1860 + i, adapter=st)
+                  for i, st in enumerate(("r16", None))]
+            frames = [_frames(np, 2, seed=1870 + i, size=cn.height) for i in range(2)]
+            eq = replay_equals_eager(torch, np, "adapters 15c sd15 controlnet", cn,
+                                     np.stack([f[0] for f in frames]), [s.slot for s in ss])
+            cper = cnet_per_step(ring.bundle.unet_cfg, cn.cfg)
+            with cn._step_lock:
+                saved = tree_map(lambda a: a.clone(), cn.states)
+            _sync(torch, cn.device)
+            _reset_launches()
+            steps0, before = cn.steps_total, _launches()
+            styled_out = lockstep(ss, frames, 1)
+            a, e = _count("adapters 15c sd15 controlnet", before, cn.steps_total - steps0, cper)
+            total[0] += a
+            total[1] += e
+            # the same step again from the same states, session 0's style cleared
+            with cn._step_lock:
+                install_state(cn.states, saved)
+            ss[0].update_adapter(None)
+            plain_out = lockstep(ss, frames, 1)
+            moved = _levels(styled_out[0][0], plain_out[0][0])
+            same = _same_frames(np, styled_out[1], plain_out[1])
+            say(f"adapters 15c sd15 controlnet: {card} | {eq} | one bucket step of 2 (r16, none): "
+                f"{cper[0]} + {cper[1]} launches | the same step with r16 cleared: the styled "
+                f"session moves max {moved} levels, the adapterless one "
+                f"{'bit for bit' if same else 'DIFFERS'}")
+            if moved < 1 or not same or not all(np.isfinite(o[0]).all() for o in styled_out):
+                fail("adapters 15c controlnet: the style must move its session's frame and only "
+                     "its own")
+            for s in ss:
+                s.release()
+        finally:
+            cn.close()
+        if styled.device.type == "cuda":
+            adapters_busy(torch, card, "sd15 ring", styled, plain, tuple(RING_STYLES))
+    finally:
+        styled.close()
+        plain.close()
+    return tuple(total)
+
+
 def _to_cpu(v):
     return {k: _to_cpu(x) for k, x in v.items()} if isinstance(v, dict) else v.cpu()
 
@@ -6014,14 +6559,16 @@ def main():
     obs_attn, obs_epi = phase_obs(torch, card, pipe)
     fleet_attn, fleet_epi = phase_fleet(torch, card, pipe, ref_bundle)
     broadcast_attn, broadcast_epi = phase_broadcast(torch, card, pipe)
+    adapters_attn, adapters_epi = phase_adapters(torch, card, pipe, ref_bundle)
     del pipe, ref_bundle
     sd15_attn, sd15_epi = phase_sd15(torch, card)
     variants_attn, variants_epi = phase_variants(torch, card)
     cnet_attn, cnet_epi = phase_controlnet(torch, card)
     attn_launches += (serve_attn + sessions_attn + faults_attn + native_attn + obs_attn
-                      + fleet_attn + broadcast_attn + sd15_attn + variants_attn + cnet_attn)
+                      + fleet_attn + broadcast_attn + sd15_attn + variants_attn + cnet_attn
+                      + adapters_attn)
     epi_launches += (serve_epi + sessions_epi + faults_epi + native_epi + obs_epi + fleet_epi
-                     + broadcast_epi + sd15_epi + variants_epi + cnet_epi)
+                     + broadcast_epi + sd15_epi + variants_epi + cnet_epi + adapters_epi)
     kernels = [
         {
             "name": "flash_attention", "route": "cuda",

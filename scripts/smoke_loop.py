@@ -59,6 +59,7 @@ def main() -> int:
         "native": lambda: cs.phase_native(torch, card, pipe, fps),
         "obs": lambda: cs.phase_obs(torch, card, pipe),
         "fleet": lambda: cs.phase_fleet(torch, card, pipe, ref_bundle),
+        "adapters": lambda: cs.phase_adapters(torch, card, pipe, ref_bundle),
     }
     phases = [p for p in args.phases.split(",") if p]
     once = {p for p in args.once.split(",") if p}

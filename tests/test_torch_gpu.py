@@ -1065,3 +1065,50 @@ def test_controlnet_session_step_launches_and_replay(cuda, sd15_cnet_bundle, mod
     assert torch.equal(got, want)
     assert torch.equal(states["cnet_cond"], eager_states["cnet_cond"])
     assert float(states["cnet_cond"][:, 0].float().abs().max()) > 0
+
+
+def test_a_styled_bucket_step_and_a_swap_on_the_card(cuda, turbo_pipe, tmp_path):
+    """sd-turbo 512x512 bf16 with a rank-16 bank of chip_smoke phase 15's
+    synthetic styles: the bucket of 2 (a styled session and an adapterless
+    one) launches 32 + 1 a replay and equals the eager step bit for bit; a
+    swap writes the bank in place (no graph is built, every bank leaf keeps
+    its storage) and moves the styled session's frame, swapping back gives
+    it again bit for bit, and the adapterless session never moves."""
+    from ai_rtc_agent_tpu_torch.adapters import build_registry
+    from ai_rtc_agent_tpu_torch.stream.scheduler import BatchScheduler
+    from ai_rtc_agent_tpu_torch.tree import tree_map
+
+    chip_smoke.adapter_files(np, tmp_path, turbo_pipe.bundle.unet_cfg)
+    reg = build_registry(turbo_pipe.engine.params["unet"], turbo_pipe.bundle.unet_cfg,
+                         str(tmp_path))
+    assert reg.bank_rank == 16 and len(reg.targets) == 192
+    sched = BatchScheduler.from_pipeline(turbo_pipe, max_sessions=2, window_ms=10_000.0,
+                                         adapters=reg)
+    try:
+        key = sched.bucket_keys()[(2, "full")]
+        step = sched._bucket.graph_cache.steps()[key]
+        assert "--lrank-16--" in key and step.captured and step.launches == (32, 1)
+        a = sched.claim("a", prompt="a red cat", seed=1, adapter="r16")
+        b = sched.claim("b", prompt="a blue dog", seed=2)
+        frames = chip_smoke._frames(np, 2, seed=9)
+        chip_smoke.replay_equals_eager(torch, np, "styled bucket 2", sched, np.stack(frames),
+                                       [a.slot, b.slot])
+        ptrs = tree_map(lambda t: t.data_ptr(), sched.states["adapters"])
+        built = len(sched._bucket.graph_cache.steps())
+
+        def both():
+            return chip_smoke.lockstep([a, b], [[f] for f in frames], 1)
+
+        first = both()
+        a.update_adapter("r4")
+        swapped = both()
+        a.update_adapter("r16")
+        back = both()
+        assert tree_map(lambda t: t.data_ptr(), sched.states["adapters"]) == ptrs
+        assert len(sched._bucket.graph_cache.steps()) == built
+        assert chip_smoke._levels(first[0][0], swapped[0][0]) > 1
+        np.testing.assert_array_equal(first[0][0], back[0][0])
+        np.testing.assert_array_equal(first[1][0], swapped[1][0])
+        np.testing.assert_array_equal(first[1][0], back[1][0])
+    finally:
+        sched.close()

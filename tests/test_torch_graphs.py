@@ -14,7 +14,8 @@ around it): keys, the static-buffer path, in-place state writes.
   restart, and 2 frames in flight per session.
 * In place: a graph reads fixed addresses, so no control-plane write may
   rebind a state leaf: the ``data_ptr`` of every leaf of the three engines
-  stays put across updates and restarts.
+  stays put across updates and restarts, and the factor bank's across
+  adapter swaps.  A bound bank adds ``lrank-R`` to the keys, as in JAX.
 * The count of real sessions from device memory: a slot vector naming a
   4th distinct slot with a count of 3 leaves that slot's rows bit-equal.
 """
@@ -98,11 +99,13 @@ def test_every_graph_flag_changes_the_key():
     assert len(set(keys)) == len(keys)
 
 
-def _jax_bucket_keys(model_id, jax_cfg, max_sessions, sizes, params=None, variants=("full",)):
-    """The JAX ``BatchScheduler.bucket_keys`` of a single-device, adapterless
-    scheduler (dense unless ``params`` are given), called on a stand-in for
-    its ``self``."""
-    owner = SimpleNamespace(model_id=model_id, params=params or {}, mesh=None, _adapter_rank=0,
+def _jax_bucket_keys(model_id, jax_cfg, max_sessions, sizes, params=None, variants=("full",),
+                     adapter_rank=0):
+    """The JAX ``BatchScheduler.bucket_keys`` of a single-device scheduler
+    (dense unless ``params`` are given; adapterless unless ``adapter_rank``),
+    called on a stand-in for its ``self``."""
+    owner = SimpleNamespace(model_id=model_id, params=params or {}, mesh=None,
+                            _adapter_rank=adapter_rank,
                             cfg=jax_cfg, max_sessions=max_sessions, _bucket_sizes=sizes,
                             _variants=list(variants))
     return JBatchScheduler.bucket_keys(owner, model_id)
@@ -128,6 +131,44 @@ def test_scheduler_bucket_keys_are_the_jax_recipe(port_bundle, max_sessions):
             k: _unversioned(v) for k, v in want.items()}
         assert sched.graph_status() == dict.fromkeys(got, False)  # the CPU steps eagerly
         assert sched.snapshot()["batchsched_graphs"] == {f"{k}:{v}": False for k, v in got}
+    finally:
+        sched.close()
+
+
+def _style_registry(bundle, rank: int):
+    """A port registry of one style of ``rank`` on one attention linear."""
+    from ai_rtc_agent_tpu_torch.adapters import AdapterRegistry
+    from ai_rtc_agent_tpu_torch.models import loader as PLD
+
+    rng = np.random.default_rng(rank)
+    reg = AdapterRegistry(bundle.params["unet"], PLD.unet_key_map(bundle.unet_cfg))
+    reg.add("style", {"down_blocks.0.attentions.0.transformer_blocks.0.attn1.to_q": {
+        "down": rng.normal(size=(rank, 8)).astype(np.float32),
+        "up": rng.normal(size=(8, rank)).astype(np.float32), "alpha": float(rank)}})
+    return reg
+
+
+@pytest.mark.parametrize("rank,bucket", [(3, 4), (12, 16)])
+def test_adapter_bucket_keys_are_the_jax_recipe(port_bundle, rank, bucket):
+    """A bound factor bank adds ``lrank-R`` (its padded rank) to every bucket
+    key, as the JAX scheduler's keys with ``_adapter_rank=R``; an adapterless
+    scheduler's keys stay as they were (the test above)."""
+    from ai_rtc_agent_tpu.aot.cache import adapter_key_extra as jextra
+
+    b = port_bundle
+    cfg = PREG.default_stream_config("tiny-test", device="cpu")
+    sched = BatchScheduler(b.stream_models, b.params, cfg, b.encode_prompt, max_sessions=4,
+                           prewarm=False, device="cpu", model_id="tiny-test",
+                           adapters=_style_registry(b, rank))
+    try:
+        got = sched.bucket_keys()
+        want = _jax_bucket_keys("tiny-test", _configs(dataclasses.asdict(cfg))[1], 4,
+                                sched._bucket_sizes, adapter_rank=bucket)
+        assert {k: _unversioned(v) for k, v in got.items()} == {
+            k: _unversioned(v) for k, v in want.items()}
+        assert all(f"--lrank-{bucket}--" in v for v in got.values())
+        assert AOT.adapter_key_extra(bucket) == jextra(bucket) == {"lrank": bucket}
+        assert AOT.adapter_key_extra(0) == jextra(0) == {}
     finally:
         sched.close()
 
@@ -350,6 +391,33 @@ def test_scheduler_control_plane_writes_in_place(port_bundle):
         sched.claim("again")
         a(frame)
         assert sched.states is states and _ptrs(sched.states) == ptrs
+    finally:
+        sched.close()
+
+
+def test_adapter_swaps_write_the_bank_in_place(port_bundle):
+    """A styled claim, per-session and global swaps, a clear, a restart and a
+    release and claim: every state leaf, the factor bank's too, keeps its
+    storage (a captured graph reads the live bank at every replay)."""
+    b = port_bundle
+    cfg = PREG.default_stream_config("tiny-test", device="cpu")
+    sched = BatchScheduler(b.stream_models, b.params, cfg, b.encode_prompt, max_sessions=2,
+                           device="cpu", adapters=_style_registry(b, 3))
+    try:
+        states, ptrs = sched.states, _ptrs(sched.states)
+        assert any(k.startswith("adapters.") for k in ptrs)
+        a, c = sched.claim("a", adapter="style"), sched.claim("c")
+        frame = _frames(1, seed=8)[0]
+        a(frame)
+        c.update_adapter("style")
+        a.update_adapter(None)
+        sched.update_adapter("style")
+        a.restart()
+        c.release()
+        sched.claim("again", adapter=None)
+        a(frame)
+        assert sched.states is states and _ptrs(sched.states) == ptrs
+        assert a.adapter == "style" and sched.adapter_swaps_total == 4
     finally:
         sched.close()
 

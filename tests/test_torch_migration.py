@@ -31,6 +31,10 @@
   codec bytes, the continuation within 1 level), and a ControlNet row is
   refused by a plain scheduler (and a plain row by a ControlNet one) on
   both packages, by the row's structure.
+* Style adapters: a styled session's row carries its factor bank and its
+  snapshot the adapter's name; it crosses between the packages both ways
+  with the same blob and fingerprint, and a bank and no bank refuse each
+  other's snapshots on both packages, naming the same keys.
 * The import rules: the AST walk of tests/test_torch_stream.py covers the
   new modules, and the router's core and the session layer import no
   aiohttp at all.
@@ -602,6 +606,159 @@ def test_a_controlnet_row_into_a_plain_scheduler_is_refused_on_both_sides(pair, 
             with pytest.raises(mismatch, match="structure differs"):
                 sched.restore_session(snap, "x")
             assert sched.free_slots == free
+
+
+# -- style adapters: the factor bank rides the row --------------------------------------------
+
+ADAPTER_MODULES = ("down_blocks.0.attentions.0.transformer_blocks.0.attn1.to_q",
+                   "down_blocks.0.attentions.0.transformer_blocks.0.attn1.to_v")
+
+
+def _adapter_groups(mods, seed):
+    rng = np.random.default_rng(seed)
+    return {m: {"down": (rng.normal(size=(2, 8)) * 0.4).astype(np.float32),
+                "up": (rng.normal(size=(8, 2)) * 0.4).astype(np.float32), "alpha": 2.0}
+            for m in mods}
+
+
+@pytest.fixture(scope="module")
+def adapter_pair(jax_tiny, pair):
+    """The pair's ring with a rank-4 bank on both packages: styleA on one
+    attention linear, styleB on two (the JAX test_migration registry's
+    shape), the same groups on both sides."""
+    from ai_rtc_agent_tpu.adapters import AdapterRegistry as JAdapterRegistry
+    from ai_rtc_agent_tpu.models import loader as JLD
+    from ai_rtc_agent_tpu_torch.adapters import AdapterRegistry
+    from ai_rtc_agent_tpu_torch.models import loader as PLD
+
+    jb, pb = jax_tiny, pair.pb
+    jreg = JAdapterRegistry(jb.params["unet"], JLD.unet_key_map(jb.unet_cfg))
+    preg = AdapterRegistry(pb.params["unet"], PLD.unet_key_map(pb.unet_cfg))
+    for name, mods, seed in (("styleA", ADAPTER_MODULES[:1], 7), ("styleB", ADAPTER_MODULES, 8)):
+        g = _adapter_groups(mods, seed)
+        jreg.add(name, g)
+        preg.add(name, g)
+    js = JS.BatchScheduler(jb.stream_models, jb.params, JREG.default_stream_config(
+        "tiny-test", **RING), jb.encode_prompt, max_sessions=2, window_ms=10_000.0,
+        prewarm=False, dp=1, model_id="tiny-test", adapters=jreg)
+    ps = PS.BatchScheduler(pb.stream_models, pb.params, PREG.default_stream_config(
+        "tiny-test", device="cpu", **RING), pb.encode_prompt, max_sessions=2, window_ms=10_000.0,
+        device="cpu", model_id="tiny-test", adapters=preg)
+    try:
+        yield SimpleNamespace(js=js, ps=ps, preg=preg)
+    finally:
+        js.close()
+        ps.close()
+
+
+@pytest.mark.parametrize("direction", ["jax_to_port", "port_to_jax"])
+def test_a_styled_snapshot_crosses_between_the_packages(adapter_pair, direction):
+    """The JAX test_migrate_adapter_style_rides_snapshot across packages: the
+    snapshot names the adapter and carries the factor bank in its row under
+    equal fingerprints (adapter_rank 4 and the same targets digest);
+    restored on the other package, the row's bytes are the snapshot's (a
+    snapshot taken there at once has the same blob), the style is kept, and
+    the next 4 frames stay within 1 level of the source's continuation."""
+    src_s, dst_s = (adapter_pair.js, adapter_pair.ps) if direction == "jax_to_port" else (
+        adapter_pair.ps, adapter_pair.js)
+    frames = _frames(7, 15)
+    src = src_s.claim("src", prompt="a styled session", seed=5, adapter="styleB")
+    dst = None
+    try:
+        for f in frames[:3]:
+            _tick(src, f)
+        snap = src_s.snapshot_session("src")
+        fp = adapter_pair.ps.snapshot_fingerprint()
+        assert snap["fingerprint"] == fp == adapter_pair.js.snapshot_fingerprint()
+        assert snap["adapter"] == "styleB" and fp["adapter_rank"] == 4
+        row = JC.deserialize_pytree(base64.b64decode(snap["state_b64"]))
+        tree_path = "down_blocks.0.attentions.0.blocks.0.attn1.to_v"
+        assert row["adapters"][tree_path]["down"].shape == (4, 8)
+        assert np.abs(np.asarray(row["adapters"][tree_path]["up"])).max() > 0
+        dst = dst_s.restore_session(snap, "dst")
+        assert dst.adapter == "styleB"
+        again = dst_s.snapshot_session("dst")
+        assert again["state_b64"] == snap["state_b64"]
+        assert again["adapter"] == "styleB" and again["fingerprint"] == snap["fingerprint"]
+        levels = [_levels(_tick(dst, f), _tick(src, f)) for f in frames[3:]]
+        assert max(levels) <= 1, levels
+    finally:
+        _released(*(s for s in (src, dst) if s is not None))
+
+
+def test_the_guard_bank_and_rebuild_carry_the_factor_bank(pair, adapter_pair):
+    """The engine guard's paths with a bank bound: the quarantine snapshot of
+    a styled session equals the JAX bank's field for field (the adapter's
+    name, the blob with its factors byte for byte); a quarantined scheduler
+    serves it and its rebuild restores the row, the factors too, bit for bit;
+    a session claimed after the last bank refresh is rebuilt from its control
+    plane with its own style's rows."""
+    js_s = adapter_pair.js.claim("banked", prompt="a banked session", seed=4, adapter="styleB")
+    ps_s = adapter_pair.ps.claim("banked", prompt="a banked session", seed=4, adapter="styleB")
+    try:
+        bridge.states_from_jax(jax.tree.map(np.asarray, adapter_pair.js.states),
+                               adapter_pair.ps.states)
+        jbank, pbank = _bank(adapter_pair.js), _bank(adapter_pair.ps)
+        assert pbank["banked"]["adapter"] == "styleB"
+        for key in jbank["banked"]:
+            assert pbank["banked"][key] == jbank["banked"][key], key
+    finally:
+        for s in (adapter_pair.js, adapter_pair.ps):
+            s.attach_guard(None)
+            s._quarantine_snaps = {}
+        _released(js_s, ps_s)
+    guard = SimpleNamespace(quarantined=False, cold_deadline_s=60.0,
+                            dispatch=lambda fn, cold=False: fn(),
+                            run_bounded=lambda fn, deadline, what: fn())
+    sched = _port_scheduler(pair.pb, adapters=adapter_pair.preg)
+    try:
+        sched.attach_guard(guard)
+        sched._snap_every_s = 1e-9
+        sess = sched.claim("q", prompt="quarantined", seed=8, adapter="styleB")
+        for f in _frames(3, 32):
+            _tick(sess, f)  # the bank refreshes after every step
+        sched._snap_every_s = 1e9
+        late = sched.claim("late", prompt="unbanked", seed=9, adapter="styleA")
+        rows = {k: v.clone() for k, v in _flat_items(sched.states, sess.slot)}
+        assert any(k.startswith("adapters/") for k in rows)
+        guard.quarantined = True
+        bank = sched.capture_quarantine_snapshots()
+        assert set(bank) == {"q"} and bank["q"]["adapter"] == "styleB"
+        assert sched.snapshot_session("q") == bank["q"]
+        guard.quarantined = False
+        assert sched.rebuild_engine() == 1
+        after = dict(_flat_items(sched.states, sess.slot))
+        assert all(torch.equal(v, after[k]) for k, v in rows.items())
+        want = adapter_pair.preg.factor_rows("styleA")
+        for path, f in sched.states["adapters"].items():
+            for part in ("down", "up"):
+                assert torch.equal(f[part][late.slot], want[path][part])
+        assert (sess.adapter, late.adapter) == ("styleB", "styleA")
+    finally:
+        sched.close()
+
+
+def test_a_bank_and_no_bank_refuse_each_others_snapshots_on_both_packages(pair, adapter_pair):
+    """A styled row into an adapterless scheduler, and a plain row into one
+    with a bank: refused by the fingerprint on both packages, naming the same
+    keys, no slot taken."""
+    msgs = {}
+    for origin, target, label in ((adapter_pair, pair, "bank -> none"),
+                                  (pair, adapter_pair, "none -> bank")):
+        live = origin.ps.claim("live", prompt="live", seed=1)
+        try:
+            snap = origin.ps.snapshot_session("live")
+        finally:
+            live.release()
+        for sched, mismatch in ((target.js, JS.SnapshotMismatch), (target.ps, PS.SnapshotMismatch)):
+            free = sched.free_slots
+            with pytest.raises(mismatch, match="fingerprint mismatch") as e:
+                sched.restore_session(snap, "x")
+            assert sched.free_slots == free
+            msgs.setdefault(label, []).append(str(e.value).split(" (")[0])
+    for label, (jmsg, pmsg) in msgs.items():
+        assert jmsg == pmsg == "snapshot fingerprint mismatch on ['adapter_rank', " \
+            "'adapter_targets']", label
 
 
 # -- the import rules --------------------------------------------------------------------

@@ -20,6 +20,10 @@ CPU.
   reaches every session; a window sheds its oldest frame as passthrough; a
   step whose riders left, or whose readback failed, stops holding back the
   dispatcher.
+* Style adapters: the scheduler's adapter plane (claims, swaps, the
+  counters, /health and /metrics fields, the fingerprint, the refusals)
+  against the JAX scheduler's, and a swap under DeepCache resetting the
+  cadence as the JAX one does.
 * ``--multipeer``: the peer engine and pipeline against dedicated engines,
   a peer's queue shedding its oldest frame, and the agent's slot claims,
   503 and per-peer datachannel prompt.
@@ -436,6 +440,159 @@ def test_scheduler_matches_the_jax_batch_scheduler(monkeypatch):
                 _close(a, b)
         assert js.snapshot()["batchsched_occupancy_hist"] == {"2": 5}
         assert ps.snapshot()["batchsched_occupancy_hist"] == {"2": 5}
+    finally:
+        js.close()
+        ps.close()
+
+
+ADAPTER_MODULES = ("down_blocks.0.attentions.0.transformer_blocks.0.attn1.to_q",
+                   "down_blocks.0.attentions.0.transformer_blocks.0.attn1.to_v")
+
+
+@pytest.fixture(scope="module")
+def adapter_bundles():
+    """A JAX tiny-test bundle, the port's over its weights, and a maker of the
+    JAX tests' two-style registry (styleA on one attention linear, styleB on
+    two, rank 2: the bucket of 4) on either package from the same groups."""
+    from ai_rtc_agent_tpu.adapters import AdapterRegistry as JAdapterRegistry
+    from ai_rtc_agent_tpu.models import loader as JLD
+    from ai_rtc_agent_tpu_torch.adapters import AdapterRegistry
+    from ai_rtc_agent_tpu_torch.models import loader as PLD
+
+    jb = JREG.load_model_bundle("tiny-test")
+    pb = PREG.load_model_bundle("tiny-test", device="cpu",
+                                params=bridge.params_from_jax(jax.tree.map(np.asarray, jb.params)))
+
+    def registry(side):
+        rng = np.random.default_rng(7)
+        b, cls, ld = (jb, JAdapterRegistry, JLD) if side == "jax" else (pb, AdapterRegistry, PLD)
+        reg = cls(b.params["unet"], ld.unet_key_map(b.unet_cfg))
+        for name, mods in (("styleA", ADAPTER_MODULES[:1]), ("styleB", ADAPTER_MODULES)):
+            reg.add(name, {m: {"down": (rng.normal(size=(2, 8)) * 0.4).astype(np.float32),
+                               "up": (rng.normal(size=(8, 2)) * 0.4).astype(np.float32),
+                               "alpha": 2.0} for m in mods})
+        return reg
+
+    return SimpleNamespace(jb=jb, pb=pb, registry=registry)
+
+
+def _adapter_scheds(ab, cfg_over=None, adapters=True, max_sessions=4):
+    cfg_over = cfg_over or {}
+    js = JBatchScheduler(ab.jb.stream_models, ab.jb.params,
+                         JREG.default_stream_config("tiny-test", **cfg_over), ab.jb.encode_prompt,
+                         max_sessions=max_sessions, window_ms=10_000.0, prewarm=False, dp=1,
+                         adapters=ab.registry("jax") if adapters else None)
+    ps = BatchScheduler(ab.pb.stream_models, ab.pb.params,
+                        PREG.default_stream_config("tiny-test", device="cpu", **cfg_over),
+                        ab.pb.encode_prompt, max_sessions=max_sessions, window_ms=10_000.0,
+                        prewarm=False, device="cpu",
+                        adapters=ab.registry("port") if adapters else None)
+    return js, ps
+
+
+def _raised(fn, kind=Exception) -> str:
+    with pytest.raises(kind) as e:
+        fn()
+    return f"{type(e.value).__name__}: {e.value}"
+
+
+def test_adapter_plane_matches_the_jax_scheduler(adapter_bundles):
+    """The JAX test_adapter_bucket_keys_bank_shape_and_metrics on both
+    packages side by side: the bank's shapes, a claim's default adapter,
+    per-session and global swaps, the swap counter, /health's and /metrics'
+    adapter fields and the fingerprint equal the JAX scheduler's; an unknown
+    name is refused with the JAX error before a slot is taken or a bank row
+    written; an adapterless scheduler refuses with the JAX messages."""
+    js, ps = _adapter_scheds(adapter_bundles)
+    try:
+        assert ps._bucket_label(2, "full") == js._bucket_label(2, "full") == "sbucket-2:full:r4"
+        jbank, pbank = js.states["adapters"], ps.states["adapters"]
+        assert set(pbank) == set(jbank)
+        for path in jbank:
+            for part in ("down", "up"):
+                assert tuple(pbank[path][part].shape) == jbank[path][part].shape
+        before = {p: f["down"].clone() for p, f in pbank.items()}
+        for sched in (js, ps):
+            assert sched.snapshot()["adapter_sessions"] == 0
+        assert _raised(lambda: ps.claim("x", adapter="nope")) == _raised(
+            lambda: js.claim("x", adapter="nope"))
+        assert ps.free_slots == 4 and js.snapshot()["batchsched_sessions"] == 0
+        sessions = {}
+        for name, sched in (("jax", js), ("port", ps)):
+            a = sched.claim("a", prompt="a cat", seed=1, adapter="styleA")
+            assert _raised(lambda: a.update_adapter("nope")).startswith("KeyError")
+            assert a.adapter == "styleA"
+            a.update_adapter("styleB")
+            assert a.adapter == "styleB"
+            sched.update_adapter("styleA")
+            b = sched.claim("b", prompt="a dog", seed=2)
+            c = sched.claim("c", prompt="a fox", seed=3, adapter="styleB")
+            c.update_adapter(None)
+            sessions[name] = (a, b, c)
+        assert [s.adapter for s in sessions["port"]] == [s.adapter for s in sessions["jax"]] == [
+            "styleA", "styleA", None]
+        a = sessions["port"][0]
+        assert not torch.equal(pbank[next(iter(pbank))]["down"][a.slot],
+                               before[next(iter(pbank))][a.slot])
+        for key in ("adapter_sessions", "adapter_swaps_total", "adapter_rank"):
+            assert ps.snapshot()[key] == js.snapshot()[key], key
+        assert ps.snapshot()["adapter_sessions"] == 2 and ps.adapter_swaps_total == 3
+        assert ps.session_snapshots() == {
+            f"{k}": v for k, v in js.session_snapshots().items()}
+        assert ps.snapshot_fingerprint() == {**js.snapshot_fingerprint(), "model_id": ""}
+        # the bank rows equal the JAX rows slot for slot after the swaps
+        bridge_rows = jax.tree.map(np.asarray, js.states["adapters"])
+        for path in bridge_rows:
+            for part in ("down", "up"):
+                np.testing.assert_array_equal(pbank[path][part].numpy(), bridge_rows[path][part])
+    finally:
+        js.close()
+        ps.close()
+    js, ps = _adapter_scheds(adapter_bundles, adapters=False, max_sessions=2)
+    try:
+        assert ps._bucket_label(2, "full") == js._bucket_label(2, "full") == "sbucket-2:full"
+        assert "adapters" not in ps.states and "adapter_rank" not in ps.snapshot_fingerprint()
+        assert "adapter_rank" not in ps.snapshot()
+        for fn in (lambda s: s.claim("x", adapter="styleA"), lambda s: s.update_adapter("x"),
+                   lambda s: s.update_adapter(None)):
+            assert _raised(lambda: fn(ps)) == _raised(lambda: fn(js))
+        assert ps.free_slots == 2
+    finally:
+        js.close()
+        ps.close()
+
+
+def test_an_adapter_swap_resets_the_deepcache_cadence_as_jax_does(adapter_bundles):
+    """DeepCache N=3: a styled session steps capture, cached; a swap sets the
+    tick to 0 and marks the slot uncaptured on both packages, so the next
+    step captures; every frame within 1 level of the JAX scheduler's."""
+    over = dict(TURBO8, unet_cache_interval=3)
+    js, ps = _adapter_scheds(adapter_bundles, over, max_sessions=1)
+    seen = {"jax": [], "port": []}
+    jorig, porig = js._bucket_step, ps._next_variant_locked
+
+    def jspy(k, variant="full"):
+        seen["jax"].append(variant)
+        return jorig(k, variant)
+
+    def pspy(slots):
+        seen["port"].append(porig(slots))
+        return seen["port"][-1]
+
+    js._bucket_step, ps._next_variant_locked = jspy, pspy
+    try:
+        ja = js.claim("a", prompt="a cat", seed=1, adapter="styleA")
+        pa = ps.claim("a", prompt="a cat", seed=1, adapter="styleA")
+        bridge.states_from_jax(jax.tree.map(np.asarray, js.states), ps.states)
+        frames = _frames(5, seed=61)
+        for j, f in enumerate(frames):
+            if j == 2:
+                ja.update_adapter("styleB")
+                pa.update_adapter("styleB")
+                assert (js._tick, ps._tick) == (0, 0)
+                assert ja.slot in js._uncaptured and pa.slot in ps._uncaptured
+            _close(pa(f), ja(f))
+        assert seen["port"] == seen["jax"] == ["capture", "cached", "capture", "cached", "cached"]
     finally:
         js.close()
         ps.close()

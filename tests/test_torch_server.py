@@ -179,9 +179,9 @@ async def case_config(c):
     for raw in ("[1,2]", "null", "{", "not json"):
         out.append(await _obs(await post("/config", data=raw,
                                          headers={"Content-Type": "application/json"})))
-    # refused before anything applies (the message names a different owner)
-    r = await post("/config", json={"prompt": "late", "adapter": "ghibli"})
-    out.append(r.status)
+    # refused before anything applies: the pipeline has no update_adapter
+    # (the JAX message, which names the scheduler as the owner)
+    out.append(await _obs(await post("/config", json={"prompt": "late", "adapter": "ghibli"})))
     out.append((c.pipe.prompt, c.pipe.t_index_list))
     return out
 
@@ -1465,6 +1465,120 @@ def test_unet_cache_3_serves_an_offer_as_the_jax_agent(monkeypatch):
     np.testing.assert_allclose(port[7], want[7], rtol=1e-3, atol=1e-3)
     assert np.abs(want[7]).max() > 0
     assert len(port[6]) == len(want[6]) == 6
+    for a, b in zip(port[6], want[6]):
+        assert np.abs(a.astype(np.int16) - b.astype(np.int16)).max() <= 1
+
+
+def _find(node, key):
+    """Every dict under ``node`` (a JSON body) that holds ``key``."""
+    if isinstance(node, dict):
+        if key in node:
+            yield node
+        for v in node.values():
+            yield from _find(v, key)
+    elif isinstance(node, list):
+        for v in node:
+            yield from _find(v, key)
+
+
+ADAPTER_CONFIGS = ({"adapter": "r8"}, {"adapter": None}, {"adapter": "nope", "prompt": "late"},
+                   {"adapter": 5}, {"adapter": "r16", "prompt": "a watercolor fox"})
+
+
+@pytest.mark.parametrize("with_dir", [True, False], ids=["adapter_dir", "no_adapter_dir"])
+def test_adapter_dir_serves_styles_as_the_jax_agent(monkeypatch, tmp_path, with_dir):
+    """``ADAPTER_DIR`` with three kohya styles (chip_smoke phase 15's, at
+    tiny-test's geometry) on each agent: the boot loads them into the batch
+    scheduler's bank (rank 16); one /offer session on each, the JAX weights
+    and session state (its factor bank too) carried across, the same frames
+    pushed into both.  The /config transcript is the JAX agent's, response
+    for response: a swap, a ``null`` clear, an unknown name (400, nothing
+    applied: the prompt stays), a non-string (400), a swap with a prompt;
+    /health's and /metrics' adapter fields equal; every viewed frame within
+    1 level.  Without ADAPTER_DIR the same requests get the JAX answers (the
+    scheduler says no registry is bound) and the state has no bank."""
+    import chip_smoke
+
+    # supervised (the JAX default): /health's sessions carry the scheduler's view
+    for name, value in (("WEBRTC_PROVIDER", "loopback"), ("SUPERVISOR", "1"),
+                        ("WARMUP_FRAMES", "0"), ("BATCHSCHED_MAX_SESSIONS", "1"),
+                        ("OVERLOAD_LOOP_LAG_BUDGET_MS", "100000")):
+        monkeypatch.setenv(name, value)
+    if with_dir:
+        chip_smoke.adapter_files(np, tmp_path, PREG._model_configs("tiny")[0])
+        monkeypatch.setenv("ADAPTER_DIR", str(tmp_path))
+    else:
+        monkeypatch.delenv("ADAPTER_DIR", raising=False)
+    built = {}
+    for name, m, extra in (("jax", JA, []), ("port", PA, ["--device", "cpu"])):
+        monkeypatch.setattr(m.web, "run_app", lambda app, name=name, **kw: built.update({name: app}))
+        m.main(["--model-id", "tiny-test"] + extra)
+    frames = _frames(7, seed=50)
+    got = {}
+
+    async def serve(name, hook):
+        app = built[name]
+        client = TestClient(TestServer(app))
+        await client.start_server()
+        try:
+            m = SIDES[name]
+            r = await client.post("/offer", json={
+                "room_id": "r", "offer": {"sdp": m.signaling.make_loopback_offer(),
+                                          "type": "offer"}})
+            body = await r.json()
+            sched = app["batch_scheduler"]
+            hook(app)
+            pc = next(iter(app["pcs"]))
+
+            async def push(fs, i0):
+                for i, f in enumerate(fs):
+                    vf = m.frames.VideoFrame.from_ndarray(f)
+                    vf.pts, vf.time_base = i0 + i, Fraction(1, 30)
+                    await pc.in_track.push(vf)
+
+            async def view(n):
+                return [(await asyncio.wait_for(pc.out_tracks[0].recv(), 120)).to_ndarray()
+                        for _ in range(n)]
+
+            await push(frames[:3], 0)
+            seen = await view(1)  # the track keeps 2 in flight
+            replies = []
+            for cfg in ADAPTER_CONFIGS:
+                replies.append(await _obs(await client.post("/config", json=cfg)))
+                replies.append((sched.prompt, sched.default_adapter))
+            await push(frames[3:], 3)
+            seen += await view(4)
+            health = await (await client.get("/health")).json()
+            metrics = await (await client.get("/metrics")).json()
+            fields = ("adapter", "adapter_rank")
+            per = [{k: d[k] for k in fields} for d in _find(health, "adapter_rank")]
+            gauges = {k: v for k, v in metrics.items() if k.startswith("adapter_")}
+            return (r.status, sorted(body), replies, per, gauges, "adapters" in sched.states,
+                    seen)
+        finally:
+            await client.close()
+
+    def keep(app):
+        got["params"] = jax.tree.map(np.asarray, app["pipeline"].engine.params)
+        got["states"] = jax.tree.map(np.asarray, app["batch_scheduler"].states)
+
+    want = asyncio.run(serve("jax", keep))
+    params = bridge.params_from_jax(got["params"])
+    monkeypatch.setattr(PREG, "init_params", lambda fam, seed=0, device="cpu": params)
+    port = asyncio.run(serve("port", lambda app: bridge.states_from_jax(
+        got["states"], app["batch_scheduler"].states)))
+    assert port[:6] == want[:6] and want[0] == 200
+    statuses = [r["status"] for r in want[2][::2]]
+    if with_dir:
+        assert statuses == [200, 200, 400, 400, 200]
+        assert want[3] == [{"adapter": "r16", "adapter_rank": 16}] and want[5]
+        assert want[4] == {"adapter_sessions": 1, "adapter_swaps_total": 3, "adapter_rank": 16}
+        assert want[2][5] == (want[2][1][0], None)  # the refused body applied nothing
+        assert want[2][9] == ("a watercolor fox", "r16")
+    else:
+        assert statuses == [400, 400, 400, 400, 400] and "ADAPTER_DIR" in want[2][0]["body"]
+        assert want[3] == [] and want[4] == {} and not want[5]
+    assert len(port[6]) == len(want[6]) == 5
     for a, b in zip(port[6], want[6]):
         assert np.abs(a.astype(np.int16) - b.astype(np.int16)).max() <= 1
 
