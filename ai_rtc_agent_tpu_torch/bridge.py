@@ -16,7 +16,11 @@ JAX side), so this module needs no JAX.
   and ``special_care_embeds``) must not be transposed either.
 * ``state_from_jax``: ``jax.random`` and ``torch.Generator`` never draw the
   same noise, so a parity test hands the JAX engine's prepared state
-  (noise, x_buf, stock, cond/uncond, coeffs, guidance, delta) to the port.
+  (noise, x_buf, stock, cond/uncond, coeffs, guidance, delta; SDXL's
+  ``added_text`` and f32 ``added_time_ids``) to the port.  Every tree
+  crosses whole: SDXL's second text tower ``clip2`` (its 2-D
+  ``text_projection`` kernel kept [in, out]) and the UNet's
+  ``add_embedding`` need no rule of their own.
 * ``states_from_jax``: the same for a stacked ``[S, ...]`` state (a JAX
   ``BatchScheduler.states`` or ``MultiPeerEngine.states``), written into
   the port's stacked state slot for slot, in place.

@@ -4,7 +4,9 @@ Runs once per prompt (not per frame), so its attention stays plain: an
 additive -1e9 causal mask, f32 softmax.  ``hidden`` is the final-normed
 sequence when clip_skip == 0, else the hidden state clip_skip layers from
 the end; ``pooled`` is the final-normed state at the EOT token (argmax of
-the ids).
+the ids); a tower with ``use_text_projection`` (SDXL's second, OpenCLIP
+ViT-bigG) also gives ``projected``, the pooled state through its bias-free
+``text_projection`` (the pooled embeds of SDXL's addition embedding).
 """
 
 from __future__ import annotations
@@ -33,6 +35,8 @@ class CLIPTextConfig:
     heads: int = 12
     activation: str = "quick_gelu"
     clip_skip: int = 0
+    use_text_projection: bool = False
+    projection_dim: int = 0
 
     @staticmethod
     def sd15() -> "CLIPTextConfig":
@@ -43,8 +47,27 @@ class CLIPTextConfig:
         return CLIPTextConfig(width=1024, layers=24, heads=16, activation="gelu", clip_skip=1)
 
     @staticmethod
+    def sdxl_g() -> "CLIPTextConfig":
+        """SDXL's second tower (OpenCLIP ViT-bigG): penultimate hidden
+        states and the projected pooled state."""
+        return CLIPTextConfig(width=1280, layers=32, heads=20, activation="gelu", clip_skip=1,
+                              use_text_projection=True, projection_dim=1280)
+
+    @staticmethod
     def tiny() -> "CLIPTextConfig":
         return CLIPTextConfig(vocab_size=256, max_length=16, width=32, layers=2, heads=4)
+
+    @staticmethod
+    def tiny_dual() -> "CLIPTextConfig":
+        """First tower of the tiny SDXL-style family (half width, so the two
+        towers concatenate to tiny_xl's cross dim)."""
+        return CLIPTextConfig(vocab_size=256, max_length=16, width=16, layers=2, heads=2)
+
+    @staticmethod
+    def tiny_g() -> "CLIPTextConfig":
+        """Second (projected) tower of the tiny SDXL-style family."""
+        return CLIPTextConfig(vocab_size=256, max_length=16, width=16, layers=2, heads=2,
+                              use_text_projection=True, projection_dim=16)
 
 
 def init_clip_text(gen, cfg: CLIPTextConfig, device="cpu"):
@@ -67,6 +90,9 @@ def init_clip_text(gen, cfg: CLIPTextConfig, device="cpu"):
                 "fc2": init_linear(gen, cfg.width * 4, cfg.width, device=device),
             }
         )
+    if cfg.use_text_projection:
+        p["text_projection"] = init_linear(gen, cfg.width, cfg.projection_dim, bias=False,
+                                           device=device)
     return p
 
 
@@ -82,7 +108,8 @@ def _attn(layer, x, mask, heads: int):
 
 
 def apply_clip_text(p, token_ids, cfg: CLIPTextConfig, dtype=torch.float32):
-    """token_ids [B, L] int -> {"hidden": [B,L,width], "pooled": [B,width]}."""
+    """token_ids [B, L] int -> {"hidden": [B,L,width], "pooled": [B,width]},
+    plus "projected" [B,projection_dim] with ``use_text_projection``."""
     b, l = token_ids.shape
     x = p["token_embedding"][token_ids].to(dtype)
     x = x + p["position_embedding"][:l].to(dtype)
@@ -97,4 +124,7 @@ def apply_clip_text(p, token_ids, cfg: CLIPTextConfig, dtype=torch.float32):
     hidden = final if cfg.clip_skip == 0 else hiddens[-1 - cfg.clip_skip]
     eot = torch.argmax(token_ids, dim=-1)
     pooled = final[torch.arange(b, device=final.device), eot]
-    return {"hidden": hidden, "pooled": pooled}
+    out = {"hidden": hidden, "pooled": pooled}
+    if cfg.use_text_projection and "text_projection" in p:
+        out["projected"] = linear(p["text_projection"], pooled)
+    return out

@@ -56,7 +56,8 @@ def init_controlnet(gen, cfg: UNetConfig, cond_channels: int = 3, num_down: int 
     half of a UNet, the cond embedding (its ``conv_out`` zero) and the zero
     convs (zero)."""
     unet_p = init_unet(gen, cfg, device)
-    p = {k: unet_p[k] for k in ("conv_in", "time_embedding", "down_blocks", "mid_block")}
+    p = {k: unet_p[k] for k in ("conv_in", "time_embedding", "down_blocks", "mid_block",
+                                "add_embedding") if k in unet_p}
     ch0 = cfg.block_out_channels[0]
     widths = cond_embed_widths(num_down)
     cond = {"conv_in": init_conv(gen, cond_channels, widths[0], 3, device=device), "blocks": []}
@@ -74,14 +75,15 @@ def init_controlnet(gen, cfg: UNetConfig, cond_channels: int = 3, num_down: int 
 
 
 def apply_controlnet(p, x, timesteps, context, cond_image, cfg: UNetConfig,
-                     conditioning_scale=1.0, attn_impl: str = "kernel"):
+                     conditioning_scale=1.0, attn_impl: str = "kernel", added_cond=None):
     """-> (down residuals, one per skip, mid residual) for ``apply_unet``.
 
     ``cond_image``: [B,H,W,3] in [0,1] at image resolution (2**num_down x
     the latent).  ``conditioning_scale``: a number, a 0-d tensor, or one
     value per row ([B] or [B,1,1,1]: each session's scale on its rows),
-    cast to the activation dtype as the JAX forward casts it."""
-    temb = time_cond_embedding(p, cfg, timesteps, dtype=x.dtype)
+    cast to the activation dtype as the JAX forward casts it.  ``added_cond``:
+    SDXL's addition conditioning, embedded by the shared ``add_embedding``."""
+    temb = time_cond_embedding(p, cfg, timesteps, added_cond, dtype=x.dtype)
     context = context.to(x.dtype)
 
     ce = p["cond_embedding"]

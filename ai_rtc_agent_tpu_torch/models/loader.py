@@ -19,8 +19,10 @@ two to the same bytes and the same key maps.
   crosses as it is.  SD1.5's ``proj_in``/``proj_out`` are 1x1 convs and
   stay 4-D.
 
-The SDXL extras (the addition embedding, the text projection of the second
-tower) come with their family in a later slice.
+SDXL's extras ride the same maps: the addition embedding
+(``add_embedding.linear_{1,2}``, in the encoder half, so the ControlNet
+shares it) and the second tower's bias-free ``text_projection.weight``, a
+2-D kernel like any linear's.
 """
 
 from __future__ import annotations
@@ -152,6 +154,9 @@ def _encoder_keys(cfg: UNetConfig) -> Iterator[tuple[str, tuple]]:
     yield from _leaf_keys("conv_in", ("conv_in",), "conv")
     yield from _leaf_keys("time_embedding.linear_1", ("time_embedding", "linear_1"), "linear")
     yield from _leaf_keys("time_embedding.linear_2", ("time_embedding", "linear_2"), "linear")
+    if cfg.addition_embed_type == "text_time":
+        yield from _leaf_keys("add_embedding.linear_1", ("add_embedding", "linear_1"), "linear")
+        yield from _leaf_keys("add_embedding.linear_2", ("add_embedding", "linear_2"), "linear")
     nb = len(cfg.block_out_channels)
     for i in range(nb):
         base, path = f"down_blocks.{i}", ("down_blocks", i)
@@ -254,7 +259,8 @@ def taesd_key_map(cfg: TAESDConfig) -> dict[str, tuple]:
 
 
 def clip_key_map(cfg: CLIPTextConfig) -> dict[str, tuple]:
-    """transformers CLIPTextModel -> the text tower's tree."""
+    """transformers CLIPTextModel (CLIPTextModelWithProjection with
+    ``use_text_projection``) -> the text tower's tree."""
     m: dict[str, tuple] = {
         "text_model.embeddings.token_embedding.weight": ("token_embedding",),
         "text_model.embeddings.position_embedding.weight": ("position_embedding",),
@@ -274,6 +280,8 @@ def clip_key_map(cfg: CLIPTextConfig) -> dict[str, tuple]:
         for suffix, ours, kind in pairs:
             m.update(_leaf_keys(base + suffix, ("layers", i, ours), kind))
     m.update(_leaf_keys("text_model.final_layer_norm", ("final_norm",), "norm"))
+    if cfg.use_text_projection:
+        m["text_projection.weight"] = ("text_projection", "kernel")
     return m
 
 

@@ -1,7 +1,8 @@
 """Model registry: model-id -> config + params + apply-fn bundle.
 
-Counterpart of ai_rtc_agent_tpu/models/registry.py for the families the
-port serves (sd15, sd21 / SD-Turbo, tiny).  As in the JAX package:
+Counterpart of ai_rtc_agent_tpu/models/registry.py, for every family the
+JAX package serves: sd15, sd21 / SD-Turbo, sdxl / SDXL-Turbo, and the
+hermetic tiny and tinyxl.  As in the JAX package:
 
 1. weights found locally (an HF snapshot under HF_HUB_CACHE, or a snapshot
    directory passed as the model id) stream from safetensors into the
@@ -18,6 +19,15 @@ the bundle carries the DeepCache pair (``unet_capture``/``unet_cached``).
 through ``loader.controlnet_key_map`` where one resolves) and its apply
 closure; ``annotator="hed"`` adds the HED detector (models/hed.py; a local
 ControlNetHED.pth, HED_CHECKPOINT, where one exists).
+
+The SDXL families carry a second text tower, ``params["clip2"]`` (OpenCLIP
+ViT-bigG for sdxl, ``tiny_g`` for tinyxl, random from seed + 5): the
+bundle's ``encode_prompt`` concatenates both towers' hidden states on the
+last axis and returns ``(cond, uncond, {"pooled": projected})``, bigG's
+projected pooled state for the UNet's ``text_time`` addition embedding.
+As in the JAX package, SDXL's first tower is ViT-L at ``clip_skip=0`` (the
+final layer after its norm), and a snapshot's ``text_encoder_2`` is read
+for sdxl only.
 """
 
 from __future__ import annotations
@@ -56,7 +66,7 @@ class ModelBundle:
     unet_cfg: U.UNetConfig
     clip_cfg: C.CLIPTextConfig
     taesd_cfg: T.TAESDConfig
-    family: str  # sd15 | sd21 | tiny
+    family: str  # sd15 | sd21 | sdxl | tiny | tinyxl
     device: torch.device
     loaded_real_weights: bool = False
 
@@ -74,18 +84,15 @@ def family_of(model_id: str) -> str:
     return "sd15"
 
 
-def _later(fam: str):
-    if fam in ("sdxl", "tinyxl"):
-        raise NotImplementedError(f"family {fam!r} is not ported yet (a later slice)")
+TINY_FAMILIES = ("tiny", "tinyxl")
 
 
 def default_stream_config(model_id: str, device="cuda", **overrides) -> StreamConfig:
     """Per-family serving defaults (the JAX package's), with the kernels on
     (fused epilogue, flash attention) and bf16 on a CUDA device."""
     fam = family_of(model_id)
-    _later(fam)
     m = model_id.lower()
-    if "turbo" in m:
+    if "turbo" in m and fam != "sdxl":
         base = dict(
             t_index_list=(0,),
             num_inference_steps=1,
@@ -102,8 +109,21 @@ def default_stream_config(model_id: str, device="cuda", **overrides) -> StreamCo
             cfg_type="self",
             **(dict(height=768, width=768, prediction_type="v_prediction") if v768 else {}),
         )
-    elif fam == "tiny":
+    elif fam == "sdxl":
+        base = dict(
+            height=1024,
+            width=1024,
+            t_index_list=(0,),
+            num_inference_steps=1,
+            timestep_spacing="trailing",
+            scheduler="turbo",
+            cfg_type="none",
+            use_added_cond=True,
+        )
+    elif fam in TINY_FAMILIES:
         base = dict(height=64, width=64, latent_scale=4)
+        if fam == "tinyxl":
+            base["use_added_cond"] = True
     else:
         base = dict(
             t_index_list=(18, 26, 35, 45),
@@ -142,10 +162,19 @@ def _model_configs(fam: str):
         return U.UNetConfig.sd15(), C.CLIPTextConfig.sd15(), T.TAESDConfig()
     if fam == "sd21":
         return U.UNetConfig.sd21(), C.CLIPTextConfig.sd21(), T.TAESDConfig()
+    if fam == "sdxl":
+        return U.UNetConfig.sdxl(), C.CLIPTextConfig.sd15(), T.TAESDConfig()
     if fam == "tiny":
         return U.UNetConfig.tiny(), C.CLIPTextConfig.tiny(), T.TAESDConfig.tiny()
-    _later(fam)
+    if fam == "tinyxl":
+        return U.UNetConfig.tiny_xl(), C.CLIPTextConfig.tiny_dual(), T.TAESDConfig.tiny()
     raise ValueError(fam)
+
+
+def clip2_config(fam: str) -> C.CLIPTextConfig | None:
+    """The second (projected) text tower of a dual-tower family, else None."""
+    return {"sdxl": C.CLIPTextConfig.sdxl_g, "tinyxl": C.CLIPTextConfig.tiny_g}.get(
+        fam, lambda: None)()
 
 
 def cast_params(params, dtype: str):
@@ -182,15 +211,25 @@ def cast_params(params, dtype: str):
 
 def init_params(fam: str, seed: int = 0, device="cpu") -> dict:
     """Random params at full architecture for a family, on ``device``
-    (a meta device gives shapes only)."""
+    (a meta device gives shapes only).  A dual-tower family's ``clip2``
+    comes from a generator of its own (seed + 5), so the other trees are
+    the same as without it."""
     unet_cfg, clip_cfg, taesd_cfg = _model_configs(fam)
     device = torch.device(device)
-    gen = None if device.type == "meta" else torch.Generator(device=device).manual_seed(seed)
-    return {
+
+    def gen_of(s):
+        return None if device.type == "meta" else torch.Generator(device=device).manual_seed(s)
+
+    gen = gen_of(seed)
+    params = {
         "unet": U.init_unet(gen, unet_cfg, device),
         "clip": C.init_clip_text(gen, clip_cfg, device),
         "taesd": T.init_taesd(gen, taesd_cfg, device),
     }
+    clip2_cfg = clip2_config(fam)
+    if clip2_cfg is not None:
+        params["clip2"] = C.init_clip_text(gen_of(seed + 5), clip2_cfg, device)
+    return params
 
 
 def resolve_snapshot_dir(model_id: str) -> str | None:
@@ -205,17 +244,20 @@ def resolve_snapshot_dir(model_id: str) -> str | None:
     return snaps[-1] if snaps else None
 
 
-def _try_load_weights(params: dict, snap: str, unet_cfg, clip_cfg, taesd_cfg) -> bool:
+def _try_load_weights(params: dict, snap: str, fam: str, unet_cfg, clip_cfg,
+                      taesd_cfg) -> bool:
     """Stream the snapshot's ``unet/``, ``text_encoder/`` and ``vae/``
-    safetensors into ``params`` (in place, f32); True when any tensor
-    loaded.  A piece whose shapes do not fit is warned about and keeps its
-    random weights, as in the JAX package."""
+    safetensors (and sdxl's ``text_encoder_2/``) into ``params`` (in place,
+    f32); True when any tensor loaded.  A piece whose shapes do not fit is
+    warned about and keeps its random weights, as in the JAX package."""
     any_loaded = False
     pieces = [
         ("unet", "unet", LD.unet_key_map(unet_cfg)),
         ("clip", "text_encoder", LD.clip_key_map(clip_cfg)),
         ("taesd", "vae", LD.taesd_key_map(taesd_cfg)),
     ]
+    if fam == "sdxl":  # the JAX package reads no text_encoder_2 for tinyxl
+        pieces.append(("clip2", "text_encoder_2", LD.clip_key_map(clip2_config(fam))))
     for ours, sub, km in pieces:
         files = LD.find_safetensors(snap, sub)
         if not files:
@@ -266,7 +308,7 @@ def _hed_params(fam: str, seed: int, device) -> dict:
     from the port's own generator (seed ``seed`` + 11) otherwise."""
     device = torch.device(device)
     gen = None if device.type == "meta" else torch.Generator(device=device).manual_seed(seed + 11)
-    stages = HED.TINY_STAGES if fam == "tiny" else HED.FULL_STAGES
+    stages = HED.TINY_STAGES if fam in TINY_FAMILIES else HED.FULL_STAGES
     params = HED.init_hed(gen, stages=stages, device=device)
     if stages is HED.FULL_STAGES:
         ckpt = HED.find_hed_checkpoint()
@@ -328,7 +370,7 @@ def load_model_bundle(
     unet_cfg, clip_cfg, taesd_cfg = _model_configs(fam)
     if attn_impl not in ATTN_IMPLS:
         raise ValueError(f"attn_impl {attn_impl!r} not in {ATTN_IMPLS}")
-    if fam == "tiny":
+    if fam in TINY_FAMILIES:
         latent_scale = 4
     cnet_num_down = {8: 3, 4: 2, 2: 1}.get(latent_scale)
     if controlnet is not None and cnet_num_down is None:
@@ -339,7 +381,7 @@ def load_model_bundle(
     if params is None:
         params = init_params(fam, seed, device)
         if snap:
-            loaded = _try_load_weights(params, snap, unet_cfg, clip_cfg, taesd_cfg)
+            loaded = _try_load_weights(params, snap, fam, unet_cfg, clip_cfg, taesd_cfg)
         if not loaded and fam != "tiny":
             logger.warning("no local weights for %s — serving RANDOM weights", model_id)
     if controlnet is not None:
@@ -353,7 +395,7 @@ def load_model_bundle(
         params = dict(params)
         params["unet"] = fuse_loras(params["unet"], unet_cfg, lora_dict)
     tok = TK.find_clip_tokenizer(snap or "", max_length=clip_cfg.max_length)
-    if fam == "tiny":
+    if fam in TINY_FAMILIES:
         tok = TK.HashTokenizer(vocab_size=clip_cfg.vocab_size, max_length=clip_cfg.max_length)
     elif loaded and isinstance(tok, TK.HashTokenizer):
         # hash ids would index random rows of a real embedding table: every
@@ -364,21 +406,23 @@ def load_model_bundle(
             "real weights with the hermetic HashTokenizer (prompts would be garbage); "
             "re-download the snapshot with its tokenizer files")
 
-    def unet_apply(p, x, t, ctx, down_residuals=None, mid_residual=None):
+    def unet_apply(p, x, t, ctx, down_residuals=None, mid_residual=None, added=None):
         return U.apply_unet(p["unet"], x, t, ctx, unet_cfg, attn_impl=attn_impl,
-                            down_residuals=down_residuals, mid_residual=mid_residual)
+                            down_residuals=down_residuals, mid_residual=mid_residual,
+                            added_cond=added)
 
-    def controlnet_apply(p, x, t, ctx, cond_img, scale):
+    def controlnet_apply(p, x, t, ctx, cond_img, scale, added=None):
         return CN.apply_controlnet(p["controlnet"], x, t, ctx, cond_img, unet_cfg,
-                                   conditioning_scale=scale, attn_impl=attn_impl)
+                                   conditioning_scale=scale, attn_impl=attn_impl,
+                                   added_cond=added)
 
-    def unet_capture(p, x, t, ctx):
+    def unet_capture(p, x, t, ctx, added=None):
         return U.apply_unet(p["unet"], x, t, ctx, unet_cfg, attn_impl=attn_impl,
-                            deep_cache="capture")
+                            deep_cache="capture", added_cond=added)
 
-    def unet_cached(p, x, t, ctx, deep_h):
+    def unet_cached(p, x, t, ctx, deep_h, added=None):
         return U.apply_unet(p["unet"], x, t, ctx, unet_cfg, attn_impl=attn_impl,
-                            deep_cache="use", cached_h=deep_h)
+                            deep_cache="use", cached_h=deep_h, added_cond=added)
 
     def vae_encode(p, img):
         return T.encode(p["taesd"]["encoder"], img, taesd_cfg)
@@ -386,15 +430,21 @@ def load_model_bundle(
     def vae_decode(p, z):
         return T.decode(p["taesd"]["decoder"], z, taesd_cfg)
 
-    # the text tower runs once per prompt on the params as built (f32),
+    # the text towers run once per prompt on the params as built (f32),
     # like the JAX bundle's closure; the engine casts the embeddings
     clip_params = params["clip"]
+    clip2_cfg = clip2_config(fam)
+    clip2_params = params["clip2"] if clip2_cfg is not None else None
 
     @torch.inference_mode()
     def encode_prompt(prompt: str):
         ids = torch.tensor([tok(prompt), tok("")], dtype=torch.int64, device=device)
         hidden = C.apply_clip_text(clip_params, ids, clip_cfg)["hidden"]
-        return hidden[:1], hidden[1:]
+        if clip2_params is None:
+            return hidden[:1], hidden[1:]
+        g = C.apply_clip_text(clip2_params, ids, clip2_cfg)
+        hidden = torch.cat([hidden, g["hidden"]], dim=-1)
+        return hidden[:1], hidden[1:], {"pooled": g["projected"][:1]}
 
     return ModelBundle(
         params=params,

@@ -1,9 +1,10 @@
-"""Conditional diffusion UNet (SD1.5 / SD2.1 / SD-Turbo geometry).
+"""Conditional diffusion UNet (SD1.5 / SD2.1 / SD-Turbo / SDXL geometry).
 
 Counterpart of ai_rtc_agent_tpu/models/unet.py: the same config, param
 tree and forward, NHWC, with the DeepCache pair (``deep_cache="capture"``
-/ ``"use"``) and the ControlNet residuals (models/controlnet.py).  The
-SDXL addition embedding is a later slice.
+/ ``"use"``), the ControlNet residuals (models/controlnet.py) and SDXL's
+``text_time`` addition embedding (``added_cond``: the pooled text embeds
+and the six micro-conditioning time ids, added to the timestep embedding).
 """
 
 from __future__ import annotations
@@ -41,6 +42,11 @@ class UNetConfig:
     transformer_layers_per_block: tuple = (1, 1, 1, 1)
     use_linear_projection: bool = False
     norm_groups: int = 32
+    # SDXL's addition embedding ("text_time"): pooled text + time ids
+    addition_embed_type: str | None = None
+    addition_time_embed_dim: int = 0
+    addition_pooled_dim: int = 0
+    addition_num_time_ids: int = 6
 
     @property
     def temb_dim(self) -> int:
@@ -60,6 +66,22 @@ class UNetConfig:
         )
 
     @staticmethod
+    def sdxl() -> "UNetConfig":
+        """SDXL geometry — also SDXL-Turbo: three tiers, no attention at the
+        first, transformer depths 1/2/10 (the mid block's is the last)."""
+        return UNetConfig(
+            block_out_channels=(320, 640, 1280),
+            cross_attention_dim=2048,
+            num_heads_per_block=(5, 10, 20),
+            attn_blocks=(False, True, True),
+            transformer_layers_per_block=(1, 2, 10),
+            use_linear_projection=True,
+            addition_embed_type="text_time",
+            addition_time_embed_dim=256,
+            addition_pooled_dim=1280,
+        )
+
+    @staticmethod
     def tiny(cross_dim: int = 32) -> "UNetConfig":
         return UNetConfig(
             block_out_channels=(8, 16),
@@ -69,6 +91,23 @@ class UNetConfig:
             attn_blocks=(True, False),
             transformer_layers_per_block=(1, 1),
             norm_groups=4,
+        )
+
+    @staticmethod
+    def tiny_xl(cross_dim: int = 32) -> "UNetConfig":
+        """Miniature with SDXL's topology and addition embedding."""
+        return UNetConfig(
+            block_out_channels=(8, 16),
+            layers_per_block=1,
+            cross_attention_dim=cross_dim,
+            num_heads_per_block=(2, 2),
+            attn_blocks=(False, True),
+            transformer_layers_per_block=(1, 2),
+            use_linear_projection=True,
+            norm_groups=4,
+            addition_embed_type="text_time",
+            addition_time_embed_dim=8,
+            addition_pooled_dim=16,
         )
 
 
@@ -128,6 +167,12 @@ def init_unet(gen, cfg: UNetConfig, device="cpu"):
         "conv_norm_out": init_norm(ch0, device),
         "conv_out": init_conv(gen, ch0, cfg.out_channels, 3, scale=0.2, device=device),
     }
+    if cfg.addition_embed_type == "text_time":
+        in_dim = cfg.addition_time_embed_dim * cfg.addition_num_time_ids + cfg.addition_pooled_dim
+        p["add_embedding"] = {
+            "linear_1": init_linear(gen, in_dim, cfg.temb_dim, device=device),
+            "linear_2": init_linear(gen, cfg.temb_dim, cfg.temb_dim, device=device),
+        }
     out_ch = ch0
     skip_chs = [ch0]
     for i, ch in enumerate(cfg.block_out_channels):
@@ -223,10 +268,24 @@ def upsample2x(x):
     return x[:, :, None, :, None, :].expand(n, h, 2, w, 2, c).reshape(n, h * 2, w * 2, c)
 
 
-def time_cond_embedding(p, cfg: UNetConfig, timesteps, dtype=torch.float32):
+def time_cond_embedding(p, cfg: UNetConfig, timesteps, added_cond=None, dtype=torch.float32):
+    """The timestep embedding [B, temb_dim], plus SDXL's ``text_time``
+    addition: ``added_cond`` {"time_ids": [B, 6], "text_embeds": [B, pooled]}
+    (a ``text_time`` config without it raises ValueError)."""
     temb = timestep_embedding(timesteps, cfg.block_out_channels[0], dtype=dtype)
     te = p["time_embedding"]
-    return linear(te["linear_2"], silu(linear(te["linear_1"], temb)))
+    temb = linear(te["linear_2"], silu(linear(te["linear_1"], temb)))
+    if cfg.addition_embed_type == "text_time":
+        if added_cond is None:
+            raise ValueError("SDXL-style config requires added_cond")
+        time_ids = added_cond["time_ids"]
+        b = time_ids.shape[0]
+        tid = timestep_embedding(time_ids.reshape(-1), cfg.addition_time_embed_dim,
+                                 dtype=dtype).reshape(b, -1)
+        add = torch.cat([added_cond["text_embeds"].to(dtype), tid], dim=-1)
+        ae = p["add_embedding"]
+        temb = temb + linear(ae["linear_2"], silu(linear(ae["linear_1"], add)))
+    return temb
 
 
 def deep_cache_shape(cfg: UNetConfig, x_shape) -> tuple:
@@ -238,8 +297,10 @@ def deep_cache_shape(cfg: UNetConfig, x_shape) -> tuple:
 
 
 def apply_unet(p, x, timesteps, context, cfg: UNetConfig, attn_impl: str = "kernel",
-               deep_cache: str = "off", cached_h=None, down_residuals=None, mid_residual=None):
-    """x [B,h,w,Cin], timesteps [B], context [B,L,cross_dim] -> [B,h,w,Cout].
+               deep_cache: str = "off", cached_h=None, down_residuals=None, mid_residual=None,
+               added_cond=None):
+    """x [B,h,w,Cin], timesteps [B], context [B,L,cross_dim] -> [B,h,w,Cout];
+    ``added_cond``: SDXL's addition conditioning (:func:`time_cond_embedding`).
 
     ``deep_cache`` (DeepCache, the JAX static-cadence variant: two fixed
     graphs, no data-dependent control flow):
@@ -255,7 +316,7 @@ def apply_unet(p, x, timesteps, context, cfg: UNetConfig, attn_impl: str = "kern
     as in the JAX forward; "use" refuses them (they feed the skipped deep
     blocks)."""
     nb = len(cfg.block_out_channels)
-    temb = time_cond_embedding(p, cfg, timesteps, dtype=x.dtype)
+    temb = time_cond_embedding(p, cfg, timesteps, added_cond, dtype=x.dtype)
     context = context.to(x.dtype)
     if deep_cache == "use" and (down_residuals is not None or mid_residual is not None):
         raise ValueError("deep_cache='use' is incompatible with ControlNet residuals "

@@ -37,6 +37,7 @@ from __future__ import annotations
 import json
 import os
 import threading
+import time
 
 from .trace import STAGES
 
@@ -267,8 +268,28 @@ _SEQ = 0
 last_trace_path: str | None = None  # the Chrome trace the last window wrote
 
 
+# the card idle this long after the window opens and before it closes: a
+# device trace keeps only the records stamped inside the window the profiler
+# opened on the host clock, so work sent at once loses its first kernels
+# without it (scripts/torch_trace_window.py shows it on the card)
+SETTLE_S = 0.5
+
+
+def _settle_device():
+    """At an edge of a window: wait for the card's queued work, then leave it
+    idle for SETTLE_S (nothing to wait for where CUDA was never used)."""
+    import torch
+
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+        time.sleep(SETTLE_S)
+
+
 class _ProfilerBridge:
-    """One profiler window on a thread of its own."""
+    """One profiler window on a thread of its own, which also waits out the
+    device settle at both edges (so neither the caller nor a serving thread
+    does): :meth:`start` returns once the window is open and settled, and
+    :meth:`stop` once the work sent before it is in the trace."""
 
     def __init__(self, log_dir: str, seq: int):
         self.path = os.path.join(log_dir, f"torch-trace-{os.getpid()}-{seq}.json")
@@ -289,6 +310,7 @@ class _ProfilerBridge:
             os.makedirs(os.path.dirname(self.path), exist_ok=True)
             prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
             prof.start()
+            _settle_device()
         except Exception as e:
             self.error = f"torch profiler start failed: {e}"
             self._started.set()
@@ -296,6 +318,7 @@ class _ProfilerBridge:
         self._started.set()
         self._stop.wait()
         try:
+            _settle_device()
             prof.stop()
             prof.export_chrome_trace(self.path)
         except Exception as e:
@@ -309,8 +332,10 @@ class _ProfilerBridge:
 
 def start_profiler_bridge(log_dir: str) -> str | None:
     """Open a torch.profiler window whose Chrome trace lands in ``log_dir``
-    at :func:`stop_profiler_bridge`.  -> None on success, else the reason
-    (a window already open, the profiler's own error); never raises."""
+    at :func:`stop_profiler_bridge`, the card settled at both edges
+    (SETTLE_S on the bridge's thread, after a device sync).  -> None on
+    success, else the reason (a window already open, the profiler's own
+    error); never raises."""
     global _BRIDGE, _SEQ
     with _BRIDGE_LOCK:
         if _BRIDGE is not None:

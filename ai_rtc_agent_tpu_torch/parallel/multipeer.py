@@ -314,9 +314,14 @@ class MultiPeerEngine:
         with self._heavy_lock:
             return self._template._encode(prompt)
 
-    def apply_prompt(self, slot: int, cond, uncond):
+    def apply_prompt(self, slot: int, cond, uncond, extras=None):
+        """The cheap half: the pre-encoded embeddings into the slot's rows, in
+        place.  SDXL's pooled embeds swap with them (the JAX package's
+        round-1 defect kept the old prompt's)."""
         self.states["cond"][slot].copy_(cond)
         self.states["uncond"][slot].copy_(uncond)
+        if self.cfg.use_added_cond and extras and "pooled" in extras:
+            self.states["added_text"][slot].copy_(extras["pooled"])
         self._tick = 0  # DeepCache: no stale deep features under a new prompt
 
     def update_prompt(self, slot: int, prompt: str):

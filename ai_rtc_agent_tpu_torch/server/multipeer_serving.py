@@ -16,9 +16,11 @@ peer's prompt or t-indices.
   pays a capture or a new thread's first step.
 * Each tick takes at most one queued frame per slot; an active slot with no
   new frame steps its last frame again and its output is dropped.  Each
-  peer's frames wait in a bounded ``DeadlineQueue`` (the scheduler's): a
-  peer that outpaces the step sheds its oldest queued frame, delivered as a
-  ``ShedFrame`` (passthrough) so its recv never hangs.
+  peer's frames wait in a bounded ``DeadlineQueue`` (the scheduler's) of
+  OVERLOAD_PEER_QUEUE_BOUND frames (default 2, at least 1, as the JAX
+  coordinator reads it): a peer that outpaces the step sheds its oldest
+  queued frame, delivered as a ``ShedFrame`` (passthrough) so its recv
+  never hangs, and counted in ``frames_shed``.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ from ..models import registry
 from ..parallel.multipeer import CapacityError, MultiPeerEngine
 from ..resilience.overload import DeadlineQueue, ShedFrame, shed_to_passthrough
 from ..stream.pipeline import DEFAULT_PROMPT, coerce_frame, finish_output, maybe_load_safety_checker
+from ..utils import env
 
 logger = logging.getLogger(__name__)
 
@@ -63,8 +66,8 @@ class PeerPipeline:
         return self.fetch(self.submit(frame), frame)
 
     def update_prompt(self, prompt: str):
-        cond, uncond = self._owner.engine.encode(prompt)  # outside the coordinator lock
-        self._owner._control(lambda e: e.apply_prompt(self.slot, cond, uncond))
+        encoded = self._owner.engine.encode(prompt)  # outside the coordinator lock
+        self._owner._control(lambda e: e.apply_prompt(self.slot, *encoded))
 
     def update_t_index_list(self, t_index_list):
         self._owner._control(lambda e: e.update_t_index(self.slot, t_index_list))
@@ -87,7 +90,8 @@ class MultiPeerPipeline:
 
     # steps in flight: step N's readback overlaps step N+1's launch
     PIPELINE_DEPTH = 2
-    # frames queued per peer: one a step, one waiting for the next
+    # frames queued per peer unless OVERLOAD_PEER_QUEUE_BOUND says otherwise:
+    # one a step, one waiting for the next
     QUEUE_BOUND = 2
 
     def __init__(self, model_id: str = "stabilityai/sd-turbo", max_peers: int = 4, config=None,
@@ -113,7 +117,8 @@ class MultiPeerPipeline:
         self._has_work = threading.Condition(self._lock)
         # bounded per-slot queues of (frame, Future): a peer that outpaces the
         # step sheds its oldest frame as passthrough instead of building latency
-        self._queues = [DeadlineQueue(self.QUEUE_BOUND, on_evict=self._evict)
+        self.queue_bound = max(1, env.get_int("OVERLOAD_PEER_QUEUE_BOUND", self.QUEUE_BOUND))
+        self._queues = [DeadlineQueue(self.queue_bound, on_evict=self._evict)
                         for _ in range(max_peers)]
         self._last_frame = [np.zeros((cfg.height, cfg.width, 3), np.uint8) for _ in range(max_peers)]
         self._stop = False
@@ -156,6 +161,12 @@ class MultiPeerPipeline:
             got[0][1].cancel()
 
     @property
+    def frames_shed(self) -> int:
+        """Frames every peer's queue has shed at its bound (/metrics'
+        ``overload_peer_frames_shed``)."""
+        return sum(q.shed_overflow for q in self._queues)
+
+    @property
     def free_slots(self) -> int:
         with self._lock:
             return self.engine.free_slots
@@ -163,11 +174,11 @@ class MultiPeerPipeline:
     # -- global control plane (POST /config: every active slot) ---------------------
 
     def update_prompt(self, prompt: str):
-        cond, uncond = self.engine.encode(prompt)
+        encoded = self.engine.encode(prompt)
         with self._lock:
             for s, active in enumerate(self.engine.active):
                 if active:
-                    self.engine.apply_prompt(s, cond, uncond)
+                    self.engine.apply_prompt(s, *encoded)
 
     def update_t_index_list(self, t_index_list):
         with self._lock:

@@ -45,11 +45,16 @@ Modes, as in the JAX engine:
   which the JAX package refuses as well);
 * per-session style adapters (the session step): the stacked state's
   ``adapters`` factor bank (adapters/) is grafted beside the UNet's target
-  linears, each row its own session's factors.
+  linears, each row its own session's factors;
+* SDXL's addition conditioning (``use_added_cond``): the prompt's pooled
+  embeds ``state["added_text"]`` [1,P] and the micro-conditioning
+  ``state["added_time_ids"]`` [1,6] (f32, ``[h, w, 0, 0, h, w]``) ride the
+  state beside cond/uncond, are broadcast to every UNet row (the
+  ControlNet's and the ``initialize`` pass's too) and are written in place
+  by a prompt swap.
 The post-UNet chain runs as the fused epilogue kernel where the JAX
 ``fused_ok`` holds (``use_fused_epilogue``, denoising batch, epsilon
 prediction, cfg none/self/initialize), otherwise as the composed ops.
-SDXL conditioning raises.
 """
 
 from __future__ import annotations
@@ -147,7 +152,11 @@ class StreamModels:
 
     ControlNet (None: the bundle has none): controlnet(params, x, t,
     context, cond_img, scale) -> (down residuals, mid residual), which
-    ``unet(..., down_residuals=, mid_residual=)`` takes."""
+    ``unet(..., down_residuals=, mid_residual=)`` takes.
+
+    SDXL's addition conditioning reaches every one of these as the keyword
+    ``added`` ({"time_ids": [n,6], "text_embeds": [n,P]}), passed only when
+    the config has ``use_added_cond``."""
 
     unet: Callable
     vae_encode: Callable
@@ -187,9 +196,6 @@ def _check_supported(cfg: StreamConfig, models: StreamModels, unet_variant: str 
                 "relies on is lost)")
     if cfg.cfg_type not in R.CFG_TYPES:
         raise ValueError(f"unknown cfg_type {cfg.cfg_type!r}")
-    if cfg.use_added_cond:
-        raise NotImplementedError(
-            "not ported yet (a later slice of the port): SDXL added conditioning")
 
 
 def check_params(cfg: StreamConfig, params):
@@ -260,21 +266,23 @@ def fused_ok(cfg: StreamConfig) -> bool:
 
 
 def unet_runner(models: StreamModels, unet_variant: str = "full") -> Callable:
-    """``run(params, x, t, ctx, cache, cnet=None) -> (model_out, deep_h or
-    None)`` for one step variant (the JAX step's ``run_unet``): "full" the
-    plain UNet, "capture" the full UNet that also returns the deep feature,
-    "cached" the outermost tier around ``cache``.  ``cnet`` (cond images,
-    scale), the full variant only: the ControlNet's residuals feed the
-    UNet."""
-    def run(params, x, t, ctx, cache, cnet=None):
+    """``run(params, x, t, ctx, cache, cnet=None, added=None) -> (model_out,
+    deep_h or None)`` for one step variant (the JAX step's ``run_unet``):
+    "full" the plain UNet, "capture" the full UNet that also returns the
+    deep feature, "cached" the outermost tier around ``cache``.  ``cnet``
+    (cond images, scale), the full variant only: the ControlNet's residuals
+    feed the UNet.  ``added``: SDXL's addition conditioning of the rows."""
+    def run(params, x, t, ctx, cache, cnet=None, added=None):
+        a = {} if added is None else {"added": added}
         if cnet is not None:
-            down, mid = models.controlnet(params, x, t, ctx, *cnet)
-            return models.unet(params, x, t, ctx, down_residuals=down, mid_residual=mid), None
+            down, mid = models.controlnet(params, x, t, ctx, *cnet, **a)
+            return models.unet(params, x, t, ctx, down_residuals=down, mid_residual=mid,
+                               **a), None
         if unet_variant == "capture":
-            return models.unet_capture(params, x, t, ctx)
+            return models.unet_capture(params, x, t, ctx, **a)
         if unet_variant == "cached":
-            return models.unet_cached(params, x, t, ctx, cache), None
-        return models.unet(params, x, t, ctx), None
+            return models.unet_cached(params, x, t, ctx, cache, **a), None
+        return models.unet(params, x, t, ctx, **a), None
 
     return run
 
@@ -290,37 +298,41 @@ def styled_runner(run: Callable, bank, slots, n: int) -> Callable:
     encoder keep their own, as in the JAX step."""
     rows_of: dict = {}
 
-    def run_styled(params, x, t, ctx, cache, cnet=None):
+    def run_styled(params, x, t, ctx, cache, cnet=None, added=None):
         m = x.shape[0]
         rows = rows_of.get(m)
         if rows is None:
             index = slots.repeat_interleave(n).repeat(m // (slots.shape[0] * n))
             rows = rows_of[m] = gather_factor_rows(bank, index)
         return run(dict(params, unet=graft_unet_params(params["unet"], rows)), x, t, ctx, cache,
-                   cnet)
+                   cnet, added)
 
     return run_styled
 
 
 def _guided(run: Callable, cfg: StreamConfig, params, x, t, cond, uncond, stock,
-            coeffs: L.StepCoeffs, guidance, delta, cache=None, cnet=None):
+            coeffs: L.StepCoeffs, guidance, delta, cache=None, cnet=None, added=None):
     """One guided UNet pass over ``x`` [n,h,w,c] with the per-row ``t``,
     ``cond`` and ``uncond`` [n,L,D]: -> (eps, new stock or None when the
     stock stays, the deep feature of a capture or None).  ``run``:
     :func:`unet_runner`; ``cache``: a cached step's deep feature, the pass's
     rows; ``cnet``: (cond images [n,H,W,3], ControlNet scale: a scalar or a
     per-row column) or None.  ``guidance``/``delta``: a scalar or a per-row
-    column.  Full CFG runs the 2n rows uncond first and combines them (the
-    JAX ``unet_with_guidance``), the cond images and scales doubled alike."""
+    column.  ``added``: SDXL's addition conditioning of the n rows, or None.
+    Full CFG runs the 2n rows uncond first and combines them (the JAX
+    ``unet_with_guidance``), the cond images, scales and addition
+    conditioning doubled alike."""
     if cfg.cfg_type == "full":
         if cnet is not None:
             img, scale = cnet
             cnet = (torch.cat([img, img]), torch.cat([scale, scale]) if scale.ndim else scale)
+        if added is not None:
+            added = {name: torch.cat([v, v]) for name, v in added.items()}
         out, deep = run(params, torch.cat([x, x]), torch.cat([t, t]), torch.cat([uncond, cond]),
-                        cache, cnet)
+                        cache, cnet, added)
         eps_u, eps_c = out.chunk(2)
         return R.combine_full(eps_u, eps_c, guidance), None, deep
-    eps_c, deep = run(params, x, t, cond, cache, cnet)
+    eps_c, deep = run(params, x, t, cond, cache, cnet, added)
     if cfg.cfg_type == "none":
         return eps_c, None, deep
     eps = R.combine_residual(eps_c, stock, guidance, delta)
@@ -333,6 +345,16 @@ def deep_cache_rows(cfg: StreamConfig) -> int:
     """The UNet rows of one session's step (its deep feature's rows): the
     stream batch, twice over with full CFG."""
     return cfg.batch_size * (2 if cfg.cfg_type == "full" else 1)
+
+
+def added_cond(cfg: StreamConfig, time_ids, text_embeds, n: int):
+    """SDXL's addition conditioning on n UNet rows (the JAX step's
+    ``added``), from the state's [1,6] time ids and [1,P] pooled embeds;
+    None without ``use_added_cond``.  The time ids stay f32."""
+    if not cfg.use_added_cond:
+        return None
+    return {"time_ids": time_ids.expand(n, *time_ids.shape[1:]),
+            "text_embeds": text_embeds.to(cfg.torch_dtype).expand(n, *text_embeds.shape[1:])}
 
 
 def _denoise(cfg: StreamConfig, x, eps, coeffs: L.StepCoeffs):
@@ -386,6 +408,8 @@ def make_step_fn(models: StreamModels, cfg: StreamConfig, unet_variant: str = "f
             x_new = noise[:fbs].to(dt)
         stock = state["stock"].to(dt)
         rows = lambda a, n: a.to(dt).expand(n, *a.shape[1:])  # noqa: E731  [1,L,D] -> [n,L,D]
+        added = lambda n: added_cond(  # noqa: E731
+            cfg, state.get("added_time_ids"), state.get("added_text"), n)
 
         if not cfg.use_denoising_batch:
             # sequential: every stage of the new frames now, fbs rows a pass
@@ -396,7 +420,8 @@ def make_step_fn(models: StreamModels, cfg: StreamConfig, unet_variant: str = "f
                 eps, st, _ = _guided(run, cfg, params, x, sub.timesteps, rows(state["cond"], fbs),
                                      rows(state["uncond"], fbs), stock[sl], sub, state["guidance"],
                                      state["delta"],
-                                     cnet=None if cnet is None else (cnet[0][:fbs], cnet[1]))
+                                     cnet=None if cnet is None else (cnet[0][:fbs], cnet[1]),
+                                     added=added(fbs))
                 stocks.append(st)
                 x = L.renoise_next(_denoise(cfg, x, eps, sub), noise[sl].to(dt), sub)
             if stocks[0] is not None:
@@ -405,7 +430,7 @@ def make_step_fn(models: StreamModels, cfg: StreamConfig, unet_variant: str = "f
         elif fused:
             x_t = torch.cat([x_new, state["x_buf"].to(dt)]) if B > fbs else x_new
             eps_c, deep = run(params, x_t, coeffs.timesteps, rows(state["cond"], B),
-                              state.get("unet_cache"), cnet)
+                              state.get("unet_cache"), cnet, added(B))
             # the whole post-UNet chain in one launch: entry b renoises with
             # slot b+fbs's noise (exit entries with 0), the advanced entries
             # land in the ring buffer and the new stock in the stock, in place
@@ -420,7 +445,7 @@ def make_step_fn(models: StreamModels, cfg: StreamConfig, unet_variant: str = "f
             eps, new_stock, deep = _guided(run, cfg, params, x_t, coeffs.timesteps,
                                            rows(state["cond"], B), rows(state["uncond"], B), stock,
                                            coeffs, state["guidance"], state["delta"],
-                                           state.get("unet_cache"), cnet)
+                                           state.get("unet_cache"), cnet, added(B))
             denoised = _denoise(cfg, x_t, eps, coeffs)
             if B > fbs:
                 state["x_buf"].copy_(L.renoise_next(
@@ -514,6 +539,13 @@ def make_session_step_fn(models: StreamModels, cfg: StreamConfig, unet_variant: 
         def col(v, n):  # each session's scalar on its n rows
             return take(v).repeat_interleave(n).reshape(-1, 1, 1, 1)
 
+        def added(n):  # SDXL: each session's pooled embeds and time ids on its n rows
+            if not cfg.use_added_cond:
+                return None
+            tid, txt = take(states["added_time_ids"]), take(states["added_text"])  # [k,1,...]
+            return added_cond(cfg, rows(tid.expand(k, n, *tid.shape[2:])),
+                              rows(txt.expand(k, n, *txt.shape[2:])), k * n)
+
         def co_of(sl):  # the rows' coefficients, stage slice ``sl`` of each session
             return _coeffs({name: take(v)[:, sl].reshape(-1) for name, v in c.items()})
 
@@ -567,7 +599,8 @@ def make_session_step_fn(models: StreamModels, cfg: StreamConfig, unet_variant: 
                 eps, st, _ = _guided(
                     run_, cfg, params, x, sub.timesteps, ctx("cond", fbs), ctx("uncond", fbs),
                     rows(take(states["stock"][:, sl])).to(dt), sub,
-                    col(states["guidance"], fbs), col(states["delta"], fbs), cnet=cnet_of(fbs))
+                    col(states["guidance"], fbs), col(states["delta"], fbs), cnet=cnet_of(fbs),
+                    added=added(fbs))
                 stocks.append(st)
                 x = L.renoise_next(_denoise(cfg, x, eps, sub),
                                    rows(take(states["noise"][:, sl])).to(dt), sub)
@@ -580,7 +613,7 @@ def make_session_step_fn(models: StreamModels, cfg: StreamConfig, unet_variant: 
                 if B > fbs else rows(x_new)
             if fused:
                 eps_c, deep = run_(params, x_t, take(c["timesteps"]).reshape(-1), ctx("cond", B),
-                                  cache_in(), cnet_of(B))
+                                  cache_in(), cnet_of(B), added(B))
                 denoised = fused_stream_epilogue(
                     x_t, eps_c, states["stock"], states["noise"], _coeffs(c), states["guidance"],
                     states["delta"], cfg_type=cfg.cfg_type, turbo=cfg.scheduler == "turbo",
@@ -592,7 +625,7 @@ def make_session_step_fn(models: StreamModels, cfg: StreamConfig, unet_variant: 
                 eps, new_stock, deep = _guided(
                     run_, cfg, params, x_t, co.timesteps, ctx("cond", B), ctx("uncond", B),
                     rows(take(states["stock"])).to(dt), co, col(states["guidance"], B),
-                    col(states["delta"], B), cache_in(), cnet_of(B))
+                    col(states["delta"], B), cache_in(), cnet_of(B), added(B))
                 if new_stock is not None:
                     write_segments(states["stock"], new_stock.view(k, B, *x_t.shape[1:]), slots,
                                    k_real)
@@ -758,7 +791,8 @@ class _Readback:
 
 class StreamEngine:
     """Host-side loop around the step (prompt cache, state, similarity
-    filter).  ``encode_prompt``: str -> (cond, uncond) [1,L,D] tensors.
+    filter).  ``encode_prompt``: str -> (cond, uncond) [1,L,D] tensors, or
+    (cond, uncond, {"pooled": [1,P]}) for SDXL's addition conditioning.
 
     Runs on ``device`` ("cuda" unless the caller asks for another; raises
     without a card).  Frames stage host->device from pinned memory without
@@ -846,7 +880,7 @@ class StreamEngine:
         noise = torch.randn(
             (B, h, w, cfg.latent_channels), generator=gen, device=self.device
         ).to(dt)
-        cond, uncond = self._encode(prompt)
+        cond, uncond, extras = self._encode(prompt)
         state = {
             "x_buf": noise[fbs:].clone(),
             "noise": noise,
@@ -857,6 +891,11 @@ class StreamEngine:
             "delta": self._scalar(delta),
             "coeffs": coeff_state(cfg, self.schedule, self._t_index_list, self.device),
         }
+        if cfg.use_added_cond:
+            state["added_text"] = extras["pooled"]
+            state["added_time_ids"] = extras.get("time_ids", torch.tensor(
+                [[cfg.height, cfg.width, 0, 0, cfg.height, cfg.width]], dtype=torch.float32,
+                device=self.device))
         if cfg.use_controlnet:
             # the conditioning ring, aligned with x_buf, and its scale
             state["cnet_cond"] = torch.zeros((B - fbs, cfg.height, cfg.width, 3), dtype=dt,
@@ -866,8 +905,10 @@ class StreamEngine:
             # Onetime-Negative: seed the stock noise with one real uncond pass
             with torch.inference_mode():
                 unc = uncond.expand(B, *uncond.shape[1:])
+                added = added_cond(cfg, state.get("added_time_ids"), state.get("added_text"), B)
                 state["stock"] = self.models.unet(
-                    self.params, noise, state["coeffs"]["timesteps"], unc
+                    self.params, noise, state["coeffs"]["timesteps"], unc,
+                    **({} if added is None else {"added": added})
                 ).to(dt)
         if self._cache_interval:
             # the DeepCache slot, pre-sized (zeros) so that every step sees
@@ -894,11 +935,19 @@ class StreamEngine:
         return torch.tensor(float(v), dtype=torch.float32, device=self.device)
 
     def _encode(self, prompt: str):
-        cond, uncond = self.encode_prompt(prompt)[:2]
+        """-> (cond, uncond, extras) on the device: ``encode_prompt`` may
+        return a 2-tuple or, with SDXL's extras, a 3-tuple, as the JAX
+        engine takes it.  The embeddings and the pooled embeds in the
+        compute dtype; time ids, where given, f32."""
+        res = self.encode_prompt(prompt)
         dt = self.cfg.torch_dtype
+        extras = {name: torch.as_tensor(v, device=self.device).to(
+                      torch.float32 if name == "time_ids" else dt)
+                  for name, v in (res[2] if len(res) == 3 else {}).items()}
         return (
-            torch.as_tensor(cond, device=self.device).to(dt),
-            torch.as_tensor(uncond, device=self.device).to(dt),
+            torch.as_tensor(res[0], device=self.device).to(dt),
+            torch.as_tensor(res[1], device=self.device).to(dt),
+            extras,
         )
 
     # -- the captured step ----------------------------------------------------
@@ -1006,12 +1055,15 @@ class StreamEngine:
     # -- control plane (in place: a captured step reads these tensors) -------
 
     def update_prompt(self, prompt: str):
-        """The prompt's embeddings, in place; DeepCache: the next step
-        captures (stale deep cross-attention features never serve under a
-        new prompt)."""
-        cond, uncond = self._encode(prompt)
+        """The prompt's embeddings (SDXL: and its pooled embeds), in place;
+        DeepCache: the next step captures (stale deep cross-attention
+        features never serve under a new prompt)."""
+        cond, uncond, extras = self._encode(prompt)
+        new = {"cond": cond, "uncond": uncond}
+        if self.cfg.use_added_cond and "pooled" in extras:
+            new["added_text"] = extras["pooled"]
         with self._submit_lock:
-            install_state(self.state, {"cond": cond, "uncond": uncond})
+            install_state(self.state, new)
             self._tick = 0
 
     def update_t_index_list(self, t_index_list):

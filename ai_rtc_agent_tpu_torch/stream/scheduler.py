@@ -822,10 +822,14 @@ class BatchScheduler:
             return self._template._encode(prompt)
 
     def _apply_prompt(self, slot: int, encoded):
-        cond, uncond = encoded
+        """The slot's prompt embeddings (SDXL: and its pooled embeds),
+        ``copy_`` into the stacked state the captured graphs read."""
+        cond, uncond, extras = encoded
         with self._step_lock, devtel.expected_scope("sched-control-write"):
             self.states["cond"][slot].copy_(cond)
             self.states["uncond"][slot].copy_(uncond)
+            if self.cfg.use_added_cond and "pooled" in extras:
+                self.states["added_text"][slot].copy_(extras["pooled"])
             self._mark_uncaptured_locked(slot)
 
     def _check_t_index(self, t_index_list) -> dict:

@@ -32,6 +32,7 @@ Variables read by the port's server:
                                     *.safetensors served as factor banks (unset: off)
   ADAPTER_RANK_BUCKETS              the banks' padded ranks (4,8,16)
   MULTIPEER_BUCKETS                 --multipeer steps only the active slots (on)
+  OVERLOAD_PEER_QUEUE_BOUND         --multipeer's frames queued per peer (2; at least 1)
   SUPERVISOR                        per-session supervision (on)
   SUPERVISOR_STALL_AFTER_S          output-age watchdog (5 s)
   RESILIENCE_STEP_TIMEOUT_S         a supervised step's budget (5 s)

@@ -309,7 +309,30 @@ Phases (each prints its own lines; any failure exits non-zero):
                 printed) restored on another scheduler equals a reference
                 restored from it, bit for bit.  14e: attention at the
                 ControlNet pass's 14 launches at B = 4 and 8, as 12e.
- 15. a "kernels" JSON line (launch counts of phases 4 to 14), then the last
+ 15. adapters — per-session style adapters (ADAPTER_DIR) through the captured
+                bucket steps, run right after phase 11 on phase 4's pipeline
+                (see phase_adapters: 15a-15e).
+ 16. sdxl     — SDXL-Turbo at its full geometry, 1024^2 bf16, random weights
+                from a seed (2.57 B UNet, ViT-L and bigG towers), run after
+                phase 14 with the earlier pipelines freed, served by the
+                session layer booted as --model-id stabilityai/sdxl-turbo (a
+                2-slot scheduler).  16a: the pipeline's graph: replay = eager
+                bit for bit, 140 + 1 launches a step, one eager UNet pass's
+                140 attention launches, one step against the plain bf16 and
+                the f32 engines (phase 4's criterion), ms a frame.  16b: one
+                WHIP session, its frames = direct calls, its snapshot
+                restored on another scheduler = the reference restored from
+                it, bit for bit.  16c: k = 1 and 2 through the bucket graphs
+                (replay = eager, launches, phase 4's criterion against
+                dedicated engines, ms between bucket steps, fps, busy ms and
+                idle share from a device-only trace), and a mid-stream
+                prompt swap on one slot of k=2: its pooled embeds change in
+                place, the first replay after it = an eager step, the other
+                slot's frames unchanged bit for bit.  16e: attention at one
+                SDXL UNet pass's 140 launches (H 10/20, D 64, Lk 77 across)
+                at B = 1 and 2 against its plain version, with SDPA and the
+                bound; the epilogue on [k,128,128,4] at k = 1 and 2.
+ 17. a "kernels" JSON line (launch counts of phases 4 to 16), then the last
      line {"ok": true, "device": ...}.
 
 Imports nothing of JAX or of the JAX package.  `python3 chip_smoke.py
@@ -683,10 +706,11 @@ SESSION_EPILOGUE_FBS2 = [
 
 
 def session_epilogue_call(torch, cfg_type: str, k_real: int, slots: list, gen, device="cuda",
-                          fbs: int = 1):
+                          fbs: int = 1, latent: int = 64):
     """The bucket step's epilogue call as (args, kwargs): k = len(slots)
     sessions of B rows (4 stages, or sd-turbo's 1 with turbo, times fbs
-    frames) of [64,64,4] bf16 over a stacked state of N_SLOTS slots, each
+    frames) of [latent,latent,4] bf16 (64: 512^2 frames; SDXL's 1024^2:
+    128) over a stacked state of N_SLOTS slots, each
     slot with its own coefficients (its t-indices moved by its slot
     number), guidance and delta; renoise shift fbs within each session, the
     advanced rows into the stacked ring and the new stock into the stacked
@@ -705,9 +729,10 @@ def session_epilogue_call(torch, cfg_type: str, k_real: int, slots: list, gen, d
     c = L.StepCoeffs(*(torch.stack([t[f] for t in tables]) for f in tables[0]))
     B = c.alpha.shape[1]
     rand = lambda *shape: torch.randn(shape, generator=gen, device=device).to(torch.bfloat16)  # noqa: E731
-    x, e = rand(len(slots) * B, 64, 64, 4), rand(len(slots) * B, 64, 64, 4)
-    stock, noise = rand(N_SLOTS, B, 64, 64, 4), rand(N_SLOTS, B, 64, 64, 4)
-    ring = rand(N_SLOTS, B - fbs, 64, 64, 4)
+    lat = (latent, latent, 4)
+    x, e = rand(len(slots) * B, *lat), rand(len(slots) * B, *lat)
+    stock, noise = rand(N_SLOTS, B, *lat), rand(N_SLOTS, B, *lat)
+    ring = rand(N_SLOTS, B - fbs, *lat)
     g = 1.1 + 0.1 * torch.arange(N_SLOTS, device=device, dtype=torch.float32)
     d = 0.95 - 0.05 * torch.arange(N_SLOTS, device=device, dtype=torch.float32)
     kwargs = dict(cfg_type=cfg_type, turbo=turbo, noise_shift=fbs, advanced_out=ring,
@@ -873,6 +898,67 @@ def _frames(np, n: int, seed: int = 0, size: int = 512):
     return out
 
 
+def step_vs_f32(torch, label: str, engines: dict, base: dict, frame):
+    """Phase 4's criterion for one step from the same state ``base``: the
+    UNet's eps and the frame of the served kernels' engine ("kernel"), the
+    plain bf16 engine ("plain") and the plain f32 reference ("f32"), each
+    fed ``base`` in its dtype (SDXL's addition conditioning with it).  The
+    kernel path must be as close to the f32 reference as the plain bf16
+    path is (2x slack, plus a floor for when the plain path happens to land
+    very close).  ``frame``: uint8 [H,W,3] on the card."""
+    from ai_rtc_agent_tpu_torch.stream.engine import added_cond
+    from ai_rtc_agent_tpu_torch.tree import tree_map
+
+    kernel = engines["kernel"]
+    x_t = None
+    eps, img = {}, {}
+    for name, eng in engines.items():
+        cast = torch.float32 if name == "f32" else torch.bfloat16
+        # latents and embeddings in the engine's dtype; coefficients,
+        # guidance, delta and time ids stay f32 as prepare() makes them
+        st = tree_map(lambda a: a.clone(), base)
+        for key in ("x_buf", "noise", "stock", "cond", "uncond", "added_text"):
+            if key in st:
+                st[key] = base[key].to(cast, copy=True)
+        with torch.inference_mode():
+            if x_t is None:  # the step's UNet input, built once in f32
+                img01 = frame[None].to(kernel.cfg.torch_dtype) / 255
+                z0 = kernel.models.vae_encode(kernel.params, img01).float()
+                c = st["coeffs"]
+                x_new = c["alpha"][0] * z0 + c["sigma"][0] * base["noise"][:1].float()
+                x_t = torch.cat([x_new, base["x_buf"].float()])
+            ctx = st["cond"].expand(x_t.shape[0], *st["cond"].shape[1:])
+            added = added_cond(eng.cfg, st.get("added_time_ids"), st.get("added_text"),
+                               x_t.shape[0])
+            e = eng.models.unet(eng.params, x_t.to(cast), st["coeffs"]["timesteps"], ctx,
+                                **({} if added is None else {"added": added}))
+            eps[name] = e.float()
+            _, out = eng._step(eng.params, st, frame)
+            img[name] = out.float()
+    _sync(torch, frame.device)
+
+    def rel(a, b):
+        return ((a - b).norm() / b.norm()).item()
+
+    ek, ep = rel(eps["kernel"], eps["f32"]), rel(eps["plain"], eps["f32"])
+    fk = (img["kernel"] - img["f32"]).abs().mean().item()
+    fp = (img["plain"] - img["f32"]).abs().mean().item()
+    fkp = (img["kernel"] - img["plain"]).abs()
+    say(
+        f"{label}: one step vs f32 reference — UNet eps rel L2 err: kernel {ek:.3e}, plain "
+        f"{ep:.3e} | frame mean |diff| (levels): kernel {fk:.3f}, plain {fp:.3f}; "
+        f"kernel vs plain mean {fkp.mean().item():.3f} max {fkp.max().item():.0f}"
+    )
+    if not all(torch.isfinite(t).all() for t in (*eps.values(), *img.values())):
+        fail(f"{label}: non-finite UNet output or frame")
+    if ek > 2 * ep + 1e-3 or ek > 0.1:
+        fail(f"{label}: UNet with the attention kernel strays from the f32 reference "
+             f"({ek:.3e} vs {ep:.3e})")
+    if fk > 2 * fp + 0.5:
+        fail(f"{label}: kernel-path frame strays from the f32 reference ({fk:.3f} vs {fp:.3f} "
+             "levels)")
+
+
 def phase_main(torch, card: str):
     import numpy as np
 
@@ -958,52 +1044,8 @@ def phase_main(torch, card: str):
         "f32": StreamEngine(ref_bundle.stream_models, ref_bundle.params, ref_cfg,
                             ref_bundle.encode_prompt),
     }
-    base = tree_map(lambda a: a.clone(), pipe.engine.state)
-    frame = torch.from_numpy(frames[5]).cuda()
-    x_t = None
-    eps, img = {}, {}
-    for name, eng in engines.items():
-        cast = torch.float32 if name == "f32" else torch.bfloat16
-        # latents and embeddings in the engine's dtype; coefficients,
-        # guidance and delta stay f32 as prepare() makes them
-        st = tree_map(lambda a: a.clone(), base)
-        for key in ("x_buf", "noise", "stock", "cond", "uncond"):
-            st[key] = base[key].to(cast, copy=True)
-        with torch.inference_mode():
-            if x_t is None:  # the step's UNet input, built once in f32
-                img01 = frame[None].to(bundle.params["unet"]["conv_in"]["kernel"].dtype) / 255
-                z0 = bundle.stream_models.vae_encode(bundle.params, img01).float()
-                c = st["coeffs"]
-                x_new = c["alpha"][0] * z0 + c["sigma"][0] * base["noise"][:1].float()
-                x_t = torch.cat([x_new, base["x_buf"].float()])
-            ctx = st["cond"].expand(x_t.shape[0], *st["cond"].shape[1:])
-            e = eng.models.unet(eng.params, x_t.to(cast), st["coeffs"]["timesteps"], ctx)
-            eps[name] = e.float()
-            _, out = eng._step(eng.params, st, frame)
-            img[name] = out.float()
-    torch.cuda.synchronize()
-
-    def rel(a, b):
-        return ((a - b).norm() / b.norm()).item()
-
-    ek, ep = rel(eps["kernel"], eps["f32"]), rel(eps["plain"], eps["f32"])
-    fk = (img["kernel"] - img["f32"]).abs().mean().item()
-    fp = (img["plain"] - img["f32"]).abs().mean().item()
-    fkp = (img["kernel"] - img["plain"]).abs()
-    say(
-        f"main: one step vs f32 reference — UNet eps rel L2 err: kernel {ek:.3e}, plain "
-        f"{ep:.3e} | frame mean |diff| (levels): kernel {fk:.3f}, plain {fp:.3f}; "
-        f"kernel vs plain mean {fkp.mean().item():.3f} max {fkp.max().item():.0f}"
-    )
-    # bf16 rounds differently in the two paths; the kernel path must be as
-    # close to the f32 reference as the plain bf16 path is (2x slack, plus a
-    # floor for when the plain path happens to land very close)
-    if not all(torch.isfinite(t).all() for t in (*eps.values(), *img.values())):
-        fail("non-finite UNet output or frame")
-    if ek > 2 * ep + 1e-3 or ek > 0.1:
-        fail(f"UNet with the attention kernel strays from the f32 reference ({ek:.3e} vs {ep:.3e})")
-    if fk > 2 * fp + 0.5:
-        fail(f"kernel-path frame strays from the f32 reference ({fk:.3f} vs {fp:.3f} levels)")
+    step_vs_f32(torch, "main", engines, tree_map(lambda a: a.clone(), pipe.engine.state),
+                torch.from_numpy(frames[5]).cuda())
     return pipe, ref_bundle, attn_launches, epi_launches
 
 
@@ -1356,7 +1398,7 @@ def session_row(states, slot, dtype=None) -> dict:
 
     row = tree_map(lambda a: (a if slot is None else a[slot]).clone(), states)
     if dtype is not None:
-        for key in ("x_buf", "noise", "stock", "cond", "uncond", "cnet_cond"):
+        for key in ("x_buf", "noise", "stock", "cond", "uncond", "cnet_cond", "added_text"):
             if key in row:
                 row[key] = row[key].to(dtype)
     return row
@@ -4549,15 +4591,16 @@ def _count(label: str, before: tuple, steps: int, per_step: tuple) -> tuple:
 
 
 def sd15_run(torch, np, label: str, card: str, sched, sess, frames, make_ded, per_step: tuple,
-             what: str) -> tuple:
+             what: str, n: int = SD15_FRAMES, fill: int = SD15_FILL, parity: int = SD15_PARITY,
+             trace_frames: int = SD15_TRACE_FRAMES) -> tuple:
     """One run of ``sess`` through ``sched``'s captured bucket steps: a replay
-    against the eager step, then SD15_FRAMES frames a session with the
-    launches counted (``per_step`` (attention, epilogue) a bucket step),
-    each session's first SD15_PARITY outputs held to phase 4's criterion
-    against ``make_ded(row)``, the steady window past each session's first
-    SD15_FILL outputs on the host clock, and a device-only trace of
-    SD15_TRACE_FRAMES frames a session whose kernels must be ``per_step``
-    a bucket step too.  -> the launches counted."""
+    against the eager step, then ``n`` frames a session with the launches
+    counted (``per_step`` (attention, epilogue) a bucket step), each
+    session's first ``parity`` outputs held to phase 4's criterion against
+    ``make_ded(row)``, the steady window past each session's first ``fill``
+    outputs on the host clock, and a device-only trace of ``trace_frames``
+    frames a session whose kernels must be ``per_step`` a bucket step too.
+    (Phase 16 passes SDXL's smaller counts.)  -> the launches counted."""
     dev = sched.device
     rows = [session_row(sched.states, s.slot) for s in sess]
     eq = replay_equals_eager(torch, np, label, sched, np.stack([f[0] for f in frames[:len(sess)]]),
@@ -4565,28 +4608,28 @@ def sd15_run(torch, np, label: str, card: str, sched, sess, frames, make_ded, pe
     _sync(torch, dev)
     _reset_launches()
     steps0, before = sched.steps_total, _launches()
-    run = drive_sessions(torch, sess, frames, SD15_FRAMES)
+    run = drive_sessions(torch, sess, frames, n)
     counted = _count(label, before, sched.steps_total - steps0, per_step)
     held = []
     for i, s in enumerate(sess):
         ded = make_ded(rows[i])
-        for f in frames[i][:SD15_PARITY]:
+        for f in frames[i][:parity]:
             ded(f)
         held.append(f"session {i} (slot {s.slot}): " + hold_to_references(
-            np, f"{label} session {i}", run.outs[i][:SD15_PARITY], ded))
-    step_ms, nsteps = run.steady_step_ms(SD15_FILL)
-    fps = run.steady_fps(SD15_FILL)
+            np, f"{label} session {i}", run.outs[i][:parity], ded))
+    step_ms, nsteps = run.steady_step_ms(fill)
+    fps = run.steady_fps(fill)
     trace = kernel_trace(torch, lambda: drive_sessions(
-        torch, sess, [f[:SD15_TRACE_FRAMES] for f in frames], SD15_TRACE_FRAMES))
+        torch, sess, [f[:trace_frames] for f in frames], trace_frames))
     traced = trace["attention"] // per_step[0]
-    say(f"{label}: {card} | {eq} | {what}; steady window (outputs {SD15_FILL + 1}-"
-        f"{SD15_FRAMES} of each session): {step_ms:.2f} ms between bucket steps over {nsteps} "
+    say(f"{label}: {card} | {eq} | {what}; steady window (outputs {fill + 1}-"
+        f"{n} of each session): {step_ms:.2f} ms between bucket steps over {nsteps} "
         f"steps, aggregate {sum(fps):.2f} fps, per session {min(fps):.2f}-{max(fps):.2f} fps | "
-        f"device trace of {SD15_TRACE_FRAMES} frames a session ({traced} bucket steps): busy "
+        f"device trace of {trace_frames} frames a session ({traced} bucket steps): busy "
         f"{trace['busy_ms'] / max(traced, 1):.3f} ms a bucket step, idle share "
         f"{trace['idle']:.3f} of {trace['span_ms']:.1f} ms, {trace['kernels']} kernels "
         f"(attention {trace['attention']}, epilogue {trace['epilogue']}) | first "
-        f"{SD15_PARITY} outputs of each " + "; ".join(held))
+        f"{parity} outputs of each " + "; ".join(held))
     if not traced or (trace["attention"], trace["epilogue"]) != (per_step[0] * traced,
                                                                   per_step[1] * traced):
         fail(f"{label}: the trace must show {per_step[0]} attention and {per_step[1]} epilogue "
@@ -4806,20 +4849,21 @@ def phase_sd15_attention(torch, card: str, shapes=SD15_ATTENTION, batches=SD15_A
     8 heads, D 40/80/160) at B = 4, 8 and 16 rows: each checked against its
     plain version (ops/kernels/tolerance.py), timed as phase 3 times it,
     beside SDPA and the bound; the sums over one step's launches.  (14e
-    passes the ControlNet pass's 14 launches.)  -> {B: the sums}."""
+    passes the ControlNet pass's 14 launches, 16e SDXL's 140; a shape's
+    optional fifth entry is its heads, else 8.)  -> {B: the sums}."""
     import torch.nn.functional as F
 
     from ai_rtc_agent_tpu_torch.ops.kernels import attention as KA
     from ai_rtc_agent_tpu_torch.ops.kernels import tolerance
 
     gen = torch.Generator(device="cuda").manual_seed(12)
-    n_launches = sum(x[-1] for x in shapes)
+    n_launches = sum(x[3] for x in shapes)
     per_batch = {}
     for b in batches:
         sums = dict.fromkeys(("ms", "plain_ms", "sdpa_ms", "bound_ms"), 0.0)
         worst = 0.0
-        for lq, lk, d, per_step in shapes:
-            h = 8
+        for lq, lk, d, per_step, *heads in shapes:
+            h = heads[0] if heads else 8
             q, k, v = (torch.randn((b, n, h, d), generator=gen, device="cuda").to(torch.bfloat16)
                        for n in (lq, lk, lk))
             out = KA.flash_attention(q, k, v)
@@ -6525,6 +6569,323 @@ def adapters_ring(torch, np, card, pipe, ref_bundle, registry, S, plane, ring_id
     return tuple(total)
 
 
+SDXL_ID = "stabilityai/sdxl-turbo"
+SDXL_K = (1, 2)  # 16c
+SDXL_DIRECT = 6  # 16a: frames timed through __call__
+SDXL_SERVE = 4  # 16b: frames viewed
+SDXL_FRAMES = 12  # 16c: frames a session in the timed run
+SDXL_FILL = 3  # of them, each session's first outputs
+SDXL_PARITY = 3  # of them, held to phase 4's criterion
+SDXL_TRACE_FRAMES = 4  # 16c: the device trace's frames a session
+SDXL_SWAP_STEPS = 6  # 16c: bucket steps of the swap run at k=2
+SDXL_SWAP_AT = 3  # the swap lands before this step
+SDXL_SWAP_PROMPT = "a charcoal sketch of a harbor at night"
+SDXL_LAUNCHES = (140, 1)  # attention and epilogue launches a step (the config's, checked)
+# One SDXL UNet pass's attention at 1024^2 (a 128^2 latent), D=64: the
+# 640-wide tier at 64^2 tokens (H=10) has 10 transformer blocks, the
+# 1280-wide tier and the mid block at 32^2 (H=20) 60, each a self and a
+# cross launch (77 keys of the 2048-wide context): (Lq, Lk, D, launches, H)
+SDXL_ATTENTION = [(4096, 4096, 64, 10, 10), (4096, 77, 64, 10, 10),
+                  (1024, 1024, 64, 60, 20), (1024, 77, 64, 60, 20)]
+SDXL_ATTENTION_B = (1, 2)
+
+
+def phase_sdxl(torch, card: str, model_id: str = SDXL_ID) -> tuple:
+    """Phase 16: SDXL-Turbo on the card at its full geometry, 1024^2 bf16,
+    from seeded random weights, served by the port's session layer booted as
+    the agent's ``--model-id stabilityai/sdxl-turbo`` (startup builds the
+    pipeline and a 2-slot batch scheduler; ``model_id="tiny-xl-test"``
+    rehearses it on the CPU).  16a one session direct through
+    the pipeline's graph: replay = eager, phase 4's criterion against an f32
+    copy of the weights, the launches; 16b one WHIP session served over
+    loopback, its frames = direct calls, and its move; 16c k = 1 and 2
+    through the bucket graphs against dedicated engines, the steady window,
+    a device-only trace, and a mid-stream prompt swap on one slot; 16e the
+    kernels at SDXL's shapes.  -> the attention and epilogue launches."""
+    import numpy as np
+
+    from ai_rtc_agent_tpu_torch.models import registry
+    from ai_rtc_agent_tpu_torch.server import sessions
+    from ai_rtc_agent_tpu_torch.server.signaling import LoopbackProvider
+
+    t_phase = time.perf_counter()
+    total = [0, 0]
+
+    def add(counted):
+        total[0] += counted[0]
+        total[1] += counted[1]
+
+    async def run():
+        state = {}
+        sessions.configure(state, model_id=model_id, provider=LoopbackProvider())
+        t = time.perf_counter()
+        await sessions.startup(state)
+        built = time.perf_counter() - t
+        try:
+            pipe, sched = state["pipeline"], state["batch_scheduler"]
+            b, cfg = pipe.bundle, pipe.config
+            per_step = (attention_per_pass(b.unet_cfg, False), 1)
+            if not (cfg.use_added_cond and sched is not None) or (
+                    model_id == SDXL_ID and per_step != SDXL_LAUNCHES):
+                fail(f"sdxl 16: the session layer did not build an SDXL plane ({per_step} "
+                     "launches a step)")
+            sizes = {name: sum(a.numel() for a in _tensors(b.params[name]))
+                     for name in ("unet", "clip", "clip2", "taesd")}
+            say(f"sdxl 16: {card} | sessions.configure(model_id={model_id!r}) + startup in "
+                f"{built:.1f}s (random weights from seed 0, the pipeline's step and the "
+                f"scheduler's buckets {sched.graph_status()} captured) | {cfg.height}x{cfg.width} "
+                f"{cfg.dtype} scheduler={cfg.scheduler} cfg_type={cfg.cfg_type} t_index_list="
+                f"{cfg.t_index_list} use_added_cond={cfg.use_added_cond} | params: "
+                + ", ".join(f"{k} {v / 1e9:.3f} B" for k, v in sizes.items())
+                + f" | key {pipe.engine.key}")
+            t = time.perf_counter()
+            ref = registry.load_model_bundle(model_id, attn_impl="plain", seed=0,
+                                             device=pipe.device)
+            ref.params = registry.cast_params(ref.params, "float32")
+            _sync(torch, ref.device)
+            say(f"sdxl 16: the f32 reference bundle (the same seed, uncast) in "
+                f"{time.perf_counter() - t:.1f}s")
+            add(await asyncio.to_thread(sdxl_direct, torch, np, card, pipe, ref, per_step))
+            add(await sdxl_served(torch, np, card, state, per_step))
+            add(await asyncio.to_thread(sdxl_sessions, torch, np, card, pipe, sched, ref,
+                                        per_step))
+        finally:
+            await sessions.shutdown(state)
+
+    with _Env(BATCHSCHED_MAX_SESSIONS=max(SDXL_K), WARMUP_FRAMES=0, DROP_FRAMES=0):
+        asyncio.run(run())
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+        sdxl_kernels(torch, card)
+    say(f"sdxl: phase 16 took {time.perf_counter() - t_phase:.1f} s; launches counted attention "
+        f"{total[0]}, epilogue {total[1]}")
+    return tuple(total)
+
+
+def sdxl_direct(torch, np, card: str, pipe, ref, per_step: tuple) -> tuple:
+    """16a: the pipeline's captured step against its eager step; SDXL_DIRECT
+    frames through ``__call__`` with the launches counted; one eager UNet
+    pass's attention launches; one step from the same state against the
+    plain bf16 and the f32 engines (phase 4)."""
+    from ai_rtc_agent_tpu_torch.models import registry
+    from ai_rtc_agent_tpu_torch.stream.engine import StreamEngine, added_cond
+
+    eng, cfg = pipe.engine, pipe.config
+    step = eng.graph_cache.steps()[eng.key]
+    if pipe.device.type == "cuda" and (not step.captured or step.launches != per_step):
+        fail(f"sdxl 16a: the captured step records {step.launches} (attention, epilogue) "
+             f"launches a replay, want {per_step}")
+    frames = _frames(np, SDXL_DIRECT + 2, seed=160, size=cfg.height)
+    eq = engine_replay_equals_eager(torch, "sdxl 16a", eng, frames[0])
+    for f in frames[:2]:
+        pipe(f)
+    _sync(torch, pipe.device)
+    _reset_launches()
+    t = time.perf_counter()
+    outs = [pipe(f) for f in frames[2:]]
+    call_ms = (time.perf_counter() - t) * 1e3 / SDXL_DIRECT
+    counted = _count("sdxl 16a __call__", (0, 0), SDXL_DIRECT, per_step)
+    if any(o.shape != (cfg.height, cfg.width, 3) or o.dtype != np.uint8 for o in outs):
+        fail("sdxl 16a: bad output frame")
+    st = eng.state
+    x = torch.randn((1, *cfg.latent_hw, cfg.latent_channels), device=pipe.device).to(
+        cfg.torch_dtype)
+    before = _launches()[0]
+    with torch.inference_mode():
+        out = eng.models.unet(eng.params, x, st["coeffs"]["timesteps"][:1], st["cond"],
+                              added=added_cond(cfg, st["added_time_ids"], st["added_text"], 1))
+    _sync(torch, pipe.device)
+    per_pass = _launches()[0] - before
+    want = attention_per_pass(pipe.bundle.unet_cfg, False)
+    if per_pass != per_step[0] or want != per_pass or not torch.isfinite(out).all():
+        fail(f"sdxl 16a: one eager UNet pass launched {per_pass} attention kernels (the config "
+             f"gives {want}, want {per_step[0]}), finite {bool(torch.isfinite(out).all())}")
+    served_w = pipe.bundle.params["unet"]["conv_in"]["kernel"]
+    if not torch.equal(ref.params["unet"]["conv_in"]["kernel"].to(served_w.dtype), served_w):
+        fail("sdxl 16a: the f32 reference weights do not match the served weights")
+    plain_cfg = replace(cfg, attn_impl="plain", use_fused_epilogue=False)
+    plain = registry.load_model_bundle(pipe.model_id, attn_impl="plain", device=pipe.device,
+                                       params=pipe.bundle.params)
+    engines = {
+        "kernel": eng,
+        "plain": StreamEngine(plain.stream_models, plain.params, plain_cfg, plain.encode_prompt,
+                              device=pipe.device, graphs=False),
+        "f32": StreamEngine(ref.stream_models, ref.params, replace(plain_cfg, dtype="float32"),
+                            ref.encode_prompt, device=pipe.device, graphs=False),
+    }
+    say(f"sdxl 16a: {card} | {eq} | __call__ {call_ms:.2f} ms/frame ({1e3 / call_ms:.2f} fps) "
+        f"over {SDXL_DIRECT} frames | one eager UNet pass: {per_pass} attention launches, out "
+        f"{tuple(out.shape)} finite | pooled embeds {tuple(eng.state['added_text'].shape)} "
+        f"{eng.state['added_text'].dtype}, time ids {eng.state['added_time_ids'].tolist()}")
+    step_vs_f32(torch, "sdxl 16a", engines, session_row(eng.state, None),
+                torch.from_numpy(frames[1]).to(pipe.device))
+    return counted
+
+
+async def sdxl_served(torch, np, card: str, state, per_step: tuple) -> tuple:
+    """16b: one WHIP publisher and a WHEP viewer through the session layer:
+    SDXL_SERVE frames viewed with the launches counted, equal to direct
+    calls of a session of the same scheduler from the same row; then the
+    session's snapshot restored on another scheduler over the same pipeline
+    and, as the reference, on this one: SDXL_SERVE frames each, bit for
+    bit."""
+    from ai_rtc_agent_tpu_torch.stream.scheduler import BatchScheduler
+    from ai_rtc_agent_tpu_torch.utils import env
+
+    pipe, sched = state["pipeline"], state["batch_scheduler"]
+    size = pipe.config.height
+    pushed = _frames(np, SDXL_SERVE + env.pipeline_depth() - 1, seed=170, size=size)
+    pub_id, pub_pc, _view_id, viewer = await open_loopback_session(state)
+    row = session_row(sched.states, sched.session(pub_id).slot)
+    _sync(torch, sched.device)
+    _reset_launches()
+    steps0 = sched.steps_total
+    views, _ = await exchange(pub_pc, viewer, pushed, 0, SDXL_SERVE)
+    deadline = time.perf_counter() + 60
+    while sched.steps_total - steps0 < len(pushed) and time.perf_counter() < deadline:
+        await asyncio.sleep(0.01)
+    _sync(torch, sched.device)
+    counted = _count("sdxl 16b served", (0, 0), sched.steps_total - steps0, per_step)
+    snap = sched.snapshot_session(pub_id)
+    await pub_pc.close()
+    await asyncio.sleep(0)
+    await asyncio.gather(*state["releasing"])
+    served = [v.to_ndarray() for v in views]
+
+    def direct_and_move() -> str:
+        direct = sched.claim("direct", prompt=pipe.prompt, seed=0)
+        sched._install(direct.slot, row)
+        want = [direct(f) for f in pushed[:SDXL_SERVE]]
+        direct.release()
+        if len(served) != SDXL_SERVE or not all(np.array_equal(x, y)
+                                                for x, y in zip(served, want)):
+            fail("sdxl 16b: the served frames must equal direct calls bit for bit")
+        t = time.perf_counter()
+        dest = BatchScheduler.from_pipeline(pipe, max_sessions=1)
+        dest_s = time.perf_counter() - t
+        try:
+            t = time.perf_counter()
+            moved = dest.restore_session(snap, "moved")
+            refs = sched.restore_session(snap, "ref")
+            restore_ms = (time.perf_counter() - t) * 1e3
+            after = [_frames(np, SDXL_SERVE, seed=171, size=size)]
+            mv = drive_sessions(torch, [moved], after, SDXL_SERVE)
+            rf = drive_sessions(torch, [refs], after, SDXL_SERVE)
+            if not all(np.array_equal(x, y) for x, y in zip(mv.outs[0], rf.outs[0])):
+                fail("sdxl 16b: the moved session must match the reference restored from the "
+                     "same snapshot bit for bit")
+            pooled = dest.states["added_text"][moved.slot]
+            moved.release()
+            refs.release()
+        finally:
+            dest.close()
+        return (f"{SDXL_SERVE} frames viewed = direct calls from the same row, bit for bit | "
+                f"snapshot {len(_state_bytes(snap))} B (the row with its pooled embeds "
+                f"{tuple(pooled.shape)} {pooled.dtype} and time ids), {len(json.dumps(snap))} B "
+                f"as JSON; another scheduler's bucket captured in {dest_s:.1f}s; restored there "
+                f"and as the reference in {restore_ms:.1f} ms; {SDXL_SERVE} frames after the "
+                "move = the reference's, bit for bit")
+
+    line = await asyncio.to_thread(direct_and_move)
+    say(f"sdxl 16b: {card} | one WHIP publisher and a WHEP viewer | {line}")
+    return counted
+
+
+def sdxl_sessions(torch, np, card: str, pipe, sched, ref, per_step: tuple) -> tuple:
+    """16c: k = 1 and 2 sessions through the scheduler's bucket graphs
+    (:func:`sd15_run` at SDXL's counts: replay = eager, the launches, phase
+    4's criterion against dedicated engines, the steady window, the device
+    trace), then at k = 2 the prompt swap of one slot (:func:`sdxl_swap`)."""
+    b, cfg, dev = pipe.bundle, pipe.config, pipe.device
+    frames = [_frames(np, SDXL_FRAMES, seed=180 + i, size=cfg.height) for i in range(max(SDXL_K))]
+    total = [0, 0]
+    for k in SDXL_K:
+        sess = [sched.claim(f"sdxl-{k}-{i}", prompt=SESSION_PROMPTS[i], seed=500 + i)
+                for i in range(k)]
+        counted = sd15_run(
+            torch, np, f"sdxl 16c k={k}", card, sched, sess, frames,
+            lambda row: Dedicated(torch, b.stream_models, b.params, cfg, b.encode_prompt, ref,
+                                  row, dev),
+            per_step, f"{k} session(s), {k * cfg.batch_size} UNet rows a bucket step",
+            n=SDXL_FRAMES, fill=SDXL_FILL, parity=SDXL_PARITY, trace_frames=SDXL_TRACE_FRAMES)
+        total[0] += counted[0]
+        total[1] += counted[1]
+        if k == 2:
+            sdxl_swap(torch, np, card, sched, sess, frames)
+        for s in sess:
+            s.release()
+    return tuple(total)
+
+
+def sdxl_swap(torch, np, card: str, sched, sess, frames):
+    """16c: a prompt swap on slot 0 of a k=2 bucket mid-stream (the
+    session's runtime config, as a datachannel message or /config carries
+    it): the swapped slot's pooled embeds change and the other's do not;
+    the first replay after the swap equals an eager bucket step under the
+    new prompt (a rebinding in place of a ``copy_`` would leave the graph
+    reading the old pooled embeds); the other slot's frames are bit for bit
+    those of the same steps without the swap, the swapped slot's change."""
+    from ai_rtc_agent_tpu_torch.server.sessions import apply_runtime_config
+
+    rows = [session_row(sched.states, s.slot) for s in sess]
+    slots = [s.slot for s in sess]
+    n, m = SDXL_SWAP_STEPS, SDXL_SWAP_AT
+    _install_rows(sched, sess, rows)
+    plain = bucket_outputs(sched, sess, frames, n)
+    _install_rows(sched, sess, rows)
+    first = bucket_outputs(sched, sess, frames, m)
+    before = sched.states["added_text"].clone()
+    apply_runtime_config(sess[0], {"prompt": SDXL_SWAP_PROMPT})
+    after = sched.states["added_text"].clone()
+    if torch.equal(before[slots[0]], after[slots[0]]) or not torch.equal(before[slots[1]],
+                                                                         after[slots[1]]):
+        fail("sdxl 16c swap: the swapped slot's pooled embeds must change and the other's stay")
+    eq = replay_equals_eager(torch, np, "sdxl 16c first replay after the swap", sched,
+                             np.stack([f[m] for f in frames[:2]]), slots)
+    rest = bucket_outputs(sched, sess, [f[m:] for f in frames], n - m)
+    swapped = np.concatenate([first, rest])
+    if not np.array_equal(swapped[:, 1], plain[:, 1]):
+        fail("sdxl 16c swap: the other slot's frames changed")
+    if not np.array_equal(swapped[:m, 0], plain[:m, 0]) or any(
+            np.array_equal(swapped[j, 0], plain[j, 0]) for j in range(m, n)):
+        fail("sdxl 16c swap: the swapped slot's frames must change from the swap on, and only "
+             "then")
+    d = np.abs(swapped[m:, 0].astype(np.int16) - plain[m:, 0]).mean()
+    say(f"sdxl 16c swap: {card} | slot {slots[0]}'s prompt swapped before bucket step {m + 1} "
+        f"of {n}: its pooled embeds changed (mean |diff| "
+        f"{(after[slots[0]] - before[slots[0]]).float().abs().mean().item():.4f}), slot "
+        f"{slots[1]}'s kept; first replay after the swap: {eq}; slot {slots[1]}'s {n} frames = "
+        f"the run without the swap, bit for bit; slot {slots[0]}'s frames {m + 1}-{n} moved by "
+        f"{d:.2f} levels on average")
+
+
+def sdxl_kernels(torch, card: str):
+    """16e: the attention kernel at one SDXL UNet pass's shapes at B = 1 and
+    2 (against its plain version, beside SDPA and the bound:
+    :func:`phase_sd15_attention`) and the epilogue at SDXL's step on
+    [k,128,128,4] at k = 1 and 2 against its plain version."""
+    from ai_rtc_agent_tpu_torch.ops.kernels import fused_scheduler as KF
+
+    phase_sd15_attention(torch, card, SDXL_ATTENTION, SDXL_ATTENTION_B, "sdxl 16e",
+                         "SDXL UNet pass")
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    for k in SDXL_ATTENTION_B:
+        args, kwargs = session_epilogue_call(torch, "none", k, list(range(k)), gen, latent=128)
+        R, n = args[0].shape[0], args[0].numel() // args[0].shape[0]
+        label = f"sdxl 16e epilogue cfg=none turbo, {k} session(s) [{R},128,128,4] bf16"
+        a, kw = fresh_epilogue_call(args, kwargs)
+        got = KF.fused_stream_epilogue(*a, **kw)
+        err, rel = _epilogue_errors(label, got, plain_epilogue_call(KF, args, kwargs), R)
+        ms = time_ms(torch, lambda: KF.fused_stream_epilogue(*args, **kwargs), 500)
+        floor = time_ms(torch, lambda: KF.launch_empty(R, n), 500)
+        plain = time_ms(torch, lambda: KF.epilogue_plain(*args, **kwargs), 50)
+        flops, nbytes = epilogue_work(args, kwargs)
+        bms, by = bound(flops, PEAK_F32_FLOPS, nbytes)
+        say(f"{label}: {card} | max_abs_err {err:.3e}, max rel {rel:.2e} | kernel {ms:.5f} ms, "
+            f"launch floor {floor:.5f} ms, plain {plain:.4f} ms, bound {bms:.6f} ms ({by}; "
+            f"{nbytes} B, {flops} flop)")
+
+
 def _to_cpu(v):
     return {k: _to_cpu(x) for k, x in v.items()} if isinstance(v, dict) else v.cpu()
 
@@ -6564,11 +6925,13 @@ def main():
     sd15_attn, sd15_epi = phase_sd15(torch, card)
     variants_attn, variants_epi = phase_variants(torch, card)
     cnet_attn, cnet_epi = phase_controlnet(torch, card)
+    sdxl_attn, sdxl_epi = phase_sdxl(torch, card)
     attn_launches += (serve_attn + sessions_attn + faults_attn + native_attn + obs_attn
                       + fleet_attn + broadcast_attn + sd15_attn + variants_attn + cnet_attn
-                      + adapters_attn)
+                      + adapters_attn + sdxl_attn)
     epi_launches += (serve_epi + sessions_epi + faults_epi + native_epi + obs_epi + fleet_epi
-                     + broadcast_epi + sd15_epi + variants_epi + cnet_epi + adapters_epi)
+                     + broadcast_epi + sd15_epi + variants_epi + cnet_epi + adapters_epi
+                     + sdxl_epi)
     kernels = [
         {
             "name": "flash_attention", "route": "cuda",

@@ -5,9 +5,12 @@ find a check that fails only now and then.
     python3 scripts/smoke_loop.py [--loops N] [--phases faults,native,obs,fleet]
                                   [--once faults] [--busy N]
 
-Phases 1, 2, 4 and 5 run once (the kernels, the pipeline, phase 5's served
-rate for phase 8); then each loop runs the chosen phases in turn: ``faults``
-(7), ``native`` (8), ``obs`` (9), ``fleet`` (10).  A failed check prints its
+Phases 1 and 2 run once (the card, the kernels' build), and phases 4 and 5
+too (the pipeline, phase 5's served rate for phase 8) when a chosen phase
+runs on them; then each loop runs the chosen phases in turn: ``faults`` (7),
+``native`` (8), ``obs`` (9), ``fleet`` (10), ``adapters`` (15), or ``sdxl``
+(16), which builds its own models: ``--loops 1 --phases sdxl`` runs phase 16
+alone after the build.  A failed check prints its
 ``FAIL:`` line and the loop goes on with the next phase.  ``--once`` names
 phases run in the first loop only; ``--busy N`` keeps N host processes
 spinning throughout the loops, as a host shared with other work would.  The
@@ -26,6 +29,10 @@ import traceback
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
+
+
+# the phases that run on phase 4's pipeline
+ON_THE_PIPELINE = {"faults", "native", "obs", "fleet", "adapters"}
 
 
 class CheckFailed(Exception):
@@ -50,19 +57,22 @@ def main() -> int:
         raise CheckFailed(msg)
 
     cs.fail = fail
+    phases = [p for p in args.phases.split(",") if p]
+    once = {p for p in args.once.split(",") if p}
     card = cs.phase_device(torch)
     cs.phase_build(torch)
-    pipe, ref_bundle, _, _ = cs.phase_main(torch, card)
-    _, _, fps = cs.phase_serve(torch, card, pipe)
+    pipe = ref_bundle = fps = None
+    if ON_THE_PIPELINE & set(phases):
+        pipe, ref_bundle, _, _ = cs.phase_main(torch, card)
+        _, _, fps = cs.phase_serve(torch, card, pipe)
     run = {
         "faults": lambda: cs.phase_faults(torch, card, pipe, ref_bundle),
         "native": lambda: cs.phase_native(torch, card, pipe, fps),
         "obs": lambda: cs.phase_obs(torch, card, pipe),
         "fleet": lambda: cs.phase_fleet(torch, card, pipe, ref_bundle),
         "adapters": lambda: cs.phase_adapters(torch, card, pipe, ref_bundle),
+        "sdxl": lambda: cs.phase_sdxl(torch, card),
     }
-    phases = [p for p in args.phases.split(",") if p]
-    once = {p for p in args.once.split(",") if p}
     unknown = [p for p in phases + sorted(once) if p not in run]
     if unknown:
         ap.error(f"unknown phase(s) {unknown}; known: {sorted(run)}")

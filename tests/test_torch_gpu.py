@@ -885,6 +885,50 @@ def test_profiler_bridge_sees_the_kernels_of_a_replayed_bucket_step(cuda, turbo_
         sched.close()
 
 
+def test_debug_trace_counts_every_kernel_of_work_sent_at_once(cuda, turbo_pipe, tmp_path):
+    """/debug/trace through the session layer, its window opened and closed
+    right around a bucket step (no sync and no wait on the caller's side):
+    the bridge syncs and settles the card at both edges of its window, so
+    each of 3 traces holds every kernel of its traced sd-turbo bucket step,
+    32 flash_attention and 1 epilogue.  Without the settle, 2 traces in 8 of
+    work sent at once lost their first kernels
+    (scripts/torch_trace_window.py)."""
+    import json
+
+    from ai_rtc_agent_tpu_torch.obs import export
+    from ai_rtc_agent_tpu_torch.stream.scheduler import BatchScheduler
+
+    sched = BatchScheduler.from_pipeline(turbo_pipe, max_sessions=1)
+    frame = chip_smoke._frames(np, 1, seed=5)[0]
+
+    async def traced():
+        state = {}
+        sessions.configure(state, pipeline=turbo_pipe, batch_scheduler=sched,
+                           provider=LoopbackProvider())
+        await sessions.startup(state)
+        try:
+            sess = sched.claim("s0")
+            await asyncio.to_thread(sess, frame)
+            counts = []
+            for i in range(3):
+                r = await sessions.debug_trace(state, {"action": "start",
+                                                       "jax_profiler_dir": str(tmp_path / str(i))})
+                assert r.status == 200 and json.loads(r.body)["jax_profiler"].startswith("tracing")
+                steps = sched.steps_total
+                await asyncio.to_thread(sess, frame)
+                r = await sessions.debug_trace(state, {"action": "stop"})
+                assert r.status == 200 and "jax_profiler" not in json.loads(r.body)
+                assert sched.steps_total - steps == 1
+                counts.append(chip_smoke.trace_kernels(export.last_trace_path))
+            sess.release()
+            return counts
+        finally:
+            await sessions.shutdown(state)
+
+    counts = asyncio.run(traced())
+    assert [(c["attention"], c["epilogue"]) for c in counts] == [(32, 1)] * 3, counts
+
+
 def test_a_restored_row_is_what_the_replay_reads(cuda):
     """A session's snapshot restored into another graph scheduler, beside a
     session of its own: the restored row is written into the stacked

@@ -1057,6 +1057,97 @@ def test_multipeer_pipeline_sheds_the_oldest_frame_as_passthrough(monkeypatch):
         mp.close()
 
 
+class _HeldPeerEngine:
+    """A peer engine stand-in for the coordinators of both packages: no model
+    work, and its readback waits for ``go``, so the coordinator holds in its
+    first fetch while a peer's frames arrive."""
+
+    def __init__(self, *args, max_peers=1, **kwargs):
+        self.max_peers = max_peers
+        self.active = [False] * max_peers
+        self.entered, self.go = threading.Event(), threading.Event()
+
+    def start(self, prompt):
+        return self
+
+    def use_aot_cache(self, *args, **kwargs):
+        return False
+
+    def prewarm_buckets(self):
+        pass
+
+    def reserve(self):
+        slot = self.active.index(False)
+        self.active[slot] = True
+        return slot
+
+    def build_state(self, prompt, seed):
+        return None
+
+    def install(self, slot, state):
+        pass
+
+    def disconnect(self, slot):
+        self.active[slot] = False
+
+    @property
+    def free_slots(self):
+        return self.active.count(False)
+
+    def submit(self, frames):
+        return frames
+
+    def fetch(self, pending):
+        self.entered.set()
+        assert self.go.wait(10.0)
+        return pending
+
+
+@pytest.mark.parametrize("bound", [1, 3])
+def test_multipeer_queue_bound_sheds_as_the_jax_coordinator_does(monkeypatch, bound):
+    """OVERLOAD_PEER_QUEUE_BOUND (the JAX coordinator's knob, floor 1): with
+    the first tick's readback held, one peer sends 5 more frames; each
+    coordinator sheds the same frames (the oldest past the bound, each
+    delivered as a ShedFrame of its own pixels) and counts them in
+    ``frames_shed``.  A port with a fixed bound of 2 sheds 3 and 1 here,
+    not 4 and 2."""
+    from ai_rtc_agent_tpu.server import multipeer_serving as JMS
+    from ai_rtc_agent_tpu_torch.server import multipeer_serving as PMS
+
+    monkeypatch.setenv("OVERLOAD_PEER_QUEUE_BOUND", str(bound))
+    fake_registry = SimpleNamespace(
+        load_model_bundle=lambda *a, **k: SimpleNamespace(params={}, stream_models=None,
+                                                          encode_prompt=None),
+        cast_params=lambda params, dtype: params)
+    frames = [np.full((64, 64, 3), i, np.uint8) for i in range(6)]
+    shed = {}
+    for name, mod, cfg, kw in (
+            ("jax", JMS, JREG.default_stream_config("tiny-test"), {}),
+            ("port", PMS, PREG.default_stream_config("tiny-test", device="cpu"),
+             {"device": "cpu"})):
+        monkeypatch.setattr(mod, "registry", fake_registry)
+        monkeypatch.setattr(mod, "MultiPeerEngine", _HeldPeerEngine)
+        monkeypatch.setattr(mod, "maybe_load_safety_checker", lambda *a, **k: None)
+        mp = mod.MultiPeerPipeline("tiny-test", max_peers=1, config=cfg, **kw)
+        try:
+            peer = mp.claim("a red cat")
+            handles = [peer.submit(frames[0])]
+            assert mp.engine.entered.wait(10.0)  # the first tick is out, its readback held
+            handles += [peer.submit(f) for f in frames[1:]]
+            gone = [i for i, h in enumerate(handles) if h.done()]
+            assert all(type(handles[i].result()).__name__ == "ShedFrame" and np.array_equal(
+                handles[i].result().frame, frames[i]) for i in gone)
+            shed[name] = (gone, mp.frames_shed)
+            mp.engine.go.set()
+            for i, h in enumerate(handles):
+                if i not in gone:
+                    assert np.array_equal(h.result(timeout=10.0), frames[i])
+        finally:
+            mp.engine.go.set()
+            mp.close()
+    assert shed["port"] == shed["jax"] == (list(range(1, 6 - bound)), 5 - bound)
+
+
 def test_agent_multipeer_offer_claims_503_and_release():
     """--multipeer 2 on the port's agent (a real tiny-test peer engine on the
     CPU): two offers claim the slots, the 3rd gets 503 with Retry-After and

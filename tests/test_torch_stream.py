@@ -220,6 +220,7 @@ def test_stream_config_field_set_matches_jax():
 @pytest.mark.parametrize("model_id", [
     "stabilityai/sd-turbo", "tiny-test", "runwayml/stable-diffusion-v1-5",
     "stabilityai/stable-diffusion-2-1", "stabilityai/stable-diffusion-2-1-base",
+    "tiny-xl-test", "stabilityai/sdxl-turbo",
 ])
 def test_default_stream_config_matches_jax(model_id):
     """Same serving defaults; the port turns its kernels on (the main path)
@@ -240,7 +241,9 @@ def test_default_stream_config_matches_jax(model_id):
     {"unet_cache_interval": 3},
 ])
 def test_later_slices_raise(port_params, overrides):
-    """SDXL added conditioning is a later slice and raises; ControlNet is
+    """Every later slice is served now.  SDXL's added conditioning: a
+    tiny-xl-test engine builds, with the key the JAX engine gives
+    (tests/test_torch_sdxl.py holds it to the JAX engine); ControlNet is
     served (tests/test_torch_controlnet.py): a bundle without one is refused
     with the JAX engine's ValueError and a bundle with one builds; DeepCache
     (from its smallest interval, 2) builds its capture + cached pair
@@ -260,8 +263,15 @@ def test_later_slices_raise(port_params, overrides):
                                 device="cpu")
         assert "cnet-1canny" in eng.key
         return
-    with pytest.raises(NotImplementedError):
-        _port_engine(port_params, overrides, True, "kernel")
+    bundle = PREG.load_model_bundle("tiny-xl-test", device="cpu")
+    cfg = PREG.default_stream_config("tiny-xl-test", device="cpu", **overrides)
+    eng = PENG.StreamEngine(bundle.stream_models, bundle.params, cfg, bundle.encode_prompt,
+                            device="cpu", model_id="tiny-xl-test").prepare("a cat")
+    jcfg = dataclasses.replace(JREG.default_stream_config("tiny-xl-test"),
+                               use_fused_epilogue=cfg.use_fused_epilogue, attn_impl=cfg.attn_impl)
+    want = JENG.stream_engine_key("tiny-xl-test", jcfg)
+    assert eng.key.rpartition("--v-")[0] == want.rpartition("--v-")[0]
+    assert tuple(eng.state["added_text"].shape) == (1, 16)
 
 
 def test_entry_points_raise_without_a_card(monkeypatch, port_params):
