@@ -63,6 +63,7 @@ class GopCache:
             max_bytes = env.get_int("BROADCAST_GOP_CACHE_BYTES", 8 << 20)
         self.max_aus = max(1, max_aus)
         self.max_bytes = max(1, max_bytes)
+        # tpurtc: allow[bounded-queue] -- bounded by max_aus/max_bytes in add(); overflow clears the cache WHOLE (an IDR-less GOP can't re-sync anyone), which deque(maxlen=) head-eviction would silently violate
         self._aus: collections.deque = collections.deque()
         self._bytes = 0
         self._lock = threading.Lock()

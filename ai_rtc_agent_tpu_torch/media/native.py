@@ -28,6 +28,7 @@ from pathlib import Path
 
 from ..obs import devtel
 from ..ops.kernels.build import BUILD_DIR
+from ..utils import env
 
 logger = logging.getLogger(__name__)
 
@@ -56,7 +57,7 @@ def build() -> Path:
     out = library_path()
     if out.exists():
         return out
-    cxx = shutil.which(os.environ.get("CXX", "g++"))
+    cxx = shutil.which(env.get_str("CXX", "g++"))
     if cxx is None:
         raise RuntimeError("no C++ compiler (g++) on PATH")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)

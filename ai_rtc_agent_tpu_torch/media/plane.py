@@ -424,6 +424,7 @@ class H264Sink:
                 # compile-time defaults (the restart-defaults bug class),
                 # and reconfigure-after-build would throw the fresh
                 # encoder away on libs without in-place rate control
+                # tpurtc: allow[encoder-reconfig] -- geometry restart re-applies this sink's live reconfigure() profile; rate targets still have one owner
                 self._enc = H264Encoder(
                     arr.shape[1], arr.shape[0], self._fps,
                     bitrate=self.profile["bitrate"],

@@ -192,6 +192,7 @@ class StreamEventHandler:
             except Exception:
                 logger.exception("webhook on_emit hook failed")
         try:
+            # tpurtc: allow[task-lifecycle] -- the except branch runs only when get_running_loop()/create_task raise, before any task exists; a created task is registered with its done-callback below
             task = asyncio.get_running_loop().create_task(self._post(ev))
         except RuntimeError:
             # no running loop (sync context): post blocking, best effort

@@ -217,7 +217,9 @@ class MultiPeerPipeline:
             self._started.set()
             return
         self._started.set()
-        inflight: deque = deque()  # (pending, futures)
+        # bound == PIPELINE_DEPTH: the pop below fires whenever the depth is
+        # reached, so the deque can never exceed it
+        inflight: deque = deque(maxlen=self.PIPELINE_DEPTH)  # (pending, futures)
         while True:
             with self._has_work:
                 while not self._stop and not self._waiting() and not inflight:

@@ -397,6 +397,7 @@ class _RtpReceiverProtocol(asyncio.DatagramProtocol):
         if self._rx_faults is not None:
             # injected loss/dup/reorder/delay/truncation (chaos testing);
             # delayed copies re-enter via _ingest so they are not re-faulted
+            # tpurtc: allow[pooled-view] -- _drained stabilizes to bytes before _one whenever _rx_faults is active; pooled views only reach here when the injector is None
             for d, delay in self._rx_faults.apply(data):
                 if delay > 0:
                     self._loop.call_later(delay, self._ingest, d, addr)

@@ -946,6 +946,7 @@ def supervise(app, pc, pipeline, session_key: str, room_id: str = ""):
             proto._send_pli()
 
     def on_transition(old, new, reason):
+        # tpurtc: allow[metrics-registry] -- closed enum: new is one of the 4 supervisor states (resilience/supervisor.py), keys supervisor_{healthy,degraded,recovering,failed}_total
         stats.count(f"supervisor_{new.lower()}")
         snap_id = recent = None
         if rec is not None:
@@ -1171,6 +1172,7 @@ def _admit_or_adopt(app, headers, stream_id: str):
     if entry is not None:
         adopted = ov.adopt_reservation(token, stream_id) if ov is not None else True
     if not adopted:
+        # tpurtc: allow[reservation-pairing] -- the admitted reservation deliberately outlives this helper: ownership transfers to the caller (offer/publish), which consumes it via the track's supervision registration or releases it via release_admission/end_supervision on every failure path
         rejected = admission_gate(app, stream_id)
         if rejected is not None:
             if entry is not None and entry.get("session") is not None:
@@ -1388,6 +1390,7 @@ async def import_handoff(app):
         if not sid or not isinstance(snap, dict):
             continue
         token = f"rcy-{sid}"
+        # tpurtc: allow[reservation-pairing] -- every admitted token is released when its restore fails, else parked by _park_import (a store under the token in app["imported_sessions"], the park the walk recognises only when written inline)
         if admission_gate(app, token) is not None:
             logger.warning("handoff session %s refused at admission", sid)
             continue
@@ -1401,6 +1404,12 @@ async def import_handoff(app):
             except (SnapshotMismatch, CapacityError) as e:
                 release_admission(app, token)
                 logger.warning("handoff restore of %s refused: %s", sid, e)
+                continue
+            except Exception:
+                # an entry the restore chokes on boots clean like a refused one:
+                # its token goes back and the other sessions still come over
+                release_admission(app, token)
+                logger.exception("handoff restore of %s failed", sid)
                 continue
         _park_import(app, token, sess)
         jmeta = entry.get("journey")
@@ -1597,6 +1606,7 @@ async def publish(app, sdp: str, headers=None) -> Reply:
     imported, rejected = _admit_or_adopt(app, headers, session_id)
     if rejected is not None:
         return rejected
+    # tpurtc: allow[reservation-pairing] -- the one path the walk flags is the refusal below: claim_pipeline gave (None, None), so nothing was claimed, and _slots_full is this plane's refusal helper (overloaded(), a 503 with Retry-After) where the JAX agent returns _overloaded_response directly
     pipeline, release_pipeline = await claim_pipeline(app, session_id, imported=imported)
     if pipeline is None:
         release_admission(app, session_id)
@@ -1758,6 +1768,7 @@ async def offer(app, params: dict, headers=None) -> Reply:
     imported, rejected = _admit_or_adopt(app, headers, stream_id)
     if rejected is not None:
         return rejected
+    # tpurtc: allow[reservation-pairing] -- the one path the walk flags is the refusal below: claim_pipeline gave (None, None), so nothing was claimed, and _slots_full is this plane's refusal helper (overloaded(), a 503 with Retry-After) where the JAX agent returns _overloaded_response directly
     pipeline, release_pipeline = await claim_pipeline(app, stream_id, imported=imported)
     if pipeline is None:
         release_admission(app, stream_id)

@@ -66,6 +66,7 @@ class VideoStreamTrack:
         # in flight: at most `pipeline_depth` frames (or fbs batches)
         self._pending: deque = deque(maxlen=self.pipeline_depth)
         # outputs of one fetch_batch, drained one per recv() before the next
+        # tpurtc: allow[bounded-queue] -- refilled only when empty (_recv_batched's while loop); holds at most one fetch_batch's fbs outputs (fbs is not known at ctor time)
         self._outbuf: deque = deque()
         self._handlers: dict = {}
 

@@ -236,15 +236,15 @@ def coeff_state(cfg: StreamConfig, schedule: S.NoiseSchedule, t_index_list, devi
     return c.as_dict()
 
 
-def t_index_coeffs(cfg: StreamConfig, schedule: S.NoiseSchedule, t_index_list, device) -> dict:
+def t_index_coeffs(cfg: StreamConfig, schedule: S.NoiseSchedule, t_index_list, device,
+                   hint: str = "") -> dict:
     """:func:`coeff_state` for a runtime t_index update, which keeps the
-    stage count (the stream batch size); another length raises ValueError."""
+    stage count (the compiled batch size); another length raises ValueError
+    with the plane's ``hint`` after its text, as each JAX plane words it."""
     t_index_list = tuple(int(t) for t in t_index_list)
     if len(t_index_list) != cfg.n_stages:
-        raise ValueError(
-            f"t_index_list length must stay {cfg.n_stages} (the stream batch size); "
-            "rebuild the engine to change depth"
-        )
+        raise ValueError(f"t_index_list length must stay {cfg.n_stages} (compiled batch size)"
+                         + hint)
     return coeff_state(cfg, schedule, t_index_list, device)
 
 
@@ -928,6 +928,7 @@ class StreamEngine:
             self.state = state
         else:
             install_state(self.state, state)
+        # tpurtc: allow[lock-discipline] -- prepare() runs at build time, before the engine is shared, or from StreamDiffusionPipeline.restart() under _submit_lock, the lock the other _tick writers take
         self._tick = 0
         return self
 
@@ -1017,7 +1018,7 @@ class StreamEngine:
         replay on the card) and its D2H copy is queued."""
         if self.state is None:
             raise RuntimeError("call prepare() first")
-        self.last_submit_was_skip = False
+        self.last_submit_was_skip = False  # tpurtc: allow[lock-discipline] -- thread-local descriptor: each calling thread writes only its own _submit_skip_flag slot
         squeeze = frame_u8.ndim == 3
         epoch = self.epoch
         if self._fault_scope is not None:
@@ -1069,7 +1070,8 @@ class StreamEngine:
     def update_t_index_list(self, t_index_list):
         """Same-length update = coefficient swap; the length is fixed.
         DeepCache: new timesteps, so the next step captures."""
-        coeffs = t_index_coeffs(self.cfg, self.schedule, t_index_list, self.device)
+        coeffs = t_index_coeffs(self.cfg, self.schedule, t_index_list, self.device,
+                                hint="; rebuild the engine to change depth")
         self._t_index_list = tuple(int(t) for t in t_index_list)
         with self._submit_lock:
             install_state(self.state, {"coeffs": coeffs})

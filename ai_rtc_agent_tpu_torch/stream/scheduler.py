@@ -1285,6 +1285,7 @@ class BatchScheduler:
             # completes meanwhile: it needs the step lock, held here)
             batch.riders.intersection_update(self._sessions)
             batch.resolved = not batch.riders
+            # tpurtc: allow[lock-discipline] -- _has_work is threading.Condition(self._lock): entering it takes self._lock, the lock the other writer (rebuild_engine) holds
             self._batches = deque((b for b in self._batches if not b.resolved),
                                   maxlen=self._batches.maxlen)
             self._batches.append(batch)

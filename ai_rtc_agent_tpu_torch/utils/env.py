@@ -121,6 +121,12 @@ Variables read by the port's server:
   QUANT_MIN_SIZE                    elements below which a kernel stays dense (16384)
   UNET_CACHE                        DeepCache interval, N or deepcache:N (the agent's
                                     --unet-cache; 0/1 off; models/registry.py)
+  CXX                               the C++ compiler that builds native/ (g++; media/native.py)
+
+The knob registries are docs/environment.md (the knobs both agents answer) and
+ai_rtc_agent_tpu_torch/environment.md (the port's own, and the documented knobs it
+leaves unread, with why); ``python -m ai_rtc_agent_tpu_torch.analysis`` holds the
+reads here to them.
 """
 
 from __future__ import annotations

@@ -776,9 +776,15 @@ def _all_imports(path: Path) -> set:
 def test_the_import_walk_covers_the_new_modules():
     walked = set(sorted((REPO / "ai_rtc_agent_tpu_torch").rglob("*.py")))
     pkg = REPO / "ai_rtc_agent_tpu_torch"
+    analysis = ("__init__", "__main__", "core", "paths", "regressions", "async_blocking",
+                "bounded_queues", "pooled_views", "span_pairing", "lock_discipline",
+                "loop_affinity", "task_lifecycle", "reservation_pairing", "metric_cardinality",
+                "metrics_registry", "env_registry", "http_contract", "encoder_reconfig",
+                "refusal_discipline")
     for rel in ("fleet/__init__.py", "fleet/journey.py", "fleet/registry.py", "fleet/routing.py",
                 "fleet/router.py", "fleet/transport.py", "parallel/checkpoint.py",
-                "server/lifecycle.py", "server/worker.py"):
+                "server/lifecycle.py", "server/worker.py",
+                *(f"analysis/{name}.py" for name in analysis)):
         path = pkg / rel
         assert path in walked, rel
         assert not _all_imports(path) & {"jax", "jaxlib", "ai_rtc_agent_tpu", "ml_dtypes"}, rel

@@ -1689,3 +1689,47 @@ def test_controlnet_refusals_match_the_jax_agent(monkeypatch, argv):
     assert errors["port"] == errors["jax"]
     assert "--annotator requires --controlnet" in errors["jax"] or \
         "UNET_CACHE is incompatible with ControlNet" in errors["jax"]
+
+
+@pytest.mark.parametrize("plane", ["batch_scheduler", "shared_pipeline", "multipeer"])
+def test_config_t_index_of_the_wrong_length_answers_the_jax_400(monkeypatch, plane):
+    """A /config whose ``t_index_list`` has 3 entries where the tiny-test
+    stream has 4 stages, on each agent with the real tiny-test pipeline:
+    under the batch scheduler (the default), under ``BATCHSCHED=0`` (the
+    engine answers) and under ``--multipeer 2`` with one peer connected.  The
+    transcript compared whole: status, content type, CORS and the body's text
+    (each plane's JAX wording)."""
+    for name, value in (("WEBRTC_PROVIDER", "loopback"), ("BATCHSCHED_PREWARM", "0"),
+                        ("BATCHSCHED_MAX_SESSIONS", "1"),
+                        ("OVERLOAD_LOOP_LAG_BUDGET_MS", "100000")):
+        monkeypatch.setenv(name, value)
+    if plane == "shared_pipeline":
+        monkeypatch.setenv("BATCHSCHED", "0")
+
+    async def drive(name):
+        m = SIDES[name]
+        kw = {"device": "cpu"} if name == "port" else {}
+        app = m.agent.build_app(model_id="tiny-test", provider=m.signaling.LoopbackProvider(),
+                                multipeer=2 if plane == "multipeer" else 0, **kw)
+        client = TestClient(TestServer(app))
+        await client.start_server()
+        try:
+            out = []
+            if plane == "multipeer":
+                r = await client.post("/offer", json={
+                    "room_id": "r", "offer": {"sdp": m.signaling.make_loopback_offer(),
+                                              "type": "offer"}})
+                out.append(r.status)
+            out.append(await _obs(await client.post("/config",
+                                                    json={"t_index_list": [10, 20, 30]})))
+            return out
+        finally:
+            await client.close()
+
+    got = {name: asyncio.run(drive(name)) for name in SIDES}
+    assert got["port"] == got["jax"]
+    want = "t_index_list length must stay 4 (compiled batch size)"
+    if plane == "shared_pipeline":
+        want += "; rebuild the engine to change depth"
+    assert got["jax"][-1]["status"] == 400 and got["jax"][-1]["body"] == want
+    assert got["jax"][0] == 200 or plane != "multipeer"

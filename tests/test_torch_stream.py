@@ -385,6 +385,8 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     assert len(files) > 10 and REPO / "ai_rtc_agent_tpu_torch" / "aot" / "cache.py" in files
     for name in ("loader", "lora", "safety", "clip_vision"):
         assert REPO / "ai_rtc_agent_tpu_torch" / "models" / f"{name}.py" in files
+    for name in ("__init__", "__main__", "core", "env_registry", "http_contract"):
+        assert REPO / "ai_rtc_agent_tpu_torch" / "analysis" / f"{name}.py" in files
     for path in files:
         for name in _imports(path):
             root = name.split(".")[0]
