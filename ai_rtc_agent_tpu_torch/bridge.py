@@ -21,6 +21,11 @@ JAX side), so this module needs no JAX.
   crosses whole: SDXL's second text tower ``clip2`` (its 2-D
   ``text_projection`` kernel kept [in, out]) and the UNet's
   ``add_embedding`` need no rule of their own.
+* ``train_state_from_jax``: a JAX trainer state ({"params", "opt",
+  "step"}) as the port's trainer holds it ({"params", "opt": {"count",
+  "mu", "nu"}, "step"}).  optax's ``ScaleByAdamState`` is found by its
+  fields inside the ``clip_by_global_norm`` -> ``adamw`` chain's tuple of
+  states; its moments cross as params do.
 * ``states_from_jax``: the same for a stacked ``[S, ...]`` state (a JAX
   ``BatchScheduler.states`` or ``MultiPeerEngine.states``), written into
   the port's stacked state slot for slot, in place.
@@ -62,6 +67,33 @@ def params_from_jax(tree, device="cpu") -> dict:
 
 def state_from_jax(state, device="cpu") -> dict:
     return tree_map(lambda a: _tensor(a, device), state)
+
+
+def _adam_state(node):
+    """optax's ScaleByAdamState (a NamedTuple of count, mu, nu) in a tree
+    of tuples, or None."""
+    if all(hasattr(node, f) for f in ("count", "mu", "nu")):
+        return node
+    if isinstance(node, (list, tuple)):
+        for v in node:
+            found = _adam_state(v)
+            if found is not None:
+                return found
+    return None
+
+
+def train_state_from_jax(state, device="cpu") -> dict:
+    adam = _adam_state(state["opt"])
+    if adam is None:
+        raise ValueError("no ScaleByAdamState (count, mu, nu) in the optimizer state")
+    return {
+        "params": params_from_jax(state["params"], device),
+        "opt": {"count": torch.tensor(int(np.asarray(adam.count)), dtype=torch.int32,
+                                      device=device),
+                "mu": params_from_jax(adam.mu, device),
+                "nu": params_from_jax(adam.nu, device)},
+        "step": torch.tensor(int(np.asarray(state["step"])), dtype=torch.int32, device=device),
+    }
 
 
 def states_from_jax(states, into: dict, slots=None) -> dict:

@@ -18,16 +18,24 @@ nested dicts (and lists) of tensors with the JAX tree's names.
   kernel, adapters/bank.py) add their low-rank residual, per row in the
   session step.
 * Compute follows the activation dtype; normalization statistics are f32.
+* Under the trainer's tensor parallelism (parallel/trainer.py) a linear's or
+  a conv's dict carries ``"tp"``: its kernel is this rank's shard, and the
+  primitive runs Megatron's simple form (:func:`_tensor_parallel`).
+* ``attn_impl="ring"``/``"ulysses"`` route attention over the sequence-
+  parallel group that :func:`sp_attention_group` activates.
 """
 
 from __future__ import annotations
 
 import math
+from contextlib import contextmanager
 
 import torch
 import torch.nn.functional as F
 
 from ..ops.kernels import attention as kattn
+from ..parallel import collectives as C
+from ..parallel import ring_attention as RA
 from . import quant as Q
 
 # --------------------------------------------------------------------------
@@ -74,7 +82,31 @@ def _kernel(p, dtype):
     return p["kernel"].to(dtype)
 
 
+def _affine(x, kernel, bias):
+    y = x @ kernel.to(x.dtype)
+    return y if bias is None else y + bias.to(x.dtype)
+
+
+def _tensor_parallel(p, x, product):
+    """Megatron's simple form for a dict whose kernel is sharded over tp
+    (``p["tp"]`` = (kind, group), set by parallel/trainer.py); ``product(x,
+    bias)`` runs the local shard.  A column-sharded kernel computes its
+    shard of the output and gathers it whole; its input enters through
+    ``copy_to``, whose backward sums the input's gradient over the group.  A
+    row-sharded kernel takes its slice of the input's channels; the partial
+    products are summed over the group, then the bias is added once.
+    Activations between two layers stay replicated."""
+    kind, group = p["tp"]
+    bias = p.get("bias")
+    if kind == "column":
+        return C.gather(product(C.copy_to(x, group), bias), -1, group)
+    y = C.reduce(product(C.shard(x, -1, group), None), group)
+    return y if bias is None else y + bias.to(y.dtype)
+
+
 def linear(p, x):
+    if "tp" in p:
+        return _tensor_parallel(p, x, lambda z, b: _affine(z, p["kernel"], b))
     y = x @ _kernel(p, x.dtype)
     if "lora_down" in p:
         # a per-session style adapter (adapters/bank.py grafts the factors
@@ -114,9 +146,15 @@ def conv2d(p, x, stride: int = 1, padding="SAME"):
         if stride != 1:
             raise ValueError("SAME padding is only defined here at stride 1")
         padding = w.shape[-1] // 2
-    bias = p["bias"].to(x.dtype) if "bias" in p else None
-    y = F.conv2d(x.permute(0, 3, 1, 2), w, bias, stride=stride, padding=padding)
-    return y.permute(0, 2, 3, 1)
+
+    def product(z, bias):
+        bias = None if bias is None else bias.to(z.dtype)
+        return F.conv2d(z.permute(0, 3, 1, 2), w, bias, stride=stride,
+                        padding=padding).permute(0, 2, 3, 1)
+
+    if "tp" in p:
+        return _tensor_parallel(p, x, product)
+    return product(x, p.get("bias"))
 
 
 def group_norm(p, x, groups: int = 32, eps: float = 1e-5):
@@ -172,7 +210,28 @@ def timestep_embedding(timesteps, dim: int, max_period: int = 10000, dtype=torch
 # attention
 # --------------------------------------------------------------------------
 
-ATTN_IMPLS = ("plain", "kernel")
+ATTN_IMPLS = ("plain", "kernel", "ring", "ulysses")
+
+# The sequence-parallel group for attn_impl="ring"/"ulysses": the trainer
+# activates a mesh around its step, and every attention call inside routes
+# its token axis over the mesh's sp axis.
+_SP_CTX: list = []  # stack of (mesh, axis, batch_axis)
+
+
+@contextmanager
+def sp_attention_group(mesh, axis: str = "sp", batch_axis: str | None = None):
+    """Activate sequence-parallel attention for the model applies inside
+    (the JAX ``sp_attention_mesh``).  ``batch_axis`` keeps the JAX
+    signature: each rank already holds only its dp slice of the batch."""
+    _SP_CTX.append((mesh, axis, batch_axis))
+    try:
+        yield
+    finally:
+        _SP_CTX.pop()
+
+
+def current_sp_group():
+    return _SP_CTX[-1] if _SP_CTX else (None, "sp", None)
 
 
 def init_attention(gen, query_dim, context_dim, heads, head_dim, device="cpu"):
@@ -191,7 +250,10 @@ def attention(p, x, context=None, heads: int = 8, attn_impl: str = "kernel"):
 
     ``attn_impl``: "kernel" — the flash-attention kernel
     (ops/kernels/attention.py; its plain version on a CPU tensor);
-    "plain" — dense einsum softmax (:func:`sdpa_plain`)."""
+    "plain" — dense einsum softmax (:func:`sdpa_plain`); "ring" /
+    "ulysses" — sequence-parallel over the active
+    :func:`sp_attention_group` (:func:`_sdpa_sp`)."""
+    is_self = context is None
     context = x if context is None else context
     q = linear(p["to_q"], x)
     k = linear(p["to_k"], context)
@@ -205,9 +267,39 @@ def attention(p, x, context=None, heads: int = 8, attn_impl: str = "kernel"):
         o = kattn.flash_attention(q, k, v)
     elif attn_impl == "plain":
         o = sdpa_plain(q, k, v)
+    elif attn_impl in ("ring", "ulysses"):
+        o = _sdpa_sp(q, k, v, is_self, attn_impl)
     else:
         raise ValueError(f"attn_impl {attn_impl!r} not in {ATTN_IMPLS}")
     return linear(p["to_out"], o.reshape(b, lq, inner))
+
+
+def _sdpa_sp(q, k, v, is_self: bool, kind: str):
+    """Sequence-parallel dispatch (the JAX ``_sdpa_sp``): the plain route
+    when no group is active, the axis has one rank, or the query tokens do
+    not split over it.  Otherwise this rank takes its token shard of the
+    replicated q (and k/v for self-attention), runs ring or Ulysses
+    attention (Ulysses needs heads % n == 0, else ring) or, for
+    cross-attention, its queries against the whole short context, and the
+    output shards are gathered whole.  The activations outside attention
+    stay replicated over sp: the JAX trainer shards the latents' height
+    instead; the function is the same."""
+    mesh, axis, batch_axis = current_sp_group()
+    n = mesh.size(axis) if mesh is not None else 1
+    lq, heads = q.shape[1], q.shape[2]
+    if n == 1 or lq % n:
+        return sdpa_plain(q, k, v)
+    group = mesh.group(axis)
+    qs = C.shard(q, 1, group)
+    if not is_self:
+        o = RA.sp_cross_attention(qs, k, v, mesh, axis, batch_axis)
+    else:
+        ks, vs = C.shard(k, 1, group), C.shard(v, 1, group)
+        if kind == "ulysses" and heads % n == 0:
+            o = RA.ulysses_attention(qs, ks, vs, mesh, axis, batch_axis)
+        else:
+            o = RA.ring_attention(qs, ks, vs, mesh, axis, batch_axis)
+    return C.gather(o, 1, group)
 
 
 def sdpa_plain(q, k, v, mask=None):

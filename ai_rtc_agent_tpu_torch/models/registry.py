@@ -362,14 +362,24 @@ def load_model_bundle(
     bundle takes it) adds ``params["controlnet"]`` unless ``params`` holds
     one; ``annotator="hed"`` with it adds ``params["hed"]`` the same way.
     ``latent_scale`` sets the cond embedding's downsamples (8 -> 3, 4 -> 2,
-    2 -> 1; the tiny family is 4).  ``attn_impl`` ("kernel" | "plain") is
-    baked into the UNet and ControlNet closures, as in the JAX bundle.
+    2 -> 1; the tiny family is 4).  ``attn_impl`` ("kernel" | "plain" | "ring" |
+    "ulysses") is baked into the UNet and ControlNet closures, as in the
+    JAX bundle.
     Real weights with no tokenizer vocab raise."""
     device = resolve_device(device)
     fam = family_of(model_id)
     unet_cfg, clip_cfg, taesd_cfg = _model_configs(fam)
     if attn_impl not in ATTN_IMPLS:
-        raise ValueError(f"attn_impl {attn_impl!r} not in {ATTN_IMPLS}")
+        # fail fast: a typo would otherwise serve through a route nobody asked for
+        raise ValueError(f"attn_impl={attn_impl!r} unknown ({' | '.join(ATTN_IMPLS)})")
+    if attn_impl in ("ring", "ulysses"):
+        # the sp routes need layers.sp_attention_group active around the
+        # apply (the trainer's caller activates it); without one attention
+        # falls back to the plain route, slower than the kernel: never silent
+        logger.warning(
+            "attn_impl=%s takes effect only under an active sp_attention_group (the "
+            "trainer over an sp>1 mesh); otherwise attention falls back to the plain "
+            "route — serve with attn_impl=\"kernel\" on one card", attn_impl)
     if fam in TINY_FAMILIES:
         latent_scale = 4
     cnet_num_down = {8: 3, 4: 2, 2: 1}.get(latent_scale)

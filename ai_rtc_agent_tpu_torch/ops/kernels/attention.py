@@ -28,7 +28,7 @@ import math
 
 import torch
 
-from . import build
+from . import build, refuse_grad
 
 SOURCE = "flash_attention.cu"
 MAX_HEAD_DIM = 160
@@ -85,8 +85,11 @@ def flash_attention(q, k, v, mask=None):
     dim a multiple of 8 up to 160, 16-byte aligned) launches the kernel or
     raises.  The kernel picks its instantiation from D and Lq (see
     :func:`key_tile`; the .cu header lists them).  ``mask`` is unsupported
-    (diffusion attention is unmasked) and raises, as on the TPU."""
+    (diffusion attention is unmasked) and raises, as on the TPU.  A call
+    that would need a gradient raises on every device
+    (:func:`~ai_rtc_agent_tpu_torch.ops.kernels.refuse_grad`)."""
     global launches
+    refuse_grad("flash_attention", q, k, v)
     if mask is not None:
         raise NotImplementedError("flash_attention is non-causal/unmasked")
     if q.device.type == "cpu":

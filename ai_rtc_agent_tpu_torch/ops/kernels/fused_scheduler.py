@@ -57,7 +57,7 @@ import ctypes
 
 import torch
 
-from . import build
+from . import build, refuse_grad
 
 SOURCE = "fused_stream_epilogue.cu"
 CFG_TYPES = ("none", "initialize", "self")  # index = the kernel's cfg code
@@ -191,8 +191,13 @@ def fused_stream_epilogue(x_t, eps_c, stock, noise, coeffs, guidance, delta, cfg
     tensor takes :func:`epilogue_plain`; a CUDA tensor launches the kernel
     or raises: every tensor must share x's row shape, device and dtype
     (bf16 or f32), the outputs must be contiguous, and the coefficient
-    vectors, guidance and delta must be f32 tensors on that device."""
+    vectors, guidance and delta must be f32 tensors on that device.  A
+    call that would need a gradient raises on every device
+    (:func:`~ai_rtc_agent_tpu_torch.ops.kernels.refuse_grad`)."""
     global launches
+    refuse_grad("fused_stream_epilogue", x_t, eps_c, stock, noise, guidance, delta,
+                *(getattr(coeffs, name, None) for name in ("alpha", "sigma", "c_skip", "c_out",
+                                                           "next_alpha", "next_sigma")))
     device = x_t.device
     if device.type == "cpu":
         return epilogue_plain(x_t, eps_c, stock, noise, coeffs, guidance, delta, cfg_type,

@@ -1,9 +1,10 @@
-"""The pytree wire codec (counterpart of the wire half of
-ai_rtc_agent_tpu/parallel/checkpoint.py): one self-describing blob per
-nested dict/list/tuple of arrays and python scalars, bit-exact for every
-fixed-width dtype, versioned and checksummed per leaf.  A session
-migration (stream/scheduler.py ``snapshot_session``/``restore_session``)
-rides it.
+"""The pytree wire codec and the trainer's checkpoints (counterpart of
+ai_rtc_agent_tpu/parallel/checkpoint.py).
+
+The codec: one self-describing blob per nested dict/list/tuple of arrays
+and python scalars, bit-exact for every fixed-width dtype, versioned and
+checksummed per leaf.  A session migration (stream/scheduler.py
+``snapshot_session``/``restore_session``) rides it.
 
 For the same tree the bytes equal the JAX encoder's, so each side decodes
 the other's blobs:
@@ -20,13 +21,23 @@ outside its locks).  bfloat16 goes on the wire as its raw 16 bits under
 the name ``"bfloat16"``, as ml_dtypes names it on the JAX side; this
 module needs no ml_dtypes.  :func:`deserialize_pytree` returns torch CPU
 tensors (torch spells bfloat16; numpy does not) and refuses corrupt or
-truncated blobs with ``ValueError``.  The trainer checkpoints of the JAX
-module wait for the trainer's slice.
+truncated blobs with ``ValueError``.
+
+The trainer's checkpoints (:func:`save_train_state`,
+:func:`latest_checkpoint`, :func:`restore_train_state`) keep the JAX
+layout of directories, ``<dir>/step_%08d``, and its newest-step choice.
+The JAX package writes them with orbax; the port writes the whole train
+state (params, optimizer, step; tp shards gathered by the trainer) as one
+codec blob inside, so a checkpoint written at one mesh shape restores at
+another.  JAX orbax checkpoints are not read.
 """
 
 from __future__ import annotations
 
 import json
+import os
+import re
+import shutil
 import struct
 import zlib
 
@@ -169,3 +180,51 @@ def deserialize_pytree(data: bytes):
         return _decode_node(header["tree"], arrays)
     except (KeyError, IndexError, TypeError) as e:
         raise ValueError(f"pytree blob structure invalid: {e}") from e
+
+
+STATE_FILE = "train_state.tprt"
+
+
+def checkpoint_path(ckpt_dir: str, step: int) -> str:
+    return os.path.abspath(os.path.join(ckpt_dir, f"step_{step:08d}"))
+
+
+def save_train_state(ckpt_dir: str, state, step: int | None = None) -> str:
+    """Persist a whole train state tree; returns the checkpoint path.  An
+    existing checkpoint of the same step is replaced, and a reader never
+    sees a half-written one (the directory is renamed into place)."""
+    if step is None:
+        step = int(state["step"])
+    path = checkpoint_path(ckpt_dir, step)
+    blob = serialize_pytree(state)
+    tmp = path + ".partial"
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+    with open(os.path.join(tmp, STATE_FILE), "wb") as f:
+        f.write(blob)
+    shutil.rmtree(path, ignore_errors=True)
+    os.replace(tmp, path)
+    return path
+
+
+def latest_checkpoint(ckpt_dir: str) -> str | None:
+    if not os.path.isdir(ckpt_dir):
+        return None
+    steps = []
+    for name in os.listdir(ckpt_dir):
+        m = re.fullmatch(r"step_(\d+)", name)
+        if m:
+            steps.append((int(m.group(1)), name))
+    if not steps:
+        return None
+    return os.path.join(ckpt_dir, max(steps)[1])
+
+
+def restore_train_state(ckpt_dir: str):
+    """The whole train state of the newest checkpoint in ``ckpt_dir``, as
+    torch CPU tensors; None when no checkpoint exists."""
+    path = latest_checkpoint(ckpt_dir)
+    if path is None:
+        return None
+    with open(os.path.join(path, STATE_FILE), "rb") as f:
+        return deserialize_pytree(f.read())

@@ -122,6 +122,9 @@ Variables read by the port's server:
   UNET_CACHE                        DeepCache interval, N or deepcache:N (the agent's
                                     --unet-cache; 0/1 off; models/registry.py)
   CXX                               the C++ compiler that builds native/ (g++; media/native.py)
+  RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT
+                                    torchrun's process-group variables, read by
+                                    parallel/mesh.init_distributed (unset: one process)
 
 The knob registries are docs/environment.md (the knobs both agents answer) and
 ai_rtc_agent_tpu_torch/environment.md (the port's own, and the documented knobs it
@@ -292,3 +295,27 @@ def adapter_rank_buckets() -> tuple:
     if not buckets or any(b < 1 for b in buckets):
         raise ValueError(f"ADAPTER_RANK_BUCKETS={v!r}: buckets must be >= 1")
     return buckets
+
+
+def dist_rank() -> int | None:
+    """This process's rank in a torchrun world (RANK; None when unset)."""
+    v = get_int("RANK", -1)
+    return None if v < 0 else v
+
+
+def dist_world_size() -> int | None:
+    """The torchrun world's process count (WORLD_SIZE; None when unset)."""
+    v = get_int("WORLD_SIZE", 0)
+    return None if v <= 0 else v
+
+
+def dist_local_rank() -> int:
+    """This process's GPU on its host (LOCAL_RANK; 0 when unset)."""
+    return get_int("LOCAL_RANK", 0)
+
+
+def dist_master() -> tuple:
+    """(MASTER_ADDR, MASTER_PORT) of a torchrun world: the rendezvous that
+    rank 0 hosts (127.0.0.1 and None when unset)."""
+    port = get_int("MASTER_PORT", 0)
+    return get_str("MASTER_ADDR", "127.0.0.1"), (port or None)

@@ -61,7 +61,7 @@ Phases (each prints its own lines; any failure exits non-zero):
                 epilogue launches per bucket step, each session's first
                 frames held to a dedicated engine fed its state row (phase
                 4's criterion against the f32 reference) and to the eager
-                scheduler's; two rounds of timed runs of 36 frames per
+                scheduler's; two rounds of timed runs of 24 frames per
                 session at each k, graph and eager in turns (ABBA), each
                 round followed by the same sessions through the shared
                 pipeline in turns (the eager peak memory at k=8): ms between
@@ -332,7 +332,26 @@ Phases (each prints its own lines; any failure exits non-zero):
                 SDXL UNet pass's 140 launches (H 10/20, D 64, Lk 77 across)
                 at B = 1 and 2 against its plain version, with SDPA and the
                 bound; the epilogue on [k,128,128,4] at k = 1 and 2.
- 17. a "kernels" JSON line (launch counts of phases 4 to 16), then the last
+ 17. train    — the training path (parallel/: mesh, sharding, collectives,
+                ring_attention, trainer, the train-state checkpoints) at
+                world size 1: an NCCL group brought up by init_distributed on
+                loopback, make_mesh() = (1,1,1), make_mesh(tp=2) refused
+                with the JAX text, one all_reduce on the world.  17a:
+                ShardedTrainer over sd-turbo's UNet (SD2.1 geometry, 866 M
+                parameters, random from a seed, f32, attn_impl="plain"),
+                batch 2 of [64,64,4] latents and [77,1024] context with one
+                fixed (t, noise), 5 steps on that batch: losses finite and
+                falling, every to_q/to_k/to_v kernel with a finite non-zero
+                gradient after the first backward; ms a step (median of
+                steps 2-5), peak memory, the train state's bytes, the TF32
+                switches.  17b: neither kernel launched by training; a bf16
+                q requiring grad refused by flash_attention.  17c: one tiny
+                trainer step on the card = the same step on the CPU (loss
+                rtol 1e-5, every parameter atol 5e-5 at lr 1e-3).  17d: a
+                tiny checkpoint round trip on the card: restored bit for
+                bit, the next step's loss within 5e-6.  The group is
+                destroyed at the end of the phase, whatever happens.
+ 18. a "kernels" JSON line (launch counts of phases 4 to 16), then the last
      line {"ok": true, "device": ...}.
 
 Imports nothing of JAX or of the JAX package.  `python3 chip_smoke.py
@@ -1060,10 +1079,22 @@ GRAPH_PARITY_FRAMES = 6
 TRACE_SETTLE_S = 0.5
 
 
-def kernel_trace(torch, fn) -> dict:
+def _step_profile():
+    """scripts/torch_step_profile.py as a module (its kernel classes)."""
+    import importlib.util
+
+    path = Path(__file__).resolve().parent / "scripts" / "torch_step_profile.py"
+    spec = importlib.util.spec_from_file_location("torch_step_profile", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def kernel_trace(torch, fn, classes: bool = False) -> dict:
     """A device-only torch.profiler trace of one call of ``fn``: kernel
     counts {"attention", "epilogue", "kernels"}, the attention kernels' ms,
-    and busy ms (the union of the device intervals), the span from the
+    with ``classes`` the device ms by kernel class (``by_class``, the classes
+    of scripts/torch_step_profile.py), and busy ms (the union of the device intervals), the span from the
     first one's start to the last one's end and the idle share 1 -
     busy/span.  The window opens and closes TRACE_SETTLE_S away from
     ``fn``'s work, so every kernel of it lies inside."""
@@ -1091,7 +1122,13 @@ def kernel_trace(torch, fn) -> dict:
     names = [ev.name for ev in evs if "emcpy" not in ev.name and "emset" not in ev.name]
     attention_us = sum(ev.time_range.end - ev.time_range.start for ev in evs
                        if "flash_attention_kernel" in ev.name)
+    by_class: dict = {}
+    classify = _step_profile().classify if classes else None
+    for ev in evs if classes else ():
+        label = classify(ev.name)
+        by_class[label] = by_class.get(label, 0.0) + (ev.time_range.end - ev.time_range.start) / 1e3
     return {"attention": sum("flash_attention_kernel" in n for n in names),
+            "by_class": by_class,
             "attention_ms": attention_us / 1e3,
             "epilogue": sum("stream_epilogue_kernel" in n for n in names),
             "kernels": len(names), "busy_ms": busy / 1e3, "span_ms": span / 1e3,
@@ -1353,7 +1390,7 @@ SESSION_PROMPTS = [
     "a comic book robot", "a charcoal drawing of a horse", "a pastel beach at dawn",
 ]
 SCHED_OCCUPANCY = (1, 2, 3, 4, 8)  # 3 rides the bucket of 4, padded
-SCHED_FRAMES = 36  # frames per session in each timed run at each occupancy
+SCHED_FRAMES = 24  # frames per session in each timed run at each occupancy
 SCHED_FILL = 4  # of them, each session's first outputs: outside the steady window
 SCHED_ROUNDS = 2  # timed runs per occupancy, scheduler and shared pipeline in turn
 PARITY_FRAMES = 3  # each session's first frames, held to dedicated engines
@@ -4329,10 +4366,10 @@ SD15_ID = "runwayml/stable-diffusion-v1-5"
 SD15_SEED = 12
 SD15_HUB = Path(__file__).resolve().parent / "build" / "phase12-hub"
 SD15_RING_K = (1, 2, 4)  # 12b: sessions (4, 8 and 16 UNet rows a bucket step)
-SD15_FRAMES = 36  # 12b/12c: frames per session at each k (phase 6a's window)
+SD15_FRAMES = 24  # 12b/12c: frames per session at each k (phase 6a's window)
 SD15_FILL = 4  # of them, each session's first outputs: outside the steady window
 SD15_PARITY = 8  # of them, each session's first outputs: held to dedicated engines
-SD15_TRACE_FRAMES = 12  # 12b/12c: frames per session in the traced run
+SD15_TRACE_FRAMES = 6  # 12b/12c: frames per session in the traced run
 MODE_K = (1, 2)  # 12c: sessions in each mode
 TXT_FRAMES = 6  # 12c/12d: frames viewed through each /offer session
 LORA_RANK = 64
@@ -4895,9 +4932,9 @@ def phase_sd15_attention(torch, card: str, shapes=SD15_ATTENTION, batches=SD15_A
 
 DC_INTERVAL = 3  # 13b/13c: UNET_CACHE=3, the JAX bench default
 VARIANT_PARITY = 4  # 13a: frames held to the f32 references from one state
-AB_STEPS = 12  # 13a/13b: steps traced per side in each turn
+AB_STEPS = 6  # 13a/13b: steps traced per side in each turn
 AB_TURNS = ("dense", "w8", "w8", "dense")  # 13a: ABBA, the busy time a step
-DC_FRAMES = 36  # 13b: frames per session in each timed run at k=1 (phase 6a's window)
+DC_FRAMES = 24  # 13b: frames per session in each timed run at k=1 (phase 6a's window)
 DC_TURNS = ("full", "deepcache", "deepcache", "full")  # 13b: fps at k=1, ABBA
 CADENCE_STEPS = 12  # 13b: the pipeline's cadence, captures at ticks 0, 3, 6, 9
 QUALITY_FRAMES, QUALITY_WARMUP = 18, 6  # 13b: moving_scene, steady outputs only
@@ -5467,9 +5504,9 @@ CNET_SEED = 14
 CNET_ZERO_GAIN = 0.5  # 14a: zero convs N(0, (gain / sqrt(fan_in))^2): the residuals move the output
 CNET_K = (1, 2)  # 14b: sessions through the bucket graphs
 CNET_PARITY = 6  # 14b-c: each session's first outputs held to its references
-CNET_AB_FRAMES = 24  # 14b: frames a session in each timed turn (outputs 5-24 steady)
+CNET_AB_FRAMES = 12  # 14b: frames a session in each timed turn (outputs 5-12 steady)
 CNET_TURNS = ("cnet", "plain", "plain", "cnet")  # 14b: ABBA against the plain ring
-CNET_TRACE_FRAMES = 12  # 14b: frames a session in each turn's device trace
+CNET_TRACE_FRAMES = 6  # 14b: frames a session in each turn's device trace
 CNET_SERVE = 6  # 14d: frames viewed through the WHIP session, then again after the move
 # the ControlNet pass at 512^2, 8 heads: (Lq, Lk, D, launches): 14 in all
 CNET_ATTENTION = [
@@ -6081,7 +6118,7 @@ ADAPTER_WINDOW_MS = 10_000.0  # 15: a bucket step waits for every live session (
 CHURN = (("join", "r8"), ("swap", "r4"), ("global", "r16"), ("join", None), ("swap", None),
          ("global", None), ("swap", "r8"), ("leave", None))  # 15b, each before a step
 ADAPTER_AB = ("styled", "plain", "plain", "styled")  # 15e: ABBA, busy ms a bucket step
-ADAPTER_AB_REPS = 8  # 15e: replays a turn
+ADAPTER_AB_REPS = 4  # 15e: replays a turn
 RING_CNET_ID = "lllyasviel/control_v11p_sd15_canny"  # 15c: random ControlNet weights
 
 
@@ -6886,6 +6923,250 @@ def sdxl_kernels(torch, card: str):
             f"{nbytes} B, {flops} flop)")
 
 
+TRAIN_STEPS = 5  # 17a: steps on one batch at full width
+TRAIN_LR = 1e-4  # 17a's learning rate (TrainerConfig's default is 1e-5)
+TRAIN_TINY_LR = 1e-3  # 17c/17d, as the CPU parity tests
+TRAIN_PARAM_ATOL = 5e-5  # 17c: 5% of lr, the largest move of one Adam step
+
+
+def phase_train(torch, card: str, unet_cfg=None, device="cuda"):
+    """Phase 17: the training path at world size 1 (17a-17d, see the module
+    docstring).  ``unet_cfg`` and ``device="cpu"`` rehearse it on the CPU
+    (a gloo world; 17c then compares the CPU with itself)."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from ai_rtc_agent_tpu_torch.models import registry
+    from ai_rtc_agent_tpu_torch.models import unet as U
+    from ai_rtc_agent_tpu_torch.ops.kernels import attention as KA
+    from ai_rtc_agent_tpu_torch.parallel import mesh as M
+
+    t_phase = time.perf_counter()
+    cuda = device == "cuda"
+    # a world of 1: with no MASTER_PORT, init_distributed takes a free loopback port
+    dev = M.init_distributed(rank=0, world_size=1, backend="nccl" if cuda else "gloo",
+                             device=device)
+    try:
+        mesh = M.make_mesh()
+        try:
+            M.make_mesh(tp=2)
+            fail("train 17: make_mesh(tp=2) over a world of 1 must raise")
+        except ValueError as e:
+            if str(e) != "mesh dp*tp*sp=2 exceeds 1 available devices":
+                fail(f"train 17: make_mesh(tp=2) raised {e!r}, not the JAX text")
+        one = torch.ones(4, device=dev)
+        dist.all_reduce(one)
+        _sync(torch, dev)
+        if mesh.shape != {"dp": 1, "tp": 1, "sp": 1} or not torch.equal(one.cpu(), torch.ones(4)):
+            fail(f"train 17: mesh {mesh.shape}, all_reduce over the world gave {one.tolist()}")
+        say(f"train 17: {card} | {dist.get_backend()} world of {dist.get_world_size()} up "
+            f"through init_distributed on loopback, make_mesh() = {mesh.shape}, make_mesh(tp=2) "
+            "refused with the JAX text, one all_reduce over the world")
+        cfg = unet_cfg or registry._model_configs(registry.family_of("stabilityai/sd-turbo"))[0]
+        launched = _launches()
+        train_full(torch, np, card, mesh, cfg, dev)
+        if _launches() != launched:
+            fail(f"train 17b: training launched kernels: (attention, epilogue) {launched} -> "
+                 f"{_launches()}")
+        q = torch.randn((1, 64, 2, 64), device=dev, dtype=torch.bfloat16, requires_grad=True)
+        try:
+            KA.flash_attention(q, q, q)
+            fail("train 17b: flash_attention must refuse a q that requires grad")
+        except RuntimeError as e:
+            if 'attn_impl="plain"' not in str(e):
+                fail(f"train 17b: the refusal must name the plain route: {e}")
+        say(f"train 17b: {card} | the training steps launched no kernel (attention and "
+            f"epilogue counts {launched} before and after); flash_attention refused a bf16 q "
+            "that requires grad")
+        train_card_vs_cpu(torch, np, card, mesh, U.UNetConfig.tiny(), dev)
+        train_checkpoint(torch, np, card, mesh, U.UNetConfig.tiny(), dev)
+    finally:
+        M.shutdown_distributed()
+    say(f"train: phase 17 took {time.perf_counter() - t_phase:.1f} s")
+
+
+def _trainer(torch, mesh, cfg, params, device, lr):
+    from ai_rtc_agent_tpu_torch.models import unet as U
+    from ai_rtc_agent_tpu_torch.ops import schedule as S
+    from ai_rtc_agent_tpu_torch.parallel.trainer import ShardedTrainer, TrainerConfig
+
+    def unet_apply(p, x, t, ctx, added):
+        return U.apply_unet(p, x, t, ctx, cfg, attn_impl="plain", added_cond=added)
+
+    return ShardedTrainer(unet_apply, S.make_schedule(), mesh, params,
+                          TrainerConfig(learning_rate=lr), device=device)
+
+
+def _train_batch(torch, cfg, batch: int, hw: int, ctx_len: int, seed: int, device):
+    """A batch and one fixed (t, noise) from a seed, drawn on ``device``."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    latents = torch.randn((batch, hw, hw, cfg.in_channels), generator=g, device=device)
+    context = torch.randn((batch, ctx_len, cfg.cross_attention_dim), generator=g, device=device)
+    t = torch.randint(0, 1000, (batch,), generator=g, device=device)
+    noise = torch.randn(latents.shape, generator=g, device=device)
+    return {"latents": latents, "context": context}, t, noise
+
+
+def _nbytes(state) -> int:
+    return sum(a.numel() * a.element_size() for a in _tensors(state))
+
+
+def train_step_flops(torch, cfg, batch: int, hw: int, ctx_len: int) -> float:
+    """The matmul, conv and einsum FLOPs of one training step (forward and
+    backward) at these shapes, counted by torch.utils.flop_counter on the
+    meta device (no memory, no device)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from ai_rtc_agent_tpu_torch.models import unet as U
+
+    params = U.init_unet(None, cfg, device="meta")
+    for a in _tensors(params):
+        a.requires_grad_(True)
+    x = torch.empty((batch, hw, hw, cfg.in_channels), device="meta")
+    ctx = torch.empty((batch, ctx_len, cfg.cross_attention_dim), device="meta")
+    t = torch.zeros((batch,), dtype=torch.long, device="meta")
+    with FlopCounterMode(display=False) as counter:
+        U.apply_unet(params, x, t, ctx, cfg, attn_impl="plain").square().mean().backward()
+    return float(counter.get_total_flops())
+
+
+def train_full(torch, np, card: str, mesh, cfg, dev):
+    """17a: TRAIN_STEPS steps of the full-width trainer on one batch, beside
+    the step's bound: its products' FLOPs over the f32 peak (the products
+    run in f32 with TF32 off, outside the tensor cores)."""
+    from ai_rtc_agent_tpu_torch.models import unet as U
+    from ai_rtc_agent_tpu_torch.parallel.sharding import leaves_with_paths
+
+    cuda = dev.type == "cuda"
+    t = time.perf_counter()
+    params = U.init_unet(torch.Generator(device=dev).manual_seed(17), cfg, device=dev)
+    n_params = sum(a.numel() for a in _tensors(params))
+    tr = _trainer(torch, mesh, cfg, params, dev, TRAIN_LR)
+    del params
+    if cuda:
+        torch.cuda.empty_cache()
+    _sync(torch, dev)
+    built = time.perf_counter() - t
+    hw = 64 if cfg.block_out_channels[0] == 320 else 8
+    batch, t_, noise = _train_batch(torch, cfg, 2, hw, 77, 170, dev)
+    base = torch.cuda.memory_allocated() if cuda else 0
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    losses, ms = [], []
+    proj = []
+    for i in range(TRAIN_STEPS):
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        losses.append(tr.step(batch, t=t_, noise=noise))
+        _sync(torch, dev)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            proj = [(p, a.grad) for p, a in leaves_with_paths(tr.state["params"])
+                    if p[-2] in ("to_q", "to_k", "to_v")]
+            bad = [p for p, g in proj
+                   if g is None or not bool(torch.isfinite(g).all()) or not bool(g.abs().max() > 0)]
+            if not proj or bad:
+                fail(f"train 17a: {len(bad)} of {len(proj)} attention projections without a "
+                     f"finite non-zero gradient after the first backward: {bad[:3]}")
+            grad_max = min(float(g.abs().max()) for _p, g in proj)
+            proj = len(proj)
+    peak = torch.cuda.max_memory_allocated() if cuda else 0
+    flops = train_step_flops(torch, cfg, 2, hw, 77)
+    step_ms = _median(ms[1:])
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        fail(f"train 17a: the losses must be finite and the last below the first: {losses}")
+    st = tr.state
+    state = _nbytes([st["params"], st["opt"]["mu"], st["opt"]["nu"]])
+    grads = sum(a.grad.numel() * a.grad.element_size() for a in _tensors(st["params"]))
+    say(f"train 17a: {card} | ShardedTrainer over sd-turbo's UNet ({n_params / 1e6:.1f} M "
+        f"parameters, f32, attn_impl=\"plain\", mesh {mesh.shape}) built in {built:.1f}s | "
+        f"batch 2 of {list(batch['latents'].shape[1:])} latents and "
+        f"{list(batch['context'].shape[1:])} context, t {t_.tolist()} fixed, lr {TRAIN_LR} | "
+        f"losses {[round(x, 6) for x in losses]} | ms a step {[round(x, 1) for x in ms]}, "
+        f"median of steps 2-{TRAIN_STEPS} {step_ms:.1f}; the step's products {flops / 1e12:.3f} "
+        f"TFLOP (flop_counter), {flops / step_ms / 1e9:.1f} TFLOP/s achieved, bound "
+        f"{flops / PEAK_F32_FLOPS * 1e3:.1f} ms at {PEAK_F32_FLOPS / 1e12:.0f} TFLOP/s f32 | "
+        f"{proj} to_q/to_k/to_v "
+        f"gradients finite and non-zero (smallest max |g| {grad_max:.3e}) | train state "
+        f"(params + mu + nu) {state / 1e9:.3f} GB, with grads {(state + grads) / 1e9:.3f} GB | "
+        f"max_memory_allocated {peak / 1e9:.3f} GB ({base / 1e9:.3f} GB allocated before the "
+        f"first step) | matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
+        f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
+    if cuda:
+        tr_ = kernel_trace(torch, lambda: tr.step(batch, t=t_, noise=noise), classes=True)
+        say(f"train 17a: {card} | a sixth step traced (device only): busy {tr_['busy_ms']:.1f} "
+            f"ms, idle share {tr_['idle']:.3f}, {tr_['kernels']} kernels, attention kernels "
+            f"{tr_['attention']}; device ms by class: " + ", ".join(
+                f"{k} {v:.1f}" for k, v in sorted(tr_["by_class"].items(), key=lambda kv: -kv[1])))
+        if tr_["attention"] or tr_["epilogue"]:
+            fail("train 17a: the traced training step ran a port kernel")
+    del tr
+    if cuda:
+        torch.cuda.empty_cache()
+
+
+def train_card_vs_cpu(torch, np, card: str, mesh, cfg, dev):
+    """17c: one tiny trainer step on ``dev`` and on the CPU from the same
+    state and (t, noise)."""
+    from ai_rtc_agent_tpu_torch.models import unet as U
+    from ai_rtc_agent_tpu_torch.parallel.sharding import leaves_with_paths
+
+    params = U.init_unet(torch.Generator().manual_seed(171), cfg)
+    batch, t_, noise = _train_batch(torch, cfg, 4, 8, 7, 172, "cpu")
+    runs = {}
+    for where in (dev, torch.device("cpu")):
+        tr = _trainer(torch, mesh, cfg, params, where, TRAIN_TINY_LR)
+        loss = tr.step(batch, t=t_, noise=noise)
+        runs[where.type if where == dev else "cpu"] = (loss, {
+            p: a.detach().cpu() for p, a in leaves_with_paths(tr.state["params"])})
+    (lc, pc), (lh, ph) = runs[dev.type], runs["cpu"]
+    err = max(float((pc[p] - ph[p]).abs().max()) for p in ph)
+    rel = abs(lc - lh) / abs(lh)
+    if rel > 1e-5 or err > TRAIN_PARAM_ATOL:
+        fail(f"train 17c: the {dev.type} step is not the CPU step: loss {lc} vs {lh} (rel "
+             f"{rel:.2e}, limit 1e-5), max |param diff| {err:.3e} (limit {TRAIN_PARAM_ATOL})")
+    say(f"train 17c: {card} | one tiny trainer step (lr {TRAIN_TINY_LR}, batch 4) on "
+        f"{dev.type} vs the CPU from one state and (t, noise): loss {lc:.7f} vs {lh:.7f} "
+        f"(rel {rel:.2e}, limit 1e-5), every parameter within {err:.3e} (limit "
+        f"{TRAIN_PARAM_ATOL})")
+
+
+def train_checkpoint(torch, np, card: str, mesh, cfg, dev):
+    """17d: a tiny checkpoint round trip on ``dev``."""
+    import shutil
+
+    from ai_rtc_agent_tpu_torch.models import unet as U
+
+    ckpt = Path(__file__).resolve().parent / "build" / "phase17-ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    try:
+        params = U.init_unet(torch.Generator().manual_seed(173), cfg)
+        batch, t_, noise = _train_batch(torch, cfg, 4, 8, 7, 174, "cpu")
+        tr = _trainer(torch, mesh, cfg, params, dev, TRAIN_TINY_LR)
+        tr.step(batch, t=t_, noise=noise)
+        t = time.perf_counter()
+        path = tr.save(str(ckpt))
+        save_ms = (time.perf_counter() - t) * 1e3
+        fresh = _trainer(torch, mesh, cfg, params, dev, TRAIN_TINY_LR)
+        t = time.perf_counter()
+        if not fresh.restore(str(ckpt)):
+            fail("train 17d: restore found no checkpoint")
+        restore_ms = (time.perf_counter() - t) * 1e3
+        a, b = _tensors(tr.full_state()), _tensors(fresh.full_state())
+        if not all(torch.equal(x, y) for x, y in zip(a, b)):
+            fail("train 17d: the restored state must equal the saved one bit for bit")
+        _batch2, t2, noise2 = _train_batch(torch, cfg, 4, 8, 7, 175, "cpu")
+        la, lb = tr.step(batch, t=t2, noise=noise2), fresh.step(batch, t=t2, noise=noise2)
+        if abs(la - lb) > 5e-6:
+            fail(f"train 17d: the resumed step's loss {lb} vs the continued {la}")
+        size = sum(f.stat().st_size for f in Path(path).iterdir())
+        say(f"train 17d: {card} | tiny train state saved at step 1 ({Path(path).name}, {size} B, "
+            f"{save_ms:.1f} ms) and restored by a fresh trainer bit for bit ({restore_ms:.1f} "
+            f"ms); the next step's loss {lb:.7f} vs the continued {la:.7f}")
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+
+
 def _to_cpu(v):
     return {k: _to_cpu(x) for k, x in v.items()} if isinstance(v, dict) else v.cpu()
 
@@ -6926,6 +7207,7 @@ def main():
     variants_attn, variants_epi = phase_variants(torch, card)
     cnet_attn, cnet_epi = phase_controlnet(torch, card)
     sdxl_attn, sdxl_epi = phase_sdxl(torch, card)
+    phase_train(torch, card)
     attn_launches += (serve_attn + sessions_attn + faults_attn + native_attn + obs_attn
                       + fleet_attn + broadcast_attn + sd15_attn + variants_attn + cnet_attn
                       + adapters_attn + sdxl_attn)

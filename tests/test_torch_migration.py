@@ -783,11 +783,14 @@ def test_the_import_walk_covers_the_new_modules():
                 "refusal_discipline")
     for rel in ("fleet/__init__.py", "fleet/journey.py", "fleet/registry.py", "fleet/routing.py",
                 "fleet/router.py", "fleet/transport.py", "parallel/checkpoint.py",
+                "parallel/mesh.py", "parallel/sharding.py", "parallel/collectives.py",
+                "parallel/ring_attention.py", "parallel/trainer.py",
                 "server/lifecycle.py", "server/worker.py",
                 *(f"analysis/{name}.py" for name in analysis)):
         path = pkg / rel
         assert path in walked, rel
-        assert not _all_imports(path) & {"jax", "jaxlib", "ai_rtc_agent_tpu", "ml_dtypes"}, rel
+        assert not _all_imports(path) & {"jax", "jaxlib", "ai_rtc_agent_tpu", "ml_dtypes",
+                                         "optax", "orbax"}, rel
 
 
 @pytest.mark.parametrize("rel", ["fleet/routing.py", "fleet/transport.py", "fleet/registry.py",
