@@ -107,6 +107,16 @@ def stream_engine_key(model_id: str, cfg, **extra) -> str:
     )
 
 
+def mesh_key_extra(mesh) -> dict:
+    """Engine-key extras of a serving mesh (the JAX recipe): nothing for a
+    trivial or absent mesh, so every single-device key stays as it was,
+    and ``dp-N`` otherwise, so a sharded step never shares a key with the
+    single-device one."""
+    if mesh is None:
+        return {}
+    dp = mesh.shape.get("dp", 1)
+    return {"dp": dp} if dp > 1 else {}
+
 
 def adapter_key_extra(rank: int) -> dict:
     """Engine-key extras of the per-session LoRA factor bank (adapters/): an

@@ -275,20 +275,26 @@ def attention(p, x, context=None, heads: int = 8, attn_impl: str = "kernel"):
 
 
 def _sdpa_sp(q, k, v, is_self: bool, kind: str):
-    """Sequence-parallel dispatch (the JAX ``_sdpa_sp``): the plain route
-    when no group is active, the axis has one rank, or the query tokens do
-    not split over it.  Otherwise this rank takes its token shard of the
+    """Sequence-parallel dispatch (the JAX ``_sdpa_sp``). The local case (no
+    group is active, the axis has one rank, or the query tokens do not split
+    over it) computes attention whole on this rank: through the serving
+    route, the flash-attention kernel (its plain version on a CPU tensor),
+    unless the call needs a gradient, which the kernel does not give: then
+    the plain route, as the JAX local case takes XLA's, so the trainer's
+    steps are unchanged. Otherwise this rank takes its token shard of the
     replicated q (and k/v for self-attention), runs ring or Ulysses
     attention (Ulysses needs heads % n == 0, else ring) or, for
     cross-attention, its queries against the whole short context, and the
-    output shards are gathered whole.  The activations outside attention
-    stay replicated over sp: the JAX trainer shards the latents' height
-    instead; the function is the same."""
+    output shards are gathered whole. The activations outside attention stay
+    replicated over sp: the JAX trainer shards the latents' height instead;
+    the function is the same."""
     mesh, axis, batch_axis = current_sp_group()
     n = mesh.size(axis) if mesh is not None else 1
     lq, heads = q.shape[1], q.shape[2]
     if n == 1 or lq % n:
-        return sdpa_plain(q, k, v)
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+            return sdpa_plain(q, k, v)
+        return kattn.flash_attention(q, k, v)
     group = mesh.group(axis)
     qs = C.shard(q, 1, group)
     if not is_self:

@@ -133,6 +133,8 @@ def default_stream_config(model_id: str, device="cuda", **overrides) -> StreamCo
         )
     base.update(overrides)
     base.setdefault("use_fused_epilogue", True)
+    if "attn_impl" not in base:
+        base["attn_impl"] = env.attn_impl()  # ATTN_IMPL: xla is refused here, at boot
     base.setdefault("dtype", "bfloat16" if torch.device(device).type == "cuda" else "float32")
     # DeepCache (UNET_CACHE=N or deepcache:N): the full UNet every Nth step,
     # the outermost tier between; an explicit override wins
@@ -374,12 +376,13 @@ def load_model_bundle(
         raise ValueError(f"attn_impl={attn_impl!r} unknown ({' | '.join(ATTN_IMPLS)})")
     if attn_impl in ("ring", "ulysses"):
         # the sp routes need layers.sp_attention_group active around the
-        # apply (the trainer's caller activates it); without one attention
-        # falls back to the plain route, slower than the kernel: never silent
+        # apply (the trainer's step, or an engine on an sp>1 mesh); without
+        # one attention runs whole on this rank: never silent
         logger.warning(
             "attn_impl=%s takes effect only under an active sp_attention_group (the "
-            "trainer over an sp>1 mesh); otherwise attention falls back to the plain "
-            "route — serve with attn_impl=\"kernel\" on one card", attn_impl)
+            "trainer or an engine over an sp>1 mesh); otherwise attention runs whole on "
+            "this rank through the flash-attention kernel (the plain route where a "
+            "gradient is needed)", attn_impl)
     if fam in TINY_FAMILIES:
         latent_scale = 4
     cnet_num_down = {8: 3, 4: 2, 2: 1}.get(latent_scale)

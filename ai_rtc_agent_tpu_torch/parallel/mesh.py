@@ -16,6 +16,12 @@ Rank r sits at (d, t, s) with r = ((d*tp) + t)*sp + s, the order in which
 the JAX ``make_mesh`` reshapes its device list to (dp, tp, sp).  A size-1
 axis has no group and does no collective, so one process with no process
 group runs the same code as a world of many.
+
+Serving's session axis is the exception: :func:`device_mesh` is a dp mesh
+of ``torch.device``s that one process drives (the batch scheduler's and
+``--multipeer``'s shards).  Its shards need no collective (params
+replicate, each shard's rows are independent), so it holds no process
+group, and its ``devices`` are devices, not ranks.
 """
 
 from __future__ import annotations
@@ -155,6 +161,27 @@ def make_mesh(dp: int = 1, tp: int = 1, sp: int = 1, timeout_s: float = DEFAULT_
             if rank in ranks:
                 groups[axis] = g
     return Mesh(shape, devices, rank, coords, groups)
+
+
+def device_mesh(dp: int, devices=None) -> Mesh:
+    """A one-process dp mesh over ``devices`` (default ``cuda:0 ..
+    cuda:dp-1``): shard d lives on ``devices[d]``.  Asking for more shards
+    than there are devices raises the JAX text; nothing falls back to a
+    smaller mesh.  An explicit list is taken as given, so ``["cpu",
+    "cpu"]`` (the CPU's stand-in for JAX's forced host devices) and
+    ``[cuda:0, cuda:0]`` (two shards on one card) are meshes too."""
+    if devices is None:
+        n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if dp > n:
+            raise ValueError(f"mesh dp*tp*sp={dp} exceeds {n} available devices")
+        devices = [torch.device("cuda", d) for d in range(dp)]
+    devices = [torch.device(d) for d in devices]
+    if dp > len(devices):
+        raise ValueError(f"mesh dp*tp*sp={dp} exceeds {len(devices)} available devices")
+    grid = np.empty((dp, 1, 1), dtype=object)
+    for d in range(dp):
+        grid[d, 0, 0] = devices[d]
+    return Mesh({"dp": dp, "tp": 1, "sp": 1}, grid, 0, {"dp": 0, "tp": 0, "sp": 0})
 
 
 def auto_mesh(prefer: str = "dp") -> Mesh:

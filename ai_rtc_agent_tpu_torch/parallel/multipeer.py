@@ -26,12 +26,22 @@ a capture and a cached step, one graph each, keyed (k, variant).  The peer
 engine keeps the JAX engine's global cadence: every slot captures on the
 same tick, and an install, a prompt or a t-index write makes the next
 step a capture.
+
+On a dp mesh (``mesh.device_mesh``: one process, dp devices) the slot
+axis splits slot-major into :class:`Shard`s (parallel/sharding.py's
+session-axis rules): each holds its own copy of the params on its device,
+its slots' stacked rows, and its own bucket steps, which it steps at k/dp
+rows; a step launches each shard's in turn from the calling thread, and
+each shard's rows come back through its own readback
+(:class:`ShardedReadback`).  No collective is needed: the rows are
+independent.
 """
 
 from __future__ import annotations
 
 import logging
 import threading
+from contextlib import nullcontext
 from typing import Callable
 
 import numpy as np
@@ -52,7 +62,9 @@ from ..stream.engine import (
     t_index_coeffs,
     unet_variants,
 )
+from ..tree import tree_map
 from ..utils import env
+from . import sharding as SH
 
 logger = logging.getLogger(__name__)
 
@@ -61,11 +73,12 @@ class CapacityError(RuntimeError):
     """All slots are claimed (maps to HTTP 503 in the agent)."""
 
 
-def bucket_sizes(capacity: int, include_capacity: bool = True) -> list:
-    """Powers of two below ``capacity``, then ``capacity`` itself unless
+def bucket_sizes(capacity: int, include_capacity: bool = True, first: int = 1) -> list:
+    """``first`` (the dp axis: every bucket splits evenly over the shards)
+    doubled while below ``capacity``, then ``capacity`` itself unless
     ``include_capacity`` is False (--multipeer steps every slot at and above
     its largest bucket)."""
-    sizes, b = [], 1
+    sizes, b = [], first
     while b < capacity:
         sizes.append(b)
         b *= 2
@@ -177,6 +190,47 @@ class BucketStep:
         return {b: done.get(key, False) for b, key in keys.items()}
 
 
+def on_device(device):
+    """The current CUDA device set to ``device`` inside the block (a kernel
+    launch, an event record and a graph replay go to the current device's
+    stream); nothing on the CPU."""
+    return torch.cuda.device(device) if device.type == "cuda" else nullcontext()
+
+
+class Shard:
+    """One dp shard of a stacked slot state: ``index``, its ``device``, the
+    ``params`` there, the ``slots`` it holds (a range, slot-major), their
+    stacked rows ``states`` and its own bucket step."""
+
+    __slots__ = ("index", "device", "params", "slots", "states", "bucket")
+
+    def __init__(self, index: int, device, params, slots: range, states, bucket: BucketStep):
+        self.index, self.device, self.params = index, device, params
+        self.slots, self.states, self.bucket = slots, states, bucket
+
+
+def shards_status(shards: list, keys: dict, dp: int) -> dict:
+    """{(bucket size, variant) -> captured on every shard} for the bucket
+    keys ``keys`` ({(k, variant): engine key}): each shard's step of bucket
+    k is the step of its k/dp rows."""
+    local = {(k // dp, v): key for (k, v), key in keys.items()}
+    per = [sh.bucket.status(local) for sh in shards]
+    return {(k, v): all(p[(k // dp, v)] for p in per) for k, v in keys}
+
+
+def sync_devices(devices):
+    """Wait for the queued work of each CUDA device in ``devices``."""
+    for dev in set(devices):
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+
+def replicate(tree, device):
+    """``tree`` on ``device``: the same tensors where they already are there,
+    else a copy."""
+    return tree_map(lambda a: a if a.device == device else a.to(device), tree)
+
+
 def stage_rows(frames: np.ndarray, device) -> torch.Tensor:
     """Host uint8 frames -> the device: from pinned memory without blocking
     on the card, as they are on the CPU.  One of the two H2D paths of
@@ -223,6 +277,21 @@ class Readback:
         return out
 
 
+class ShardedReadback:
+    """The rows of one step over several shards, each from its own shard's
+    :class:`Readback`: ``where[i]`` = (index into ``parts``, row) of entry i."""
+
+    def __init__(self, parts: list, where: list):
+        self.parts, self.where = parts, where
+
+    def done(self) -> bool:
+        return all(p.done() for p in self.parts)
+
+    def row(self, i: int) -> np.ndarray:
+        part, r = self.where[i]
+        return self.parts[part].row(r)
+
+
 class MultiPeerEngine:
     """Fixed-capacity peer-slot engine.
 
@@ -232,16 +301,26 @@ class MultiPeerEngine:
     one peer's work (MULTIPEER_BUCKETS=0 steps every slot every time); at
     and above the largest bucket every slot steps.  Runs on ``device`` (the
     card unless the caller asks for another).  DeepCache: the JAX global
-    cadence over the (k, variant) steps (``_tick``)."""
+    cadence over the (k, variant) steps (``_tick``).
+
+    ``mesh`` (``mesh.device_mesh``) with dp > 1: the peers split slot-major
+    over the dp shards (:class:`Shard`), and every step steps each shard's
+    every slot (no buckets, as the JAX engine on a dp mesh steps the full
+    batch); ``states`` is then per shard (``_shards``)."""
 
     def __init__(self, models: StreamModels, params, cfg: StreamConfig, encode_prompt: Callable,
-                 max_peers: int, device=None, model_id: str = ""):
+                 max_peers: int, device=None, model_id: str = "", mesh=None):
         self.device = resolve_device(device)
         self.cfg = cfg
         self.max_peers = max_peers
         self.models = models
         self.params = params
         self.model_id = model_id
+        self.mesh = mesh
+        self.dp = mesh.size("dp") if mesh is not None else 1
+        if self.dp > 1 and max_peers % self.dp:
+            raise ValueError(f"max_peers ({max_peers}) must be a multiple of the dp axis "
+                             f"({self.dp}) so the peer axis shards evenly")
         self._template = StreamEngine(models, params, cfg, encode_prompt, device=self.device,
                                       graphs=False)
         self.states = None  # stacked [P, ...]
@@ -251,20 +330,38 @@ class MultiPeerEngine:
         self._heavy_lock = threading.Lock()
         self._cache_interval = cfg.unet_cache_interval if cfg.unet_cache_interval >= 2 else 0
         self._tick = 0
-        self._bucket_sizes = bucket_sizes(max_peers, include_capacity=False)
+        self._bucket_sizes = bucket_sizes(max_peers, include_capacity=False) if self.dp == 1 else []
         keys = self.bucket_keys()
-        self._bucket = BucketStep(models, cfg, self.device, key=lambda k, v: keys[(k, v)])
-        self._use_buckets = env.get_bool("MULTIPEER_BUCKETS", True)
+        self._use_buckets = self.dp == 1 and env.get_bool("MULTIPEER_BUCKETS", True)
+        self._shards = None
+        if self.dp > 1:
+            self._shards = [
+                Shard(d, dev, replicate(params, dev), SH.shard_slots(d, self.dp, max_peers), None,
+                      BucketStep(models, cfg, dev, key=lambda k, v: keys[(k * self.dp, v)]))
+                for d, dev in enumerate(SH.dp_devices(mesh))]
+            self._bucket = self._shards[0].bucket  # its variants; every shard steps its own
+        else:
+            self._bucket = BucketStep(models, cfg, self.device, key=lambda k, v: keys[(k, v)])
 
     def _fresh_state(self, prompt: str, seed: int) -> dict:
         with self._heavy_lock:
             return self._template.build_state(prompt, seed=seed)
 
     def start(self, default_prompt: str = ""):
-        self.states = stack_states(
-            [self._fresh_state(default_prompt, seed=i) for i in range(self.max_peers)]
-        )
+        rows = [self._fresh_state(default_prompt, seed=i) for i in range(self.max_peers)]
+        if self._shards is None:
+            self.states = stack_states(rows)
+        else:
+            for sh in self._shards:
+                sh.states = replicate(stack_states(rows[sh.slots.start:sh.slots.stop]), sh.device)
         return self
+
+    def _row(self, slot: int) -> tuple:
+        """(the stacked state that holds ``slot``, its row there)."""
+        if self._shards is None:
+            return self.states, slot
+        sh = self._shards[SH.slot_shard(slot, self.dp, self.max_peers)]
+        return sh.states, slot - sh.slots.start
 
     # -- slot management --------------------------------------------------------
 
@@ -289,7 +386,7 @@ class MultiPeerEngine:
     def install(self, slot: int, state: dict):
         """Cheap slot-state write (the slot's rows, in place).  DeepCache: the
         fresh slot's deep cache is zeros, so the next step captures."""
-        install_row(self.states, slot, state)
+        install_row(*self._row(slot), state)
         self._tick = 0
         logger.info("peer connected -> slot %d", slot)
 
@@ -318,10 +415,11 @@ class MultiPeerEngine:
         """The cheap half: the pre-encoded embeddings into the slot's rows, in
         place.  SDXL's pooled embeds swap with them (the JAX package's
         round-1 defect kept the old prompt's)."""
-        self.states["cond"][slot].copy_(cond)
-        self.states["uncond"][slot].copy_(uncond)
+        states, row = self._row(slot)
+        states["cond"][row].copy_(cond)
+        states["uncond"][row].copy_(uncond)
         if self.cfg.use_added_cond and extras and "pooled" in extras:
-            self.states["added_text"][slot].copy_(extras["pooled"])
+            states["added_text"][row].copy_(extras["pooled"])
         self._tick = 0  # DeepCache: no stale deep features under a new prompt
 
     def update_prompt(self, slot: int, prompt: str):
@@ -331,8 +429,9 @@ class MultiPeerEngine:
         """Per-peer t_index update: a coefficient swap in this slot's rows
         (the length is fixed)."""
         coeffs = t_index_coeffs(self.cfg, self._template.schedule, t_index_list, self.device)
+        states, row = self._row(slot)
         for name, v in coeffs.items():
-            self.states["coeffs"][name][slot].copy_(v)
+            states["coeffs"][name][row].copy_(v)
         self._tick = 0  # DeepCache: new timesteps -> the next step captures
 
     # -- active-count buckets ---------------------------------------------------
@@ -357,8 +456,11 @@ class MultiPeerEngine:
 
     def graph_status(self) -> dict:
         """{(bucket size, variant) -> captured} (False throughout when
-        stepping eagerly)."""
-        return self._bucket.status(self.bucket_keys())
+        stepping eagerly; on a dp mesh, captured on every shard)."""
+        keys = self.bucket_keys()
+        if self._shards is None:
+            return self._bucket.status(keys)
+        return shards_status(self._shards, keys, self.dp)
 
     def prewarm_buckets(self):
         """Capture every bucket size and variant, and the step of every
@@ -369,10 +471,13 @@ class MultiPeerEngine:
         (``peers-<k>:full`` for the full or capture graph, ``:cached``)."""
         for k, v in self.bucket_keys():
             with devtel.compile_scope(f"peers-{k}:{'cached' if v == 'cached' else 'full'}"):
-                self._bucket.warm(self.params, self.states, k, v)
+                if self._shards is None:
+                    self._bucket.warm(self.params, self.states, k, v)
+                for sh in self._shards or ():
+                    with on_device(sh.device):
+                        sh.bucket.warm(sh.params, sh.states, k // self.dp, v)
             logger.info("prewarmed multipeer bucket %d/%d (%s)", k, self.max_peers, v)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        sync_devices({sh.device for sh in self._shards or ()} or {self.device})
 
     # -- hot path ---------------------------------------------------------------
 
@@ -383,7 +488,7 @@ class MultiPeerEngine:
     def submit(self, frames: np.ndarray):
         """Dispatch one step of the active slots (all slots at and above the
         largest bucket) without waiting for the device."""
-        if self.states is None:
+        if self.states is None and (self._shards is None or self._shards[0].states is None):
             raise RuntimeError("call start() first")
         if frames.shape[0] != self.max_peers:
             raise ValueError(f"expected {self.max_peers} frame slots, got {frames.shape[0]}")
@@ -397,9 +502,23 @@ class MultiPeerEngine:
             if self._tick % self._cache_interval != 0:
                 variant = "cached"
             self._tick += 1
+        if self._shards is not None:
+            return self._step_shards(frames, variant), slots
         out = self._bucket(self.params, self.states, frames[pad_bucket(slots, k)], slots, k,
                            variant)
         return Readback(out, len(slots)), slots
+
+    def _step_shards(self, frames: np.ndarray, variant: str) -> ShardedReadback:
+        """Every shard's every slot, shard after shard, each shard's peers'
+        frames staged onto its own device."""
+        per = self.max_peers // self.dp
+        parts = []
+        for sh in self._shards:
+            with on_device(sh.device):
+                out = sh.bucket(sh.params, sh.states, frames[sh.slots.start:sh.slots.stop],
+                                list(range(per)), per, variant)
+                parts.append(Readback(out, per))
+        return ShardedReadback(parts, [(d, r) for d in range(self.dp) for r in range(per)])
 
     def fetch(self, pending) -> np.ndarray:
         """-> [P, H, W, 3] uint8; the rows of slots not stepped are zeros."""

@@ -12,8 +12,15 @@ leaf's dimension falls back to replicated, as in the JAX rules.
 :func:`unet_tp_rules` answers in the JAX layout (HWIO convs, [in, out]
 linears); :func:`param_shardings` turns the answer into the port's layout
 (OIHW convs), one entry per dimension: ``"tp"`` or None, keyed by the
-leaf's path (a tuple of dict keys and list indices).  The session-axis
-helpers of the JAX module serve the serving mesh and wait for it.
+leaf's path (a tuple of dict keys and list indices); :func:`tp_tree` marks
+the sharded dicts for the layers, one placement for the trainer and the
+serving engine.
+
+The session-axis (dp) helpers are the serving tiers' one recipe: the
+batch scheduler's stacked ``[S, ...]`` state and ``--multipeer``'s peer
+axis split their leading axis slot-major over a one-process dp mesh
+(``mesh.device_mesh``), shard d holding the slots of
+:func:`shard_slots` on ``dp_devices(mesh)[d]``, the params replicated.
 """
 
 from __future__ import annotations
@@ -21,6 +28,7 @@ from __future__ import annotations
 import re
 from typing import Callable
 
+import numpy as np
 import torch
 
 from . import collectives as C
@@ -125,3 +133,64 @@ def at(tree, path):
     for k in path:
         tree = tree[k]
     return tree
+
+
+def tp_tree(params, specs: dict, mesh):
+    """``params`` with a ``"tp"`` marker, (kind, group), on each dict whose
+    kernel is sharded (models/layers.py reads it).  A kernel sharded along
+    its output axis is column-parallel and its bias shards with it; along
+    its input axis, row-parallel with a replicated bias."""
+    if specs is None or mesh.size("tp") == 1:
+        return params
+    group = mesh.group("tp")
+
+    def walk(node, path):
+        if isinstance(node, (list, tuple)):
+            return type(node)(walk(v, path + (i,)) for i, v in enumerate(node))
+        if not isinstance(node, dict):
+            return node
+        out = {k: walk(v, path + (k,)) for k, v in node.items()}
+        spec = specs.get(path + ("kernel",))
+        dim = None if spec is None else sharded_dim(spec)
+        if dim is not None:
+            kind = "column" if dim == (0 if len(spec) == 4 else len(spec) - 1) else "row"
+            bias = specs.get(path + ("bias",))
+            if bias is not None and (kind == "column") != (sharded_dim(bias) is not None):
+                raise ValueError(f"a {kind}-parallel kernel at {path} with a bias placed {bias}")
+            out["tp"] = (kind, group)
+        return out
+
+    return walk(params, ())
+
+
+# -- the session axis (dp): the serving tiers' rules ---------------------------
+
+
+def session_axis_spec(mesh, axis: str = "dp") -> tuple:
+    """The placement of a leading session/peer axis: ``(axis,)`` (only the
+    leading axis shards; trailing axes ride with it) on a mesh whose
+    ``axis`` has more than one shard, else ``()`` (replicated)."""
+    if mesh is None or mesh.shape.get(axis, 1) <= 1:
+        return ()
+    return (axis,)
+
+
+def dp_devices(mesh, axis: str = "dp") -> list:
+    """The dp axis's devices in axis order: shard d of a leading-axis
+    sharded state lives on ``dp_devices(mesh)[d]`` (a session's H2D copy
+    lands on its own shard's)."""
+    axes = list(mesh.axis_names)
+    arr = np.moveaxis(mesh.devices, axes.index(axis), 0)
+    return [arr[d].flat[0] for d in range(mesh.shape.get(axis, 1))]
+
+
+def slot_shard(slot: int, dp: int, slots: int) -> int:
+    """The shard that holds ``slot`` of ``slots``: slot-major, contiguous
+    slots/dp blocks per shard (the JAX scheduler's ``_slot_shard``)."""
+    return slot * dp // slots
+
+
+def shard_slots(shard: int, dp: int, slots: int) -> range:
+    """The slots shard ``shard`` holds (its rows of the stacked state)."""
+    per = slots // dp
+    return range(shard * per, (shard + 1) * per)

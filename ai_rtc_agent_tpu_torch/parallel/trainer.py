@@ -41,6 +41,7 @@ from ..ops import schedule as S
 from . import checkpoint as CK
 from . import sharding as SH
 from .mesh import Mesh, make_mesh
+from .sharding import tp_tree as _tp_tree
 
 ADAM_EPS = 1e-8
 
@@ -65,34 +66,6 @@ def _place(arr, mesh: Mesh, device, name: str):
     if n > 1:
         t = t.chunk(n)[mesh.index("dp")]
     return t.to(device)
-
-
-def _tp_tree(params, specs: dict, mesh: Mesh):
-    """``params`` with a ``"tp"`` marker, (kind, group), on each dict whose
-    kernel is sharded (models/layers.py reads it).  A kernel sharded along
-    its output axis is column-parallel and its bias shards with it; along
-    its input axis, row-parallel with a replicated bias."""
-    if specs is None or mesh.size("tp") == 1:
-        return params
-    group = mesh.group("tp")
-
-    def walk(node, path):
-        if isinstance(node, (list, tuple)):
-            return type(node)(walk(v, path + (i,)) for i, v in enumerate(node))
-        if not isinstance(node, dict):
-            return node
-        out = {k: walk(v, path + (k,)) for k, v in node.items()}
-        spec = specs.get(path + ("kernel",))
-        dim = None if spec is None else SH.sharded_dim(spec)
-        if dim is not None:
-            kind = "column" if dim == (0 if len(spec) == 4 else len(spec) - 1) else "row"
-            bias = specs.get(path + ("bias",))
-            if bias is not None and (kind == "column") != (SH.sharded_dim(bias) is not None):
-                raise ValueError(f"a {kind}-parallel kernel at {path} with a bias placed {bias}")
-            out["tp"] = (kind, group)
-        return out
-
-    return walk(params, ())
 
 
 def make_train_step(unet_apply: Callable, schedule: S.NoiseSchedule,

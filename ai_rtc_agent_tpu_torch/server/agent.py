@@ -41,6 +41,14 @@ the answers of /offer, /whip and /whep; a re-offer carrying
         --model-id tiny-test --device cpu
     ... --multipeer 2        # two peer slots stepped as one batch
     ... --mode txt2img       # generate from the prompt, ignore the pixels
+    torchrun --nproc-per-node 2 -m ai_rtc_agent_tpu_torch.server.agent --tp 2
+                             # one pipeline tensor-parallel over 2 GPUs
+
+``--tp N``/``--sp N`` (or MESH_SHAPE's tp and sp) serve one shared pipeline
+over a tp/sp mesh of the torchrun world's ranks, one GPU each: every rank
+builds the same pipeline, rank 0 serves HTTP and drives the others, which
+step in lockstep (parallel/serving.py).  ``--sp`` defaults attention to
+``ring``.  A mesh larger than the world raises before anything is served.
 
 The WebRTC provider is ``WEBRTC_PROVIDER`` (aiortc | native-rtp |
 loopback); unset, aiortc, else the native tier (server/rtc_native.py: real
@@ -70,6 +78,7 @@ from typing import List, Tuple
 
 from aiohttp import web
 
+from ..utils import env
 from . import sessions
 
 logger = logging.getLogger(__name__)
@@ -174,6 +183,8 @@ def build_app(
     unet_cache: int = 0,
     controlnet: str | None = None,
     annotator: str | None = None,
+    tp: int = 0,
+    sp: int = 0,
 ) -> web.Application:
     """``pipeline``, ``multipeer_pipeline``, ``batch_scheduler``: injectable
     for tests; built at startup when None, on ``device`` (the card unless
@@ -183,7 +194,7 @@ def build_app(
                        fbs=fbs, device=device, multipeer=multipeer,
                        multipeer_pipeline=multipeer_pipeline, batch_scheduler=batch_scheduler,
                        mode=mode, unet_cache=unet_cache, controlnet=controlnet,
-                       annotator=annotator)
+                       annotator=annotator, tp=tp, sp=sp)
     app["udp_ports"] = udp_ports
     app.on_startup.append(on_startup)
     app.on_shutdown.append(on_shutdown)
@@ -210,6 +221,12 @@ def main(argv=None):
                         help="ControlNet conditioning processor (default canny; hed = the "
                              "reference's detector, in the step, weights from a local "
                              "lllyasviel/Annotators or HED_CHECKPOINT)")
+    parser.add_argument("--tp", default=0, type=int, metavar="N",
+                        help="tensor-parallel serving over N chips (Megatron-style UNet "
+                             "sharding, psums over ICI); 0 = single chip")
+    parser.add_argument("--sp", default=0, type=int, metavar="N",
+                        help="sequence-parallel serving over N chips (latent tokens over the sp "
+                             "axis; pair with ATTN_IMPL=ring or ulysses); 0 = off")
     parser.add_argument("--fbs", default=0, type=int, metavar="N",
                         help="frame_buffer_size: N consecutive frames per step; 0 = per frame")
     parser.add_argument("--multipeer", default=0, type=int, metavar="N",
@@ -236,6 +253,15 @@ def main(argv=None):
                      "torch.profiler bridge of POST /debug/trace "
                      '({"action": "start", "jax_profiler_dir": DIR})')
     logging.basicConfig(level=args.log_level.upper())
+    if (env.dist_world_size() or 1) > 1:
+        # a torchrun world: every rank joins it; the others follow rank 0
+        from ..parallel import mesh as M
+        from ..parallel import serving
+
+        M.init_distributed(device=args.device)
+        if serving.world_rank() > 0:
+            follow(args)
+            return
     app = build_app(
         model_id=args.model_id,
         fbs=args.fbs,
@@ -246,8 +272,23 @@ def main(argv=None):
         controlnet=args.controlnet,
         annotator=args.annotator,
         udp_ports=args.udp_ports.split(",") if args.udp_ports else None,
+        tp=args.tp,
+        sp=args.sp,
     )
     web.run_app(app, host="0.0.0.0", port=args.port)
+
+
+def follow(args):
+    """A rank > 0 of a lockstep world: the same mesh and pipeline as rank 0
+    (``sessions.serving_mesh``, ``sessions.build_pipeline``), then the
+    follower loop until rank 0 closes it."""
+    from ..parallel import serving
+
+    app = {"model_id": args.model_id, "device": args.device, "fbs": args.fbs,
+           "mode": args.mode, "unet_cache": args.unet_cache, "controlnet": args.controlnet,
+           "annotator": args.annotator, "tp": args.tp, "sp": args.sp}
+    mesh = sessions.serving_mesh(app)
+    serving.follow(sessions.build_pipeline(app, mesh).engine)
 
 
 if __name__ == "__main__":

@@ -84,7 +84,9 @@ class MultiPeerPipeline:
     (otherwise the local snapshot's weights, or random weights from a fixed
     seed).  ``config``: any engine mode (full CFG, sequential, txt2img) the
     bucket steps run; ``controlnet`` (a model id or a snapshot dir): the
-    ControlNet they condition on, as the JAX plane takes it.  The safety
+    ControlNet they condition on, as the JAX plane takes it.  ``mesh`` (a
+    one-process dp mesh, ``parallel/mesh.device_mesh``): the peers split
+    slot-major over its shards (the agent passes none, as in JAX).  The safety
     checker (SAFETY_CHECKER) gates each peer's output at its fetch, as on the
     single-peer path."""
 
@@ -96,7 +98,7 @@ class MultiPeerPipeline:
 
     def __init__(self, model_id: str = "stabilityai/sd-turbo", max_peers: int = 4, config=None,
                  prompt: str = DEFAULT_PROMPT, fetch_timeout: float = 120.0, device=None,
-                 params: dict | None = None, controlnet: str | None = None):
+                 params: dict | None = None, controlnet: str | None = None, mesh=None):
         self.device = resolve_device(device)
         cfg = config or registry.default_stream_config(
             model_id, device=self.device, **({"use_controlnet": True} if controlnet else {}))
@@ -107,7 +109,8 @@ class MultiPeerPipeline:
         bundle.params = registry.cast_params(bundle.params, cfg.dtype)
         self.engine = MultiPeerEngine(bundle.stream_models, bundle.params, cfg,
                                       bundle.encode_prompt, max_peers=max_peers,
-                                      device=self.device, model_id=model_id).start(prompt)
+                                      device=self.device, model_id=model_id,
+                                      mesh=mesh).start(prompt)
         self.config = cfg
         self.height, self.width = cfg.height, cfg.width
         self.max_peers = max_peers

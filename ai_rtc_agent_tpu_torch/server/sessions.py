@@ -280,7 +280,7 @@ def configure(app, model_id: str = "stabilityai/sd-turbo", pipeline=None, provid
               fbs: int = 0, device=None, multipeer: int = 0, multipeer_pipeline=None,
               batch_scheduler=None, events_handler=None, transport=None,
               mode: str = "img2img", unet_cache: int = 0, controlnet: str | None = None,
-              annotator: str | None = None):
+              annotator: str | None = None, tp: int = 0, sp: int = 0):
     """Fill the app state's configuration.  ``pipeline=None`` builds the
     port's StreamDiffusionPipeline at :func:`startup`, and the batch
     scheduler over it; ``multipeer`` N > 0 builds the N-slot peer engine
@@ -293,8 +293,12 @@ def configure(app, model_id: str = "stabilityai/sd-turbo", pipeline=None, provid
     ``controlnet`` (a model id or a snapshot dir) and ``annotator`` (canny,
     hed or identity): the ControlNet every serving plane conditions on
     (``--controlnet``, ``--annotator``; an annotator without a ControlNet
-    is refused at :func:`startup`)."""
+    is refused at :func:`startup`).  ``tp``/``sp`` (``--tp``/``--sp``; 0 or 1
+    off, MESH_SHAPE's axes when unset): the serving mesh of
+    :func:`serving_mesh`."""
     app["model_id"] = model_id
+    app["tp"] = tp
+    app["sp"] = sp
     app["controlnet"] = controlnet
     app["annotator"] = annotator
     app["pipeline"] = pipeline
@@ -341,6 +345,13 @@ def stream_config(app, device):
         overrides["mode"] = app["mode"]
     if app.get("annotator"):
         overrides["annotator"] = app["annotator"]
+    if app.get("sp", 0) > 1 and env.attn_impl() not in ("ring", "ulysses"):
+        # an sp mesh shards the tokens only through the sp routes: any other
+        # route would compute whole on every rank of an N-rank mesh
+        overrides["attn_impl"] = "ring"
+        logger.warning(
+            "--sp %d: attention impl defaulted to 'ring' so the sequence axis shards over the "
+            "sp mesh (set ATTN_IMPL=ring|ulysses to choose explicitly)", app["sp"])
     if not overrides:
         return None
     if app.get("controlnet"):
@@ -348,12 +359,41 @@ def stream_config(app, device):
     return registry.default_stream_config(app["model_id"], device=device, **overrides)
 
 
-def build_pipeline(app) -> StreamDiffusionPipeline:
+def build_pipeline(app, mesh=None) -> StreamDiffusionPipeline:
     """The served pipeline, on the card unless the app's ``device`` says
-    otherwise (raises without one: the server never carries on on the CPU)."""
+    otherwise (raises without one: the server never carries on on the CPU),
+    on the tp/sp ``mesh`` of :func:`serving_mesh` when there is one."""
     dev = resolve_device(app["device"])
     return StreamDiffusionPipeline(app["model_id"], config=stream_config(app, dev), device=dev,
-                                   controlnet=app.get("controlnet"))
+                                   controlnet=app.get("controlnet"), mesh=mesh)
+
+
+def serving_mesh(app):
+    """The tp/sp serving mesh over the world's ranks (the JAX agent's
+    wiring), or None: ``--tp``/``--sp``, MESH_SHAPE's tp and sp where they
+    are unset.  Every rank of the world calls it (``make_mesh`` is
+    collective), which raises when the mesh asks for more ranks than the
+    world has; a world larger than the mesh is refused too.  A declared dp
+    is ignored, with the JAX warning: a tp/sp mesh keeps the shared-engine
+    path, which has no session axis."""
+    from ..parallel import mesh as M
+
+    _, mesh_tp, mesh_sp = env.mesh_shape()
+    tp = app.get("tp", 0) or mesh_tp
+    sp = app.get("sp", 0) or mesh_sp
+    want, world = max(1, tp) * max(1, sp), M.host_count()
+    if want == 1 and world == 1:
+        return None
+    mesh = M.make_mesh(tp=max(1, tp), sp=max(1, sp))
+    if world > want:
+        raise ValueError(f"a world of {world} ranks serves a tp*sp={want} mesh: start {want} "
+                         f"(torchrun --nproc-per-node {want})")
+    if env.batchsched_dp() > 1:
+        logger.warning(
+            "MESH_SHAPE/BATCHSCHED_DP dp=%d IGNORED: tp=%d/sp=%d route serving through the "
+            "shared-engine mesh path, which does not shard the session axis — drop the tp/sp "
+            "axes to use the dp-sharded scheduler", env.batchsched_dp(), tp, sp)
+    return mesh
 
 
 def load_adapters(pipeline):
@@ -395,12 +435,15 @@ async def startup(app):
             config=stream_config(app, dev), controlnet=app.get("controlnet"),
         )
     elif app["pipeline"] is None and app["multipeer_pipeline"] is None:
-        app["pipeline"] = build_pipeline(app)
-        if app["batch_scheduler"] is None and env.batchsched_enabled():
+        mesh = serving_mesh(app)
+        app["pipeline"] = build_pipeline(app, mesh)
+        # a tp/sp mesh keeps the shared pipeline (those axes shard the model,
+        # not the sessions); otherwise the scheduler, on BATCHSCHED_DP shards
+        if mesh is None and app["batch_scheduler"] is None and env.batchsched_enabled():
             from ..stream.scheduler import BatchScheduler
 
             app["batch_scheduler"] = BatchScheduler.from_pipeline(
-                app["pipeline"], adapters=load_adapters(app["pipeline"]))
+                app["pipeline"], dp=env.batchsched_dp(), adapters=load_adapters(app["pipeline"]))
     app["pcs"] = set()
     app["releasing"] = set()  # slot releases in flight
     app["stream_event_handler"] = app["events_handler"] or StreamEventHandler()
@@ -614,6 +657,9 @@ async def shutdown(app):
     for plane in (app["multipeer_pipeline"], app["batch_scheduler"]):
         if plane is not None:
             plane.close()
+    close = getattr(getattr(app["pipeline"], "engine", None), "close", None)
+    if close is not None:  # a lockstep engine: the other ranks stop following
+        close()
 
 
 def metrics(app) -> dict:

@@ -789,6 +789,37 @@ class _Readback:
         return out
 
 
+def _sp_wrapped(step: Callable, mesh) -> Callable:
+    """``step`` inside ``layers.sp_attention_group(mesh, "sp")`` on a mesh
+    whose sp axis has more than one rank (the JAX ``_wrap_sp``), else
+    ``step`` itself."""
+    if mesh is None or mesh.size("sp") <= 1:
+        return step
+    from ..models.layers import sp_attention_group
+
+    def wrapped(params, state, frame_u8):
+        with sp_attention_group(mesh, axis="sp"):
+            return step(params, state, frame_u8)
+
+    return wrapped
+
+
+def _warm_groups(mesh, device):
+    """One eager all-reduce over each process group of ``mesh`` on
+    ``device``: a communicator comes up at its first collective, which must
+    not be the one a CUDA graph captures."""
+    if mesh is None:
+        return
+    import torch.distributed as dist
+
+    for axis in ("tp", "sp"):
+        group = mesh.group(axis) if mesh.size(axis) > 1 else None
+        if group is not None:
+            dist.all_reduce(torch.zeros(1, device=device), group=group)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
 class StreamEngine:
     """Host-side loop around the step (prompt cache, state, similarity
     filter).  ``encode_prompt``: str -> (cond, uncond) [1,L,D] tensors, or
@@ -807,7 +838,19 @@ class StreamEngine:
     ``variant-cached``), both captured into one pool; a host-side tick picks
     the capture every Nth submit and the cached step between.  ``prepare``,
     ``update_prompt``, ``update_t_index_list`` and ``reset_cache_cadence``
-    set the tick back to 0, so the next step captures."""
+    set the tick back to 0, so the next step captures.
+
+    ``mesh`` (parallel/mesh.py ``make_mesh``, over the world's ranks; every
+    rank builds its engine alike): with tp > 1 the params are this rank's
+    Megatron shards (``sharding.tp_tree``: each sharded linear and conv
+    gathers or sums over the tp group; w8 params are refused, as in the JAX
+    engine), and with sp > 1 every step runs inside
+    ``layers.sp_attention_group(mesh, "sp")``, so a ring or Ulysses bundle
+    routes its attention over the sp group.  Each rank captures its step
+    (the collectives inside the graph, the groups warmed eagerly first);
+    rank 0 drives the others through parallel/serving.py.  ``on_step``
+    (set by parallel/serving.py's ``LockstepEngine``) is called with each
+    frame that really steps, under the submit lock, before it is staged."""
 
     def __init__(
         self,
@@ -819,9 +862,23 @@ class StreamEngine:
         device=None,
         graphs: bool | None = None,
         model_id: str = "",
+        mesh=None,
     ):
         self.device = resolve_device(device)
         check_params(cfg, params)
+        self.mesh = mesh
+        if mesh is not None and mesh.size("tp") > 1:
+            from ..parallel import sharding as SH
+
+            if Q.has_quantized_kernels(params):
+                # the rules key on ``kernel`` leaves: int8 pairs would serve
+                # whole on every rank, a tp mesh computing single-card
+                raise ValueError(
+                    "QUANT_WEIGHTS int8 kernels are incompatible with tensor-parallel serving "
+                    "(tp>1): quantized leaves have no sharding rules and would replicate. "
+                    "Disable one.")
+            specs = SH.param_shardings(mesh, params)
+            params = SH.tp_tree(SH.shard_params(mesh, params), specs, mesh)
         self.models = models
         self.params = params
         self.cfg = cfg
@@ -831,7 +888,8 @@ class StreamEngine:
         self.variants = unet_variants(cfg)
         self._cache_interval = cfg.unet_cache_interval if cfg.unet_cache_interval >= 2 else 0
         self._tick = 0  # the DeepCache cadence: a capture when tick % N == 0
-        self._steps = {v: make_step_fn(models, cfg, unet_variant=v) for v in self.variants}
+        self._steps = {v: _sp_wrapped(make_step_fn(models, cfg, unet_variant=v), mesh)
+                       for v in self.variants}
         self._step = self._steps[self.variants[0]]  # the full (or capture) step
         self.graphs = self.device.type == "cuda" if graphs is None else bool(graphs)
         qextra = params_variant_extra(params)
@@ -857,6 +915,7 @@ class StreamEngine:
         # compute-path fault injection (resilience/faults.py): None unless
         # a plan targets the engine
         self._fault_scope = _faults.scope("engine")
+        self.on_step = None  # callable(frame_u8) before each real step (lockstep serving)
 
     # -- state construction -------------------------------------------------
 
@@ -932,6 +991,27 @@ class StreamEngine:
         self._tick = 0
         return self
 
+    def restart(self, prompt: str, guidance_scale: float = 1.2, delta: float = 1.0,
+                seed: int = 2):
+        """A fresh stream state in place (``prepare`` under the submit lock).
+        A step submitted before it and held past it (a stall, an injected
+        fault, a step the supervisor abandoned) is dropped, not replayed:
+        the restart bumps the epoch under the lock."""
+        if not self._submit_lock.acquire(timeout=10.0):
+            raise RuntimeError("engine restart blocked: submit lock still held")
+        try:
+            self.epoch += 1
+            self.prepare(prompt=prompt, guidance_scale=guidance_scale, delta=delta, seed=seed)
+        finally:
+            self._submit_lock.release()
+
+    def install(self, state: dict):
+        """Write ``state`` (a snapshot's leaves, all or some) into the live
+        state in place; the next step captures (DeepCache)."""
+        with self._submit_lock:
+            install_state(self.state, state)
+            self._tick = 0
+
     def _scalar(self, v):
         return torch.tensor(float(v), dtype=torch.float32, device=self.device)
 
@@ -971,6 +1051,8 @@ class StreamEngine:
             # one frame buffer for every variant: a submit stages once
             frame = torch.zeros((cfg.frame_buffer_size, cfg.height, cfg.width, 3),
                                 dtype=torch.uint8, device=self.device)
+            if self.graphs:
+                _warm_groups(self.mesh, self.device)
             steps = {}
             for v in self.variants:
                 with devtel.compile_scope("engine-step"):
@@ -1037,10 +1119,23 @@ class StreamEngine:
                 if self._last_submitted is not None:
                     return self._last_submitted
                 return None, squeeze
+            if self.on_step is not None:
+                self.on_step(frame_u8)
             step = self._static_steps_locked()[self._next_variant_locked()]
             stage_into(step.inputs["frame"], frame_u8)
             self._last_submitted = (_Readback(step.run()), squeeze)
             return self._last_submitted
+
+    def follow_step(self, frame: torch.Tensor):
+        """A follower rank's step (parallel/serving.py): the frame rank 0
+        stepped (a uint8 tensor of its shape) into the static buffer, one
+        step of the same variant, and no readback.  The similarity filter
+        is rank 0's: it sends only the frames that step."""
+        with self._submit_lock:
+            step = self._static_steps_locked()[self._next_variant_locked()]
+            buf = step.inputs["frame"]
+            buf.copy_(frame.reshape(buf.shape), non_blocking=True)
+            step.run()
 
     def fetch(self, pending) -> np.ndarray:
         """Resolve a :meth:`submit` handle to a host uint8 array."""

@@ -61,6 +61,7 @@ class StreamDiffusionPipeline:
         lora_dict: dict | None = None,
         use_safety_checker: bool | None = None,
         controlnet: str | None = None,
+        mesh=None,
     ):
         """``params``: a ready param tree (e.g. ``bridge.params_from_jax`` of
         a JAX pipeline's); otherwise the local snapshot's weights, or random
@@ -68,7 +69,12 @@ class StreamDiffusionPipeline:
         captures the step now and replays it per frame; False steps eagerly
         (the A/B on the card).  ``controlnet``: a ControlNet model id or
         snapshot dir (the default config then conditions on it, with the
-        config's annotator)."""
+        config's annotator).  ``mesh``: a tp/sp serving mesh over the
+        world's ranks (parallel/mesh.py ``make_mesh``), handed to the engine
+        as the JAX pipeline hands it; every rank builds the pipeline alike,
+        and in a world of more than one, rank 0's engine is wrapped in
+        parallel/serving.py's ``LockstepEngine`` (the other ranks run
+        ``serving.follow(pipeline.engine)``)."""
         self.device = resolve_device(device)
         self.model_id = model_id
         self.prompt = prompt
@@ -100,6 +106,7 @@ class StreamDiffusionPipeline:
             device=self.device,
             graphs=graphs,
             model_id=model_id,
+            mesh=mesh,
         )
         self.engine.prepare(
             prompt=prompt, guidance_scale=self.guidance_scale, delta=self.delta, seed=seed
@@ -108,6 +115,12 @@ class StreamDiffusionPipeline:
         # DeepCache: both graphs are warm; the first live frame captures
         # (the JAX pipeline's probe resets the cadence after its warm-up)
         self.engine.reset_cache_cadence()
+        if mesh is not None:
+            from ..parallel import serving
+            from ..parallel.mesh import host_count
+
+            if host_count() > 1 and serving.world_rank() == 0:
+                self.engine = serving.LockstepEngine(self.engine)
 
     def restart(self):
         """Re-prepare the engine in place (fresh stream state, same params),
@@ -115,17 +128,8 @@ class StreamDiffusionPipeline:
         before the restart and held past it (a stall, an injected fault, a
         step the supervisor abandoned) is dropped, not replayed: the
         restart bumps the engine's epoch under its submit lock."""
-        lock = self.engine._submit_lock
-        if not lock.acquire(timeout=10.0):
-            raise RuntimeError("engine restart blocked: submit lock still held")
-        try:
-            self.engine.epoch += 1
-            self.engine.prepare(
-                prompt=self.prompt, guidance_scale=self.guidance_scale,
-                delta=self.delta, seed=self._seed,
-            )
-        finally:
-            lock.release()
+        self.engine.restart(prompt=self.prompt, guidance_scale=self.guidance_scale,
+                            delta=self.delta, seed=self._seed)
 
     # -- control plane --------------------------------------------------------
 

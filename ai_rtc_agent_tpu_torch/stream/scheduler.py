@@ -72,7 +72,26 @@ configuration, so a JAX snapshot restores here and back.  The engine
 guard's bank is refreshed on the device; at quarantine its rows go to the
 host once and become full snapshot dicts (:meth:`capture_quarantine_snapshots`),
 which a quarantined :meth:`snapshot_session` serves and the rebuild
-restores from.  The dp-sharded session axis is a later slice.
+restores from.
+
+The dp session axis (``dp=`` over ``devices=``, BATCHSCHED_DP or MESH_SHAPE's dp):
+one process drives dp devices (``parallel/mesh.device_mesh``), and the
+stacked state splits slot-major into shards (parallel/sharding.py's
+session-axis rules; ``max_sessions`` must be a multiple of dp).  Each
+shard holds its own copy of the params on its device, its slots' rows and
+its own bucket steps, captured per (k/dp, variant); a bucket step of size
+k launches each shard's step that carries a rider, one after another from
+the stepping thread, each shard's epilogue reading its own count of real
+sessions from device memory, and each shard's rows come back through its
+own readback.  The bucket sizes start at dp and double (the JAX sizes, so
+the keys, which gain ``dp-N``, and the ``:dp<N>`` labels are the JAX
+ones); a dispatch takes the smallest bucket whose k/dp rows hold its
+busiest shard's riders (a rider always steps on its own shard, so no row
+crosses devices), and a shard with no rider is not stepped.  A claim takes
+a free slot on the least-loaded shard (ties to the lowest slot), a
+session's frames are staged onto its own shard's device, and its /health
+entry names its ``shard``.  Prewarm, installs, control writes, snapshots,
+the bank and the guard's rebuild all work shard by shard.
 
 The speed variants ride the same bucket steps, as in the JAX scheduler.
 ``QUANT_WEIGHTS=w8`` params serve unchanged (the dequant lives in the layer
@@ -124,17 +143,25 @@ import torch
 
 from .. import resolve_device
 from ..adapters.registry import targets_digest
-from ..aot.cache import adapter_key_extra, stream_engine_key
+from ..aot.cache import adapter_key_extra, mesh_key_extra, stream_engine_key
 from ..obs import devtel
 from ..obs.trace import get_trace
+from ..parallel import sharding as SH
 from ..parallel.checkpoint import deserialize_pytree, serialize_pytree
+from ..parallel.mesh import device_mesh
 from ..parallel.multipeer import (
     BucketStep,
     CapacityError,
     Readback,
+    Shard,
+    ShardedReadback,
     bucket_for,
     bucket_sizes,
+    on_device,
+    replicate,
+    shards_status,
     stage_rows,
+    sync_devices,
 )
 from ..resilience import faults as _faults
 from ..resilience.overload import DeadlineQueue, ShedFrame, shed_to_passthrough
@@ -305,7 +332,7 @@ class ScheduledSession:
             last.future.add_done_callback(copy)
             return p
         p = _PendingFrame(arr, trace)
-        p.frame_dev = stage_rows(arr[None], self._owner.device)
+        p.frame_dev = stage_rows(arr[None], self._owner._slot_device(self.slot))
         self._owner._enqueue(self.slot, p)
         if self._sim is not None:
             self._last_pending = p
@@ -401,6 +428,8 @@ class ScheduledSession:
             "window_depth": q.depth,
             "window_shed": q.shed_overflow + q.shed_stale,
         }
+        if self._owner.dp > 1:
+            out["shard"] = self._owner._slot_shard(self.slot)  # where its state row lives
         if self._owner._adapter_rank:
             # the style riding this slot's factor rows and the bank's rank
             out["adapter"] = self.adapter
@@ -422,9 +451,12 @@ class BatchScheduler:
                  default_prompt: str = "", guidance_scale: float | None = None,
                  delta: float | None = None, schedule=None, prewarm: bool | None = None,
                  device=None, graphs: bool | None = None, safety_checker=None,
-                 adapters=None):
+                 adapters=None, dp: int | None = None, devices=None):
         """``graphs`` (default: on a CUDA device): each bucket size steps by
         replaying its captured CUDA graph; False steps eagerly.
+        ``dp`` (default BATCHSCHED_DP): the session axis's shards, over
+        ``devices`` (default ``cuda:0 .. cuda:dp-1``; more shards than
+        devices raises): ``mesh.device_mesh(dp, devices)``.
         ``safety_checker`` (a models/safety.py ``SafetyChecker``, or None)
         gates each rider's output at its fetch.  ``adapters`` (an
         adapters/ ``AdapterRegistry``, or None): the style catalog whose
@@ -451,6 +483,14 @@ class BatchScheduler:
             raise ValueError(
                 f"queue_bound ({self.queue_bound}) must hold at least one fbs group "
                 f"({self.fbs}) or no frame could ever dispatch")
+        # the session axis: a trivial mesh keeps the single-device scheduler exactly
+        dp = env.batchsched_dp() if dp is None else max(1, int(dp))
+        self.mesh = device_mesh(dp, devices) if dp > 1 else None
+        self.dp = dp
+        if self.dp > 1 and self.max_sessions % self.dp != 0:
+            raise ValueError(
+                f"max_sessions ({self.max_sessions}) must be a multiple of the dp axis "
+                f"({self.dp}) so the session axis shards evenly")
         self.fetch_timeout = fetch_timeout
         self.safety_checker = safety_checker
         # defaults for new sessions; the global update_* methods move them
@@ -470,22 +510,26 @@ class BatchScheduler:
         self._template = StreamEngine(models, params, cfg, encode_prompt, schedule=schedule,
                                       device=self.device, graphs=False)
         S = self.max_sessions
-        self._bucket_sizes = bucket_sizes(S)
+        # every bucket is a multiple of dp: each shard steps k/dp rows
+        self._bucket_sizes = bucket_sizes(S, first=self.dp)
         # DeepCache: the global cadence over the (k, variant) steps; the slots
         # whose deep-cache row must not be read until a capture carries them
         self._variants = unet_variants(cfg)
         self._cache_interval = cfg.unet_cache_interval if cfg.unet_cache_interval >= 2 else 0
         self._tick = 0
         self._uncaptured: set = set()
-        self._bucket = self._new_bucket(graphs)
-        self._warmed: set = set()  # (k, variant) stepped or captured (a cold step captures)
+        self._shard_params = ([params] if self.dp == 1 else
+                              [replicate(params, d) for d in SH.dp_devices(self.mesh)])
+        self._graphs = graphs
+        # (k, variant, shard) stepped or captured there (a cold step captures)
+        self._warmed: set = set()
         # one template state, stacked: a claim installs its own before any
         # frame; the factor bank stacks with it, every slot on the zero rows
         template = self._template.build_state(self.prompt, guidance_scale=self.guidance_scale,
                                               delta=self.delta, seed=0)
         if self._adapter_rank:
             template["adapters"] = self._adapter_rows(None)
-        self.states = stack_states([template] * S)
+        self._shards = self._new_shards([template] * S)
         self.active = [False] * S
         self._sessions: dict = {}  # slot -> ScheduledSession
         self._queues = [DeadlineQueue(self.queue_bound, on_evict=self._evict) for _ in range(S)]
@@ -513,7 +557,7 @@ class BatchScheduler:
         # session's control plane)
         self._snap_every_s = env.get_float("ENGINE_SNAPSHOT_EVERY_S", 5.0)
         self._snap_rows: dict = {}  # slot -> cloned state rows
-        self._snap_ready = None  # the CUDA event after the bank's gather
+        self._snap_ready: dict = {}  # shard -> the CUDA event after its bank's gather
         self._last_snap_t = 0.0
         self._quarantine_snaps: dict = {}  # session key -> banked snapshot dict, at the trip
         self._prewarm = env.get_bool("BATCHSCHED_PREWARM", True) if prewarm is None else prewarm
@@ -526,11 +570,55 @@ class BatchScheduler:
             self._thread.join(timeout=10)
             raise self._start_error
 
-    def _new_bucket(self, graphs) -> BucketStep:
-        """A bucket step with its own static buffers and graph pool."""
+    def _new_shards(self, rows: list) -> list:
+        """The plane: each shard's stacked rows (``rows``: one state per slot),
+        on its device, and its bucket step with its own static buffers and
+        graph pool (a shard's step of k/dp rows keyed as bucket k)."""
         keys = self.bucket_keys()
-        return BucketStep(self._template.models, self.cfg, self.device, graphs=graphs,
-                          key=lambda k, v: keys[(k, v)])
+        devices = [self.device] if self.dp == 1 else SH.dp_devices(self.mesh)
+        shards = []
+        for d, dev in enumerate(devices):
+            slots = SH.shard_slots(d, self.dp, self.max_sessions)
+            bucket = BucketStep(self._template.models, self.cfg, dev, graphs=self._graphs,
+                                key=lambda k, v: keys[(k * self.dp, v)])
+            shards.append(Shard(d, dev, self._shard_params[d], slots,
+                                replicate(stack_states(rows[slots.start:slots.stop]), dev), bucket))
+        return shards
+
+    @property
+    def states(self) -> dict:
+        """The stacked state ``[S, ...]`` of a single-device scheduler (on a dp
+        mesh each shard holds its own: :meth:`shard_states`)."""
+        if self.dp > 1:
+            raise RuntimeError(f"a dp={self.dp} scheduler's state is per shard: shard_states()")
+        return self._shards[0].states
+
+    @property
+    def _bucket(self) -> BucketStep:
+        if self.dp > 1:
+            raise RuntimeError(f"a dp={self.dp} scheduler steps per shard")
+        return self._shards[0].bucket
+
+    def shard_states(self) -> list:
+        """Each shard's stacked rows, in shard order (shard d holds the slots
+        ``sharding.shard_slots(d, dp, max_sessions)``)."""
+        return [sh.states for sh in self._shards]
+
+    def _row(self, slot: int) -> tuple:
+        """(the shard that holds ``slot``, its row there)."""
+        sh = self._shards[self._slot_shard(slot)]
+        return sh, slot - sh.slots.start
+
+    def _slot_shard(self, slot: int) -> int:
+        """slot -> its shard (slot-major; the JAX ``_slot_shard``): the one
+        definition of a row's residence (staging, the bucket layout,
+        /health, /metrics)."""
+        return SH.slot_shard(slot, self.dp, self.max_sessions)
+
+    def _slot_device(self, slot: int):
+        """The device of the shard that holds ``slot``'s state row: where the
+        session's frames are staged."""
+        return self._shards[self._slot_shard(slot)].device
 
     @classmethod
     def from_pipeline(cls, pipeline, **kw) -> "BatchScheduler":
@@ -539,6 +627,11 @@ class BatchScheduler:
         setting, safety checker and live prompt, guidance and delta as the
         defaults (``adapters=`` and the rest pass through)."""
         eng = pipeline.engine
+        if eng.mesh is not None and any(n > 1 for n in eng.mesh.shape.values()):
+            raise ValueError(
+                "the batch scheduler owns its own session-axis (dp) mesh; an engine built on a "
+                "tp/sp mesh keeps the shared-engine path (those axes shard the MODEL, not the "
+                "sessions)")
         kw.setdefault("graphs", eng.graphs)
         return cls(eng.models, eng.params, pipeline.config, eng.encode_prompt,
                    model_id=pipeline.model_id, default_prompt=pipeline.prompt,
@@ -586,6 +679,15 @@ class BatchScheduler:
 
     def _pick_slot_locked(self) -> int:
         try:
+            if self.dp > 1:
+                # a free slot on the least-loaded shard (ties to the lowest
+                # slot), so the live rows spread over the shards
+                loads = [0] * self.dp
+                for s, live in enumerate(self.active):
+                    if live:
+                        loads[self._slot_shard(s)] += 1
+                return min((s for s, live in enumerate(self.active) if not live),
+                           key=lambda s: (loads[self._slot_shard(s)], s))
             return self.active.index(False)
         except ValueError:
             raise CapacityError(f"all {self.max_sessions} scheduler session slots in use") from None
@@ -658,7 +760,8 @@ class BatchScheduler:
                 raise KeyError(f"session {session_key!r} released mid-export")
             # a fresh buffer on the stepping stream: the next replay writes
             # the slot's view, never this copy
-            row = tree_map(lambda a: a[sess.slot].clone(), self.states)
+            sh, i = self._row(sess.slot)
+            row = tree_map(lambda a: a[i].clone(), sh.states)
             cache_tick, uncaptured = self._tick, sess.slot in self._uncaptured
         return self._row_snapshot(sess, tree_map(lambda a: a.cpu(), row), cache_tick, uncaptured)
 
@@ -710,7 +813,7 @@ class BatchScheduler:
                 raise SnapshotMismatch(
                     f"state-row leaf {path} {desc} does not match the compiled {wshape}/{wdtype}")
 
-        walk(row, self.states, "")
+        walk(row, self._shards[0].states, "")
 
     def restore_session(self, snapshot: dict, session_key: str | None = None) -> ScheduledSession:
         """Install a migrated session: claim a slot and write the snapshot's
@@ -804,8 +907,9 @@ class BatchScheduler:
             return state
 
     def _install(self, slot: int, state: dict):
+        sh, i = self._row(slot)
         with self._step_lock, devtel.expected_scope("sched-slot-install"):
-            install_row(self.states, slot, state)
+            install_row(sh.states, i, state)
             self._mark_uncaptured_locked(slot)
 
     def _mark_uncaptured_locked(self, *slots):
@@ -825,11 +929,12 @@ class BatchScheduler:
         """The slot's prompt embeddings (SDXL: and its pooled embeds),
         ``copy_`` into the stacked state the captured graphs read."""
         cond, uncond, extras = encoded
+        sh, i = self._row(slot)
         with self._step_lock, devtel.expected_scope("sched-control-write"):
-            self.states["cond"][slot].copy_(cond)
-            self.states["uncond"][slot].copy_(uncond)
+            sh.states["cond"][i].copy_(cond)
+            sh.states["uncond"][i].copy_(uncond)
             if self.cfg.use_added_cond and "pooled" in extras:
-                self.states["added_text"][slot].copy_(extras["pooled"])
+                sh.states["added_text"][i].copy_(extras["pooled"])
             self._mark_uncaptured_locked(slot)
 
     def _check_t_index(self, t_index_list) -> dict:
@@ -837,9 +942,10 @@ class BatchScheduler:
 
     def _apply_t_index(self, slot: int, t_index_list):
         coeffs = self._check_t_index(t_index_list)
+        sh, i = self._row(slot)
         with self._step_lock, devtel.expected_scope("sched-control-write"):
             for name, v in coeffs.items():
-                self.states["coeffs"][name][slot].copy_(v)
+                sh.states["coeffs"][name][i].copy_(v)
             self._mark_uncaptured_locked(slot)
 
     def _apply_adapter(self, slot: int, name: str | None):
@@ -853,20 +959,22 @@ class BatchScheduler:
         if rows is None:
             raise ValueError("adapter hot-swap unavailable: no adapter registry bound (set "
                              "ADAPTER_DIR and restart)")
+        sh, i = self._row(slot)
         with self._step_lock, devtel.expected_scope("sched-control-write"):
-            bank = self.states["adapters"]
+            bank = sh.states["adapters"]
             for path, f in rows.items():
-                bank[path]["down"][slot].copy_(f["down"])
-                bank[path]["up"][slot].copy_(f["up"])
+                bank[path]["down"][i].copy_(f["down"])
+                bank[path]["up"][i].copy_(f["up"])
             self.adapter_swaps_total += 1
             self._mark_uncaptured_locked(slot)
 
     def _apply_guidance(self, slot: int, guidance, delta):
+        sh, i = self._row(slot)
         with self._step_lock, devtel.expected_scope("sched-control-write"):
             if guidance is not None:
-                self.states["guidance"][slot].fill_(guidance)
+                sh.states["guidance"][i].fill_(guidance)
             if delta is not None:
-                self.states["delta"][slot].fill_(delta)
+                sh.states["delta"][i].fill_(delta)
 
     # -- global control plane (POST /config: every live session, and the
     # default for future ones) ------------------------------------------------------
@@ -918,28 +1026,41 @@ class BatchScheduler:
     def _bucket_for(self, n: int) -> int:
         return bucket_for(self._bucket_sizes, n) or self._bucket_sizes[-1]
 
+    def _bucket_for_slots(self, slots: list) -> int:
+        """The bucket of a dispatch: on a dp mesh, the smallest whose k/dp
+        rows per shard hold the riders of the busiest shard."""
+        if self.dp == 1:
+            return self._bucket_for(len(slots))
+        loads = [0] * self.dp
+        for s in slots:
+            loads[self._slot_shard(s)] += 1
+        return self._bucket_for(max(loads) * self.dp)
+
     def bucket_keys(self, model_id: str | None = None) -> dict:
         """{(bucket size k, unet variant) -> engine key}: the JAX scheduler's
         recipe (the stream key plus ``sbucket``/``sessions``; a DeepCache
         config keys a capture + cached pair per bucket, w8 params add
-        ``quant-w8``, a bound factor bank ``lrank-R``)."""
+        ``quant-w8``, a bound factor bank ``lrank-R``, a dp mesh ``dp-N``)."""
         model_id = model_id or self.model_id
-        extra = {**params_variant_extra(self.params), **adapter_key_extra(self._adapter_rank)}
+        extra = {**params_variant_extra(self.params), **mesh_key_extra(self.mesh),
+                 **adapter_key_extra(self._adapter_rank)}
         return {(k, v): stream_engine_key(model_id, self.cfg, sbucket=k, sessions=self.max_sessions,
                                           **({"variant": v} if v != "full" else {}), **extra)
                 for k in self._bucket_sizes for v in self._variants}
 
     def graph_status(self) -> dict:
         """{(bucket size, variant) -> captured} (False throughout when
-        stepping eagerly)."""
-        return self._bucket.status(self.bucket_keys())
+        stepping eagerly; on a dp mesh, captured on every shard)."""
+        return shards_status(self._shards, self.bucket_keys(), self.dp)
 
     def _bucket_label(self, k: int, variant: str) -> str:
         """The build watchdog's label of bucket k's variant (obs/devtel.py;
-        the JAX spelling ``sbucket-<k>:<variant>``, and ``:r<R>`` after it
-        with a bound factor bank)."""
+        the JAX spelling ``sbucket-<k>:<variant>``, then ``:r<R>`` with a
+        bound factor bank and ``:dp<N>`` on a dp mesh)."""
         label = f"sbucket-{k}:{variant}"
-        return f"{label}:r{self._adapter_rank}" if self._adapter_rank else label
+        if self._adapter_rank:
+            label = f"{label}:r{self._adapter_rank}"
+        return f"{label}:dp{self.dp}" if self.dp > 1 else label
 
     def prewarm_buckets(self):
         """Capture every bucket size and variant on the calling thread,
@@ -952,11 +1073,17 @@ class BatchScheduler:
             for v in self._variants:
                 with self._step_lock, devtel.compile_scope(self._bucket_label(k, v),
                                                            expected=True):
-                    self._bucket.warm(self.params, self.states, k, v)
-                    self._warmed.add((k, v))
-                logger.info("prewarmed batchsched bucket %d/%d (%s)", k, self.max_sessions, v)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+                    self._warm_shards(self._shards, k, v)
+                logger.info("prewarmed batchsched bucket %d/%d (%s%s)", k, self.max_sessions, v,
+                            f", dp={self.dp}" if self.dp > 1 else "")
+        sync_devices(sh.device for sh in self._shards)
+
+    def _warm_shards(self, shards: list, k: int, variant: str):
+        """Bucket k's ``variant`` ready on every shard (each at k/dp rows)."""
+        for sh in shards:
+            with on_device(sh.device):
+                sh.bucket.warm(sh.params, sh.states, k // self.dp, variant)
+            self._warmed.add((k, variant, sh.index))
 
     # -- the engine fault domain (resilience/engine_guard.py) ------------------------
 
@@ -984,30 +1111,36 @@ class BatchScheduler:
             return
         self._last_snap_t = now
         slots = [slot for slot in list(self._sessions) if self.active[slot]]
-        if not slots:
-            self._snap_rows, self._snap_ready = {}, None
-            return
-        # one gather per leaf (a fresh buffer), then each slot's rows as views of it
-        bank = tree_map(lambda a: a.index_select(0, self._bucket.index(slots)), self.states)
-        self._snap_rows = {slot: tree_map(lambda a, i=i: a[i], bank) for i, slot in enumerate(slots)}
-        self._snap_ready = None
-        if self.device.type == "cuda":
-            # the quarantine capture reads the bank behind this event, never
-            # behind the (possibly stalled) steps queued after it
-            self._snap_ready = torch.cuda.Event()
-            self._snap_ready.record()
+        rows, ready = {}, {}
+        for sh in self._shards:
+            mine = [slot for slot in slots if slot in sh.slots]
+            if not mine:
+                continue
+            with on_device(sh.device):
+                # one gather per leaf (a fresh buffer), then each slot's rows as views of it
+                index = sh.bucket.index([slot - sh.slots.start for slot in mine])
+                bank = tree_map(lambda a, index=index: a.index_select(0, index), sh.states)
+                rows.update({slot: tree_map(lambda a, i=i: a[i], bank)
+                             for i, slot in enumerate(mine)})
+                if sh.device.type == "cuda":
+                    # the quarantine capture reads the bank behind this event,
+                    # never behind the (possibly stalled) steps queued after it
+                    ready[sh.index] = torch.cuda.Event()
+                    ready[sh.index].record()
+        self._snap_rows, self._snap_ready = rows, ready
 
-    def _bank_to_host(self, rows: dict, ready) -> dict:
+    def _bank_to_host(self, rows: dict, ready, device) -> dict:
         """One banked slot's rows on the host (on the CPU they are).  On the
-        card the copy runs on a side stream that waits only for the bank's
-        gather."""
+        card the copy runs on a side stream of the rows' ``device`` that
+        waits only for the bank's gather."""
         if ready is None:
             return rows
-        side = torch.cuda.Stream(self.device)
-        side.wait_event(ready)
-        with torch.cuda.stream(side):
-            host = tree_map(lambda a: a.to("cpu", non_blocking=True), rows)
-        side.synchronize()
+        with torch.cuda.device(device):
+            side = torch.cuda.Stream(device)
+            side.wait_event(ready)
+            with torch.cuda.stream(side):
+                host = tree_map(lambda a: a.to("cpu", non_blocking=True), rows)
+            side.synchronize()
         return host
 
     def capture_quarantine_snapshots(self) -> dict:
@@ -1030,8 +1163,10 @@ class BatchScheduler:
                                "the last bank refresh): control-plane rebuild only", slot)
                 continue
             try:
-                snaps[sess.session_key] = self._row_snapshot(
-                    sess, self._bank_to_host(rows[slot], ready), cache_tick, slot in uncaptured)
+                sh = self._shards[self._slot_shard(slot)]
+                host = self._bank_to_host(rows[slot], ready.get(sh.index), sh.device)
+                snaps[sess.session_key] = self._row_snapshot(sess, host, cache_tick,
+                                                             slot in uncaptured)
             except Exception:
                 logger.exception("quarantine capture failed for slot %d (%s)", slot,
                                  sess.session_key)
@@ -1083,19 +1218,18 @@ class BatchScheduler:
                     else:
                         exact += 1
                     per.append(row)
-            states = stack_states(per)  # new buffers: the banked rows copied in
-            bucket = self._new_bucket(self._bucket.graphs)
+            shards = self._new_shards(per)  # new buffers: the banked rows copied in
             with self._epoch_lock:
                 if self._epoch != epoch:
                     raise StaleStepError("a later rebuild attempt owns the plane")
                 self._retire_plane()
-                self.states, self._bucket = states, bucket
+                self._shards = shards
                 self._warmed = set()
                 # fresh deep caches (zeros, or banked rows): every slot captures first
                 self._mark_uncaptured_locked(*range(self.max_sessions))
             with self._lock:  # batches of the old plane are nobody's to wait for
                 self._batches = deque(maxlen=self._batches.maxlen)
-            self._snap_rows, self._snap_ready, self._last_snap_t = {}, None, 0.0
+            self._snap_rows, self._snap_ready, self._last_snap_t = {}, {}, 0.0
         if self._prewarm:
             for k in self._bucket_sizes:
                 for v in self._variants:
@@ -1103,10 +1237,8 @@ class BatchScheduler:
                         if self._epoch != epoch:
                             raise StaleStepError("a later rebuild attempt owns the plane")
                         with devtel.compile_scope(self._bucket_label(k, v), expected=True):
-                            bucket.warm(self.params, states, k, v)
-                        self._warmed.add((k, v))
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
+                            self._warm_shards(shards, k, v)
+            sync_devices(sh.device for sh in shards)
         return exact
 
     def _banked_row(self, snap: dict | None, slot: int) -> dict | None:
@@ -1127,11 +1259,15 @@ class BatchScheduler:
         """Keep the old plane (its graphs, pool, static and state buffers)
         alive until an event recorded now has completed: a replay already
         queued on the stream must not find its memory reused."""
-        self._retired = [r for r in self._retired if not r[0].query()]
-        if self.device.type == "cuda":
-            ev = torch.cuda.Event()
-            ev.record()
-            self._retired.append((ev, self._bucket, self.states))
+        self._retired = [r for r in self._retired if not all(ev.query() for ev in r[0])]
+        events = []
+        for sh in self._shards:
+            if sh.device.type == "cuda":
+                with torch.cuda.device(sh.device):
+                    events.append(torch.cuda.Event())
+                    events[-1].record()
+        if events:
+            self._retired.append((events, self._shards))
 
     def _use_device(self):
         """The stepping thread's current device (a runner thread starts on
@@ -1219,7 +1355,7 @@ class BatchScheduler:
         JAX scheduler."""
         slots = [s for s, _ in entries]
         n = len(slots)
-        k = self._bucket_for(n)
+        k = self._bucket_for_slots(slots)
         t_disp = time.monotonic()
         frames = []
         for _, group in entries:
@@ -1230,7 +1366,9 @@ class BatchScheduler:
             bufs = (bufs + [bufs[-1]] * self.fbs)[: self.fbs]
             frames.append(bufs[0] if self.fbs == 1 else torch.cat(bufs))
         variant = self._next_variant_locked(slots)
-        feed = (k, variant) in self._warmed
+        # warm only where every shard this step runs on has run it before
+        warm_keys = {(k, variant, self._slot_shard(s)) for s in slots}
+        feed = warm_keys <= self._warmed
         epoch = self._epoch
 
         def device_step() -> Readback:
@@ -1245,8 +1383,7 @@ class BatchScheduler:
                 # a bucket built here (prewarm off, or a size it left out)
                 # is a lazy build at dispatch: in the serving phase, a breach
                 with devtel.compile_scope(self._bucket_label(k, variant)):
-                    out = self._bucket(self.params, self.states, frames, slots, k, variant)
-                return Readback(out, n)
+                    return self._step_shards(frames, slots, k, variant)
 
         def until_complete() -> Readback:
             # the guarded step ends at its completion event, polled: a
@@ -1261,7 +1398,7 @@ class BatchScheduler:
                 readback = device_step()
             else:
                 readback = self._guard.dispatch(until_complete, cold=not feed)
-            self._warmed.add((k, variant))
+            self._warmed.update(warm_keys)
             batch = _DispatchedBatch(readback, t_disp, slots, feed)
         except Exception as e:
             if not self.quarantined:
@@ -1304,6 +1441,27 @@ class BatchScheduler:
                 except InvalidStateError:
                     pass  # cancelled by a release
 
+    def _step_shards(self, frames: list, slots: list, k: int, variant: str):
+        """Bucket k's ``variant`` for the riders ``slots`` (their frames
+        ``frames``): the single device's step, or each shard's step that
+        carries riders at k/dp rows, one after another, each read back on
+        its own device.  -> a Readback of the riders' rows, in order."""
+        if self.dp == 1:
+            sh = self._shards[0]
+            return Readback(sh.bucket(sh.params, sh.states, frames, slots, k, variant), len(slots))
+        parts, where = [], [None] * len(slots)
+        for sh in self._shards:
+            mine = [i for i, s in enumerate(slots) if s in sh.slots]
+            if not mine:
+                continue
+            with on_device(sh.device):
+                out = sh.bucket(sh.params, sh.states, [frames[i] for i in mine],
+                                [slots[i] - sh.slots.start for i in mine], k // self.dp, variant)
+                for r, i in enumerate(mine):
+                    where[i] = (len(parts), r)
+                parts.append(Readback(out, len(mine)))
+        return ShardedReadback(parts, where)
+
     def _next_variant_locked(self, slots: list) -> str:
         """The variant of the bucket step carrying ``slots`` (the caller holds
         the step lock).  DeepCache, the JAX global cadence: the capture every
@@ -1328,7 +1486,8 @@ class BatchScheduler:
             self._mark_uncaptured_locked(*range(self.max_sessions))
             for slot, sess in list(self._sessions.items()):
                 if self.active[slot]:
-                    install_row(self.states, slot, self._build_state(
+                    sh, i = self._row(slot)
+                    install_row(sh.states, i, self._build_state(
                         sess.prompt, sess.guidance_scale, sess.delta, sess._seed,
                         sess.t_index_list, sess.adapter))
             logger.warning("batchsched: rebuilt the live session rows after a failed step (%r)",
@@ -1410,12 +1569,19 @@ class BatchScheduler:
             "batchsched_max_sessions": self.max_sessions,
             "batchsched_steps_total": self.steps_total,
             "batchsched_window_ms": round(1e3 * self.window_s, 3),
-            "batchsched_dp": 1,
+            "batchsched_dp": self.dp,
             "batchsched_fbs": self.fbs,
             "batchsched_occupancy_hist": {str(k): v for k, v in sorted(self._occ_hist.items())},
             "batchsched_graphs": {f"{k}:{v}": done
                                   for (k, v), done in self.graph_status().items()},
         }
+        if self.dp > 1:
+            # live sessions per shard: how evenly the session axis fills the mesh
+            hist = {str(d): 0 for d in range(self.dp)}
+            for s, live in enumerate(list(self.active)):
+                if live:
+                    hist[str(self._slot_shard(s))] += 1
+            out["batchsched_shard_sessions"] = hist
         if occ:
             out["batchsched_occupancy_p50"] = self._percentile(occ, 0.5)
             out["batchsched_occupancy_max"] = occ[-1]

@@ -28,6 +28,9 @@ Variables read by the port's server:
   BATCHSCHED_WINDOW_MS              its coalescing window (3 ms)
   BATCHSCHED_QUEUE_BOUND            frames queued per session (2)
   BATCHSCHED_PREWARM                step every bucket once at startup (on)
+  BATCHSCHED_DP                     the scheduler's dp session axis (shards of one process)
+  MESH_SHAPE                        the serving mesh "dp,tp,sp" (or "8x1x1")
+  ATTN_IMPL                         pallas (the kernel) | ring | ulysses; xla is refused
   ADAPTER_DIR                       per-session style adapters: a directory of LoRA
                                     *.safetensors served as factor banks (unset: off)
   ADAPTER_RANK_BUCKETS              the banks' padded ranks (4,8,16)
@@ -295,6 +298,62 @@ def adapter_rank_buckets() -> tuple:
     if not buckets or any(b < 1 for b in buckets):
         raise ValueError(f"ADAPTER_RANK_BUCKETS={v!r}: buckets must be >= 1")
     return buckets
+
+
+def mesh_shape() -> tuple:
+    """(dp, tp, sp) serving-mesh axis sizes from MESH_SHAPE ("8,1,1" or
+    "8x1x1"; trailing axes default to 1): the declarative alternative to
+    the --tp/--sp flags that also carries the scheduler's dp axis.  Unset
+    -> (1, 1, 1).  The JAX parsing and error texts."""
+    v = get_str("MESH_SHAPE")
+    if not v:
+        return (1, 1, 1)
+    parts = [p.strip() for p in v.replace("x", ",").split(",") if p.strip()]
+    if len(parts) > 3:
+        raise ValueError(f"MESH_SHAPE={v!r}: at most 3 axis sizes (dp,tp,sp)")
+    try:
+        sizes = [int(p) for p in parts]
+    except ValueError as e:
+        raise ValueError(f"MESH_SHAPE={v!r} is not integer axis sizes") from e
+    if any(s < 1 for s in sizes):
+        raise ValueError(f"MESH_SHAPE={v!r}: axis sizes must be >= 1")
+    return tuple(sizes + [1] * (3 - len(sizes)))
+
+
+def batchsched_dp() -> int:
+    """dp shard count of the batch scheduler's session axis (BATCHSCHED_DP):
+    the stacked [S, ...] state splits slot-major over this many devices,
+    all driven by this one process.  0/1 (default) keeps the
+    single-device scheduler.  Taken from MESH_SHAPE's dp component only
+    when BATCHSCHED_DP is unset: an explicit 0/1 is the per-box kill
+    switch even under a fleet-wide MESH_SHAPE."""
+    if get_str("BATCHSCHED_DP") is not None:
+        return max(1, get_int("BATCHSCHED_DP", 0))
+    return max(1, mesh_shape()[0])
+
+
+# ATTN_IMPL's values -> the port's attention routes (models/layers.py)
+_ATTN_ROUTES = {"pallas": "kernel", "ring": "ring", "ulysses": "ulysses"}
+
+
+def attn_impl() -> str:
+    """The serving attention route from ATTN_IMPL: unset or ``pallas`` ->
+    ``kernel`` (the hand-written flash-attention kernel), ``ring`` /
+    ``ulysses`` -> the sequence-parallel routes over an sp group (their
+    local case is the kernel too).  ``xla`` is refused: the JAX package's
+    dense XLA route has no serving counterpart here, since on the card the
+    port computes attention only through the kernel."""
+    v = get_str("ATTN_IMPL")
+    if v is None:
+        return "kernel"
+    if v == "xla":
+        raise ValueError(
+            "ATTN_IMPL='xla' is not served by the port: its one attention route on the card "
+            "is the hand-written flash-attention kernel (ATTN_IMPL unset or pallas; ring or "
+            "ulysses over an sp mesh)")
+    if v not in _ATTN_ROUTES:
+        raise ValueError(f"ATTN_IMPL={v!r} unknown (xla | pallas | ring | ulysses)")
+    return _ATTN_ROUTES[v]
 
 
 def dist_rank() -> int | None:

@@ -351,8 +351,32 @@ Phases (each prints its own lines; any failure exits non-zero):
                 tiny checkpoint round trip on the card: restored bit for
                 bit, the next step's loss within 5e-6.  The group is
                 destroyed at the end of the phase, whatever happens.
- 18. a "kernels" JSON line (launch counts of phases 4 to 16), then the last
-     line {"ok": true, "device": ...}.
+ 18. mesh     — the serving mesh (MESH_SHAPE, BATCHSCHED_DP, --tp/--sp,
+                ATTN_IMPL; parallel/serving.py) on one card, on phase 4's
+                pipeline, run right after phase 15, the whole phase in an
+                NCCL world of 1 (brought up as phase 17 does), without a
+                profiler window: 18b's device traces are taken right after
+                phase 4 (phase_mesh_trace: 18b whole, against a fresh
+                knob-free dp=1 scheduler), because after phase 15 a profiler
+                window over the dp=2 replays can segfault inside CUPTI
+                (ROADMAP §C.16; scripts/smoke_loop.py reproduces it).  18a: MESH_SHAPE=1,1,1, --tp 1
+                --sp 1 and BATCHSCHED_DP=1 build no mesh, and their 2-slot
+                scheduler's keys and frames equal a scheduler's built with
+                no knob, bit for bit.  18b: a dp=2 scheduler with both shards
+                on cuda:0: two sessions land on shards 0 and 1, each shard's
+                replay = its eager step bit for bit, each session's frames
+                meet phase 4's criterion against the dp=1 scheduler's (the
+                f32 reference from the same rows), 2 x (32 + 1) kernels a
+                bucket step in a settled device trace, busy ms a bucket step
+                beside the dp=1 scheduler's (a check of the mechanism on one
+                card, not a scale-out), no capture through a leave, a join
+                and a prompt swap.  18c: ATTN_IMPL=ring with no sp group
+                launches the attention kernel 32 times a step and its frame
+                equals the default engine's bit for bit.  18d:
+                MESH_SHAPE=1,1,1 builds no mesh; BATCHSCHED_DP=2 (default devices), --tp 2 and w8
+                params on a tp mesh are refused with the JAX texts.
+ 19. a "kernels" JSON line (launch counts of phases 4 to 16 and 18), then the
+     last line {"ok": true, "device": ...}.
 
 Imports nothing of JAX or of the JAX package.  `python3 chip_smoke.py
 --native-client SPEC` is phase 8's client process and `--broadcast-viewers
@@ -3161,8 +3185,7 @@ def phase_obs(torch, card: str, pipe):
     # -- 9b: a serve-time capture ---------------------------------------------------------
     sched_b = BatchScheduler.from_pipeline(pipe, max_sessions=2, prewarm=False)
     with sched_b._step_lock:  # its "prewarm" leaves out bucket 1
-        sched_b._bucket.warm(sched_b.params, sched_b.states, 2)
-        sched_b._warmed.add((2, "full"))
+        sched_b._warm_shards(sched_b._shards, 2, "full")
     key = sched_b.bucket_keys()[(1, "full")]
 
     posted = []
@@ -7179,6 +7202,364 @@ def _leaves(tree):
         yield tree
 
 
+MESH_FRAMES = 4  # frames a session in 18a and 18b
+MESH_TRACED = 4  # bucket steps in 18b's device traces
+
+
+def phase_mesh(torch, card: str, pipe, ref_bundle, device="cuda", traced=True,
+               world=True) -> tuple:
+    """Phase 18: the serving mesh at world size 1 (18a-18d, see the module
+    docstring), on phase 4's pipeline.  ``traced`` takes 18b's device
+    traces (the script takes them in :func:`phase_mesh_trace`);
+    ``world=False`` leaves the process group down and skips 18d, which needs
+    it.  ``device="cpu"`` rehearses it on the CPU (a gloo world, eager steps;
+    the device trace is card-only).  -> the attention and epilogue launches
+    counted."""
+    import numpy as np
+
+    from ai_rtc_agent_tpu_torch.parallel import mesh as M
+
+    t_phase = time.perf_counter()
+    total = [0, 0]
+    saved = {k: os.environ.get(k) for k in ("MESH_SHAPE", "BATCHSCHED_DP", "ATTN_IMPL")}
+    # the whole phase in a world of 1, as an agent started under torchrun runs
+    if world:
+        M.init_distributed(rank=0, world_size=1, backend="nccl" if device == "cuda" else "gloo",
+                           device=device)
+    try:
+        counts, dp1 = mesh_default(torch, np, card, pipe)
+        for a, e in (counts, mesh_dp2(torch, np, card, pipe, ref_bundle, dp1, traced),
+                     mesh_ring(torch, np, card, pipe)):
+            total[0] += a
+            total[1] += e
+        if world:
+            mesh_refusals(torch, card, pipe)
+    finally:
+        if world:
+            M.shutdown_distributed()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    say(f"mesh: phase 18 took {time.perf_counter() - t_phase:.1f} s; launches counted "
+        f"attention {total[0]}, epilogue {total[1]}")
+    return tuple(total)
+
+
+def _two_sessions(sched, seeds=(300, 301)):
+    return [sched.claim(f"mesh{i}", prompt=SESSION_PROMPTS[i], seed=s)
+            for i, s in enumerate(seeds)]
+
+
+def _lockstep_frames(sessions, frames, n: int) -> list:
+    """``n`` frames through each session in lockstep (every session's frame
+    submitted before any is fetched: one bucket step carries them all)."""
+    outs = [[] for _ in sessions]
+    for j in range(n):
+        handles = [s.submit(f[j]) for s, f in zip(sessions, frames)]
+        for i, (s, h) in enumerate(zip(sessions, handles)):
+            outs[i].append(s.fetch(h))
+    return outs
+
+
+def mesh_default(torch, np, card, pipe) -> tuple:
+    """18a: the trivial mesh's knobs change nothing.  -> (the launches
+    counted, the knob-free dp=1 scheduler with its two live sessions)."""
+    from ai_rtc_agent_tpu_torch.server import sessions as S
+    from ai_rtc_agent_tpu_torch.stream.engine import stream_engine_key
+    from ai_rtc_agent_tpu_torch.stream.scheduler import BatchScheduler
+    from ai_rtc_agent_tpu_torch.utils import env
+
+    A = attention_per_pass(pipe.bundle.unet_cfg, False)  # attention launches a step (32)
+    for k in ("MESH_SHAPE", "BATCHSCHED_DP", "ATTN_IMPL"):
+        os.environ.pop(k, None)
+    plain = BatchScheduler.from_pipeline(pipe, max_sessions=2, window_ms=10_000.0)
+    os.environ.update(MESH_SHAPE="1,1,1", BATCHSCHED_DP="1")
+    knobs = None
+    try:
+        mesh = S.serving_mesh({"tp": 1, "sp": 1})
+        cfg = S.stream_config({"model_id": pipe.model_id, "tp": 1, "sp": 1}, pipe.device)
+        knobs = BatchScheduler.from_pipeline(pipe, dp=env.batchsched_dp(), max_sessions=2,
+                                             window_ms=10_000.0)
+        if mesh is not None or cfg is not None or knobs.dp != 1 or knobs.mesh is not None:
+            fail(f"mesh 18a: the trivial knobs built mesh {mesh}, config {cfg}, dp {knobs.dp}")
+        if (knobs.bucket_keys() != plain.bucket_keys()
+                or stream_engine_key(pipe.model_id, pipe.config) != pipe.engine.key):
+            fail("mesh 18a: the trivial knobs changed the graph keys")
+        launched = _launches()
+        frames = [_frames(np, MESH_FRAMES, seed=70 + i, size=pipe.config.height) for i in range(2)]
+        got = [_lockstep_frames(_two_sessions(sc), frames, MESH_FRAMES) for sc in (plain, knobs)]
+        a, e = (x - y for x, y in zip(_launches(), launched))
+        same = all(np.array_equal(x, y) for p, q in zip(*got) for x, y in zip(p, q))
+        if not same or (a, e) != (2 * A * MESH_FRAMES, 2 * MESH_FRAMES):
+            fail(f"mesh 18a: frames equal {same}, launches ({a}, {e}) over {2 * MESH_FRAMES} "
+                 "bucket steps")
+        say(f"mesh 18a: {card} | MESH_SHAPE=1,1,1 BATCHSCHED_DP=1 --tp 1 --sp 1: no mesh, the "
+            f"default config, dp 1, buckets {knobs._bucket_sizes}, keys equal the knob-free "
+            f"scheduler's ({knobs.bucket_keys()[(2, 'full')]}), 2 sessions x {MESH_FRAMES} "
+            f"frames equal bit for bit; launches ({a}, {e})")
+    except BaseException:
+        plain.close()
+        raise
+    finally:
+        if knobs is not None:
+            knobs.close()
+    return (a, e), plain
+
+
+def phase_mesh_trace(torch, card: str, pipe, ref_bundle) -> tuple:
+    """18b with its settled device traces, right after phase 4: a knob-free
+    dp=1 scheduler with two sessions, then :func:`mesh_dp2` against it.
+    After phase 15 a profiler window over these replays can crash the
+    process inside CUPTI (ROADMAP §C.16), so phase 18 itself runs there
+    without the profiler.  -> the attention and epilogue launches counted."""
+    import numpy as np
+
+    from ai_rtc_agent_tpu_torch.stream.scheduler import BatchScheduler
+
+    t = time.perf_counter()
+    dp1 = BatchScheduler.from_pipeline(pipe, max_sessions=2, window_ms=10_000.0)
+    try:
+        _two_sessions(dp1)
+    except BaseException:
+        dp1.close()
+        raise
+    counted = mesh_dp2(torch, np, card, pipe, ref_bundle, dp1, traced=True)
+    say(f"mesh 18b, traced after phase 4: {time.perf_counter() - t:.1f} s; launches counted "
+        f"attention {counted[0]}, epilogue {counted[1]}")
+    return counted
+
+
+def mesh_dp2(torch, np, card, pipe, ref_bundle, dp1=None, traced=True) -> tuple:
+    """18b: the dp=2 scheduler, both shards on one card, against ``dp1``
+    (closed after); ``traced``: with its device traces."""
+    from ai_rtc_agent_tpu_torch.parallel.multipeer import BucketStep, on_device
+    from ai_rtc_agent_tpu_torch.stream.engine import install_row, install_state
+    from ai_rtc_agent_tpu_torch.stream.scheduler import BatchScheduler
+    from ai_rtc_agent_tpu_torch.tree import tree_map
+
+    A = attention_per_pass(pipe.bundle.unet_cfg, False)  # attention launches a step (32)
+    dev = torch.device(pipe.device.type, 0) if pipe.device.type == "cuda" else pipe.device
+    counted = [0, 0]
+    try:
+        t = time.perf_counter()
+        sched = None
+        sched = BatchScheduler.from_pipeline(pipe, dp=2, devices=[dev, dev], max_sessions=2,
+                                             window_ms=10_000.0)
+        built = time.perf_counter() - t
+        sess = _two_sessions(sched)
+        ref_sess = [s for s in dp1._sessions.values()]
+        shards = [s.snapshot()["shard"] for s in sess]
+        if [s.slot for s in sess] != [0, 1] or shards != [0, 1]:
+            fail(f"mesh 18b: two claims landed on slots {[s.slot for s in sess]} shards {shards}")
+        # the dp=1 scheduler's live rows, as they are now, into the shards
+        rows = {s.slot: session_row(dp1.states, s.slot) for s in ref_sess}
+        for s, r in zip(sess, ref_sess):
+            sh, i = sched._row(s.slot)
+            install_row(sh.states, i, rows[r.slot])
+        deds = [Dedicated(torch, pipe.bundle.stream_models, pipe.bundle.params, pipe.config,
+                          pipe.bundle.encode_prompt, ref_bundle, rows[r.slot], pipe.device)
+                for r in ref_sess]
+        frames = [_frames(np, MESH_FRAMES, seed=80 + i, size=pipe.config.height) for i in range(2)]
+        # each shard's replay against its eager step, from copies of its rows
+        replay = []
+        for sh in sched._shards:
+            with sched._step_lock, on_device(sh.device):
+                saved = tree_map(lambda a: a.clone(), sh.states)
+                copy = tree_map(lambda a: a.clone(), sh.states)
+                f = np.stack(frames[sh.index][:1])
+                eager = BucketStep(sched._template.models, sched.cfg, sh.device, graphs=False)
+                want = eager(sh.params, copy, f, [0], 1).clone()
+                got = sh.bucket(sh.params, sh.states, f, [0], 1).clone()
+                _sync(torch, sh.device)
+                same = torch.equal(got, want) and all(
+                    torch.equal(a, b) for (_, a), (_, b) in
+                    zip(_tree_paths(sh.states), _tree_paths(copy)))
+                install_state(sh.states, saved)
+            if not same:
+                fail(f"mesh 18b: shard {sh.index}'s replay differs from its eager step")
+            replay.append(sh.bucket.graph_cache.steps()[sched.bucket_keys()[(2, "full")]].launches)
+        launched = _launches()
+        got = _lockstep_frames(sess, frames, MESH_FRAMES)
+        a, e = (x - y for x, y in zip(_launches(), launched))
+        want = _lockstep_frames(ref_sess, frames, MESH_FRAMES)
+        counted = [a, e]
+        if (a, e) != (2 * A * MESH_FRAMES, 2 * MESH_FRAMES):
+            fail(f"mesh 18b: ({a}, {e}) launches over {MESH_FRAMES} dp=2 bucket steps, want "
+                 f"2 x ({A} + 1) a step")
+        lines = []
+        for i, ded in enumerate(deds):  # phase 4's criterion, the dp=1 frames as the baseline
+            for f in frames[i]:
+                ded(f)
+            ref = np.stack(ded.refs).astype(np.float32)
+            g, w = np.stack(got[i]).astype(np.float32), np.stack(want[i]).astype(np.float32)
+            fs, fd = np.abs(g - ref).mean(), np.abs(w - ref).mean()
+            if not np.isfinite(g).all() or fs > 2 * fd + 0.5:
+                fail(f"mesh 18b session {i}: {fs:.3f} levels from the f32 reference against the "
+                     f"dp=1 scheduler's {fd:.3f}")
+            lines.append(f"session {i} (shard {shards[i]}): vs f32 {fs:.3f} (dp=1 {fd:.3f}), vs "
+                         f"dp=1 mean {np.abs(g - w).mean():.3f} max {np.abs(g - w).max():.0f}")
+        say(f"mesh 18b: {card} | dp=2 scheduler on [{dev}, {dev}] built in {built:.1f} s, "
+            f"buckets {sched._bucket_sizes}, captured {sched.graph_status()}, each shard's k=1 "
+            f"graph {replay} launches a replay, replay = eager bit for bit on each shard; "
+            f"launches ({a}, {e}) over {MESH_FRAMES} bucket steps; " + " | ".join(lines)
+            + f"; key {sched.bucket_keys()[(2, 'full')]}")
+        if traced and pipe.device.type == "cuda":
+            busy = {}
+            before = _launches()
+            for name, sc, ss in (("dp=1", dp1, ref_sess), ("dp=2", sched, sess),
+                                 ("dp=2", sched, sess), ("dp=1", dp1, ref_sess)):
+                tr = bucket_trace(torch, sc, [s.slot for s in ss],
+                                  [f[0] for f in frames], MESH_TRACED)
+                per = 2 if sc is sched else 1
+                if (tr["attention"], tr["epilogue"]) != (per * A * MESH_TRACED,
+                                                         per * MESH_TRACED):
+                    fail(f"mesh 18b: the {name} trace shows {tr['attention']} attention and "
+                         f"{tr['epilogue']} epilogue kernels over {MESH_TRACED} bucket steps")
+                busy.setdefault(name, []).append(tr["busy_ms"] / MESH_TRACED)
+            counted = [c + x - y for c, x, y in zip(counted, _launches(), before)]
+            say(f"mesh 18b: {card} | settled device traces of {MESH_TRACED} bucket steps of 2 "
+                f"sessions, in turns (dp=1, dp=2, dp=2, dp=1): dp=2 {2 * A} attention + 2 "
+                f"epilogue kernels a step, dp=1 {A} + 1; busy ms a step dp=1 "
+                f"{[round(x, 3) for x in busy['dp=1']]}, dp=2 "
+                f"{[round(x, 3) for x in busy['dp=2']]} (two k=1 graphs on one card against one "
+                "k=2 graph: the mechanism, not a scale-out)")
+        # no capture through a leave, a join and a prompt swap
+        built_steps = [len(sh.bucket.graph_cache.steps()) for sh in sched._shards]
+        sess[1].release()
+        before = _launches()
+        solo = _lockstep_frames(sess[:1], frames, 1)
+        a1, e1 = (x - y for x, y in zip(_launches(), before))
+        again = sched.claim("mesh-rejoin", prompt=SESSION_PROMPTS[2], seed=302)
+        sess[0].update_prompt(SESSION_PROMPTS[3])
+        before = _launches()
+        _lockstep_frames([sess[0], again], frames, 1)
+        a2, e2 = (x - y for x, y in zip(_launches(), before))
+        after = [len(sh.bucket.graph_cache.steps()) for sh in sched._shards]
+        if after != built_steps or (a1, e1, a2, e2) != (A, 1, 2 * A, 2) or again.slot != 1:
+            fail(f"mesh 18b churn: graphs {built_steps} -> {after}, launches solo ({a1}, {e1}) "
+                 f"pair ({a2}, {e2}), the rejoin on slot {again.slot}")
+        counted = [counted[0] + a1 + a2, counted[1] + e1 + e2]
+        say(f"mesh 18b: leave, solo step (one shard stepped: ({a1}, {e1}) launches), a join "
+            f"back onto shard {sched._slot_shard(again.slot)} and a prompt swap, then both "
+            f"({a2}, {e2}): no capture (graphs per shard {after}); solo frame mean "
+            f"{solo[0][0].mean():.2f}")
+    finally:
+        if sched is not None:
+            sched.close()
+        dp1.close()
+    return tuple(counted)
+
+
+def bucket_trace(torch, sched, slots: list, frames: list, steps: int) -> dict:
+    """A settled device trace of ``steps`` bucket steps of ``slots`` (one host
+    frame each) through the scheduler's captured graphs, every shard's, on
+    this thread under the step lock; the states are put back after."""
+    from ai_rtc_agent_tpu_torch.stream.engine import install_state
+    from ai_rtc_agent_tpu_torch.tree import tree_map
+
+    k = sched._bucket_for_slots(slots)
+    staged = [torch.from_numpy(f[None]).to(sched._slot_device(s)) for s, f in zip(slots, frames)]
+    with sched._step_lock:
+        saved = [tree_map(lambda a: a.clone(), st) for st in sched.shard_states()]
+        tr = kernel_trace(torch, lambda: [sched._step_shards(staged, slots, k, "full").row(0)
+                                          for _ in range(steps)])
+        for st, sv in zip(sched.shard_states(), saved):
+            install_state(st, sv)
+    return tr
+
+
+def mesh_ring(torch, np, card, pipe) -> tuple:
+    """18c: ATTN_IMPL=ring with no sp group: the kernel route, bit for bit."""
+    from ai_rtc_agent_tpu_torch.models import registry
+    from ai_rtc_agent_tpu_torch.stream.engine import StreamEngine, install_state
+    from ai_rtc_agent_tpu_torch.tree import tree_map
+
+    os.environ["ATTN_IMPL"] = "ring"
+    try:
+        route = registry.default_stream_config(pipe.model_id, device=pipe.device).attn_impl
+    finally:
+        os.environ.pop("ATTN_IMPL", None)
+    if route != "ring":
+        fail(f"mesh 18c: ATTN_IMPL=ring gave the route {route!r}")
+    cfg = replace(pipe.config, attn_impl=route)
+    bundle = registry.load_model_bundle(pipe.model_id, device=pipe.device, attn_impl="ring",
+                                        params=pipe.bundle.params)
+    eng = StreamEngine(bundle.stream_models, pipe.bundle.params, cfg, bundle.encode_prompt,
+                       device=pipe.device, model_id=pipe.model_id)
+    A = attention_per_pass(pipe.bundle.unet_cfg, False)  # attention launches a step (32)
+    base = pipe.engine
+    eng.state = tree_map(lambda a: a.clone(), base.state)
+    eng.capture()
+    frame = _frames(np, 1, seed=90, size=pipe.config.height)[0]
+    with base._submit_lock:
+        saved = tree_map(lambda a: a.clone(), base.state)
+    before = _launches()
+    got = eng(frame)
+    a, e = (x - y for x, y in zip(_launches(), before))
+    want = base(frame)
+    with base._submit_lock:
+        install_state(base.state, saved)
+    step = eng.graph_cache.steps()[eng.key]
+    want_launches = (A, 1) if eng.graphs else (0, 0)  # an eager step records none
+    if (a, e) != (A, 1) or step.launches != want_launches or not np.array_equal(got, want):
+        fail(f"mesh 18c: ATTN_IMPL=ring without an sp group launched ({a}, {e}) (graph "
+             f"{step.launches}), frame equal to the default's {np.array_equal(got, want)}")
+    say(f"mesh 18c: {card} | ATTN_IMPL=ring, no sp group: key {eng.key}, the captured step "
+        f"records {step.launches} (attention, epilogue) launches a replay, ({a}, {e}) counted; "
+        "its frame equals the default engine's bit for bit (the local case takes the kernel)")
+    return a, e
+
+
+def mesh_refusals(torch, card, pipe):
+    """18d, in a world of 1: MESH_SHAPE=1,1,1 builds no mesh, and what one
+    card cannot serve raises the JAX texts."""
+    import numpy as np
+
+    from ai_rtc_agent_tpu_torch.models import quant as Q
+    from ai_rtc_agent_tpu_torch.parallel import mesh as M
+    from ai_rtc_agent_tpu_torch.server import sessions as S
+    from ai_rtc_agent_tpu_torch.stream.engine import StreamEngine
+    from ai_rtc_agent_tpu_torch.stream.scheduler import BatchScheduler
+
+    import torch.distributed as dist
+
+    os.environ["MESH_SHAPE"] = "1,1,1"
+    if S.serving_mesh({"tp": 1, "sp": 1}) is not None:
+        fail("mesh 18d: MESH_SHAPE=1,1,1 --tp 1 --sp 1 built a mesh in a world of 1")
+    n = torch.cuda.device_count() if pipe.device.type == "cuda" else 0
+    over = f"mesh dp*tp*sp=2 exceeds {n} available devices"
+    texts = {}
+    for name, fn in (
+            ("BATCHSCHED_DP=2", lambda: BatchScheduler.from_pipeline(pipe, dp=2, max_sessions=2)),
+            ("--tp 2", lambda: S.serving_mesh({"tp": 2, "sp": 0}))):
+        try:
+            fn()
+            fail(f"mesh 18d: {name} on one card must raise")
+        except ValueError as e:
+            texts[name] = str(e)
+    params = dict(pipe.engine.params)
+    params["unet"] = dict(params["unet"], conv_in=Q.quantize_params(
+        {"conv_in": params["unet"]["conv_in"]}, min_size=1)[0]["conv_in"])
+    tp2 = M.Mesh({"dp": 1, "tp": 2, "sp": 1}, np.arange(2).reshape(1, 2, 1), 0,
+                 {"dp": 0, "tp": 0, "sp": 0})
+    try:
+        StreamEngine(pipe.bundle.stream_models, params, pipe.config, pipe.bundle.encode_prompt,
+                     device=pipe.device, mesh=tp2)
+        fail("mesh 18d: w8 params on a tp mesh must raise")
+    except ValueError as e:
+        texts["w8 on tp=2"] = str(e)
+    want_w8 = ("QUANT_WEIGHTS int8 kernels are incompatible with tensor-parallel serving (tp>1): "
+               "quantized leaves have no sharding rules and would replicate. Disable one.")
+    if (texts["BATCHSCHED_DP=2"] != over or texts["--tp 2"] != f"mesh dp*tp*sp=2 exceeds 1 "
+            "available devices" or texts["w8 on tp=2"] != want_w8):
+        fail(f"mesh 18d: refusals {texts}")
+    say(f"mesh 18d: {card} | {dist.get_backend()} world of {dist.get_world_size()}: "
+        f"MESH_SHAPE=1,1,1 --tp 1 --sp 1 build no mesh; refused with the JAX texts: "
+        f"{json.dumps(texts)}")
+
+
 def main():
     if sys.argv[1:2] == ["--native-client"]:  # phase 8's probe: the client side
         native_client(json.loads(sys.argv[2]))
@@ -7186,13 +7567,17 @@ def main():
     if sys.argv[1:2] == ["--broadcast-viewers"]:  # phase 11's viewers
         broadcast_viewers(json.loads(sys.argv[2]))
         return
+    import faulthandler
+
     import torch
 
+    faulthandler.enable(all_threads=True)  # a crash in native code prints every thread's stack
     card = phase_device(torch)
     phase_build(torch)
     attn = phase_attention(torch)
     epi = phase_epilogue(torch)
     pipe, ref_bundle, attn_launches, epi_launches = phase_main(torch, card)
+    trace_attn, trace_epi = phase_mesh_trace(torch, card, pipe, ref_bundle)
     phase_graph_ab(torch, card, pipe, ref_bundle)
     serve_attn, serve_epi, serve_fps = phase_serve(torch, card, pipe)
     sessions_attn, sessions_epi = phase_sessions(torch, card, pipe, ref_bundle)
@@ -7202,6 +7587,8 @@ def main():
     fleet_attn, fleet_epi = phase_fleet(torch, card, pipe, ref_bundle)
     broadcast_attn, broadcast_epi = phase_broadcast(torch, card, pipe)
     adapters_attn, adapters_epi = phase_adapters(torch, card, pipe, ref_bundle)
+    mesh_attn, mesh_epi = phase_mesh(torch, card, pipe, ref_bundle, traced=False)
+    mesh_attn, mesh_epi = mesh_attn + trace_attn, mesh_epi + trace_epi
     del pipe, ref_bundle
     sd15_attn, sd15_epi = phase_sd15(torch, card)
     variants_attn, variants_epi = phase_variants(torch, card)
@@ -7210,10 +7597,10 @@ def main():
     phase_train(torch, card)
     attn_launches += (serve_attn + sessions_attn + faults_attn + native_attn + obs_attn
                       + fleet_attn + broadcast_attn + sd15_attn + variants_attn + cnet_attn
-                      + adapters_attn + sdxl_attn)
+                      + adapters_attn + sdxl_attn + mesh_attn)
     epi_launches += (serve_epi + sessions_epi + faults_epi + native_epi + obs_epi + fleet_epi
                      + broadcast_epi + sd15_epi + variants_epi + cnet_epi + adapters_epi
-                     + sdxl_epi)
+                     + sdxl_epi + mesh_epi)
     kernels = [
         {
             "name": "flash_attention", "route": "cuda",

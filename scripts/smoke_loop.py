@@ -3,14 +3,24 @@
 find a check that fails only now and then.
 
     python3 scripts/smoke_loop.py [--loops N] [--phases faults,native,obs,fleet]
-                                  [--once faults] [--busy N]
+                                  [--once faults] [--busy N] [--no-trace]
+                                  [--no-world] [--native-stack]
 
 Phases 1 and 2 run once (the card, the kernels' build), and phases 4 and 5
-too (the pipeline, phase 5's served rate for phase 8) when a chosen phase
+too (the pipeline; phase 5 for phase 8's served rate) when a chosen phase
 runs on them; then each loop runs the chosen phases in turn: ``faults`` (7),
-``native`` (8), ``obs`` (9), ``fleet`` (10), ``adapters`` (15), or ``sdxl``
-(16), which builds its own models: ``--loops 1 --phases sdxl`` runs phase 16
-alone after the build.  A failed check prints its
+``native`` (8), ``obs`` (9), ``fleet`` (10), ``adapters`` (15), ``mesh``
+(18), or ``sdxl`` (16), which builds its own models: ``--loops 1 --phases
+sdxl`` runs phase 16 alone after the build, ``--loops 1 --phases mesh``
+phase 18 on phase 4's pipeline (with 18b's device traces, which the
+script takes right after phase 4), ``--loops 3 --once adapters --phases
+adapters,mesh`` phase 18 after phase 15: there a profiler window over the
+dp=2 replays can crash the process (ROADMAP §C.16).  ``--no-trace`` runs
+phase 18 without 18b's device traces, as the script runs it after phase
+15; ``--no-world`` without its NCCL world of 1 (and without 18d, which
+needs it); ``--native-stack`` builds scripts/native_stack.c with ``cc``
+and prints the native frames of a segfault before faulthandler's Python
+stacks.  A failed check prints its
 ``FAIL:`` line and the loop goes on with the next phase.  ``--once`` names
 phases run in the first loop only; ``--busy N`` keeps N host processes
 spinning throughout the loops, as a host shared with other work would.  The
@@ -32,11 +42,23 @@ ROOT = Path(__file__).resolve().parent.parent
 
 
 # the phases that run on phase 4's pipeline
-ON_THE_PIPELINE = {"faults", "native", "obs", "fleet", "adapters"}
+ON_THE_PIPELINE = {"faults", "native", "obs", "fleet", "adapters", "mesh"}
 
 
 class CheckFailed(Exception):
     pass
+
+
+def native_stack():
+    """Build scripts/native_stack.c into build/ and install its handler over
+    faulthandler's (which it hands the signal on to)."""
+    import ctypes
+
+    out = ROOT / "build" / "native_stack.so"
+    out.parent.mkdir(exist_ok=True)
+    subprocess.run(["cc", "-shared", "-fPIC", "-O1", "-o", str(out),
+                    str(ROOT / "scripts" / "native_stack.c")], check=True)
+    ctypes.CDLL(str(out)).native_stack_install()
 
 
 def main() -> int:
@@ -45,12 +67,22 @@ def main() -> int:
     ap.add_argument("--phases", default="faults,native,obs,fleet")
     ap.add_argument("--once", default="", help="phases run in the first loop only")
     ap.add_argument("--busy", type=int, default=0, help="host processes kept spinning")
+    ap.add_argument("--no-trace", action="store_true", help="phase 18 without its device traces")
+    ap.add_argument("--no-world", action="store_true", help="phase 18 without its NCCL world")
+    ap.add_argument("--native-stack", action="store_true",
+                    help="print a segfault's native frames (scripts/native_stack.c)")
     args = ap.parse_args()
 
     sys.path.insert(0, str(ROOT))
+    import faulthandler
+
     import torch
 
     import chip_smoke as cs
+
+    faulthandler.enable(all_threads=True)  # a crash in native code prints every thread's stack
+    if args.native_stack:
+        native_stack()
 
     def fail(msg: str):
         print(f"FAIL: {msg}", flush=True)
@@ -64,6 +96,7 @@ def main() -> int:
     pipe = ref_bundle = fps = None
     if ON_THE_PIPELINE & set(phases):
         pipe, ref_bundle, _, _ = cs.phase_main(torch, card)
+    if "native" in phases:
         _, _, fps = cs.phase_serve(torch, card, pipe)
     run = {
         "faults": lambda: cs.phase_faults(torch, card, pipe, ref_bundle),
@@ -72,6 +105,8 @@ def main() -> int:
         "fleet": lambda: cs.phase_fleet(torch, card, pipe, ref_bundle),
         "adapters": lambda: cs.phase_adapters(torch, card, pipe, ref_bundle),
         "sdxl": lambda: cs.phase_sdxl(torch, card),
+        "mesh": lambda: cs.phase_mesh(torch, card, pipe, ref_bundle, traced=not args.no_trace,
+                                      world=not args.no_world),
     }
     unknown = [p for p in phases + sorted(once) if p not in run]
     if unknown:
