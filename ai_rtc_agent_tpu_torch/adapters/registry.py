@@ -213,6 +213,11 @@ class AdapterRegistry:
             raise ValueError(
                 f"adapter {name!r} touches modules outside the bound bank target set: "
                 f"{sorted(unknown)[:3]} — rebuild the scheduler")
+
+        def place(a: np.ndarray) -> torch.Tensor:
+            # tpurtc: allow[device-transfer] -- a style's factor rows placed on the device at a swap or a claim (control plane, parameter placement into the bank), not a frame
+            return torch.from_numpy(a).to(device=device, dtype=dtype)
+
         rows = {}
         for path, (in_dim, out_dim) in targets.items():
             f = factors.get(path)
@@ -222,8 +227,7 @@ class AdapterRegistry:
                 rb = f["down"].shape[0]
                 down[:rb] = f["down"]
                 up[:, :rb] = f["up"]
-            rows[path] = {"down": torch.from_numpy(down).to(device=device, dtype=dtype),
-                          "up": torch.from_numpy(up).to(device=device, dtype=dtype)}
+            rows[path] = {"down": place(down), "up": place(up)}
         return rows
 
 

@@ -3,9 +3,11 @@ invariants of its serving process, enforced by machine.
 
 The port's agent runs the same planes as the JAX one (an asyncio WebRTC
 plane, daemon step-runner threads, pooled zero-copy buffers, an admission
-gate) in one address space, so it carries the same hazards.  These are the
-JAX package's checkers (docs/static-analysis.md), stdlib ``ast`` only, with
-every tree-specific path drawn from a :class:`~.core.Profile`:
+gate) in one address space, so it carries the same hazards.  Sixteen rules
+are the JAX package's checkers (docs/static-analysis.md); the last two are
+its device rules rewritten for torch and CUDA graphs.  All are stdlib
+``ast`` only, with every tree-specific path and name drawn from a
+:class:`~.core.Profile`:
 
   async-blocking      blocking calls lexically inside ``async def``
   bounded-queue       asyncio.Queue/deque without an explicit finite bound
@@ -29,6 +31,11 @@ every tree-specific path drawn from a :class:`~.core.Profile`:
                       tables) <-> docs/http-api.md; headers <-> server/wire.py
   refusal-discipline  503s carry Retry-After; webhook vocabulary is closed
   reservation-pairing admission/claim reservations released on every path
+  device-transfer     frames cross host <-> card only in the staging and
+                      readback helpers (stray H2D, stray D2H, stray async
+                      D2H, a whole step output drained to the host)
+  capture-purity      no host read or host crossing inside a function a
+                      CUDA graph captures (the JAX trace-purity rule)
 
 Entry point: ``python -m ai_rtc_agent_tpu_torch.analysis`` (text/json,
 --changed, shrink-only baseline ``analysis/baseline.json``).

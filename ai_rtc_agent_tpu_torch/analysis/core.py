@@ -13,7 +13,8 @@ the allowlist can never silently rot.
 
 Every path and name a rule needs of the tree it scans (the env tier, the
 registries, the wire and events modules, the codec tier, the exempt
-tooling) comes from a :class:`Profile`; :data:`PORT`, the default, is this
+tooling, the staging and readback helpers, the capture entry points and
+step factories) comes from a :class:`Profile`; :data:`PORT`, the default, is this
 package's.  The same rules, given another tree's profile, check that tree.
 """
 
@@ -55,6 +56,20 @@ class Profile:
     analysis: str  # the analyzer itself (quotes wire vocabulary to check it)
     tooling_prefixes: tuple = ("scripts/", "examples/")
     tooling_files: tuple = ("bench.py", "__graft_entry__.py")
+    # device-transfer: (file, qualname) scopes whose job is a crossing (a
+    # class blesses its methods), files exempt wholesale, and the names that
+    # taint a value as a step output or a captured step
+    transfer_blessed: tuple = ()
+    transfer_exempt: tuple = ()
+    staging_calls: tuple = ()  # their result is a staged device frame
+    step_attrs: tuple = ()  # self.<attr>(...) / self.<attr>[k](...) runs a step
+    step_getters: tuple = ()  # their result is a captured step (so is a capture call's)
+    # capture-purity: (call name, position, keyword) of the function a
+    # capture call records; dotted suffixes of ``get(key, build)`` calls
+    # whose build returns (fn, inputs); (file, name) of step factories
+    capture_calls: tuple = ()
+    capture_build_calls: tuple = ()
+    step_factories: tuple = ()
 
     def tooling(self, rel: str) -> bool:
         """Operator tooling and process-lifecycle code, exempt from the
@@ -77,6 +92,34 @@ PORT = Profile(
     vocab_exempt=(_PKG + "server/secure/",),
     route_table="ROUTES",
     analysis=_PKG + "analysis/",
+    tooling_files=("bench.py", "__graft_entry__.py", "chip_smoke.py"),
+    transfer_blessed=(
+        (_PKG + "stream/engine.py", "stage_into"),
+        (_PKG + "stream/engine.py", "_Readback"),
+        (_PKG + "stream/engine.py", "StreamEngine.follow_step"),
+        (_PKG + "parallel/multipeer.py", "stage_rows"),
+        (_PKG + "parallel/multipeer.py", "_upload"),
+        (_PKG + "parallel/multipeer.py", "Readback"),
+        (_PKG + "parallel/multipeer.py", "ShardedReadback"),
+        (_PKG + "parallel/multipeer.py", "replicate"),
+        (_PKG + "parallel/serving.py", "LockstepEngine._send_step"),
+    ),
+    transfer_exempt=(
+        _PKG + "aot/cache.py",
+        _PKG + "parallel/sharding.py",
+        _PKG + "parallel/trainer.py",
+        _PKG + "parallel/checkpoint.py",
+        _PKG + "models/loader.py",
+        _PKG + "models/lora.py",
+        _PKG + "bridge.py",
+    ),
+    staging_calls=("stage_rows", "stage_into"),
+    step_attrs=("_steps", "_step"),
+    step_getters=("step_for",),
+    capture_calls=(("CapturedStep", 1, "fn"),),
+    capture_build_calls=("graph_cache.get",),
+    step_factories=((_PKG + "stream/engine.py", "make_step_fn"),
+                    (_PKG + "stream/engine.py", "make_session_step_fn")),
 )
 
 
@@ -262,6 +305,7 @@ def run_checkers(project: Project, checkers=None, profile: Profile = PORT) -> li
     from . import (
         async_blocking,
         bounded_queues,
+        device_transfers,
         encoder_reconfig,
         env_registry,
         http_contract,
@@ -275,6 +319,7 @@ def run_checkers(project: Project, checkers=None, profile: Profile = PORT) -> li
         reservation_pairing,
         span_pairing,
         task_lifecycle,
+        trace_purity,
     )
 
     def profiled(check):
@@ -297,6 +342,8 @@ def run_checkers(project: Project, checkers=None, profile: Profile = PORT) -> li
         "http-contract": profiled(http_contract.check),
         "refusal-discipline": profiled(refusal_discipline.check),
         "reservation-pairing": profiled(reservation_pairing.check),
+        "device-transfer": profiled(device_transfers.check),
+        "capture-purity": profiled(trace_purity.check),
     }
     findings = []
     ran = tuple(checkers or registry)
@@ -324,6 +371,8 @@ ALL_CHECKERS = (
     "http-contract",
     "refusal-discipline",
     "reservation-pairing",
+    "device-transfer",
+    "capture-purity",
 )
 
 #: cross-file registry rules: a partial scan (``--changed``, explicit files)

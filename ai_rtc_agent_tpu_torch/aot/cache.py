@@ -19,7 +19,8 @@ thread that will step it and replayed per step:
 * :class:`GraphCache`: an engine's captured steps by key, all captured into
   one memory pool.
 
-Three conditions make a replay right, and the engines keep them:
+These conditions make a replay right and safe to trace, and the engines
+keep them:
 
 * The graph reads and writes fixed addresses, so every state write lands
   in place (``copy_``/``fill_`` into the tensors the graph was captured
@@ -37,6 +38,14 @@ Three conditions make a replay right, and the engines keep them:
   graph freed there (a closed scheduler's: it and its engine guard refer to
   each other) would be destroyed mid-capture, which invalidates the
   capture.
+* A captured graph keeps the graph it was instantiated from for as long as
+  it lives (``keep_graph=True``, then :meth:`CapturedStep.capture`
+  instantiates it).  torch otherwise destroys that source graph right after
+  instantiating it, and then a graph's first launch in a profiler window,
+  after enough graphs were built and destroyed in between, faulted inside
+  CUPTI under ``cuGraphLaunch``; keeping the source graph removed the
+  fault in every run since.  That CUPTI reads the freed source nodes there
+  is inferred from those runs, not observed (ROADMAP §C.16, repaired).
 
 What does not carry over: the JAX cache serializes executables to disk
 (``jax.export``) and a later process adopts them.  A CUDA graph holds the
@@ -177,7 +186,7 @@ class CapturedStep:
             for _ in range(WARMUP_STEPS):
                 self.fn(self.inputs)
         current.wait_stream(side)
-        cuda_graph = torch.cuda.CUDAGraph()
+        cuda_graph = torch.cuda.CUDAGraph(keep_graph=True)
         before = _launches()
         # no garbage collection on this thread while it captures: an old
         # graph in a cycle (a closed scheduler's) freed here would be
@@ -190,6 +199,7 @@ class CapturedStep:
         finally:
             if collecting:
                 gc.enable()
+        cuda_graph.instantiate()  # keep_graph: the source graph lives as long as this one
         self.launches = tuple(a - b for a, b in zip(_launches(), before))
         _set_launches(before)
         torch.cuda.synchronize(self.device)

@@ -113,6 +113,7 @@ def _resize_matrix(in_size: int, out_size: int, device: torch.device, dtype: tor
     """:func:`resize_weights` as a tensor on ``device``, built and uploaded
     once per (sizes, device, dtype): the served checker resizes every frame
     at the same sizes."""
+    # tpurtc: allow[device-transfer] -- a constant placed once per (sizes, device, dtype) by the lru_cache, like a parameter; no frame crosses here
     return torch.from_numpy(resize_weights(in_size, out_size)).to(device=device, dtype=dtype)
 
 

@@ -92,6 +92,7 @@ class LockstepEngine:
             if self._closed:
                 raise RuntimeError(f"{op}: the lockstep world is closed")
             if op == "install":  # the leaves travel by value, off rank 0's card
+                # tpurtc: allow[device-transfer] -- an install's state leaves go to the host once to travel to the followers by value (control plane, not a frame)
                 args = (tree_map(lambda a: a.detach().cpu(), args[0]), *args[1:])
             if op != "submit":  # a step sends itself from inside submit
                 _send(op, *args, **kwargs)

@@ -763,6 +763,7 @@ class BatchScheduler:
             sh, i = self._row(sess.slot)
             row = tree_map(lambda a: a[i].clone(), sh.states)
             cache_tick, uncaptured = self._tick, sess.slot in self._uncaptured
+        # tpurtc: allow[device-transfer] -- an export's one copy of a session's own cloned row to the host (a snapshot, off the step lock), not a batch output
         return self._row_snapshot(sess, tree_map(lambda a: a.cpu(), row), cache_tick, uncaptured)
 
     def _row_snapshot(self, sess: ScheduledSession, row: dict, cache_tick: int,
@@ -1139,6 +1140,7 @@ class BatchScheduler:
             side = torch.cuda.Stream(device)
             side.wait_event(ready)
             with torch.cuda.stream(side):
+                # tpurtc: allow[device-transfer] -- one banked row to the host for a quarantine snapshot, on a side stream behind the bank's event and synchronized here
                 host = tree_map(lambda a: a.to("cpu", non_blocking=True), rows)
             side.synchronize()
         return host

@@ -354,12 +354,11 @@ Phases (each prints its own lines; any failure exits non-zero):
  18. mesh     — the serving mesh (MESH_SHAPE, BATCHSCHED_DP, --tp/--sp,
                 ATTN_IMPL; parallel/serving.py) on one card, on phase 4's
                 pipeline, run right after phase 15, the whole phase in an
-                NCCL world of 1 (brought up as phase 17 does), without a
-                profiler window: 18b's device traces are taken right after
-                phase 4 (phase_mesh_trace: 18b whole, against a fresh
-                knob-free dp=1 scheduler), because after phase 15 a profiler
-                window over the dp=2 replays can segfault inside CUPTI
-                (ROADMAP §C.16; scripts/smoke_loop.py reproduces it).  18a: MESH_SHAPE=1,1,1, --tp 1
+                NCCL world of 1 (brought up as phase 17 does), 18b's device
+                traces included: there, before the captured graphs kept
+                their source graphs, a profiler window faulted inside CUPTI
+                (ROADMAP §C.16, repaired; scripts/smoke_loop.py reproduces
+                the order).  18a: MESH_SHAPE=1,1,1, --tp 1
                 --sp 1 and BATCHSCHED_DP=1 build no mesh, and their 2-slot
                 scheduler's keys and frames equal a scheduler's built with
                 no knob, bit for bit.  18b: a dp=2 scheduler with both shards
@@ -7210,7 +7209,7 @@ def phase_mesh(torch, card: str, pipe, ref_bundle, device="cuda", traced=True,
                world=True) -> tuple:
     """Phase 18: the serving mesh at world size 1 (18a-18d, see the module
     docstring), on phase 4's pipeline.  ``traced`` takes 18b's device
-    traces (the script takes them in :func:`phase_mesh_trace`);
+    traces;
     ``world=False`` leaves the process group down and skips 18d, which needs
     it.  ``device="cpu"`` rehearses it on the CPU (a gloo world, eager steps;
     the device trace is card-only).  -> the attention and epilogue launches
@@ -7306,29 +7305,6 @@ def mesh_default(torch, np, card, pipe) -> tuple:
         if knobs is not None:
             knobs.close()
     return (a, e), plain
-
-
-def phase_mesh_trace(torch, card: str, pipe, ref_bundle) -> tuple:
-    """18b with its settled device traces, right after phase 4: a knob-free
-    dp=1 scheduler with two sessions, then :func:`mesh_dp2` against it.
-    After phase 15 a profiler window over these replays can crash the
-    process inside CUPTI (ROADMAP §C.16), so phase 18 itself runs there
-    without the profiler.  -> the attention and epilogue launches counted."""
-    import numpy as np
-
-    from ai_rtc_agent_tpu_torch.stream.scheduler import BatchScheduler
-
-    t = time.perf_counter()
-    dp1 = BatchScheduler.from_pipeline(pipe, max_sessions=2, window_ms=10_000.0)
-    try:
-        _two_sessions(dp1)
-    except BaseException:
-        dp1.close()
-        raise
-    counted = mesh_dp2(torch, np, card, pipe, ref_bundle, dp1, traced=True)
-    say(f"mesh 18b, traced after phase 4: {time.perf_counter() - t:.1f} s; launches counted "
-        f"attention {counted[0]}, epilogue {counted[1]}")
-    return counted
 
 
 def mesh_dp2(torch, np, card, pipe, ref_bundle, dp1=None, traced=True) -> tuple:
@@ -7577,7 +7553,6 @@ def main():
     attn = phase_attention(torch)
     epi = phase_epilogue(torch)
     pipe, ref_bundle, attn_launches, epi_launches = phase_main(torch, card)
-    trace_attn, trace_epi = phase_mesh_trace(torch, card, pipe, ref_bundle)
     phase_graph_ab(torch, card, pipe, ref_bundle)
     serve_attn, serve_epi, serve_fps = phase_serve(torch, card, pipe)
     sessions_attn, sessions_epi = phase_sessions(torch, card, pipe, ref_bundle)
@@ -7587,8 +7562,7 @@ def main():
     fleet_attn, fleet_epi = phase_fleet(torch, card, pipe, ref_bundle)
     broadcast_attn, broadcast_epi = phase_broadcast(torch, card, pipe)
     adapters_attn, adapters_epi = phase_adapters(torch, card, pipe, ref_bundle)
-    mesh_attn, mesh_epi = phase_mesh(torch, card, pipe, ref_bundle, traced=False)
-    mesh_attn, mesh_epi = mesh_attn + trace_attn, mesh_epi + trace_epi
+    mesh_attn, mesh_epi = phase_mesh(torch, card, pipe, ref_bundle)
     del pipe, ref_bundle
     sd15_attn, sd15_epi = phase_sd15(torch, card)
     variants_attn, variants_epi = phase_variants(torch, card)

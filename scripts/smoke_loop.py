@@ -5,6 +5,7 @@ find a check that fails only now and then.
     python3 scripts/smoke_loop.py [--loops N] [--phases faults,native,obs,fleet]
                                   [--once faults] [--busy N] [--no-trace]
                                   [--no-world] [--native-stack]
+                                  [--amplify]
 
 Phases 1 and 2 run once (the card, the kernels' build), and phases 4 and 5
 too (the pipeline; phase 5 for phase 8's served rate) when a chosen phase
@@ -12,15 +13,18 @@ runs on them; then each loop runs the chosen phases in turn: ``faults`` (7),
 ``native`` (8), ``obs`` (9), ``fleet`` (10), ``adapters`` (15), ``mesh``
 (18), or ``sdxl`` (16), which builds its own models: ``--loops 1 --phases
 sdxl`` runs phase 16 alone after the build, ``--loops 1 --phases mesh``
-phase 18 on phase 4's pipeline (with 18b's device traces, which the
-script takes right after phase 4), ``--loops 3 --once adapters --phases
-adapters,mesh`` phase 18 after phase 15: there a profiler window over the
-dp=2 replays can crash the process (ROADMAP §C.16).  ``--no-trace`` runs
-phase 18 without 18b's device traces, as the script runs it after phase
-15; ``--no-world`` without its NCCL world of 1 (and without 18d, which
-needs it); ``--native-stack`` builds scripts/native_stack.c with ``cc``
-and prints the native frames of a segfault before faulthandler's Python
-stacks.  A failed check prints its
+phase 18 on phase 4's pipeline, ``--loops 3 --once adapters --phases
+adapters,mesh`` phase 18 after phase 15, as the script runs it: there a
+profiler window over 18b's replays faulted inside CUPTI before the
+captured graphs kept their source graphs (ROADMAP §C.16, repaired).
+``--no-trace`` runs phase 18 without 18b's device traces; ``--no-world``
+without its NCCL world of 1 (and without 18d, which needs it);
+``--native-stack`` builds scripts/native_stack.c with ``cc`` and prints the
+native frames of a segfault before faulthandler's Python stacks;
+``--amplify`` runs a full garbage collection and a device sync just before
+every profiler window of ``chip_smoke.kernel_trace`` opens, printing the
+live graph caches before and after it: without the repair that made the
+fault near certain.  A failed check prints its
 ``FAIL:`` line and the loop goes on with the next phase.  ``--once`` names
 phases run in the first loop only; ``--busy N`` keeps N host processes
 spinning throughout the loops, as a host shared with other work would.  The
@@ -61,6 +65,27 @@ def native_stack():
     ctypes.CDLL(str(out)).native_stack_install()
 
 
+def collect_before_windows(torch, cs):
+    """Wrap ``cs.kernel_trace`` so that a full collection and a device sync
+    run just before its window opens, printing the live graph caches
+    around the collection."""
+    import gc
+
+    from ai_rtc_agent_tpu_torch.aot import cache
+
+    trace = cs.kernel_trace
+
+    def kernel_trace(torch_, fn, classes: bool = False) -> dict:
+        live = len(cache._LIVE)
+        found = gc.collect()
+        torch.cuda.synchronize()
+        print(f"amplify: {found} objects collected, graph caches live "
+              f"{live} -> {len(cache._LIVE)}", flush=True)
+        return trace(torch_, fn, classes)
+
+    cs.kernel_trace = kernel_trace
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--loops", type=int, default=5)
@@ -71,6 +96,8 @@ def main() -> int:
     ap.add_argument("--no-world", action="store_true", help="phase 18 without its NCCL world")
     ap.add_argument("--native-stack", action="store_true",
                     help="print a segfault's native frames (scripts/native_stack.c)")
+    ap.add_argument("--amplify", action="store_true",
+                    help="collect garbage and sync the card just before every profiler window")
     args = ap.parse_args()
 
     sys.path.insert(0, str(ROOT))
@@ -89,6 +116,8 @@ def main() -> int:
         raise CheckFailed(msg)
 
     cs.fail = fail
+    if args.amplify:
+        collect_before_windows(torch, cs)
     phases = [p for p in args.phases.split(",") if p]
     once = {p for p in args.once.split(",") if p}
     card = cs.phase_device(torch)

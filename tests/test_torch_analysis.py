@@ -70,10 +70,17 @@ def _port_run(rules, profile=JAX, **load):
     return errs, P_CORE.run_checkers(project, rules, profile)
 
 
+# the port's own device rules, rewritten for torch: device-transfer shares
+# only its id with the JAX rule, capture-purity stands for trace-purity
+DEVICE_RULES = ("device-transfer", "capture-purity")
+# the rules the port copied from the JAX package, held to them rule for rule
+SHARED_RULES = tuple(r for r in P_CORE.ALL_CHECKERS if r not in DEVICE_RULES)
+
+
 def test_the_port_catalog_is_the_jax_one_less_the_device_rules():
-    assert set(P_CORE.ALL_CHECKERS) == set(J_CORE.ALL_CHECKERS) - {"device-transfer",
-                                                                   "trace-purity"}
-    assert len(P_CORE.ALL_CHECKERS) == 16
+    assert set(SHARED_RULES) == set(J_CORE.ALL_CHECKERS) - {"device-transfer", "trace-purity"}
+    assert len(SHARED_RULES) == 16
+    assert P_CORE.ALL_CHECKERS == SHARED_RULES + DEVICE_RULES
     assert P_CORE.PORT.roots == P_CORE.DEFAULT_ROOTS == PORT_ROOTS
     assert J_CORE.SUPPRESSION_RE.pattern == P_CORE.SUPPRESSION_RE.pattern
     assert not any("ai_rtc_agent_tpu/" in str(v) for v in vars(P_CORE.PORT).values())
@@ -81,7 +88,7 @@ def test_the_port_catalog_is_the_jax_one_less_the_device_rules():
 
 # -- parity -----------------------------------------------------------------------------
 
-@pytest.mark.parametrize("rule", P_CORE.ALL_CHECKERS)
+@pytest.mark.parametrize("rule", SHARED_RULES)
 def test_fixture_parity_with_the_jax_checker(rule):
     """Every JAX fixture, one at a time, through one rule: the same findings
     (suppression findings included)."""
@@ -98,8 +105,7 @@ def test_fixture_parity_with_the_jax_checker(rule):
 
 @pytest.fixture(scope="module")
 def port_tree_runs():
-    return _jax_run(P_CORE.ALL_CHECKERS, roots=PORT_ROOTS), _port_run(P_CORE.ALL_CHECKERS,
-                                                                      roots=PORT_ROOTS)
+    return _jax_run(SHARED_RULES, roots=PORT_ROOTS), _port_run(SHARED_RULES, roots=PORT_ROOTS)
 
 
 def test_port_tree_parity_with_the_jax_checkers(port_tree_runs):
@@ -114,8 +120,8 @@ def test_port_tree_parity_with_the_jax_checkers(port_tree_runs):
 
 
 def test_jax_tree_parity_with_the_jax_checkers():
-    jerrs, want = _jax_run(P_CORE.ALL_CHECKERS)
-    perrs, got = _port_run(P_CORE.ALL_CHECKERS, roots=JAX.roots)
+    jerrs, want = _jax_run(SHARED_RULES)
+    perrs, got = _port_run(SHARED_RULES, roots=JAX.roots)
     assert _rows(perrs) == _rows(jerrs) and _rows(got) == _rows(want)
 
 

@@ -539,6 +539,18 @@ def test_replay_from_a_fresh_thread(cuda, turbo_pipe):
     np.testing.assert_array_equal(got[0], here)
 
 
+def test_a_captured_step_keeps_its_source_graph(cuda):
+    """A captured graph keeps the graph it was instantiated from as long as
+    it lives (ROADMAP §C.16): without it, a graph's first launch in a
+    profiler window faulted inside CUPTI after much graph churn."""
+    from ai_rtc_agent_tpu_torch.aot.cache import CapturedStep
+
+    x = torch.arange(8.0, device=cuda)
+    step = CapturedStep("k", lambda b: b["x"] * 2, {"x": x}, graph=True).capture()
+    assert step._cuda_graph.raw_cuda_graph() != 0  # raises unless the source graph is kept
+    assert torch.equal(step.run(), x * 2)
+
+
 def test_capture_while_another_thread_stages_frames(cuda):
     """A bucket captured while another thread keeps staging frames from
     pinned memory (thread-local capture rules): the capture succeeds and
