@@ -15,10 +15,13 @@ needs.
 
 Unlike the TPU kernel, a ragged Lk is masked inside the kernel (no dense
 fallback) and a ragged Lq or D arrives as TMA's zero fill and is not stored
-(no padding copy).  The kernel computes in bf16 (f32 running max and
-denominator), so on the card it takes bf16 only: f32 inputs raise rather
-than lose precision silently; an f32 configuration uses
-``attn_impl="plain"``.
+(no padding copy).  A head dim off a multiple of 8 (the tiny families'
+4), which TMA's 16-byte strides cannot describe, is zero-padded up to the
+next one in a copy, with the scale kept at 1/sqrt(D): the zero columns add
+nothing to Q K^T and give zero output columns, which are cut off.  The
+kernel computes in bf16 (f32 running max and denominator), so on the card
+it takes bf16 only: f32 inputs raise rather than lose precision silently;
+an f32 configuration uses ``attn_impl="plain"``.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ import ctypes
 import math
 
 import torch
+import torch.nn.functional as F
 
 from . import build, refuse_grad
 
@@ -82,9 +86,10 @@ def flash_attention(q, k, v, mask=None):
     """q: [B, Lq, H, D], k/v: [B, Lk, H, D] -> [B, Lq, H, D] in q's dtype.
 
     A CPU tensor takes :func:`attention_plain`; a CUDA tensor (bf16, head
-    dim a multiple of 8 up to 160, 16-byte aligned) launches the kernel or
-    raises.  The kernel picks its instantiation from D and Lq (see
-    :func:`key_tile`; the .cu header lists them).  ``mask`` is unsupported
+    dim up to 160, 16-byte aligned; a head dim off a multiple of 8 is
+    zero-padded to one) launches the kernel or raises.  The kernel picks
+    its instantiation from D and Lq (see :func:`key_tile`; the .cu header
+    lists them).  ``mask`` is unsupported
     (diffusion attention is unmasked) and raises, as on the TPU.  A call
     that would need a gradient raises on every device
     (:func:`~ai_rtc_agent_tpu_torch.ops.kernels.refuse_grad`)."""
@@ -106,10 +111,13 @@ def flash_attention(q, k, v, mask=None):
             f"flash_attention on the card takes bf16, got {q.dtype}/{k.dtype}/{v.dtype} "
             '(it computes in bf16; use attn_impl="plain" for f32)'
         )
-    if d % 8 or d > MAX_HEAD_DIM:
-        raise ValueError(f"head dim {d}: need a multiple of 8 up to {MAX_HEAD_DIM}")
+    if d > MAX_HEAD_DIM:
+        raise ValueError(f"head dim {d}: the kernel takes up to {MAX_HEAD_DIM}")
     if not (k.device == q.device and v.device == q.device):
         raise ValueError("q, k and v must share a device")
+    pad = -d % 8
+    if pad:
+        q, k, v = (F.pad(t, (0, pad)) for t in (q, k, v))
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("flash_attention needs 16-byte aligned q/k/v")
@@ -118,11 +126,11 @@ def flash_attention(q, k, v, mask=None):
     with torch.cuda.device(q.device):
         err = lib.flash_attention_forward(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            b, lq, k.shape[1], h, d, 1.0 / math.sqrt(d),
+            b, lq, k.shape[1], h, d + pad, 1.0 / math.sqrt(d),
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     if err:
         msg = lib.flash_attention_error_string(err).decode()
         raise RuntimeError(f"flash_attention launch failed: {msg} ({err})")
     launches += 1
-    return o
+    return o[..., :d] if pad else o

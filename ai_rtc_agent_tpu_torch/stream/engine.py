@@ -926,19 +926,23 @@ class StreamEngine:
         guidance_scale: float = 1.2,
         delta: float = 1.0,
         seed: int = 2,
+        noise_device=None,
     ) -> dict:
         """A fresh initial state (a new dict; the engine's own is not
         touched); the noise comes from a torch.Generator seeded with
-        ``seed`` on the engine's device."""
+        ``seed`` on ``noise_device`` (default: the engine's device), then
+        moves to the engine's device.  A CPU generator draws the same noise
+        for an engine on any device (utils/golden.py replays a CPU capture
+        on the card so)."""
         cfg = self.cfg
         if num_inference_steps is not None and num_inference_steps != cfg.num_inference_steps:
             raise ValueError("num_inference_steps is fixed per engine; rebuild the engine")
         h, w = cfg.latent_hw
         B, fbs, dt = cfg.batch_size, cfg.frame_buffer_size, cfg.torch_dtype
-        gen = torch.Generator(device=self.device).manual_seed(seed)
+        gen = torch.Generator(device=noise_device or self.device).manual_seed(seed)
         noise = torch.randn(
-            (B, h, w, cfg.latent_channels), generator=gen, device=self.device
-        ).to(dt)
+            (B, h, w, cfg.latent_channels), generator=gen, device=gen.device
+        ).to(self.device, dt)
         cond, uncond, extras = self._encode(prompt)
         state = {
             "x_buf": noise[fbs:].clone(),
@@ -978,11 +982,14 @@ class StreamEngine:
         return state
 
     def prepare(self, prompt: str, num_inference_steps: int | None = None,
-                guidance_scale: float = 1.2, delta: float = 1.0, seed: int = 2):
-        """(Re)build the state from ``prompt`` and ``seed``: the first call
-        sets it, a later one (a restart) writes it in place.  The next step
-        captures (DeepCache)."""
-        state = self.build_state(prompt, num_inference_steps, guidance_scale, delta, seed)
+                guidance_scale: float = 1.2, delta: float = 1.0, seed: int = 2,
+                noise_device=None):
+        """(Re)build the state from ``prompt`` and ``seed`` (its noise drawn
+        on ``noise_device``, :meth:`build_state`): the first call sets it, a
+        later one (a restart) writes it in place.  The next step captures
+        (DeepCache)."""
+        state = self.build_state(prompt, num_inference_steps, guidance_scale, delta, seed,
+                                 noise_device)
         if self.state is None:
             self.state = state
         else:

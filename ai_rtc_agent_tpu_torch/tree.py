@@ -1,6 +1,9 @@
-"""Map a function over the leaves of a nested dict/list param tree."""
+"""Map a function over the leaves of a nested dict/list param tree, and
+compare two such trees."""
 
 from __future__ import annotations
+
+import torch
 
 
 def tree_map(fn, tree):
@@ -14,3 +17,11 @@ def tree_map(fn, tree):
     if tree is None:
         return None
     return fn(tree)
+
+
+def tree_equal(a: dict, b: dict) -> bool:
+    """Every leaf of ``a`` equal to the leaf of ``b`` at its key, bit for
+    bit (``torch.equal``): two states of one structure, nested dicts with
+    tensor leaves."""
+    return all(tree_equal(a[k], b[k]) if isinstance(a[k], dict) else torch.equal(a[k], b[k])
+               for k in a)

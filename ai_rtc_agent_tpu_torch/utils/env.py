@@ -128,6 +128,10 @@ Variables read by the port's server:
   RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT
                                     torchrun's process-group variables, read by
                                     parallel/mesh.init_distributed (unset: one process)
+  PERF_LOG_PATH                     where utils/perfbank.bank appends (unset: the repo's
+                                    PERF_LOG.jsonl; empty or os.devnull: off)
+  CIVITAI_CACHE                     assets/download.py's Civitai LoRA directory
+                                    (./models/civitai)
 
 The knob registries are docs/environment.md (the knobs both agents answer) and
 ai_rtc_agent_tpu_torch/environment.md (the port's own, and the documented knobs it
@@ -195,6 +199,20 @@ def warmup_frames() -> int:
 
 def drop_frames() -> int:
     return get_int("DROP_FRAMES", 0)
+
+
+def civitai_cache() -> str:
+    return get_str("CIVITAI_CACHE") or "./models/civitai"
+
+
+def perf_log_path(default: str) -> str:
+    """PERF_LOG_PATH with the bench-banking semantics: unset -> the
+    caller's default (the repo log); an EMPTY value -> ``""`` (banking
+    disabled: the caller's own append-and-commit is the sole writer).
+    Plain :func:`get_str` would collapse empty to the default and
+    silently re-enable self-banking."""
+    v = os.getenv("PERF_LOG_PATH")
+    return default if v is None else v
 
 
 def hw_encode() -> bool:

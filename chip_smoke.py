@@ -374,8 +374,22 @@ Phases (each prints its own lines; any failure exits non-zero):
                 equals the default engine's bit for bit.  18d:
                 MESH_SHAPE=1,1,1 builds no mesh; BATCHSCHED_DP=2 (default devices), --tp 2 and w8
                 params on a tp mesh are refused with the JAX texts.
- 19. a "kernels" JSON line (launch counts of phases 4 to 16 and 18), then the
-     last line {"ok": true, "device": ...}.
+ 19. preflight — the port's deploy CLIs (assets/, utils/golden.py), run last.
+                19a: assets.build_engines.main(["--model-id",
+                "stabilityai/sd-turbo", "--peers", "2", "--sched-buckets",
+                "2"]): both kernel libraries built, every key (the engine's,
+                --multipeer 2's buckets, the scheduler's buckets 1 and 2)
+                captured and its replay = its eager step bit for bit, each
+                printed with its capture seconds, then its bundle and graphs
+                freed.  19b: utils.golden.capture("tiny-test") in bf16
+                against the committed CPU f32 golden
+                (tests/golden_torch/tiny-test.json): compare() empty, the
+                thumbnail correlation and the largest stat gap.  19c:
+                capture("stabilityai/sd-turbo") with no snapshot raises the
+                no-weights error, timed.  19d: scripts/torch_golden_capture.py
+                on a bogus id prints one ok:false line and exits non-zero.
+ 20. a "kernels" JSON line (launch counts of phases 4 to 16, 18 and 19), then
+     the last line {"ok": true, "device": ...}.
 
 Imports nothing of JAX or of the JAX package.  `python3 chip_smoke.py
 --native-client SPEC` is phase 8's client process and `--broadcast-viewers
@@ -415,6 +429,9 @@ EXTRA_ATTENTION = [
     (4, 1024, 1024, 5, 64), (4, 4096, 77, 8, 40), (4, 1024, 77, 8, 80),
     (4, 256, 256, 8, 160), (4, 64, 64, 8, 160), (4, 4096, 4096, 8, 40),
 ]
+# the tiny families' golden and preflight steps (phase 19): tiny-test's first
+# tier at head dim 4, zero-padded to 8 by the wrapper, and its D=8 tier
+TINY_ATTENTION = [(4, 256, 256, 2, 4), (4, 256, 16, 2, 4), (4, 64, 64, 2, 8), (4, 64, 16, 2, 8)]
 # the bucket step's batches: k sessions x B rows (sd-turbo: 1 row, up to 8
 # sessions; the 4-stage LCM ring: 4 rows, 8 at 2 sessions, 32 at 8), at two
 # main-path shapes (self 4096^2 H5, cross 1024x77 H10)
@@ -511,21 +528,21 @@ def bound(flops: float, peak: float, nbytes: float):
 
 
 def phase_device(torch):
-    if not torch.cuda.is_available():
-        fail("torch.cuda.is_available() is false: this script needs an NVIDIA card")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60,
-    )
-    if smi.returncode != 0 or not smi.stdout.strip():
-        fail(f"nvidia-smi failed: {smi.stderr.strip()}")
-    card = smi.stdout.strip().splitlines()[0]
+    """Phase 1: the card's identity from the port's ``utils/hwfp.fingerprint``
+    (fails without a card); the TF32 switches off.  -> the nvidia-smi line
+    (name, power limit)."""
+    from ai_rtc_agent_tpu_torch.utils import hwfp
+
+    fp = hwfp.fingerprint()
+    if fp["backend"] != "cuda":
+        fail(f"this script needs an NVIDIA card: {fp.get('error')}")
+    card = fp["card"]
     say(f"card: {card}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     say(
-        f"device: {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()} "
-        f"torch {torch.__version__} cuda {torch.version.cuda} | "
+        f"device: {fp['device_kind']} x{fp['device_count']} "
+        f"torch {fp['torch']} cuda {fp['cuda']} | "
         f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
         f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}"
     )
@@ -685,6 +702,11 @@ def phase_attention(torch):
     )
     for b, lq, lk, h, d in EXTRA_ATTENTION + edge_attention(KA.key_tile):
         say(f"{case(b, lq, lk, h, d)[-1]} ok")
+    for b, lq, lk, h, d in TINY_ATTENTION:  # D=4 timed with the wrapper's padding copies
+        q, k, v, err, label = case(b, lq, lk, h, d, replay=True)
+        ms = time_ms(torch, lambda: KA.flash_attention(q, k, v), 50)
+        plain = time_ms(torch, lambda: KA.attention_plain(q, k, v), 50)
+        say(f"{label} | kernel {ms:.4f} ms, plain {plain:.4f} ms")
     for b, lq, lk, h, d in SESSION_ATTENTION:  # the bucket step's batches
         q, k, v, err, label = case(b, lq, lk, h, d, replay=True)
         ms = time_ms(torch, lambda: KA.flash_attention(q, k, v), 10)
@@ -1878,11 +1900,6 @@ def capture_seconds(sched) -> dict:
             if key in steps and steps[key].captured}
 
 
-def _rows_equal(torch, a: dict, b: dict) -> bool:
-    return all(_rows_equal(torch, a[k], b[k]) if isinstance(a[k], dict) else torch.equal(a[k], b[k])
-               for k in a)
-
-
 def drive_groups(sessions, frames, n: int) -> list:
     """One thread per session, each stepping its ``n`` frames two at a time
     through ``submit_batch``/``fetch_batch`` (a --fbs 2 track); -> outputs."""
@@ -2050,6 +2067,7 @@ def fault_supervision(torch, card, pipe, ref_bundle, count):
 
     from ai_rtc_agent_tpu_torch.resilience import faults
     from ai_rtc_agent_tpu_torch.resilience.supervisor import ResilientPipeline, SessionSupervisor
+    from ai_rtc_agent_tpu_torch.tree import tree_equal
 
     eng, dev = pipe.engine, pipe.device
     frames = _frames(np, 10, seed=90, size=pipe.config.height)
@@ -2075,7 +2093,7 @@ def fault_supervision(torch, card, pipe, ref_bundle, count):
         if held_runner._thread.is_alive():
             fail("faults 7b: the held step did not return")
         late = tuple(x - y for x, y in zip(_launches(), before))
-        if late != (0, 0) or not _rows_equal(torch, session_row(eng.state, None), restarted):
+        if late != (0, 0) or not tree_equal(session_row(eng.state, None), restarted):
             fail(f"faults 7b: the step held past restart() replayed ({late} launches) or moved "
                  "the state")
         eng._fault_scope = None
@@ -2114,7 +2132,7 @@ async def fault_guard(torch, card, pipe, ref_bundle, count, BatchScheduler):
     from ai_rtc_agent_tpu_torch.resilience.supervisor import ResilientPipeline
     from ai_rtc_agent_tpu_torch.server import sessions as SL
     from ai_rtc_agent_tpu_torch.server.signaling import LoopbackProvider, make_loopback_offer
-    from ai_rtc_agent_tpu_torch.tree import tree_map
+    from ai_rtc_agent_tpu_torch.tree import tree_equal, tree_map
 
     eng, dev = pipe.engine, pipe.device
     sched = BatchScheduler.from_pipeline(pipe, max_sessions=2)
@@ -2182,7 +2200,7 @@ async def fault_guard(torch, card, pipe, ref_bundle, count, BatchScheduler):
             pass
         wedge_ms = await rearmed(1, "wedge")
         captures = capture_seconds(sched)
-        restored = all(_rows_equal(torch, session_row(sched.states, s.slot), bank[s.slot])
+        restored = all(tree_equal(session_row(sched.states, s.slot), bank[s.slot])
                        for s in sess)
         if not restored or set(bank) != {s.slot for s in sess}:
             fail("faults 7c: the rebuilt rows are not the banked rows bit for bit")
@@ -2192,7 +2210,7 @@ async def fault_guard(torch, card, pipe, ref_bundle, count, BatchScheduler):
         held_runner._thread.join(10.0)
         late = tuple(x - y for x, y in zip(_launches(), before))
         if held_runner._thread.is_alive() or late != (0, 0) or not all(
-                _rows_equal(torch, session_row(sched.states, s.slot), row)
+                tree_equal(session_row(sched.states, s.slot), row)
                 for s, row in zip(sess, rebuilt)):
             fail(f"faults 7c: the wedged step released after the rebuild replayed ({late}) or "
                  "wrote the plane")
@@ -3433,6 +3451,7 @@ async def fleet_run(torch, card, pipe, ref_bundle):
     from ai_rtc_agent_tpu_torch.server.events import StreamEventHandler
     from ai_rtc_agent_tpu_torch.server.signaling import LoopbackProvider, make_loopback_offer
     from ai_rtc_agent_tpu_torch.stream.scheduler import BatchScheduler
+    from ai_rtc_agent_tpu_torch.tree import tree_equal
 
     loop = asyncio.get_running_loop()
     eng, dev, size = pipe.engine, pipe.device, pipe.config.height
@@ -3594,7 +3613,7 @@ async def fleet_run(torch, card, pipe, ref_bundle):
         if r.status != 200 or body["migrating"] != 1:
             fail(f"fleet 10a: drain answered {r.status} {body}")
         ev = await migrated(sid)
-        res_unmoved = _rows_equal(torch, session_row(schedB.states, res.slot), res_before)
+        res_unmoved = tree_equal(session_row(schedB.states, res.slot), res_before)
         if not res_unmoved:
             fail("fleet 10a: the import moved the resident session's row")
         snap = exports[-1][0]
@@ -3675,7 +3694,7 @@ async def fleet_run(torch, card, pipe, ref_bundle):
         banked = schedA._quarantine_snaps.get(sid3)
         if guard.state not in ("EVACUATING", "FAILED") or banked is None:
             fail(f"fleet 10b: guard {guard.state}, banked {banked is not None}")
-        if not _rows_equal(torch, _row_of(banked), _to_cpu(last_rows)):
+        if not tree_equal(_row_of(banked), _to_cpu(last_rows)):
             fail("fleet 10b: the banked row is not the row A held at its last refresh")
         t_request = next(t for p, t in local.arrivals if p.startswith("/fleet/evacuate"))
         sid4, h4, pub4 = await publisher({"X-Journey-Id": jid3})
@@ -4543,29 +4562,19 @@ def replay_equals_eager(torch, np, label: str, sched, frames: np.ndarray, slots:
                         variant: str | None = None) -> str:
     """One bucket step of the scheduler's captured graph (its ``variant``:
     DeepCache's capture or cached; default the first) against an eager
-    bucket step over a copy of the same states, frames and slots: the
-    outputs and every state leaf bit for bit.  The states are put back
-    after, under the step lock."""
-    from ai_rtc_agent_tpu_torch.parallel.multipeer import BucketStep
-    from ai_rtc_agent_tpu_torch.stream.engine import install_state
-    from ai_rtc_agent_tpu_torch.tree import tree_map
+    bucket step over a copy of the same states, frames and slots, under the
+    step lock: the preflight's check (assets/build_engines.py), the outputs
+    and every state leaf bit for bit."""
+    from ai_rtc_agent_tpu_torch.assets.build_engines import bucket_replay_equals_eager
 
     k = sched._bucket_for(len(slots))
     with sched._step_lock:
-        saved = tree_map(lambda a: a.clone(), sched.states)
-        copy = tree_map(lambda a: a.clone(), sched.states)
-        eager = BucketStep(sched._template.models, sched.cfg, sched.device, graphs=False)
-        want = eager(sched.params, copy, frames, slots, k, variant).clone()
-        got = sched._bucket(sched.params, sched.states, frames, slots, k, variant).clone()
-        _sync(torch, sched.device)
-        same_out = torch.equal(got, want)
-        same_state = all(torch.equal(a, b) for (_, a), (_, b) in
-                         zip(_tree_paths(sched.states), _tree_paths(copy)))
-        install_state(sched.states, saved)
-    if not (same_out and same_state):
-        diff = (got.int() - want.int()).abs().max().item()
-        fail(f"{label}: the bucket replay differs from the eager bucket step (outputs equal "
-             f"{same_out}, max {diff} levels; state equal {same_state})")
+        try:
+            bucket_replay_equals_eager(sched._bucket, sched._template.models, sched.cfg,
+                                       sched.params, sched.states, frames, slots, k, variant,
+                                       f"{label} bucket {k}")
+        except RuntimeError as e:
+            fail(str(e))
     return f"replay = eager bit for bit (bucket {k}, outputs and state)"
 
 
@@ -4956,7 +4965,7 @@ DC_INTERVAL = 3  # 13b/13c: UNET_CACHE=3, the JAX bench default
 VARIANT_PARITY = 4  # 13a: frames held to the f32 references from one state
 AB_STEPS = 6  # 13a/13b: steps traced per side in each turn
 AB_TURNS = ("dense", "w8", "w8", "dense")  # 13a: ABBA, the busy time a step
-DC_FRAMES = 24  # 13b: frames per session in each timed run at k=1 (phase 6a's window)
+DC_FRAMES = 16  # 13b: frames per session in each timed run at k=1 (outputs 5-16 steady)
 DC_TURNS = ("full", "deepcache", "deepcache", "full")  # 13b: fps at k=1, ABBA
 CADENCE_STEPS = 12  # 13b: the pipeline's cadence, captures at ticks 0, 3, 6, 9
 QUALITY_FRAMES, QUALITY_WARMUP = 18, 6  # 13b: moving_scene, steady outputs only
@@ -5020,29 +5029,16 @@ def attention_per_pass(ucfg, cached: bool) -> int:
 
 def engine_replay_equals_eager(torch, label: str, eng, frame) -> str:
     """Each captured step of an engine (both DeepCache variants) against its
-    eager step from a copy of the same state and frame: the outputs and
-    every state leaf bit for bit.  The state is put back after."""
-    from ai_rtc_agent_tpu_torch.stream.engine import install_state
-    from ai_rtc_agent_tpu_torch.tree import tree_map
+    eager step from a copy of the same state and frame: the preflight's
+    check (assets/build_engines.py), the outputs and every state leaf bit
+    for bit."""
+    from ai_rtc_agent_tpu_torch.assets.build_engines import engine_replay_equals_eager as check
 
-    done = []
-    with eng._submit_lock:
-        steps = eng._static_steps_locked()
-        saved = tree_map(lambda a: a.clone(), eng.state)
-        fdev = torch.from_numpy(frame).to(eng.device)[None]
-        for v, step in steps.items():
-            copy = tree_map(lambda a: a.clone(), saved)
-            want = eng._steps[v](eng.params, copy, fdev)[1].clone()
-            step.inputs["frame"].copy_(fdev)
-            got = step.run().clone()
-            _sync(torch, eng.device)
-            same = torch.equal(got, want) and _rows_equal(torch, eng.state, copy)
-            install_state(eng.state, saved)
-            if not same:
-                fail(f"{label} {v}: the replay differs from the eager step (max "
-                     f"{(got.int() - want.int()).abs().max().item()} levels)")
-            done.append(v)
-    return f"replay = eager bit for bit ({', '.join(done)}: outputs and state)"
+    try:
+        keys = check(eng, frame[None])
+    except RuntimeError as e:
+        fail(f"{label}: {e}")
+    return f"replay = eager bit for bit ({len(keys)} captured steps: outputs and state)"
 
 
 def bucket_launches(sched) -> dict:
@@ -5526,7 +5522,7 @@ CNET_SEED = 14
 CNET_ZERO_GAIN = 0.5  # 14a: zero convs N(0, (gain / sqrt(fan_in))^2): the residuals move the output
 CNET_K = (1, 2)  # 14b: sessions through the bucket graphs
 CNET_PARITY = 6  # 14b-c: each session's first outputs held to its references
-CNET_AB_FRAMES = 12  # 14b: frames a session in each timed turn (outputs 5-12 steady)
+CNET_AB_FRAMES = 10  # 14b: frames a session in each timed turn (outputs 5-10 steady)
 CNET_TURNS = ("cnet", "plain", "plain", "cnet")  # 14b: ABBA against the plain ring
 CNET_TRACE_FRAMES = 6  # 14b: frames a session in each turn's device trace
 CNET_SERVE = 6  # 14d: frames viewed through the WHIP session, then again after the move
@@ -7536,6 +7532,151 @@ def mesh_refusals(torch, card, pipe):
         f"{json.dumps(texts)}")
 
 
+PREFLIGHT_ARGV = ["--model-id", "stabilityai/sd-turbo", "--peers", "2", "--sched-buckets", "2"]
+GOLDEN_TINY = Path(__file__).resolve().parent / "tests" / "golden_torch" / "tiny-test.json"
+EMPTY_HF_CACHE = Path(__file__).resolve().parent / "build" / "empty-hf-cache"
+# golden.compare's limits for the card's bf16 tiny-test against the CPU f32
+# golden (the JAX defaults, 0.9 and 24 levels, are for any device's drift
+# from a real-weight capture); two H100 runs read 0.999952 and 0.07 levels
+GOLDEN_CARD_LIMITS = dict(thumb_corr_min=0.999, stat_atol=0.5)
+# what the preflight may leave allocated on the card once it has returned,
+# its garbage is collected and cuBLAS's per-stream workspaces are cleared
+# (cleared before it too: the earlier phases' come to GBs)
+PREFLIGHT_LEFT_BYTES = 16 << 20
+
+
+def live_cuda_tensors(torch, top: int = 8) -> list:
+    """The ``top`` largest groups of live CUDA tensors the garbage collector
+    sees, as (shape, dtype, count, MB of their storages)."""
+    import gc
+
+    groups = {}
+    for o in gc.get_objects():
+        if isinstance(o, torch.Tensor) and o.is_cuda:
+            key = (tuple(o.shape), str(o.dtype))
+            n, b = groups.get(key, (0, 0))
+            groups[key] = (n + 1, b + o.untyped_storage().nbytes())
+    big = sorted(groups.items(), key=lambda kv: -kv[1][1])[:top]
+    return [(shape, dtype, n, round(b / 1e6, 3)) for (shape, dtype), (n, b) in big]
+
+
+def phase_preflight(torch, card: str, argv=None, device="cuda") -> tuple:
+    """Phase 19: the port's deploy CLIs.  19a: ``assets.build_engines.main``
+    (``argv``, default PREFLIGHT_ARGV; ``device="cpu"`` with a tiny model
+    rehearses it, capturing nothing): every kernel library built, every key
+    captured and its replay = its eager step bit for bit, each key with its
+    capture seconds, both kernels launched; then what it leaves allocated
+    on the card (its garbage collected, cuBLAS's workspaces cleared) is
+    held under PREFLIGHT_LEFT_BYTES.  19b: ``utils.golden.capture
+    ("tiny-test")`` (bf16 on the card, both kernels) against the committed
+    CPU golden, ``compare()`` empty within GOLDEN_CARD_LIMITS.  19c: a real family with no
+    snapshot raises the no-weights error, timed.  19d: the golden script's
+    one ``ok: false`` line and non-zero exit in a subprocess.
+    -> the attention and epilogue launches of 19a and 19b."""
+    import gc
+
+    import numpy as np
+
+    from ai_rtc_agent_tpu_torch.assets import build_engines
+    from ai_rtc_agent_tpu_torch.ops.kernels import build as KB
+    from ai_rtc_agent_tpu_torch.utils import golden
+
+    t_phase = time.perf_counter()
+    cuda = torch.device(device).type == "cuda"
+    argv = list(PREFLIGHT_ARGV if argv is None else argv) + ["--device", device]
+    EMPTY_HF_CACHE.mkdir(parents=True, exist_ok=True)
+    total = [0, 0]
+    with _Env(HF_HUB_CACHE=EMPTY_HF_CACHE):
+        _sync(torch, torch.device(device))
+        if cuda:  # cuBLAS keeps a workspace for every stream a capture ran on
+            torch._C._cuda_clearCublasWorkspaces()
+        mem0 = _memory(torch, cuda)[0]
+        _reset_launches()
+        t = time.perf_counter()
+        keys = build_engines.main(argv)
+        took = time.perf_counter() - t
+        a, e = _launches()
+        total[0] += a
+        total[1] += e
+        libs = {p.name: KB.library_path(p.name).exists() for p in KB.CSRC_DIR.glob("*.cu")}
+        if cuda and not (libs and all(libs.values())):
+            fail(f"preflight 19a: kernel libraries not built: {libs}")
+        if cuda and not all(isinstance(s, float) for s in keys.values()):
+            fail(f"preflight 19a: keys not captured: {keys}")
+        if cuda and not (a and e):
+            fail(f"preflight 19a: the preflight launched attention {a}, epilogue {e} times")
+        for key, s in keys.items():
+            say(f"preflight 19a: {key} " + ("stepped eagerly" if s is None else
+                                            f"captured in {s:.2f}s, replay = eager bit for bit"))
+        gc.collect()
+        _sync(torch, torch.device(device))
+        mem1 = _memory(torch, cuda)[0]
+        if cuda:  # the workspaces of the preflight's streams
+            torch._C._cuda_clearCublasWorkspaces()
+            torch.cuda.empty_cache()
+        mem2 = _memory(torch, cuda)[0]
+        if mem2 - mem0 > PREFLIGHT_LEFT_BYTES:
+            fail(f"preflight 19a: {(mem2 - mem0) / 1e6:.1f} MB more allocated after the "
+                 f"preflight than before it (limit {PREFLIGHT_LEFT_BYTES / 1e6:.1f} MB); the "
+                 f"largest live CUDA tensors: {live_cuda_tensors(torch)}")
+        say(f"preflight 19a: {card} | build_engines.main({argv}) in {took:.1f}s: kernel "
+            f"libraries built {libs}, {len(keys)} keys captured and held to their eager "
+            f"steps; launches attention {a}, epilogue {e}; allocated {mem0 / 1e9:.4f} GB "
+            f"before (cuBLAS's workspaces cleared), {mem1 / 1e9:.4f} GB after it returned, "
+            f"{mem2 / 1e9:.4f} GB with them cleared again (limit +{PREFLIGHT_LEFT_BYTES / 1e6:.1f} "
+            "MB)")
+
+        gold = json.loads(GOLDEN_TINY.read_text())
+        _reset_launches()
+        t = time.perf_counter()
+        got = golden.capture("tiny-test", device=device)
+        took = time.perf_counter() - t
+        a, e = _launches()
+        total[0] += a
+        total[1] += e
+        problems = golden.compare(gold, got, **GOLDEN_CARD_LIMITS)
+        corr = float(np.corrcoef(gold["fingerprint"]["thumb"], got["fingerprint"]["thumb"])[0, 1])
+        gap = max(abs(x - y) for k in ("mean", "std")
+                  for x, y in zip(gold["fingerprint"][k], got["fingerprint"][k]))
+        if problems:
+            fail(f"preflight 19b: the tiny-test golden differs from the CPU capture: {problems}")
+        if cuda and not (a and e):
+            fail(f"preflight 19b: the golden procedure launched attention {a}, epilogue {e} times")
+        say(f"preflight 19b: golden.capture('tiny-test') on {device} in {took:.2f}s against the "
+            f"committed CPU f32 golden: compare() empty, thumbnail correlation {corr:.6f}, "
+            f"largest mean/std gap {gap:.4f} levels (limits {GOLDEN_CARD_LIMITS}); launches "
+            f"attention {a}, epilogue {e}")
+
+        t = time.perf_counter()
+        try:
+            golden.capture("stabilityai/sd-turbo", device=device)
+        except RuntimeError as err:
+            if "no local weights for stabilityai/sd-turbo" not in str(err):
+                fail(f"preflight 19c: the wrong error: {err}")
+        else:
+            fail("preflight 19c: a real family with no snapshot did not raise")
+        say(f"preflight 19c: golden.capture('stabilityai/sd-turbo') with no snapshot raised the "
+            f"no-weights error in {1e3 * (time.perf_counter() - t):.1f} ms")
+
+        script = Path(__file__).resolve().parent / "scripts" / "torch_golden_capture.py"
+        out = EMPTY_HF_CACHE.parent / "golden-never-written.json"
+        t = time.perf_counter()
+        r = subprocess.run([sys.executable, str(script), "--model-id", "bogus/nonexistent",
+                            "--device", device, "--out", str(out)],
+                           capture_output=True, text=True, timeout=300)
+        lines = [ln for ln in r.stdout.splitlines() if ln.startswith("{")]
+        line = json.loads(lines[0]) if len(lines) == 1 else {}
+        if r.returncode == 0 or line.get("ok") is not False or out.exists() or \
+                "no local weights for bogus/nonexistent" not in line.get("error", ""):
+            fail(f"preflight 19d: the golden script's contract line on failure: rc "
+                 f"{r.returncode}, stdout {r.stdout!r}, stderr {r.stderr[-2000:]!r}")
+        say(f"preflight 19d: scripts/torch_golden_capture.py --model-id bogus/nonexistent: rc "
+            f"{r.returncode}, one line {json.dumps(line)} in {time.perf_counter() - t:.1f}s")
+    say(f"preflight: phase 19 took {time.perf_counter() - t_phase:.1f} s; launches counted "
+        f"attention {total[0]}, epilogue {total[1]}")
+    return tuple(total)
+
+
 def main():
     if sys.argv[1:2] == ["--native-client"]:  # phase 8's probe: the client side
         native_client(json.loads(sys.argv[2]))
@@ -7569,12 +7710,13 @@ def main():
     cnet_attn, cnet_epi = phase_controlnet(torch, card)
     sdxl_attn, sdxl_epi = phase_sdxl(torch, card)
     phase_train(torch, card)
+    preflight_attn, preflight_epi = phase_preflight(torch, card)
     attn_launches += (serve_attn + sessions_attn + faults_attn + native_attn + obs_attn
                       + fleet_attn + broadcast_attn + sd15_attn + variants_attn + cnet_attn
-                      + adapters_attn + sdxl_attn + mesh_attn)
+                      + adapters_attn + sdxl_attn + mesh_attn + preflight_attn)
     epi_launches += (serve_epi + sessions_epi + faults_epi + native_epi + obs_epi + fleet_epi
                      + broadcast_epi + sd15_epi + variants_epi + cnet_epi + adapters_epi
-                     + sdxl_epi + mesh_epi)
+                     + sdxl_epi + mesh_epi + preflight_epi)
     kernels = [
         {
             "name": "flash_attention", "route": "cuda",

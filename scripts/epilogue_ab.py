@@ -33,7 +33,6 @@ from __future__ import annotations
 import argparse
 import inspect
 import json
-import subprocess
 import sys
 from pathlib import Path
 
@@ -79,6 +78,19 @@ def engine_chain(torch, KF, args, kwargs):
     return call, chain
 
 
+def card_fingerprint() -> dict:
+    """This checkout's ``utils/hwfp.fingerprint``, taken before ``--root``'s
+    package goes on the path (that checkout may predate the helper).  The
+    port's modules imported for it then leave ``sys.modules``, so the
+    package loads whole from ``--root``."""
+    from ai_rtc_agent_tpu_torch.utils import hwfp
+
+    fp = hwfp.fingerprint()
+    for name in [m for m in sys.modules if m.split(".")[0] == "ai_rtc_agent_tpu_torch"]:
+        del sys.modules[name]
+    return fp
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=str(REPO), help="root of the checkout to time")
@@ -86,8 +98,9 @@ def main():
 
     import torch
 
-    if not torch.cuda.is_available():
-        print("FAIL: needs an NVIDIA card", flush=True)
+    fp = card_fingerprint()
+    if fp["backend"] != "cuda":
+        print(f"FAIL: needs an NVIDIA card: {fp.get('error')}", flush=True)
         sys.exit(1)
     root = Path(args.root).resolve()
     sys.path.insert(0, str(root))
@@ -96,10 +109,7 @@ def main():
     if not Path(KF.__file__).resolve().is_relative_to(root):
         print(f"FAIL: imported {KF.__file__}, not from {root}", flush=True)
         sys.exit(1)
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60,
-    ).stdout.strip()
+    card = fp["card"]
     gen = torch.Generator(device="cuda").manual_seed(2)
     cases = {}
     for cfg_type in ("none", "self"):
@@ -125,7 +135,7 @@ def main():
         "root": str(root),
         "module": str(Path(KF.__file__).resolve().relative_to(root)),
         "card": card,
-        "device": torch.cuda.get_device_name(0),
+        "device": fp["device_kind"],
         "cases": cases,
     }), flush=True)
 

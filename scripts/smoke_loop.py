@@ -11,8 +11,9 @@ Phases 1 and 2 run once (the card, the kernels' build), and phases 4 and 5
 too (the pipeline; phase 5 for phase 8's served rate) when a chosen phase
 runs on them; then each loop runs the chosen phases in turn: ``faults`` (7),
 ``native`` (8), ``obs`` (9), ``fleet`` (10), ``adapters`` (15), ``mesh``
-(18), or ``sdxl`` (16), which builds its own models: ``--loops 1 --phases
-sdxl`` runs phase 16 alone after the build, ``--loops 1 --phases mesh``
+(18), or ``sdxl`` (16) and ``preflight`` (19), which build their own models:
+``--loops 1 --phases sdxl`` runs phase 16 alone after the build, ``--loops 1
+--phases preflight`` phase 19, ``--loops 1 --phases mesh``
 phase 18 on phase 4's pipeline, ``--loops 3 --once adapters --phases
 adapters,mesh`` phase 18 after phase 15, as the script runs it: there a
 profiler window over 18b's replays faulted inside CUPTI before the
@@ -134,6 +135,7 @@ def main() -> int:
         "fleet": lambda: cs.phase_fleet(torch, card, pipe, ref_bundle),
         "adapters": lambda: cs.phase_adapters(torch, card, pipe, ref_bundle),
         "sdxl": lambda: cs.phase_sdxl(torch, card),
+        "preflight": lambda: cs.phase_preflight(torch, card),
         "mesh": lambda: cs.phase_mesh(torch, card, pipe, ref_bundle, traced=not args.no_trace,
                                       world=not args.no_world),
     }

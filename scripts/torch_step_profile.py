@@ -30,7 +30,6 @@ from __future__ import annotations
 import argparse
 import json
 import re
-import subprocess
 import sys
 import time
 from pathlib import Path
@@ -69,13 +68,13 @@ def main():
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    if not torch.cuda.is_available():
-        print("FAIL: needs an NVIDIA card", flush=True)
+    from ai_rtc_agent_tpu_torch.utils import hwfp
+
+    fp = hwfp.fingerprint()
+    if fp["backend"] != "cuda":
+        print(f"FAIL: needs an NVIDIA card: {fp.get('error')}", flush=True)
         sys.exit(1)
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60,
-    ).stdout.strip()
+    card = fp["card"]
 
     from ai_rtc_agent_tpu_torch.stream.pipeline import StreamDiffusionPipeline
 
@@ -163,7 +162,7 @@ def main():
                   f"B={cfg.batch_size}" + (f", {k} sessions per bucket step" if k else "")
                   + (", CUDA graph replay" if args.graphs else ", eager"),
         "card": card,
-        "device": torch.cuda.get_device_name(0),
+        "device": fp["device_kind"],
         "steps": args.steps,
         "wall_ms_per_step": wall_ms,
         "profiled_wall_ms_per_step": profiled_wall_ms,

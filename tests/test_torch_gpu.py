@@ -28,6 +28,7 @@ from ai_rtc_agent_tpu_torch.ops.kernels import tolerance
 from ai_rtc_agent_tpu_torch.server import sessions
 from ai_rtc_agent_tpu_torch.server.signaling import LoopbackProvider
 from ai_rtc_agent_tpu_torch.stream.pipeline import StreamDiffusionPipeline
+from ai_rtc_agent_tpu_torch.tree import tree_equal
 
 pytestmark = pytest.mark.gpu
 
@@ -57,6 +58,9 @@ def _edges():
     (4, 1024, 1024, 5, 64), (4, 300, 77, 2, 64), (4, 1024, 77, 8, 80),
     # SD1.5's own step shapes (8 heads): D=160 at Lq 256 and 64, D=40 self at 4096
     (4, 256, 256, 8, 160), (4, 64, 64, 8, 160), (4, 4096, 4096, 8, 40), (16, 4096, 77, 8, 40),
+    # head dims off a multiple of 8, zero-padded by the wrapper: 12, and
+    # tiny-test's 4; with tiny-test's D=8 level
+    (1, 100, 77, 2, 12), *chip_smoke.TINY_ATTENTION,
 ] + _edges())
 def test_attention_kernel_matches_plain(cuda, b, lq, lk, h, d):
     gen = torch.Generator(device=cuda).manual_seed(0)
@@ -76,9 +80,6 @@ def test_attention_key_tiles(cuda):
 
 
 def test_attention_kernel_refuses_what_it_cannot_run(cuda):
-    x = torch.zeros((1, 8, 1, 12), device=cuda, dtype=torch.bfloat16)
-    with pytest.raises(ValueError):  # head dim not a multiple of 8
-        KA.flash_attention(x, x, x)
     y = torch.zeros((1, 8, 1, 168), device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError):  # head dim above 160
         KA.flash_attention(y, y, y)
@@ -661,7 +662,7 @@ def _row(sched, slot):
 
 
 def _rows_equal(a, b):
-    return chip_smoke._rows_equal(torch, a, b)
+    return tree_equal(a, b)
 
 
 def test_guard_trips_on_the_completion_deadline(cuda):
@@ -1168,3 +1169,48 @@ def test_a_styled_bucket_step_and_a_swap_on_the_card(cuda, turbo_pipe, tmp_path)
         np.testing.assert_array_equal(first[1][0], back[1][0])
     finally:
         sched.close()
+
+
+def test_preflight_at_tiny_test_captures_every_key(cuda):
+    """The deploy preflight at tiny-test on the card: both kernel libraries
+    built and loaded, every key (the engine's, --peers 2's buckets 1 and 2,
+    the scheduler's buckets 1 and 2) captured on the attention kernel, each
+    replay = its eager step bit for bit (the preflight raises otherwise),
+    both kernels launched."""
+    from ai_rtc_agent_tpu_torch.assets import build_engines
+    from ai_rtc_agent_tpu_torch.ops.kernels import build as KB
+
+    attn, epi = KA.launches, KF.launches
+    keys = build_engines.main(["--model-id", "tiny-test", "--peers", "2", "--sched-buckets", "2"])
+    assert len(keys) == 5 and all(isinstance(s, float) and s > 0 for s in keys.values())
+    assert all("attn-kernel" in key and "dtype-bfloat16" in key for key in keys)
+    assert KA.launches > attn and KF.launches > epi
+    sources = [p.name for p in KB.CSRC_DIR.glob("*.cu")]
+    assert len(sources) == 2
+    for source in sources:
+        assert KB.library_path(source).exists() and source in KB._loaded
+
+
+def test_tiny_test_serves_on_the_card(cuda):
+    """tiny-test on the card: its head dim 4 goes through the attention
+    kernel (the wrapper pads it to 8), so its pipeline captures and steps
+    (it raised at its capture before) on both kernels."""
+    attn, epi = KA.launches, KF.launches
+    pipe = StreamDiffusionPipeline("tiny-test")
+    frame = np.random.default_rng(0).integers(0, 256, (64, 64, 3), dtype=np.uint8)
+    out = pipe(frame)
+    assert pipe.config.attn_impl == "kernel" and out.shape == (64, 64, 3)
+    assert KA.launches > attn and KF.launches > epi
+
+
+def test_golden_tiny_test_replays_the_cpu_capture(cuda):
+    """The committed tiny-test golden, captured on the CPU in f32, replayed
+    on the card in bf16 (the same weights and noise, from CPU generators),
+    within the card's limits (chip_smoke.GOLDEN_CARD_LIMITS)."""
+    import json
+    from pathlib import Path
+
+    from ai_rtc_agent_tpu_torch.utils import golden
+
+    gold = json.loads((Path(__file__).parent / "golden_torch" / "tiny-test.json").read_text())
+    assert golden.compare(gold, golden.capture("tiny-test"), **chip_smoke.GOLDEN_CARD_LIMITS) == []

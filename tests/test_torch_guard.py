@@ -26,7 +26,6 @@ import numpy as np
 import pytest
 import torch
 
-import chip_smoke
 from _torch_threads import few_torch_threads  # noqa: F401  (autouse)
 from ai_rtc_agent_tpu.models import registry as JREG
 from ai_rtc_agent_tpu.resilience import engine_guard as JG
@@ -39,7 +38,7 @@ from ai_rtc_agent_tpu_torch.resilience import engine_guard as PG
 from ai_rtc_agent_tpu_torch.resilience import faults as PF
 from ai_rtc_agent_tpu_torch.resilience import supervisor as PS
 from ai_rtc_agent_tpu_torch.stream.scheduler import BatchScheduler
-from ai_rtc_agent_tpu_torch.tree import tree_map
+from ai_rtc_agent_tpu_torch.tree import tree_equal, tree_map
 
 GUARDS = {"jax": (JG, JF), "port": (PG, PF)}
 CFG32 = dict(t_index_list=(0, 1), num_inference_steps=2, timestep_spacing="trailing",
@@ -192,7 +191,7 @@ def _rows(sched, slot):
 
 
 def _equal(a, b) -> bool:
-    return chip_smoke._rows_equal(torch, a, b)
+    return tree_equal(a, b)
 
 
 def chaos(side, bundles, carried: dict, checks: dict):

@@ -380,9 +380,12 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     files = sorted((REPO / "ai_rtc_agent_tpu_torch").rglob("*.py")) + [
         REPO / "chip_smoke.py", REPO / "scripts" / "torch_step_profile.py",
         REPO / "scripts" / "epilogue_ab.py", REPO / "scripts" / "smoke_loop.py",
-        REPO / "scripts" / "torch_trace_window.py",
+        REPO / "scripts" / "torch_trace_window.py", REPO / "scripts" / "torch_golden_capture.py",
     ]
     assert len(files) > 10 and REPO / "ai_rtc_agent_tpu_torch" / "aot" / "cache.py" in files
+    for name in ("assets/download", "assets/build_engines", "utils/contract", "utils/hwfp",
+                 "utils/perfbank", "utils/golden"):
+        assert REPO / "ai_rtc_agent_tpu_torch" / f"{name}.py" in files
     for name in ("loader", "lora", "safety", "clip_vision"):
         assert REPO / "ai_rtc_agent_tpu_torch" / "models" / f"{name}.py" in files
     for name in ("__init__", "__main__", "core", "env_registry", "http_contract"):
