@@ -63,12 +63,11 @@ from __future__ import annotations
 import collections
 import logging
 import threading
-import time
 
 import torch
 
 from ..utils import env
-from .trace import safe_list
+from .trace import clock, safe_list
 
 logger = logging.getLogger(__name__)
 
@@ -155,7 +154,7 @@ class DevTelPlane:
             if breach:
                 self.retrace_breaches += 1
                 self.last_breach = entry
-                now = time.monotonic()
+                now = clock()
                 fire = (self._breach_fired_at is None
                         or now - self._breach_fired_at >= self.breach_coalesce_s)
                 if fire:
@@ -208,7 +207,7 @@ class DevTelPlane:
         leaves its gauge out."""
         if not self.enabled:
             return
-        now = time.monotonic()
+        now = clock()
         if not force and now - self._mem_at < self.mem_interval_s:
             return
         self._mem_at = now

@@ -13,7 +13,16 @@ Event Format that Perfetto and ``chrome://tracing`` load:
   ``<stage> #2``-style lanes so every track stays disjoint,
 * instant events for the frames' marks (``terminal:shed`` ...) on a
   ``lifecycle`` track and for the event log's entries on an ``events``
-  track.
+  track,
+* with the batch scheduler's entries in the capture (``steps``; obs/trace.py
+  ``StepTracer``), a ``dispatcher`` track: its holds, dispatches and banks,
+  and each step's ``resolve`` instant; a frame's ``batch_join`` and
+  ``engine_step`` carry the ``step`` id of the dispatch that carried them.
+
+Time base: without a ``clock`` the capture is rebased to its earliest
+stamp; with one (an obs/trace.py ``ClockMap`` bound to a profiler Chrome
+trace's ``baseTimeNanoseconds``) every ``ts`` is on that trace's time base,
+so the two files line up (:func:`merge_profiler_trace` puts them in one).
 
 ``to_jsonl`` is the grep-friendly rendering: one JSON object per line
 (header, then events, then frame timelines).
@@ -22,10 +31,12 @@ The profiler bridge is the port's counterpart of the JAX package's
 ``jax.profiler`` bridge: :func:`start_profiler_bridge` opens
 ``torch.profiler.profile(activities=[CPU, CUDA])`` over the same window as
 the host-side capture, and :func:`stop_profiler_bridge` closes it and
-writes its Chrome trace into the directory the caller named, so the
-card's kernels (those inside CUDA graph replays too) and the frame
-timeline line up over one incident.  The profiler runs on a thread of its
-own, which starts and stops it: its CPU-op recording is per thread, and
+writes its Chrome trace into the directory the caller named.  At the open
+it reads a :class:`~.trace.ClockMap`; at the close it binds it to the
+written trace's base (``last_clock``), so a capture rendered with it, or
+merged into the trace, lines up the card's kernels (those inside CUDA
+graph replays too) with the frame timeline over one incident.  The
+profiler runs on a thread of its own, which starts and stops it: its CPU-op recording is per thread, and
 its device activity (CUPTI) covers every thread's launches.  On the wire
 the names stay the JAX agent's: ``POST /debug/trace`` takes
 ``jax_profiler_dir`` and answers ``jax_profiler``.  A bridge that fails is
@@ -36,16 +47,20 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import threading
 import time
 
-from .trace import STAGES
+from .trace import STAGES, ClockMap
 
 # tid layout: events/lifecycle low, then 16 reserved lanes per taxonomy
 # stage; unknown stages and lane spill past 16 allocate unique tids from
 # the region above _DYNAMIC_BASE (never shared — tracks must stay disjoint)
 _EVENTS_TID = 1
 _LIFECYCLE_TID = 2
+_DISPATCHER_TID = 3
+_CAPTURE_PID = 1 << 30  # a capture merged into a profiler trace (whose pids are processes')
+_STEP_SPANS = ("batch_join", "engine_step")  # args carry the frame's step id
 _STAGE_BASE = {name: 16 * (i + 1) for i, name in enumerate(STAGES)}
 _MAX_LANES = 15
 _DYNAMIC_BASE = 16 * (len(STAGES) + 1)
@@ -70,7 +85,7 @@ def _lane_out(spans):
 
 
 def to_chrome_trace(snapshot: dict, pid: int = 1,
-                    meta: dict | None = None) -> dict:
+                    meta: dict | None = None, clock: ClockMap | None = None) -> dict:
     """Snapshot -> ``{"traceEvents": [...]}`` (Perfetto-loadable).
 
     ``pid``/``meta`` serve the multi-source merge
@@ -79,7 +94,8 @@ def to_chrome_trace(snapshot: dict, pid: int = 1,
     (``{"journey_id", "agent", "leg"}`` — defaulting to the snapshot's
     own ``journey`` binding) is stamped into the process-name metadata
     event and every span/instant's ``args`` so merged multi-agent
-    exports stay distinguishable inside Perfetto."""
+    exports stay distinguishable inside Perfetto.  ``clock``: every ``ts``
+    on that profiler trace's time base instead of the capture's own."""
     session = snapshot.get("session", "?")
     if meta is None:
         meta = snapshot.get("journey") or None
@@ -129,6 +145,8 @@ def to_chrome_trace(snapshot: dict, pid: int = 1,
     base = t_min or 0.0
 
     def us(t: float) -> float:
+        if clock is not None:
+            return round(clock.to_device_us(t), 1)
         return round(1e6 * (t - base), 1)
 
     # spans, one track per stage (+ overflow lanes for in-flight overlap)
@@ -148,6 +166,7 @@ def to_chrome_trace(snapshot: dict, pid: int = 1,
         dyn_next[0] += 1
         return tid
 
+    steps_of = {fr.get("frame_id"): fr["step"] for fr in frames if "step" in fr}
     for stage in sorted(per_stage):
         spans = per_stage[stage]
         tid_base = _STAGE_BASE.get(stage)
@@ -164,12 +183,31 @@ def to_chrome_trace(snapshot: dict, pid: int = 1,
                 "tid": lane_tid[lane], "args": {"name": label},
             })
         for lane, t0, t1, fid in laned:
+            args = {"frame_id": fid, **stamp}
+            if stage in _STEP_SPANS and fid in steps_of:
+                args["step"] = steps_of[fid]
             events.append({
                 "ph": "X", "name": stage, "cat": "frame", "pid": pid,
                 "tid": lane_tid[lane],
                 "ts": us(t0), "dur": max(0.0, round(1e6 * (t1 - t0), 1)),
-                "args": {"frame_id": fid, **stamp},
+                "args": args,
             })
+
+    # the batch scheduler's dispatcher: one thread, so one disjoint track
+    steps = snapshot.get("steps") or []
+    if steps:
+        events.append({
+            "ph": "M", "name": "thread_name", "pid": pid,
+            "tid": _DISPATCHER_TID, "args": {"name": "dispatcher"},
+        })
+    for name, t0, t1, args in steps:
+        ev = {"name": name, "cat": "dispatcher", "pid": pid, "tid": _DISPATCHER_TID,
+              "ts": us(t0), "args": {**(args or {}), **stamp}}
+        if t1 is None:
+            ev.update(ph="i", s="t")
+        else:
+            ev.update(ph="X", dur=max(0.0, round(1e6 * (t1 - t0), 1)))
+        events.append(ev)
 
     # frame marks (terminal markers, similarity skips, ingest sheds)
     for fr in frames:
@@ -243,6 +281,20 @@ def merge_chrome_traces(sources, journey: str | None = None) -> dict:
     }
 
 
+def merge_profiler_trace(snapshot: dict, profiler_doc: dict, clock: ClockMap) -> dict:
+    """One Perfetto document: a profiler window's Chrome trace
+    (``profiler_doc``, as the bridge wrote it) with ``snapshot`` rendered
+    onto its time base under a pid of its own.  ``clock``: the window's
+    ClockMap (``last_clock`` after the bridge closes); it is bound here to the
+    document's own ``baseTimeNanoseconds`` (0 when it has none, which means
+    absolute times)."""
+    clock = clock.bind(int(profiler_doc.get("baseTimeNanoseconds", 0)))
+    frames = to_chrome_trace(snapshot, pid=_CAPTURE_PID, clock=clock)
+    out = dict(profiler_doc)
+    out["traceEvents"] = list(profiler_doc.get("traceEvents", [])) + frames["traceEvents"]
+    return out
+
+
 def to_jsonl(snapshot: dict) -> str:
     """One JSON object per line: header, event-log entries, frame
     timelines — the grep/jq-friendly rendering of the same capture."""
@@ -266,6 +318,7 @@ _BRIDGE_LOCK = threading.Lock()
 _BRIDGE: "_ProfilerBridge | None" = None
 _SEQ = 0
 last_trace_path: str | None = None  # the Chrome trace the last window wrote
+last_clock: ClockMap | None = None  # its ClockMap, bound to that trace's base
 
 
 # the card idle this long after the window opens and before it closes: a
@@ -294,6 +347,7 @@ class _ProfilerBridge:
     def __init__(self, log_dir: str, seq: int):
         self.path = os.path.join(log_dir, f"torch-trace-{os.getpid()}-{seq}.json")
         self.error: str | None = None
+        self.clock: ClockMap | None = None
         self._started = threading.Event()
         self._stop = threading.Event()
         self._thread = threading.Thread(target=self._run, name="profiler-bridge", daemon=True)
@@ -310,6 +364,7 @@ class _ProfilerBridge:
             os.makedirs(os.path.dirname(self.path), exist_ok=True)
             prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
             prof.start()
+            self.clock = ClockMap.read()
             _settle_device()
         except Exception as e:
             self.error = f"torch profiler start failed: {e}"
@@ -321,6 +376,7 @@ class _ProfilerBridge:
             _settle_device()
             prof.stop()
             prof.export_chrome_trace(self.path)
+            self.clock = self.clock.bind(chrome_base_ns(self.path))
         except Exception as e:
             self.error = f"torch profiler stop failed: {e}"
 
@@ -328,6 +384,18 @@ class _ProfilerBridge:
         self._stop.set()
         self._thread.join()
         return self.error
+
+
+def chrome_base_ns(path: str) -> int:
+    """A profiler Chrome trace's ``baseTimeNanoseconds`` (its ``ts`` are us
+    from it), read from the file's tail, where kineto writes it; 0 (absolute
+    times) when it has none."""
+    with open(path, "rb") as f:
+        f.seek(0, os.SEEK_END)
+        f.seek(max(0, f.tell() - 65536))
+        tail = f.read().decode("utf-8", "replace")
+    found = re.findall(r'"baseTimeNanoseconds"\s*:\s*(\d+)', tail)
+    return int(found[-1]) if found else 0
 
 
 def start_profiler_bridge(log_dir: str) -> str | None:
@@ -352,12 +420,12 @@ def stop_profiler_bridge() -> str | None:
     """Close the window :func:`start_profiler_bridge` opened (a no-op when
     none is open) and write its trace.  -> None on success, else the
     reason."""
-    global _BRIDGE, last_trace_path
+    global _BRIDGE, last_trace_path, last_clock
     with _BRIDGE_LOCK:
         bridge, _BRIDGE = _BRIDGE, None
         if bridge is None:
             return None
         err = bridge.stop()
         if err is None:
-            last_trace_path = bridge.path
+            last_trace_path, last_clock = bridge.path, bridge.clock
         return err

@@ -26,10 +26,9 @@ from __future__ import annotations
 
 import collections
 import threading
-import time
 
 from ..utils import env
-from .trace import SessionTracer, TraceController, safe_list
+from .trace import SessionTracer, StepTracer, TraceController, clock, safe_list
 
 
 class SessionRecorder:
@@ -39,11 +38,13 @@ class SessionRecorder:
         self,
         session_id: str,
         controller: TraceController,
-        clock=time.monotonic,
+        clock=clock,
         slo=None,
+        steps: StepTracer | None = None,
     ):
         self.session_id = session_id
         self.tracer = SessionTracer(session_id, controller, slo=slo)
+        self.steps = steps  # the process's dispatcher ring (FlightRecorder.steps)
         self._clock = clock
         n = env.get_int("FLIGHT_EVENTS", 256)
         self.events: collections.deque = collections.deque(maxlen=max(1, n))
@@ -74,25 +75,37 @@ class SessionRecorder:
     def snapshot(self, reason: str = "on-demand") -> dict:
         """Freeze both rings into a plain-dict capture (json-safe).
         Reads race lock-free appenders — safe_list retries, so the
-        snapshot-at-DEGRADED path can never raise mid-incident."""
-        return {
+        snapshot-at-DEGRADED path can never raise mid-incident.  The
+        dispatcher's entries from the first frame's birth on ride along as
+        ``steps`` (obs/trace.py ``StepTracer``; left out when there are
+        none)."""
+        frames = self.tracer.snapshot_frames()
+        out = {
             "session": self.session_id,
             "reason": reason,
             "taken_at": round(self._clock(), 6),
             "journey": self.journey,
             "events": safe_list(self.events),
-            "frames": self.tracer.snapshot_frames(),
+            "frames": frames,
         }
+        if self.steps is not None and frames and self.steps.ring:
+            t0 = min(fr["born"] for fr in frames)
+            steps = [e for e in self.steps.snapshot() if (e[2] or e[1]) >= t0]
+            if steps:
+                out["steps"] = steps
+        return out
 
 
 class FlightRecorder:
     """Process-global registry of session recorders + the bounded
     snapshot store.  Owns the one :class:`TraceController` every session
-    tracer shares, so ``/debug/trace`` start/stop flips the whole
-    process at once."""
+    tracer shares, and the process's dispatcher ring (``steps``, which the
+    agent hands its batch scheduler), so ``/debug/trace`` start/stop flips
+    the whole process at once."""
 
-    def __init__(self, stats=None, clock=time.monotonic, slo=None):
+    def __init__(self, stats=None, clock=clock, slo=None):
         self.controller = TraceController(clock=clock)
+        self.steps = StepTracer(self.controller)
         self.stats = stats  # FrameStats: snapshots count as flight_snapshots_total
         self.slo = slo  # SloPlane (obs/slo.py): every session tracer feeds it
         self._clock = clock
@@ -110,7 +123,8 @@ class FlightRecorder:
         rec = self.sessions.get(session_id)
         if rec is None:
             rec = SessionRecorder(
-                session_id, self.controller, self._clock, slo=self.slo
+                session_id, self.controller, self._clock, slo=self.slo,
+                steps=self.steps,
             )
             self.sessions[session_id] = rec
         return rec

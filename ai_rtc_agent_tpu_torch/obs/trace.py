@@ -25,6 +25,16 @@ trace-event JSON.
 * Every clock read is on the host, outside the captured CUDA graphs: a
   replay returns at once, so ``engine_step`` ends where the host resolves
   the step's readback, never at the launch.
+* Every stamp in obs/ is read through :func:`clock` (``time.monotonic``,
+  the clock the media path and the batch scheduler stamp with too), and a
+  :class:`ClockMap` taken when a device profiler window opens carries that
+  clock onto the profiler's time base, so host spans and device records
+  share one timeline (obs/export.py's bridge, the benchmark's profiler).
+
+Work that belongs to no single frame (the batch scheduler's dispatcher:
+why it held, each bucket step's dispatch, the snapshot bank, each step's
+first readback resolve) lands in a :class:`StepTracer`, one bounded ring
+per process, gated by the same :class:`TraceController`.
 
 Knobs: ``TRACE_ENABLE``, ``TRACE_RING_FRAMES``, ``TRACE_MAX_CAPTURE_S``.
 """
@@ -62,6 +72,74 @@ TERMINAL_DROPPED = "dropped"
 TERMINALS = (
     TERMINAL_SENT, TERMINAL_SHED, TERMINAL_PASSTHROUGH, TERMINAL_DROPPED,
 )
+
+# the batch scheduler's dispatcher (stream/scheduler.py) on the StepTracer:
+# each wait stamped with its reason, then the step's own host work
+HOLD_REASONS = (
+    "empty",       # no frame queued
+    "window",      # frames queued, the coalescing window still running
+    "depth",       # PIPELINE_DEPTH steps in flight (unresolved)
+    "quarantine",  # the engine guard holds the plane
+    "step_lock",   # batch popped, waiting for the step lock
+)
+STEP_RING = 8192  # StepTracer entries kept (a dispatcher turn stamps 2-6)
+
+
+def clock() -> float:
+    """THE host clock of every obs stamp: ``time.monotonic`` (looked up at
+    each call, so a test's fake clock reaches it)."""
+    return time.monotonic()
+
+
+class ClockMap:
+    """:func:`clock` onto a device profiler's time base.
+
+    ``host_ns``/``wall_ns``: one paired read of the monotonic clock and the
+    wall clock (``time.time_ns``), taken when a profiler window opens
+    (:meth:`read`); ``base_ns``: the profiler's own zero on the wall clock
+    (torch.profiler's ``trace_start_ns`` for its events, a Chrome trace's
+    ``baseTimeNanoseconds`` for its ``ts``), bound once known.  The
+    profiler stamps host and device records on the wall clock in ns (kineto
+    converts the card's timestamps to it), so a host stamp ``t`` (s) lands
+    at ``t * 1e9 - host_ns + wall_ns`` there, ``base_ns`` less on its time
+    base.  The pair drifts apart only by the wall clock's slew over a
+    window (NTP slews at most 0.05%)."""
+
+    __slots__ = ("host_ns", "wall_ns", "base_ns")
+
+    def __init__(self, host_ns: int, wall_ns: int, base_ns: int = 0):
+        self.host_ns, self.wall_ns, self.base_ns = int(host_ns), int(wall_ns), int(base_ns)
+
+    @classmethod
+    def read(cls) -> "ClockMap":
+        """The tightest of five wall reads bracketed by two monotonic reads
+        (the bracket's midpoint is the pair's host time)."""
+        best = None
+        for _ in range(5):
+            a = time.monotonic_ns()
+            w = time.time_ns()
+            b = time.monotonic_ns()
+            if best is None or b - a < best[0]:
+                best = (b - a, (a + b) // 2, w)
+        return cls(best[1], best[2])
+
+    def bind(self, base_ns: int) -> "ClockMap":
+        """The same pair against another profiler zero."""
+        return ClockMap(self.host_ns, self.wall_ns, base_ns)
+
+    def to_device_us(self, t: float) -> float:
+        """Host stamp ``t`` (s, :func:`clock`) on the profiler's time base
+        (us from ``base_ns``).  The two ~1e18 ns wall readings are
+        subtracted as integers first: a float there is 256 ns coarse."""
+        return ((t * 1e9 - self.host_ns) + (self.wall_ns - self.base_ns)) / 1e3
+
+
+def profiler_base_ns(prof) -> int | None:
+    """The zero of a stopped ``torch.profiler.profile``'s event times
+    (``FunctionEvent.time_range`` is us from it) on the wall clock, or None
+    when it has no results."""
+    results = getattr(getattr(prof, "profiler", None), "kineto_results", None)
+    return None if results is None else int(results.trace_start_ns())
 
 
 def safe_list(dq) -> list:
@@ -103,7 +181,7 @@ class TraceController:
 
     __slots__ = ("enabled", "max_capture_s", "_until", "_clock")
 
-    def __init__(self, clock=time.monotonic):
+    def __init__(self, clock=clock):
         self._clock = clock
         self._until = 0.0  # 0 = no deadline
         self.max_capture_s = env.get_float("TRACE_MAX_CAPTURE_S", 300.0)
@@ -157,11 +235,11 @@ class _Span:
         self._name = name
 
     def __enter__(self):
-        self._t0 = time.monotonic()
+        self._t0 = clock()
         return self
 
     def __exit__(self, *exc):
-        self._frame_trace.add_span(self._name, self._t0, time.monotonic())
+        self._frame_trace.add_span(self._name, self._t0, clock())
         return False
 
 
@@ -177,16 +255,19 @@ class FrameTrace:
 
     __slots__ = (
         "frame_id", "session_id", "born", "spans", "marks", "terminal",
-        "_owner", "_open",
+        "step", "_owner", "_open",
     )
 
     def __init__(self, frame_id, session_id: str = "", owner=None, born=None):
         self.frame_id = frame_id
         self.session_id = session_id
-        self.born = time.monotonic() if born is None else born
+        self.born = clock() if born is None else born
         self.spans: list = []  # (name, t0, t1)
         self.marks: list = []  # (name, t)
         self.terminal: str | None = None
+        # the batch scheduler's step id this frame rode (its batch_join and
+        # engine_step belong to that step's dispatch on the StepTracer)
+        self.step: int | None = None
         self._owner = owner
         self._open: list = []  # begin()/end() stack: (name, t0)
 
@@ -205,13 +286,13 @@ class FrameTrace:
     def begin(self, name: str, t: float | None = None):
         """Open a span explicitly; every ``begin`` must reach a matching
         :meth:`end` on all paths."""
-        self._open.append((name, time.monotonic() if t is None else t))
+        self._open.append((name, clock() if t is None else t))
 
     def end(self, name: str | None = None, t: float | None = None):
         """Close the most recent open span (or the named one)."""
         if not self._open:
             return
-        t1 = time.monotonic() if t is None else t
+        t1 = clock() if t is None else t
         if name is None:
             n, t0 = self._open.pop()
             self.add_span(n, t0, t1)
@@ -224,7 +305,7 @@ class FrameTrace:
 
     def mark(self, name: str, t: float | None = None):
         if self.terminal is None:
-            self.marks.append((name, time.monotonic() if t is None else t))
+            self.marks.append((name, clock() if t is None else t))
 
     def span_end(self, name: str) -> float | None:
         """End stamp of the most recent span named ``name`` (lets the
@@ -247,7 +328,7 @@ class FrameTrace:
         still holds a stale reference)."""
         if self.terminal is not None:
             return
-        now = time.monotonic() if t is None else t
+        now = clock() if t is None else t
         while self._open:  # dangling begins close at the terminal stamp
             n, t0 = self._open.pop()
             self.spans.append((n, t0, now))
@@ -260,7 +341,7 @@ class FrameTrace:
     def to_dict(self) -> dict:
         # lists, not tuples: snapshots must survive a JSON round-trip
         # unchanged (the /debug/flight body IS the stored capture)
-        return {
+        out = {
             "frame_id": self.frame_id,
             "session": self.session_id,
             "born": round(self.born, 6),
@@ -270,6 +351,9 @@ class FrameTrace:
             ],
             "marks": [[n, round(t, 6)] for n, t in self.marks],
         }
+        if self.step is not None:
+            out["step"] = self.step
+        return out
 
 
 class SessionTracer:
@@ -364,3 +448,40 @@ class SessionTracer:
                 d["journey_id"] = journey.get("journey_id")
                 d["leg"] = journey.get("leg")
         return out
+
+
+class StepTracer:
+    """The process-level span ring: work that belongs to no single frame.
+
+    The batch scheduler's dispatcher stamps into it (stream/scheduler.py):
+    ``hold.<reason>`` for each wait (:data:`HOLD_REASONS`), ``dispatch``
+    (the step lock held -> the bucket step queued on the device, with the
+    step id, bucket ``k``, the riders' ``slots``, the ``variant`` and
+    ``warm``; on one device its children ``dispatch.replay`` and
+    ``dispatch.readback``), ``bank``, and the instant ``resolve`` (t1 None) when a
+    step's first readback row frees its in-flight place.  An entry is
+    ``(name, t0, t1, args)`` on :func:`clock`.  Gated by the frame rings'
+    :class:`TraceController`: a stamper checks :meth:`on` once a turn and
+    builds no entry while it is off; the ring is a bounded deque (appends
+    are atomic, no lock)."""
+
+    def __init__(self, controller: TraceController, ring: int | None = None):
+        self.controller = controller
+        self.ring: collections.deque = collections.deque(
+            maxlen=max(1, STEP_RING if ring is None else ring))
+
+    def on(self) -> bool:
+        """The gate: one attribute read while tracing is off."""
+        controller = self.controller
+        return controller.enabled and controller.active()
+
+    def span(self, name: str, t0: float, t1: float, args: dict | None = None):
+        self.ring.append((name, t0, t1, args))
+
+    def instant(self, name: str, t: float, args: dict | None = None):
+        self.ring.append((name, t, None, args))
+
+    def snapshot(self) -> list:
+        """The ring as JSON-safe lists ``[name, t0, t1 or None, args]``."""
+        return [[n, round(t0, 6), None if t1 is None else round(t1, 6), a]
+                for n, t0, t1, a in safe_list(self.ring)]

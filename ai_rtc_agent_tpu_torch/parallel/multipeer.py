@@ -50,6 +50,7 @@ import torch
 from .. import resolve_device
 from ..aot.cache import CapturedStep, GraphCache, stream_engine_key
 from ..obs import devtel
+from ..obs.trace import clock
 from ..stream.engine import (
     StreamConfig,
     StreamEngine,
@@ -231,19 +232,32 @@ def replicate(tree, device):
     return tree_map(lambda a: a if a.device == device else a.to(device), tree)
 
 
-def stage_rows(frames: np.ndarray, device) -> torch.Tensor:
+def stage_rows(frames: np.ndarray, device, trace=None) -> torch.Tensor:
     """Host uint8 frames -> the device: from pinned memory without blocking
     on the card, as they are on the CPU.  One of the two H2D paths of
-    frames, so one of the two H2D meters (obs/devtel.py)."""
+    frames, so one of the two H2D meters (obs/devtel.py).  With a frame's
+    ``trace`` (obs/trace.py): ``submit.pin`` (the host buffer made
+    contiguous and pinned) and ``submit.copy`` (the copy queued)."""
     devtel.note_h2d(frames.nbytes)
-    return _upload(frames, device)
+    if trace is None:
+        return _upload(frames, device)
+    t0 = clock()
+    t = _host_buffer(frames, device)
+    t1 = clock()
+    out = t.to(device, non_blocking=True)
+    trace.add_span("submit.pin", t0, t1)
+    trace.add_span("submit.copy", t1, clock())
+    return out
+
+
+def _host_buffer(arr: np.ndarray, device) -> torch.Tensor:
+    """``arr`` as a tensor the copy to ``device`` reads: pinned for the card."""
+    t = torch.from_numpy(np.ascontiguousarray(arr))
+    return t.pin_memory() if device.type == "cuda" else t
 
 
 def _upload(arr: np.ndarray, device) -> torch.Tensor:
-    t = torch.from_numpy(np.ascontiguousarray(arr))
-    if device.type == "cuda":
-        return t.pin_memory().to(device, non_blocking=True)
-    return t.to(device)
+    return _host_buffer(arr, device).to(device, non_blocking=True)
 
 
 class Readback:

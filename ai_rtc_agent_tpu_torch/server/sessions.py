@@ -480,6 +480,9 @@ async def startup(app):
             app["overload"].on_event = overload_event
         await app["overload"].start()
     sched = app["batch_scheduler"]
+    if sched is not None and app["flight"] is not None and hasattr(sched, "tracer"):
+        # the dispatcher's spans ride the recorder's trace window (/debug/trace)
+        sched.tracer = app["flight"].steps
     if sched is not None and app["overload"] is not None:
         # the admission EWMA reads the step's cost per session (dt / occupancy)
         admission = app["overload"].admission
@@ -897,7 +900,8 @@ def debug_flight(app, query: dict) -> Reply:
             return _debug_error(400, "format= applies to a capture — pass id= or session=")
         return _json(flight.index())
     if fmt == "chrome":
-        return _json(obs_export.to_chrome_trace(snap))
+        # on the last profiler bridge window's time base once there is one
+        return _json(obs_export.to_chrome_trace(snap, clock=obs_export.last_clock))
     if fmt == "jsonl":
         return Reply(200, obs_export.to_jsonl(snap), "application/x-ndjson")
     return _json(snap)

@@ -58,6 +58,20 @@ Outputs are a dedicated engine's for the same state row and frames
 (tests/test_torch_scheduler.py on the CPU, chip_smoke.py phase 6 on the
 card).
 
+What the dispatcher waits on is counted always and traced on demand.  Each
+wait of a dispatcher turn adds its time to ``batchsched_hold_ms_total`` by
+reason (obs/trace.py ``HOLD_REASONS``: no frame queued, the window running,
+PIPELINE_DEPTH steps in flight, quarantine, the step lock) and each step's
+host dispatch to ``batchsched_dispatch_ms_total``, from the clock reads the
+loop takes anyway.  With a :attr:`BatchScheduler.tracer` (an obs/trace.py
+``StepTracer``; the agent hands it the flight recorder's) whose window is
+open, the same waits are ``hold.<reason>`` spans, each step a ``dispatch``
+span (step id, bucket ``k``, the riders' ``slots``, ``variant``, ``warm``),
+a bank refresh a ``bank`` span and a step's first readback row a
+``resolve`` instant; a traced frame's ``submit`` splits into
+``submit.coerce``, ``submit.pin``, ``submit.copy`` and ``submit.enqueue``,
+and the frame names the ``step`` it rode.
+
 Live migration (:meth:`snapshot_session`, :meth:`restore_session`, the
 JAX scheduler's schema 2): a session's state row goes out as the pytree
 wire codec's blob (parallel/checkpoint.py, the JAX bytes) with its control
@@ -145,7 +159,7 @@ from .. import resolve_device
 from ..adapters.registry import targets_digest
 from ..aot.cache import adapter_key_extra, mesh_key_extra, stream_engine_key
 from ..obs import devtel
-from ..obs.trace import get_trace
+from ..obs.trace import HOLD_REASONS, get_trace
 from ..parallel import sharding as SH
 from ..parallel.checkpoint import deserialize_pytree, serialize_pytree
 from ..parallel.mesh import device_mesh
@@ -211,7 +225,7 @@ class _PendingFrame:
     stamps the gauges read and the frame's trace (obs/trace.py)."""
 
     __slots__ = ("frame", "frame_dev", "future", "t_enq", "t_dispatch", "occupancy", "skipped",
-                 "sub", "trace")
+                 "sub", "trace", "step")
 
     def __init__(self, frame, trace=None):
         self.frame = frame  # host pixels (shed passthrough, similarity)
@@ -223,6 +237,7 @@ class _PendingFrame:
         self.occupancy = 0
         self.skipped = False
         self.sub = 0  # with fbs > 1: this frame's place in its session's row
+        self.step: int | None = None  # the id of the bucket step it rode
 
 
 class _DispatchedBatch:
@@ -230,10 +245,12 @@ class _DispatchedBatch:
     once every rider's session is released (a closed connection fetches
     nothing), so that it stops counting as in flight."""
 
-    __slots__ = ("readback", "t_dispatch", "riders", "resolved", "occupancy", "feed")
+    __slots__ = ("readback", "t_dispatch", "riders", "resolved", "occupancy", "feed", "step")
 
-    def __init__(self, readback: Readback, t_dispatch: float, riders: list, feed: bool):
+    def __init__(self, readback: Readback, t_dispatch: float, riders: list, feed: bool,
+                 step: int):
         self.readback = readback
+        self.step = step  # the dispatcher's step id (its ``dispatch`` span's)
         self.t_dispatch = t_dispatch
         self.riders = set(riders)  # the slots that rode it, until released
         self.resolved = False
@@ -305,8 +322,10 @@ class ScheduledSession:
         if trace is None:
             return self._submit_arr(coerce_frame(frame, self._owner.height, self._owner.width))
         with trace.span("submit"):
-            handle = self._submit_arr(
-                coerce_frame(frame, self._owner.height, self._owner.width), trace)
+            t0 = time.monotonic()
+            arr = coerce_frame(frame, self._owner.height, self._owner.width)
+            trace.add_span("submit.coerce", t0, time.monotonic())
+            handle = self._submit_arr(arr, trace)
         if handle.skipped:
             trace.mark("similar_skip")
         return handle
@@ -332,8 +351,13 @@ class ScheduledSession:
             last.future.add_done_callback(copy)
             return p
         p = _PendingFrame(arr, trace)
-        p.frame_dev = stage_rows(arr[None], self._owner._slot_device(self.slot))
-        self._owner._enqueue(self.slot, p)
+        p.frame_dev = stage_rows(arr[None], self._owner._slot_device(self.slot), trace)
+        if trace is None:
+            self._owner._enqueue(self.slot, p)
+        else:
+            t0 = time.monotonic()
+            self._owner._enqueue(self.slot, p)
+            trace.add_span("submit.enqueue", t0, time.monotonic())
         if self._sim is not None:
             self._last_pending = p
         return p
@@ -345,7 +369,7 @@ class ScheduledSession:
         (dispatch -> the row resolved on the host: a replay returns at
         once, so the step ends at its readback's completion, never at the
         launch), the ``batch_k<occupancy>`` mark, ``fetch`` (the blocking
-        resolve) and ``postprocess``."""
+        resolve) and ``postprocess``; the trace names the step it rode."""
         trace = handle.trace
         if trace is None and src_frame is not None:
             trace = get_trace(src_frame)
@@ -367,6 +391,7 @@ class ScheduledSession:
                 # a similarity skip rode no step of its own: its marker says so
                 trace.add_span("batch_join", handle.t_enq, td)
                 trace.add_span("engine_step", td, t1)
+                trace.step = handle.step
                 if handle.occupancy:
                     trace.mark(f"batch_k{handle.occupancy}")
             trace.add_span("fetch", t0, t1)
@@ -507,6 +532,8 @@ class BatchScheduler:
         self.params = params
         # the admission feed: callable(dt_s, occupancy), dt amortised per session
         self.on_step = None
+        # the dispatcher's spans (an obs/trace.py StepTracer), or None: off
+        self.tracer = None
         self._template = StreamEngine(models, params, cfg, encode_prompt, schedule=schedule,
                                       device=self.device, graphs=False)
         S = self.max_sessions
@@ -540,10 +567,13 @@ class BatchScheduler:
         self._stop = False
         self._batches: deque = deque(maxlen=16)  # dispatched, for the in-flight count
         self._stats_lock = threading.Lock()
-        self._occ: deque = deque(maxlen=512)
         self._waits: deque = deque(maxlen=512)
         self._occ_hist: dict = {}
         self.steps_total = 0
+        self._step_seq = 0  # the last dispatched step's id
+        # always on: the dispatcher's waits by reason and its host dispatch (s)
+        self._hold_s = dict.fromkeys(HOLD_REASONS, 0.0)
+        self._dispatch_s = 0.0
         # -- the engine fault domain (resilience/engine_guard.py) ---------------------
         self._guard = None
         self._fault_scope = _faults.scope("engine")
@@ -1129,6 +1159,9 @@ class BatchScheduler:
                     ready[sh.index] = torch.cuda.Event()
                     ready[sh.index].record()
         self._snap_rows, self._snap_ready = rows, ready
+        tracer = self._tracing()
+        if tracer is not None:
+            tracer.span("bank", now, time.monotonic())
 
     def _bank_to_host(self, rows: dict, ready, device) -> dict:
         """One banked slot's rows on the host (on the CPU they are).  On the
@@ -1309,11 +1342,29 @@ class BatchScheduler:
     def _in_flight(self, now: float) -> int:
         return sum(1 for b in self._batches if not b.resolved and now - b.t_dispatch < 60.0)
 
+    def _tracing(self):
+        """:attr:`tracer` while its window is open, else None (one ``is
+        None`` check while there is none)."""
+        tracer = self.tracer
+        return tracer if tracer is not None and tracer.on() else None
+
+    def _hold(self, reason: str, t0: float) -> float:
+        """One wait of the dispatcher, from ``t0`` to now: its counter, and
+        its ``hold.<reason>`` span while a tracer's window is open.  -> now."""
+        t1 = time.monotonic()
+        self._hold_s[reason] += t1 - t0
+        tracer = self._tracing()
+        if tracer is not None:
+            tracer.span("hold." + reason, t0, t1)
+        return t1
+
     def _next_entries_locked(self):
         """Wait until a batch should go (every live session has a frame, one
         session is live, or the window from the oldest waiting frame ran
         out, with fewer than PIPELINE_DEPTH steps in flight) and pop it:
-        [(slot, pending)], or None at stop."""
+        ([(slot, pending)], the clock at the pop), or None at stop.  Each
+        wait is held to its reason (:meth:`_hold`)."""
+        t = time.monotonic()
         while not self._stop:
             waiting = self._waiting_slots()
             if self.quarantined:
@@ -1323,23 +1374,24 @@ class BatchScheduler:
                     while (group := self._pop_group(s)) is not None:
                         for p in group:
                             self._evict(p, "engine-quarantined")
-                self._has_work.wait(timeout=0.1)
-                continue
-            if not waiting:
-                self._has_work.wait(timeout=0.5)
-                continue
-            if self._in_flight(time.monotonic()) >= self.PIPELINE_DEPTH:
+                reason, timeout = "quarantine", 0.1
+            elif not waiting:
+                reason, timeout = "empty", 0.5
+            elif self._in_flight(t) >= self.PIPELINE_DEPTH:
                 # a rider's first row resolve frees a slot and notifies
-                self._has_work.wait(timeout=0.05)
-                continue
-            live = self.active.count(True)
-            if len(waiting) >= live or live <= 1 or self.window_s <= 0.0:
-                break
-            stamps = [t for t in (self._queues[s].oldest_stamp() for s in waiting) if t is not None]
-            remain = min(stamps) + self.window_s - time.monotonic() if stamps else 0.0
-            if remain <= 0.0:
-                break
-            self._has_work.wait(timeout=remain)
+                reason, timeout = "depth", 0.05
+            else:
+                live = self.active.count(True)
+                if len(waiting) >= live or live <= 1 or self.window_s <= 0.0:
+                    break
+                stamps = [ts for ts in (self._queues[s].oldest_stamp() for s in waiting)
+                          if ts is not None]
+                timeout = min(stamps) + self.window_s - t if stamps else 0.0
+                if timeout <= 0.0:
+                    break
+                reason = "window"
+            self._has_work.wait(timeout=timeout)
+            t = self._hold(reason, t)
         if self._stop:
             return None
         entries = []
@@ -1347,22 +1399,25 @@ class BatchScheduler:
             group = self._pop_group(s)
             if group is not None:
                 entries.append((s, group))
-        return entries
+        return entries, t
 
-    def _dispatch(self, entries):
+    def _dispatch(self, entries, t_disp: float, tracer=None):
         """One bucket step for ``entries`` ([(slot, its group of pending
         frames)]) and every rider's readback row.  The caller holds the step
         lock, taken before the entries were popped: a control-plane write
         that comes after the pop lands after this step, as it does in the
-        JAX scheduler."""
+        JAX scheduler.  ``t_disp``: when the lock was held; the host time
+        from there to the step queued (with the engine guard, to its
+        completion) is the step's ``dispatch``, traced when ``tracer``."""
         slots = [s for s, _ in entries]
         n = len(slots)
         k = self._bucket_for_slots(slots)
-        t_disp = time.monotonic()
+        self._step_seq += 1
+        step = self._step_seq
         frames = []
         for _, group in entries:
             for p in group:
-                p.t_dispatch, p.occupancy = t_disp, n
+                p.t_dispatch, p.occupancy, p.step = t_disp, n, step
             bufs = [p.frame_dev for p in group]
             # a short group (a release raced the pop) repeats its last frame
             bufs = (bufs + [bufs[-1]] * self.fbs)[: self.fbs]
@@ -1385,7 +1440,7 @@ class BatchScheduler:
                 # a bucket built here (prewarm off, or a size it left out)
                 # is a lazy build at dispatch: in the serving phase, a breach
                 with devtel.compile_scope(self._bucket_label(k, variant)):
-                    return self._step_shards(frames, slots, k, variant)
+                    return self._step_shards(frames, slots, k, variant, tracer)
 
         def until_complete() -> Readback:
             # the guarded step ends at its completion event, polled: a
@@ -1396,12 +1451,20 @@ class BatchScheduler:
             return readback
 
         try:
-            if self._guard is None:
-                readback = device_step()
-            else:
-                readback = self._guard.dispatch(until_complete, cold=not feed)
+            try:
+                if self._guard is None:
+                    readback = device_step()
+                else:
+                    readback = self._guard.dispatch(until_complete, cold=not feed)
+            finally:
+                t_end = time.monotonic()
+                self._dispatch_s += t_end - t_disp
+                if tracer is not None:
+                    tracer.span("dispatch", t_disp, t_end, {
+                        "step": step, "k": k, "slots": slots, "variant": variant,
+                        "warm": feed})
             self._warmed.update(warm_keys)
-            batch = _DispatchedBatch(readback, t_disp, slots, feed)
+            batch = _DispatchedBatch(readback, t_disp, slots, feed, step)
         except Exception as e:
             if not self.quarantined:
                 logger.exception("batchsched step failed (bucket %d, %d sessions)", k, n)
@@ -1430,7 +1493,6 @@ class BatchScheduler:
             self._batches.append(batch)
         with self._stats_lock:
             self.steps_total += 1
-            self._occ.append(n)
             hist = dict(self._occ_hist)  # copy on write: snapshot() reads it unlocked
             hist[n] = hist.get(n, 0) + 1
             self._occ_hist = hist
@@ -1443,14 +1505,26 @@ class BatchScheduler:
                 except InvalidStateError:
                     pass  # cancelled by a release
 
-    def _step_shards(self, frames: list, slots: list, k: int, variant: str):
+    def _step_shards(self, frames: list, slots: list, k: int, variant: str, tracer=None):
         """Bucket k's ``variant`` for the riders ``slots`` (their frames
         ``frames``): the single device's step, or each shard's step that
         carries riders at k/dp rows, one after another, each read back on
-        its own device.  -> a Readback of the riders' rows, in order."""
+        its own device.  -> a Readback of the riders' rows, in order.  With
+        a ``tracer`` (on), a single device's step splits into
+        ``dispatch.replay`` (the frames staged, the bucket's graph launched)
+        and ``dispatch.readback`` (the rows' copies and event queued)."""
         if self.dp == 1:
             sh = self._shards[0]
-            return Readback(sh.bucket(sh.params, sh.states, frames, slots, k, variant), len(slots))
+            if tracer is None:
+                return Readback(sh.bucket(sh.params, sh.states, frames, slots, k, variant),
+                                len(slots))
+            t0 = time.monotonic()
+            out = sh.bucket(sh.params, sh.states, frames, slots, k, variant)
+            t1 = time.monotonic()
+            readback = Readback(out, len(slots))
+            tracer.span("dispatch.replay", t0, t1)
+            tracer.span("dispatch.readback", t1, time.monotonic())
+            return readback
         parts, where = [], [None] * len(slots)
         for sh in self._shards:
             mine = [i for i, s in enumerate(slots) if s in sh.slots]
@@ -1523,6 +1597,9 @@ class BatchScheduler:
         with self._has_work:
             first, batch.resolved = not batch.resolved, True
             self._has_work.notify()
+        tracer = self._tracing() if first else None
+        if tracer is not None:
+            tracer.instant("resolve", time.monotonic(), {"step": batch.step})
         return first
 
     def _run(self):
@@ -1536,14 +1613,16 @@ class BatchScheduler:
         self._started.set()
         while True:
             with self._has_work:
-                entries = self._next_entries_locked()
+                got = self._next_entries_locked()
+                entries = None if got is None else got[0]
                 if entries:
                     self._step_lock.acquire()  # lock order: _lock, then _step_lock
+                    t_disp = self._hold("step_lock", got[1])
             if entries is None:
                 break
             if entries:
                 try:
-                    self._dispatch(entries)
+                    self._dispatch(entries, t_disp, self._tracing())
                 finally:
                     self._step_lock.release()
         for q in self._queues:  # drain on stop
@@ -1562,10 +1641,22 @@ class BatchScheduler:
     def _percentile(sorted_vals, frac):
         return sorted_vals[min(len(sorted_vals) - 1, int(len(sorted_vals) * frac))]
 
+    @staticmethod
+    def _hist_percentile(hist: dict, frac: float):
+        """:meth:`_percentile` of the values a histogram {value: count} counts."""
+        total = sum(hist.values())
+        i, seen = min(total - 1, int(total * frac)), 0
+        for v in sorted(hist):
+            seen += hist[v]
+            if seen > i:
+                return v
+        return max(hist)
+
     def snapshot(self) -> dict:
         """/metrics gauges (the JAX scheduler's ``batchsched_*`` names)."""
         with self._stats_lock:
-            occ, waits = sorted(self._occ), sorted(self._waits)
+            waits = sorted(self._waits)
+        occ = self._occ_hist  # replaced whole on each step: a consistent copy
         out = {
             "batchsched_sessions": self.active.count(True),
             "batchsched_max_sessions": self.max_sessions,
@@ -1573,7 +1664,11 @@ class BatchScheduler:
             "batchsched_window_ms": round(1e3 * self.window_s, 3),
             "batchsched_dp": self.dp,
             "batchsched_fbs": self.fbs,
-            "batchsched_occupancy_hist": {str(k): v for k, v in sorted(self._occ_hist.items())},
+            "batchsched_occupancy_hist": {str(k): v for k, v in sorted(occ.items())},
+            # every wait and every step since start (not a window of them)
+            "batchsched_hold_ms_total": {r: round(1e3 * v, 3)
+                                         for r, v in dict(self._hold_s).items()},
+            "batchsched_dispatch_ms_total": round(1e3 * self._dispatch_s, 3),
             "batchsched_graphs": {f"{k}:{v}": done
                                   for (k, v), done in self.graph_status().items()},
         }
@@ -1585,8 +1680,8 @@ class BatchScheduler:
                     hist[str(self._slot_shard(s))] += 1
             out["batchsched_shard_sessions"] = hist
         if occ:
-            out["batchsched_occupancy_p50"] = self._percentile(occ, 0.5)
-            out["batchsched_occupancy_max"] = occ[-1]
+            out["batchsched_occupancy_p50"] = self._hist_percentile(occ, 0.5)
+            out["batchsched_occupancy_max"] = max(occ)
         if self._adapter_rank:
             # the style plane: live sessions on a non-zero bank, swaps so far
             out["adapter_sessions"] = sum(1 for s in list(self._sessions.values())

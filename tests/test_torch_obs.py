@@ -787,11 +787,17 @@ def test_agent_serve_time_bucket_build_breaches_on_all_three_surfaces(monkeypatc
             assert plane.h2d_bytes - h2d == 3 * 64 * 64 * 3
             assert plane.d2h_bytes - d2h == 2 * 64 * 64 * 3
             tr = outs[0].trace
-            names = [n for n, _, _ in tr.spans]
+            names = [n for n, _, _ in tr.spans if "." not in n]  # the stages, not submit.*
             assert names[:6] == ["ingest", "submit", "batch_join", "engine_step", "fetch",
                                  "postprocess"], names
             spans = {n: (t0, t1) for n, t0, t1 in tr.spans}
             assert all(t1 >= t0 for t0, t1 in spans.values())
+            # submit's children, in order, inside it; the frame names its step
+            kids = [n for n, _, _ in tr.spans if n.startswith("submit.")]
+            assert kids == ["submit.coerce", "submit.pin", "submit.copy", "submit.enqueue"]
+            assert all(spans["submit"][0] <= spans[k][0] <= spans[k][1] <= spans["submit"][1]
+                       for k in kids)
+            assert tr.step is not None and tr.to_dict()["step"] == tr.step
             assert spans["batch_join"][1] == spans["engine_step"][0]
             assert spans["engine_step"][1] == spans["fetch"][1] <= spans["postprocess"][0]
             assert any(n.startswith("batch_k") for n, _ in tr.marks)
