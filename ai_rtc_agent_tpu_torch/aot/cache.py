@@ -73,6 +73,7 @@ from .. import __version__
 from ..obs import devtel
 from ..ops.kernels import attention as _attention
 from ..ops.kernels import fused_scheduler as _epilogue
+from ..ops.kernels import norm as _norm
 
 WARMUP_STEPS = 2  # eager runs on a side stream before a capture
 
@@ -137,11 +138,11 @@ def adapter_key_extra(rank: int) -> dict:
     return {"lrank": rank} if rank > 0 else {}
 
 def _launches() -> tuple:
-    return _attention.launches, _epilogue.launches
+    return _attention.launches, _epilogue.launches, _norm.launches
 
 
 def _set_launches(counts: tuple):
-    _attention.launches, _epilogue.launches = counts
+    _attention.launches, _epilogue.launches, _norm.launches = counts
 
 
 class CapturedStep:
@@ -163,6 +164,7 @@ class CapturedStep:
         self._cuda_graph = None
         self.out = None  # the replay's output (the same tensor every replay)
         self.launches = (0, 0)  # (attention, epilogue) launches per replay
+        self.norm_launches = 0  # GroupNorm and LayerNorm kernel launches per replay
         self.capture_s = None
 
     @property
@@ -200,7 +202,8 @@ class CapturedStep:
             if collecting:
                 gc.enable()
         cuda_graph.instantiate()  # keep_graph: the source graph lives as long as this one
-        self.launches = tuple(a - b for a, b in zip(_launches(), before))
+        attn, epi, norm = (a - b for a, b in zip(_launches(), before))
+        self.launches, self.norm_launches = (attn, epi), norm
         _set_launches(before)
         torch.cuda.synchronize(self.device)
         self._cuda_graph, self.out = cuda_graph, out
@@ -217,6 +220,7 @@ class CapturedStep:
         attn, epi = self.launches
         _attention.launches += attn
         _epilogue.launches += epi
+        _norm.launches += self.norm_launches
         return self.out
 
 

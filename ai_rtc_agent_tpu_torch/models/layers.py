@@ -34,6 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.kernels import attention as kattn
+from ..ops.kernels import norm as knorm
 from ..parallel import collectives as C
 from ..parallel import ring_attention as RA
 from . import quant as Q
@@ -157,24 +158,30 @@ def conv2d(p, x, stride: int = 1, padding="SAME"):
     return product(x, p.get("bias"))
 
 
-def group_norm(p, x, groups: int = 32, eps: float = 1e-5):
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def group_norm(p, x, groups: int = 32, eps: float = 1e-5, act=None):
     """GroupNorm over NHWC, f32 statistics; ``groups`` shrinks until it
-    divides the channel count."""
-    n, h, w, c = x.shape
-    g = min(groups, c)
-    while c % g:
-        g -= 1
-    xf = x.float().reshape(n, h * w, g, c // g)
-    var, mean = torch.var_mean(xf, dim=(1, 3), keepdim=True, correction=0)
-    xf = ((xf - mean) * torch.rsqrt(var + eps)).reshape(n, h, w, c)
-    return (xf * p["scale"] + p["bias"]).to(x.dtype)
+    divides the channel count; ``act="silu"`` fuses :func:`silu` after it.
+    The fused kernel (ops/kernels/norm.py; its plain version on a CPU
+    tensor), unless the call needs a gradient, which the kernel does not
+    give: then the plain version, so the trainer's steps are unchanged."""
+    if act not in (None, "silu"):
+        raise ValueError(f"group_norm: act {act!r} is neither None nor 'silu'")
+    fn = silu if act else None
+    if _needs_grad(x, p["scale"], p["bias"]):
+        return knorm.group_norm_plain(x, p["scale"], p["bias"], groups, eps, fn)
+    return knorm.group_norm(x, p["scale"], p["bias"], groups, eps, fn)
 
 
 def layer_norm(p, x, eps: float = 1e-5):
-    xf = x.float()
-    var, mean = torch.var_mean(xf, dim=-1, keepdim=True, correction=0)
-    y = (xf - mean) * torch.rsqrt(var + eps)
-    return (y * p["scale"] + p["bias"]).to(x.dtype)
+    """LayerNorm over the last axis, f32 statistics: the fused kernel, or
+    its plain version as :func:`group_norm` says."""
+    if _needs_grad(x, p["scale"], p["bias"]):
+        return knorm.layer_norm_plain(x, p["scale"], p["bias"], eps)
+    return knorm.layer_norm(x, p["scale"], p["bias"], eps)
 
 
 def silu(x):

@@ -233,11 +233,9 @@ def init_unet(gen, cfg: UNetConfig, device="cpu"):
 
 
 def _resnet(p, x, temb, groups: int = 32):
-    h = group_norm(p["norm1"], x, groups)
-    h = conv2d(p["conv1"], silu(h))
+    h = conv2d(p["conv1"], group_norm(p["norm1"], x, groups, act="silu"))
     h = h + linear(p["time_emb_proj"], silu(temb))[:, None, None, :]
-    h = group_norm(p["norm2"], h, groups)
-    h = conv2d(p["conv2"], silu(h))
+    h = conv2d(p["conv2"], group_norm(p["norm2"], h, groups, act="silu"))
     if "conv_shortcut" in p:
         x = conv2d(p["conv_shortcut"], x)
     return x + h
@@ -346,8 +344,7 @@ def apply_unet(p, x, timesteps, context, cfg: UNetConfig, attn_impl: str = "kern
             if blk["attentions"]:
                 h = _transformer(blk["attentions"][j], h, context, cfg,
                                  cfg.num_heads_per_block[0], attn_impl)
-        h = group_norm(p["conv_norm_out"], h, cfg.norm_groups)
-        return conv2d(p["conv_out"], silu(h))
+        return conv2d(p["conv_out"], group_norm(p["conv_norm_out"], h, cfg.norm_groups, act="silu"))
 
     h = conv2d(p["conv_in"], x)
     skips = [h]
@@ -390,6 +387,5 @@ def apply_unet(p, x, timesteps, context, cfg: UNetConfig, attn_impl: str = "kern
         if blk["upsample"] is not None:
             h = conv2d(blk["upsample"], upsample2x(h))
 
-    h = group_norm(p["conv_norm_out"], h, cfg.norm_groups)
-    out = conv2d(p["conv_out"], silu(h))
+    out = conv2d(p["conv_out"], group_norm(p["conv_norm_out"], h, cfg.norm_groups, act="silu"))
     return (out, deep_h) if deep_cache == "capture" else out

@@ -6,8 +6,8 @@
 Phases (each prints its own lines; any failure exits non-zero):
   1. device   — needs torch.cuda; prints nvidia-smi's name and power limit;
                 sets and prints the TF32 switches (both off).
-  2. build    — compiles both CUDA kernels from this checkout's sources
-                into build/, one nvcc each, in parallel.
+  2. build    — compiles the three CUDA kernel libraries from this
+                checkout's sources into build/, one nvcc each, in parallel.
   3. kernels  — each kernel against its plain PyTorch version on the card
                 at the main path's shapes and at the attention tiling's
                 edges, with the tolerance stated; kernel / plain / library /
@@ -26,6 +26,13 @@ Phases (each prints its own lines; any failure exits non-zero):
                 and B=32 on two main-path shapes.  Attention captured in a
                 CUDA graph and replayed on new inputs at every main-path
                 shape and at B=8 and 32.
+                The fused norms (GroupNorm(+SiLU), LayerNorm) at every norm
+                call of one SD1.5/SD2.1 UNet pass at 1, 4 and 16 rows and at
+                the tiny families' odd channels, bf16 and f32 parameters,
+                against their plain versions (two launches bit for bit, a
+                graph replay equal to eager, an input off 16-byte alignment),
+                timed per pass beside F.group_norm / F.layer_norm and the
+                byte bound.
   4. main     — the default serving path, StreamDiffusionPipeline(
                 "stabilityai/sd-turbo") at 512x512 in bf16 with random
                 weights from a seed, its step captured as one CUDA graph at
@@ -377,7 +384,7 @@ Phases (each prints its own lines; any failure exits non-zero):
  19. preflight — the port's deploy CLIs (assets/, utils/golden.py), run last.
                 19a: assets.build_engines.main(["--model-id",
                 "stabilityai/sd-turbo", "--peers", "2", "--sched-buckets",
-                "2"]): both kernel libraries built, every key (the engine's,
+                "2"]): every kernel library built, every key (the engine's,
                 --multipeer 2's buckets, the scheduler's buckets 1 and 2)
                 captured and its replay = its eager step bit for bit, each
                 printed with its capture seconds, then its bundle and graphs
@@ -610,6 +617,7 @@ def epilogue_work(args, kwargs):
 def phase_build(torch):
     from ai_rtc_agent_tpu_torch.ops.kernels import attention as KA
     from ai_rtc_agent_tpu_torch.ops.kernels import fused_scheduler as KF
+    from ai_rtc_agent_tpu_torch.ops.kernels import norm as KN
 
     def timed(load):
         t = time.perf_counter()
@@ -617,12 +625,12 @@ def phase_build(torch):
         return time.perf_counter() - t
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:  # one nvcc each, in parallel
-        fa, fe = pool.submit(timed, KA.load), pool.submit(timed, KF.load)
-        ta, te = fa.result(), fe.result()
+    with ThreadPoolExecutor(3) as pool:  # one nvcc each, in parallel
+        fa, fe, fn = (pool.submit(timed, mod.load) for mod in (KA, KF, KN))
+        ta, te, tn = fa.result(), fe.result(), fn.result()
     say(
         f"build: flash_attention (nvcc) {ta:.1f}s, fused_stream_epilogue (nvcc) "
-        f"{te:.1f}s, wall {time.perf_counter() - t0:.1f}s"
+        f"{te:.1f}s, fused_norm (nvcc) {tn:.1f}s, wall {time.perf_counter() - t0:.1f}s"
     )
     plans = [(d, lq, KA.key_tile(d, lq), KA.registers(d, lq)) for d, lq in INSTANTIATIONS]
     say("flash_attention instantiations (D, Lq: key tile, launch registers per thread): " + ", ".join(
@@ -947,6 +955,245 @@ def phase_session_epilogue(torch, KF) -> float:
     return max_err
 
 
+# the rows of one UNet pass that phase 3's norm timing runs at: sd-turbo's
+# bucket of 1 (live4's k=1), the ring's single session (4 rows) and the
+# ring's full bucket of 4 sessions (sat4's 16 UNet rows)
+NORM_ROWS = (1, 4, 16)
+# checked too, off the main path: the tiny families' odd channel counts, a
+# group count shrunk until it divides C, CLIP's LayerNorm widths
+NORM_EXTRA = [("group", (2, 5, 6, 7), 32), ("group", (2, 9, 11, 12), 8),
+              ("group", (1, 8, 8, 24), 4), ("group", (3, 4, 4, 16), 4),
+              ("layer", (154, 768)), ("layer", (154, 1024)), ("layer", (257, 1280)),
+              ("layer", (21, 24)), ("layer", (9, 7))]
+
+
+def norm_launches_per_pass(ucfg) -> int:
+    """Fused-norm kernel launches of one full UNet pass: two a GroupNorm
+    (each resnet's two, each transformer's one, conv_norm_out's), one a
+    LayerNorm (three a transformer block): 61 x 2 + 48 = 170 for SD1.5 and
+    SD2.1."""
+    nb, lpb = len(ucfg.block_out_channels), ucfg.layers_per_block
+    resnets = nb * lpb + 2 + nb * (lpb + 1)
+    transformers = sum(2 * lpb + 1 for a in ucfg.attn_blocks if a) + 1
+    blocks = sum(d * (2 * lpb + 1)
+                 for d, a in zip(ucfg.transformer_layers_per_block, ucfg.attn_blocks) if a)
+    blocks += ucfg.transformer_layers_per_block[-1]
+    return 2 * (2 * resnets + transformers + 1) + 3 * blocks
+
+
+def norms_per_step(ucfg, attention: int) -> int:
+    """Fused-norm launches of a step that launches ``attention`` attention
+    kernels: one UNet pass per attention_per_pass(ucfg) of them."""
+    return attention // attention_per_pass(ucfg, False) * norm_launches_per_pass(ucfg)
+
+
+def unet_norm_calls(torch, ucfg, n: int, hw: int = 64) -> list:
+    """Every norm call of one UNet pass over ``n`` rows of hw x hw latents, in
+    call order: ("group", (n, h, w, c), groups, act) or ("layer", (rows,
+    c)).  Recorded from the pass itself, run on the meta device (shapes
+    only) with the two norms replaced by recorders."""
+    from ai_rtc_agent_tpu_torch.models import unet as U
+
+    calls = []
+
+    def group_norm(p, x, groups=32, eps=1e-5, act=None):
+        calls.append(("group", tuple(x.shape), groups, act))
+        return torch.empty_like(x)
+
+    def layer_norm(p, x, eps=1e-5):
+        calls.append(("layer", (x.numel() // x.shape[-1], x.shape[-1])))
+        return torch.empty_like(x)
+
+    meta = torch.device("meta")
+    params = U.init_unet(None, ucfg, meta)
+    added = None
+    if ucfg.addition_embed_type == "text_time":
+        added = {"time_ids": torch.zeros((n, ucfg.addition_num_time_ids), device=meta),
+                 "text_embeds": torch.zeros((n, ucfg.addition_pooled_dim), device=meta)}
+    saved = U.group_norm, U.layer_norm
+    U.group_norm, U.layer_norm = group_norm, layer_norm
+    try:
+        U.apply_unet(params, torch.zeros((n, hw, hw, ucfg.in_channels), device=meta),
+                     torch.zeros((n,), device=meta),
+                     torch.zeros((n, 77, ucfg.cross_attention_dim), device=meta), ucfg,
+                     attn_impl="plain", added_cond=added)
+    finally:
+        U.group_norm, U.layer_norm = saved
+    return calls
+
+
+def norm_case(torch, KN, call, gen, dtype):
+    """(kernel, plain, library, pre) thunks of one norm call on the card,
+    its inputs drawn from ``gen`` in ``dtype``: x ~ 3 N(0, 1) + 1, scale ~
+    1 + N(0, 0.1^2), bias ~ N(0, 0.1^2).  ``pre``: the plain GroupNorm
+    without its SiLU (None for a LayerNorm)."""
+    import torch.nn.functional as F
+
+    from ai_rtc_agent_tpu_torch.models.layers import silu as layers_silu
+
+    shape = call[1]
+    c = shape[-1]
+    x = (3 * torch.randn(shape, generator=gen, device="cuda") + 1).to(dtype)
+    scale = (1 + 0.1 * torch.randn(c, generator=gen, device="cuda")).to(dtype)
+    bias = (0.1 * torch.randn(c, generator=gen, device="cuda")).to(dtype)
+    if call[0] == "layer":
+        return (lambda: KN.layer_norm(x, scale, bias), lambda: KN.layer_norm_plain(x, scale, bias),
+                lambda: F.layer_norm(x, (c,), scale, bias), None)
+    groups, act = call[2], (call[3] if len(call) > 3 else None)
+    fn = layers_silu if act == "silu" else None
+    x_nchw = x.permute(0, 3, 1, 2)  # the NHWC tensor as channels_last NCHW
+
+    def library():
+        y = F.group_norm(x_nchw, KN.num_groups(c, groups), scale, bias)
+        return F.silu(y) if fn else y
+
+    return (lambda: KN.group_norm(x, scale, bias, groups, silu=fn),
+            lambda: KN.group_norm_plain(x, scale, bias, groups, silu=fn), library,
+            lambda: KN.group_norm_plain(x, scale, bias, groups))
+
+
+def norm_check(torch, KN, tolerance, call, gen, dtype) -> dict:
+    """One norm call's kernel against its plain version (tolerance.norm_error),
+    with ``same``: two launches gave the same bits, and ``launched``: the
+    launches the two calls counted."""
+    kernel, plain, _, pre = norm_case(torch, KN, call, gen, dtype)
+    before = KN.launches
+    got, again = kernel(), kernel()
+    launched = KN.launches - before
+    want = plain()
+    silu = len(call) > 3 and call[3] == "silu"
+    err = tolerance.norm_error(got, want, want if pre is None else pre(), silu)
+    return dict(err, same=torch.equal(got, again), launched=launched)
+
+
+def norm_off_alignment(torch, KN, tolerance, gen) -> list:
+    """norm_error dicts of a GroupNorm (with and without SiLU) and a LayerNorm
+    whose x sits one element off 16-byte alignment at a vector shape (the
+    scalar path), against the plain versions of the aligned x."""
+    from ai_rtc_agent_tpu_torch.models.layers import silu
+
+    x = torch.randn((2, 16, 16, 320), generator=gen, device="cuda").to(torch.bfloat16)
+    xo = torch.empty(x.numel() + 1, dtype=x.dtype, device="cuda")[1:].view(x.shape).copy_(x)
+    if not (xo.data_ptr() % 16 and x.data_ptr() % 16 == 0):
+        fail("norm_off_alignment: the offset copy is aligned")
+    scale, bias = (torch.randn(320, generator=gen, device="cuda").to(x.dtype) for _ in range(2))
+    errs = [tolerance.norm_error(KN.group_norm(xo, scale, bias, silu=fn),
+                                 KN.group_norm_plain(x, scale, bias, silu=fn),
+                                 KN.group_norm_plain(x, scale, bias), fn is not None)
+            for fn in (None, silu)]
+    rows = x.reshape(-1, 320)
+    want = KN.layer_norm_plain(rows, scale, bias)
+    return errs + [tolerance.norm_error(KN.layer_norm(xo.reshape(-1, 320), scale, bias), want, want)]
+
+
+def norm_graph_replay(torch, KN, gen) -> bool:
+    """A GroupNorm+SiLU and a LayerNorm captured into one CUDA graph, replayed
+    twice on new inputs written in place: True if each replay gives the
+    eager launches' bits."""
+    from ai_rtc_agent_tpu_torch.models.layers import silu
+
+    xg = torch.randn((4, 32, 32, 640), generator=gen, device="cuda").to(torch.bfloat16)
+    xl = torch.randn((4, 1024, 640), generator=gen, device="cuda").to(torch.bfloat16)
+    p = [(1 + 0.1 * torch.randn(640, generator=gen, device="cuda")).to(torch.bfloat16)
+         for _ in range(2)]
+    KN.group_norm(xg, *p, silu=silu)
+    KN.layer_norm(xl, *p)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        yg = KN.group_norm(xg, *p, silu=silu)
+        yl = KN.layer_norm(xl, *p)
+    same = True
+    for _ in range(2):
+        xg.copy_(3 * torch.randn(xg.shape, generator=gen, device="cuda") + 1)
+        xl.copy_(torch.randn(xl.shape, generator=gen, device="cuda"))
+        graph.replay()
+        torch.cuda.synchronize()
+        same &= torch.equal(yg, KN.group_norm(xg, *p, silu=silu))
+        same &= torch.equal(yl, KN.layer_norm(xl, *p))
+    return bool(same)
+
+
+def norm_bytes(call, dtype_bytes: int) -> int:
+    """Bytes one norm call needs: x read once and y written once (the
+    parameters are ~C elements, left out)."""
+    return 2 * math.prod(call[1]) * dtype_bytes
+
+
+def phase_norm(torch):
+    """Phase 3's norms: the fused GroupNorm(+SiLU) and LayerNorm kernels
+    against their plain versions at every norm call of one SD1.5/SD2.1 UNet
+    pass (the two share their norm shapes) at NORM_ROWS rows in bf16 (the
+    parameters too, as cast_params leaves them), and at NORM_EXTRA in bf16
+    and f32; two launches bit for bit; an input off 16-byte alignment; one
+    CUDA graph replay.  Timed per pass: kernel, plain, library
+    (F.group_norm(+F.silu) / F.layer_norm, which the port never calls) and
+    the byte bound, inputs L2-warm.  -> the largest error against the plain
+    versions (``max_abs_err``) and the per-pass times at 16 rows."""
+    from ai_rtc_agent_tpu_torch.models.unet import UNetConfig
+    from ai_rtc_agent_tpu_torch.ops.kernels import norm as KN
+    from ai_rtc_agent_tpu_torch.ops.kernels import tolerance
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    ucfg = UNetConfig.sd15()
+    per_pass = norm_launches_per_pass(ucfg)
+    bf16 = torch.bfloat16
+
+    max_err = 0.0
+
+    def check(call, dtype, label):
+        nonlocal max_err
+        e = norm_check(torch, KN, tolerance, call, gen, dtype)
+        if not (e["ok"] and e["same"]):
+            fail(f"{label}: {e}")
+        max_err = max(max_err, e["max_abs"])
+        return e
+
+    out = {}
+    for n in NORM_ROWS:
+        calls = unet_norm_calls(torch, ucfg, n)
+        launched = sum(2 if c[0] == "group" else 1 for c in calls)
+        if launched != per_pass:
+            fail(f"norms at {n} rows: the pass records {launched} launches, the config {per_pass}")
+        totals = dict.fromkeys(("ms", "plain_ms", "library_ms", "bound_ms"), 0.0)
+        distinct = {}
+        for c in calls:
+            distinct[c] = distinct.get(c, 0) + 1
+        for call, times in distinct.items():
+            label = f"norm {call[0]} {call[1:]} bf16"
+            err = check(call, bf16, label)
+            kernel, plain, library, _ = norm_case(torch, KN, call, gen, bf16)
+            ms = time_ms(torch, kernel, 50)
+            pms = time_ms(torch, plain, 10)
+            lms = time_ms(torch, library, 50)
+            bms = norm_bytes(call, 2) / PEAK_BYTES * 1e3
+            say(f"{label} x{times}/pass: max_abs_err {err['max_abs']:.3e} "
+                f"(tol {err['rel']:.4g} rel) | kernel {ms:.5f} ms ({bms / ms * 100:.1f}% of "
+                f"the byte bound {bms:.5f} ms), plain {pms:.4f} ms, library {lms:.5f} ms")
+            for key, v in (("ms", ms), ("plain_ms", pms), ("library_ms", lms), ("bound_ms", bms)):
+                totals[key] += times * v
+        say(f"norms of one UNet pass at {n} rows ({len(calls)} calls, {per_pass} launches): kernel "
+            f"{totals['ms']:.4f} ms, plain {totals['plain_ms']:.4f} ms, library "
+            f"{totals['library_ms']:.4f} ms, bound {totals['bound_ms']:.4f} ms (bytes; "
+            f"{totals['bound_ms'] / totals['ms'] * 100:.1f}%)")
+        out[n] = totals
+    for call in NORM_EXTRA:
+        for dtype in (bf16, torch.float32):
+            check(call, dtype, f"norm {call[0]} {call[1:]} {dtype}")
+        say(f"norm {call[0]} {call[1:]} bf16 and f32 ok")
+    for e in norm_off_alignment(torch, KN, tolerance, gen):
+        if not e["ok"]:
+            fail(f"norms off 16-byte alignment: over tolerance {e}")
+        max_err = max(max_err, e["max_abs"])
+    if not norm_graph_replay(torch, KN, gen):
+        fail("norms: the graph replay differs from the eager launches")
+    kernel = norm_case(torch, KN, ("group", (1, 64, 64, 320), 32, "silu"), gen, bf16)[0]
+    host_us, held = host_us_per_call(torch, kernel, calls=200)
+    say(f"norms: off alignment and graph replay ok; GroupNorm wrapper host {host_us:.2f} us a call"
+        + ("" if held else " (the device woke first: not the host's time alone)"))
+    return {"max_abs_err": max_err, **out[NORM_ROWS[-1]], "bound_by": "bytes"}
+
+
 def _frames(np, n: int, seed: int = 0, size: int = 512):
     """Structured size x size frames (gradients + a moving disc + mild noise)."""
     rng = np.random.default_rng(seed)
@@ -1050,13 +1297,16 @@ def phase_main(torch, card: str):
     if not step.captured or step.launches != (32, 1):
         fail(f"main: the captured step records {step.launches} (attention, epilogue) launches "
              "per replay, want (32, 1)")
+    norms = norm_launches_per_pass(pipe.bundle.unet_cfg)
+    if step.norm_launches != norms:
+        fail(f"main: the captured step records {step.norm_launches} fused-norm launches per "
+             f"replay, want {norms}")
     frames = _frames(np, 24)
     for f in frames[:3]:  # warm-up
         pipe(f)
     torch.cuda.synchronize()
 
-    KA.launches = 0
-    KF.launches = 0
+    _reset_launches()
     outs = []
     t = time.perf_counter()
     for f in frames[3:13]:
@@ -1071,6 +1321,8 @@ def phase_main(torch, card: str):
     while pending:
         outs.append(pipe.fetch(pending.pop(0)))
     inflight_ms = (time.perf_counter() - t) * 1e3 / 10
+    # the 20 steps so far (the prompt's text encoder below runs LayerNorms too)
+    norm_launches = _count_norms("main", 20, norms)
     pipe.update_prompt("a watercolor painting of a harbor at dawn")
     outs.append(pipe(frames[23]))
     steps = 21
@@ -1110,7 +1362,7 @@ def phase_main(torch, card: str):
     }
     step_vs_f32(torch, "main", engines, tree_map(lambda a: a.clone(), pipe.engine.state),
                 torch.from_numpy(frames[5]).cuda())
-    return pipe, ref_bundle, attn_launches, epi_launches
+    return pipe, ref_bundle, attn_launches, epi_launches, norm_launches
 
 
 GRAPH_ROUNDS = 8  # phase 4's interleaved rounds, graph and eager in turns
@@ -1459,8 +1711,22 @@ def _launches():
 def _reset_launches():
     from ai_rtc_agent_tpu_torch.ops.kernels import attention as KA
     from ai_rtc_agent_tpu_torch.ops.kernels import fused_scheduler as KF
+    from ai_rtc_agent_tpu_torch.ops.kernels import norm as KN
 
-    KA.launches = KF.launches = 0
+    KA.launches = KF.launches = KN.launches = 0
+
+
+def _count_norms(label: str, steps: int, per_step: int) -> int:
+    """The fused-norm launches since the last :func:`_reset_launches`, which
+    must be ``per_step`` a step over ``steps`` steps: every norm of the
+    counted steps went through the kernels.  -> the launches."""
+    from ai_rtc_agent_tpu_torch.ops.kernels import norm as KN
+
+    n = KN.launches
+    say(f"{label}: fused-norm launches over {steps} steps: {n} ({per_step} a step)")
+    if n != per_step * steps:
+        fail(f"{label}: expected {per_step * steps} fused-norm launches")
+    return n
 
 
 def _memory(torch, cuda: bool) -> tuple:
@@ -1609,7 +1875,8 @@ def phase_sessions(torch, card: str, pipe, ref_bundle, ring_model="stabilityai/s
                    occupancy=SCHED_OCCUPANCY, n=SCHED_FRAMES):
     """6a: the batch scheduler over phase 4's pipeline (8 slots); 6b: the
     4-stage LCM ring; 6c: --multipeer's pipeline with 2 peers.  -> the
-    attention and epilogue launches of the scheduler and peer steps."""
+    attention, epilogue and fused-norm launches of the scheduler and peer
+    steps."""
     import numpy as np
 
     from ai_rtc_agent_tpu_torch.parallel.multipeer import CapacityError
@@ -1619,15 +1886,18 @@ def phase_sessions(torch, card: str, pipe, ref_bundle, ring_model="stabilityai/s
 
     dev = pipe.device
     b = pipe.bundle
-    total = [0, 0]
+    total = [0, 0, 0]
+    norms = norm_launches_per_pass(b.unet_cfg)  # sd-turbo's and SD2.1's UNet pass alike
 
     def count(before, steps, label):
+        """Since a _reset_launches() just before ``before``: one UNet pass a step."""
         a, e = (x - y for x, y in zip(_launches(), before))
         say(f"{label}: launches over {steps} steps: attention {a}, epilogue {e}")
         if a != 32 * steps or e != steps:
             fail(f"{label}: expected {32 * steps} attention and {steps} epilogue launches")
         total[0] += a
         total[1] += e
+        total[2] += _count_norms(label, steps, norms)
 
     # -- 6a: sd-turbo sessions ---------------------------------------------------------
     # the graph scheduler (every bucket captured at startup, in one pool)
@@ -3009,7 +3279,10 @@ class ObsRun:
 
         for _ in range(self.k):
             self.pairs.append(await open_loopback_session(state))
-        frames = [_frames(np, OBS_FRAMES, seed=seed + i, size=size) for i in range(self.k)]
+        # made off the loop: a loop blocked for a second reads as loop lag to
+        # the overload plane, which then refuses the next session
+        frames = await asyncio.to_thread(
+            lambda: [_frames(np, OBS_FRAMES, seed=seed + i, size=size) for i in range(self.k)])
         self.t0 = time.perf_counter()
         got = await asyncio.gather(*[
             exchange(pc, viewer, fr + fr[-1:] * (depth - 1), 0, OBS_FRAMES, on_view=seal)
@@ -3581,18 +3854,22 @@ async def fleet_run(torch, card, pipe, ref_bundle):
     try:
         # -- 10a: live migration ------------------------------------------------
         t = time.perf_counter()
-        A = await agent("A", scheduler())
-        B = await agent("B", scheduler())
-        schedA, schedB = A["batch_scheduler"], B["batch_scheduler"]
+        # the schedulers (each captures its buckets) before the agents start,
+        # and the work after it off the loop, as the inputs above
+        ready = [scheduler(), scheduler()]  # handed over, so 10c can free B's
         ref_sched = scheduler()  # the references: rows restored from the same snapshots
         ref_sched.claim("filler", prompt=SESSION_PROMPTS[1], seed=500)
+        A = await agent("A", ready.pop(0))
+        B = await agent("B", ready.pop(0))
+        schedA, schedB = A["batch_scheduler"], B["batch_scheduler"]
         say(f"fleet: two agents up in {time.perf_counter() - t:.2f} s, buckets captured (s) "
             f"A {capture_seconds(schedA)}, B {capture_seconds(schedB)}")
         before, s0 = _launches(), steps()
-        res = schedB.claim("resident", prompt=SESSION_PROMPTS[1], seed=500)
+        res = await asyncio.to_thread(schedB.claim, "resident", prompt=SESSION_PROMPTS[1],
+                                      seed=500)
         res_row = session_row(schedB.states, res.slot)
-        res_ded = Dedicated(torch, eng.models, eng.params, pipe.config, eng.encode_prompt,
-                            ref_bundle, res_row, dev)
+        res_ded = await asyncio.to_thread(Dedicated, torch, eng.models, eng.params, pipe.config,
+                                          eng.encode_prompt, ref_bundle, res_row, dev)
         res_out = await asyncio.to_thread(lambda: [res(f) for f in res_frames[:RESIDENT_FRAMES]])
         await poll()
         sid, h, pub = await publisher()
@@ -3771,7 +4048,7 @@ async def fleet_run(torch, card, pipe, ref_bundle):
             torch.cuda.empty_cache()
         mem1 = _memory(torch, dev.type == "cuda")
         t_start = time.perf_counter()
-        sched2 = scheduler()
+        sched2 = await asyncio.to_thread(scheduler)  # agent A serves on the loop meanwhile
         t_captured = time.perf_counter()
         restores = []
         _timed(sched2, "restore_session", restores)
@@ -4583,7 +4860,8 @@ def phase_sd15(torch, card: str) -> tuple:
     fused LCM-LoRA (12a), the ring on the captured bucket steps at k = 1, 2
     and 4 (12b), full CFG, sequential mode and txt2img (12c), the safety
     checker on the served path (12d), attention at SD1.5's shapes (12e).
-    -> the attention and epilogue launches of 12b and 12c's steps."""
+    -> the attention and epilogue launches of 12b and 12c's steps, and the
+    fused-norm launches of 12b and 12c's ring, full and sequential steps."""
     import shutil
 
     import numpy as np
@@ -4596,7 +4874,7 @@ def phase_sd15(torch, card: str) -> tuple:
     shutil.rmtree(SD15_HUB, ignore_errors=True)
     os.environ["HF_HUB_CACHE"] = str(SD15_HUB)
     snap = SD15_HUB / f"models--{SD15_ID.replace('/', '--')}" / "snapshots" / "phase12"
-    total = [0, 0]
+    total = [0, 0, 0]
     try:
         # -- 12a: the snapshot, the LoRAs, the load ---------------------------------------
         t = time.perf_counter()
@@ -4631,12 +4909,10 @@ def phase_sd15(torch, card: str) -> tuple:
             f"{n32} leaves = seeded + the f32 fusion ({targets} LoRA pairs) bit for bit, proj_in "
             f"{tuple(proj.shape)} (a 1x1 conv) | the served pipeline (load, fuse, one bf16 cast, "
             f"capture) in {pipe_s:.1f}s: {n16} leaves = the same, cast once, bit for bit")
-        attn, epi = phase_sd15_ring(torch, np, card, pipe, ref)
-        total[0] += attn
-        total[1] += epi
-        attn, epi = phase_sd15_modes(torch, np, card, pipe, ref)
-        total[0] += attn
-        total[1] += epi
+        for counted in (phase_sd15_ring(torch, np, card, pipe, ref),
+                        phase_sd15_modes(torch, np, card, pipe, ref)):
+            for i, x in enumerate(counted):
+                total[i] += x
         del ref, pipe
         attn, epi = phase_sd15_served(torch, np, card)
         total[0] += attn
@@ -4660,7 +4936,7 @@ def _count(label: str, before: tuple, steps: int, per_step: tuple) -> tuple:
 
 def sd15_run(torch, np, label: str, card: str, sched, sess, frames, make_ded, per_step: tuple,
              what: str, n: int = SD15_FRAMES, fill: int = SD15_FILL, parity: int = SD15_PARITY,
-             trace_frames: int = SD15_TRACE_FRAMES) -> tuple:
+             trace_frames: int = SD15_TRACE_FRAMES, norms: int | None = None) -> tuple:
     """One run of ``sess`` through ``sched``'s captured bucket steps: a replay
     against the eager step, then ``n`` frames a session with the launches
     counted (``per_step`` (attention, epilogue) a bucket step), each
@@ -4668,7 +4944,9 @@ def sd15_run(torch, np, label: str, card: str, sched, sess, frames, make_ded, pe
     ``make_ded(row)``, the steady window past each session's first ``fill``
     outputs on the host clock, and a device-only trace of ``trace_frames``
     frames a session whose kernels must be ``per_step`` a bucket step too.
-    (Phase 16 passes SDXL's smaller counts.)  -> the launches counted."""
+    (Phase 16 passes SDXL's smaller counts.)  ``norms``: the fused-norm
+    launches a bucket step, held where given.  -> the (attention, epilogue,
+    fused-norm) launches counted."""
     dev = sched.device
     rows = [session_row(sched.states, s.slot) for s in sess]
     eq = replay_equals_eager(torch, np, label, sched, np.stack([f[0] for f in frames[:len(sess)]]),
@@ -4677,7 +4955,12 @@ def sd15_run(torch, np, label: str, card: str, sched, sess, frames, make_ded, pe
     _reset_launches()
     steps0, before = sched.steps_total, _launches()
     run = drive_sessions(torch, sess, frames, n)
-    counted = _count(label, before, sched.steps_total - steps0, per_step)
+    steps = sched.steps_total - steps0
+    counted = _count(label, before, steps, per_step)
+    if norms is not None:
+        counted += (_count_norms(label, steps, norms),)
+    else:
+        counted += (0,)
     held = []
     for i, s in enumerate(sess):
         ded = make_ded(rows[i])
@@ -4719,7 +5002,8 @@ def phase_sd15_ring(torch, np, card: str, pipe, ref) -> tuple:
         f"in {time.perf_counter() - t:.1f}s")
     frames = [_frames(np, SD15_FRAMES, seed=120 + i, size=cfg.height)
               for i in range(max(SD15_RING_K))]
-    total = [0, 0]
+    norms = norms_per_step(b.unet_cfg, MODE_LAUNCHES["ring"][0])
+    total = [0, 0, 0]
     try:
         for k in SD15_RING_K:
             sess = [sched.claim(f"sd15-{k}-{i}", prompt=SESSION_PROMPTS[i], seed=300 + i)
@@ -4728,7 +5012,8 @@ def phase_sd15_ring(torch, np, card: str, pipe, ref) -> tuple:
                 torch, np, f"sd15 12b k={k}", card, sched, sess, frames,
                 lambda row: Dedicated(torch, b.stream_models, b.params, cfg, b.encode_prompt, ref,
                                       row, dev),
-                MODE_LAUNCHES["ring"], f"{k * cfg.batch_size} UNet rows a bucket step")
+                MODE_LAUNCHES["ring"], f"{k * cfg.batch_size} UNet rows a bucket step",
+                norms=norms)
             for i, x in enumerate(counted):
                 total[i] += x
             for s in sess:
@@ -4745,7 +5030,7 @@ def phase_sd15_modes(torch, np, card: str, pipe, ref) -> tuple:
     from ai_rtc_agent_tpu_torch.stream.scheduler import BatchScheduler
 
     eng, dev = pipe.engine, pipe.device
-    total = [0, 0]
+    total = [0, 0, 0]
     for mode, overrides in (("full", dict(cfg_type="full")),
                             ("sequential", dict(use_denoising_batch=False))):
         cfg = replace(pipe.config, **overrides)
@@ -4767,7 +5052,8 @@ def phase_sd15_modes(torch, np, card: str, pipe, ref) -> tuple:
                     torch, np, f"sd15 12c {mode} k={k}", card, sched, sess, frames,
                     lambda row: Dedicated(torch, eng.models, eng.params, cfg, eng.encode_prompt,
                                           ref, row, dev),
-                    MODE_LAUNCHES[mode], f"{k} session(s)")
+                    MODE_LAUNCHES[mode], f"{k} session(s)",
+                    norms=norms_per_step(pipe.bundle.unet_cfg, MODE_LAUNCHES[mode][0]))
                 for i, x in enumerate(counted):
                     total[i] += x
                 for s in sess:
@@ -7693,10 +7979,11 @@ def main():
     phase_build(torch)
     attn = phase_attention(torch)
     epi = phase_epilogue(torch)
-    pipe, ref_bundle, attn_launches, epi_launches = phase_main(torch, card)
+    norm = phase_norm(torch)
+    pipe, ref_bundle, attn_launches, epi_launches, norm_launches = phase_main(torch, card)
     phase_graph_ab(torch, card, pipe, ref_bundle)
     serve_attn, serve_epi, serve_fps = phase_serve(torch, card, pipe)
-    sessions_attn, sessions_epi = phase_sessions(torch, card, pipe, ref_bundle)
+    sessions_attn, sessions_epi, sessions_norm = phase_sessions(torch, card, pipe, ref_bundle)
     faults_attn, faults_epi = phase_faults(torch, card, pipe, ref_bundle)
     native_attn, native_epi = phase_native(torch, card, pipe, serve_fps)
     obs_attn, obs_epi = phase_obs(torch, card, pipe)
@@ -7705,7 +7992,7 @@ def main():
     adapters_attn, adapters_epi = phase_adapters(torch, card, pipe, ref_bundle)
     mesh_attn, mesh_epi = phase_mesh(torch, card, pipe, ref_bundle)
     del pipe, ref_bundle
-    sd15_attn, sd15_epi = phase_sd15(torch, card)
+    sd15_attn, sd15_epi, sd15_norm = phase_sd15(torch, card)
     variants_attn, variants_epi = phase_variants(torch, card)
     cnet_attn, cnet_epi = phase_controlnet(torch, card)
     sdxl_attn, sdxl_epi = phase_sdxl(torch, card)
@@ -7729,6 +8016,13 @@ def main():
             "source": "ai_rtc_agent_tpu_torch/csrc/fused_stream_epilogue.cu",
             "replaces": "ai_rtc_agent_tpu/ops/pallas/fused_scheduler.py:81",
             "launches": epi_launches, **epi,
+        },
+        {
+            "name": "fused_norm", "route": "cuda",
+            "source": "ai_rtc_agent_tpu_torch/csrc/fused_norm.cu",
+            "replaces": None,  # plain XLA in the JAX package (models/layers.py:115, :129)
+            # the main paths' counted steps: phase 4's, 6's and 12b/12c's
+            "launches": norm_launches + sessions_norm + sd15_norm, **norm,
         },
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -125,7 +125,7 @@ def main() -> int:
     cs.phase_build(torch)
     pipe = ref_bundle = fps = None
     if ON_THE_PIPELINE & set(phases):
-        pipe, ref_bundle, _, _ = cs.phase_main(torch, card)
+        pipe, ref_bundle, *_ = cs.phase_main(torch, card)
     if "native" in phases:
         _, _, fps = cs.phase_serve(torch, card, pipe)
     run = {

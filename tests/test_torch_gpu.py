@@ -24,6 +24,7 @@ from ai_rtc_agent_tpu_torch.ops import lcm as PL
 from ai_rtc_agent_tpu_torch.ops import schedule as PS
 from ai_rtc_agent_tpu_torch.ops.kernels import attention as KA
 from ai_rtc_agent_tpu_torch.ops.kernels import fused_scheduler as KF
+from ai_rtc_agent_tpu_torch.ops.kernels import norm as KN
 from ai_rtc_agent_tpu_torch.ops.kernels import tolerance
 from ai_rtc_agent_tpu_torch.server import sessions
 from ai_rtc_agent_tpu_torch.server.signaling import LoopbackProvider
@@ -210,6 +211,80 @@ def test_epilogue_launch_replays_in_a_cuda_graph(cuda, cfg_type, turbo, b, fbs):
     and the replay, from the call's starting state, matches the plain version."""
     args, kwargs = _chain_call(cuda, torch.bfloat16, cfg_type, turbo, b, fbs, (64, 64, 4), 0)
     _assert_close(*chip_smoke.epilogue_graph_replay(torch, KF, args, kwargs))
+
+
+# -- the fused norms ------------------------------------------------------------------------
+
+# (kind, shape, groups, act) at the main path's shapes: SD1.5/SD2.1 GroupNorm at 64^2, 32^2,
+# 16^2 and 8^2 latents with C from 320 to 2560 and N from 1 to 16, LayerNorm at the
+# transformers' 320/640/1280 and CLIP's 768/1024
+NORM_MAIN = [("group", (1, 64, 64, 320), 32, "silu"), ("group", (16, 64, 64, 320), 32, None),
+             ("group", (4, 64, 64, 960), 32, "silu"), ("group", (2, 64, 64, 640), 32, "silu"),
+             ("group", (16, 32, 32, 640), 32, "silu"), ("group", (4, 32, 32, 1920), 32, "silu"),
+             ("group", (1, 32, 32, 1280), 32, None), ("group", (16, 16, 16, 1280), 32, "silu"),
+             ("group", (4, 16, 16, 2560), 32, "silu"), ("group", (16, 8, 8, 2560), 32, "silu"),
+             ("group", (1, 8, 8, 1280), 32, None),
+             ("layer", (16 * 4096, 320)), ("layer", (4 * 1024, 640)), ("layer", (16 * 256, 1280)),
+             ("layer", (64, 1280)), ("layer", (2 * 77, 768)), ("layer", (77, 1024))]
+
+
+def _norm_check(cuda, call, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    err = chip_smoke.norm_check(torch, KN, tolerance, call, gen, dtype)
+    assert err["ok"], err
+    assert err["same"]  # deterministic: no float atomics
+    assert err["launched"] == (4 if call[0] == "group" else 2)
+
+
+@pytest.mark.parametrize("call", NORM_MAIN, ids=str)
+def test_norm_kernels_match_plain_at_the_main_path_s_shapes(cuda, call):
+    """bf16 activations and parameters (as cast_params leaves them): the
+    kernel within tolerance.norm_error of its plain version, two launches
+    bit for bit."""
+    _norm_check(cuda, call, torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("call", chip_smoke.NORM_EXTRA, ids=str)
+def test_norm_kernels_match_plain_at_odd_channels_and_wide_rows(cuda, call, dtype):
+    """The tiny families' odd channel counts and shrunk groups (the scalar
+    path) and CLIP's widths."""
+    _norm_check(cuda, call, dtype)
+
+
+def test_norm_kernels_off_16_byte_alignment(cuda):
+    """A vector shape whose x sits one element off alignment takes the
+    scalar path, within tolerance of the aligned call's plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    for err in chip_smoke.norm_off_alignment(torch, KN, tolerance, gen):
+        assert err["ok"], err
+
+
+def test_norm_kernels_replay_in_a_cuda_graph(cuda):
+    """Both norms captured into one CUDA graph replay, on new inputs written
+    in place, the eager launches' bits."""
+    assert chip_smoke.norm_graph_replay(torch, KN, torch.Generator(device=cuda).manual_seed(8))
+
+
+def test_norm_kernels_refuse_what_they_cannot_run(cuda):
+    x = torch.zeros((1, 4, 4, 16), device=cuda, dtype=torch.bfloat16)
+    w = torch.ones(16, device=cuda)
+    with pytest.raises(TypeError):  # f16 is neither of the kernel's types
+        KN.group_norm(x.half(), w, w)
+    with pytest.raises(TypeError):  # bf16 parameters for f32 activations
+        KN.layer_norm(x.float(), w.bfloat16(), w.bfloat16())
+    with pytest.raises(TypeError):  # f32 parameters for bf16 activations
+        KN.group_norm(x, w, w)
+    with pytest.raises(ValueError):  # wider than a warp's registers hold
+        row = torch.zeros((2, KN.MAX_ROW + 8), device=cuda, dtype=torch.bfloat16)
+        KN.layer_norm(row, *(torch.ones(KN.MAX_ROW + 8, device=cuda).bfloat16() for _ in range(2)))
+    with pytest.raises(ValueError):  # wider than the statistics' shared memory
+        wide = torch.zeros((1, 2, 2, KN.MAX_CHANNELS + 8), device=cuda, dtype=torch.bfloat16)
+        KN.group_norm(wide, *(torch.ones(KN.MAX_CHANNELS + 8, device=cuda) for _ in range(2)))
+    with pytest.raises(ValueError):  # scale of the wrong width
+        KN.group_norm(x, torch.ones(8, device=cuda), w)
+    with pytest.raises(RuntimeError, match="no backward"):
+        KN.layer_norm(x.float().requires_grad_(), w, w)
 
 
 def test_loopback_session_on_the_card(cuda, monkeypatch):
@@ -455,6 +530,7 @@ def test_engine_replay_equals_eager(cuda, turbo_pipe):
     eng = turbo_pipe.engine
     step = eng.graph_cache.steps()[eng.key]
     assert step.captured and step.launches == (32, 1)
+    assert step.norm_launches == chip_smoke.norm_launches_per_pass(turbo_pipe.bundle.unet_cfg)
     eager = _eager_twin(eng)
     frames = chip_smoke._frames(np, 4, seed=3)
     before = KA.launches, KF.launches
@@ -1035,7 +1111,8 @@ def sd15_bundle():
 def test_sd15_modes_launch_counts(cuda, sd15_bundle, mode):
     """The session step at k=2 eagerly and bucket 2's captured graph: the
     ring and txt2img 32 + 1 launches a step, full CFG 32 (at 2x the rows)
-    and no epilogue, sequential mode 4 x 32 and no epilogue."""
+    and no epilogue, sequential mode 4 x 32 and no epilogue; 170 fused-norm
+    launches a UNet pass."""
     from dataclasses import replace
 
     from ai_rtc_agent_tpu_torch.models import registry
@@ -1053,13 +1130,18 @@ def test_sd15_modes_launch_counts(cuda, sd15_bundle, mode):
     frames = torch.from_numpy(np.stack(chip_smoke._frames(np, 2, seed=5))).to(cuda)
     slots = torch.tensor([0, 1], dtype=torch.int32, device=cuda)
     step = make_session_step_fn(b.stream_models, cfg)
-    a0, e0 = KA.launches, KF.launches
+    a0, e0, n0 = KA.launches, KF.launches, KN.launches
     out = step(b.params, states, frames, slots, 2)
     torch.cuda.synchronize()
     assert out.shape == (2, 512, 512, 3)
     assert (KA.launches - a0, KF.launches - e0) == chip_smoke.MODE_LAUNCHES[mode]
+    # every norm of each UNet pass went through the fused kernels (170 a pass)
+    passes = chip_smoke.MODE_LAUNCHES[mode][0] // chip_smoke.attention_per_pass(b.unet_cfg, False)
+    norms = passes * chip_smoke.norm_launches_per_pass(b.unet_cfg)
+    assert KN.launches - n0 == norms
     captured = BucketStep(b.stream_models, cfg, cuda).step_for(b.params, states, 2)
     assert captured.captured and captured.launches == chip_smoke.MODE_LAUNCHES[mode]
+    assert captured.norm_launches == norms
 
 
 # -- ControlNet on the SD1.5 ring -----------------------------------------------------------
@@ -1172,21 +1254,21 @@ def test_a_styled_bucket_step_and_a_swap_on_the_card(cuda, turbo_pipe, tmp_path)
 
 
 def test_preflight_at_tiny_test_captures_every_key(cuda):
-    """The deploy preflight at tiny-test on the card: both kernel libraries
-    built and loaded, every key (the engine's, --peers 2's buckets 1 and 2,
-    the scheduler's buckets 1 and 2) captured on the attention kernel, each
-    replay = its eager step bit for bit (the preflight raises otherwise),
-    both kernels launched."""
+    """The deploy preflight at tiny-test on the card: the three kernel
+    libraries built and loaded, every key (the engine's, --peers 2's buckets
+    1 and 2, the scheduler's buckets 1 and 2) captured on the attention
+    kernel, each replay = its eager step bit for bit (the preflight raises
+    otherwise), every kernel launched (the norms too)."""
     from ai_rtc_agent_tpu_torch.assets import build_engines
     from ai_rtc_agent_tpu_torch.ops.kernels import build as KB
 
-    attn, epi = KA.launches, KF.launches
+    attn, epi, norm = KA.launches, KF.launches, KN.launches
     keys = build_engines.main(["--model-id", "tiny-test", "--peers", "2", "--sched-buckets", "2"])
     assert len(keys) == 5 and all(isinstance(s, float) and s > 0 for s in keys.values())
     assert all("attn-kernel" in key and "dtype-bfloat16" in key for key in keys)
-    assert KA.launches > attn and KF.launches > epi
+    assert KA.launches > attn and KF.launches > epi and KN.launches > norm
     sources = [p.name for p in KB.CSRC_DIR.glob("*.cu")]
-    assert len(sources) == 2
+    assert sorted(sources) == ["flash_attention.cu", "fused_norm.cu", "fused_stream_epilogue.cu"]
     for source in sources:
         assert KB.library_path(source).exists() and source in KB._loaded
 

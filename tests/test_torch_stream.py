@@ -33,6 +33,7 @@ from ai_rtc_agent_tpu_torch.models import registry as PREG
 from ai_rtc_agent_tpu_torch.ops.kernels import attention as KA
 from ai_rtc_agent_tpu_torch.ops.kernels import build as KB
 from ai_rtc_agent_tpu_torch.ops.kernels import fused_scheduler as KF
+from ai_rtc_agent_tpu_torch.ops.kernels import norm as KN
 from ai_rtc_agent_tpu_torch.stream import engine as PENG
 from ai_rtc_agent_tpu_torch.stream.pipeline import StreamDiffusionPipeline
 
@@ -293,14 +294,15 @@ def test_cpu_path_never_builds_or_launches_a_kernel(monkeypatch):
     def refuse(*a, **k):
         raise AssertionError("kernel build attempted on the CPU path")
 
-    for mod, name in ((KB, "build_library"), (KB, "load_library"), (KA, "load"), (KF, "load")):
+    for mod, name in ((KB, "build_library"), (KB, "load_library"), (KA, "load"), (KF, "load"),
+                      (KN, "load")):
         monkeypatch.setattr(mod, name, refuse)
-    a0, e0 = KA.launches, KF.launches
+    a0, e0, n0 = KA.launches, KF.launches, KN.launches
     pipe = StreamDiffusionPipeline("tiny-test", device="cpu")
     assert pipe.config.use_fused_epilogue and pipe.config.attn_impl == "kernel"
     for f in _frames(3):
         assert pipe(f).shape == (64, 64, 3)
-    assert (KA.launches, KF.launches) == (a0, e0)
+    assert (KA.launches, KF.launches, KN.launches) == (a0, e0, n0)
 
 
 def test_pipeline_surface_on_cpu():
