@@ -1,7 +1,8 @@
 """The comparison that decides ``correct``.
 
-The served frames are held against the plain reference (reference/), run
-after the program's state is freed, on the frames the window produced:
+The served frames are held against the plain reference of the
+configuration's family (families.py), run after the program's state is
+freed, on the frames the window produced:
 
 * a stream that depends on the current frame alone (one stage, no stock:
   sd-turbo) is checked on a sample of every session's frames drawn from the
@@ -37,7 +38,7 @@ import dataclasses
 import numpy as np
 
 from . import camera as CAM
-from .reference.stream import Reference, stateless
+from . import families
 
 
 def plan_checks(cfg: dict, traffic: dict, seed: int) -> dict:
@@ -45,7 +46,7 @@ def plan_checks(cfg: dict, traffic: dict, seed: int) -> dict:
     window: {"mode", "every", "offsets"} or {"mode", "sessions"}."""
     rng = np.random.default_rng(np.random.SeedSequence([seed % 2**64, 0x636865636B]))
     n, chk = traffic["sessions"], traffic["check"]
-    if stateless(cfg["stream"]):
+    if families.of(cfg).stateless(cfg["stream"]):
         every = chk["every"]
         return {"mode": "sample", "every": every,
                 "offsets": [int(o) for o in rng.integers(0, every, n)]}
@@ -83,7 +84,7 @@ def check(cfg: dict, tree: dict, plan: list, scenes: list, records: list, window
     t0, t1 = window
     # a replay steps one shape hundreds of times: let cuDNN pick its algorithms once
     torch.backends.cudnn.benchmark = checks["mode"] == "replay"
-    ref = Reference(cfg, tree, device, precision)
+    ref = families.of(cfg).Reference(cfg, tree, device, precision)
     gaps, live, refs = [], [], {}
     if checks["mode"] == "sample":
         todo = []  # (session, frame index, served)

@@ -14,13 +14,14 @@ codec and the session and HTTP layers are left out.
 
 The harness sets none of the program's environment knobs: it builds the
 model bundle from the benchmark's own weights (``params=``) and hands the
-scheduler and the track the values that the configuration file states,
-which are the agent's defaults.
+stream, the scheduler and the track the values that the configuration file
+states, which are the agent's defaults (``stream_config``).
 """
 
 from __future__ import annotations
 
 import asyncio
+import dataclasses
 import gc
 import time
 from dataclasses import dataclass, field
@@ -30,6 +31,7 @@ import numpy as np
 from . import camera as CAM
 
 DRAIN_S = 0.5  # after the viewers stop: longer than the steps they can leave in flight
+SCHEDULER_KEYS = ("guidance_scale", "delta")  # stream settings that BatchScheduler takes
 
 
 @dataclass
@@ -99,20 +101,30 @@ class Served:
     trace_counters: tuple | None = None  # scheduler snapshots at open and close
 
 
+def stream_config(s: dict):
+    """The program's StreamConfig from a configuration's ``stream`` settings:
+    every key that is one of its fields (a list as a tuple).  The keys the
+    scheduler takes (SCHEDULER_KEYS) are left to ``build``; any other key is
+    refused, not dropped."""
+    from ai_rtc_agent_tpu_torch.stream.engine import StreamConfig
+
+    fields = {f.name for f in dataclasses.fields(StreamConfig)}
+    unknown = sorted(set(s) - fields - set(SCHEDULER_KEYS))
+    if unknown:
+        raise ValueError(f"stream settings that the program does not take: {', '.join(unknown)}")
+    return StreamConfig(**{k: tuple(v) if isinstance(v, list) else v
+                           for k, v in s.items() if k in fields})
+
+
 def build(cfg: dict, tree: dict, sessions: int, device):
     """The program: the model bundle over ``tree``, cast as the pipeline
     casts it, and a BatchScheduler of ``sessions`` slots with every bucket
     captured (prewarm)."""
     from ai_rtc_agent_tpu_torch.models import registry
-    from ai_rtc_agent_tpu_torch.stream.engine import StreamConfig
     from ai_rtc_agent_tpu_torch.stream.scheduler import BatchScheduler
 
     s, serving = cfg["stream"], cfg["serving"]
-    scfg = StreamConfig(
-        mode=s["mode"], height=s["height"], width=s["width"], latent_scale=s["latent_scale"],
-        t_index_list=tuple(s["t_index_list"]), num_inference_steps=s["num_inference_steps"],
-        timestep_spacing=s["timestep_spacing"], scheduler=s["scheduler"], cfg_type=s["cfg_type"],
-        dtype=s["dtype"], attn_impl=s["attn_impl"], use_fused_epilogue=s["use_fused_epilogue"])
+    scfg = stream_config(s)
     bundle = registry.load_model_bundle(cfg["model_id"], device=device, params=tree,
                                         attn_impl=scfg.attn_impl, latent_scale=scfg.latent_scale)
     params = registry.cast_params(bundle.params, scfg.dtype)

@@ -4,9 +4,10 @@
 
 from the root of a checkout that holds the port (``ai_rtc_agent_tpu_torch``)
 and ``BENCHMARK.json``.  The cell names a configuration
-(``benchmark/configs/<name>.json``) and a traffic mix
-(``benchmark/traffic/<name>.json``); each metric is read by
-``benchmark/metrics/<name>.py``.  With ``--trace 0`` the run reports the
+(``benchmark/configs/<name>.json``), whose model comes from the family
+module that it names (``benchmark/reference/<family>.py``, families.py),
+and a traffic mix (``benchmark/traffic/<name>.json``); each metric is read
+by ``benchmark/metrics/<name>.py``.  With ``--trace 0`` the run reports the
 cell's end-to-end metrics, with ``--trace 1`` its per-layer metrics (a
 device profiler window inside the measured one) and a ``breakdown``.
 
@@ -21,9 +22,10 @@ that came back unprocessed or raised), ``metrics``, ``device``, with
 ``--trace 1`` ``breakdown``, and last ``checks``: each number compared
 with its limit, also the last lines on standard error.
 
-It exits non-zero and prints no result when the port cannot be imported,
-when no CUDA card answers or fewer than the cell asks for, when JAX or the
-JAX package is loaded once the window has closed, on SIGTERM, on any
+It exits non-zero and prints no result when the cell or its
+configuration's family module is not there, when the port cannot be
+imported, when no CUDA card answers or fewer than the cell asks for, when
+JAX or the JAX package is loaded once the window has closed, on SIGTERM, on any
 error, and when it is still going after ``WATCHDOG_S`` (then with every
 thread's stack on standard error).  ``--control fp8`` (not a benchmark run) puts the reference's frames
 in float8 in the program's place: the same check then has to read
@@ -44,6 +46,8 @@ import statistics  # noqa: E402
 import sys  # noqa: E402
 import traceback  # noqa: E402
 from pathlib import Path  # noqa: E402
+
+from . import families  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 DEVICE = "cuda:0"  # the one card a one-chip cell runs on
@@ -68,6 +72,11 @@ def load_cell(root: Path, workload: str):
     cell = cells[workload]
     cfg_entry = {c["name"]: c for c in bench["configs"]}[cell["config"]]
     cfg = json.loads((root / cfg_entry["file"]).read_text())
+    if "family" not in cfg:
+        raise Refused(2, f"{cfg_entry['file']} names no family")
+    module = families.path(cfg, root)
+    if not module.is_file():
+        raise Refused(2, f"{cfg_entry['file']} names family {cfg['family']!r}: no module {module}")
     traffic = json.loads((root / "benchmark" / "traffic" / f"{cell['traffic']}.json").read_text())
     return cell, cfg, traffic, bench
 
@@ -100,7 +109,6 @@ def run_cell(root: Path, workload: str, cell: dict, cfg: dict, traffic: dict, me
     from . import compare, harness
     from . import trace as TR
     from .readings import hist_delta, latencies_ms, returns_in
-    from .reference import params as P
 
     say = say or (lambda *a: None)
     device = torch.device(device)
@@ -110,9 +118,10 @@ def run_cell(root: Path, workload: str, cell: dict, cfg: dict, traffic: dict, me
     scenes = compare.scenes_of(traffic, plan)
     checks = compare.plan_checks(cfg, traffic, seed)
     dtype = torch.bfloat16 if cfg["stream"]["dtype"] == "bfloat16" else torch.float32
+    family = families.of(cfg)
 
     say(f"set-up: {time.monotonic() - t_start:.2f} s at the first weight")
-    tree = P.make_tree(cfg, seed, device, dtype)
+    tree = family.make_tree(cfg, seed, device, dtype)
     say(f"set-up: {time.monotonic() - t_start:.2f} s with the weights drawn")
     sched = harness.build(cfg, tree, n, device)
     del tree
@@ -147,7 +156,7 @@ def run_cell(root: Path, workload: str, cell: dict, cfg: dict, traffic: dict, me
     # the reference, once the program is freed; TF32 off
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    tree = P.make_tree(cfg, seed, device, dtype)
+    tree = family.make_tree(cfg, seed, device, dtype)
     records = served.records
     if control:  # the reference at the lower precision in the program's place
         ctl = compare.check(cfg, tree, plan, scenes, records, window, checks, device,

@@ -46,10 +46,13 @@ def metrics(trace: bool) -> list:
 
 def checkout(root: Path, cfg: dict | None = None, seconds_traffic: dict | None = None) -> Path:
     """A checkout-shaped root holding BENCHMARK.json with the tiny cell, its
-    configuration and traffic files, and the metric readers."""
+    configuration and traffic files, the metric readers and the family
+    modules (reference/)."""
     for sub in ("configs", "traffic"):
         (root / "benchmark" / sub).mkdir(parents=True, exist_ok=True)
-    shutil.copytree(BENCH / "metrics", root / "benchmark" / "metrics", dirs_exist_ok=True)
+    for sub in ("metrics", "reference"):
+        shutil.copytree(BENCH / sub, root / "benchmark" / sub, dirs_exist_ok=True,
+                        ignore=shutil.ignore_patterns("__pycache__"))
     (root / "benchmark" / "configs" / "tiny-ring.json").write_text(json.dumps(cfg or config()))
     (root / "benchmark" / "traffic" / "tiny2.json").write_text(
         json.dumps(seconds_traffic or traffic()))

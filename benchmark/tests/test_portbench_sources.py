@@ -39,8 +39,12 @@ def test_reference_imports_nothing_of_the_program():
     found = {str(p.relative_to(BENCH)): n for p in _sources("reference")
              if PROGRAM in (n := _imports(p))}
     assert not found
-    # nor does anything it imports, loaded on its own
-    code = ("import sys; import benchmark.reference.stream, benchmark.reference.params; "
+    # nor does anything they import: every module of reference/ (each family
+    # module with it), loaded on its own
+    mods = [".".join(p.relative_to(BENCH.parent).with_suffix("").parts).removesuffix(".__init__")
+            for p in _sources("reference")]
+    assert {"benchmark.reference.sd_unet", "benchmark.reference.stream"} <= set(mods)
+    code = (f"import sys, importlib; [importlib.import_module(m) for m in {mods!r}]; "
             "bad = {m.split('.')[0] for m in sys.modules} & set("
             f"{sorted(FORBIDDEN | {PROGRAM})!r}); "
             "print(sorted(bad)); sys.exit(1 if bad else 0)")
@@ -50,5 +54,6 @@ def test_reference_imports_nothing_of_the_program():
 
 
 def test_the_comparison_imports_nothing_of_the_program():
-    for name in ("compare.py", "camera.py", "roofline.py", "trace.py", "readings.py"):
+    for name in ("compare.py", "camera.py", "roofline.py", "trace.py", "readings.py",
+                 "families.py"):
         assert PROGRAM not in _imports(BENCH / name), name
